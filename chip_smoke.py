@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+'''
+Smoke run of the PyTorch + CUDA port (tscode_tpu_torch) on one NVIDIA
+GPU: builds the hand-written kernels from csrc/, holds each against its
+plain PyTorch twin on the card, then drives the headline slice
+(415,872-pose string-embed grid -> clash screen -> exact bucketed RMSD
+prune) in float64 and float32 and checks its counts.
+
+    python3 chip_smoke.py
+
+Exits nonzero, with no result line, when CUDA is not available or any
+phase fails. The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
+the line before it lists each kernel with its launches on the main path,
+its agreement with the plain version and both times.
+'''
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+THR = 0.5                    # RMSD prune threshold (A)
+CLASH = 1.5                  # clash threshold (A)
+N_POSES = 415872             # 76 * 76 * 2 * 36 grid poses
+F64_COUNTS = (202362, 26)    # clash-ok, final: the x64 reference counts
+F32_OK = (202330, 202380)    # f32 clash-ok bracket (ties at 1.5 A)
+F32_FINAL = (22, 30)
+CLASH_TIE = 1e-4             # A^2: |d2 - thr^2| below this is a tie
+QCP_TIE = {'float32': 1e-4, 'float64': 1e-9}   # A, on rmsd and maxdev
+DEV = 'cuda'
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase_env():
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False; this '
+              'script needs an NVIDIA GPU', file=sys.stderr)
+        sys.exit(2)
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(),
+          f'nvidia-smi failed: {smi.stderr.strip()}')
+    card = smi.stdout.strip().splitlines()[0]
+    try:
+        import networkx
+    except ImportError as e:
+        raise SmokeFailure(f'networkx is missing ({e}); the molecule '
+                           f'graph code of tscode_tpu needs it') from e
+    print(f'[1 env] device {torch.cuda.get_device_name(0)} | nvidia-smi: '
+          f'{card} | torch {torch.__version__} | cuda {torch.version.cuda} '
+          f'| networkx {networkx.__version__} | python '
+          f'{sys.version.split()[0]}')
+    return card
+
+
+def phase_build():
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    for k in (clash.KERNEL, qcp.KERNEL):
+        k.build()
+        regs = [ln.strip() for ln in k.build_log().splitlines()
+                if 'registers' in ln]
+        print(f'[2 build] {k.name}: {k.build_seconds:.2f} s '
+              f'({k.library}) {" / ".join(regs)}')
+
+
+def cuda_ms(fn, reps=10):
+    '''Mean milliseconds per call on the device after one warm-up call
+    (CUDA events around `reps` calls).'''
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def clash_ties(poses, pairs, thresh):
+    '''(B,) bool: poses with a listed pair within CLASH_TIE of thr^2
+    (exact float64 difference form).'''
+    import torch
+    P = poses.double()
+    pl = pairs.long()
+    d = P[:, pl[:, 0]] - P[:, pl[:, 1]]
+    d2 = torch.sum(d * d, dim=-1)
+    return ((d2 - thresh * thresh).abs() < CLASH_TIE).any(dim=1)
+
+
+def pass_pairs(end, positions):
+    '''All (p, q) position pairs of a pass with q in (p, end[p]), for the
+    given positions p.'''
+    import torch
+    lens = torch.clamp(end[positions] - positions - 1, min=0)
+    p = positions.repeat_interleave(lens)
+    first = torch.cumsum(lens, 0) - lens
+    off = torch.arange(p.numel(), device=p.device) - \
+        first.repeat_interleave(lens)
+    return p, p + 1 + off
+
+
+def qcp_tie_rows(hs, act, end, positions, tol, chunk=1 << 20):
+    '''(len(positions),) bool: positions with a pass pair whose float64
+    rmsd lies within tol of thr, or maxdev within tol of 2*thr.'''
+    import torch
+    from tscode_tpu_torch.ops.linalg import rmsd_and_max
+    hs64 = hs.double()
+    p, q = pass_pairs(end, positions)
+    tie = torch.zeros(p.numel(), dtype=torch.bool, device=hs.device)
+    for i in range(0, p.numel(), chunk):
+        a = hs64[act[p[i:i + chunk]]]
+        b = hs64[act[q[i:i + chunk]]]
+        rmsd, maxdev = rmsd_and_max(a, b)
+        tie[i:i + chunk] = ((rmsd - THR).abs() < tol) | \
+            ((maxdev - 2 * THR).abs() < tol)
+    rows = torch.zeros(end.numel(), dtype=torch.bool, device=hs.device)
+    rows[p[tie]] = True
+    return rows[positions]
+
+
+def compare_bits(got, want, tie, what):
+    '''Exact agreement outside the tie rows; every disagreement must be
+    a tie. Returns (max |got - want| outside ties, number of tie rows).'''
+    diff = got != want
+    check(not bool((diff & ~tie).any()),
+          f'{what}: {int((diff & ~tie).sum())} rows disagree away from '
+          f'any threshold tie')
+    return int(diff[~tie].sum() > 0), int(tie.sum())
+
+
+def near_dup_blocks(rng, B, L, N):
+    '''Blocks of noisy copies of a few base structures, with noise
+    levels that put pair rmsds on both sides of 0.5 A (and, for N = 8,
+    inside the sqrt(N) band where the maxdev gate decides).'''
+    base = rng.normal(size=(B, 4, N, 3)) * 1.5
+    which = rng.integers(0, 4, size=(B, L))
+    sigma = rng.choice([0.02, 0.1, 0.15, 0.2, 0.25], size=(B, L))
+    P = base[np.arange(B)[:, None], which] + \
+        rng.normal(size=(B, L, N, 3)) * sigma[..., None, None]
+    return P, rng.integers(1, L + 1, size=B)
+
+
+def phase_kernels():
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.ops.rmsd_prune import (
+        prune_conformers_rmsd_device)
+    dev = torch.device(DEV)
+    errs = {'clash': 0, 'qcp_kill': 0}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split('.')[-1]
+        clash.KERNEL.launches = qcp.KERNEL.launches = 0
+
+        # clash, both entries, B not a multiple of 2048
+        rng = np.random.default_rng(11)
+        pm = cross_fragment_pair_mask((6, 5))
+        pairs = torch.as_tensor(clash.static_pairs(pm), device=dev)
+        poses = torch.as_tensor(rng.normal(size=(4099, 11, 3)) * 2.2,
+                                dtype=dtype, device=dev)
+        tie = clash_ties(poses, pairs, CLASH)
+        for mc in (0, 3):
+            want = clash.clash_ok_plain(poses, pairs, CLASH, mc)
+            for got in (clash.clash_ok(poses, pairs, CLASH, mc),
+                        clash.compenetration_mask_kernel(poses, pm, CLASH,
+                                                         mc)):
+                e, _ = compare_bits(got, want, tie, f'clash {name} mc={mc}')
+                errs['clash'] = max(errs['clash'], e)
+        print(f'[3 kernels] clash {name}: B=4099 max_clashes 0 and 3, '
+              f'K1 and K2 entries equal to plain on '
+              f'{int((~tie).sum())} poses ({int(tie.sum())} tie poses '
+              f'excluded)')
+
+        # qcp: planted duplicates -> exactly 3 kills
+        rng = np.random.default_rng(3)
+        blocks = rng.normal(size=(4, 32, 8, 3)) * 2
+        blocks[0, 10] = blocks[0, 3] + 1e-3
+        blocks[2, 20] = blocks[2, 5] + 1e-3
+        blocks[2, 25] = blocks[2, 5] + 2e-3
+        P = torch.as_tensor(blocks, dtype=dtype, device=dev)
+        m_real = torch.as_tensor([32, 20, 32, 5], device=dev)
+        got = qcp.qcp_kill_blocks(P, m_real, THR)
+        act, end = qcp.blocks_as_pass(m_real, 32)
+        want = qcp.qcp_kill_plain(P.reshape(-1, 8, 3), act, end, THR)
+        check(torch.equal(got.reshape(-1), want),
+              f'qcp planted {name}: kernel != plain')
+        check(int(got.sum()) == 3, f'qcp planted {name}: '
+              f'{int(got.sum())} kills, expected 3')
+
+        # qcp: random near-duplicate blocks at N = 4 and N = 8
+        for N in (4, 8):
+            Pn, m_real = near_dup_blocks(np.random.default_rng(N), 64, 64, N)
+            P = torch.as_tensor(Pn, dtype=dtype, device=dev)
+            m_real = torch.as_tensor(m_real, device=dev)
+            got = qcp.qcp_kill_blocks(P, m_real, THR).reshape(-1)
+            act, end = qcp.blocks_as_pass(m_real, 64)
+            hs = P.reshape(-1, N, 3)
+            want = qcp.qcp_kill_plain(hs, act, end, THR)
+            pos = torch.arange(act.numel(), device=dev)
+            tie = qcp_tie_rows(hs, act, end, pos, QCP_TIE[name])
+            e, n_tie = compare_bits(got, want, tie, f'qcp blocks {name} '
+                                    f'N={N}')
+            errs['qcp_kill'] = max(errs['qcp_kill'], e)
+            print(f'[3 kernels] qcp_kill_blocks {name} N={N}: 64x64 blocks, '
+                  f'{int(want.sum())} kills, equal to plain '
+                  f'({n_tie} tie rows excluded)')
+
+        # the prune, pair kernel vs plain, on a 4096-row N = 8 pool
+        # without threshold ties (rows of tie pairs are dropped first)
+        rng = np.random.default_rng(8)
+        base = rng.normal(size=(600, 8, 3)) * 1.5
+        pool = base[rng.integers(0, 600, size=4096)] + \
+            rng.normal(size=(4096, 8, 3)) * \
+            rng.choice([0.02, 0.1, 0.15, 0.2, 0.25], size=4096)[:, None, None]
+        hs = torch.as_tensor(pool, dtype=dtype, device=dev)
+        n = hs.shape[0]
+        act = torch.arange(n, device=dev)
+        tie = qcp_tie_rows(hs, act, torch.full_like(act, n), act,
+                           QCP_TIE[name])
+        hs = hs[~tie].contiguous()
+        keep_k = prune_conformers_rmsd_device(hs, THR)
+        keep_p = prune_conformers_rmsd_device(
+            hs, THR, pair_kill=qcp.qcp_kill_plain)
+        check(np.array_equal(keep_k, keep_p),
+              f'prune {name}: kernel keeps {keep_k.sum()}, plain '
+              f'{keep_p.sum()}, masks differ')
+        print(f'[3 kernels] prune {name}: {hs.shape[0]}-row N=8 pool '
+              f'({int(tie.sum())} tie rows dropped) -> {int(keep_k.sum())} '
+              f'kept, kernel mask == plain mask')
+        check(clash.KERNEL.launches > 0 and qcp.KERNEL.launches > 0,
+              f'kernel launch counters stayed 0 ({name})')
+    return errs
+
+
+def phase_main_f64(card, mols):
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    from tscode_tpu_torch.pipeline import (embed_clash_all,
+                                           inputs_from_numpy, run_pipeline)
+    clash.KERNEL.launches = qcp.KERNEL.launches = 0
+    n_poses, secs, n_ok, n_final, info = run_pipeline(
+        *mols, device=DEV, dtype=torch.float64, return_masks=True)
+    launches = {'clash': clash.KERNEL.launches,
+                'qcp_kill': qcp.KERNEL.launches}
+    check(all(v > 0 for v in launches.values()),
+          f'main path f64 did not launch every kernel: {launches}')
+    print(f'[4 main f64] {n_poses} poses -> {n_ok} clash-ok -> {n_final} '
+          f'final in {secs:.4f} s, kernel launches {launches} [{card}]')
+    check(n_poses == N_POSES, f'{n_poses} poses, expected {N_POSES}')
+    check((n_ok, n_final) == F64_COUNTS,
+          f'f64 counts {(n_ok, n_final)} != {F64_COUNTS}')
+
+    inp = inputs_from_numpy(*mols, DEV, torch.float64)
+    poses, ok = embed_clash_all(inp)
+    check(bool(torch.isfinite(poses).all()), 'non-finite f64 poses')
+    check(np.array_equal(ok.cpu().numpy(), info['clash_ok']),
+          'f64 clash mask differs between two runs')
+    P = poses.double()
+    pl = inp.pairs.long()
+    d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+    near = torch.nonzero(((d2 - CLASH * CLASH).abs() < 1e-9).any(dim=1))
+    for i in near.squeeze(1).tolist():
+        print(f'[4 main f64] pose {i} within 1e-9 A^2 of the clash threshold')
+    print(f'[4 main f64] {near.numel()} poses within 1e-9 A^2 of thr^2')
+
+
+def phase_small_parity():
+    '''The 2,592-pose grid on the card in f64 against the CPU run of the
+    port (plain twins): identical masks and counts.'''
+    import torch
+    from tscode_tpu_torch.pipeline import build_workload, run_pipeline
+    mols = build_workload(n_confs=6)
+    gpu = run_pipeline(*mols, device=DEV, dtype=torch.float64,
+                       return_masks=True)
+    cpu = run_pipeline(*mols, device='cpu', dtype=torch.float64,
+                       return_masks=True)
+    check(gpu[2:4] == cpu[2:4] == (1362, 6),
+          f'small grid counts gpu {gpu[2:4]} cpu {cpu[2:4]}, expected '
+          f'(1362, 6)')
+    check(np.array_equal(gpu[4]['clash_ok'], cpu[4]['clash_ok'])
+          and np.array_equal(gpu[4]['keep'], cpu[4]['keep']),
+          'small grid masks differ between card and CPU')
+    print('[4 main f64] 2592-pose grid: card == CPU plain twins, '
+          '1362 clash-ok -> 6 final')
+
+
+def phase_main_f32(card, mols):
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    from tscode_tpu_torch.ops.rmsd_prune import (
+        pass_chunks, prune_conformers_rmsd_device)
+    from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
+                                           inputs_from_numpy, run_pipeline)
+    clash.KERNEL.launches = qcp.KERNEL.launches = 0
+    n_poses, secs, n_ok, n_final = run_pipeline(
+        *mols, device=DEV, dtype=torch.float32)
+    launches = {'clash': clash.KERNEL.launches,
+                'qcp_kill': qcp.KERNEL.launches}
+    check(all(v > 0 for v in launches.values()),
+          f'main path f32 did not launch every kernel: {launches}')
+    print(f'[5 main f32] warm-up: {n_poses} poses -> {n_ok} clash-ok -> '
+          f'{n_final} final in {secs:.4f} s, kernel launches {launches} '
+          f'[{card}]')
+    check(F32_OK[0] <= n_ok <= F32_OK[1],
+          f'f32 clash-ok {n_ok} outside {F32_OK}')
+    check(F32_FINAL[0] <= n_final <= F32_FINAL[1],
+          f'f32 final {n_final} outside {F32_FINAL}')
+
+    best = None
+    for _ in range(3):
+        r = run_pipeline(*mols, device=DEV, dtype=torch.float32,
+                         return_masks=True)
+        check(r[2:4] == (n_ok, n_final), f'f32 rep counts {r[2:4]} differ '
+              f'from warm-up {(n_ok, n_final)}')
+        if best is None or r[1] < best[1]:
+            best = r
+    info = best[4]
+    print(f'[5 main f32] best of 3: {best[1]:.4f} s, '
+          f'{n_poses / best[1]:.0f} poses/s (embed+clash '
+          f'{info["embed_clash_s"]:.4f} s, prune {info["prune_s"]:.4f} s) '
+          f'[{card}]')
+
+    # kernel vs plain at the slice's shapes: the grid's poses for the
+    # clash, the clash survivors' heavy atoms for the prune
+    inp = inputs_from_numpy(*mols, DEV, torch.float32)
+    poses, _ = embed_clash_all(inp)
+    pairs = inp.pairs
+    got = clash.clash_ok(poses, pairs, CLASH)
+    want = clash.clash_ok_plain(poses, pairs, CLASH)
+    err_clash, n_tie = compare_bits(got, want,
+                                    clash_ties(poses, pairs, CLASH),
+                                    'clash f32 main grid')
+    ms_clash = cuda_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
+    ms_clash_plain = cuda_ms(lambda: clash.clash_ok_plain(poses, pairs,
+                                                          CLASH))
+    print(f'[5 main f32] clash {tuple(poses.shape)}: kernel '
+          f'{ms_clash:.4f} ms, plain {ms_clash_plain:.4f} ms, equal '
+          f'({n_tie} tie poses) [{card}]')
+
+    _, hs = clash_survivors(inp)
+    mask = torch.ones(hs.shape[0], dtype=torch.bool, device=hs.device)
+    act, end = pass_chunks(mask, hs.shape[0], 10000)
+    got = qcp.qcp_kill(hs, act, end, THR)
+    want = qcp.qcp_kill_plain(hs, act, end, THR)
+    diff = torch.nonzero(got != want).squeeze(1)
+    tie = torch.zeros_like(got)
+    if diff.numel():
+        tie[diff] = qcp_tie_rows(hs, act, end, diff, QCP_TIE['float32'])
+    err_qcp, _ = compare_bits(got, want, tie, 'qcp f32 first pass')
+    ms_pass = cuda_ms(lambda: qcp.qcp_kill(hs, act, end, THR))
+    ms_pass_plain = cuda_ms(lambda: qcp.qcp_kill_plain(hs, act, end, THR),
+                            reps=2)
+    print(f'[5 main f32] qcp_kill first pass (k=10000, {act.numel()} '
+          f'active, N={hs.shape[1]}): kernel {ms_pass:.4f} ms, plain '
+          f'{ms_pass_plain:.4f} ms, {int(got.sum())} kills, '
+          f'{diff.numel()} tie rows differ [{card}]')
+
+    def prune(engine):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = prune_conformers_rmsd_device(hs, THR, pair_kill=engine)
+        return (time.perf_counter() - t0) * 1e3, keep
+
+    ms_prune, keep_k = min((prune(qcp.qcp_kill) for _ in range(3)),
+                           key=lambda r: r[0])
+    ms_prune_plain, keep_p = prune(qcp.qcp_kill_plain)
+    print(f'[5 main f32] whole prune of {hs.shape[0]} survivors: kernel '
+          f'{ms_prune:.3f} ms, plain {ms_prune_plain:.3f} ms, '
+          f'{int(keep_k.sum())} vs {int(keep_p.sum())} kept [{card}]')
+    return [
+        {'name': 'clash_ok', 'route': 'cuda',
+         'source': 'tscode_tpu_torch/csrc/clash.cu',
+         'replaces': 'tscode_tpu/ops/pallas/clash.py:119',
+         'launches': launches['clash'], 'max_abs_err': err_clash,
+         'ms': ms_clash, 'plain_ms': ms_clash_plain},
+        {'name': 'qcp_kill', 'route': 'cuda',
+         'source': 'tscode_tpu_torch/csrc/qcp_kill.cu',
+         'replaces': 'tscode_tpu/ops/pallas/qcp.py:240',
+         'launches': launches['qcp_kill'], 'max_abs_err': err_qcp,
+         'ms': ms_pass, 'plain_ms': ms_pass_plain},
+    ]
+
+
+def main():
+    t0 = time.perf_counter()
+    card = phase_env()
+    import torch
+    from tscode_tpu_torch.pipeline import build_workload
+    phase_build()
+    errs = phase_kernels()
+    mols = build_workload()
+    phase_main_f64(card, mols)
+    phase_small_parity()
+    kernels = phase_main_f32(card, mols)
+    for k, key in zip(kernels, ('clash', 'qcp_kill')):
+        k['max_abs_err'] = max(k['max_abs_err'], errs[key])
+    check('jax' not in sys.modules, 'jax was imported')
+    print(f'[done] {time.perf_counter() - t0:.1f} s')
+    print(f'nvidia-smi: {card}')
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    try:
+        main()
+    except SmokeFailure as e:
+        print(f'chip_smoke FAILED: {e}', file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,50 @@
+'''
+Batched clash / compenetration screening (counterpart of
+tscode_tpu/ops/clash.py, the part the embed -> clash -> prune slice runs).
+
+Kernel choice (replacing `use_pallas_clash`): a CUDA tensor goes through
+the hand-written clash kernel, a CPU tensor through its plain matmul-form
+twin. The TPU's 1024-pair unroll cap does not carry over: the CUDA
+kernel takes its pair list at run time.
+'''
+
+import numpy as np
+import torch
+
+from tscode_tpu_torch.ops.kernels.clash import (clash_counts_plain,
+                                                compenetration_mask_kernel,
+                                                pairwise_dist2, static_pairs)
+
+__all__ = ['fragment_labels', 'cross_fragment_pair_mask', 'static_pairs',
+           'pairwise_dist2', 'count_cross_clashes', 'compenetration_mask']
+
+
+def fragment_labels(ids):
+    '''Fragment id per atom from contiguous fragment lengths.
+    ids: sequence of ints -> (N,) int array.'''
+    return np.repeat(np.arange(len(ids)), np.asarray(ids, dtype=int))
+
+
+def cross_fragment_pair_mask(ids, n_pad=None):
+    '''(N, N) bool numpy mask, True for atom pairs of different fragments,
+    each unordered pair once (f_i < f_j). Padding rows/cols are False.'''
+    labels = fragment_labels(ids)
+    n = len(labels)
+    n_pad = n_pad or n
+    full = np.zeros((n_pad, n_pad), dtype=bool)
+    full[:n, :n] = labels[:, None] < labels[None, :]
+    return full
+
+
+def count_cross_clashes(poses, pair_mask, thresh=1.5):
+    '''Number of masked atom pairs closer than `thresh`, per pose.
+    poses (B, N, 3); pair_mask (N, N) bool -> (B,) int32.'''
+    mask = torch.as_tensor(pair_mask, dtype=torch.bool, device=poses.device)
+    return clash_counts_plain(poses, mask, thresh)
+
+
+def compenetration_mask(poses, pair_mask, thresh=1.5, max_clashes=0):
+    '''Accept mask of a pose batch: True when the pose shows at most
+    `max_clashes` masked contacts below `thresh` Angstrom. CUDA tensors
+    run the clash kernel, CPU tensors its plain twin.'''
+    return compenetration_mask_kernel(poses, pair_mask, thresh, max_clashes)
