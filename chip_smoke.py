@@ -2,9 +2,13 @@
 '''
 Smoke run of the PyTorch + CUDA port (tscode_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels from csrc/, holds each against its
-plain PyTorch twin on the card, then drives the headline slice
-(415,872-pose string-embed grid -> clash screen -> exact bucketed RMSD
-prune) in float64 and float32 and checks its counts.
+plain PyTorch twin on the card, drives the headline slice (415,872-pose
+string-embed grid -> clash screen -> exact bucketed RMSD prune) in
+float64 and float32 and checks its counts, then runs the production
+string route through the port's CLI (input file -> Embedder -> string
+embed -> TFD novelty -> TFD and MOI prunes -> .xyz) on bench_suite's
+sn2_string input at 76 conformers (831,744 candidates), in float64
+(exact counts) and float32.
 
     python3 chip_smoke.py
 
@@ -31,6 +35,19 @@ F32_FINAL = (22, 30)
 CLASH_TIE = 1e-4             # A^2: |d2 - thr^2| below this is a tie
 QCP_TIE = {'float32': 1e-4, 'float64': 1e-9}   # A, on rmsd and maxdev
 DEV = 'cuda'
+
+# the string route (phase 6): bench_suite's sn2_string at 76 conformers
+STRING_CONFS = 76
+STRING_F64 = (831744, 371822, 355, 290)   # candidates, clash-ok, novel,
+#                                           final: the x64 reference counts
+TFD_THRESH = 10.0                          # degrees, the novelty threshold
+STRING_TFD_TIE = 1e-2      # degrees: |sum - 10| below this is a near tie
+# f32 novel and final counts may lie this fraction of the f64 counts away:
+# hundreds of survivors sit exactly 10.0 degrees (one spin step) from an
+# accepted fingerprint in f64, and f32 fingerprints turn those exact ties
+# into coin flips of the leader rule, which then cascade
+STRING_F32_SLACK = 0.10
+LIST_MAX = 20              # tie rows listed by index
 
 
 class SmokeFailure(Exception):
@@ -145,6 +162,16 @@ def compare_bits(got, want, tie, what):
     return int(diff[~tie].sum() > 0), int(tie.sum())
 
 
+def big_fragment_poses(rng, n_poses, n_atoms):
+    '''Poses of two n_atoms-atom fragments, gaussian blobs (sigma 2 A)
+    whose centers lie 5 to 16 A apart: from hundreds of cross clashes per
+    pose down to none.'''
+    f1 = rng.normal(size=(n_poses, n_atoms, 3)) * 2.0
+    f2 = rng.normal(size=(n_poses, n_atoms, 3)) * 2.0
+    f2[..., 0] += rng.uniform(5.0, 16.0, size=(n_poses, 1))
+    return np.concatenate([f1, f2], axis=1)
+
+
 def near_dup_blocks(rng, B, L, N):
     '''Blocks of noisy copies of a few base structures, with noise
     levels that put pair rmsds on both sides of 0.5 A (and, for N = 8,
@@ -186,6 +213,29 @@ def phase_kernels():
         print(f'[3 kernels] clash {name}: B=4099 max_clashes 0 and 3, '
               f'K1 and K2 entries equal to plain on '
               f'{int((~tie).sum())} poses ({int(tie.sum())} tie poses '
+              f'excluded)')
+
+        # clash at any size: two 160-atom fragments, P = 25,600 pairs and
+        # N = 320 atoms, more than one block's shared memory holds
+        pm = cross_fragment_pair_mask((160, 160))
+        pairs = torch.as_tensor(clash.static_pairs(pm), device=dev)
+        poses = torch.as_tensor(
+            big_fragment_poses(np.random.default_rng(160), 2048, 160),
+            dtype=dtype, device=dev)
+        tie = clash_ties(poses, pairs, CLASH)
+        for mc in (0, 3, 100):
+            want = torch.cat([
+                clash.clash_ok_plain(poses[i:i + 256], pairs, CLASH, mc)
+                for i in range(0, poses.shape[0], 256)])
+            got = clash.clash_ok(poses, pairs, CLASH, mc)
+            e, _ = compare_bits(got, want, tie, f'clash {name} 160+160 '
+                                f'atoms mc={mc}')
+            errs['clash'] = max(errs['clash'], e)
+            check(0 < int(want.sum()) < poses.shape[0],
+                  f'clash {name} 160+160 atoms mc={mc}: degenerate case')
+        print(f'[3 kernels] clash {name}: 2048 poses of 160+160 atoms '
+              f'(P=25600, N=320), max_clashes 0, 3 and 100, equal to plain '
+              f'on {int((~tie).sum())} poses ({int(tie.sum())} tie poses '
               f'excluded)')
 
         # qcp: planted duplicates -> exactly 3 kills
@@ -398,6 +448,163 @@ def phase_main_f32(card, mols):
     ]
 
 
+def run_string_cli(tmp, inp, dtype):
+    '''One run of the port's CLI on `inp` in `dtype`, its stdout kept in
+    a file; the working directory is restored afterwards. Returns
+    (report, frames (F, N, 3), clash launches, seconds).'''
+    import contextlib
+    import os
+    from tscode_tpu.io_xyz import read_xyz
+    from tscode_tpu_torch.__main__ import main as cli
+    from tscode_tpu_torch.ops.kernels import clash
+    stamp = f'smoke_{dtype}'
+    cwd = os.getcwd()
+    clash.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
+                contextlib.redirect_stdout(out):
+            rc = cli([inp, '--device', DEV, '--dtype', dtype, '-n', stamp])
+    finally:
+        os.chdir(cwd)
+    secs = time.perf_counter() - t0
+    launches = clash.KERNEL.launches
+    check(rc == 0, f'string route {dtype}: CLI exit code {rc}')
+    with open(os.path.join(tmp, f'tscode_report_{stamp}.json')) as f:
+        report = json.load(f)
+    frames = read_xyz(os.path.join(
+        tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
+    return report, np.asarray(frames), launches, secs
+
+
+def string_ties(tmp, inp):
+    '''Threshold ties of the string route in float64 on the card: the
+    grid poses with a cross pair within 1e-9 A^2 (listed) and within
+    CLASH_TIE (counted) of the clash threshold, and the clash
+    survivors with a wrapped-L1 distance to an accepted (novel)
+    fingerprint within 1e-9 degrees (listed) and STRING_TFD_TIE
+    (counted) of the novelty threshold.'''
+    import contextlib
+    import io
+    import os
+    import torch
+    from tscode_tpu.graphs import get_quadruplets, get_sum_graph
+    from tscode_tpu_torch.embedder import Embedder
+    from tscode_tpu_torch.embeds.common import inputs_from_numpy
+    from tscode_tpu_torch.embeds.string import bcast_tiles, spin_angles
+    from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
+                                          torsion_fingerprints, wrapped_l1)
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            emb = Embedder(inp, stamp='smoke_ties', device=DEV,
+                           dtype=torch.float64)
+        emb.logfile.close()
+    finally:
+        os.chdir(cwd)
+    m1, m2 = emb.objects
+    r1 = int(m1.reactive_indices[0])
+    r2 = int(m2.reactive_indices[0]) + m1.n_atoms
+    quads = get_quadruplets(get_sum_graph((m1.graph, m2.graph), [[r1, r2]]))
+    grid = inputs_from_numpy(m1, m2, DEV, torch.float64)
+    angles = spin_angles(emb.systematic_angles, torch.float64, DEV)
+    pl = grid.pairs.long()
+    near, n_tie, lo, fps = [], 0, 0, []
+    for poses, ok in bcast_tiles(grid, angles, CLASH):
+        d2 = torch.sum((poses[:, pl[:, 0]] - poses[:, pl[:, 1]]) ** 2, -1)
+        off = (d2 - CLASH * CLASH).abs().amin(dim=1)
+        near += (lo + torch.nonzero(off < 1e-9).squeeze(1)).tolist()
+        n_tie += int((off < CLASH_TIE).sum())
+        lo += poses.shape[0]
+        fps.append(torsion_fingerprints(poses[ok], quads))
+    fps = torch.cat(fps)
+    novel, ok = tfd_novelty_device(fps, thresh=TFD_THRESH)
+    check(ok, 'string ties: novelty cache overflow')
+    acc = fps[torch.as_tensor(novel, device=fps.device)]
+    tfd_near, n_tfd_tie = [], 0
+    for c0 in range(0, fps.shape[0], 1 << 16):
+        s = (wrapped_l1(fps[c0:c0 + (1 << 16)], acc) - TFD_THRESH).abs() \
+            .amin(dim=1)
+        tfd_near += (c0 + torch.nonzero(s < 1e-9).squeeze(1)).tolist()
+        n_tfd_tie += int((s < STRING_TFD_TIE).sum())
+    return near, n_tie, tfd_near, n_tfd_tie, int(novel.sum())
+
+
+def phase_string_route(card):
+    '''Phase 6: the production string route through the CLI, float64
+    (exact reference counts) then float32 (brackets).'''
+    import os
+    import tempfile
+    import bench_suite
+    bench_suite.N_CONFS = STRING_CONFS
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix='smoke_string_') as tmp:
+        inp = bench_suite._config_files('sn2_string', tmp)
+        counts = {}
+        for dtype in ('float64', 'float32'):
+            report, frames, n_launch, secs = run_string_cli(tmp, inp, dtype)
+            se = report['string_embed']
+            counts[dtype] = (se['candidates'], se['clash_ok'], se['novel'],
+                             report['final_structures'])
+            launches += n_launch
+            check(n_launch > 0, f'string route {dtype}: clash kernel not '
+                  f'launched')
+            check(se['tfd_lane'] == 'device', f'string route {dtype}: '
+                  f'novelty lane {se["tfd_lane"]}, expected device')
+            n_final = counts[dtype][3]
+            check(frames.shape == (n_final, 11, 3)
+                  and bool(np.isfinite(frames).all()),
+                  f'string route {dtype}: .xyz holds {frames.shape}, '
+                  f'expected ({n_final}, 11, 3) finite')
+            stages = ', '.join(f'{s["stage"]} {s["seconds"]:.3f} s '
+                               f'({s["structures_in"]} -> '
+                               f'{s["structures_out"]})'
+                               for s in report['stages'])
+            print(f'[6 string {dtype}] {" -> ".join(map(str, counts[dtype]))}'
+                  f' (candidates -> clash-ok -> novel -> final) in '
+                  f'{secs:.3f} s, clash launches {n_launch}, novelty lane '
+                  f'{se["tfd_lane"]} {se["novelty_stats"]} [{card}]')
+            print(f'[6 string {dtype}] stages: {stages}; report total '
+                  f'{report["total_seconds"]} s [{card}]')
+            print(f'[6 string {dtype}] embed split: sweep '
+                  f'{se["sweep_s"]:.4f} s, compaction {se["compaction_s"]:.4f}'
+                  f' s, novelty {se["novelty_s"]:.4f} s, pull '
+                  f'{se["pull_s"]:.4f} s [{card}]')
+        near, n_tie, tfd_near, n_tfd_tie, n_novel = string_ties(tmp, inp)
+
+    # the listed ties, first LIST_MAX of each (spin steps of 10 degrees
+    # put many fingerprint distances at exactly 10.0, which `<` rejects
+    # alike on every lane)
+    for i in near[:LIST_MAX]:
+        print(f'[6 string float64] pose {i} within 1e-9 A^2 of the clash '
+              f'threshold')
+    for i in tfd_near[:LIST_MAX]:
+        print(f'[6 string float64] survivor {i} within 1e-9 degrees of the '
+              f'novelty threshold')
+    print(f'[6 string float64] {len(near)} poses within 1e-9 A^2 of thr^2, '
+          f'{len(tfd_near)} survivors within 1e-9 deg of {TFD_THRESH}; '
+          f'{n_tie} poses within {CLASH_TIE} A^2, {n_tfd_tie} '
+          f'survivors within {STRING_TFD_TIE} deg')
+    check(counts['float64'] == STRING_F64,
+          f'string route f64 counts {counts["float64"]} != {STRING_F64}')
+    check(n_novel == STRING_F64[2], f'string ties: {n_novel} novel rows, '
+          f'expected {STRING_F64[2]}')
+
+    c32, c64 = counts['float32'], counts['float64']
+    check(c32[0] == c64[0], f'f32 candidates {c32[0]} != {c64[0]}')
+    check(abs(c32[1] - c64[1]) <= n_tie, f'f32 clash-ok {c32[1]} outside '
+          f'{c64[1]} +- {n_tie} (poses within {CLASH_TIE} A^2)')
+    for k, what in ((2, 'novel'), (3, 'final')):
+        lo = round(c64[k] * (1 - STRING_F32_SLACK))
+        hi = round(c64[k] * (1 + STRING_F32_SLACK))
+        check(lo <= c32[k] <= hi, f'f32 {what} {c32[k]} outside {(lo, hi)}')
+    print(f'[6 string float32] inside the brackets: clash-ok {c64[1]} +- '
+          f'{n_tie}, novel and final within {STRING_F32_SLACK:.0%} of '
+          f'{c64[2]} and {c64[3]}')
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_env()
@@ -409,6 +616,7 @@ def main():
     phase_main_f64(card, mols)
     phase_small_parity()
     kernels = phase_main_f32(card, mols)
+    kernels[0]['launches'] += phase_string_route(card)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check('jax' not in sys.modules, 'jax was imported')

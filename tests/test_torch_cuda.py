@@ -41,6 +41,41 @@ def test_clash_kernel_matches_plain(cuda_device, dtype):
     assert clash.KERNEL.launches == before + 4
 
 
+def big_fragment_poses(rng, n_poses, n_atoms):
+    '''Poses of two n_atoms-atom fragments, gaussian blobs (sigma 2 A)
+    whose centers lie 5 to 16 A apart: from hundreds of cross clashes per
+    pose down to none.'''
+    f1 = rng.normal(size=(n_poses, n_atoms, 3)) * 2.0
+    f2 = rng.normal(size=(n_poses, n_atoms, 3)) * 2.0
+    f2[..., 0] += rng.uniform(5.0, 16.0, size=(n_poses, 1))
+    return np.concatenate([f1, f2], axis=1)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_clash_kernel_any_size(cuda_device, dtype):
+    '''Two 160-atom fragments: P = 25,600 pairs and N = 320 atoms, more
+    than one block's shared memory holds. Before the kernel tiled its
+    pair list, this launch failed.'''
+    pm = cross_fragment_pair_mask((160, 160))
+    pairs = torch.as_tensor(clash.static_pairs(pm), device=cuda_device)
+    poses = torch.as_tensor(
+        big_fragment_poses(np.random.default_rng(160), 2048, 160),
+        dtype=dtype, device=cuda_device)
+    P = poses.double()
+    pl = pairs.long()
+    d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+    keep = ~((d2 - 2.25).abs() < 1e-4).any(dim=1)     # no threshold ties
+    counts = torch.sum(d2 < 2.25, dim=1)
+    for mc in (0, 3, 100):
+        want = torch.cat([clash.clash_ok_plain(poses[i:i + 256], pairs, 1.5,
+                                               mc)
+                          for i in range(0, poses.shape[0], 256)])
+        got = clash.clash_ok(poses, pairs, 1.5, mc)
+        assert torch.equal(got[keep], want[keep])
+        assert 0 < int(want.sum()) < poses.shape[0]
+        assert torch.equal(want[keep], (counts <= mc)[keep])
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_qcp_kernel_planted_and_random_blocks(cuda_device, dtype):
     rng = np.random.default_rng(3)

@@ -82,3 +82,44 @@ def test_kernel_sources_and_build_location():
                                                  'tscode_tpu_torch'))
     with open(os.path.join(REPO, '.gitignore')) as f:
         assert 'build/' in f.read().split()
+
+
+def sn2_input(d):
+    import bench_suite
+    n = bench_suite.N_CONFS
+    bench_suite.N_CONFS = 4
+    try:
+        bench_suite._config_files('sn2_string', str(d))
+    finally:
+        bench_suite.N_CONFS = n
+
+
+def test_cli_string_route_imports_no_jax(tmp_path):
+    '''The whole string route through the CLI, --device cpu, in a fresh
+    interpreter: it writes the ensemble and never imports jax.'''
+    sn2_input(tmp_path)
+    code = (
+        'import sys\n'
+        'from tscode_tpu_torch.__main__ import main\n'
+        'rc = main(["input.txt", "--device", "cpu", "-n", "nojax"])\n'
+        'assert rc == 0, rc\n'
+        'assert "jax" not in sys.modules, "jax imported"\n'
+        'print("NOJAX_OK")\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'NOJAX_OK' in r.stdout
+    assert (tmp_path / 'tscode_unoptimized_nojax.xyz').exists()
+
+
+def test_cli_cuda_without_a_card_fails_with_no_ensemble(tmp_path):
+    sn2_input(tmp_path)
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
+    r = subprocess.run([sys.executable, '-m', 'tscode_tpu_torch',
+                        'input.txt', '--device', 'cuda', '-n', 'nocard'],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert 'torch.cuda.is_available() is False' in r.stderr
+    assert not list(tmp_path.glob('tscode_*.xyz'))

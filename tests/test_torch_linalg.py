@@ -137,3 +137,40 @@ def test_rmsd_and_max():
                                mask=jnp.asarray(mask))
     close(r_t, r_j)
     close(m_t, m_j)
+
+
+def test_dihedral():
+    p = rng.normal(size=(300, 4, 3)) * 1.5
+    close(tl.dihedral(t64(p)), jl.dihedral(jnp.asarray(p)))
+
+
+def test_inertia_moments_and_eigvalsh3():
+    coords = rng.normal(size=(40, 9, 3)) * 1.5
+    masses = rng.uniform(1.0, 35.0, size=9)
+    close(tl.center_of_mass(t64(coords), t64(masses)),
+          jl.center_of_mass(jnp.asarray(coords), jnp.asarray(masses)))
+    close(tl.inertia_tensor(t64(coords), t64(masses)),
+          jl.inertia_tensor(jnp.asarray(coords), jnp.asarray(masses)))
+    moments = tl.get_inertia_moments(t64(coords), t64(masses))
+    close(moments, jl.get_inertia_moments(jnp.asarray(coords),
+                                          jnp.asarray(masses)))
+    I = to_np(tl.inertia_tensor(t64(coords), t64(masses)))
+    np.testing.assert_allclose(to_np(moments), np.linalg.eigvalsh(I),
+                               rtol=1e-10)
+
+    # symmetric matrices, one isotropic (p = 0). (At an exact double
+    # root the Newton polish divides by a vanishing derivative in both
+    # packages, and the two round differently there.)
+    A = rng.normal(size=(30, 3, 3))
+    A = A + np.swapaxes(A, -1, -2)
+    A[0] = 2.5 * np.eye(3)
+    close(tl.det3(t64(A)), jl.det3(jnp.asarray(A)))
+    close(tl.eigvalsh3(t64(A)), jl.eigvalsh3(jnp.asarray(A)))
+
+
+def test_cartesian_product():
+    arrays = (np.arange(3), np.arange(2) + 10, np.arange(4) * 2)
+    got = tl.cartesian_product(*arrays)
+    np.testing.assert_array_equal(got, jl.cartesian_product(*arrays))
+    pair = tl.cartesian_product(np.arange(3), np.arange(2))
+    assert pair[:, 0].tolist() == [0, 1, 2, 0, 1, 2]    # first fastest

@@ -6,7 +6,10 @@ and build with nvcc at first use (see `ops/kernels/_build.py`). On CPU
 tensors every kernel wrapper runs its plain PyTorch twin instead.
 
 The jax-free host modules of `tscode_tpu` (molecule, orbitals, graphs,
-io_xyz, pt, parameters, errors, native) are imported as they are.
+io_xyz, pt, parameters, errors, native, options, settings, utils,
+quotes, references, modify_settings) are imported as they are.
+
+The CLI: `python -m tscode_tpu_torch input.txt [--device cuda|cpu]`.
 '''
 
 __version__ = '0.1.0'

@@ -16,7 +16,8 @@ from tscode_tpu_torch.ops.kernels.clash import (clash_counts_plain,
                                                 pairwise_dist2, static_pairs)
 
 __all__ = ['fragment_labels', 'cross_fragment_pair_mask', 'static_pairs',
-           'pairwise_dist2', 'count_cross_clashes', 'compenetration_mask']
+           'pairwise_dist2', 'count_cross_clashes', 'compenetration_mask',
+           'count_intra_clashes_np']
 
 
 def fragment_labels(ids):
@@ -48,3 +49,23 @@ def compenetration_mask(poses, pair_mask, thresh=1.5, max_clashes=0):
     `max_clashes` masked contacts below `thresh` Angstrom. CUDA tensors
     run the clash kernel, CPU tensors its plain twin.'''
     return compenetration_mask_kernel(poses, pair_mask, thresh, max_clashes)
+
+
+def count_intra_clashes_np(coords, thresh=0.5):
+    '''Host numpy sanity count for small inputs (the Embedder's check of
+    its input conformers): per structure, the ordered atom pairs with
+    1e-3 A < d < thresh, so each unordered pair counts twice and
+    coincident atoms are excluded. coords (..., N, 3) -> (...,) int32.'''
+    coords = np.asarray(coords)
+    n = coords.shape[-2]
+    off_diag = ~np.eye(n, dtype=bool)
+    flat = coords.reshape(-1, n, 3)
+    out = np.empty(flat.shape[0], dtype=np.int32)
+    # chunk the batch axis so the (b, N, N) distance tensor stays small
+    step = max(1, int(2e7) // (n * n))
+    for b0 in range(0, flat.shape[0], step):
+        c = flat[b0:b0 + step]
+        d2 = np.sum((c[:, :, None, :] - c[:, None, :, :]) ** 2, axis=-1)
+        hit = (d2 < thresh * thresh) & (d2 > 1e-6) & off_diag
+        out[b0:b0 + step] = hit.sum(axis=(-2, -1))
+    return out.reshape(coords.shape[:-2])

@@ -6,8 +6,8 @@ Replaces the Pallas TPU kernels of tscode_tpu/ops/pallas/clash.py:
 K1 `clash_ok_traced` (:99, the production screen) and K2
 `compenetration_mask_pallas` (:70, same math with a pair mask). Both
 entries below launch the one CUDA kernel: one thread per pose, the pair
-list staged in shared memory, any batch size. The kernel's note says
-what bounds it on the card.
+list passed through shared memory in tiles, any batch size, atom count
+and pair count. The kernel's note says what bounds it on the card.
 
 On a CPU tensor each entry runs the plain version (the matmul form of
 tscode_tpu/ops/clash.compenetration_mask); on a CUDA tensor it launches

@@ -1,6 +1,7 @@
 '''
 Batched geometry core in PyTorch: the part of tscode_tpu/ops/linalg.py
-that the embed -> clash -> RMSD-prune slice runs.
+that the ported routes run (the embed -> clash -> RMSD-prune slice and
+the string route's torsion fingerprints and moments of inertia).
 
 Every function is batched over leading axes and keeps the JAX package's
 operation order, so float64 results agree with it to roundoff.
@@ -10,6 +11,9 @@ quaternion_to_rotation_matrix are scalar-LAST (x, y, z, w) and Horn's
 eigenvectors are scalar-first (w, x, y, z).
 '''
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -21,6 +25,23 @@ def norm_of(vec, dim=-1):
 def normalize(vec, dim=-1):
     '''Unit vector(s) along `dim`.'''
     return vec / norm_of(vec, dim=dim).unsqueeze(-1)
+
+
+def dihedral(p):
+    '''Praxeolitic dihedral angle in degrees from 4 points.
+    p: (..., 4, 3) -> (...,).'''
+    p0, p1, p2, p3 = p[..., 0, :], p[..., 1, :], p[..., 2, :], p[..., 3, :]
+
+    b0 = -(p1 - p0)
+    b1 = normalize(p2 - p1)
+    b2 = p3 - p2
+
+    v = b0 - torch.sum(b0 * b1, dim=-1, keepdim=True) * b1
+    w = b2 - torch.sum(b2 * b1, dim=-1, keepdim=True) * b1
+
+    x = torch.sum(v * w, dim=-1)
+    y = torch.sum(torch.linalg.cross(b1, v, dim=-1) * w, dim=-1)
+    return torch.atan2(y, x) * (180.0 / math.pi)
 
 
 def quaternion_to_rotation_matrix(q):
@@ -258,3 +279,87 @@ def rmsd_and_max(p, q, mask=None):
     rmsd = torch.sqrt(torch.clamp(msd, min=0.0))
     maxdev = torch.amax(norm_of(diff), dim=-1)
     return rmsd, maxdev
+
+
+# ------------------------------------------------ inertia / mass properties
+
+
+def det3(A):
+    '''Closed-form determinant of batched 3x3 matrices.'''
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2]
+                            - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2]
+                              - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1]
+                              - A[..., 1, 1] * A[..., 2, 0]))
+
+
+def center_of_mass(coords, masses):
+    '''COM, batched: coords (..., N, 3), masses (N,) or (..., N).'''
+    w = torch.sum(coords * masses[..., None], dim=-2)
+    return w / torch.sum(masses, dim=-1)[..., None]
+
+
+def eigvalsh3(A):
+    '''Eigenvalues (ascending) of symmetric 3x3 matrices: the
+    trigonometric closed form, two Newton polishes on the characteristic
+    polynomial, then a sort. (..., 3, 3) -> (..., 3).'''
+    tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+    q = tr / 3.0
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    B = A - q[..., None, None] * eye
+    p2 = torch.sum(B * B, dim=(-2, -1)) / 6.0
+    p = torch.sqrt(torch.clamp(p2, min=0.0))
+
+    safe_p = torch.where(p > 1e-30, p, torch.ones_like(p))
+    C = B / safe_p[..., None, None]
+    r = torch.clamp(det3(C) / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+
+    two_p = 2.0 * p
+    e3 = q + two_p * torch.cos(phi)                            # largest
+    e1 = q + two_p * torch.cos(phi + 2.0 * math.pi / 3.0)      # smallest
+    e2 = 3.0 * q - e1 - e3
+    evs = torch.stack([e1, e2, e3], dim=-1)
+
+    # Newton on p(x) = x^3 - c2 x^2 + c1 x - c0
+    c2 = tr
+    c0 = det3(A)
+    c1 = 0.5 * (c2 * c2 - torch.diagonal(A @ A, dim1=-2, dim2=-1).sum(-1))
+    for _ in range(2):
+        f = ((evs - c2[..., None]) * evs + c1[..., None]) * evs \
+            - c0[..., None]
+        df = (3.0 * evs - 2.0 * c2[..., None]) * evs + c1[..., None]
+        evs = evs - f / torch.where(torch.abs(df) > 1e-30, df,
+                                    torch.full_like(df, 1e-30))
+    evs = torch.sort(evs, dim=-1).values
+    return torch.where((p > 1e-30)[..., None], evs,
+                       torch.stack([q, q, q], dim=-1))
+
+
+def inertia_tensor(coords, masses):
+    '''Inertia tensor about the COM. coords (..., N, 3), masses (N,).'''
+    com = center_of_mass(coords, masses)
+    x = coords - com[..., None, :]
+    r2 = torch.sum(x * x, dim=-1)                              # (..., N)
+    eye = torch.eye(3, dtype=coords.dtype, device=coords.device)
+    term1 = torch.sum((masses * r2)[..., None, None] * eye, dim=-3)
+    term2 = torch.einsum('...n,...ni,...nj->...ij',
+                         masses * torch.ones_like(r2), x, x)
+    return term1 - term2
+
+
+def get_inertia_moments(coords, masses):
+    '''Principal moments of inertia, ascending: (..., N, 3) -> (..., 3).
+    Computed in the inputs' dtype; on CUDA, backend.get_device keeps
+    float32 products out of TF32.'''
+    return eigvalsh3(inertia_tensor(coords, masses))
+
+
+# ----------------------------------------------------------- index helpers
+
+
+def cartesian_product(*arrays):
+    '''Host numpy: rows of the cartesian product, FIRST array varying
+    fastest (the reference's generation order).'''
+    return np.stack(np.meshgrid(*arrays), -1).reshape(-1, len(arrays))

@@ -8,23 +8,21 @@ The grid is the cartesian product over (c2, c1, l2, l1, ai): conformer
 of molecule 2, conformer of molecule 1, lobe of 2, lobe of 1, spin
 angle. Its C-order flattening is the generation order, and the prune's
 chunk boundaries follow it, so the order is part of the semantics.
-Grid math is plain PyTorch; the clash screen and the prune's pair math
-are the hand-written kernels on CUDA (plain twins on the CPU).
+The grid is the string embed's broadcast block (embeds/string.py). Grid
+math is plain PyTorch; the clash screen and the prune's pair math are
+the hand-written kernels on CUDA (plain twins on the CPU).
 '''
 
 import os
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from tscode_tpu_torch.backend import default_dtype, get_device, synchronize
-from tscode_tpu_torch.embeds.common import stacked_lobes
-from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask, static_pairs
-from tscode_tpu_torch.ops.kernels.clash import clash_ok
-from tscode_tpu_torch.ops.linalg import (rot_mat_from_pointer,
-                                         rotation_matrix_from_vectors)
+from tscode_tpu_torch.embeds.common import inputs_from_numpy
+from tscode_tpu_torch.embeds.string import (bcast_block, bcast_tiles,
+                                            spin_angles)
 from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd_device
 
 N_CONFS = 76          # noisy conformers per molecule in the headline
@@ -61,92 +59,10 @@ def build_workload(n_confs=N_CONFS):
     return mols
 
 
-@dataclass
-class PipelineInputs:
-    '''The slice's state on the device: conformer ensembles and lobes.'''
-    coords1: torch.Tensor     # (n1c, N1, 3)
-    coords2: torch.Tensor     # (n2c, N2, 3)
-    centers1: torch.Tensor    # (n1c, k1, 3)
-    vecs1: torch.Tensor       # (n1c, k1, 3)
-    centers2: torch.Tensor    # (n2c, k2, 3)
-    vecs2: torch.Tensor       # (n2c, k2, 3)
-    pair_mask: torch.Tensor   # (N, N) bool, cross-fragment pairs
-    pairs: torch.Tensor       # (P, 2) int32, the same pairs listed
-    heavy_idx: torch.Tensor   # (H,) int64, non-hydrogen atoms
-
-    @property
-    def n_poses_per_c2(self):
-        return (self.centers1.shape[0] * self.centers1.shape[1]
-                * self.centers2.shape[1])
-
-    @property
-    def n_atoms(self):
-        return self.coords1.shape[1] + self.coords2.shape[1]
-
-
-def inputs_from_numpy(mol1, mol2, device, dtype):
-    '''The JAX package's host arrays (Molecule.atomcoords, stacked_lobes
-    centers and vectors, atomnos, the cross-fragment pair mask) as the
-    port's tensors on `device` in `dtype`.'''
-    dev = get_device(device)
-    centers1, vecs1 = stacked_lobes(mol1)
-    centers2, vecs2 = stacked_lobes(mol2)
-    pair_mask = cross_fragment_pair_mask((mol1.n_atoms, mol2.n_atoms))
-    atomnos = np.concatenate([mol1.atomnos, mol2.atomnos])
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-
-    return PipelineInputs(
-        coords1=t(mol1.atomcoords), coords2=t(mol2.atomcoords),
-        centers1=t(centers1), vecs1=t(vecs1),
-        centers2=t(centers2), vecs2=t(vecs2),
-        pair_mask=torch.as_tensor(pair_mask, device=dev),
-        pairs=torch.as_tensor(static_pairs(pair_mask), device=dev),
-        heavy_idx=torch.as_tensor(np.flatnonzero(atomnos != 1), device=dev))
-
-
-def spin_angles(n_angles, dtype, device):
-    '''Spin angles 0, 360/n, ..., 360 - 360/n in degrees.'''
-    return torch.as_tensor(
-        np.linspace(0.0, 360.0 - 360.0 / n_angles, n_angles),
-        dtype=dtype, device=device)
-
-
-def _embed_clash_block(inp, angles, c2_lo, c2_hi, clash_thresh):
-    '''Poses and clash accept mask for the grid rows of c2 values
-    [c2_lo, c2_hi), by broadcasting over (c2, c1, l2, l1, ai).'''
-    coords2 = inp.coords2[c2_lo:c2_hi]
-    n1c, k1 = inp.centers1.shape[0], inp.centers1.shape[1]
-    g, k2 = c2_hi - c2_lo, inp.centers2.shape[1]
-    A = angles.shape[0]
-
-    p1 = inp.centers1[None, :, None, :, None]           # (1, n1c, 1, k1, 1, 3)
-    ref_vec = inp.vecs1[None, :, None, :, None]
-    p2 = inp.centers2[c2_lo:c2_hi, None, :, None, None]  # (g, 1, k2, 1, 1, 3)
-    mol_vec = inp.vecs2[c2_lo:c2_hi, None, :, None, None]
-
-    align = rotation_matrix_from_vectors(mol_vec, -ref_vec)
-    spin = rot_mat_from_pointer(ref_vec.expand(1, n1c, 1, k1, A, 3),
-                                angles.expand(1, n1c, 1, k1, A))
-    R = spin @ align                                    # (g, n1c, k2, k1, A, 3, 3)
-    t = p1 - (R @ p2.unsqueeze(-1)).squeeze(-1)
-
-    f2 = coords2[:, None, None, None, None] @ R.transpose(-1, -2) \
-        + t[..., None, :]
-    shape5 = (g, n1c, k2, k1, A)
-    f1 = inp.coords1[None, :, None, None, None].expand(
-        shape5 + inp.coords1.shape[1:])
-    f2 = f2.expand(shape5 + f2.shape[-2:])
-    poses = torch.cat([f1, f2], dim=-2).reshape(-1, inp.n_atoms, 3)
-    return poses, clash_ok(poses, inp.pairs, clash_thresh)
-
-
 def embed_clash_all(inp, n_angles=N_ANGLES, clash_thresh=1.5):
     '''Whole-grid embed + clash screen: (poses (B, N, 3), ok (B,)).'''
     angles = spin_angles(n_angles, inp.coords1.dtype, inp.coords1.device)
-    return _embed_clash_block(inp, angles, 0, inp.coords2.shape[0],
-                              clash_thresh)
+    return bcast_block(inp, angles, 0, inp.coords2.shape[0], clash_thresh)
 
 
 def embed_clash_tiles(inp, n_angles=N_ANGLES, clash_thresh=1.5,
@@ -156,10 +72,7 @@ def embed_clash_tiles(inp, n_angles=N_ANGLES, clash_thresh=1.5,
     (the c2-tiled form of the grid).'''
     angles = spin_angles(n_angles, inp.coords1.dtype, inp.coords1.device)
     g = c2_per_tile or max(1, _GRID_TILE // (inp.n_poses_per_c2 * n_angles))
-    n2c = inp.coords2.shape[0]
-    for c2_lo in range(0, n2c, g):
-        yield _embed_clash_block(inp, angles, c2_lo, min(n2c, c2_lo + g),
-                                 clash_thresh)
+    return bcast_tiles(inp, angles, clash_thresh, g)
 
 
 def clash_survivors(inp, n_angles=N_ANGLES, clash_thresh=1.5):
