@@ -8,7 +8,10 @@ float64 and float32 and checks its counts, then runs the production
 string route through the port's CLI (input file -> Embedder -> string
 embed -> TFD novelty -> TFD and MOI prunes -> .xyz) on bench_suite's
 sn2_string input at 76 conformers (831,744 candidates), in float64
-(exact counts) and float32.
+(exact counts) and float32, and the large-molecule route on
+large_n_string (148-atom poses, the clash kernel's warp regime): the CLI
+at 16 conformers, the exact novelty replay without the collinear
+torsion quadruplet, and the 207,936-pose grid at 76 conformers.
 
     python3 chip_smoke.py
 
@@ -48,6 +51,23 @@ STRING_TFD_TIE = 1e-2      # degrees: |sum - 10| below this is a near tie
 # into coin flips of the leader rule, which then cascade
 STRING_F32_SLACK = 0.10
 LIST_MAX = 20              # tie rows listed by index
+
+# the large-molecule route (phase 7): bench_suite's large_n_string, two
+# C24H49Cl chains, 148-atom poses, P = 5,476 cross pairs
+LARGE_CONFS = 16
+LARGE_F64 = (9216, 1704, 1113, 1113)   # candidates, clash-ok, novel, final:
+#                                        the JAX x64 CLI run's counts
+# novel and final may lie this fraction away: the torsion quadruplet
+# LARGE_COLLINEAR has both end bonds on the reactive bond's axis, so its
+# dihedral is rounding noise and so are the counts that rest on it
+LARGE_SLACK = 0.10
+LARGE_COLLINEAR = [[1, 0, 74, 75]]     # Cl-C0...C74-Cl
+COLLINEAR_SINE = 1e-8      # an end-angle sine at or below it: collinear
+LARGE_DROPPED_NOVEL = 244  # JAX x64 novelty replay of the 1,704 survivors
+#                            without the collinear quadruplet
+LARGE_GRID_CONFS = 76      # 207,936 grid poses
+LARGE_GRID_OK = 43764      # their JAX x64 clash-ok count
+LARGE_PLAIN_CHUNK = 16384  # poses per plain-twin call (B x N x N tensors)
 
 
 class SmokeFailure(Exception):
@@ -194,7 +214,8 @@ def phase_kernels():
     errs = {'clash': 0, 'qcp_kill': 0}
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split('.')[-1]
-        clash.KERNEL.launches = qcp.KERNEL.launches = 0
+        clash.KERNEL.reset_counts()
+        qcp.KERNEL.reset_counts()
 
         # clash, both entries, B not a multiple of 2048
         rng = np.random.default_rng(11)
@@ -304,7 +325,8 @@ def phase_main_f64(card, mols):
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.pipeline import (embed_clash_all,
                                            inputs_from_numpy, run_pipeline)
-    clash.KERNEL.launches = qcp.KERNEL.launches = 0
+    clash.KERNEL.reset_counts()
+    qcp.KERNEL.reset_counts()
     n_poses, secs, n_ok, n_final, info = run_pipeline(
         *mols, device=DEV, dtype=torch.float64, return_masks=True)
     launches = {'clash': clash.KERNEL.launches,
@@ -312,7 +334,8 @@ def phase_main_f64(card, mols):
     check(all(v > 0 for v in launches.values()),
           f'main path f64 did not launch every kernel: {launches}')
     print(f'[4 main f64] {n_poses} poses -> {n_ok} clash-ok -> {n_final} '
-          f'final in {secs:.4f} s, kernel launches {launches} [{card}]')
+          f'final in {secs:.4f} s, kernel launches {launches}, clash by '
+          f'regime {clash.launches_by_regime()} [{card}]')
     check(n_poses == N_POSES, f'{n_poses} poses, expected {N_POSES}')
     check((n_ok, n_final) == F64_COUNTS,
           f'f64 counts {(n_ok, n_final)} != {F64_COUNTS}')
@@ -358,7 +381,8 @@ def phase_main_f32(card, mols):
         pass_chunks, prune_conformers_rmsd_device)
     from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
                                            inputs_from_numpy, run_pipeline)
-    clash.KERNEL.launches = qcp.KERNEL.launches = 0
+    clash.KERNEL.reset_counts()
+    qcp.KERNEL.reset_counts()
     n_poses, secs, n_ok, n_final = run_pipeline(
         *mols, device=DEV, dtype=torch.float32)
     launches = {'clash': clash.KERNEL.launches,
@@ -366,8 +390,8 @@ def phase_main_f32(card, mols):
     check(all(v > 0 for v in launches.values()),
           f'main path f32 did not launch every kernel: {launches}')
     print(f'[5 main f32] warm-up: {n_poses} poses -> {n_ok} clash-ok -> '
-          f'{n_final} final in {secs:.4f} s, kernel launches {launches} '
-          f'[{card}]')
+          f'{n_final} final in {secs:.4f} s, kernel launches {launches}, '
+          f'clash by regime {clash.launches_by_regime()} [{card}]')
     check(F32_OK[0] <= n_ok <= F32_OK[1],
           f'f32 clash-ok {n_ok} outside {F32_OK}')
     check(F32_FINAL[0] <= n_final <= F32_FINAL[1],
@@ -451,7 +475,7 @@ def phase_main_f32(card, mols):
 def run_string_cli(tmp, inp, dtype):
     '''One run of the port's CLI on `inp` in `dtype`, its stdout kept in
     a file; the working directory is restored afterwards. Returns
-    (report, frames (F, N, 3), clash launches, seconds).'''
+    (report, frames (F, N, 3), clash launches per regime, seconds).'''
     import contextlib
     import os
     from tscode_tpu.io_xyz import read_xyz
@@ -459,7 +483,7 @@ def run_string_cli(tmp, inp, dtype):
     from tscode_tpu_torch.ops.kernels import clash
     stamp = f'smoke_{dtype}'
     cwd = os.getcwd()
-    clash.KERNEL.launches = 0
+    clash.KERNEL.reset_counts()
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
@@ -468,13 +492,81 @@ def run_string_cli(tmp, inp, dtype):
     finally:
         os.chdir(cwd)
     secs = time.perf_counter() - t0
-    launches = clash.KERNEL.launches
+    launches = clash.launches_by_regime()
     check(rc == 0, f'string route {dtype}: CLI exit code {rc}')
     with open(os.path.join(tmp, f'tscode_report_{stamp}.json')) as f:
         report = json.load(f)
     frames = read_xyz(os.path.join(
         tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
     return report, np.asarray(frames), launches, secs
+
+
+def string_setup(inp, dtype):
+    '''The set-up of a string-route input through the port's Embedder
+    (its log kept quiet): (grid inputs on the card, spin angles, torsion
+    quadruplets) in `dtype`.'''
+    import contextlib
+    import io
+    import os
+    from tscode_tpu.graphs import get_quadruplets, get_sum_graph
+    from tscode_tpu_torch.embedder import Embedder
+    from tscode_tpu_torch.embeds.common import inputs_from_numpy
+    from tscode_tpu_torch.embeds.string import spin_angles
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            emb = Embedder(inp, stamp='smoke_setup', device=DEV, dtype=dtype)
+        emb.logfile.close()
+    finally:
+        os.chdir(cwd)
+    m1, m2 = emb.objects
+    r1 = int(m1.reactive_indices[0])
+    r2 = int(m2.reactive_indices[0]) + m1.n_atoms
+    quads = get_quadruplets(get_sum_graph((m1.graph, m2.graph), [[r1, r2]]))
+    return (inputs_from_numpy(m1, m2, DEV, dtype),
+            spin_angles(emb.systematic_angles, dtype, DEV), quads)
+
+
+def suite_input(name, tmp, n_confs):
+    '''bench_suite's `name` input at n_confs conformers, written into
+    tmp; returns the input file's path.'''
+    import bench_suite
+    saved = bench_suite.N_CONFS
+    bench_suite.N_CONFS = n_confs
+    try:
+        return bench_suite._config_files(name, tmp)
+    finally:
+        bench_suite.N_CONFS = saved
+
+
+def clash_offsets(poses, pairs):
+    '''(B,) float64: each pose's smallest |d^2 - thr^2| over the listed
+    pairs (exact float64 difference form).'''
+    import torch
+    pl = pairs.long()
+    step = max(1, (1 << 25) // max(1, pl.shape[0]))   # ~0.8 GB a chunk
+    out = []
+    for lo in range(0, poses.shape[0], step):
+        P = poses[lo:lo + step].double()
+        d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, -1)
+        out.append((d2 - CLASH * CLASH).abs().amin(dim=1))
+    return torch.cat(out)
+
+
+def novelty_ties(fps, novel):
+    '''Rows of `fps` whose wrapped-L1 distance to an accepted (novel)
+    fingerprint lies within 1e-9 degrees of the novelty threshold
+    (listed), and how many lie within STRING_TFD_TIE (counted).'''
+    import torch
+    from tscode_tpu_torch.ops.tfd import wrapped_l1
+    acc = fps[torch.as_tensor(novel, device=fps.device)]
+    near, n_tie = [], 0
+    for c0 in range(0, fps.shape[0], 1 << 16):
+        s = (wrapped_l1(fps[c0:c0 + (1 << 16)], acc) - TFD_THRESH).abs() \
+            .amin(dim=1)
+        near += (c0 + torch.nonzero(s < 1e-9).squeeze(1)).tolist()
+        n_tie += int((s < STRING_TFD_TIE).sum())
+    return near, n_tie
 
 
 def string_ties(tmp, inp):
@@ -484,35 +576,14 @@ def string_ties(tmp, inp):
     survivors with a wrapped-L1 distance to an accepted (novel)
     fingerprint within 1e-9 degrees (listed) and STRING_TFD_TIE
     (counted) of the novelty threshold.'''
-    import contextlib
-    import io
-    import os
     import torch
-    from tscode_tpu.graphs import get_quadruplets, get_sum_graph
-    from tscode_tpu_torch.embedder import Embedder
-    from tscode_tpu_torch.embeds.common import inputs_from_numpy
-    from tscode_tpu_torch.embeds.string import bcast_tiles, spin_angles
+    from tscode_tpu_torch.embeds.string import bcast_tiles
     from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
-                                          torsion_fingerprints, wrapped_l1)
-    cwd = os.getcwd()
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            emb = Embedder(inp, stamp='smoke_ties', device=DEV,
-                           dtype=torch.float64)
-        emb.logfile.close()
-    finally:
-        os.chdir(cwd)
-    m1, m2 = emb.objects
-    r1 = int(m1.reactive_indices[0])
-    r2 = int(m2.reactive_indices[0]) + m1.n_atoms
-    quads = get_quadruplets(get_sum_graph((m1.graph, m2.graph), [[r1, r2]]))
-    grid = inputs_from_numpy(m1, m2, DEV, torch.float64)
-    angles = spin_angles(emb.systematic_angles, torch.float64, DEV)
-    pl = grid.pairs.long()
+                                          torsion_fingerprints)
+    grid, angles, quads = string_setup(inp, torch.float64)
     near, n_tie, lo, fps = [], 0, 0, []
     for poses, ok in bcast_tiles(grid, angles, CLASH):
-        d2 = torch.sum((poses[:, pl[:, 0]] - poses[:, pl[:, 1]]) ** 2, -1)
-        off = (d2 - CLASH * CLASH).abs().amin(dim=1)
+        off = clash_offsets(poses, grid.pairs)
         near += (lo + torch.nonzero(off < 1e-9).squeeze(1)).tolist()
         n_tie += int((off < CLASH_TIE).sum())
         lo += poses.shape[0]
@@ -520,13 +591,7 @@ def string_ties(tmp, inp):
     fps = torch.cat(fps)
     novel, ok = tfd_novelty_device(fps, thresh=TFD_THRESH)
     check(ok, 'string ties: novelty cache overflow')
-    acc = fps[torch.as_tensor(novel, device=fps.device)]
-    tfd_near, n_tfd_tie = [], 0
-    for c0 in range(0, fps.shape[0], 1 << 16):
-        s = (wrapped_l1(fps[c0:c0 + (1 << 16)], acc) - TFD_THRESH).abs() \
-            .amin(dim=1)
-        tfd_near += (c0 + torch.nonzero(s < 1e-9).squeeze(1)).tolist()
-        n_tfd_tie += int((s < STRING_TFD_TIE).sum())
+    tfd_near, n_tfd_tie = novelty_ties(fps, novel)
     return near, n_tie, tfd_near, n_tfd_tie, int(novel.sum())
 
 
@@ -535,15 +600,14 @@ def phase_string_route(card):
     (exact reference counts) then float32 (brackets).'''
     import os
     import tempfile
-    import bench_suite
-    bench_suite.N_CONFS = STRING_CONFS
     os.environ['TSCODE_EMBED_TRACE'] = '1'
     launches = 0
     with tempfile.TemporaryDirectory(prefix='smoke_string_') as tmp:
-        inp = bench_suite._config_files('sn2_string', tmp)
+        inp = suite_input('sn2_string', tmp, STRING_CONFS)
         counts = {}
         for dtype in ('float64', 'float32'):
-            report, frames, n_launch, secs = run_string_cli(tmp, inp, dtype)
+            report, frames, regimes, secs = run_string_cli(tmp, inp, dtype)
+            n_launch = sum(regimes.values())
             se = report['string_embed']
             counts[dtype] = (se['candidates'], se['clash_ok'], se['novel'],
                              report['final_structures'])
@@ -563,7 +627,7 @@ def phase_string_route(card):
                                for s in report['stages'])
             print(f'[6 string {dtype}] {" -> ".join(map(str, counts[dtype]))}'
                   f' (candidates -> clash-ok -> novel -> final) in '
-                  f'{secs:.3f} s, clash launches {n_launch}, novelty lane '
+                  f'{secs:.3f} s, clash launches {regimes}, novelty lane '
                   f'{se["tfd_lane"]} {se["novelty_stats"]} [{card}]')
             print(f'[6 string {dtype}] stages: {stages}; report total '
                   f'{report["total_seconds"]} s [{card}]')
@@ -605,6 +669,169 @@ def phase_string_route(card):
     return launches
 
 
+def bracket(ref, slack):
+    return round(ref * (1 - slack)), round(ref * (1 + slack))
+
+
+def phase_large_route(card):
+    '''Phase 7, the CLI part: bench_suite's large_n_string (two C24H49Cl
+    chains, 148-atom poses, P = 5,476 cross pairs, so K1's warp regime)
+    at 16 conformers, float64 then float32, and the exact gate: the
+    novelty replay of the float64 clash survivors on the card without
+    the collinear quadruplet. Returns the clash launches per regime.'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch.embeds.string import bcast_tiles
+    from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
+                                          torsion_end_sines,
+                                          torsion_fingerprints)
+    launches = {'thread': 0, 'warp': 0}
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix='smoke_large_') as tmp:
+        inp = suite_input('large_n_string', tmp, LARGE_CONFS)
+        for dtype in ('float64', 'float32'):
+            report, frames, regimes, secs = run_string_cli(tmp, inp, dtype)
+            se = report['string_embed']
+            counts[dtype] = c = (se['candidates'], se['clash_ok'],
+                                 se['novel'], report['final_structures'])
+            for k in launches:
+                launches[k] += regimes[k]
+            check(regimes['warp'] > 0, f'large_n {dtype}: the warp kernel '
+                  f'was not launched ({regimes})')
+            check(frames.shape == (c[3], 148, 3)
+                  and bool(np.isfinite(frames).all()),
+                  f'large_n {dtype}: .xyz holds {frames.shape}, expected '
+                  f'({c[3]}, 148, 3) finite')
+            stages = ', '.join(f'{s["stage"]} {s["seconds"]:.3f} s'
+                               for s in report['stages'])
+            print(f'[7 large_n {dtype}] {" -> ".join(map(str, c))} '
+                  f'(candidates -> clash-ok -> novel -> final) in {secs:.3f}'
+                  f' s, clash launches {regimes}, novelty lane '
+                  f'{se["tfd_lane"]} {se["novelty_stats"]}; {stages}; embed '
+                  f'split: sweep {se["sweep_s"]:.4f} s, compaction '
+                  f'{se["compaction_s"]:.4f} s, novelty {se["novelty_s"]:.4f}'
+                  f' s [{card}]')
+
+        # the float64 grid on the card: clash ties, survivors, and the
+        # novelty replay without the collinear quadruplets
+        grid, angles, quads = string_setup(inp, torch.float64)
+        tiles = list(bcast_tiles(grid, angles, CLASH))
+        poses = torch.cat([p for p, _ in tiles])
+        ok = torch.cat([o for _, o in tiles])
+        del tiles
+    off = clash_offsets(poses, grid.pairs)
+    near = torch.nonzero(off < 1e-9).squeeze(1).tolist()
+    n_tie = int((off < CLASH_TIE).sum())
+    survivors = poses[ok]
+    fps = torsion_fingerprints(survivors, quads)
+    col = (torsion_end_sines(survivors, quads) <= COLLINEAR_SINE) \
+        .any(dim=0).cpu().numpy()
+    check(np.asarray(quads)[col].tolist() == LARGE_COLLINEAR,
+          f'large_n: collinear quadruplets {np.asarray(quads)[col].tolist()}'
+          f', expected {LARGE_COLLINEAR}')
+    fps = fps[:, torch.as_tensor(~col, device=fps.device)].contiguous()
+    novel, lane_ok = tfd_novelty_device(fps, thresh=TFD_THRESH,
+                                        cache_cap=fps.shape[0])
+    check(lane_ok, 'large_n replay: the device novelty lane refused')
+    tfd_near, n_tfd_tie = novelty_ties(fps, novel)
+    n_novel = int(novel.sum())
+
+    for i in near[:LIST_MAX]:
+        print(f'[7 large_n float64] pose {i} within 1e-9 A^2 of the clash '
+              f'threshold')
+    for i in tfd_near[:LIST_MAX]:
+        print(f'[7 large_n float64] survivor {i} within 1e-9 degrees of the '
+              f'novelty threshold (collinear quadruplet dropped)')
+    print(f'[7 large_n float64] {len(near)} poses within 1e-9 A^2 of thr^2, '
+          f'{n_tie} within {CLASH_TIE} A^2; replay without the collinear '
+          f'quadruplet {LARGE_COLLINEAR[0]} on the card: {n_novel} novel of '
+          f'{fps.shape[0]} ({len(tfd_near)} survivors within 1e-9 deg of '
+          f'{TFD_THRESH}, {n_tfd_tie} within {STRING_TFD_TIE} deg)')
+    c64, c32 = counts['float64'], counts['float32']
+    check(c64[0] == c32[0] == LARGE_F64[0], f'large_n candidates '
+          f'{c64[0]}, {c32[0]} != {LARGE_F64[0]}')
+    check(abs(c64[1] - LARGE_F64[1]) <= len(near), f'large_n f64 clash-ok '
+          f'{c64[1]} != {LARGE_F64[1]} beyond {len(near)} poses within '
+          f'1e-9 A^2 of thr^2')
+    check(abs(c32[1] - c64[1]) <= n_tie, f'large_n f32 clash-ok {c32[1]} '
+          f'outside {c64[1]} +- {n_tie}')
+    for dtype, c in counts.items():
+        for k, what in ((2, 'novel'), (3, 'final')):
+            lo, hi = bracket(LARGE_F64[k], LARGE_SLACK)
+            check(lo <= c[k] <= hi, f'large_n {dtype} {what} {c[k]} outside '
+                  f'{(lo, hi)}')
+    check(n_novel == LARGE_DROPPED_NOVEL, f'large_n replay without the '
+          f'collinear quadruplet: {n_novel} novel, JAX x64 gives '
+          f'{LARGE_DROPPED_NOVEL}')
+    print(f'[7 large_n] gates held: candidates {LARGE_F64[0]}, f64 clash-ok '
+          f'{c64[1]} (JAX {LARGE_F64[1]}), f32 clash-ok {c32[1]}, novel and '
+          f'final within {LARGE_SLACK:.0%} of {LARGE_F64[2]} and '
+          f'{LARGE_F64[3]}, replay {n_novel} == {LARGE_DROPPED_NOVEL}')
+    return launches
+
+
+def phase_large_grid(card):
+    '''Phase 7, the grid part: large_n_string at 76 conformers (207,936
+    poses of 148 atoms) through the string embed's tiles, float64 (the
+    JAX x64 clash-ok count) and float32; K1 against its plain twin on
+    the grid, both timed. Returns (clash launches per regime, the
+    largest disagreement outside ties).'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch.embeds.string import bcast_tiles
+    from tscode_tpu_torch.ops.kernels import clash
+    launches = {'thread': 0, 'warp': 0}
+    err = 0
+    with tempfile.TemporaryDirectory(prefix='smoke_large76_') as tmp:
+        inp = suite_input('large_n_string', tmp, LARGE_GRID_CONFS)
+        setups = {dtype: string_setup(inp, dtype)
+                  for dtype in (torch.float64, torch.float32)}
+    for dtype, (grid, angles, _) in setups.items():
+        name = str(dtype).split('.')[-1]
+        clash.KERNEL.reset_counts()
+        tiles = list(bcast_tiles(grid, angles, CLASH))
+        regimes = clash.launches_by_regime()
+        for k in launches:
+            launches[k] += regimes[k]
+        check(regimes['warp'] > 0, f'large_n grid {name}: the warp kernel '
+              f'was not launched ({regimes})')
+        poses = torch.cat([p for p, _ in tiles])
+        ok = torch.cat([o for _, o in tiles])
+        del tiles
+        pairs = grid.pairs
+        off = clash_offsets(poses, pairs)
+        tie, n_near = off < CLASH_TIE, int((off < 1e-9).sum())
+        n_ok = int(ok.sum())
+        if dtype == torch.float64:
+            check(abs(n_ok - LARGE_GRID_OK) <= n_near, f'large_n grid f64 '
+                  f'clash-ok {n_ok} != {LARGE_GRID_OK} beyond {n_near} poses '
+                  f'within 1e-9 A^2 of thr^2')
+
+        def plain():
+            return torch.cat([
+                clash.clash_ok_plain(poses[i:i + LARGE_PLAIN_CHUNK], pairs,
+                                     CLASH)
+                for i in range(0, poses.shape[0], LARGE_PLAIN_CHUNK)])
+
+        got = clash.clash_ok(poses, pairs, CLASH)
+        check(torch.equal(got, ok), f'large_n grid {name}: two launches '
+              f'differ')
+        e, n_tie = compare_bits(got, plain(), tie, f'clash {name} large_n '
+                                f'grid')
+        err = max(err, e)
+        ms = cuda_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
+        ms_plain = cuda_ms(plain, reps=2)
+        print(f'[7 large_n grid {name}] (c) {poses.shape[0]} poses x '
+              f'{poses.shape[1]} atoms, P = {pairs.shape[0]}: K1 {ms:.4f} ms'
+              f', plain {ms_plain:.4f} ms (chunks of {LARGE_PLAIN_CHUNK} '
+              f'poses); clash-ok {n_ok}, equal to plain off {n_tie} tie '
+              f'poses, {n_near} within 1e-9 A^2; launches {regimes}, plan '
+              f'{clash.warp_plan()} [{card}]')
+        del poses, ok, got
+        torch.cuda.empty_cache()
+    return launches, err
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_env()
@@ -617,6 +844,12 @@ def main():
     phase_small_parity()
     kernels = phase_main_f32(card, mols)
     kernels[0]['launches'] += phase_string_route(card)
+    route = phase_large_route(card)
+    grid, errs['clash7'] = phase_large_grid(card)
+    kernels[0]['launches'] += sum(route.values()) + sum(grid.values())
+    print(f'[7 large_n] clash launches by regime: CLI runs {route}, '
+          f'76-conformer grids {grid}')
+    errs['clash'] = max(errs['clash'], errs.pop('clash7'))
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check('jax' not in sys.modules, 'jax was imported')

@@ -11,7 +11,8 @@ from tscode_tpu.ops import clash as jclash
 from tscode_tpu.ops.pallas.clash import (clash_ok_traced,
                                          compenetration_mask_pallas)
 from tscode_tpu_torch.ops import clash as tclash
-from tscode_tpu_torch.ops.kernels.clash import (clash_ok,
+from tscode_tpu_torch.ops.kernels.clash import (CLASH_WARP_MIN_PAIRS,
+                                                clash_ok, clash_regime,
                                                 compenetration_mask_kernel)
 from torch_parity import to_np
 
@@ -81,3 +82,35 @@ def test_pair_list_matches_jax_static_pairs():
     assert pairs.dtype == np.int32 and pairs.shape == (3 * 4 + 3 * 2 + 4 * 2,
                                                        2)
     assert [tuple(p) for p in pairs.tolist()] == list(jclash.static_pairs(pm))
+
+
+@pytest.mark.parametrize('n_pairs,n_atoms,itemsize,regime', [
+    (30, 11, 4, 'thread'),              # the headline and sn2_string
+    (CLASH_WARP_MIN_PAIRS - 1, 16, 8, 'thread'),
+    (CLASH_WARP_MIN_PAIRS, 16, 4, 'warp'),
+    (5476, 148, 4, 'warp'),             # large_n_string
+    (25600, 320, 8, 'warp'),            # two 160-atom fragments
+    (62500, 500, 8, 'warp'),            # past the resident pair list
+    (10 ** 6, 10 ** 4, 8, 'thread'),    # two pose slots do not fit
+])
+def test_clash_regime_choice(n_pairs, n_atoms, itemsize, regime):
+    '''The kernel a CUDA batch would launch, chosen on the host by the
+    pair count and whether two pose slots fit in shared memory.'''
+    assert clash_regime(n_pairs, n_atoms, itemsize) == regime
+
+
+def test_pair_lists_are_unique_and_plain_rejects_repeats():
+    '''static_pairs lists each pair once, in row-major order; a pair
+    listed twice would count twice in the kernels and once in the plain
+    twin's mask, so the plain twin raises on it.'''
+    rng = np.random.default_rng(5)
+    pm = rng.random((12, 12)) < 0.4
+    pairs = tclash.static_pairs(pm)
+    assert len({tuple(p) for p in pairs.tolist()}) == len(pairs) == pm.sum()
+    assert pairs.tolist() == sorted(pairs.tolist())
+    poses = torch.as_tensor(rng.normal(size=(16, 12, 3)) * 2.0)
+    with pytest.raises(ValueError, match='more than once'):
+        clash_ok(poses, np.concatenate([pairs, pairs[2:3]]), 1.5)
+    want = tclash.compenetration_mask(poses, pm, 1.5, 1)
+    np.testing.assert_array_equal(to_np(clash_ok(poses, pairs, 1.5, 1)),
+                                  to_np(want))

@@ -76,6 +76,60 @@ def test_clash_kernel_any_size(cuda_device, dtype):
         assert torch.equal(want[keep], (counts <= mc)[keep])
 
 
+def triangle_pairs(n_atoms):
+    '''Every pair i < j of one molecule: a pair list that is not a
+    rectangle of two fragments.'''
+    i, j = np.triu_indices(n_atoms, k=1)
+    return np.stack([i, j], axis=1).astype(np.int32)
+
+
+WARP_CASES = {
+    # ragged B, P = 1,073 (not a multiple of 32)
+    'ragged': (1000, lambda: clash.static_pairs(
+        cross_fragment_pair_mask((37, 29))), 66),
+    # 62,500 pairs: more than the shared memory holds, the tiled path
+    'tiled': (300, lambda: clash.static_pairs(
+        cross_fragment_pair_mask((250, 250))), 500),
+    # 13 atoms: 156 B (f32) and 312 B (f64) poses, not multiples of 16
+    'odd_pose_bytes': (2051, lambda: triangle_pairs(13), 13),
+}
+
+
+@pytest.mark.parametrize('case', sorted(WARP_CASES))
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_clash_warp_regime_matches_plain(cuda_device, dtype, case):
+    '''The warp-per-pose kernel against the plain twin away from
+    threshold ties, for max_clashes 0, 3 and 100.'''
+    B, make_pairs, N = WARP_CASES[case]
+    pairs_np = make_pairs()
+    assert clash.clash_regime(len(pairs_np), N, dtype.itemsize) == 'warp'
+    rng = np.random.default_rng(B + N)
+    x = rng.normal(size=(B, N, 3)) * 2.0
+    x[:, N // 2:, 0] += rng.uniform(3.0, 12.0, size=(B, 1))
+    poses = torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    pairs = torch.as_tensor(pairs_np, device=cuda_device)
+    P = poses.double()
+    pl = pairs.long()
+    d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+    keep = ~((d2 - 2.25).abs() < 1e-4).any(dim=1)     # no threshold ties
+    counts = torch.sum(d2 < 2.25, dim=1)
+    clash.KERNEL.reset_counts()
+    for mc in (0, 3, 100):
+        want = torch.cat([clash.clash_ok_plain(poses[i:i + 128], pairs, 1.5,
+                                               mc)
+                          for i in range(0, B, 128)])
+        got = clash.clash_ok(poses, pairs, 1.5, mc)
+        assert torch.equal(got[keep], want[keep])
+        assert torch.equal(want[keep], (counts <= mc)[keep])
+        if mc == 0:
+            assert 0 < int(want.sum()) < B
+    assert clash.launches_by_regime() == {'thread': 0, 'warp': 3}
+    plan = clash.warp_plan()
+    assert (plan['tile'] < len(pairs_np)) == (case == 'tiled')
+    if case == 'odd_pose_bytes':
+        assert plan['granule'] == (4 if dtype == torch.float32 else 8)
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_qcp_kernel_planted_and_random_blocks(cuda_device, dtype):
     rng = np.random.default_rng(3)

@@ -46,8 +46,9 @@ def nvcc_path():
 
 class CudaKernel:
     '''One kernel library of csrc/: built at first use, its launches
-    counted. `symbols` maps each exported C function to its ctypes
-    argtypes; every function returns an int cudaError_t.'''
+    counted, in all and per entry. `symbols` maps each exported C
+    function to its ctypes argtypes; every function returns an int
+    cudaError_t.'''
 
     def __init__(self, name, symbols):
         self.name = name
@@ -55,8 +56,13 @@ class CudaKernel:
         self.library = os.path.join(BUILD_DIR, f'lib{name}.so')
         self.symbols = symbols
         self.launches = 0          # kernel launches since the last reset
+        self.entry_launches = dict.fromkeys(symbols, 0)   # the same, per entry
         self.build_seconds = None  # nvcc time in this process, 0.0 if fresh
         self._lib = None
+
+    def reset_counts(self):
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.symbols, 0)
 
     def build(self):
         '''Compile when the library is missing or older than its source;
@@ -110,6 +116,7 @@ class CudaKernel:
                 f'{self.name}.{symbol} launch failed: cudaError {code} '
                 f'({lib.tt_error_string(code).decode()})')
         self.launches += 1
+        self.entry_launches[symbol] += 1
 
 
 def stream_of(tensor):

@@ -1,17 +1,24 @@
 '''
-Clash screen: the hand-written CUDA kernel `csrc/clash.cu` and its plain
-PyTorch twin.
+Clash screen: the hand-written CUDA kernels of `csrc/clash.cu` and their
+plain PyTorch twin.
 
 Replaces the Pallas TPU kernels of tscode_tpu/ops/pallas/clash.py:
-K1 `clash_ok_traced` (:99, the production screen) and K2
-`compenetration_mask_pallas` (:70, same math with a pair mask). Both
-entries below launch the one CUDA kernel: one thread per pose, the pair
-list passed through shared memory in tiles, any batch size, atom count
-and pair count. The kernel's note says what bounds it on the card.
+K1 `clash_ok_traced` (:119, the production screen) and K2
+`compenetration_mask_pallas` (:55, same math with a pair mask). Both
+entries below launch one of two CUDA kernels, chosen by `clash_regime`
+from the pair count: one thread per pose for small pair lists, one warp
+per pose (pair list resident in shared memory, poses double-buffered
+with cp.async) for large ones. Any batch size, atom count and pair
+count is taken. The kernels' note says what bounds each regime on the
+card.
+
+Pair lists hold each (i, j) pair once, as `static_pairs` makes them:
+the kernels count a listed pair each time it is listed, the plain twin's
+pair mask only once, so the plain twin raises on a repeated pair.
 
 On a CPU tensor each entry runs the plain version (the matmul form of
 tscode_tpu/ops/clash.compenetration_mask); on a CUDA tensor it launches
-the kernel or raises.
+a kernel or raises.
 '''
 
 import ctypes
@@ -28,15 +35,61 @@ _TAIL = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 KERNEL = CudaKernel('clash', {
     'clash_ok_f32': _ENTRY + (ctypes.c_float,) + _TAIL,
     'clash_ok_f64': _ENTRY + (ctypes.c_double,) + _TAIL,
+    'clash_ok_warp_f32': _ENTRY + (ctypes.c_float,) + _TAIL,
+    'clash_ok_warp_f64': _ENTRY + (ctypes.c_double,) + _TAIL,
 })
 
-_SYMBOL = {torch.float32: ('clash_ok_f32', ctypes.c_float),
-           torch.float64: ('clash_ok_f64', ctypes.c_double)}
+_SYMBOL = {('thread', torch.float32): ('clash_ok_f32', ctypes.c_float),
+           ('thread', torch.float64): ('clash_ok_f64', ctypes.c_double),
+           ('warp', torch.float32): ('clash_ok_warp_f32', ctypes.c_float),
+           ('warp', torch.float64): ('clash_ok_warp_f64', ctypes.c_double)}
+
+# The warp regime takes pair lists of at least this many pairs, as long
+# as two pose slots and one 128-pair step fit in a block's shared memory
+# (the card's opt-in limit). The crossover, measured on an NVIDIA H100
+# 80GB HBM3 at 700 W with 415,872 f32 poses: thread 0.066 ms against
+# warp 0.083 ms at P = 30, even from P = 49 to 56, warp 0.086 ms against
+# thread 0.269 ms at P = 64 (PERF.md section 6 has the sweep).
+CLASH_WARP_MIN_PAIRS = 64
+SMEM_OPTIN_BYTES = 232448
+
+
+def clash_regime(n_pairs, n_atoms, itemsize):
+    '''"thread" (one thread per pose) or "warp" (one warp per pose): the
+    kernel the entries launch for P = n_pairs pairs on poses of n_atoms
+    atoms of `itemsize`-byte values.'''
+    slot = -(-n_atoms * 3 * itemsize // 16) * 16
+    if n_pairs >= CLASH_WARP_MIN_PAIRS and \
+            2 * slot + 4 * 128 <= SMEM_OPTIN_BYTES:
+        return 'warp'
+    return 'thread'
+
+
+def launches_by_regime():
+    '''Kernel launches since the last KERNEL.reset_counts(), per regime.'''
+    n = KERNEL.entry_launches
+    return {r: sum(v for k, v in n.items() if ('warp' in k) == (r == 'warp'))
+            for r in ('thread', 'warp')}
+
+
+def warp_plan():
+    '''The launch plan of the last warp-regime launch in this process:
+    warps per block, pose slots per warp, blocks per SM, pairs per
+    shared-memory tile, blocks, cp.async granule bytes, shared memory
+    bytes per block.'''
+    fn = KERNEL.build().clash_warp_last_plan
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    fn(ctypes.cast(out, ctypes.c_void_p))
+    keys = ('warps', 'nbuf', 'blocks_per_sm', 'tile', 'blocks', 'granule',
+            'smem')
+    return dict(zip(keys, list(out)))
 
 
 def static_pairs(pair_mask):
     '''(P, 2) int32 array of the (i, j) pairs set in a host pair mask,
-    row-major order (the JAX package's static pair tuple as an array).'''
+    row-major order, each pair once (the JAX package's static pair tuple
+    as an array).'''
     mask = pair_mask.cpu().numpy() if torch.is_tensor(pair_mask) \
         else np.asarray(pair_mask)
     return np.stack(np.nonzero(mask), axis=1).astype(np.int32).reshape(-1, 2)
@@ -69,9 +122,13 @@ def clash_counts_plain(poses, pair_mask, thresh):
 
 
 def pair_mask_from_pairs(pairs, n_atoms, device):
+    '''(N, N) bool mask of a pair list; raises ValueError when a pair is
+    listed twice (the kernels would count it twice).'''
     mask = torch.zeros((n_atoms, n_atoms), dtype=torch.bool, device=device)
-    pairs = torch.as_tensor(pairs, device=device).long()
+    pairs = torch.as_tensor(pairs, device=device).long().reshape(-1, 2)
     mask[pairs[:, 0], pairs[:, 1]] = True
+    if int(mask.sum()) != pairs.shape[0]:
+        raise ValueError('the pair list holds a pair more than once')
     return mask
 
 
@@ -81,11 +138,11 @@ def clash_ok_plain(poses, pairs, thresh, max_clashes=0):
     return clash_counts_plain(poses, mask, thresh) <= max_clashes
 
 
-# ---------------------------------------------------------------- kernel
+# --------------------------------------------------------------- kernels
 
 
 def _launch(poses, pairs, thresh, max_clashes):
-    if poses.dtype not in _SYMBOL:
+    if poses.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'clash kernel takes float32/float64, '
                         f'got {poses.dtype}')
     if poses.dim() != 3 or poses.shape[2] != 3:
@@ -98,8 +155,9 @@ def _launch(poses, pairs, thresh, max_clashes):
         raise ValueError('pairs must be a contiguous int32 (P, 2) tensor '
                          'on the poses device')
     B, N = poses.shape[0], poses.shape[1]
+    regime = clash_regime(pairs.shape[0], N, poses.element_size())
     out = torch.empty(B, dtype=torch.bool, device=poses.device)
-    symbol, c_thr = _SYMBOL[poses.dtype]
+    symbol, c_thr = _SYMBOL[regime, poses.dtype]
     KERNEL.launch(symbol, ptr(poses), B, N, ptr(pairs), pairs.shape[0],
                   c_thr(thresh_squared(thresh, poses.dtype)),
                   int(max_clashes), ptr(out), stream_of(poses))
@@ -108,9 +166,9 @@ def _launch(poses, pairs, thresh, max_clashes):
 
 def clash_ok(poses, pairs, thresh, max_clashes=0):
     '''K1: accept mask of a pose batch. poses (B, N, 3) float32/float64;
-    pairs (P, 2) int32 atom index pairs (tensor or array); a pose passes
-    when at most `max_clashes` pairs are closer than `thresh`.
-    Returns (B,) bool on the poses' device.'''
+    pairs (P, 2) int32 distinct atom index pairs (tensor or array); a
+    pose passes when at most `max_clashes` pairs are closer than
+    `thresh`. Returns (B,) bool on the poses' device.'''
     if poses.device.type == 'cpu':
         return clash_ok_plain(poses, pairs, thresh, max_clashes)
     pairs = torch.as_tensor(pairs, dtype=torch.int32,

@@ -45,6 +45,26 @@ def torsion_fingerprints(coords, quadruplets):
     return dihedral(coords[..., quads, :]).to(torch.float32)
 
 
+def torsion_end_sines(coords, quadruplets):
+    '''(..., Q) float64: for each torsion quadruplet (a, b, c, d), the
+    smaller sine of its end angles a-b-c and b-c-d. Where it is ~0 the
+    dihedral, and so that fingerprint entry, is rounding noise (an SN2
+    leaving group on the axis of the reactive bond gives such a
+    quadruplet). A diagnostic for tests and checks: the fingerprints
+    keep every quadruplet, as the JAX package's do.'''
+    quads = torch.as_tensor(np.asarray(quadruplets, dtype=np.int64),
+                            device=coords.device).reshape(-1, 4)
+    p = coords[..., quads, :].double()
+
+    def sine(u, v):
+        return torch.linalg.norm(torch.linalg.cross(u, v, dim=-1), dim=-1) \
+            / (torch.linalg.norm(u, dim=-1) * torch.linalg.norm(v, dim=-1))
+
+    b, c = p[..., 1, :], p[..., 2, :]
+    return torch.minimum(sine(p[..., 0, :] - b, c - b),
+                         sine(b - c, p[..., 3, :] - c))
+
+
 def wrapped_l1(A, B):
     '''(R, Q) x (C, Q) -> (R, C) float64 total wrapped angle difference:
     per torsion |a - b|, or 360 - |a - b| past 180 degrees, summed in
