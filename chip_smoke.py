@@ -14,6 +14,7 @@ at 16 conformers, the exact novelty replay without the collinear
 torsion quadruplet, and the 207,936-pose grid at 76 conformers.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
 
 Exits nonzero, with no result line, when CUDA is not available or any
 phase fails. The last line is
@@ -38,6 +39,17 @@ F32_FINAL = (22, 30)
 CLASH_TIE = 1e-4             # A^2: |d2 - thr^2| below this is a tie
 QCP_TIE = {'float32': 1e-4, 'float64': 1e-9}   # A, on rmsd and maxdev
 DEV = 'cuda'
+
+# bounds: NVIDIA H100 SXM data sheet rates (memory; float32 and float64
+# outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'float32': 67e12, 'float64': 34e12}
+NEWTON_STEPS = {'float32': 12, 'float64': 30}
+# device_ms holds the card this long (~5 ms) while the host queues calls
+SLEEP_CYCLES = 10 ** 7
+# K3 on long chunks: one chunk (k = 1) of this many rows, sparse copies
+LONG_ROWS = 4096
+LONG_BASES = 8192
 
 # the string route (phase 6): bench_suite's sn2_string at 76 conformers
 STRING_CONFS = 76
@@ -96,7 +108,7 @@ def phase_env():
         import networkx
     except ImportError as e:
         raise SmokeFailure(f'networkx is missing ({e}); the molecule '
-                           f'graph code of tscode_tpu needs it') from e
+                           f'graph code of tscode_tpu_torch needs it') from e
     print(f'[1 env] device {torch.cuda.get_device_name(0)} | nvidia-smi: '
           f'{card} | torch {torch.__version__} | cuda {torch.version.cuda} '
           f'| networkx {networkx.__version__} | python '
@@ -105,9 +117,13 @@ def phase_env():
 
 
 def phase_build():
+    '''Build every kernel library at once, one nvcc per source.'''
+    from concurrent.futures import ThreadPoolExecutor
     from tscode_tpu_torch.ops.kernels import clash, qcp
-    for k in (clash.KERNEL, qcp.KERNEL):
-        k.build()
+    libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda k: k.build(), libs))
+    for k in libs:
         regs = [ln.strip() for ln in k.build_log().splitlines()
                 if 'registers' in ln]
         print(f'[2 build] {k.name}: {k.build_seconds:.2f} s '
@@ -130,6 +146,24 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps=10):
+    '''Mean device milliseconds per call after one warm-up call: the
+    calls are queued behind a sleep kernel, so CUDA events around them
+    time the card's work and not the host's enqueue.'''
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def clash_ties(poses, pairs, thresh):
     '''(B,) bool: poses with a listed pair within CLASH_TIE of thr^2
     (exact float64 difference form).'''
@@ -141,25 +175,14 @@ def clash_ties(poses, pairs, thresh):
     return ((d2 - thresh * thresh).abs() < CLASH_TIE).any(dim=1)
 
 
-def pass_pairs(end, positions):
-    '''All (p, q) position pairs of a pass with q in (p, end[p]), for the
-    given positions p.'''
-    import torch
-    lens = torch.clamp(end[positions] - positions - 1, min=0)
-    p = positions.repeat_interleave(lens)
-    first = torch.cumsum(lens, 0) - lens
-    off = torch.arange(p.numel(), device=p.device) - \
-        first.repeat_interleave(lens)
-    return p, p + 1 + off
-
-
 def qcp_tie_rows(hs, act, end, positions, tol, chunk=1 << 20):
     '''(len(positions),) bool: positions with a pass pair whose float64
     rmsd lies within tol of thr, or maxdev within tol of 2*thr.'''
     import torch
+    from tscode_tpu_torch.ops.kernels.qcp import pass_pairs
     from tscode_tpu_torch.ops.linalg import rmsd_and_max
     hs64 = hs.double()
-    p, q = pass_pairs(end, positions)
+    p, q = pass_pairs(end.long(), positions)
     tie = torch.zeros(p.numel(), dtype=torch.bool, device=hs.device)
     for i in range(0, p.numel(), chunk):
         a = hs64[act[p[i:i + chunk]]]
@@ -180,6 +203,135 @@ def compare_bits(got, want, tie, what):
           f'{what}: {int((diff & ~tie).sum())} rows disagree away from '
           f'any threshold tie')
     return int(diff[~tie].sum() > 0), int(tie.sum())
+
+
+def qcp_pair_flops(N, name):
+    '''Operations of one pair evaluation of csrc/qcp_kill.cu: 24 N for
+    S and GB, ~90 for the quartic's coefficients and the rmsd gate, ~14
+    for each Newton step.'''
+    return 24 * N + 90 + 14 * NEWTON_STEPS[name]
+
+
+def qcp_bound(M, row_bytes, pairs, N, name):
+    '''(bound_ms, bound_by) of one pass: each active row read once with
+    its act and end entries (4 B each) and one kill byte written, against
+    the pair evaluations these data need (up to each row's first hit).'''
+    t_bytes = M * (row_bytes + 9) / HBM_BYTES_PER_S
+    t_ops = pairs * qcp_pair_flops(N, name) / PEAK_FLOPS[name]
+    return max(t_bytes, t_ops) * 1e3, \
+        'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def ab_ms(parent, change):
+    '''Both engines' device times in one call, in the order parent,
+    change, change, parent: ((parent, parent), (change, change)) ms.'''
+    p1 = device_ms(parent)
+    c1 = device_ms(change)
+    c2 = device_ms(change)
+    return (p1, device_ms(parent)), (c1, c2)
+
+
+def schedule_passes(hs):
+    '''The headline prune over hs with K3, its passes kept:
+    ([(k, act, end)], kept).'''
+    from tscode_tpu_torch.ops.kernels import qcp
+    from tscode_tpu_torch.ops.rmsd_prune import (
+        K_SCHEDULE, prune_conformers_rmsd_device)
+    seen = []
+
+    def kept_pass(h, act, end, thr):
+        seen.append((act, end))
+        return qcp.qcp_kill(h, act, end, thr)
+
+    keep = prune_conformers_rmsd_device(hs, THR, pair_kill=kept_pass)
+    ks = iter(K_SCHEDULE)        # a pass runs k when 20 k < its M, or k = 1
+    passes = [(int(next(k for k in ks if k == 1 or 20 * k < act.numel())),
+               act, end) for act, end in seen]
+    return passes, int(keep.sum())
+
+
+def qcp_pass(card, hs, act, end, name, what, plain_time):
+    '''K3 on one pass: kill bits of the kernel and of the thread-per-row
+    kernel against plain off ties, the walks (plain helper on the card),
+    the A/B times, plain's time if asked, and the bound. Returns
+    (record, largest disagreement off ties).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import qcp
+    M, N = act.numel(), hs.shape[1]
+    walk = qcp.walk_lengths(hs, act, end, THR)
+    got = qcp.qcp_kill(hs, act, end, THR)
+    want = qcp.qcp_kill_plain(hs, act, end, THR)
+    thread = qcp.qcp_kill_thread(hs, act, end, THR)
+    diff = torch.nonzero((got != want) | (thread != want)).squeeze(1)
+    tie = torch.zeros_like(got)
+    if diff.numel():
+        tie[diff] = qcp_tie_rows(hs, act, end, diff, QCP_TIE[name])
+    err, _ = compare_bits(got, want, tie, f'qcp {name} {what}')
+    compare_bits(thread, want, tie, f'qcp thread-per-row {name} {what}')
+    act32, end32 = act.int().contiguous(), end.int().contiguous()
+    (p1, p2), (c1, c2) = ab_ms(
+        lambda: qcp.qcp_kill_thread(hs, act32, end32, THR),
+        lambda: qcp.qcp_kill(hs, act32, end32, THR))
+    plain_ms = cuda_ms(lambda: qcp.qcp_kill_plain(hs, act, end, THR),
+                       reps=1) if plain_time else None
+    pairs, longest = int(walk.sum()), int(walk.max()) if M else 0
+    bound, by = qcp_bound(M, N * 3 * hs.element_size(), pairs, N, name)
+    rec = {'pass': what, 'dtype': name, 'M': M, 'N': N,
+           'longest_walk': longest, 'pairs': pairs,
+           'kills': int(got.sum()), 'ms': [c1, c2], 'parent_ms': [p1, p2],
+           'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+           'plan': list(qcp.launch_plan(M)),
+           'equal_to_thread_kernel': bool(torch.equal(got, thread))}
+    plain = f', plain {plain_ms:.4f}' if plain_time else ''
+    print(f'[5 qcp {name}] {what}: M={M} N={N}, longest walk {longest}, '
+          f'{pairs} pairs, {rec["kills"]} kills ({int(tie.sum())} tie rows '
+          f'differ), plan {rec["plan"]}: kernel {c1:.4f} / {c2:.4f} ms, '
+          f'thread-per-row {p1:.4f} / {p2:.4f} ms{plain}, bound '
+          f'{bound:.4f} ms ({by}); kill bits equal to the thread-per-row '
+          f'kernel\'s: {rec["equal_to_thread_kernel"]} [{card}]')
+    return rec, err
+
+
+def qcp_headline_passes(card, hs, name):
+    '''K3 on each pass of the headline prune in dtype `name` (the clash
+    survivors' heavy atoms), plain timed at the first pass only.
+    Returns (records, kept, largest disagreement off ties).'''
+    passes, kept = schedule_passes(hs)
+    recs, err = [], 0
+    for i, (k, act, end) in enumerate(passes):
+        rec, e = qcp_pass(card, hs, act, end, name, f'k={k}', i == 0)
+        recs.append(rec)
+        err = max(err, e)
+    return recs, kept, err
+
+
+def long_chunk(N, dtype):
+    '''One long chunk: LONG_ROWS rows under k = 1, noisy copies of
+    LONG_BASES base structures drawn at random, so most rows have no
+    later copy and walk to the end, thousands of pairs. -> (hs, act,
+    end) on the card.'''
+    import torch
+    rng = np.random.default_rng(LONG_ROWS + N)
+    base = rng.normal(size=(LONG_BASES, N, 3)) * 1.5
+    pool = base[rng.integers(0, LONG_BASES, size=LONG_ROWS)] + \
+        rng.normal(size=(LONG_ROWS, N, 3)) * 0.05
+    act = torch.arange(LONG_ROWS, device=DEV)
+    return (torch.as_tensor(pool, dtype=dtype, device=DEV), act,
+            torch.full_like(act, LONG_ROWS))
+
+
+def qcp_long_chunks(card):
+    '''K3 on the long chunks, N = 4 and 8, f32 and f64.'''
+    import torch
+    recs, err = [], 0
+    for N in (4, 8):
+        for dtype in (torch.float32, torch.float64):
+            hs, act, end = long_chunk(N, dtype)
+            rec, e = qcp_pass(card, hs, act, end, str(dtype).split('.')[-1],
+                              f'one chunk of {LONG_ROWS}', True)
+            recs.append(rec)
+            err = max(err, e)
+    return recs, err
 
 
 def big_fragment_poses(rng, n_poses, n_atoms):
@@ -323,7 +475,7 @@ def phase_kernels():
 def phase_main_f64(card, mols):
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
-    from tscode_tpu_torch.pipeline import (embed_clash_all,
+    from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
                                            inputs_from_numpy, run_pipeline)
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
@@ -353,6 +505,12 @@ def phase_main_f64(card, mols):
         print(f'[4 main f64] pose {i} within 1e-9 A^2 of the clash threshold')
     print(f'[4 main f64] {near.numel()} poses within 1e-9 A^2 of thr^2')
 
+    _, hs = clash_survivors(inp)
+    recs, kept, err = qcp_headline_passes(card, hs, 'float64')
+    check(kept == F64_COUNTS[1], f'f64 pass-by-pass schedule keeps {kept}, '
+          f'expected {F64_COUNTS[1]}')
+    return recs, err
+
 
 def phase_small_parity():
     '''The 2,592-pose grid on the card in f64 against the CPU run of the
@@ -377,8 +535,7 @@ def phase_small_parity():
 def phase_main_f32(card, mols):
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
-    from tscode_tpu_torch.ops.rmsd_prune import (
-        pass_chunks, prune_conformers_rmsd_device)
+    from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd_device
     from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
                                            inputs_from_numpy, run_pipeline)
     clash.KERNEL.reset_counts()
@@ -429,22 +586,11 @@ def phase_main_f32(card, mols):
           f'({n_tie} tie poses) [{card}]')
 
     _, hs = clash_survivors(inp)
-    mask = torch.ones(hs.shape[0], dtype=torch.bool, device=hs.device)
-    act, end = pass_chunks(mask, hs.shape[0], 10000)
-    got = qcp.qcp_kill(hs, act, end, THR)
-    want = qcp.qcp_kill_plain(hs, act, end, THR)
-    diff = torch.nonzero(got != want).squeeze(1)
-    tie = torch.zeros_like(got)
-    if diff.numel():
-        tie[diff] = qcp_tie_rows(hs, act, end, diff, QCP_TIE['float32'])
-    err_qcp, _ = compare_bits(got, want, tie, 'qcp f32 first pass')
-    ms_pass = cuda_ms(lambda: qcp.qcp_kill(hs, act, end, THR))
-    ms_pass_plain = cuda_ms(lambda: qcp.qcp_kill_plain(hs, act, end, THR),
-                            reps=2)
-    print(f'[5 main f32] qcp_kill first pass (k=10000, {act.numel()} '
-          f'active, N={hs.shape[1]}): kernel {ms_pass:.4f} ms, plain '
-          f'{ms_pass_plain:.4f} ms, {int(got.sum())} kills, '
-          f'{diff.numel()} tie rows differ [{card}]')
+    recs, kept, err_qcp = qcp_headline_passes(card, hs, 'float32')
+    check(kept == n_final, f'f32 pass-by-pass schedule keeps {kept}, the '
+          f'prune {n_final}')
+    long_recs, e = qcp_long_chunks(card)
+    err_qcp = max(err_qcp, e)
 
     def prune(engine):
         torch.cuda.synchronize()
@@ -452,23 +598,40 @@ def phase_main_f32(card, mols):
         keep = prune_conformers_rmsd_device(hs, THR, pair_kill=engine)
         return (time.perf_counter() - t0) * 1e3, keep
 
-    ms_prune, keep_k = min((prune(qcp.qcp_kill) for _ in range(3)),
-                           key=lambda r: r[0])
+    def best_prune(engine):
+        return min((prune(engine) for _ in range(3)), key=lambda r: r[0])
+
+    ms_thread, keep_t = best_prune(qcp.qcp_kill_thread)
+    ms_prune, keep_k = best_prune(qcp.qcp_kill)
+    ms_prune2, _ = best_prune(qcp.qcp_kill)
+    ms_thread2, _ = best_prune(qcp.qcp_kill_thread)
     ms_prune_plain, keep_p = prune(qcp.qcp_kill_plain)
-    print(f'[5 main f32] whole prune of {hs.shape[0]} survivors: kernel '
-          f'{ms_prune:.3f} ms, plain {ms_prune_plain:.3f} ms, '
-          f'{int(keep_k.sum())} vs {int(keep_p.sum())} kept [{card}]')
+    check(np.array_equal(keep_k, keep_t), 'f32 prune: the kernel and the '
+          'thread-per-row kernel keep different rows')
+    print(f'[5 main f32] whole prune of {hs.shape[0]} survivors, best of 3 '
+          f'(host clock): kernel {ms_prune:.3f} / {ms_prune2:.3f} ms, '
+          f'thread-per-row kernel {ms_thread:.3f} / {ms_thread2:.3f} ms, '
+          f'plain {ms_prune_plain:.3f} ms, {int(keep_k.sum())} vs '
+          f'{int(keep_p.sum())} kept [{card}]')
+    n_pairs = pairs.shape[0]
+    clash_bytes = poses.numel() * poses.element_size() + n_pairs * 8 + \
+        poses.shape[0]
+    first = recs[0]
     return [
         {'name': 'clash_ok', 'route': 'cuda',
          'source': 'tscode_tpu_torch/csrc/clash.cu',
          'replaces': 'tscode_tpu/ops/pallas/clash.py:119',
          'launches': launches['clash'], 'max_abs_err': err_clash,
-         'ms': ms_clash, 'plain_ms': ms_clash_plain},
+         'ms': ms_clash, 'plain_ms': ms_clash_plain,
+         'bound_ms': clash_bytes / HBM_BYTES_PER_S * 1e3,
+         'bound_by': 'bytes', 'library_ms': None},
         {'name': 'qcp_kill', 'route': 'cuda',
          'source': 'tscode_tpu_torch/csrc/qcp_kill.cu',
          'replaces': 'tscode_tpu/ops/pallas/qcp.py:240',
          'launches': launches['qcp_kill'], 'max_abs_err': err_qcp,
-         'ms': ms_pass, 'plain_ms': ms_pass_plain},
+         'ms': sum(first['ms']) / 2, 'plain_ms': first['plain_ms'],
+         'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
+         'library_ms': None, 'passes': recs + long_recs},
     ]
 
 
@@ -478,7 +641,7 @@ def run_string_cli(tmp, inp, dtype):
     (report, frames (F, N, 3), clash launches per regime, seconds).'''
     import contextlib
     import os
-    from tscode_tpu.io_xyz import read_xyz
+    from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
     from tscode_tpu_torch.ops.kernels import clash
     stamp = f'smoke_{dtype}'
@@ -508,7 +671,7 @@ def string_setup(inp, dtype):
     import contextlib
     import io
     import os
-    from tscode_tpu.graphs import get_quadruplets, get_sum_graph
+    from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph
     from tscode_tpu_torch.embedder import Embedder
     from tscode_tpu_torch.embeds.common import inputs_from_numpy
     from tscode_tpu_torch.embeds.string import spin_angles
@@ -529,14 +692,9 @@ def string_setup(inp, dtype):
 
 def suite_input(name, tmp, n_confs):
     '''bench_suite's `name` input at n_confs conformers, written into
-    tmp; returns the input file's path.'''
-    import bench_suite
-    saved = bench_suite.N_CONFS
-    bench_suite.N_CONFS = n_confs
-    try:
-        return bench_suite._config_files(name, tmp)
-    finally:
-        bench_suite.N_CONFS = saved
+    tmp by the port's own writer; returns the input file's path.'''
+    from tscode_tpu_torch.suite_inputs import config_files
+    return config_files(name, tmp, n_confs)
 
 
 def clash_offsets(poses, pairs):
@@ -832,17 +990,66 @@ def phase_large_grid(card):
     return launches, err
 
 
+def qcp_plan_sweep(card, out):
+    '''K3's launch plans timed at every headline pass in float32 and on
+    the long chunks (the measurement behind qcp.launch_plan): each
+    lanes-per-row count with phase-1 budgets of 1 to 64 steps and
+    unbounded, beside the thread-per-row kernel. Prints one line per
+    pass and writes every time as JSON to the file `out`.'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import qcp
+    from tscode_tpu_torch.pipeline import (build_workload, clash_survivors,
+                                           inputs_from_numpy)
+    _, hs = clash_survivors(inputs_from_numpy(*build_workload(), DEV,
+                                              torch.float32))
+    passes, _ = schedule_passes(hs)
+    cases = [(f'k={k}', hs, act, end) for k, act, end in passes] + \
+        [(f'long N={N}',) + long_chunk(N, torch.float32) for N in (4, 8)]
+    table = []
+    for what, h, act, end in cases:
+        act, end = act.int().contiguous(), end.int().contiguous()
+        want = qcp.qcp_kill_thread(h, act, end, THR)
+        row = {'pass': what, 'M': act.numel(), 'default': list(
+            qcp.launch_plan(act.numel())), 'thread_ms': device_ms(
+                lambda: qcp.qcp_kill_thread(h, act, end, THR)), 'ms': {},
+               'rows_unlike_thread': {}}
+        for lanes in range(6):
+            for steps in (1, 2, 4, 8, 16, 64, None):
+                plan = (lanes, (steps << lanes) if steps else 1 << 30)
+                got = qcp.qcp_kill(h, act, end, THR, plan=plan)
+                key = f'{lanes}/{steps}'
+                row['ms'][key] = device_ms(
+                    lambda: qcp.qcp_kill(h, act, end, THR, plan=plan))
+                row['rows_unlike_thread'][key] = int((got != want).sum())
+        best = min(row['ms'], key=row['ms'].get)
+        default = row['ms'][f'{row["default"][0]}/{qcp.BUDGET_STEPS}']
+        print(f'[qcp plans] {what}: M={row["M"]}, thread-per-row '
+              f'{row["thread_ms"]:.4f} ms, best lanes_log2/steps {best} '
+              f'{row["ms"][best]:.4f} ms, default plan {row["default"]} '
+              f'{default:.4f} ms; rows unlike the thread-per-row kernel at '
+              f'most {max(row["rows_unlike_thread"].values())} [{card}]')
+        table.append(row)
+    with open(out, 'w') as f:
+        json.dump({'card': card, 'qcp_plans': table}, f, indent=1)
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_env()
+    if sys.argv[1:2] == ['--qcp-plans']:     # --qcp-plans OUT.json
+        phase_build()
+        qcp_plan_sweep(card, sys.argv[2])
+        return
     import torch
     from tscode_tpu_torch.pipeline import build_workload
     phase_build()
     errs = phase_kernels()
     mols = build_workload()
-    phase_main_f64(card, mols)
+    recs64, errs['qcp_f64'] = phase_main_f64(card, mols)
     phase_small_parity()
     kernels = phase_main_f32(card, mols)
+    kernels[1]['passes'] += recs64
+    errs['qcp_kill'] = max(errs['qcp_kill'], errs.pop('qcp_f64'))
     kernels[0]['launches'] += phase_string_route(card)
     route = phase_large_route(card)
     grid, errs['clash7'] = phase_large_grid(card)
@@ -853,6 +1060,10 @@ def main():
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check('jax' not in sys.modules, 'jax was imported')
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == 'tscode_tpu' or m.startswith('tscode_tpu.'))
+    check(not jax_pkg, f'modules of the JAX package were imported: '
+          f'{jax_pkg[:5]}')
     print(f'[done] {time.perf_counter() - t0:.1f} s')
     print(f'nvidia-smi: {card}')
     print(json.dumps({'kernels': kernels}))

@@ -12,7 +12,9 @@ import torch
 
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
-from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd_device
+from tscode_tpu_torch.ops.linalg import rmsd_and_max
+from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
+                                             prune_conformers_rmsd_device)
 from tscode_tpu_torch.pipeline import build_workload, run_pipeline
 from torch_parity import cuda_device, near_dup_blocks, near_dup_pool  # noqa: F401
 
@@ -151,6 +153,91 @@ def test_qcp_kernel_planted_and_random_blocks(cuda_device, dtype):
             act, end = qcp.blocks_as_pass(m_real, 64)
             want = qcp.qcp_kill_plain(P.reshape(-1, N, 3), act, end, 0.5)
             assert torch.equal(got, want) and 0 < int(got.sum()) < 4096
+
+
+QCP_TIE = {torch.float32: 1e-4, torch.float64: 1e-9}   # A
+
+
+def qcp_pass_case(case, N, dev):
+    '''(hs float64 (n, N, 3), act, end) of one pass on the card.'''
+    rng = np.random.default_rng(len(case) * 10 + N)
+    if case == 'ragged':                  # M = 1,011 active, 13 chunks
+        hs = near_dup_pool(rng, 1037, N, 150)
+        mask = torch.ones(1037, dtype=torch.bool)
+        mask[rng.choice(1037, 26, replace=False)] = False
+        act, end = pass_chunks(mask, 1037, 13)
+    elif case in ('last_candidate', 'no_hits'):
+        hs = rng.normal(size=(600, N, 3)) * 3.0   # far apart
+        act = torch.arange(600)
+        end = torch.as_tensor(np.repeat([200, 400, 600], 200))
+        if case == 'last_candidate':      # first hits at the chunk's end
+            for p, q in ((0, 199), (1, 198), (200, 399), (450, 599)):
+                hs[q] = hs[p] + rng.normal(size=(N, 3)) * 0.05
+    else:                                 # one chunk of 3,000 rows
+        hs = near_dup_pool(rng, 3000, N, 1500)
+        act = torch.arange(3000)
+        end = torch.full((3000,), 3000)
+    return (torch.as_tensor(hs, device=dev), act.to(dev), end.to(dev))
+
+
+def qcp_tie_rows(hs64, act, end, tol):
+    '''(M,) bool: positions with a pass pair whose float64 rmsd lies
+    within tol of 0.5 or maxdev within tol of 1.0.'''
+    p, q = qcp.pass_pairs(end.long(), torch.arange(act.numel(),
+                                                   device=act.device))
+    rows = torch.zeros(act.numel(), dtype=torch.bool, device=act.device)
+    for i in range(0, p.numel(), 1 << 20):
+        pi, qi = p[i:i + (1 << 20)], q[i:i + (1 << 20)]
+        rmsd, maxdev = rmsd_and_max(hs64[act[pi]], hs64[act[qi]])
+        tie = ((rmsd - 0.5).abs() < tol) | ((maxdev - 1.0).abs() < tol)
+        rows[pi[tie]] = True
+    return rows
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('N', [4, 8])
+@pytest.mark.parametrize('case', ['ragged', 'last_candidate', 'no_hits',
+                                  'one_chunk_3000'])
+def test_qcp_warp_kernel_every_plan_matches_plain(cuda_device, dtype, N,
+                                                  case):
+    '''Every lanes-per-row plan, phase-1 budget 0 (all in phase 2),
+    8 steps and unbounded (all in phase 1), equals the plain twin off
+    threshold ties, and the thread-per-row kernel.'''
+    hs64, act, end = qcp_pass_case(case, N, cuda_device)
+    hs = hs64.to(dtype)
+    want = qcp.qcp_kill_plain(hs, act, end, 0.5)
+    tie = qcp_tie_rows(hs64, act, end, QCP_TIE[dtype])
+    assert torch.equal(qcp.qcp_kill_thread(hs, act, end, 0.5)[~tie],
+                       want[~tie])
+    plans = [None] + [(lanes, budget) for lanes in range(6)
+                      for budget in (0, 8 << lanes, 1 << 30)]
+    for plan in plans:
+        got = qcp.qcp_kill(hs, act, end, 0.5, plan=plan)
+        assert torch.equal(got[~tie], want[~tie]), plan
+    n_kill = int(want.sum())
+    if case == 'no_hits':
+        assert n_kill == 0
+    elif case == 'last_candidate':
+        assert n_kill == 4 and bool(want[[0, 1, 200, 450]].all())
+    else:
+        assert 0 < n_kill < act.numel() and int(tie.sum()) < act.numel() // 10
+
+
+def test_qcp_unaligned_pool_and_bad_plans(cuda_device):
+    '''A pool whose base is not 16-byte aligned takes the scalar loads;
+    plans outside (0..5, 0..2^30) raise.'''
+    hs64, act, end = qcp_pass_case('ragged', 4, cuda_device)
+    flat = torch.empty(hs64.numel() + 1, dtype=torch.float32,
+                       device=cuda_device)
+    hs = flat[1:].view(hs64.shape)
+    hs.copy_(hs64)
+    assert hs.data_ptr() % 16 != 0 and hs.is_contiguous()
+    tie = qcp_tie_rows(hs64, act, end, QCP_TIE[torch.float32])
+    want = qcp.qcp_kill_plain(hs, act, end, 0.5)
+    assert torch.equal(qcp.qcp_kill(hs, act, end, 0.5)[~tie], want[~tie])
+    for plan in ((6, 8), (-1, 8), (0, -1), (0, (1 << 30) + 1)):
+        with pytest.raises(ValueError):
+            qcp.qcp_kill(hs, act, end, 0.5, plan=plan)
 
 
 def test_prune_kernel_matches_plain_f64(cuda_device):

@@ -84,3 +84,29 @@ def test_tiny_pools():
     np.testing.assert_array_equal(
         tprune.prune_conformers_rmsd_device(torch.as_tensor(two)),
         [False, True])
+
+
+def test_scatter_update_keeps_the_masks():
+    '''The pass update mask[act] = ~kill (no boolean index) gives the
+    masks of the boolean-index update mask[act[kill]] = False, pass by
+    pass, with dead rows and a cut pool.'''
+    from tscode_tpu_torch.ops.kernels.qcp import qcp_kill_plain
+    pool = torch.as_tensor(near_dup_pool(np.random.default_rng(4), 900, 4,
+                                         60))
+    init = np.ones(900, dtype=bool)
+    init[::7] = False
+    passes = []
+
+    def recorded(hs, act, end, thr):
+        kill = qcp_kill_plain(hs, act, end, thr)
+        passes.append((act.clone(), kill))
+        return kill
+
+    got = tprune.prune_conformers_rmsd_device(pool, init_mask=init,
+                                              n_real=850, pair_kill=recorded)
+    mask = torch.as_tensor(init)
+    mask[850:] = False
+    for act, kill in passes:
+        mask[act[kill]] = False
+    np.testing.assert_array_equal(got, mask.numpy())
+    assert len(passes) > 2 and 0 < got.sum() < 850

@@ -8,11 +8,12 @@ import torch
 
 import bench_suite
 from tscode_tpu.embeds.string import string_embed as jax_string_embed
-from tscode_tpu.errors import ZeroCandidatesError
+from tscode_tpu.errors import ZeroCandidatesError as JaxZeroCandidatesError
 from tscode_tpu.molecule import Molecule
 from tscode_tpu_torch.embeds import string as ts
 from tscode_tpu_torch.embeds.common import (DeviceSurvivors, flat_grid,
                                             inputs_from_numpy)
+from tscode_tpu_torch.errors import ZeroCandidatesError
 
 ANGLES = [n * 360 / 36 for n in range(36)]     # the Embedder's spin grid
 COUNTS = (2304, 1007, 73)
@@ -66,7 +67,7 @@ def test_zero_candidates_raise(sn2_mols):
     with pytest.raises(ZeroCandidatesError):
         ts.string_embed(*sn2_mols, ANGLES, clash_thresh=100.0, log=quiet,
                         device='cpu')
-    with pytest.raises(ZeroCandidatesError):
+    with pytest.raises(JaxZeroCandidatesError):
         jax_string_embed(*sn2_mols, ANGLES, clash_thresh=100.0, log=quiet)
 
 

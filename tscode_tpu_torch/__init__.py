@@ -5,9 +5,11 @@ The JAX package `tscode_tpu` stays the reference. This package imports
 and build with nvcc at first use (see `ops/kernels/_build.py`). On CPU
 tensors every kernel wrapper runs its plain PyTorch twin instead.
 
-The jax-free host modules of `tscode_tpu` (molecule, orbitals, graphs,
-io_xyz, pt, parameters, errors, native, options, settings, utils,
-quotes, references, modify_settings) are imported as they are.
+It imports nothing of `tscode_tpu` either: it carries its own copies of
+the JAX package's jax-free host modules (molecule, orbitals, graphs,
+io_xyz, pt, parameters, errors, native, options, settings, solvents,
+utils, quotes, references, modify_settings), whose native C++ helpers
+build with g++ into build/tscode_tpu_torch/native/.
 
 The CLI: `python -m tscode_tpu_torch input.txt [--device cuda|cpu]`.
 '''

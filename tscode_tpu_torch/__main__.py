@@ -66,12 +66,12 @@ def main(argv=None):
             return 2
 
     if args.cite:
-        from tscode_tpu.references import references
+        from tscode_tpu_torch.references import references
         print(references['TSCoDe'])
         return 0
 
     if args.setup:
-        from tscode_tpu.modify_settings import run_setup
+        from tscode_tpu_torch.modify_settings import run_setup
         run_setup()
         return 0
 

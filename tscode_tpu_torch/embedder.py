@@ -31,15 +31,15 @@ from copy import deepcopy
 import numpy as np
 import torch
 
-from tscode_tpu.errors import InputError, ZeroCandidatesError
-from tscode_tpu.graphs import get_quadruplets, get_sum_graph
-from tscode_tpu.io_xyz import write_xyz
-from tscode_tpu.molecule import Molecule, align_by_moi, align_structures
-from tscode_tpu.options import KEYWORDS, Options, OptionSetter
-from tscode_tpu.quotes import quotes
-from tscode_tpu.references import references
-from tscode_tpu.settings import DEFAULT_LEVELS
-from tscode_tpu.utils import (auto_newline, clean_directory,
+from tscode_tpu_torch.errors import InputError, ZeroCandidatesError
+from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph
+from tscode_tpu_torch.io_xyz import write_xyz
+from tscode_tpu_torch.molecule import Molecule, align_by_moi, align_structures
+from tscode_tpu_torch.options import KEYWORDS, Options, OptionSetter
+from tscode_tpu_torch.quotes import quotes
+from tscode_tpu_torch.references import references
+from tscode_tpu_torch.settings import DEFAULT_LEVELS
+from tscode_tpu_torch.utils import (auto_newline, clean_directory,
                               saturation_check, time_to_string)
 from tscode_tpu_torch import __version__
 from tscode_tpu_torch.backend import default_dtype, get_device
@@ -407,7 +407,7 @@ class Embedder:
         self.pairing_dists = {p.split('=')[0]: float(p.split('=')[1])
                               for p in orb_string.split(',')}
 
-        from tscode_tpu.orbitals import get_atom_builder
+        from tscode_tpu_torch.orbitals import get_atom_builder
 
         for letter, dist in self.pairing_dists.items():
             if letter not in self.pairings_table:

@@ -25,8 +25,8 @@ import time
 import numpy as np
 import torch
 
-from tscode_tpu.errors import ZeroCandidatesError
-from tscode_tpu.graphs import get_quadruplets, get_sum_graph
+from tscode_tpu_torch.errors import ZeroCandidatesError
+from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph
 from tscode_tpu_torch.backend import default_dtype, get_device, synchronize
 from tscode_tpu_torch.embeds.common import (DeviceSurvivors,
                                             inputs_from_numpy)

@@ -28,8 +28,6 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-_lock = threading.Lock()
-
 
 def nvcc_path():
     '''nvcc from CUDA_HOME, the PATH, or the toolkit's default prefix.'''
@@ -59,6 +57,8 @@ class CudaKernel:
         self.entry_launches = dict.fromkeys(symbols, 0)   # the same, per entry
         self.build_seconds = None  # nvcc time in this process, 0.0 if fresh
         self._lib = None
+        # one build at a time per library; libraries build in parallel
+        self._lock = threading.Lock()
 
     def reset_counts(self):
         self.launches = 0
@@ -67,7 +67,7 @@ class CudaKernel:
     def build(self):
         '''Compile when the library is missing or older than its source;
         returns the loaded ctypes library.'''
-        with _lock:
+        with self._lock:
             if self._lib is not None:
                 return self._lib
             os.makedirs(BUILD_DIR, exist_ok=True)

@@ -14,7 +14,7 @@ import networkx as nx
 import numpy as np
 import torch
 
-from tscode_tpu.pt import masses_of
+from tscode_tpu_torch.pt import masses_of
 from tscode_tpu_torch.ops.linalg import get_inertia_moments
 
 

@@ -10,8 +10,9 @@ active at pass start, has rmsd < thr and maxdev < 2*thr.
 
 Design on the card: one pair-kernel launch per pass, launched from the
 host. The pass's active rows and chunk ends are computed on the device
-(nonzero + searchsorted); only the active count crosses to the host, to
-evaluate the next gate. The JAX package's single-program tiers
+(nonzero + searchsorted), and the kill bits are written back by a plain
+scatter (no boolean index, so no sync); only the active count crosses
+to the host, to evaluate the next gate. The JAX package's single-program tiers
 (in-place, mid, mid2, finish) are TPU optimisations of these same
 semantics and are not ported.
 '''
@@ -67,7 +68,7 @@ def prune_conformers_rmsd_device(heavy_structures, rmsd_thr=0.5,
             continue
         act, end = pass_chunks(mask, n, int(k))
         kill = pair_kill(hs, act, end, rmsd_thr)
-        mask[act[kill]] = False
+        mask[act] = ~kill     # every act row is active at pass start
         active = int(mask.sum())
     return mask.cpu().numpy()
 

@@ -284,7 +284,7 @@ def is_new_structure_lru(fingerprints, accept_mask, thresh=10):
     Returns (B,) bool. Runs through the native C++ loop when it built.'''
     fingerprints = np.asarray(fingerprints)
     if fingerprints.size:
-        from tscode_tpu import native
+        from tscode_tpu_torch import native
         if native.tfd_available():
             return native.tfd_lru_filter(fingerprints,
                                          np.asarray(accept_mask), thresh)

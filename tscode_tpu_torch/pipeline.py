@@ -45,7 +45,7 @@ def build_workload(n_confs=N_CONFS):
     (seed 2026, 0.35 A noise): the same rng calls as
     bench.build_workload, so the molecules are bit for bit the same.
     76 conformers give the 76*76*2*36 = 415,872-pose headline grid.'''
-    from tscode_tpu.molecule import Molecule
+    from tscode_tpu_torch.molecule import Molecule
 
     rng = np.random.default_rng(SEED)
     mols = []

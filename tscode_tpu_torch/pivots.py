@@ -10,7 +10,7 @@ embedder.py:542-621).
 
 import numpy as np
 
-from tscode_tpu.molecule import Pivot
+from tscode_tpu_torch.molecule import Pivot
 from tscode_tpu_torch.ops.linalg import cartesian_product
 
 
