@@ -11,10 +11,18 @@ sn2_string input at 76 conformers (831,744 candidates), in float64
 (exact counts) and float32, and the large-molecule route on
 large_n_string (148-atom poses, the clash kernel's warp regime): the CLI
 at 16 conformers, the exact novelty replay without the collinear
-torsion quadruplet, and the 207,936-pose grid at 76 conformers.
+torsion quadruplet, and the 207,936-pose grid at 76 conformers. Phase 8
+runs the rigid cyclical route through the CLI on da_cyclical_xl at 62
+conformers (1,660,608 candidates: the block sweep with the clash
+kernel, the angular dedup, the prunes), float64 exact and float32 within
+brackets from its near ties; phase 9 runs REFINE through the CLI (the
+RMSD prune with the pair-kill kernel, the symmetry-corrected prune) on
+phase 8's float64 output and on phase 7's.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
+    python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
+                                  # route's float32 run under the profiler
 
 Exits nonzero, with no result line, when CUDA is not available or any
 phase fails. The last line is
@@ -80,6 +88,23 @@ LARGE_DROPPED_NOVEL = 244  # JAX x64 novelty replay of the 1,704 survivors
 LARGE_GRID_CONFS = 76      # 207,936 grid poses
 LARGE_GRID_OK = 43764      # their JAX x64 clash-ok count
 LARGE_PLAIN_CHUNK = 16384  # poses per plain-twin call (B x N x N tensors)
+
+# the rigid cyclical route (phase 8): bench_suite's da_cyclical_xl at 62
+# conformers, C2H4 + CH3Cl docked on two pairings, 46,128 blocks x 36
+# angle pairs
+CYC_CONFS = 62
+CYC_F64 = (1660608, 19562, 19562)    # candidates, embedded, final: the JAX
+#   x64 run of `TSCODE_SUITE_XL_CONFS=62 JAX_PLATFORMS=cpu python
+#   bench_suite.py da_cyclical_xl` (x64 on the CPU)
+GATE_TIE = 1e-3            # A: |rmsd - 1| or |maxdev - 2| below it is a
+#                            near tie of the angular dedup's gates
+# the refine route (phase 9): REFINE on phase 8's float64 output (the
+# first 10,000 frames, the write truncation) and on phase 7's float64
+# large_n_string output
+REFINE_XL_F64 = (10000, 10000, 2)    # structures, after compenetration,
+#   final: the JAX x64 CLI run (`python -m tscode_tpu input.txt`, input
+#   "NOOPT REFINE" + "ens.xyz") on the JAX run's own 10,000-frame output
+#   of da_cyclical_xl at 62 conformers
 
 
 class SmokeFailure(Exception):
@@ -635,28 +660,33 @@ def phase_main_f32(card, mols):
     ]
 
 
-def run_string_cli(tmp, inp, dtype):
+def run_cli(tmp, inp, dtype, device=None):
     '''One run of the port's CLI on `inp` in `dtype`, its stdout kept in
-    a file; the working directory is restored afterwards. Returns
-    (report, frames (F, N, 3), clash launches per regime, seconds).'''
+    a file; the working directory is restored afterwards. The kernels'
+    launch counts are set to 0 first (qcp.KERNEL.launches holds the
+    run's K3 launches after it). Returns (report, frames (F, N, 3),
+    clash launches per regime, seconds).'''
     import contextlib
     import os
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
-    from tscode_tpu_torch.ops.kernels import clash
-    stamp = f'smoke_{dtype}'
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    device = device or DEV
+    stamp = f'smoke_{device}_{dtype}'
     cwd = os.getcwd()
     clash.KERNEL.reset_counts()
+    qcp.KERNEL.reset_counts()
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
                 contextlib.redirect_stdout(out):
-            rc = cli([inp, '--device', DEV, '--dtype', dtype, '-n', stamp])
+            rc = cli([inp, '--device', device, '--dtype', dtype, '-n',
+                      stamp])
     finally:
         os.chdir(cwd)
     secs = time.perf_counter() - t0
     launches = clash.launches_by_regime()
-    check(rc == 0, f'string route {dtype}: CLI exit code {rc}')
+    check(rc == 0, f'CLI on {inp} ({device}, {dtype}): exit code {rc}')
     with open(os.path.join(tmp, f'tscode_report_{stamp}.json')) as f:
         report = json.load(f)
     frames = read_xyz(os.path.join(
@@ -764,7 +794,7 @@ def phase_string_route(card):
         inp = suite_input('sn2_string', tmp, STRING_CONFS)
         counts = {}
         for dtype in ('float64', 'float32'):
-            report, frames, regimes, secs = run_string_cli(tmp, inp, dtype)
+            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
             n_launch = sum(regimes.values())
             se = report['string_embed']
             counts[dtype] = (se['candidates'], se['clash_ok'], se['novel'],
@@ -831,12 +861,16 @@ def bracket(ref, slack):
     return round(ref * (1 - slack)), round(ref * (1 + slack))
 
 
-def phase_large_route(card):
+def phase_large_route(card, keep):
     '''Phase 7, the CLI part: bench_suite's large_n_string (two C24H49Cl
     chains, 148-atom poses, P = 5,476 cross pairs, so K1's warp regime)
     at 16 conformers, float64 then float32, and the exact gate: the
     novelty replay of the float64 clash survivors on the card without
-    the collinear quadruplet. Returns the clash launches per regime.'''
+    the collinear quadruplet. The float64 run's output ensemble is
+    copied into the directory `keep` as large_n_f64.xyz (phase 9).
+    Returns the clash launches per regime.'''
+    import os
+    import shutil
     import tempfile
     import torch
     from tscode_tpu_torch.embeds.string import bcast_tiles
@@ -848,7 +882,7 @@ def phase_large_route(card):
     with tempfile.TemporaryDirectory(prefix='smoke_large_') as tmp:
         inp = suite_input('large_n_string', tmp, LARGE_CONFS)
         for dtype in ('float64', 'float32'):
-            report, frames, regimes, secs = run_string_cli(tmp, inp, dtype)
+            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
             se = report['string_embed']
             counts[dtype] = c = (se['candidates'], se['clash_ok'],
                                  se['novel'], report['final_structures'])
@@ -856,6 +890,10 @@ def phase_large_route(card):
                 launches[k] += regimes[k]
             check(regimes['warp'] > 0, f'large_n {dtype}: the warp kernel '
                   f'was not launched ({regimes})')
+            if dtype == 'float64':
+                shutil.copy(os.path.join(
+                    tmp, f'tscode_unoptimized_smoke_{DEV}_{dtype}.xyz'),
+                    os.path.join(keep, 'large_n_f64.xyz'))
             check(frames.shape == (c[3], 148, 3)
                   and bool(np.isfinite(frames).all()),
                   f'large_n {dtype}: .xyz holds {frames.shape}, expected '
@@ -990,6 +1028,267 @@ def phase_large_grid(card):
     return launches, err
 
 
+def embedder_setup(inp, dtype):
+    '''The port's Embedder set up on `inp` on the card in `dtype`, its
+    log kept quiet; the working directory is restored afterwards.'''
+    import contextlib
+    import io
+    import os
+    from tscode_tpu_torch.embedder import Embedder
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            emb = Embedder(inp, stamp='smoke_setup', device=DEV, dtype=dtype)
+        emb.logfile.close()
+    finally:
+        os.chdir(cwd)
+    return emb
+
+
+def cyclical_sweep_check(card, inp):
+    '''Phase 8, the sweep on its own, chunk by chunk as the route cuts it:
+    in float64 each pose's clash offset and each block's gate offsets
+    (the smallest |rmsd - 1| and |maxdev - 2| over its pose pairs), so
+    every block with a near tie is known; in float32 the keep mask, held
+    against float64's off the tied blocks; and on the first chunk K1
+    against the plain clash twin (clash bits off tie poses, keep bits off
+    tied blocks, both timed). Returns (keep f64 (Bb, A), tied (Bb,),
+    keep f32 (Bb, A), float64 poses within 1e-9 A^2 of the clash
+    threshold, largest disagreement).'''
+    import torch
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    from tscode_tpu_torch.ops.kernels import clash
+    from tscode_tpu_torch.ops.rmsd_prune import pair_gate_matrices
+    emb = embedder_setup(inp, torch.float64)
+    m1, m2 = emb.objects
+    blk = cyc.bimol_rigid_blocks(m1, m2, 5, emb.pairing_ok_fn())
+    angles = emb.systematic_angles
+    keeps, tied, near, err = {}, [], 0, 0
+    for dtype in (torch.float64, torch.float32):
+        coords1, coords2, grid, pairs, rows = cyc.sweep_inputs(
+            blk, m1, m2, angles, torch.device(DEV), dtype)
+        Bb, A = len(blk['c1']), grid.shape[0]
+        N = coords1.shape[1] + coords2.shape[1]
+        chunk = cyc._auto_chunk(Bb, A, N, coords1.element_size())
+        parts = []
+        for lo in range(0, Bb, chunk):
+            c1, c2, *geo = rows(lo, lo + chunk)
+            poses, ok = cyc.block_poses(coords1, coords2, c1, c2,
+                                        *cyc.block_geometry(*geo), grid,
+                                        pairs, CLASH)
+            keep = cyc.angular_dedup(poses, ok)
+            parts.append(keep)
+            if dtype != torch.float64:
+                continue
+            flat = poses.reshape(-1, N, 3)
+            off = clash_offsets(flat, pairs)
+            near += int((off < 1e-9).sum())
+            rmsd, maxdev = pair_gate_matrices(poses, N)
+            gate = torch.minimum((rmsd - cyc.DEDUP_RMSD).abs(),
+                                 (maxdev - cyc.DEDUP_MAXDEV).abs())
+            t = (off < CLASH_TIE).reshape(-1, A).any(dim=1) | \
+                (gate.amin(dim=(1, 2)) < GATE_TIE)
+            tied.append(t)
+            if lo == 0:
+                plain_ok = clash.clash_ok_plain(flat, pairs, CLASH)
+                e, n_tie = compare_bits(ok.reshape(-1), plain_ok,
+                                        off < CLASH_TIE, 'clash f64 '
+                                        'cyclical chunk')
+                err = max(err, e)
+                plain_keep = cyc.angular_dedup(poses, plain_ok.reshape(-1, A))
+                check(torch.equal(plain_keep[~t], keep[~t]),
+                      'cyclical chunk: keep bits with K1 and with the plain '
+                      'clash differ off the tied blocks')
+                ms = cuda_ms(lambda: clash.clash_ok(flat, pairs, CLASH))
+                ms_plain = cuda_ms(lambda: clash.clash_ok_plain(flat, pairs,
+                                                                CLASH), reps=2)
+                nbytes = flat.numel() * flat.element_size() + \
+                    pairs.numel() * 4 + flat.shape[0]
+                rec = {'rows': int(poses.shape[0]), 'poses': flat.shape[0],
+                       'ms': ms, 'plain_ms': ms_plain,
+                       'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+                print(f'[8 cyclical] first chunk, float64: {rec["rows"]} '
+                      f'block rows, {rec["poses"]} poses, P = '
+                      f'{pairs.shape[0]}: K1 {ms:.4f} ms, plain {ms_plain:.4f}'
+                      f' ms, bound {rec["bound_ms"]:.4f} ms (bytes); clash '
+                      f'bits equal off {n_tie} tie poses, keep bits '
+                      f'({int(keep.sum())} survivors) equal with either '
+                      f'screen off {int(t.sum())} tied blocks [{card}]')
+        keeps[dtype] = torch.cat(parts).cpu().numpy()
+        del parts
+    tied = torch.cat(tied).cpu().numpy()
+    return keeps[torch.float64], tied, keeps[torch.float32], near, err
+
+
+def cli_stages(report):
+    return ', '.join(f'{s["stage"]} {s["seconds"]:.3f} s '
+                     f'({s["structures_in"]} -> {s["structures_out"]})'
+                     for s in report['stages'])
+
+
+def phase_cyclical_route(card, tmp):
+    '''Phase 8: the rigid cyclical route through the CLI on bench_suite's
+    da_cyclical_xl at CYC_CONFS conformers (the block sweep with K1,
+    the angular dedup, the similarity prunes, the .xyz), float64 (the
+    JAX x64 counts exactly) then float32 (brackets from the float64
+    near ties), and the sweep checked on its own. The inputs and the
+    float64 output stay in `tmp`. Returns (K1 launches, largest
+    disagreement, path of the float64 output ensemble).'''
+    import os
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    inp = suite_input('da_cyclical_xl', tmp, CYC_CONFS)
+    counts, launches = {}, 0
+    for dtype in ('float64', 'float32'):
+        report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+        ce = report['cyclical_embed']
+        counts[dtype] = c = (ce['candidates'], ce['survivors'],
+                             report['final_structures'])
+        n_launch = sum(regimes.values())
+        launches += n_launch
+        check(regimes['thread'] == n_launch == ce['chunks'],
+              f'cyclical {dtype}: K1 launches {regimes}, expected one '
+              f'thread-regime launch per chunk ({ce["chunks"]})')
+        check(frames.shape == (min(c[2], 10000), 11, 3)
+              and bool(np.isfinite(frames).all()),
+              f'cyclical {dtype}: .xyz holds {frames.shape}, expected '
+              f'({min(c[2], 10000)}, 11, 3) finite')
+        sweep = ce['screen_s'] + ce['dedup_s']
+        gen = next(s['seconds'] for s in report['stages']
+                   if s['stage'] == 'generate_candidates')
+        print(f'[8 cyclical {dtype}] {" -> ".join(map(str, c))} '
+              f'(candidates -> embedded -> final) in {secs:.3f} s, K1 '
+              f'launches {regimes}; stages: {cli_stages(report)}; report '
+              f'total {report["total_seconds"]} s [{card}]')
+        print(f'[8 cyclical {dtype}] sweep split: blocks {ce["blocks_s"]:.4f}'
+              f' s, screen {ce["screen_s"]:.4f} s, dedup {ce["dedup_s"]:.4f}'
+              f' s, assemble {ce["assemble_s"]:.4f} s ({ce["blocks"]} blocks '
+              f'in {ce["chunks"]} chunks of {ce["chunk_rows"]}); the dedup '
+              f'(pair gates and greedy scan) is {ce["dedup_s"] / sweep:.1%} '
+              f'of the sweep and {ce["dedup_s"] / gen:.1%} of '
+              f'generate_candidates [{card}]')
+    keep64, tied, keep32, near, err = cyclical_sweep_check(card, inp)
+    A = keep64.shape[1]
+    n_tied = int(tied.sum())
+    differ = (keep64 != keep32).any(axis=1)
+    print(f'[8 cyclical] sweep on its own: {int(keep64.sum())} float64 and '
+          f'{int(keep32.sum())} float32 survivors; {n_tied} of {len(tied)} '
+          f'blocks hold a near tie (a pose within {CLASH_TIE} A^2 of the '
+          f'clash threshold, or a pose pair within {GATE_TIE} A of a dedup '
+          f'gate); {near} poses within 1e-9 A^2 of the clash threshold; '
+          f'{int(differ.sum())} blocks keep other angles in float32, '
+          f'{int((differ & ~tied).sum())} of them untied')
+    c64, c32 = counts['float64'], counts['float32']
+    check(c64 == CYC_F64, f'cyclical f64 counts {c64} != {CYC_F64}')
+    check(int(keep64.sum()) == c64[1] and int(keep32.sum()) == c32[1],
+          f'cyclical: the sweep on its own keeps {int(keep64.sum())} / '
+          f'{int(keep32.sum())}, the route {c64[1]} / {c32[1]}')
+    check(not bool((differ & ~tied).any()), 'cyclical f32: blocks without '
+          'a near tie keep other angles than in f64')
+    check(c32[0] == c64[0], f'cyclical f32 candidates {c32[0]} != {c64[0]}')
+    for k, what in ((1, 'embedded'), (2, 'final')):
+        check(abs(c32[k] - c64[k]) <= A * n_tied, f'cyclical f32 {what} '
+              f'{c32[k]} outside {c64[k]} +- {A} x {n_tied} tied blocks')
+    print(f'[8 cyclical] gates held: float64 {" -> ".join(map(str, c64))} '
+          f'(JAX x64), float32 {" -> ".join(map(str, c32))} within {c64[1]} '
+          f'+- {A} x {n_tied} tied blocks')
+    return launches, err, os.path.join(
+        tmp, f'tscode_unoptimized_smoke_{DEV}_float64.xyz')
+
+
+def refine_k3_passes(card, path, what):
+    '''K3 on each pass of the RMSD stage that REFINE runs on the ensemble
+    `path`: its structures that pass the compenetration rule and, up to
+    500 structures, the MOI prune, heavy atoms, float64 on the card;
+    each pass through qcp_pass (kill bits against plain and the
+    thread-per-row kernel, device ms; plain timed at the first pass).
+    Returns (records, kept, largest disagreement).'''
+    import torch
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.ops.clash import count_intra_clashes_np
+    from tscode_tpu_torch.ops.moi import prune_by_moment_of_inertia
+    ens = read_xyz(path)
+    s, atomnos = np.asarray(ens.atomcoords), np.asarray(ens.atomnos)
+    s = s[count_intra_clashes_np(s, thresh=0.5) == 0]
+    if len(s) <= 500:
+        s = prune_by_moment_of_inertia(s, atomnos, device=DEV)[0]
+    hs = torch.as_tensor(s[:, atomnos != 1],
+                         dtype=torch.float64, device=DEV).contiguous()
+    passes, kept = schedule_passes(hs)
+    recs, err = [], 0
+    for i, (k, act, end) in enumerate(passes):
+        rec, e = qcp_pass(card, hs, act, end, 'float64', f'{what} k={k}',
+                          i == 0)
+        recs.append(rec)
+        err = max(err, e)
+    return recs, kept, err
+
+
+def refine_counts(report):
+    '''(structures in, after compenetration, final) of a refine run.'''
+    st = {s['stage']: s for s in report['stages']}
+    return (st['generate_candidates']['structures_in'],
+            st['compenetration_refining']['structures_out'],
+            report['final_structures'])
+
+
+def phase_refine_route(card, xl_path, large_path):
+    '''Phase 9: REFINE through the CLI, float64. (a) On phase 8's
+    float64 output (10,000 frames of 11 atoms, 4 heavy): the JAX x64
+    counts of the same chain exactly. (b) On phase 7's float64
+    large_n_string output (148 atoms, 50 heavy): the card's output
+    equals the port's CPU run of the same file. For both, K3's passes
+    on the RMSD stage's pool with device times. Returns (K3 launches,
+    pass records, largest disagreement).'''
+    import os
+    import tempfile
+    from tscode_tpu_torch.ops.kernels import qcp
+    from tscode_tpu_torch.suite_inputs import refine_input
+    launches, recs, err = 0, [], 0
+    for what, path in (('refine xl', xl_path), ('refine large_n', large_path)):
+        with tempfile.TemporaryDirectory(prefix='smoke_refine_') as tmp:
+            inp = refine_input(path, tmp)
+            report, frames, _, secs = run_cli(tmp, inp, 'float64')
+            n_k3 = qcp.KERNEL.launches
+            launches += n_k3
+            check(n_k3 > 0, f'{what}: K3 was not launched')
+            counts = refine_counts(report)
+            sim = {r['stage']: r for r in report['similarity']}
+            check(frames.shape[0] == counts[2] and
+                  bool(np.isfinite(frames).all()), f'{what}: .xyz holds '
+                  f'{frames.shape}, expected {counts[2]} finite frames')
+            print(f'[9 {what}] {" -> ".join(map(str, counts))} (structures '
+                  f'-> after compenetration -> final) in {secs:.3f} s, K3 '
+                  f'launches {n_k3}; stages: {cli_stages(report)}; prunes: '
+                  + ', '.join(f'{r["stage"]} {r["structures_in"]} -> '
+                              f'{r["structures_out"]} {r["seconds"]:.4f} s'
+                              for r in report['similarity'])
+                  + f' [{card}]')
+            if what == 'refine xl':
+                check(counts == REFINE_XL_F64, f'{what}: counts {counts} != '
+                      f'{REFINE_XL_F64} (JAX x64)')
+            else:
+                cpu_report, cpu_frames, _, cpu_secs = run_cli(
+                    tmp, inp, 'float64', device='cpu')
+                check(refine_counts(cpu_report) == counts and
+                      np.array_equal(cpu_frames, frames), f'{what}: the card '
+                      f'keeps {counts}, the CPU run '
+                      f'{refine_counts(cpu_report)}, or other frames')
+                print(f'[9 {what}] the CPU run of the port ({cpu_secs:.3f} s)'
+                      f' keeps the same {counts[2]} frames')
+            pass_recs, kept, e = refine_k3_passes(card, path, what)
+            check(kept == sim['rmsd']['structures_out'], f'{what}: the pass '
+                  f'by pass replay keeps {kept}, the RMSD stage '
+                  f'{sim["rmsd"]["structures_out"]}')
+            recs += pass_recs
+            err = max(err, e)
+            print(f'[9 {what}] K3 passes on the RMSD stage\'s pool (N = '
+                  f'{pass_recs[0]["N"]}): ' + ', '.join(
+                      f'{r["pass"].split()[-1]} M={r["M"]} '
+                      f'{sum(r["ms"]) / 2:.4f} ms' for r in pass_recs)
+                  + f'; device ms in all {sum(sum(r["ms"]) / 2 for r in pass_recs):.4f} [{card}]')
+    return launches, recs, err
+
+
 def qcp_plan_sweep(card, out):
     '''K3's launch plans timed at every headline pass in float32 and on
     the long chunks (the measurement behind qcp.launch_plan): each
@@ -1033,6 +1332,42 @@ def qcp_plan_sweep(card, out):
         json.dump({'card': card, 'qcp_plans': table}, f, indent=1)
 
 
+def cyclical_profile(card, out):
+    '''The rigid cyclical route's float32 CLI run on da_cyclical_xl
+    under torch.profiler, after one warm-up run and with the split's
+    syncs off: its wall, the device's busy share (kernel time over
+    wall) and the kernels with the most device time. Prints them and
+    writes them as JSON to the file `out`.'''
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.environ['TSCODE_EMBED_TRACE'] = '0'
+    with tempfile.TemporaryDirectory(prefix='smoke_prof_') as tmp:
+        inp = suite_input('da_cyclical_xl', tmp, CYC_CONFS)
+        run_cli(tmp, inp, 'float32')
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            report, _, _, wall = run_cli(tmp, inp, 'float32')
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda a: -a.self_device_time_total)
+    busy = sum(a.self_device_time_total for a in kernels) / 1e6
+    top = [{'name': a.key, 'calls': a.count,
+            'device_ms': a.self_device_time_total / 1e3} for a in kernels[:25]]
+    print(f'[profile cyclical float32] wall {wall:.3f} s, device busy '
+          f'{busy:.4f} s ({busy / wall:.1%}), {sum(a.count for a in kernels)}'
+          f' kernel launches; stages: {cli_stages(report)} [{card}]')
+    for t in top[:12]:
+        print(f'[profile cyclical float32] {t["device_ms"]:10.3f} ms '
+              f'{t["calls"]:6d} calls  {t["name"][:90]}')
+    with open(out, 'w') as f:
+        json.dump({'card': card, 'wall_s': wall, 'device_busy_s': busy,
+                   'stages': report['stages'],
+                   'split': report['cyclical_embed'], 'top': top}, f,
+                  indent=1)
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_env()
@@ -1040,6 +1375,12 @@ def main():
         phase_build()
         qcp_plan_sweep(card, sys.argv[2])
         return
+    if sys.argv[1:2] == ['--profile-cyclical']:  # --profile-cyclical OUT.json
+        phase_build()
+        cyclical_profile(card, sys.argv[2])
+        return
+    import os
+    import tempfile
     import torch
     from tscode_tpu_torch.pipeline import build_workload
     phase_build()
@@ -1051,12 +1392,22 @@ def main():
     kernels[1]['passes'] += recs64
     errs['qcp_kill'] = max(errs['qcp_kill'], errs.pop('qcp_f64'))
     kernels[0]['launches'] += phase_string_route(card)
-    route = phase_large_route(card)
-    grid, errs['clash7'] = phase_large_grid(card)
-    kernels[0]['launches'] += sum(route.values()) + sum(grid.values())
-    print(f'[7 large_n] clash launches by regime: CLI runs {route}, '
-          f'76-conformer grids {grid}')
-    errs['clash'] = max(errs['clash'], errs.pop('clash7'))
+    with tempfile.TemporaryDirectory(prefix='smoke_keep_') as keep:
+        route = phase_large_route(card, keep)
+        grid, errs['clash7'] = phase_large_grid(card)
+        kernels[0]['launches'] += sum(route.values()) + sum(grid.values())
+        print(f'[7 large_n] clash launches by regime: CLI runs {route}, '
+              f'76-conformer grids {grid}')
+        errs['clash'] = max(errs['clash'], errs.pop('clash7'))
+        with tempfile.TemporaryDirectory(prefix='smoke_cyc_') as tmp:
+            k1, e8, xl_path = phase_cyclical_route(card, tmp)
+            k3, recs9, e9 = phase_refine_route(
+                card, xl_path, os.path.join(keep, 'large_n_f64.xyz'))
+    kernels[0]['launches'] += k1
+    kernels[1]['launches'] += k3
+    kernels[1]['passes'] += recs9
+    errs['clash'] = max(errs['clash'], e8)
+    errs['qcp_kill'] = max(errs['qcp_kill'], e9)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check('jax' not in sys.modules, 'jax was imported')

@@ -6,16 +6,24 @@ on a machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 '''
 
+import contextlib
+import io
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from tscode_tpu_torch.embedder import Embedder
+from tscode_tpu_torch.embeds import cyclical
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
 from tscode_tpu_torch.ops.linalg import rmsd_and_max
 from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
+                                             prune_conformers_rmsd,
                                              prune_conformers_rmsd_device)
 from tscode_tpu_torch.pipeline import build_workload, run_pipeline
+from tscode_tpu_torch.suite_inputs import config_files
 from torch_parity import cuda_device, near_dup_blocks, near_dup_pool  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -259,6 +267,60 @@ def test_small_slice_on_card_matches_cpu(cuda_device):
     assert gpu[2:4] == cpu[2:4] == (1362, 6)
     np.testing.assert_array_equal(gpu[4]['clash_ok'], cpu[4]['clash_ok'])
     np.testing.assert_array_equal(gpu[4]['keep'], cpu[4]['keep'])
+
+
+def test_cyclical_block_screen_with_k1_matches_plain(cuda_device, tmp_path):
+    '''da_cyclical at 4 conformers, float64: the block screen of all 128
+    block rows on the card with K1 equals the same screen with the plain
+    clash twin and the CPU run, poses within 1e-9 A and keep bits equal.'''
+    path = config_files('da_cyclical', str(tmp_path), 4)
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            emb = Embedder(path, stamp='card', device=cuda_device,
+                           dtype=torch.float64)
+    finally:
+        os.chdir(cwd)
+    emb.logfile.close()
+    m1, m2 = emb.objects
+    blk = cyclical.bimol_rigid_blocks(m1, m2, 5, emb.pairing_ok_fn())
+    out = {}
+    for dev in (cuda_device, torch.device('cpu')):
+        coords1, coords2, grid, pairs, rows = cyclical.sweep_inputs(
+            blk, m1, m2, emb.systematic_angles, dev, torch.float64)
+        c1, c2, *geo = rows(0, len(blk['c1']))
+        geometry = cyclical.block_geometry(*geo)
+        for clash_fn in (clash.clash_ok, clash.clash_ok_plain):
+            before = clash.KERNEL.launches
+            poses, ok = cyclical.block_poses(coords1, coords2, c1, c2,
+                                             *geometry, grid, pairs, 1.5,
+                                             clash=clash_fn)
+            launched = clash.KERNEL.launches - before
+            assert launched == int(dev.type == 'cuda' and
+                                   clash_fn is clash.clash_ok)
+            out[dev.type, clash_fn.__name__] = (
+                poses.cpu(), cyclical.angular_dedup(poses, ok).cpu())
+    want_poses, want_keep = out['cpu', 'clash_ok_plain']
+    for poses, keep in out.values():
+        np.testing.assert_allclose(poses.numpy(), want_poses.numpy(), rtol=0,
+                                   atol=1e-9)
+        assert torch.equal(keep, want_keep)
+    assert int(want_keep.sum()) == 47
+
+
+def test_prune_conformers_rmsd_from_numpy_reaches_k3(cuda_device):
+    '''A numpy ensemble with device='cuda' is moved to the card and pruned
+    by K3; the keep mask equals the CPU run's.'''
+    pool = near_dup_pool(np.random.default_rng(9), 3000, 6, 700)
+    atomnos = np.array([6, 6, 1, 8, 6, 1])
+    before = qcp.KERNEL.launches
+    pruned, keep = prune_conformers_rmsd(pool, atomnos, device='cuda',
+                                         dtype=torch.float64)
+    assert qcp.KERNEL.launches > before
+    assert pruned.device.type == 'cuda' and pruned.shape[0] == keep.sum()
+    _, want = prune_conformers_rmsd(pool, atomnos, device='cpu')
+    np.testing.assert_array_equal(keep, want)
+    assert 0 < keep.sum() < len(pool)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

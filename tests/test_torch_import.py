@@ -125,6 +125,40 @@ def test_cli_string_route_imports_no_jax(tmp_path):
     assert (tmp_path / 'tscode_unoptimized_nojax.xyz').exists()
 
 
+def test_cli_cyclical_and_refine_routes_import_no_jax(tmp_path):
+    '''The rigid cyclical route (da_cyclical at 4 conformers) and then
+    REFINE on its output, through the CLI with --device cpu in one fresh
+    interpreter: both write their ensembles (44 and 1 frames) and
+    neither imports jax or a module of the JAX package.'''
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.suite_inputs import config_files
+    for name in ('cyc', 'refine'):
+        (tmp_path / name).mkdir()
+    config_files('da_cyclical', str(tmp_path / 'cyc'), 4)
+    code = (
+        'import os, sys\n'
+        'from tscode_tpu_torch.__main__ import main\n'
+        'from tscode_tpu_torch.suite_inputs import refine_input\n'
+        'root = sys.argv[1]\n'
+        'os.chdir(os.path.join(root, "cyc"))\n'
+        'assert main(["input.txt", "--device", "cpu", "-n", "nojax"]) == 0\n'
+        'refine_input(os.path.join(root, "cyc", "tscode_unoptimized_nojax.xyz"),\n'
+        '             os.path.join(root, "refine"))\n'
+        'os.chdir(os.path.join(root, "refine"))\n'
+        'assert main(["input.txt", "--device", "cpu", "-n", "nojax"]) == 0\n'
+        + NO_JAX_PACKAGE +
+        'print("NOJAX_OK")\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code, str(tmp_path)],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'NOJAX_OK' in r.stdout
+    for name, n in (('cyc', 44), ('refine', 1)):
+        out = tmp_path / name / 'tscode_unoptimized_nojax.xyz'
+        assert read_xyz(str(out)).atomcoords.shape == (n, 11, 3)
+
+
 def test_cli_cuda_without_a_card_fails_with_no_ensemble(tmp_path):
     sn2_input(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
@@ -137,27 +171,26 @@ def test_cli_cuda_without_a_card_fails_with_no_ensemble(tmp_path):
     assert not list(tmp_path.glob('tscode_*.xyz'))
 
 
-@pytest.mark.parametrize('name', ['sn2_string', 'large_n_string'])
-def test_port_input_writer_matches_bench_suite(tmp_path, name):
+@pytest.mark.parametrize('name', ['sn2_string', 'large_n_string',
+                                  'da_cyclical', 'da_cyclical_xl'])
+def test_port_input_writer_matches_bench_suite(tmp_path, monkeypatch, name):
     '''The port's writer gives bench_suite._config_files' files byte for
-    byte (the same rng calls, the port's io_xyz).'''
+    byte (the same rng calls, the port's io_xyz); da_cyclical_xl takes
+    its conformer count from TSCODE_SUITE_XL_CONFS in bench_suite.'''
     import bench_suite
     from tscode_tpu_torch.suite_inputs import config_files
     (tmp_path / 'suite').mkdir()
     (tmp_path / 'port').mkdir()
-    n = bench_suite.N_CONFS
-    bench_suite.N_CONFS = 3
-    try:
-        bench_suite._config_files(name, str(tmp_path / 'suite'))
-    finally:
-        bench_suite.N_CONFS = n
+    monkeypatch.setattr(bench_suite, 'N_CONFS', 3)
+    monkeypatch.setenv('TSCODE_SUITE_XL_CONFS', '3')
+    bench_suite._config_files(name, str(tmp_path / 'suite'))
     path = config_files(name, str(tmp_path / 'port'), 3)
     assert path == str(tmp_path / 'port' / 'input.txt')
     for f in ('input.txt', 'm1.xyz', 'm2.xyz'):
         assert (tmp_path / 'port' / f).read_bytes() == \
             (tmp_path / 'suite' / f).read_bytes(), f
     with pytest.raises(ValueError):
-        config_files('da_cyclical', str(tmp_path / 'port'), 3)
+        config_files('multiembed', str(tmp_path / 'port'), 3)
 
 
 def test_native_builds_under_build_and_matches_numpy(monkeypatch):

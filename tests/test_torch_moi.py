@@ -3,6 +3,7 @@ tscode_tpu_torch.ops.moi against tscode_tpu.ops.moi, identical masks.'''
 
 import numpy as np
 import pytest
+import torch
 
 from tscode_tpu.ops import moi as jm
 from tscode_tpu_torch.ops import moi as tm
@@ -29,7 +30,8 @@ def test_rotamer_and_enantiomer_duplicates():
         base + rng.normal(size=(9, 3)),          # distinct
         base * np.array([1, 1, -1.0]),           # mirror image: duplicate
     ])
-    _, got = tm.prune_by_moment_of_inertia(structures, ATOMNOS)
+    _, got = tm.prune_by_moment_of_inertia(structures, ATOMNOS,
+                                           device='cpu')
     _, want = jm.prune_by_moment_of_inertia(structures, ATOMNOS)
     np.testing.assert_array_equal(got, want)
     assert got.tolist() == [True, False, True, False]
@@ -48,7 +50,7 @@ def test_near_duplicate_pools(seed):
         pool.append(base[i] @ R.T + rng.normal(size=3) * 4
                     + rng.normal(size=(9, 3)) * noise)
     pool = np.array(pool)
-    _, got = tm.prune_by_moment_of_inertia(pool, ATOMNOS)
+    _, got = tm.prune_by_moment_of_inertia(pool, ATOMNOS, device='cpu')
     _, want = jm.prune_by_moment_of_inertia(pool, ATOMNOS)
     np.testing.assert_array_equal(got, want)
     assert 25 <= got.sum() < len(pool)
@@ -59,8 +61,21 @@ def test_similarity_matrix_and_trivial_pools():
     pool = near_dup_pool(rng, 40, 6, 5)
     masses = rng.uniform(1.0, 20.0, size=6)
     np.testing.assert_array_equal(
-        tm.moi_similarity_matrix(pool, masses),
+        tm.moi_similarity_matrix(pool, masses, device='cpu'),
         jm.moi_similarity_matrix(pool, masses))
     one = pool[:1]
-    assert tm.prune_by_moment_of_inertia(one, ATOMNOS[:6])[1].tolist() == \
-        [True]
+    assert tm.prune_by_moment_of_inertia(
+        one, ATOMNOS[:6], device='cpu')[1].tolist() == [True]
+
+
+def test_device_is_required_and_never_falls_back(monkeypatch):
+    pool = near_dup_pool(np.random.default_rng(4), 10, 9, 3)
+    with pytest.raises(TypeError):
+        tm.prune_by_moment_of_inertia(pool, ATOMNOS)
+    with pytest.raises(TypeError):
+        tm.moi_similarity_matrix(pool, np.ones(9))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='cuda'):
+        tm.prune_by_moment_of_inertia(pool, ATOMNOS, device='cuda')
+    with pytest.raises(RuntimeError, match='cuda'):
+        tm.moi_similarity_matrix(pool, np.ones(9), device='cuda')

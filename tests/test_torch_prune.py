@@ -25,7 +25,7 @@ def test_keep_mask_matches_jax(n, N, n_base, device_too):
 
     _, want = jprune.prune_conformers_rmsd(structures, atomnos)
     pruned, got = tprune.prune_conformers_rmsd(torch.as_tensor(structures),
-                                               atomnos)
+                                               atomnos, device='cpu')
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(pruned.numpy(), structures[want])
     if device_too:
@@ -110,3 +110,19 @@ def test_scatter_update_keeps_the_masks():
         mask[act[kill]] = False
     np.testing.assert_array_equal(got, mask.numpy())
     assert len(passes) > 2 and 0 < got.sum() < 850
+
+
+def test_prune_conformers_rmsd_takes_its_device(monkeypatch):
+    """The device is required; a numpy ensemble is moved to it (pruned
+    comes back there), and 'cuda' without a card raises."""
+    pool = near_dup_pool(np.random.default_rng(9), 60, 5, 20)
+    atomnos = np.array([6] * 5)
+    with pytest.raises(TypeError):
+        tprune.prune_conformers_rmsd(pool, atomnos)
+    pruned, keep = tprune.prune_conformers_rmsd(pool, atomnos, device='cpu',
+                                                dtype=torch.float32)
+    assert pruned.dtype == torch.float32 and pruned.device.type == 'cpu'
+    assert pruned.shape[0] == keep.sum() and 0 < keep.sum() < 60
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='cuda'):
+        tprune.prune_conformers_rmsd(pool, atomnos, device='cuda')

@@ -55,14 +55,16 @@ def test_prune_conformers_tfd_masks_identical(case):
         structures = base[rng.integers(0, 12, 300)] + \
             rng.normal(size=(300, 10, 3)) * rng.choice(
                 [0.005, 0.02, 0.1], size=300)[:, None, None]
-        _, got = tt.prune_conformers_tfd(structures, CHAIN_QUADS)
+        _, got = tt.prune_conformers_tfd(structures, CHAIN_QUADS,
+                                         device='cpu')
         _, want = jt.prune_conformers_tfd(structures, CHAIN_QUADS)
     else:
         fps = (chain_fps() if case == 'chain' else
                clustered_fps(rng, int(case.split('_')[1]), n_clusters=40))
         dummy = np.zeros((len(fps), 1, 3))
         quads = np.zeros((fps.shape[1], 4), dtype=int)
-        _, got = tt.prune_conformers_tfd(dummy, quads, tf_mat=fps)
+        _, got = tt.prune_conformers_tfd(dummy, quads, tf_mat=fps,
+                                        device='cpu')
         _, want = jt.prune_conformers_tfd(dummy, quads, tf_mat=fps)
     np.testing.assert_array_equal(got, want)
     assert 0 < got.sum() < len(got)
@@ -70,9 +72,11 @@ def test_prune_conformers_tfd_masks_identical(case):
 
 def test_prune_conformers_tfd_trivial_inputs():
     s = np.zeros((0, 10, 3))
-    assert tt.prune_conformers_tfd(s, CHAIN_QUADS)[1].shape == (0,)
+    assert tt.prune_conformers_tfd(s, CHAIN_QUADS,
+                                   device='cpu')[1].shape == (0,)
     s = np.zeros((4, 10, 3))
-    assert tt.prune_conformers_tfd(s, np.zeros((0, 4), int))[1].all()
+    assert tt.prune_conformers_tfd(s, np.zeros((0, 4), int),
+                                   device='cpu')[1].all()
 
 
 @pytest.mark.parametrize('block', [8, 64, 4096])
@@ -133,3 +137,12 @@ def test_is_new_structure_lru_masks_identical(monkeypatch, native_loop):
     got = tt.is_new_structure_lru(fps, accept)
     np.testing.assert_array_equal(got, jt.is_new_structure_lru(fps, accept))
     assert 0 < got.sum() < accept.sum()
+
+
+def test_prune_conformers_tfd_device_is_required(monkeypatch):
+    s = np.random.default_rng(2).normal(size=(6, 10, 3))
+    with pytest.raises(TypeError):
+        tt.prune_conformers_tfd(s, CHAIN_QUADS)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='cuda'):
+        tt.prune_conformers_tfd(s, CHAIN_QUADS, device='cuda')

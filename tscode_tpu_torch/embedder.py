@@ -1,15 +1,18 @@
 '''
-Engine of the port for the string route: input DSL parsing, embed-type
-decision and the pipeline stages (counterpart of tscode_tpu/embedder.py).
+Engine of the port: input DSL parsing, embed-type decision and the
+pipeline stages (counterpart of tscode_tpu/embedder.py).
 
-Ported: parsing, pairings, keywords, the string branch of the set-up,
-candidate generation by string embed, the compenetration stage (which the
-string route skips), the TFD and MOI similarity prunes, structure
-writes, the run report and resume. Every other route raises
-NotImplementedError naming its ROADMAP.md item, before any embed work:
-the other embed families, operators, optimisation (inputs without NOOPT
-or BYPASS need calculators), SADDLE/TS, metadynamics and csearch
-augmentation.
+Ported: parsing, pairings, keywords, three routes (the string embed, the
+rigid bimolecular cyclical embed, and the refine route of REFINE or
+refine>, which takes an ensemble as the structures), the compenetration
+stage, the similarity prunes (TFD, MOI, and on the refine route the
+bucketed RMSD prune with kernel K3 and the symmetry-corrected RMSD
+prune), structure writes, the run report and resume. Every other route
+raises NotImplementedError naming its ROADMAP.md item, before any embed
+work: the other embed families (trimolecular and non-rigid cyclical,
+chelotropic, multiembed, monomolecular), operators other than refine>,
+optimisation (inputs without NOOPT or BYPASS need calculators),
+SADDLE/TS, metadynamics and csearch augmentation.
 
 The device and dtype are explicit: `Embedder(filename, device='cuda')`
 raises when there is no card, and the dtype defaults to float32 on CUDA
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from tscode_tpu_torch.errors import InputError, ZeroCandidatesError
-from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph
+from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph, graphize
 from tscode_tpu_torch.io_xyz import write_xyz
 from tscode_tpu_torch.molecule import Molecule, align_by_moi, align_structures
 from tscode_tpu_torch.options import KEYWORDS, Options, OptionSetter
@@ -43,12 +46,17 @@ from tscode_tpu_torch.utils import (auto_newline, clean_directory,
                               saturation_check, time_to_string)
 from tscode_tpu_torch import __version__
 from tscode_tpu_torch.backend import default_dtype, get_device
+from tscode_tpu_torch.embeds.cyclical import cyclical_embed
 from tscode_tpu_torch.embeds.string import string_embed
-from tscode_tpu_torch.ops.clash import count_intra_clashes_np
-from tscode_tpu_torch.ops.linalg import rmsd_and_max
+from tscode_tpu_torch.ops.clash import (count_intra_clashes_np,
+                                        cross_fragment_pair_mask)
+from tscode_tpu_torch.ops.kernels.clash import compenetration_mask_kernel
+from tscode_tpu_torch.ops.linalg import cartesian_product, rmsd_and_max
 from tscode_tpu_torch.ops.moi import prune_by_moment_of_inertia
+from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd
 from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
 from tscode_tpu_torch.pivots import set_pivots
+from tscode_tpu_torch.rot_rmsd import prune_conformers_rmsd_rot_corr
 
 
 def not_ported(what, item):
@@ -431,23 +439,41 @@ class Embedder:
         self.orb_string = orb_string
 
     def _set_embedder_structures_from_mol(self):
-        '''REFINE / refine>: the refine route.'''
-        raise not_ported('The refine route (REFINE keyword, refine> '
-                         'operator)', 11)
+        '''REFINE / refine>: the input ensemble becomes the structures.'''
+        self.structures = self.objects[0].atomcoords
+        self.atomnos = self.objects[0].atomnos
+        if self.pairings_table:
+            self.constrained_indices = np.array(
+                [list(self.pairings_table.values()) for _ in self.structures])
+        else:
+            self.constrained_indices = np.array(
+                [[] for _ in self.structures])
+        self.ids = None
+        self.energies = np.zeros(len(self.structures))
+        self.exit_status = np.ones(len(self.structures), dtype=bool)
+        self.embed_graph = get_sum_graph(
+            [graphize(self.structures[0], self.atomnos)],
+            self.constrained_indices[0])
 
     def _apply_operators(self):
-        if self.options.operators_dict:
-            ops = sorted({op for mol_ops in
-                          self.options.operators_dict.values()
-                          for op in mol_ops})
+        '''refine> is handled by the options (the refine route); every
+        other operator raises.'''
+        ops = sorted({op for mol_ops in self.options.operators_dict.values()
+                      for op in mol_ops} - {'refine'})
+        if ops:
             raise not_ported(f'Operators ({", ".join(o + ">" for o in ops)})',
                              15)
 
     # -------------------------------------------------------------- setup
 
     def _setup(self, p=True):
-        '''Embed-type decision and angle grid of the string route; the
-        other embed types raise NotImplementedError.'''
+        '''Embed-type decision, angle grids and pivots of the ported
+        routes; the other embed types raise NotImplementedError.'''
+        if any('refine>' in op for op in self.options.operators) or \
+                self.options.noembed:
+            self.embed = 'refine'
+            return
+
         for mol in self.objects:
             if self.options.max_confs < mol.n_confs:
                 self.log(f'--> {mol.name} - kept {self.options.max_confs}/'
@@ -475,12 +501,13 @@ class Embedder:
             multiembed = (len(self.objects) == 2 and
                           all(n >= 2 for n in n_reactive) and not cyclical)
 
-            if cyclical or chelotropic or multiembed:
-                kind = ('cyclical' if cyclical else
-                        'multiembed' if multiembed else 'chelotropic')
+            if chelotropic or multiembed:
+                kind = 'multiembed' if multiembed else 'chelotropic'
                 raise not_ported(f'The {kind} embed', 12)
 
-            if not string:
+            if cyclical:
+                self._setup_cyclical(override, p)
+            elif not string:
                 raise InputError(
                     'Bad input - The only molecular configurations accepted '
                     'are:\n'
@@ -494,18 +521,18 @@ class Embedder:
                     '5) Two molecules, one with a single reactive center '
                     'and the other with two (chelotropic embed)\n'
                     '6) Two molecules with at least two reactive centers each')
-
-            self.embed = 'string'
-            self.options.rotation_steps = 36
-            for mol in self.objects:
-                if not mol.reactive_atoms:
-                    mol.compute_orbitals(override=override)
-            if hasattr(self.options, 'custom_rotation_steps'):
-                self.options.rotation_steps = \
-                    self.options.custom_rotation_steps
-            self.systematic_angles = [
-                n * 360 / self.options.rotation_steps
-                for n in range(self.options.rotation_steps)]
+            else:
+                self.embed = 'string'
+                self.options.rotation_steps = 36
+                for mol in self.objects:
+                    if not mol.reactive_atoms:
+                        mol.compute_orbitals(override=override)
+                if hasattr(self.options, 'custom_rotation_steps'):
+                    self.options.rotation_steps = \
+                        self.options.custom_rotation_steps
+                self.systematic_angles = [
+                    n * 360 / self.options.rotation_steps
+                    for n in range(self.options.rotation_steps)]
         else:
             raise InputError(
                 'Bad input - could not set up an appropriate embed type '
@@ -522,11 +549,65 @@ class Embedder:
             self.log(f'--> Setup performed correctly. {self.candidates} '
                      f'candidates will be generated.\n')
 
+    def _large_embed(self):
+        '''The large-embed rule: over 100 conformers and no LET, run()
+        makes a cyclical embed rigid.'''
+        return not self.options.let and \
+            max(mol.n_confs for mol in self.objects) > 100
+
+    def _setup_cyclical(self, override, p):
+        '''The rigid bimolecular cyclical embed: the (A, 2) grid of
+        per-molecule step angles over +-rotation_range and the pivots.
+        The trimolecular and non-rigid forms raise.'''
+        if len(self.objects) == 3:
+            raise not_ported('The trimolecular cyclical embed', 12)
+        if not (self.options.rigid or self._large_embed()):
+            raise not_ported('The non-rigid cyclical embed (bending)',
+                             '12 and 13')
+        self.embed = 'cyclical'
+        self.options.rotation_steps = 5
+        if hasattr(self.options, 'custom_rotation_steps'):
+            self.options.rotation_steps = self.options.custom_rotation_steps
+        steps = self.options.rotation_steps
+        self.systematic_angles = cartesian_product(
+            *[np.arange(steps + 1) for _ in self.objects]) \
+            * 2 * self.options.rotation_range / steps \
+            - self.options.rotation_range
+        if p:
+            for mol in self.objects:
+                if not mol.reactive_atoms:
+                    mol.compute_orbitals(override=override)
+                set_pivots(mol, suprafacial=self.options.suprafacial)
+
     def _get_number_of_candidates(self):
-        '''String embed: spin steps times the lobe-conformer products.'''
-        return int(self.options.rotation_steps * np.prod(
-            [sum(len(mol.get_r_atoms(c)[0].center)
-                 for c in range(mol.n_confs)) for mol in self.objects]))
+        '''String embed: spin steps times the lobe-conformer products.
+        Cyclical embed: two orientations per angle pair, conformer pair
+        and pivot pair, halved when pairings fix the orientation.'''
+        if self.embed == 'string':
+            return int(self.options.rotation_steps * np.prod(
+                [sum(len(mol.get_r_atoms(c)[0].center)
+                     for c in range(mol.n_confs)) for mol in self.objects]))
+        candidates = 2 * len(self.systematic_angles) * np.prod(
+            [mol.n_confs for mol in self.objects])
+        if self.pairings_table:
+            candidates /= 2
+        candidates *= np.prod([len(mol.pivots[0]) for mol in self.objects])
+        return int(candidates)
+
+    def pairing_ok_fn(self):
+        '''Callable(ids) testing that an arrangement carries every
+        user-imposed pairing, or None without pairings.'''
+        if not self.pairings_table:
+            return None
+        table = {tuple(v) for v in self.pairings_table.values()}
+        internal = {tuple(sorted(pair)) for pair in
+                    (self.internal_constraints.tolist()
+                     if len(self.internal_constraints) else [])}
+
+        def ok(ids):
+            pairs = {tuple(sorted(pair)) for pair in ids}
+            return all(p in pairs or p in internal for p in table)
+        return ok
 
     # ---------------------------------------------------------- pairings
 
@@ -669,7 +750,9 @@ class Embedder:
             'warnings': len(getattr(self, 'warnings', ())),
         }
         if getattr(self, 'embed_info', None):
-            report['string_embed'] = self.embed_info
+            report[f'{self.embed}_embed'] = self.embed_info
+        if getattr(self, 'similarity_info', None):
+            report['similarity'] = self.similarity_info
         energies = getattr(self, 'energies', None)
         if energies is not None and len(energies) and \
                 np.max(energies - np.min(energies)) > 0:
@@ -735,6 +818,7 @@ class RunEmbedding(Embedder):
                     setattr(self, attr, value)
         self.options = deepcopy(embedder.options)
         self.embed_info = {}
+        self.similarity_info = []
 
     def rel_energies(self):
         return self.energies - np.min(self.energies)
@@ -746,17 +830,32 @@ class RunEmbedding(Embedder):
                 if isinstance(value, np.ndarray) and len(value) == len(mask):
                     setattr(self, attr, value[mask])
 
+    def zero_candidates_check(self):
+        if len(self.structures) == 0:
+            self.log_warnings()
+            raise ZeroCandidatesError()
+
     # ---------------------------------------------------------- pipeline
 
     @_timed_stage
     def generate_candidates(self):
-        '''String embed on the run's device.'''
-        structures, constrained = string_embed(
-            self.objects[0], self.objects[1], self.systematic_angles,
-            clash_thresh=self.options.clash_thresh, log=self.log,
-            device=self.device, dtype=self.dtype, info=self.embed_info)
-        self.structures = structures
-        self.constrained_indices = constrained
+        '''String or rigid cyclical embed on the run's device; the refine
+        route has its structures already.'''
+        if self.embed == 'refine':
+            self.log('\n')
+            return
+
+        if self.embed == 'string':
+            structures, constrained = string_embed(
+                self.objects[0], self.objects[1], self.systematic_angles,
+                clash_thresh=self.options.clash_thresh, log=self.log,
+                device=self.device, dtype=self.dtype, info=self.embed_info)
+            self.structures = structures
+            self.constrained_indices = constrained
+        elif self.embed == 'cyclical':
+            self.structures = cyclical_embed(self)
+        else:
+            raise InputError(f'Embed type {self.embed!r} not recognized.')
 
         self.atomnos = np.concatenate(
             [mol.atomnos for mol in self.objects])
@@ -778,16 +877,55 @@ class RunEmbedding(Embedder):
 
     @_timed_stage
     def compenetration_refining(self):
-        '''The string embed screened every pose already: no screen here,
-        only the placeholder energies and exit status.'''
+        '''The string and cyclical embeds screened every pose already.
+        Other routes are screened here: with fragment sizes (ids), the
+        cross-fragment clash screen (kernel K2 on CUDA); on the refine
+        route, each structure's pairs closer than 0.5 A (pairs at
+        distance 0 excluded, as the reference does). Then the
+        placeholder energies and exit status.'''
+        if self.embed not in ('string', 'cyclical'):
+            self.log('--> Checking structures for compenetrations')
+            t_start = time.perf_counter()
+            if self.ids is not None:
+                pm = cross_fragment_pair_mask(tuple(self.ids))
+                mask = compenetration_mask_kernel(
+                    torch.as_tensor(self.structures, dtype=self.dtype,
+                                    device=self.device),
+                    pm, thresh=self.options.clash_thresh,
+                    max_clashes=self.options.max_clashes).cpu().numpy()
+            else:
+                mask = (count_intra_clashes_np(self.structures, thresh=0.5)
+                        <= self.options.max_clashes)
+            self.apply_mask(('structures', 'constrained_indices'), mask)
+            t_end = time.perf_counter()
+
+            if False in mask:
+                self.log(f'Discarded {np.count_nonzero(~mask)} candidates '
+                         f'for compenetration ({np.count_nonzero(mask)} '
+                         f'left, {time_to_string(t_end - t_start)})')
+            else:
+                self.log(f'All {len(mask)} structures passed the '
+                         f'compenetration check')
+            self.log()
+            self.zero_candidates_check()
+
         self.energies = np.full(len(self.structures), 1e10)
         self.exit_status = np.zeros(len(self.structures), dtype=bool)
 
+    def _note_prune(self, stage, before, t_start):
+        self.similarity_info.append({
+            'stage': stage, 'structures_in': int(before),
+            'structures_out': int(len(self.structures)),
+            'seconds': time.perf_counter() - t_start})
+
     @_timed_stage
-    def similarity_refining(self, tfd=True, moi=True, verbose=False):
-        '''TFD prune, then MOI prune (up to 500 structures). The RMSD
-        prunes of the JAX package run only on the refine route here
-        (ROADMAP.md item 11).'''
+    def similarity_refining(self, tfd=True, moi=True, rmsd=True,
+                            verbose=False):
+        '''TFD prune, then MOI prune (up to 500 structures); with rmsd,
+        the bucketed RMSD prune on the run's device (up to 1e5
+        structures; kernel K3 on CUDA) and the symmetry-corrected RMSD
+        prune on the host (up to 500). Each prune's counts and seconds
+        go to the run report.'''
         if verbose:
             self.log('--> Similarity Processing')
 
@@ -799,10 +937,12 @@ class RunEmbedding(Embedder):
             t_start = time.perf_counter()
             quadruplets = get_quadruplets(self.embed_graph)
             if len(quadruplets) > 0:
+                before_tfd = len(self.structures)
                 self.structures, mask = prune_conformers_tfd(
                     self.structures, quadruplets, device=self.device,
                     dtype=self.dtype)
                 self.apply_mask(attr, mask)
+                self._note_prune('tfd', before_tfd, t_start)
                 if False in mask:
                     self.log(f'Discarded {np.count_nonzero(~mask)} structures '
                              f'for TFD similarity ({np.count_nonzero(mask)} '
@@ -814,10 +954,43 @@ class RunEmbedding(Embedder):
             self.structures, mask = prune_by_moment_of_inertia(
                 self.structures, self.atomnos, device=self.device)
             self.apply_mask(attr, mask)
+            self._note_prune('moi', before3, t_start)
             if before3 > len(self.structures):
                 self.log(f'Discarded {np.count_nonzero(~mask)} candidates '
                          f'for MOI similarity ({np.count_nonzero(mask)} left, '
                          f'{time_to_string(time.perf_counter() - t_start)})')
+
+        if rmsd and len(self.structures) <= 1e5:
+            before1 = len(self.structures)
+            t_start = time.perf_counter()
+            _, mask = prune_conformers_rmsd(
+                self.structures, self.atomnos, rmsd_thr=self.options.rmsd,
+                device=self.device, dtype=self.dtype)
+            # the prune returns its copy on the device in the run's
+            # dtype; keep the host float64 rows it selects
+            self.structures = self.structures[mask]
+            self.apply_mask(attr, mask)
+            self._note_prune('rmsd', before1, t_start)
+            if before1 > len(self.structures):
+                self.log(f'Discarded {np.count_nonzero(~mask)} candidates '
+                         f'for RMSD similarity ({np.count_nonzero(mask)} '
+                         f'left, {time_to_string(time.perf_counter() - t_start)})')
+
+            # symmetry-corrected pass (<= 500 structures, dummy rotors)
+            if len(self.structures) <= 500 and hasattr(self, 'embed_graph'):
+                before2 = len(self.structures)
+                t_start = time.perf_counter()
+                self.structures, mask = prune_conformers_rmsd_rot_corr(
+                    self.structures, self.atomnos, self.embed_graph,
+                    max_rmsd=self.options.rmsd, verbose=verbose,
+                    logfunction=self.log if verbose else None)
+                self.apply_mask(attr, mask)
+                self._note_prune('rmsd_rot_corr', before2, t_start)
+                if before2 > len(self.structures):
+                    self.log(f'Discarded {np.count_nonzero(~mask)} '
+                             f'candidates for symmetry-corrected RMSD '
+                             f'similarity ({np.count_nonzero(mask)} left, '
+                             f'{time_to_string(time.perf_counter() - t_start)})')
 
         if verbose and len(self.structures) == before:
             self.log(f'All structures passed the similarity check.{" " * 15}')
@@ -946,6 +1119,12 @@ class RunEmbedding(Embedder):
             self.normal_termination()
             return
 
+        if self.embed == 'cyclical' and not self.options.rigid and \
+                self._large_embed():
+            self.options.rigid = True
+            self.log('--> Large embed: RIGID keyword added for efficiency '
+                     '(override with LET)')
+
         self.write_options()
 
         if self.options.dryrun:
@@ -965,7 +1144,8 @@ class RunEmbedding(Embedder):
 
             if not self._stage_done('pruned'):
                 self.compenetration_refining()
-                self.similarity_refining(verbose=True)
+                self.similarity_refining(rmsd=(self.embed == 'refine'),
+                                         verbose=True)
                 self.save_resume('pruned')
 
             self.write_structures('unoptimized', energies=False)

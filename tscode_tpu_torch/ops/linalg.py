@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from tscode_tpu_torch.errors import TriangleError
+
 
 def norm_of(vec, dim=-1):
     '''Euclidean norm along `dim`.'''
@@ -256,6 +258,25 @@ def rotation_from_key(S, lam):
     return quaternion_to_rotation_matrix(q_xyzw)
 
 
+def kabsch_rotation_from_correlation(S, GA=None, GB=None):
+    '''Proper rotation R maximising sum_i q_i . (R p_i) from the
+    correlation S = sum_i p_i q_i^T, closed form and branch-free.
+    Without the squared norms GA, GB, Newton is seeded at the bound
+    sqrt(3) ||S||_F. Batched: S (..., 3, 3) -> R (..., 3, 3).'''
+    if GA is None:
+        GA = GB = math.sqrt(3.0) * torch.sqrt(torch.sum(S * S, dim=(-2, -1)))
+    return rotation_from_key(S, _qcp_lambda_max(S, GA, GB))
+
+
+def align_vec_pair(ref, tgt):
+    '''Rotation R with R @ tgt_j ~ ref_j for the two vectors of each
+    pair. Batched: ref, tgt (..., 2, 3) -> (..., 3, 3).'''
+    S = torch.einsum('...ji,...jk->...ik', tgt, ref)
+    GA = torch.sum(tgt * tgt, dim=(-2, -1))
+    GB = torch.sum(ref * ref, dim=(-2, -1))
+    return kabsch_rotation_from_correlation(S, GA, GB)
+
+
 def rmsd_and_max(p, q, mask=None):
     '''Kabsch RMSD and maximum per-atom deviation WITHOUT centering.
     Batched: p, q (..., N, 3), optional mask (..., N) for padded atoms.
@@ -363,3 +384,56 @@ def cartesian_product(*arrays):
     '''Host numpy: rows of the cartesian product, FIRST array varying
     fastest (the reference's generation order).'''
     return np.stack(np.meshgrid(*arrays), -1).reshape(-1, len(arrays))
+
+
+def polygonize(lengths):
+    '''Host numpy: polygon-side vertex couples of a cyclical embed.
+    lengths (2,) -> (2, 2, 2, 3): two x-axis segments centred on the
+    origin, orientation 1 reversing the second (antiparallel pivots).
+    lengths (3,) -> (8, 3, 2, 3): the eight oriented triangles, in the
+    reference's flip-set order; TriangleError when the sides cannot
+    close.'''
+    lengths = np.asarray(lengths, dtype=float)
+    assert len(lengths) in (2, 3)
+
+    if len(lengths) == 2:
+        ends = np.outer(lengths / 2.0, [1.0, 0.0, 0.0])   # (2, 3)
+        segments = np.stack([-ends, ends], axis=1)        # (mol, 2, 3)
+        return np.stack([segments,
+                         segments * [[[1]], [[-1]]]])     # (2, 2, 2, 3)
+
+    if not np.all(lengths < np.roll(lengths, 1) + np.roll(lengths, 2)):
+        raise TriangleError(
+            f'Impossible to build a triangle with sides {lengths}')
+
+    # base along +x, apex above it (law of cosines)
+    base, flank, closing = lengths
+    apex_x = (base * base - flank * flank + closing * closing) / (2 * base)
+    apex = np.array([apex_x, np.sqrt(closing * closing - apex_x * apex_x), 0])
+    vertices = np.array([[0.0, 0.0, 0.0], [base, 0.0, 0.0], apex])
+    sides = vertices[[[0, 1], [1, 2], [2, 0]]]            # (side, 2, 3)
+
+    flip_sets = [(), (2,), (1,), (1, 2), (0,), (0, 1), (0, 2), (0, 1, 2)]
+    out = np.broadcast_to(sides, (8,) + sides.shape).copy()
+    for orient, flips in enumerate(flip_sets):
+        for side in flips:
+            out[orient, side] = out[orient, side, ::-1]
+    return out
+
+
+def polygonize_digons(lengths):
+    '''Batched two-molecule polygonize on tensors: lengths (..., 2) ->
+    vertices (..., 2, 2, 2, 3) [orientation, molecule, start/end, xyz].'''
+    half = lengths / 2.0
+    zeros = torch.zeros_like(half[..., 0])
+
+    def seg(h):
+        start = torch.stack([-h, zeros, zeros], dim=-1)
+        end = torch.stack([h, zeros, zeros], dim=-1)
+        return torch.stack([start, end], dim=-2)
+
+    m0 = seg(half[..., 0])
+    m1 = seg(half[..., 1])
+    orient0 = torch.stack([m0, m1], dim=-3)
+    orient1 = torch.stack([m0, -m1], dim=-3)
+    return torch.stack([orient0, orient1], dim=-4)

@@ -14,15 +14,17 @@ import networkx as nx
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import get_device
 from tscode_tpu_torch.pt import masses_of
 from tscode_tpu_torch.ops.linalg import get_inertia_moments
 
 
-def moi_similarity_matrix(structures, masses, max_deviation=1e-2,
-                          device='cpu'):
+def moi_similarity_matrix(structures, masses, max_deviation=1e-2, *,
+                          device):
     '''(B, B) numpy bool: pair (i, j) similar when all three relative
     moment deviations |m_i - m_j| / m_i are below max_deviation (the
     asymmetric denominator of the reference).'''
+    device = get_device(device)
     moments = get_inertia_moments(
         torch.as_tensor(np.asarray(structures), dtype=torch.float64,
                         device=device),
@@ -34,12 +36,13 @@ def moi_similarity_matrix(structures, masses, max_deviation=1e-2,
     return torch.all(rel < max_deviation, dim=-1).cpu().numpy()
 
 
-def prune_by_moment_of_inertia(structures, atomnos, max_deviation=1e-2,
-                               device='cpu'):
+def prune_by_moment_of_inertia(structures, atomnos, max_deviation=1e-2, *,
+                               device):
     '''Returns (pruned_structures, keep_mask) as numpy arrays. Heavy
     atoms only. Each structure links to its FIRST similar successor;
     each connected component keeps its first node in the networkx
     graph's order.'''
+    device = get_device(device)
     structures = np.asarray(structures)
     atomnos = np.asarray(atomnos)
     heavy = atomnos != 1

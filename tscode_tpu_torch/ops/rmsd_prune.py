@@ -20,11 +20,51 @@ semantics and are not ported.
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import get_device
 from tscode_tpu_torch.ops.kernels.qcp import qcp_kill
+from tscode_tpu_torch.ops.linalg import _qcp_lambda_max, rotation_from_key
 
 K_SCHEDULE = (5e5, 2e5, 1e5, 5e4, 2e4, 1e4,
               5000, 2000, 1000, 500, 200, 100,
               50, 20, 10, 5, 2, 1)
+
+
+def rmsd_matrix_lambda_only(P, Q, n_atoms):
+    '''Pairwise Kabsch RMSD without centering, from QCP's lambda_max
+    alone: P (A, N, 3), Q (B, N, 3) -> (A, B).'''
+    S = torch.einsum('ani,bnk->abik', P, Q)
+    GA = torch.sum(P * P, dim=(-2, -1))[:, None]
+    GB = torch.sum(Q * Q, dim=(-2, -1))[None, :]
+    lam = _qcp_lambda_max(S, GA, GB)
+    msd = (GA + GB - 2.0 * lam) / n_atoms
+    return torch.sqrt(torch.clamp(msd, min=0.0))
+
+
+def maxdev_pairs(P, Q):
+    '''Largest per-atom deviation after Kabsch superposition of each
+    explicit pair: P, Q (K, N, 3) -> (K,).'''
+    S = torch.einsum('kni,knj->kij', P, Q)
+    GA = torch.sum(P * P, dim=(-2, -1))
+    GB = torch.sum(Q * Q, dim=(-2, -1))
+    R = rotation_from_key(S, _qcp_lambda_max(S, GA, GB))
+    diff = torch.einsum('kij,knj->kni', R, P) - Q
+    return torch.amax(torch.sqrt(torch.sum(diff * diff, dim=-1)), dim=-1)
+
+
+def pair_gate_matrices(P, n_atoms):
+    '''Pairwise rmsd and maxdev matrices within each pose block, from one
+    correlation pass: P (..., A, N, 3) -> (rmsd (..., A, A), maxdev
+    (..., A, A)); entry (a, b) superposes pose a onto pose b.'''
+    S = torch.einsum('...ani,...bnk->...abik', P, P)
+    G = torch.sum(P * P, dim=(-2, -1))
+    GA, GB = G[..., :, None], G[..., None, :]
+    lam = _qcp_lambda_max(S, GA, GB)
+    msd = (GA + GB - 2.0 * lam) / n_atoms
+    rmsd = torch.sqrt(torch.clamp(msd, min=0.0))
+    R = rotation_from_key(S, lam)
+    diff = torch.einsum('...abij,...anj->...abni', R, P) - P[..., None, :, :, :]
+    maxdev = torch.amax(torch.sqrt(torch.sum(diff * diff, dim=-1)), dim=-1)
+    return rmsd, maxdev
 
 
 def pass_chunks(mask, n, k):
@@ -73,16 +113,23 @@ def prune_conformers_rmsd_device(heavy_structures, rmsd_thr=0.5,
     return mask.cpu().numpy()
 
 
-def prune_conformers_rmsd(structures, atomnos, rmsd_thr=0.5):
+def prune_conformers_rmsd(structures, atomnos, rmsd_thr=0.5, *, device,
+                          dtype=None):
     '''Remove similar structures; returns (pruned, keep_mask) with the
     bucketed keep/kill semantics above, over heavy atoms only.
-    structures (n, N_atoms, 3) tensor or array; keep_mask numpy bool.'''
-    structures = torch.as_tensor(structures)
+    structures (n, N_atoms, 3) tensor or array, moved to `device` (and
+    cast to `dtype` when given), so a host ensemble with device='cuda'
+    is pruned by the pair kernel; pruned is a tensor there, keep_mask
+    numpy bool.'''
+    device = get_device(device)
+    if not torch.is_tensor(structures):
+        structures = np.asarray(structures)
+    structures = torch.as_tensor(structures, device=device, dtype=dtype)
     n = structures.shape[0]
     if n <= 1:
         return structures, np.ones(n, dtype=bool)
     heavy = torch.as_tensor(np.flatnonzero(np.asarray(atomnos) != 1),
-                            device=structures.device)
+                            device=device)
     mask = prune_conformers_rmsd_device(
         structures[:, heavy].contiguous(), rmsd_thr=rmsd_thr)
-    return structures[torch.as_tensor(mask, device=structures.device)], mask
+    return structures[torch.as_tensor(mask, device=device)], mask

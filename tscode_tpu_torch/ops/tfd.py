@@ -21,6 +21,7 @@ import networkx as nx
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import get_device
 from tscode_tpu_torch.ops.linalg import dihedral
 
 K_SCHEDULE = (5e5, 2e5, 1e5, 5e4, 2e4, 1e4,
@@ -105,7 +106,7 @@ def _first_similar_successor(tf_chunk, thresh):
 
 
 def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
-                         device='cpu', dtype=torch.float64):
+                         *, device, dtype=torch.float64):
     '''Prune torsionally similar structures; returns (pruned, keep_mask)
     as numpy arrays. The reference's bucketed loop:
      * per k in the schedule, run only when k == 1 or 5k < #active;
@@ -117,6 +118,7 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
        node in that graph's order.
     Fingerprints and distance tiles are computed on `device` (from
     structures in `dtype`); the bookkeeping stays on the host.'''
+    device = get_device(device)
     structures = np.asarray(structures)
     n = len(structures)
     if n == 0 or len(quadruplets) == 0:

@@ -1,15 +1,19 @@
 '''
-The string-route inputs of the benchmark suite, written by the port's own
-host modules: `sn2_string` (C2H4 + CH3Cl fixtures, noisy conformers) and
-`large_n_string` (two synthetic C24H49Cl chains, 148-atom poses). The rng
-calls are bench_suite._config_files' (seed 7, then `write_noisy` or
-`write_chloroalkane` per molecule), so the files are byte for byte the
-suite's.
+Inputs of the benchmark suite, written by the port's own host modules:
+the string routes `sn2_string` (C2H4 + CH3Cl fixtures, noisy conformers)
+and `large_n_string` (two synthetic C24H49Cl chains, 148-atom poses),
+and the rigid cyclical routes `da_cyclical` and `da_cyclical_xl` (C2H4 +
+CH3Cl docked on two pairings, RIGID; the two differ only in the suite's
+conformer count). The rng calls are bench_suite._config_files' (seed 7,
+then `write_noisy` or `write_chloroalkane` per molecule), so the files
+are byte for byte the suite's at the same conformer count.
 
     config_files('sn2_string', workdir, n_confs=76) -> workdir/input.txt
+    refine_input('ens.xyz', workdir) -> workdir/input.txt (REFINE)
 '''
 
 import os
+import shutil
 
 import numpy as np
 
@@ -17,7 +21,7 @@ from tscode_tpu_torch.io_xyz import read_xyz, write_xyz
 from tscode_tpu_torch.pipeline import FIXTURE_DIR
 
 NOISE = 0.12          # A of per-conformer jitter on the fixtures
-CONFIGS = ('sn2_string', 'large_n_string')
+CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl')
 
 
 def write_noisy(src, dst, n_confs, rng, noise=NOISE):
@@ -98,6 +102,13 @@ def config_files(name, workdir, n_confs):
         write_noisy(j(FIXTURE_DIR, 'CH3Cl.xyz'), j(workdir, 'm2.xyz'),
                     n_confs, rng)
         content = 'NOOPT\nm1.xyz 0\nm2.xyz 0\n'
+    elif name in ('da_cyclical', 'da_cyclical_xl'):
+        write_noisy(j(FIXTURE_DIR, 'C2H4.xyz'), j(workdir, 'm1.xyz'),
+                    n_confs, rng)
+        write_noisy(j(FIXTURE_DIR, 'CH3Cl.xyz'), j(workdir, 'm2.xyz'),
+                    n_confs, rng)
+        content = ('NOOPT RIGID DIST(a=2.2,b=2.3)\n'
+                   'm1.xyz 0a 3b\nm2.xyz 0a 4b\n')
     elif name == 'large_n_string':
         # DIST(a=3.2): a van-der-Waals contact docking distance, which
         # passes the anti-anti spin angles (~5% of the grid)
@@ -109,4 +120,15 @@ def config_files(name, workdir, n_confs):
     path = j(workdir, 'input.txt')
     with open(path, 'w') as f:
         f.write(content)
+    return path
+
+
+def refine_input(ensemble_path, workdir):
+    '''The refine route's input: a copy of the ensemble as
+    workdir/ens.xyz beside workdir/input.txt, whose two lines are
+    "NOOPT REFINE" and "ens.xyz"; returns the input file's path.'''
+    shutil.copy(ensemble_path, os.path.join(workdir, 'ens.xyz'))
+    path = os.path.join(workdir, 'input.txt')
+    with open(path, 'w') as f:
+        f.write('NOOPT REFINE\nens.xyz\n')
     return path
