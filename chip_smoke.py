@@ -17,7 +17,17 @@ conformers (1,660,608 candidates: the block sweep with the clash
 kernel, the angular dedup, the prunes), float64 exact and float32 within
 brackets from its near ties; phase 9 runs REFINE through the CLI (the
 RMSD prune with the pair-kill kernel, the symmetry-corrected prune) on
-phase 8's float64 output and on phase 7's.
+phase 8's float64 output and on phase 7's, in float64 and in float32
+(the CLI's default on the card), the float32 runs held by the float64
+pairs near a threshold. Phases 10 to 12 run the routes built on the
+block sweep through the CLI, float64 (the JAX x64 counts at every stage)
+and float32 (phase 8's near-tie rule): bench_suite's multiembed at 41
+conformers (12 arrangements in one sweep of 5,809,536 candidates; the
+compenetration stage launches the mask entry K2 of the clash kernel,
+held against its plain version on the tensor the stage gave it), the
+chelotropic input at 62 conformers, and the trimolecular input with
+RIGID at 64 conformers of HCOOH (the chained direction adjustment, the
+clash kernel on the pair list of three fragments).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
@@ -32,6 +42,7 @@ its agreement with the plain version and both times.
 '''
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -96,15 +107,47 @@ CYC_CONFS = 62
 CYC_F64 = (1660608, 19562, 19562)    # candidates, embedded, final: the JAX
 #   x64 run of `TSCODE_SUITE_XL_CONFS=62 JAX_PLATFORMS=cpu python
 #   bench_suite.py da_cyclical_xl` (x64 on the CPU)
-GATE_TIE = 1e-3            # A: |rmsd - 1| or |maxdev - 2| below it is a
-#                            near tie of the angular dedup's gates
+# A: |rmsd - 1| or |maxdev - 2| below it is a near tie of the angular
+# dedup's gates. Float32 poses lie ~1e-6 A from the float64 ones
+# (coordinates of a few A, rotated twice) and the gates' Kabsch sums of
+# ~100 A^2 round at ~1e-5 A^2, so a float32 gate value lies ~1e-6 A from
+# the float64 one; ten times that is marked
+GATE_TIE = 1e-5
 # the refine route (phase 9): REFINE on phase 8's float64 output (the
 # first 10,000 frames, the write truncation) and on phase 7's float64
 # large_n_string output
+MOI_THRESH = 1e-2          # the MOI prune's relative moment threshold
+MOI_TIE = 1e-6             # a relative deviation this close to it is marked
 REFINE_XL_F64 = (10000, 10000, 2)    # structures, after compenetration,
 #   final: the JAX x64 CLI run (`python -m tscode_tpu input.txt`, input
 #   "NOOPT REFINE" + "ens.xyz") on the JAX run's own 10,000-frame output
 #   of da_cyclical_xl at 62 conformers
+
+
+# the multi-arrangement route (phase 10): bench_suite's multiembed, HCOOH
+# (reactive atoms 0 1 3) + C2H4 (0 1), RIGID, 12 arrangements, at 41
+# conformers (at 40 the suite's jitter leaves a reactive hydrogen of C2H4
+# without a bonded neighbour and neither package sets the input up)
+ME_CONFS = 41
+ME_BLOCKS = 13448          # block rows of each arrangement, x 36 angles
+# per arrangement, the JAX x64 run on the CPU (`JAX_PLATFORMS=cpu python
+# tests/test_torch_suite_counts.py multiembed 41`): the sweep's
+# survivors, and the structures after the arrangement's stages
+ME_SURVIVORS = (0, 144, 0, 21, 4648, 277, 0, 4677, 0, 277, 146, 21)
+ME_STRUCTURES = (0, 139, 0, 21, 4648, 267, 0, 4677, 0, 268, 142, 21)
+ME_PARENT = (10183, 10183, 10183)    # in -> after compenetration -> final
+# the chelotropic route (phase 11): the port's chelotropic input (C2H4 on
+# the two lobes of HCOOOH's peroxy oxygen, RIGID) at 62 conformers
+CHEL_CONFS = 62
+CHEL_F64 = (1107072, 30808, 30808, 30808)   # candidates, embedded, after
+#   compenetration, final: the JAX x64 run on the CPU (`JAX_PLATFORMS=cpu
+#   python tests/test_torch_suite_counts.py chelotropic 62`)
+# the rigid three-molecule route (phase 12): bench_suite's trimolecular
+# with RIGID, CH3Cl + 64 conformers of HCOOH twice (TRI_CONFS // 4)
+TRI_CONFS = 256
+TRI_F64 = (24576, 663552, 24417)     # blocks, candidates, embedded: the JAX
+#   x64 run on the CPU (`JAX_PLATFORMS=cpu python
+#   tests/test_torch_suite_counts.py trimolecular_rigid 256`)
 
 
 class SmokeFailure(Exception):
@@ -134,6 +177,12 @@ def phase_env():
     except ImportError as e:
         raise SmokeFailure(f'networkx is missing ({e}); the molecule '
                            f'graph code of tscode_tpu_torch needs it') from e
+    try:
+        import tscode_tpu_torch  # noqa: F401
+    except ImportError as e:
+        raise SmokeFailure(f'the package tscode_tpu_torch is missing ({e}); '
+                           f'run this script from the root of a checkout') \
+            from e
     print(f'[1 env] device {torch.cuda.get_device_name(0)} | nvidia-smi: '
           f'{card} | torch {torch.__version__} | cuda {torch.version.cuda} '
           f'| networkx {networkx.__version__} | python '
@@ -156,8 +205,10 @@ def phase_build():
 
 
 def cuda_ms(fn, reps=10):
-    '''Mean milliseconds per call on the device after one warm-up call
-    (CUDA events around `reps` calls).'''
+    '''Mean milliseconds per call after one warm-up call (CUDA events
+    around `reps` calls, host enqueue time included): for the plain
+    versions, which are many launches each. The hand kernels are timed
+    with device_ms.'''
     import torch
     fn()
     torch.cuda.synchronize()
@@ -603,7 +654,7 @@ def phase_main_f32(card, mols):
     err_clash, n_tie = compare_bits(got, want,
                                     clash_ties(poses, pairs, CLASH),
                                     'clash f32 main grid')
-    ms_clash = cuda_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
+    ms_clash = device_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
     ms_clash_plain = cuda_ms(lambda: clash.clash_ok_plain(poses, pairs,
                                                           CLASH))
     print(f'[5 main f32] clash {tuple(poses.shape)}: kernel '
@@ -665,15 +716,27 @@ def run_cli(tmp, inp, dtype, device=None):
     a file; the working directory is restored afterwards. The kernels'
     launch counts are set to 0 first (qcp.KERNEL.launches holds the
     run's K3 launches after it). Returns (report, frames (F, N, 3),
-    clash launches per regime, seconds).'''
+    clash launches per regime, seconds); the report also gets the clash
+    launches per entry, K1 `clash_ok` and K2
+    `compenetration_mask_kernel`, as `clash_entry_launches`, and what
+    the compenetration stage gave K2's entry, one (poses, pair mask,
+    thresh, max_clashes) per call, as `k2_calls`.'''
     import contextlib
     import os
+    from tscode_tpu_torch import embedder
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
     from tscode_tpu_torch.ops.kernels import clash, qcp
     device = device or DEV
     stamp = f'smoke_{device}_{dtype}'
     cwd = os.getcwd()
+    k2_entry, k2_calls = embedder.compenetration_mask_kernel, []
+
+    def k2_recorded(poses, pair_mask, thresh=1.5, max_clashes=0):
+        k2_calls.append((poses, pair_mask, thresh, max_clashes))
+        return k2_entry(poses, pair_mask, thresh, max_clashes)
+
+    embedder.compenetration_mask_kernel = k2_recorded
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
     t0 = time.perf_counter()
@@ -684,11 +747,15 @@ def run_cli(tmp, inp, dtype, device=None):
                       stamp])
     finally:
         os.chdir(cwd)
+        embedder.compenetration_mask_kernel = k2_entry
     secs = time.perf_counter() - t0
     launches = clash.launches_by_regime()
+    entries = clash.launches_by_entry()
     check(rc == 0, f'CLI on {inp} ({device}, {dtype}): exit code {rc}')
     with open(os.path.join(tmp, f'tscode_report_{stamp}.json')) as f:
         report = json.load(f)
+    report['clash_entry_launches'] = entries
+    report['k2_calls'] = k2_calls
     frames = read_xyz(os.path.join(
         tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
     return report, np.asarray(frames), launches, secs
@@ -1015,12 +1082,15 @@ def phase_large_grid(card):
         e, n_tie = compare_bits(got, plain(), tie, f'clash {name} large_n '
                                 f'grid')
         err = max(err, e)
-        ms = cuda_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
+        ms = device_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
         ms_plain = cuda_ms(plain, reps=2)
+        bound = (poses.numel() * poses.element_size() + pairs.numel() * 4
+                 + poses.shape[0]) / HBM_BYTES_PER_S * 1e3
         print(f'[7 large_n grid {name}] (c) {poses.shape[0]} poses x '
               f'{poses.shape[1]} atoms, P = {pairs.shape[0]}: K1 {ms:.4f} ms'
-              f', plain {ms_plain:.4f} ms (chunks of {LARGE_PLAIN_CHUNK} '
-              f'poses); clash-ok {n_ok}, equal to plain off {n_tie} tie '
+              f' (device), plain {ms_plain:.4f} ms (chunks of '
+              f'{LARGE_PLAIN_CHUNK} poses), bound {bound:.4f} ms (bytes); '
+              f'clash-ok {n_ok}, equal to plain off {n_tie} tie '
               f'poses, {n_near} within 1e-9 A^2; launches {regimes}, plan '
               f'{clash.warp_plan()} [{card}]')
         del poses, ok, got
@@ -1045,35 +1115,37 @@ def embedder_setup(inp, dtype):
     return emb
 
 
-def cyclical_sweep_check(card, inp):
-    '''Phase 8, the sweep on its own, chunk by chunk as the route cuts it:
+def sweep_check(card, tag, blk, mols, angles):
+    '''The block sweep of a cyclical route on its own, chunk by chunk as
+    the route cuts it, over the block rows `blk` of the molecules `mols`:
     in float64 each pose's clash offset and each block's gate offsets
     (the smallest |rmsd - 1| and |maxdev - 2| over its pose pairs), so
     every block with a near tie is known; in float32 the keep mask, held
     against float64's off the tied blocks; and on the first chunk K1
     against the plain clash twin (clash bits off tie poses, keep bits off
-    tied blocks, both timed). Returns (keep f64 (Bb, A), tied (Bb,),
-    keep f32 (Bb, A), float64 poses within 1e-9 A^2 of the clash
-    threshold, largest disagreement).'''
+    tied blocks; K1 in device time, plain with its enqueue time).
+    Returns a dict: keep64, keep32 (Bb, A); per block tie_poses (its
+    poses within CLASH_TIE of the clash threshold), tie_kept (those of
+    them that float64 keeps), gate_tied (a pose pair within GATE_TIE of
+    a dedup gate) and tied (a tie pose or a tied gate); near (the
+    float64 poses within 1e-9 A^2 of the clash threshold); err (the
+    largest disagreement); rec (the first chunk's record).'''
     import torch
     from tscode_tpu_torch.embeds import cyclical as cyc
     from tscode_tpu_torch.ops.kernels import clash
     from tscode_tpu_torch.ops.rmsd_prune import pair_gate_matrices
-    emb = embedder_setup(inp, torch.float64)
-    m1, m2 = emb.objects
-    blk = cyc.bimol_rigid_blocks(m1, m2, 5, emb.pairing_ok_fn())
-    angles = emb.systematic_angles
-    keeps, tied, near, err = {}, [], 0, 0
+    keeps, tie_poses, tie_kept, gate_tied = {}, [], [], []
+    near, err, rec = 0, 0, None
     for dtype in (torch.float64, torch.float32):
-        coords1, coords2, grid, pairs, rows = cyc.sweep_inputs(
-            blk, m1, m2, angles, torch.device(DEV), dtype)
-        Bb, A = len(blk['c1']), grid.shape[0]
-        N = coords1.shape[1] + coords2.shape[1]
-        chunk = cyc._auto_chunk(Bb, A, N, coords1.element_size())
+        coords, grid, pairs, rows = cyc.sweep_inputs(
+            blk, mols, angles, torch.device(DEV), dtype)
+        Bb, A = len(blk['ids']), grid.shape[0]
+        N = sum(c.shape[1] for c in coords)
+        chunk = cyc._auto_chunk(Bb, A, N, coords[0].element_size())
         parts = []
         for lo in range(0, Bb, chunk):
-            c1, c2, *geo = rows(lo, lo + chunk)
-            poses, ok = cyc.block_poses(coords1, coords2, c1, c2,
+            confs, *geo = rows(lo, lo + chunk)
+            poses, ok = cyc.block_poses(coords, confs,
                                         *cyc.block_geometry(*geo), grid,
                                         pairs, CLASH)
             keep = cyc.angular_dedup(poses, ok)
@@ -1086,38 +1158,107 @@ def cyclical_sweep_check(card, inp):
             rmsd, maxdev = pair_gate_matrices(poses, N)
             gate = torch.minimum((rmsd - cyc.DEDUP_RMSD).abs(),
                                  (maxdev - cyc.DEDUP_MAXDEV).abs())
-            t = (off < CLASH_TIE).reshape(-1, A).any(dim=1) | \
-                (gate.amin(dim=(1, 2)) < GATE_TIE)
-            tied.append(t)
+            tie_poses.append((off < CLASH_TIE).reshape(-1, A).sum(dim=1))
+            tie_kept.append(((off < CLASH_TIE).reshape(-1, A)
+                             & keep).sum(dim=1))
+            gate_tied.append(gate.amin(dim=(1, 2)) < GATE_TIE)
+            t = (tie_poses[-1] > 0) | gate_tied[-1]
             if lo == 0:
                 plain_ok = clash.clash_ok_plain(flat, pairs, CLASH)
                 e, n_tie = compare_bits(ok.reshape(-1), plain_ok,
-                                        off < CLASH_TIE, 'clash f64 '
-                                        'cyclical chunk')
+                                        off < CLASH_TIE, f'clash f64 {tag} '
+                                        f'chunk')
                 err = max(err, e)
                 plain_keep = cyc.angular_dedup(poses, plain_ok.reshape(-1, A))
                 check(torch.equal(plain_keep[~t], keep[~t]),
-                      'cyclical chunk: keep bits with K1 and with the plain '
-                      'clash differ off the tied blocks')
-                ms = cuda_ms(lambda: clash.clash_ok(flat, pairs, CLASH))
+                      f'{tag} chunk: keep bits with K1 and with the plain '
+                      f'clash differ off the tied blocks')
+                clash.KERNEL.reset_counts()
+                ms = device_ms(lambda: clash.clash_ok(flat, pairs, CLASH))
+                regime = max(clash.launches_by_regime().items(),
+                             key=lambda kv: kv[1])[0]
                 ms_plain = cuda_ms(lambda: clash.clash_ok_plain(flat, pairs,
                                                                 CLASH), reps=2)
                 nbytes = flat.numel() * flat.element_size() + \
                     pairs.numel() * 4 + flat.shape[0]
                 rec = {'rows': int(poses.shape[0]), 'poses': flat.shape[0],
+                       'N': N, 'P': int(pairs.shape[0]), 'regime': regime,
                        'ms': ms, 'plain_ms': ms_plain,
                        'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
-                print(f'[8 cyclical] first chunk, float64: {rec["rows"]} '
-                      f'block rows, {rec["poses"]} poses, P = '
-                      f'{pairs.shape[0]}: K1 {ms:.4f} ms, plain {ms_plain:.4f}'
-                      f' ms, bound {rec["bound_ms"]:.4f} ms (bytes); clash '
-                      f'bits equal off {n_tie} tie poses, keep bits '
+                print(f'[{tag}] first chunk, float64: {rec["rows"]} '
+                      f'block rows, {rec["poses"]} poses of {N} atoms, P = '
+                      f'{pairs.shape[0]} ({regime} regime): K1 {ms:.4f} ms '
+                      f'(device), plain {ms_plain:.4f} ms, bound '
+                      f'{rec["bound_ms"]:.4f} ms (bytes); clash bits equal '
+                      f'off {n_tie} tie poses, keep bits '
                       f'({int(keep.sum())} survivors) equal with either '
                       f'screen off {int(t.sum())} tied blocks [{card}]')
         keeps[dtype] = torch.cat(parts).cpu().numpy()
         del parts
-    tied = torch.cat(tied).cpu().numpy()
-    return keeps[torch.float64], tied, keeps[torch.float32], near, err
+    tie_poses = torch.cat(tie_poses).cpu().numpy()
+    tie_kept = torch.cat(tie_kept).cpu().numpy()
+    gate_tied = torch.cat(gate_tied).cpu().numpy()
+    return {'keep64': keeps[torch.float64], 'keep32': keeps[torch.float32],
+            'tie_poses': tie_poses, 'tie_kept': tie_kept,
+            'gate_tied': gate_tied,
+            'tied': (tie_poses > 0) | gate_tied, 'near': near, 'err': err,
+            'rec': rec}
+
+
+def hold_float32(tag, sweep):
+    '''The float32 gate of a block sweep (sweep_check's dict): in every
+    block without a near tie the float32 run keeps the float64 run's
+    angles, and at most 5% of the blocks hold a near tie. Prints the
+    tally; returns the blocks that keep other angles (Bb,) bool.'''
+    keep64, keep32, tied = sweep['keep64'], sweep['keep32'], sweep['tied']
+    differ = (keep64 != keep32).any(axis=1)
+    print(f'[{tag}] sweep on its own: {int(keep64.sum())} float64 and '
+          f'{int(keep32.sum())} float32 survivors; {int(tied.sum())} of '
+          f'{len(tied)} blocks ({tied.mean():.2%}) hold a near tie: '
+          f'{int((sweep["tie_poses"] > 0).sum())} a pose within {CLASH_TIE} '
+          f'A^2 of the clash threshold ({int(sweep["tie_poses"].sum())} such '
+          f'poses, {int(sweep["tie_kept"].sum())} of them survivors), {int(sweep["gate_tied"].sum())} a pose pair within '
+          f'{GATE_TIE} A of a dedup gate; {sweep["near"]} poses within 1e-9 '
+          f'A^2 of the clash threshold; {int(differ.sum())} blocks keep '
+          f'other angles in float32, {int((differ & ~tied).sum())} of them '
+          f'untied')
+    check(not bool((differ & ~tied).any()), f'{tag} f32: blocks without '
+          f'a near tie keep other angles than in f64')
+    check(tied.mean() <= 0.05, f'{tag}: {tied.mean():.2%} of the blocks '
+          f'hold a near tie, so the float32 gate holds under 95% of them')
+    return differ
+
+
+def float32_slack(sweep, differ, rows=slice(None)):
+    '''How far a float32 count may lie from the float64 one over the
+    block rows `rows`: (after the sweep, after the later stages). The
+    sweep may differ by the angles of the blocks that keep other angles
+    in float32 (all of them tied, hold_float32); a later stage also by
+    the survivors within CLASH_TIE of the clash threshold, which the
+    compenetration stage screens again.'''
+    A = sweep['keep64'].shape[1]
+    swept = A * int(differ[rows].sum())
+    return swept, swept + int(sweep['tie_kept'][rows].sum())
+
+
+def embed_split(tag, dtype, report, key, card):
+    '''Print the sweep's split of a cyclical-family CLI run from its
+    report; returns the dedup's share of the sweep.'''
+    ce = report[key]
+    sweep = ce['screen_s'] + ce['dedup_s']
+    gen = next(s['seconds'] for s in report['stages']
+               if s['stage'] == 'generate_candidates')
+    adjust = f', adjust {ce["adjust_s"]:.4f} s ({ce["adjust_near_ties"]} ' \
+        f'near ties)' if 'adjust_s' in ce else ''
+    print(f'[{tag} {dtype}] sweep split: blocks {ce["blocks_s"]:.4f} s'
+          f'{adjust}, screen {ce["screen_s"]:.4f} s, dedup '
+          f'{ce["dedup_s"]:.4f} s, assemble {ce["assemble_s"]:.4f} s '
+          f'({ce.get("union_blocks", ce.get("blocks"))} blocks in '
+          f'{ce["chunks"]} chunks of {ce["chunk_rows"]}); the dedup (pair '
+          f'gates and greedy scan) is {ce["dedup_s"] / sweep:.1%} of the '
+          f'sweep and {ce["dedup_s"] / gen:.1%} of generate_candidates '
+          f'[{card}]')
+    return ce['dedup_s'] / sweep
 
 
 def cli_stages(report):
@@ -1133,8 +1274,11 @@ def phase_cyclical_route(card, tmp):
     JAX x64 counts exactly) then float32 (brackets from the float64
     near ties), and the sweep checked on its own. The inputs and the
     float64 output stay in `tmp`. Returns (K1 launches, largest
-    disagreement, path of the float64 output ensemble).'''
+    disagreement, K1's record on the first chunk, path of the float64
+    output ensemble).'''
     import os
+    import torch
+    from tscode_tpu_torch.embeds import cyclical as cyc
     os.environ['TSCODE_EMBED_TRACE'] = '1'
     inp = suite_input('da_cyclical_xl', tmp, CYC_CONFS)
     counts, launches = {}, 0
@@ -1152,94 +1296,123 @@ def phase_cyclical_route(card, tmp):
               and bool(np.isfinite(frames).all()),
               f'cyclical {dtype}: .xyz holds {frames.shape}, expected '
               f'({min(c[2], 10000)}, 11, 3) finite')
-        sweep = ce['screen_s'] + ce['dedup_s']
-        gen = next(s['seconds'] for s in report['stages']
-                   if s['stage'] == 'generate_candidates')
         print(f'[8 cyclical {dtype}] {" -> ".join(map(str, c))} '
               f'(candidates -> embedded -> final) in {secs:.3f} s, K1 '
               f'launches {regimes}; stages: {cli_stages(report)}; report '
               f'total {report["total_seconds"]} s [{card}]')
-        print(f'[8 cyclical {dtype}] sweep split: blocks {ce["blocks_s"]:.4f}'
-              f' s, screen {ce["screen_s"]:.4f} s, dedup {ce["dedup_s"]:.4f}'
-              f' s, assemble {ce["assemble_s"]:.4f} s ({ce["blocks"]} blocks '
-              f'in {ce["chunks"]} chunks of {ce["chunk_rows"]}); the dedup '
-              f'(pair gates and greedy scan) is {ce["dedup_s"] / sweep:.1%} '
-              f'of the sweep and {ce["dedup_s"] / gen:.1%} of '
-              f'generate_candidates [{card}]')
-    keep64, tied, keep32, near, err = cyclical_sweep_check(card, inp)
-    A = keep64.shape[1]
-    n_tied = int(tied.sum())
-    differ = (keep64 != keep32).any(axis=1)
-    print(f'[8 cyclical] sweep on its own: {int(keep64.sum())} float64 and '
-          f'{int(keep32.sum())} float32 survivors; {n_tied} of {len(tied)} '
-          f'blocks hold a near tie (a pose within {CLASH_TIE} A^2 of the '
-          f'clash threshold, or a pose pair within {GATE_TIE} A of a dedup '
-          f'gate); {near} poses within 1e-9 A^2 of the clash threshold; '
-          f'{int(differ.sum())} blocks keep other angles in float32, '
-          f'{int((differ & ~tied).sum())} of them untied')
+        embed_split('8 cyclical', dtype, report, 'cyclical_embed', card)
+    emb = embedder_setup(inp, torch.float64)
+    blk = cyc.bimol_rigid_blocks(*emb.objects, 5, emb.pairing_ok_fn())
+    sweep = sweep_check(card, '8 cyclical', blk, emb.objects,
+                        emb.systematic_angles)
+    differ = hold_float32('8 cyclical', sweep)
+    keep64, keep32 = sweep['keep64'], sweep['keep32']
+    slack = float32_slack(sweep, differ)
     c64, c32 = counts['float64'], counts['float32']
     check(c64 == CYC_F64, f'cyclical f64 counts {c64} != {CYC_F64}')
     check(int(keep64.sum()) == c64[1] and int(keep32.sum()) == c32[1],
           f'cyclical: the sweep on its own keeps {int(keep64.sum())} / '
           f'{int(keep32.sum())}, the route {c64[1]} / {c32[1]}')
-    check(not bool((differ & ~tied).any()), 'cyclical f32: blocks without '
-          'a near tie keep other angles than in f64')
     check(c32[0] == c64[0], f'cyclical f32 candidates {c32[0]} != {c64[0]}')
     for k, what in ((1, 'embedded'), (2, 'final')):
-        check(abs(c32[k] - c64[k]) <= A * n_tied, f'cyclical f32 {what} '
-              f'{c32[k]} outside {c64[k]} +- {A} x {n_tied} tied blocks')
+        check(abs(c32[k] - c64[k]) <= slack[k - 1], f'cyclical f32 {what} '
+              f'{c32[k]} outside {c64[k]} +- {slack[k - 1]}')
     print(f'[8 cyclical] gates held: float64 {" -> ".join(map(str, c64))} '
-          f'(JAX x64), float32 {" -> ".join(map(str, c32))} within {c64[1]} '
-          f'+- {A} x {n_tied} tied blocks')
-    return launches, err, os.path.join(
+          f'(JAX x64), float32 {" -> ".join(map(str, c32))} within +- '
+          f'{slack[0]} (embedded: the angles of the blocks that differ) and '
+          f'+- {slack[1]} (final: and the clash-tie survivors)')
+    return launches, sweep['err'], sweep['rec'], os.path.join(
         tmp, f'tscode_unoptimized_smoke_{DEV}_float64.xyz')
 
 
-def refine_k3_passes(card, path, what):
-    '''K3 on each pass of the RMSD stage that REFINE runs on the ensemble
-    `path`: its structures that pass the compenetration rule and, up to
-    500 structures, the MOI prune, heavy atoms, float64 on the card;
-    each pass through qcp_pass (kill bits against plain and the
-    thread-per-row kernel, device ms; plain timed at the first pass).
-    Returns (records, kept, largest disagreement).'''
+def refine_pool(path):
+    '''The RMSD stage's pool of a REFINE run on the ensemble `path`: the
+    structures that pass the compenetration rule and, up to 500
+    structures, the MOI prune. Returns (structures (n, N, 3) numpy,
+    heavy-atom mask (N,), MOI pairs within MOI_TIE of the MOI
+    threshold, or 0 when that prune does not run).'''
     import torch
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.ops.clash import count_intra_clashes_np
+    from tscode_tpu_torch.ops.linalg import get_inertia_moments
     from tscode_tpu_torch.ops.moi import prune_by_moment_of_inertia
+    from tscode_tpu_torch.pt import masses_of
     ens = read_xyz(path)
     s, atomnos = np.asarray(ens.atomcoords), np.asarray(ens.atomnos)
+    heavy = atomnos != 1
     s = s[count_intra_clashes_np(s, thresh=0.5) == 0]
+    moi_marked = 0
     if len(s) <= 500:
+        m = get_inertia_moments(
+            torch.as_tensor(s[:, heavy], dtype=torch.float64, device=DEV),
+            torch.as_tensor(masses_of(atomnos[heavy]), dtype=torch.float64,
+                            device=DEV))
+        rel = (m[:, None] - m[None]).abs() / m[:, None]
+        near = ((rel - MOI_THRESH).abs() < MOI_TIE).any(dim=-1)
+        moi_marked = int(torch.triu(near | near.T, diagonal=1).sum())
         s = prune_by_moment_of_inertia(s, atomnos, device=DEV)[0]
-    hs = torch.as_tensor(s[:, atomnos != 1],
-                         dtype=torch.float64, device=DEV).contiguous()
+    return s, heavy, moi_marked
+
+
+def refine_k3_passes(card, pool, heavy, what):
+    '''K3 on each pass of the RMSD stage that REFINE runs on `pool`
+    (refine_pool's structures), heavy atoms, float64 on the card; each
+    pass through qcp_pass (kill bits against plain and the
+    thread-per-row kernel, device ms; plain timed at the first pass),
+    and the pass's pairs whose float64 rmsd lies within
+    QCP_TIE['float32'] of the threshold or whose max deviation lies
+    within it of twice the threshold: the pairs a float32 run may decide
+    otherwise. Returns (records, kept, largest disagreement, marked
+    pairs, rows with a marked pair).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels.qcp import pass_pairs
+    from tscode_tpu_torch.ops.linalg import rmsd_and_max
+    hs = torch.as_tensor(pool[:, heavy], dtype=torch.float64,
+                         device=DEV).contiguous()
     passes, kept = schedule_passes(hs)
-    recs, err = [], 0
+    recs, err, marked, rows = [], 0, 0, 0
+    tol = QCP_TIE['float32']
     for i, (k, act, end) in enumerate(passes):
         rec, e = qcp_pass(card, hs, act, end, 'float64', f'{what} k={k}',
                           i == 0)
         recs.append(rec)
         err = max(err, e)
-    return recs, kept, err
+        pos = torch.arange(act.numel(), device=hs.device)
+        p, q = pass_pairs(end.long(), pos)
+        row_hit = torch.zeros(act.numel(), dtype=torch.bool, device=hs.device)
+        for lo in range(0, p.numel(), 1 << 18):
+            pp, qq = p[lo:lo + (1 << 18)], q[lo:lo + (1 << 18)]
+            rmsd, maxdev = rmsd_and_max(hs[act[pp]], hs[act[qq]])
+            tie = ((rmsd - THR).abs() < tol) | \
+                ((maxdev - 2 * THR).abs() < tol)
+            marked += int(tie.sum())
+            row_hit[pp[tie]] = True
+        rows += int(row_hit.sum())
+    return recs, kept, err, marked, rows
 
 
 def refine_counts(report):
-    '''(structures in, after compenetration, final) of a refine run.'''
+    '''(structures in, after compenetration, after the RMSD prune,
+    final) of a refine run.'''
     st = {s['stage']: s for s in report['stages']}
+    sim = {r['stage']: r for r in report['similarity']}
     return (st['generate_candidates']['structures_in'],
             st['compenetration_refining']['structures_out'],
-            report['final_structures'])
+            sim['rmsd']['structures_out'], report['final_structures'])
 
 
 def phase_refine_route(card, xl_path, large_path):
-    '''Phase 9: REFINE through the CLI, float64. (a) On phase 8's
-    float64 output (10,000 frames of 11 atoms, 4 heavy): the JAX x64
+    '''Phase 9: REFINE through the CLI. (a) On phase 8's float64 output
+    (10,000 frames of 11 atoms, 4 heavy): float64 gives the JAX x64
     counts of the same chain exactly. (b) On phase 7's float64
-    large_n_string output (148 atoms, 50 heavy): the card's output
-    equals the port's CPU run of the same file. For both, K3's passes
-    on the RMSD stage's pool with device times. Returns (K3 launches,
-    pass records, largest disagreement).'''
-    import os
+    large_n_string output (148 atoms, 50 heavy): the card's float64
+    output equals the port's CPU run of the same file. For both, K3's
+    passes on the RMSD stage's pool with device times, and the float32
+    run (the CLI's default dtype on the card) held against the float64
+    run: with no marked pair (refine_k3_passes, refine_pool) the same
+    frames, else the counts after the RMSD prune and at the end within
+    the marked rows and pairs of float64's. Returns (K3 launches, pass
+    records, largest disagreement).'''
     import tempfile
     from tscode_tpu_torch.ops.kernels import qcp
     from tscode_tpu_torch.suite_inputs import refine_input
@@ -1247,25 +1420,30 @@ def phase_refine_route(card, xl_path, large_path):
     for what, path in (('refine xl', xl_path), ('refine large_n', large_path)):
         with tempfile.TemporaryDirectory(prefix='smoke_refine_') as tmp:
             inp = refine_input(path, tmp)
-            report, frames, _, secs = run_cli(tmp, inp, 'float64')
-            n_k3 = qcp.KERNEL.launches
-            launches += n_k3
-            check(n_k3 > 0, f'{what}: K3 was not launched')
-            counts = refine_counts(report)
-            sim = {r['stage']: r for r in report['similarity']}
-            check(frames.shape[0] == counts[2] and
-                  bool(np.isfinite(frames).all()), f'{what}: .xyz holds '
-                  f'{frames.shape}, expected {counts[2]} finite frames')
-            print(f'[9 {what}] {" -> ".join(map(str, counts))} (structures '
-                  f'-> after compenetration -> final) in {secs:.3f} s, K3 '
-                  f'launches {n_k3}; stages: {cli_stages(report)}; prunes: '
-                  + ', '.join(f'{r["stage"]} {r["structures_in"]} -> '
-                              f'{r["structures_out"]} {r["seconds"]:.4f} s'
-                              for r in report['similarity'])
-                  + f' [{card}]')
+            runs = {}
+            for dtype in ('float64', 'float32'):
+                report, frames, _, secs = run_cli(tmp, inp, dtype)
+                n_k3 = qcp.KERNEL.launches
+                launches += n_k3
+                check(n_k3 > 0, f'{what} {dtype}: K3 was not launched')
+                counts = refine_counts(report)
+                check(frames.shape[0] == counts[3] and
+                      bool(np.isfinite(frames).all()), f'{what} {dtype}: '
+                      f'.xyz holds {frames.shape}, expected {counts[3]} '
+                      f'finite frames')
+                print(f'[9 {what} {dtype}] {" -> ".join(map(str, counts))} '
+                      f'(structures -> after compenetration -> after the '
+                      f'RMSD prune -> final) in {secs:.3f} s, K3 launches '
+                      f'{n_k3}; stages: {cli_stages(report)}; prunes: '
+                      + ', '.join(f'{r["stage"]} {r["structures_in"]} -> '
+                                  f'{r["structures_out"]} {r["seconds"]:.4f} s'
+                                  for r in report['similarity'])
+                      + f' [{card}]')
+                runs[dtype] = (counts, frames)
+            counts, frames = runs['float64']
             if what == 'refine xl':
-                check(counts == REFINE_XL_F64, f'{what}: counts {counts} != '
-                      f'{REFINE_XL_F64} (JAX x64)')
+                check(counts[:2] + counts[3:] == REFINE_XL_F64, f'{what}: '
+                      f'counts {counts} != {REFINE_XL_F64} (JAX x64)')
             else:
                 cpu_report, cpu_frames, _, cpu_secs = run_cli(
                     tmp, inp, 'float64', device='cpu')
@@ -1274,11 +1452,12 @@ def phase_refine_route(card, xl_path, large_path):
                       f'keeps {counts}, the CPU run '
                       f'{refine_counts(cpu_report)}, or other frames')
                 print(f'[9 {what}] the CPU run of the port ({cpu_secs:.3f} s)'
-                      f' keeps the same {counts[2]} frames')
-            pass_recs, kept, e = refine_k3_passes(card, path, what)
-            check(kept == sim['rmsd']['structures_out'], f'{what}: the pass '
-                  f'by pass replay keeps {kept}, the RMSD stage '
-                  f'{sim["rmsd"]["structures_out"]}')
+                      f' keeps the same {counts[3]} frames')
+            pool, heavy, moi_marked = refine_pool(path)
+            pass_recs, kept, e, marked, rows = refine_k3_passes(
+                card, pool, heavy, what)
+            check(kept == counts[2], f'{what}: the pass by pass replay '
+                  f'keeps {kept}, the RMSD stage {counts[2]}')
             recs += pass_recs
             err = max(err, e)
             print(f'[9 {what}] K3 passes on the RMSD stage\'s pool (N = '
@@ -1286,7 +1465,357 @@ def phase_refine_route(card, xl_path, large_path):
                       f'{r["pass"].split()[-1]} M={r["M"]} '
                       f'{sum(r["ms"]) / 2:.4f} ms' for r in pass_recs)
                   + f'; device ms in all {sum(sum(r["ms"]) / 2 for r in pass_recs):.4f} [{card}]')
+            c32, f32 = runs['float32']
+            same = f32.shape == frames.shape and np.array_equal(f32, frames)
+            slack = rows + moi_marked
+            print(f'[9 {what}] float32 against float64: {marked} pairs in '
+                  f'{rows} rows marked (float64 rmsd within '
+                  f'{QCP_TIE["float32"]} A of {THR} or max deviation within '
+                  f'it of {2 * THR}), {moi_marked} MOI pairs marked (a '
+                  f'relative moment deviation within {MOI_TIE} of '
+                  f'{MOI_THRESH}); float32 {" -> ".join(map(str, c32))}, '
+                  f'frames equal to float64\'s: {same}')
+            check(c32[:2] == counts[:2], f'{what} f32: {c32[:2]} structures '
+                  f'before the prunes, f64 {counts[:2]}')
+            if slack == 0:
+                check(same, f'{what} f32: no marked pair, but the frames '
+                      f'differ from f64\'s ({c32} against {counts})')
+            else:
+                for k, name in ((2, 'after the RMSD prune'), (3, 'final')):
+                    check(abs(c32[k] - counts[k]) <= slack, f'{what} f32 '
+                          f'{name}: {c32[k]} outside {counts[k]} +- {slack} '
+                          f'marked rows and MOI pairs')
     return launches, recs, err
+
+
+def k2_check(card, tag, report, ids, dtype_name):
+    '''K2's entry on what a CLI run's compenetration stage gave it
+    (`report` from run_cli: one call, on the stage's structures_in
+    structures, in the run's dtype, with the cross-fragment mask of the
+    fragment sizes `ids`), against the plain version: on the structures
+    as they are (the sweep screened them, so all pass) and with the
+    second fragment pulled toward the first by 0 to 60% of the centroid
+    distance (max_clashes 0 and 2), off poses within CLASH_TIE of the
+    threshold. Times the entry (device_ms; its pair list is kept from
+    its first call), the same with its enqueue time, and the plain
+    version. Returns (record, largest disagreement).'''
+    import torch
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.ops.kernels import clash
+    stage = next(st for st in report['stages']
+                 if st['stage'] == 'compenetration_refining')
+    check(len(report['k2_calls']) == 1, f'K2 {tag}: the compenetration '
+          f'stage called the entry {len(report["k2_calls"])} times')
+    poses, pm, thresh, max_clashes = report['k2_calls'][0]
+    want_pm = cross_fragment_pair_mask(tuple(ids))
+    check(tuple(poses.shape) == (stage['structures_in'], sum(ids), 3)
+          and poses.is_cuda and poses.dtype == getattr(torch, dtype_name)
+          and np.array_equal(np.asarray(pm), want_pm)
+          and (thresh, max_clashes) == (CLASH, 0),
+          f'K2 {tag}: the stage gave the entry poses {tuple(poses.shape)} '
+          f'{poses.dtype} on {poses.device}, thresh {thresh}, max_clashes '
+          f'{max_clashes}; expected its {stage["structures_in"]} structures '
+          f'in {dtype_name} on the card, {CLASH} and 0')
+    poses = poses.contiguous()
+    pairs = torch.as_tensor(clash.static_pairs(pm), device=DEV)
+    mask = torch.as_tensor(pm, device=DEV)
+    n1 = int(ids[0])
+    shift = poses[:, :n1].mean(dim=1) - poses[:, n1:].mean(dim=1)
+    pulled = poses.clone()
+    pulled[:, n1:] += shift[:, None] * torch.linspace(
+        0, 0.6, len(poses), dtype=poses.dtype, device=DEV)[:, None, None]
+    err = 0
+    for what, p in (('as embedded', poses), ('pulled together', pulled)):
+        tie = clash_ties(p, pairs, CLASH)
+        for mc in (0, 2):
+            want = clash.clash_counts_plain(p, mask, CLASH) <= mc
+            got = clash.compenetration_mask_kernel(p, pm, CLASH, mc)
+            e, n_tie = compare_bits(got, want, tie, f'K2 {tag} {what} '
+                                    f'mc={mc}')
+            err = max(err, e)
+            if what == 'pulled together':
+                check(0 < int(want.sum()) < len(p), f'K2 {tag} {what} '
+                      f'mc={mc}: degenerate case ({int(want.sum())} pass)')
+            elif mc == 0:
+                n_pass = int(got.sum())
+    check(n_pass == stage['structures_out'], f'K2 {tag}: {n_pass} pass '
+          f'here, {stage["structures_out"]} left the stage')
+    ms = device_ms(lambda: clash.compenetration_mask_kernel(poses, pm, CLASH))
+    ms_enqueued = cuda_ms(lambda: clash.compenetration_mask_kernel(
+        poses, pm, CLASH))
+    ms_plain = cuda_ms(lambda: clash.clash_counts_plain(poses, mask, CLASH)
+                       <= 0)
+    nbytes = poses.numel() * poses.element_size() + pm.size + len(poses)
+    rec = {'poses': len(poses), 'N': int(poses.shape[1]),
+           'P': int(pairs.shape[0]), 'dtype': dtype_name, 'ms': ms,
+           'enqueued_ms': ms_enqueued, 'plain_ms': ms_plain,
+           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+    print(f'[{tag}] K2 on the stage\'s {len(poses)} structures of '
+          f'{poses.shape[1]} atoms ({dtype_name}, P = {pairs.shape[0]}): '
+          f'{n_pass} pass as embedded; equal to plain as embedded and pulled '
+          f'together, max_clashes 0 and 2; entry {ms:.4f} ms (device), '
+          f'{ms_enqueued:.4f} ms with its enqueue time, plain '
+          f'{ms_plain:.4f} ms, bound {rec["bound_ms"]:.5f} ms (bytes) '
+          f'[{card}]')
+    return rec, err
+
+
+def k2_checks(card, tag, reports, ids):
+    '''k2_check on the float64 and the float32 run of a route; returns
+    (records by dtype, largest disagreement).'''
+    recs, err = {}, 0
+    for dtype, report in reports.items():
+        recs[dtype], e = k2_check(card, tag, report, ids, dtype)
+        err = max(err, e)
+    return recs, err
+
+
+def stage_counts(report):
+    return tuple([report['stages'][0]['structures_out']]
+                 + [s['structures_out'] for s in report['stages'][1:]])
+
+
+def phase_multiembed_route(card):
+    '''Phase 10: the multi-arrangement route through the CLI on
+    bench_suite's multiembed at ME_CONFS conformers (12 arrangements'
+    block rows in one sweep with K1, each arrangement's stages and the
+    parent's compenetration stage with K2, the prunes), float64 (the JAX
+    x64 counts at every stage) then float32 (held as phase 8 holds it),
+    the union sweep checked on its own, and K2 on the parent's
+    structures. Returns (K1 launches, K2 launches, largest K1
+    disagreement, K2's records by dtype, largest K2 disagreement).'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch import multiembed
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    k1 = k2 = 0
+    runs, reports = {}, {}
+    with tempfile.TemporaryDirectory(prefix='smoke_multi_') as tmp:
+        inp = suite_input('multiembed', tmp, ME_CONFS)
+        for dtype in ('float64', 'float32'):
+            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+            me = report['multiembed_embed']
+            entry = report['clash_entry_launches']
+            k1 += entry['clash_ok']
+            k2 += entry['compenetration_mask_kernel']
+            kids = me['children']
+            # an arrangement is a cyclical embed, whose compenetration
+            # stage screens nothing: K2 is the parent's launch
+            check(entry == {'clash_ok': me['chunks'],
+                            'compenetration_mask_kernel': 1},
+                  f'multiembed {dtype}: launches {entry}, expected K1 once '
+                  f'per chunk ({me["chunks"]}) and K2 once, for the parent')
+            parent = stage_counts(report)
+            check(frames.shape == (min(parent[2], 10000), 11, 3)
+                  and bool(np.isfinite(frames).all()),
+                  f'multiembed {dtype}: .xyz holds {frames.shape}')
+            runs[dtype] = (kids, parent)
+            reports[dtype] = report
+            print(f'[10 multiembed {dtype}] {me["arrangements"]} '
+                  f'arrangements, {me["union_candidates"]} candidates -> '
+                  f'{me["union_survivors"]} survivors of the sweep; parent '
+                  f'{" -> ".join(map(str, parent))} (in -> after '
+                  f'compenetration -> final) in {secs:.3f} s; launches '
+                  f'{entry}; stages: {cli_stages(report)}; report total '
+                  f'{report["total_seconds"]} s [{card}]')
+            print(f'[10 multiembed {dtype}] per arrangement, blocks / '
+                  f'survivors / structures / seconds: ' + ', '.join(
+                      f'{c["blocks"]} / {c["survivors"]} / {c["structures"]} '
+                      f'/ {c["seconds"]:.3f}' for c in kids) + f' [{card}]')
+            embed_split('10 multiembed', dtype, report, 'multiembed_embed',
+                        card)
+        # the union sweep on its own: the children's block rows again
+        emb = embedder_setup(inp, torch.float64)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            blks = []
+            for i, c in enumerate(runs['float64'][0]):
+                run, folder, blk = multiembed._build_child(
+                    emb, c['arrangement'], i)
+                blks.append(blk)
+        finally:
+            os.chdir(cwd)
+        sweep = sweep_check(card, '10 multiembed', cyc.concat_blocks(blks),
+                            run.objects, run.systematic_angles)
+    differ = hold_float32('10 multiembed', sweep)
+    keep64, keep32 = sweep['keep64'], sweep['keep32']
+
+    kids64, parent64 = runs['float64']
+    kids32, parent32 = runs['float32']
+    check(tuple(c['blocks'] for c in kids64) == (ME_BLOCKS,) * 12 and
+          all(c['candidates'] == ME_BLOCKS * 36 for c in kids64),
+          f'multiembed f64: blocks {[c["blocks"] for c in kids64]}, expected '
+          f'{ME_BLOCKS} each')
+    check(tuple(c['survivors'] for c in kids64) == ME_SURVIVORS,
+          f'multiembed f64: survivors {[c["survivors"] for c in kids64]} != '
+          f'{ME_SURVIVORS} (JAX x64)')
+    check(tuple(c['structures'] for c in kids64) == ME_STRUCTURES,
+          f'multiembed f64: structures {[c["structures"] for c in kids64]} '
+          f'!= {ME_STRUCTURES} (JAX x64)')
+    check(parent64 == ME_PARENT, f'multiembed f64: parent {parent64} != '
+          f'{ME_PARENT} (JAX x64)')
+    lo = 0
+    for i, (c64, c32) in enumerate(zip(kids64, kids32)):
+        rows = slice(lo, lo + c64['blocks'])
+        lo += c64['blocks']
+        check(int(keep64[rows].sum()) == c64['survivors'] and
+              int(keep32[rows].sum()) == c32['survivors'],
+              f'multiembed arrangement {i + 1}: the sweep on its own keeps '
+              f'{int(keep64[rows].sum())} / {int(keep32[rows].sum())}, the '
+              f'route {c64["survivors"]} / {c32["survivors"]}')
+        slack = float32_slack(sweep, differ, rows)
+        for key, room in zip(('survivors', 'structures'), slack):
+            check(abs(c32[key] - c64[key]) <= room, f'multiembed f32 '
+                  f'arrangement {i + 1} {key}: {c32[key]} outside '
+                  f'{c64[key]} +- {room}')
+    slack = float32_slack(sweep, differ)
+    for k, what in enumerate(('in', 'after compenetration', 'final')):
+        check(abs(parent32[k] - parent64[k]) <= slack[1], f'multiembed '
+              f'f32 parent {what}: {parent32[k]} outside {parent64[k]} +- '
+              f'{slack[1]}')
+    print(f'[10 multiembed] gates held: float64 survivors and structures '
+          f'per arrangement and parent {" -> ".join(map(str, parent64))} '
+          f'(JAX x64); float32 parent {" -> ".join(map(str, parent32))}, '
+          f'each arrangement\'s survivors within the angles of its blocks '
+          f'that differ ({slack[0]} in all), later counts within those and '
+          f'its clash-tie survivors ({slack[1]} in all)')
+    recs, e2 = k2_checks(card, '10 multiembed', reports, (5, 6))
+    return k1, k2, sweep['err'], recs, e2
+
+
+def phase_chelotropic_route(card):
+    '''Phase 11: the rigid chelotropic route through the CLI on the
+    port's chelotropic input at CHEL_CONFS conformers (the block sweep
+    with K1, the compenetration stage with K2, the prunes), float64
+    (the JAX x64 counts) then float32 (held as phase 8 holds it), and K2
+    on its structures. Returns as phase_multiembed_route.'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    k1 = k2 = 0
+    counts, reports = {}, {}
+    with tempfile.TemporaryDirectory(prefix='smoke_chel_') as tmp:
+        inp = suite_input('chelotropic', tmp, CHEL_CONFS)
+        for dtype in ('float64', 'float32'):
+            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+            ce = report['chelotropic_embed']
+            entry = report['clash_entry_launches']
+            k1 += entry['clash_ok']
+            k2 += entry['compenetration_mask_kernel']
+            check(entry == {'clash_ok': ce['chunks'],
+                            'compenetration_mask_kernel': 1},
+                  f'chelotropic {dtype}: launches {entry}, expected K1 once '
+                  f'per chunk ({ce["chunks"]}) and K2 once')
+            counts[dtype] = c = (ce['candidates'],) + stage_counts(report)
+            reports[dtype] = report
+            check(frames.shape == (min(c[3], 10000), 12, 3)
+                  and bool(np.isfinite(frames).all()),
+                  f'chelotropic {dtype}: .xyz holds {frames.shape}')
+            print(f'[11 chelotropic {dtype}] {" -> ".join(map(str, c))} '
+                  f'(candidates -> embedded -> after compenetration -> '
+                  f'final) in {secs:.3f} s; launches {entry}; stages: '
+                  f'{cli_stages(report)}; report total '
+                  f'{report["total_seconds"]} s [{card}]')
+            embed_split('11 chelotropic', dtype, report, 'chelotropic_embed',
+                        card)
+        emb = embedder_setup(inp, torch.float64)
+    blk = cyc.bimol_rigid_blocks(*emb.objects, 5, emb.pairing_ok_fn())
+    sweep = sweep_check(card, '11 chelotropic', blk, emb.objects,
+                        emb.systematic_angles)
+    differ = hold_float32('11 chelotropic', sweep)
+    keep64, keep32 = sweep['keep64'], sweep['keep32']
+    slack = float32_slack(sweep, differ)
+    c64, c32 = counts['float64'], counts['float32']
+    check(c64 == CHEL_F64, f'chelotropic f64 counts {c64} != {CHEL_F64}')
+    check(int(keep64.sum()) == c64[1] and int(keep32.sum()) == c32[1],
+          f'chelotropic: the sweep on its own keeps {int(keep64.sum())} / '
+          f'{int(keep32.sum())}, the route {c64[1]} / {c32[1]}')
+    check(c32[0] == c64[0], f'chelotropic f32 candidates {c32[0]}')
+    for k in (1, 2, 3):
+        check(abs(c32[k] - c64[k]) <= slack[k > 1], f'chelotropic f32 count '
+              f'{k}: {c32[k]} outside {c64[k]} +- {slack[k > 1]}')
+    print(f'[11 chelotropic] gates held: float64 '
+          f'{" -> ".join(map(str, c64))} (JAX x64), float32 '
+          f'{" -> ".join(map(str, c32))} within +- {slack[0]} (embedded: the '
+          f'angles of the blocks that differ) and +- {slack[1]} (later: and '
+          f'the clash-tie survivors)')
+    recs, e2 = k2_checks(card, '11 chelotropic', reports,
+                         [m.n_atoms for m in emb.objects])
+    return k1, k2, sweep['err'], recs, e2
+
+
+def phase_trimol_route(card):
+    '''Phase 12: the rigid three-molecule route through the CLI on
+    bench_suite's trimolecular input with RIGID at TRI_CONFS // 4
+    conformers of HCOOH (the chained direction adjustment, the block
+    sweep with K1 over the pair list of three fragments, BYPASS), float64
+    (the JAX x64 blocks, candidates and survivors) then float32, and
+    the sweep checked on its own with K1 against plain on its first
+    chunk. Returns (K1 launches, largest disagreement, K1's record).'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    k1 = 0
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix='smoke_tri_') as tmp:
+        inp = suite_input('trimolecular_rigid', tmp, TRI_CONFS)
+        for dtype in ('float64', 'float32'):
+            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+            ce = report['cyclical_embed']
+            entry = report['clash_entry_launches']
+            k1 += entry['clash_ok']
+            check(entry == {'clash_ok': ce['chunks'],
+                            'compenetration_mask_kernel': 0} and
+                  regimes['warp'] == ce['chunks'],
+                  f'trimolecular {dtype}: launches {entry} {regimes}, '
+                  f'expected K1\'s warp kernel once per chunk '
+                  f'({ce["chunks"]})')
+            counts[dtype] = c = (ce['blocks'], ce['candidates'],
+                                 ce['survivors'])
+            check(report['final_structures'] == c[2] and
+                  frames.shape == (min(c[2], 10000), 15, 3)
+                  and bool(np.isfinite(frames).all()),
+                  f'trimolecular {dtype}: .xyz holds {frames.shape}, final '
+                  f'{report["final_structures"]}')
+            print(f'[12 trimolecular {dtype}] {" -> ".join(map(str, c))} '
+                  f'(blocks -> candidates -> embedded) in {secs:.3f} s; '
+                  f'launches {entry} {regimes}; adjust chain '
+                  f'{ce["adjust_s"]:.4f} s in float64, '
+                  f'{ce["adjust_near_ties"]} blocks whose two best grid '
+                  f'costs lie within {cyc.ADJ_TIE} degrees; stages: '
+                  f'{cli_stages(report)}; report total '
+                  f'{report["total_seconds"]} s [{card}]')
+            check(ce['adjust_near_ties'] == 0, f'trimolecular {dtype}: '
+                  f'{ce["adjust_near_ties"]} adjust-chain near ties')
+            embed_split('12 trimolecular', dtype, report, 'cyclical_embed',
+                        card)
+        emb = embedder_setup(inp, torch.float64)
+    blk = cyc.trimol_rigid_blocks(emb.objects, emb.pairing_ok_fn())
+    blk['dirs'], _ = cyc.adjust_chain(*(blk[k] for k in cyc._ADJUST),
+                                      device=torch.device(DEV))
+    sweep = sweep_check(card, '12 trimolecular', blk, emb.objects,
+                        emb.systematic_angles)
+    differ = hold_float32('12 trimolecular', sweep)
+    keep64, keep32, rec = sweep['keep64'], sweep['keep32'], sweep['rec']
+    slack = float32_slack(sweep, differ)[0]
+    check(rec['regime'] == 'warp' and rec['N'] == 15 and rec['P'] == 75,
+          f'trimolecular chunk: {rec}')
+    c64, c32 = counts['float64'], counts['float32']
+    check(c64 == TRI_F64, f'trimolecular f64 counts {c64} != {TRI_F64}')
+    check(int(keep64.sum()) == c64[2] and int(keep32.sum()) == c32[2],
+          f'trimolecular: the sweep on its own keeps {int(keep64.sum())} / '
+          f'{int(keep32.sum())}, the route {c64[2]} / {c32[2]}')
+    check(c32[:2] == c64[:2] and abs(c32[2] - c64[2]) <= slack,
+          f'trimolecular f32 {c32} outside {c64} +- {slack}')
+    print(f'[12 trimolecular] gates held: float64 '
+          f'{" -> ".join(map(str, c64))} (JAX x64), float32 '
+          f'{" -> ".join(map(str, c32))} within +- {slack} (the angles of '
+          f'the blocks that differ)')
+    return k1, sweep['err'], rec
 
 
 def qcp_plan_sweep(card, out):
@@ -1379,7 +1908,6 @@ def main():
         phase_build()
         cyclical_profile(card, sys.argv[2])
         return
-    import os
     import tempfile
     import torch
     from tscode_tpu_torch.pipeline import build_workload
@@ -1400,16 +1928,33 @@ def main():
               f'76-conformer grids {grid}')
         errs['clash'] = max(errs['clash'], errs.pop('clash7'))
         with tempfile.TemporaryDirectory(prefix='smoke_cyc_') as tmp:
-            k1, e8, xl_path = phase_cyclical_route(card, tmp)
+            k1, e8, chunk8, xl_path = phase_cyclical_route(card, tmp)
             k3, recs9, e9 = phase_refine_route(
                 card, xl_path, os.path.join(keep, 'large_n_f64.xyz'))
-    kernels[0]['launches'] += k1
+    k1_10, k2_10, e10, k2_rec, e10_k2 = phase_multiembed_route(card)
+    k1_11, k2_11, e11, k2_rec11, e11_k2 = phase_chelotropic_route(card)
+    k1_12, e12, chunk12 = phase_trimol_route(card)
+    kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12
+    kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
     kernels[1]['launches'] += k3
     kernels[1]['passes'] += recs9
-    errs['clash'] = max(errs['clash'], e8)
+    errs['clash'] = max(errs['clash'], e8, e10, e11, e12)
     errs['qcp_kill'] = max(errs['qcp_kill'], e9)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
+    check(k2_10 > 0 and k2_11 > 0, f'K2 launches: multiembed {k2_10}, '
+          f'chelotropic {k2_11}')
+    kernels.insert(1, {
+        'name': 'compenetration_mask_kernel', 'route': 'cuda',
+        'source': 'tscode_tpu_torch/csrc/clash.cu',
+        'replaces': 'tscode_tpu/ops/pallas/clash.py:55',
+        'launches': k2_10 + k2_11, 'max_abs_err': max(e10_k2, e11_k2),
+        'ms': k2_rec['float64']['ms'],
+        'plain_ms': k2_rec['float64']['plain_ms'],
+        'bound_ms': k2_rec['float64']['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None,
+        'routes': {'multiembed': dict(k2_rec, launches=k2_10),
+                   'chelotropic': dict(k2_rec11, launches=k2_11)}})
     check('jax' not in sys.modules, 'jax was imported')
     jax_pkg = sorted(m for m in sys.modules
                      if m == 'tscode_tpu' or m.startswith('tscode_tpu.'))

@@ -114,3 +114,21 @@ def test_pair_lists_are_unique_and_plain_rejects_repeats():
     want = tclash.compenetration_mask(poses, pm, 1.5, 1)
     np.testing.assert_array_equal(to_np(clash_ok(poses, pairs, 1.5, 1)),
                                   to_np(want))
+
+
+def test_k2_pair_list_is_built_once_per_mask():
+    '''K2's entry keeps the device pair list of a mask: the same mask
+    (as array or tensor) gives the same tensor again, another mask its
+    own list, each equal to static_pairs of its mask.'''
+    from tscode_tpu_torch.ops.kernels.clash import pairs_of_mask
+    pm = tclash.cross_fragment_pair_mask((5, 6))
+    first = pairs_of_mask(pm, torch.device('cpu'))
+    assert pairs_of_mask(pm.copy(), torch.device('cpu')) is first
+    assert pairs_of_mask(torch.as_tensor(pm), torch.device('cpu')) is first
+    assert first.dtype == torch.int32
+    np.testing.assert_array_equal(to_np(first), tclash.static_pairs(pm))
+    other = tclash.cross_fragment_pair_mask((6, 5))
+    second = pairs_of_mask(other, torch.device('cpu'))
+    assert second is not first
+    np.testing.assert_array_equal(to_np(second), tclash.static_pairs(other))
+    assert pairs_of_mask(pm, torch.device('cpu')) is first

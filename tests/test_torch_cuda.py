@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tscode_tpu_torch.embedder import Embedder
+from tscode_tpu_torch.embedder import Embedder, RunEmbedding
 from tscode_tpu_torch.embeds import cyclical
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
@@ -286,15 +286,14 @@ def test_cyclical_block_screen_with_k1_matches_plain(cuda_device, tmp_path):
     blk = cyclical.bimol_rigid_blocks(m1, m2, 5, emb.pairing_ok_fn())
     out = {}
     for dev in (cuda_device, torch.device('cpu')):
-        coords1, coords2, grid, pairs, rows = cyclical.sweep_inputs(
-            blk, m1, m2, emb.systematic_angles, dev, torch.float64)
-        c1, c2, *geo = rows(0, len(blk['c1']))
+        coords, grid, pairs, rows = cyclical.sweep_inputs(
+            blk, (m1, m2), emb.systematic_angles, dev, torch.float64)
+        confs, *geo = rows(0, len(blk['c1']))
         geometry = cyclical.block_geometry(*geo)
         for clash_fn in (clash.clash_ok, clash.clash_ok_plain):
             before = clash.KERNEL.launches
-            poses, ok = cyclical.block_poses(coords1, coords2, c1, c2,
-                                             *geometry, grid, pairs, 1.5,
-                                             clash=clash_fn)
+            poses, ok = cyclical.block_poses(coords, confs, *geometry, grid,
+                                             pairs, 1.5, clash=clash_fn)
             launched = clash.KERNEL.launches - before
             assert launched == int(dev.type == 'cuda' and
                                    clash_fn is clash.clash_ok)
@@ -306,6 +305,81 @@ def test_cyclical_block_screen_with_k1_matches_plain(cuda_device, tmp_path):
                                    atol=1e-9)
         assert torch.equal(keep, want_keep)
     assert int(want_keep.sum()) == 47
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_clash_kernel_on_three_fragments(cuda_device, dtype):
+    '''K1 on the cross-fragment pair list of three 5-atom fragments (75
+    pairs of 15 atoms, the three-molecule embed's: the warp regime) with
+    max_clashes 0 and 2, against plain off threshold ties.'''
+    rng = np.random.default_rng(15)
+    pm = cross_fragment_pair_mask((5, 5, 5))
+    pairs = torch.as_tensor(clash.static_pairs(pm), device=cuda_device)
+    assert pairs.shape == (75, 2)
+    assert clash.clash_regime(75, 15, poses_itemsize(dtype)) == 'warp'
+    frag = rng.normal(size=(5000, 3, 5, 3)) * 0.9
+    frag += rng.normal(size=(5000, 3, 1, 3)) * 2.5
+    poses = torch.as_tensor(frag.reshape(5000, 15, 3), dtype=dtype,
+                            device=cuda_device)
+    P = poses.double()
+    pl = pairs.long()
+    d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+    keep = ~((d2 - 2.25).abs() < 1e-4).any(dim=1)     # no threshold ties
+    clash.KERNEL.reset_counts()
+    for mc in (0, 2):
+        want = clash.clash_ok_plain(poses, pairs, 1.5, mc)
+        got = clash.clash_ok(poses, pairs, 1.5, mc)
+        assert torch.equal(got[keep], want[keep])
+        assert 0 < int(want.sum()) < poses.shape[0]
+    assert clash.launches_by_regime() == {'thread': 0, 'warp': 2}
+    assert clash.launches_by_entry() == {'clash_ok': 2,
+                                         'compenetration_mask_kernel': 0}
+
+
+def poses_itemsize(dtype):
+    return torch.empty(0, dtype=dtype).element_size()
+
+
+def test_compenetration_refining_from_numpy_reaches_k2(cuda_device, tmp_path):
+    '''The chelotropic route at 4 conformers with device='cuda': the
+    compenetration stage moves the run's numpy ensemble to the card and
+    launches K2 once, with the run's CLASHES count; the mask equals the
+    CPU stage's on structures pushed into clashes.'''
+    path = config_files('chelotropic', str(tmp_path), 4)
+    with open(path) as f:
+        text = f.read()
+    with open(path, 'w') as f:
+        f.write(text.replace('NOOPT', 'NOOPT CLASHES(num=2,dist=1.5)'))
+    runs = {}
+    for dev in ('cuda', 'cpu'):
+        cwd = os.getcwd()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                emb = Embedder(path, stamp=dev, device=dev,
+                               dtype=torch.float64)
+                run = RunEmbedding(emb)
+                run.generate_candidates()
+        finally:
+            os.chdir(cwd)
+        assert run.embed == 'chelotropic' and run.options.max_clashes == 2
+        # pull the second fragment toward the first, so that some
+        # structures clash at 0, 1 to 2 and more pairs
+        n1 = run.objects[0].n_atoms
+        s = run.structures.copy()
+        shift = s[:, :n1].mean(axis=1) - s[:, n1:].mean(axis=1)
+        s[:, n1:] += shift[:, None] * np.linspace(0, 0.6, len(s))[:, None,
+                                                                   None]
+        run.structures = s
+        clash.KERNEL.reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run.compenetration_refining()
+        run.logfile.close()
+        assert clash.launches_by_entry()['compenetration_mask_kernel'] == \
+            int(dev == 'cuda')
+        runs[dev] = run.structures
+    assert runs['cuda'].shape == runs['cpu'].shape
+    np.testing.assert_allclose(runs['cuda'], runs['cpu'], rtol=0, atol=1e-9)
+    assert 0 < len(runs['cpu']) < 128
 
 
 def test_prune_conformers_rmsd_from_numpy_reaches_k3(cuda_device):

@@ -187,11 +187,11 @@ def test_one_block_screen_chunk_matches_jax(da4):
         jnp.asarray(m1.atomcoords), jnp.asarray(m2.atomcoords),
         jnp.asarray(blk['tab1']), jnp.asarray(blk['tab2']), jnp.asarray(ti),
         jnp.asarray(angles), jnp.asarray(pm), jnp.asarray(1.5), n_chunks=1)
-    coords1, coords2, grid, pairs, _ = tc.sweep_inputs(
-        blk, m1, m2, angles, torch.device('cpu'), torch.float64)
-    poses_t, keep_t = tc.block_screen(
-        coords1, coords2, t64(blk['tab1']), t64(blk['tab2']),
-        torch.as_tensor(ti).long(), grid, pairs, 1.5)
+    coords, grid, pairs, _ = tc.sweep_inputs(
+        blk, (m1, m2), angles, torch.device('cpu'), torch.float64)
+    confs, *geo = tc.compact_rows(t64(blk['tab1']), t64(blk['tab2']),
+                                  torch.as_tensor(ti).long())
+    poses_t, keep_t = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
     np.testing.assert_allclose(to_np(poses_t), np.asarray(poses_j), rtol=0,
                                atol=1e-9)
     np.testing.assert_array_equal(to_np(keep_t), np.asarray(keep_j))
@@ -246,7 +246,7 @@ def test_cyclical_embed_matches_jax(da4):
 
     blk = tc.bimol_rigid_blocks_loop(*te.objects, 5, te.pairing_ok_fn())
     surv, keep = tc.screen_survivors(
-        blk, *te.objects, te.systematic_angles, 1.5, device='cpu',
+        blk, te.objects, te.systematic_angles, 1.5, device='cpu',
         dtype=torch.float64, block_chunk=100)
     np.testing.assert_allclose(to_np(surv), got_p, rtol=0, atol=1e-12)
     assert keep.shape == (BLOCKS_4, 36)

@@ -100,12 +100,12 @@ def test_resume_after_the_prunes(tmp_path):
 
 
 @pytest.mark.parametrize('content,files,item', [
-    ('NOOPT RIGID\nC2H4.xyz 0 3\nC2H4.xyz 0 3\nC2H4.xyz 0 3\n',
-     ('C2H4.xyz',), 'item 12'),                      # trimolecular cyclical
+    ('NOOPT\nC2H4.xyz 0 3\nC2H4.xyz 0 3\nC2H4.xyz 0 3\n',
+     ('C2H4.xyz',), 'items 12 and 13'),    # non-rigid trimolecular cyclical
     ('NOOPT DIST(a=2.2,b=2.3)\nC2H4.xyz 0a 3b\nCH3Cl.xyz 0a 4b\n',
      ('C2H4.xyz', 'CH3Cl.xyz'), 'items 12 and 13'),  # non-rigid cyclical
     ('NOOPT\nC2H4.xyz 0 3\nCH3Cl.xyz 0\n',
-     ('C2H4.xyz', 'CH3Cl.xyz'), 'item 12'),                   # chelotropic
+     ('C2H4.xyz', 'CH3Cl.xyz'), 'items 12 and 13'), # non-rigid chelotropic
     ('NOOPT\nC2F2H4.xyz 3 5\n', ('C2F2H4.xyz',), 'item 12'),  # monomolecular
     ('C2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
      'items 13 and 15'),                                      # optimisation

@@ -159,6 +159,52 @@ def test_cli_cyclical_and_refine_routes_import_no_jax(tmp_path):
         assert read_xyz(str(out)).atomcoords.shape == (n, 11, 3)
 
 
+def test_cli_multiembed_chelotropic_and_trimol_import_no_jax(tmp_path):
+    '''The multiembed (4 conformers, 12 arrangements -> 110 frames), the
+    rigid chelotropic (4 conformers -> 70) and the rigid three-molecule
+    route (3 conformers of HCOOH -> 54) through the CLI with --device cpu
+    in one fresh interpreter: each ends normally and writes its
+    ensemble, none imports jax or a module of the JAX package, and the
+    same inputs without --device ask for the card and raise here.'''
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.suite_inputs import config_files
+    routes = (('multiembed', 4, (110, 11, 3)), ('chelotropic', 4, (70, 12, 3)),
+              ('trimolecular_rigid', 12, (54, 15, 3)))
+    for name, n, _ in routes:
+        (tmp_path / name).mkdir()
+        config_files(name, str(tmp_path / name), n)
+    code = (
+        'import os, sys\n'
+        'from tscode_tpu_torch.__main__ import main\n'
+        'root = sys.argv[1]\n'
+        'for name in sys.argv[2:]:\n'
+        '    os.chdir(os.path.join(root, name))\n'
+        '    assert main(["input.txt", "--device", "cpu", "-n", "nojax"]) == 0\n'
+        '    try:\n'
+        '        main(["input.txt", "-n", "nocard"])\n'
+        '    except RuntimeError as e:\n'
+        '        assert "cuda" in str(e), e\n'
+        '    else:\n'
+        '        raise AssertionError("ran without a card")\n'
+        '    os.chdir(root)\n'
+        + NO_JAX_PACKAGE +
+        'assert "tscode_tpu_torch.multiembed" in sys.modules\n'
+        'print("NOJAX_OK")\n')
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
+    r = subprocess.run([sys.executable, '-c', code, str(tmp_path)]
+                       + [name for name, _, _ in routes],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'NOJAX_OK' in r.stdout
+    assert r.stdout.count('normal termination') == 3
+    for name, _, shape in routes:
+        out = tmp_path / name / 'tscode_unoptimized_nojax.xyz'
+        assert read_xyz(str(out)).atomcoords.shape == shape
+        assert not list((tmp_path / name).glob('tscode_*_nocard.xyz'))
+        assert not list((tmp_path / name).glob('tscode_embed*/'))
+
+
 def test_cli_cuda_without_a_card_fails_with_no_ensemble(tmp_path):
     sn2_input(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
@@ -172,7 +218,8 @@ def test_cli_cuda_without_a_card_fails_with_no_ensemble(tmp_path):
 
 
 @pytest.mark.parametrize('name', ['sn2_string', 'large_n_string',
-                                  'da_cyclical', 'da_cyclical_xl'])
+                                  'da_cyclical', 'da_cyclical_xl',
+                                  'multiembed'])
 def test_port_input_writer_matches_bench_suite(tmp_path, monkeypatch, name):
     '''The port's writer gives bench_suite._config_files' files byte for
     byte (the same rng calls, the port's io_xyz); da_cyclical_xl takes
@@ -190,7 +237,28 @@ def test_port_input_writer_matches_bench_suite(tmp_path, monkeypatch, name):
         assert (tmp_path / 'port' / f).read_bytes() == \
             (tmp_path / 'suite' / f).read_bytes(), f
     with pytest.raises(ValueError):
-        config_files('multiembed', str(tmp_path / 'port'), 3)
+        config_files('torsion_drive', str(tmp_path / 'port'), 3)
+
+
+def test_trimolecular_rigid_input_is_the_suites_plus_rigid(tmp_path,
+                                                           monkeypatch):
+    '''The port's trimolecular_rigid input: bench_suite's trimolecular
+    molecule files byte for byte, and its input with RIGID added to the
+    keyword line and nothing else changed.'''
+    import bench_suite
+    from tscode_tpu_torch.suite_inputs import config_files
+    (tmp_path / 'suite').mkdir()
+    (tmp_path / 'port').mkdir()
+    monkeypatch.setattr(bench_suite, 'N_CONFS', 12)
+    bench_suite._config_files('trimolecular', str(tmp_path / 'suite'))
+    config_files('trimolecular_rigid', str(tmp_path / 'port'), 12)
+    for f in ('m1.xyz', 'm2.xyz'):
+        assert (tmp_path / 'port' / f).read_bytes() == \
+            (tmp_path / 'suite' / f).read_bytes(), f
+    suite = (tmp_path / 'suite' / 'input.txt').read_text()
+    port = (tmp_path / 'port' / 'input.txt').read_text()
+    assert 'RIGID' not in suite
+    assert port == suite.replace('BYPASS ', 'BYPASS RIGID ', 1)
 
 
 def test_native_builds_under_build_and_matches_numpy(monkeypatch):

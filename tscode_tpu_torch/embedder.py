@@ -2,16 +2,19 @@
 Engine of the port: input DSL parsing, embed-type decision and the
 pipeline stages (counterpart of tscode_tpu/embedder.py).
 
-Ported: parsing, pairings, keywords, three routes (the string embed, the
-rigid bimolecular cyclical embed, and the refine route of REFINE or
-refine>, which takes an ensemble as the structures), the compenetration
-stage, the similarity prunes (TFD, MOI, and on the refine route the
-bucketed RMSD prune with kernel K3 and the symmetry-corrected RMSD
-prune), structure writes, the run report and resume. Every other route
-raises NotImplementedError naming its ROADMAP.md item, before any embed
-work: the other embed families (trimolecular and non-rigid cyclical,
-chelotropic, multiembed, monomolecular), operators other than refine>,
-optimisation (inputs without NOOPT or BYPASS need calculators),
+Ported: parsing, pairings, keywords, the routes that need no force
+field (the string embed; the rigid cyclical embed of two or three
+molecules; the rigid chelotropic embed; the multiembed, which docks
+every arrangement of the reactive atoms of two polyfunctional molecules;
+and the refine route of REFINE or refine>, which takes an ensemble as
+the structures), the compenetration stage (kernel K2 where the fragment
+sizes are known), the fitness stage, the similarity prunes (TFD, MOI,
+and on the refine route the bucketed RMSD prune with kernel K3 and the
+symmetry-corrected RMSD prune), structure writes, the run report and
+resume. Every other route raises NotImplementedError naming its
+ROADMAP.md item, before any embed work: the non-rigid (bending) cyclical
+and chelotropic embeds, the monomolecular embed, operators other than
+refine>, optimisation (inputs without NOOPT or BYPASS need calculators),
 SADDLE/TS, metadynamics and csearch augmentation.
 
 The device and dtype are explicit: `Embedder(filename, device='cuda')`
@@ -39,6 +42,7 @@ from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph, graphize
 from tscode_tpu_torch.io_xyz import write_xyz
 from tscode_tpu_torch.molecule import Molecule, align_by_moi, align_structures
 from tscode_tpu_torch.options import KEYWORDS, Options, OptionSetter
+from tscode_tpu_torch.orbitals import get_atom_builder
 from tscode_tpu_torch.quotes import quotes
 from tscode_tpu_torch.references import references
 from tscode_tpu_torch.settings import DEFAULT_LEVELS
@@ -48,6 +52,7 @@ from tscode_tpu_torch import __version__
 from tscode_tpu_torch.backend import default_dtype, get_device
 from tscode_tpu_torch.embeds.cyclical import cyclical_embed
 from tscode_tpu_torch.embeds.string import string_embed
+from tscode_tpu_torch.multiembed import multiembed_dispatcher
 from tscode_tpu_torch.ops.clash import (count_intra_clashes_np,
                                         cross_fragment_pair_mask)
 from tscode_tpu_torch.ops.kernels.clash import compenetration_mask_kernel
@@ -415,8 +420,6 @@ class Embedder:
         self.pairing_dists = {p.split('=')[0]: float(p.split('=')[1])
                               for p in orb_string.split(',')}
 
-        from tscode_tpu_torch.orbitals import get_atom_builder
-
         for letter, dist in self.pairing_dists.items():
             if letter not in self.pairings_table:
                 raise SyntaxError(
@@ -468,7 +471,8 @@ class Embedder:
 
     def _setup(self, p=True):
         '''Embed-type decision, angle grids and pivots of the ported
-        routes; the other embed types raise NotImplementedError.'''
+        routes; the monomolecular embed and the non-rigid forms raise
+        NotImplementedError.'''
         if any('refine>' in op for op in self.options.operators) or \
                 self.options.noembed:
             self.embed = 'refine'
@@ -501,12 +505,11 @@ class Embedder:
             multiembed = (len(self.objects) == 2 and
                           all(n >= 2 for n in n_reactive) and not cyclical)
 
-            if chelotropic or multiembed:
-                kind = 'multiembed' if multiembed else 'chelotropic'
-                raise not_ported(f'The {kind} embed', 12)
-
-            if cyclical:
-                self._setup_cyclical(override, p)
+            if cyclical or chelotropic or multiembed:
+                self._setup_cyclical(
+                    'cyclical' if cyclical else
+                    'multiembed' if multiembed else 'chelotropic',
+                    override, p)
             elif not string:
                 raise InputError(
                     'Bad input - The only molecular configurations accepted '
@@ -546,25 +549,38 @@ class Embedder:
                 self.options.only_refined = True
 
             self.candidates = self._get_number_of_candidates()
-            self.log(f'--> Setup performed correctly. {self.candidates} '
-                     f'candidates will be generated.\n')
+            self.log(f'--> Setup performed correctly. '
+                     f'{self.candidates or "Many"} candidates will be '
+                     f'generated.\n')
 
     def _large_embed(self):
         '''The large-embed rule: over 100 conformers and no LET, run()
-        makes a cyclical embed rigid.'''
+        makes a cyclical or chelotropic embed rigid.'''
         return not self.options.let and \
             max(mol.n_confs for mol in self.objects) > 100
 
-    def _setup_cyclical(self, override, p):
-        '''The rigid bimolecular cyclical embed: the (A, 2) grid of
-        per-molecule step angles over +-rotation_range and the pivots.
-        The trimolecular and non-rigid forms raise.'''
-        if len(self.objects) == 3:
-            raise not_ported('The trimolecular cyclical embed', 12)
-        if not (self.options.rigid or self._large_embed()):
-            raise not_ported('The non-rigid cyclical embed (bending)',
+    def _setup_cyclical(self, kind, override, p):
+        '''The embeds built on the cyclical sweep: `kind` is 'cyclical'
+        (two or three molecules, two reactive atoms each), 'chelotropic'
+        (its single reactive atoms' orbitals enlarged by 0.2 A) or
+        'multiembed' (orbitals only: each arrangement is set up as a
+        cyclical embed of its own). Sets the (A, M) grid of per-molecule
+        step angles over +-rotation_range and the pivots. The non-rigid
+        cyclical and chelotropic forms raise.'''
+        if kind != 'multiembed' and \
+                not (self.options.rigid or self._large_embed()):
+            raise not_ported(f'The non-rigid {kind} embed (bending)',
                              '12 and 13')
-        self.embed = 'cyclical'
+        self.embed = kind
+        if kind == 'chelotropic':
+            for mol in self.objects:
+                mol.compute_orbitals(override=override)
+                for c in range(mol.n_confs):
+                    for index, atom in list(mol.reactive_atoms[c].items()):
+                        orb_dim = np.linalg.norm(atom.center[0] - atom.coord)
+                        mol.reactive_atoms[c][index] = get_atom_builder(
+                            mol.graph, index)(mol, index, conf=c,
+                                              orb_dim=orb_dim + 0.2)
         self.options.rotation_steps = 5
         if hasattr(self.options, 'custom_rotation_steps'):
             self.options.rotation_steps = self.options.custom_rotation_steps
@@ -578,19 +594,32 @@ class Embedder:
                 if not mol.reactive_atoms:
                     mol.compute_orbitals(override=override)
                 set_pivots(mol, suprafacial=self.options.suprafacial)
+        if kind == 'multiembed':
+            for mol in self.objects:
+                mol.compute_orbitals(override=override)
 
     def _get_number_of_candidates(self):
         '''String embed: spin steps times the lobe-conformer products.
-        Cyclical embed: two orientations per angle pair, conformer pair
-        and pivot pair, halved when pairings fix the orientation.'''
+        Multiembed: 0, logged as Many (each arrangement counts its own).
+        Cyclical sweeps: two orientations per angle tuple, conformer
+        tuple and pivot tuple, times four for three molecules; pairings
+        fix orientations of a cyclical embed (half of two molecules'; a
+        quarter or, from two pairings up, an eighth of three's).'''
         if self.embed == 'string':
             return int(self.options.rotation_steps * np.prod(
                 [sum(len(mol.get_r_atoms(c)[0].center)
                      for c in range(mol.n_confs)) for mol in self.objects]))
+        if self.embed == 'multiembed':
+            return 0
         candidates = 2 * len(self.systematic_angles) * np.prod(
             [mol.n_confs for mol in self.objects])
-        if self.pairings_table:
-            candidates /= 2
+        if len(self.objects) == 3:
+            candidates *= 4
+        if self.pairings_table and self.embed == 'cyclical':
+            if len(self.objects) == 2:
+                candidates /= 2
+            else:
+                candidates /= 4 if len(self.pairings_table) == 1 else 8
         candidates *= np.prod([len(mol.pivots[0]) for mol in self.objects])
         return int(candidates)
 
@@ -839,8 +868,10 @@ class RunEmbedding(Embedder):
 
     @_timed_stage
     def generate_candidates(self):
-        '''String or rigid cyclical embed on the run's device; the refine
-        route has its structures already.'''
+        '''The embed on the run's device: string, rigid cyclical or
+        chelotropic (or, for an arrangement of a multiembed, its slice
+        `precomputed_embed` of the shared sweep), or multiembed; the
+        refine route has its structures already.'''
         if self.embed == 'refine':
             self.log('\n')
             return
@@ -852,8 +883,21 @@ class RunEmbedding(Embedder):
                 device=self.device, dtype=self.dtype, info=self.embed_info)
             self.structures = structures
             self.constrained_indices = constrained
-        elif self.embed == 'cyclical':
-            self.structures = cyclical_embed(self)
+        elif self.embed in ('cyclical', 'chelotropic'):
+            pre = getattr(self, 'precomputed_embed', None)
+            if pre is not None:
+                # an empty slice behaves as an empty embed
+                structures, constrained = pre
+                if len(structures) == 0:
+                    raise ZeroCandidatesError(
+                        '--> Cyclical embed did not find any suitable '
+                        'disposition of molecules.')
+                self.structures = structures
+                self.constrained_indices = constrained
+            else:
+                self.structures = cyclical_embed(self)
+        elif self.embed == 'multiembed':
+            self.structures = multiembed_dispatcher(self)
         else:
             raise InputError(f'Embed type {self.embed!r} not recognized.')
 
@@ -878,11 +922,12 @@ class RunEmbedding(Embedder):
     @_timed_stage
     def compenetration_refining(self):
         '''The string and cyclical embeds screened every pose already.
-        Other routes are screened here: with fragment sizes (ids), the
-        cross-fragment clash screen (kernel K2 on CUDA); on the refine
-        route, each structure's pairs closer than 0.5 A (pairs at
-        distance 0 excluded, as the reference does). Then the
-        placeholder energies and exit status.'''
+        Other routes are screened here: with fragment sizes (ids: the
+        chelotropic embed and the multiembed parent), the cross-fragment
+        clash screen (kernel K2 on CUDA); on the refine route, each
+        structure's pairs closer than 0.5 A (pairs at distance 0
+        excluded, as the reference does). Then the placeholder energies
+        and exit status.'''
         if self.embed not in ('string', 'cyclical'):
             self.log('--> Checking structures for compenetrations')
             t_start = time.perf_counter()
@@ -911,6 +956,44 @@ class RunEmbedding(Embedder):
 
         self.energies = np.full(len(self.structures), 1e10)
         self.exit_status = np.zeros(len(self.structures), dtype=bool)
+
+    @_timed_stage
+    def fitness_refining(self, threshold=5, verbose=False):
+        '''Discard the structures whose summed absolute deviation from
+        the imposed pairing distances exceeds `threshold` (A). Host
+        numpy.'''
+        if verbose:
+            self.log(' \n--> Fitness pruning - removing inaccurate structures')
+
+        targets = {}     # a target depends on the index pair alone
+
+        def target_of(pair):
+            key = (int(pair[0]), int(pair[1]))
+            if key not in targets:
+                targets[key] = \
+                    self.get_pairing_dists_from_constrained_indices(pair)
+            return targets[key]
+
+        mask = np.ones(len(self.structures), dtype=bool)
+        for s, (structure, constraints) in enumerate(
+                zip(self.structures, self.constrained_indices)):
+            error = 0.0
+            for pair in constraints:
+                target = target_of(pair)
+                if target is not None:
+                    d = np.linalg.norm(structure[pair[0]] - structure[pair[1]])
+                    error += abs(d - target)
+            mask[s] = error <= threshold
+
+        self.apply_mask(self.MASKABLE, mask)
+
+        if False in mask:
+            self.log(f'Discarded {np.count_nonzero(~mask)} candidates for '
+                     f'unfitness ({np.count_nonzero(mask)} left)')
+        elif verbose:
+            self.log('All candidates meet the imposed criteria.')
+        self.log()
+        self.zero_candidates_check()
 
     def _note_prune(self, stage, before, t_start):
         self.similarity_info.append({
@@ -1119,8 +1202,8 @@ class RunEmbedding(Embedder):
             self.normal_termination()
             return
 
-        if self.embed == 'cyclical' and not self.options.rigid and \
-                self._large_embed():
+        if self.embed in ('cyclical', 'chelotropic') and \
+                not self.options.rigid and self._large_embed():
             self.options.rigid = True
             self.log('--> Large embed: RIGID keyword added for efficiency '
                      '(override with LET)')

@@ -1,16 +1,16 @@
 '''
-Rigid bimolecular cyclical embed: two molecules with two reactive atoms
-each, docked across both pairings at once, as in a Diels-Alder
-transition state (counterpart of the two-molecule rigid part of
-tscode_tpu/embeds/cyclical.py).
+Rigid cyclical embeds: two or three molecules docked across all their
+pairings at once, as in a Diels-Alder transition state (counterpart of
+the rigid parts of tscode_tpu/embeds/cyclical.py; the chelotropic embed
+and every arrangement of a multiembed are two-molecule cases).
 
 The sweep is cut into blocks,
 
-  block = (conformer pair) x (pivot pair passing the norm-delta and
-          pairing gates) x (polygon orientation),
+  block = (conformer tuple) x (pivot tuple passing the norm-delta or
+          triangle gate and the pairing gate) x (polygon orientation),
 
 built on the host in the reference's generation order. Each block is
-expanded over the A angle pairs of the grid on the device, a chunk of
+expanded over the A angle tuples of the grid on the device, a chunk of
 block rows at a time: the block's alignment (two-vector Kabsch), its A
 poses, the clash screen (kernel K1 on CUDA, its plain twin on the CPU),
 the block-local (A, A) rmsd and maxdev matrices and the greedy angular
@@ -19,9 +19,15 @@ kept before it in its block). The dedup is block-local, so chunking
 changes nothing. The survivors are compacted on the device; only the
 keep mask and the survivor rows reach the host.
 
-The trimolecular and the non-rigid (bending) cyclical embeds are not
-ported (ROADMAP.md items 12 and 13). Set TSCODE_EMBED_TRACE=1 to print
-the split of block building, screen, dedup and assembly to stderr.
+Three molecules sit on the sides of a triangle, and each block's facing
+directions are first corrected by a grid search over 343 angle triples
+(`adjust_chain`), chained from one kept orientation to the next within
+a (conformer, pivot) combination; the chain runs in float64 whatever
+the sweep's dtype, since its argmin decides whole poses.
+
+The non-rigid (bending) cyclical embeds are not ported (ROADMAP.md
+items 12 and 13). Set TSCODE_EMBED_TRACE=1 to print the split of block
+building, adjustment, screen, dedup and assembly to stderr.
 '''
 
 import os
@@ -86,6 +92,26 @@ def _pivot_tensors(mol, offset):
     pv = np.array([[p.pivot for p in pl] for pl in pivs], dtype=float)
     mp = np.array([[p.meanpoint for p in pl] for pl in pivs], dtype=float)
     return pv, mp, np.asarray(sa) + offset, np.asarray(ea) + offset
+
+
+def _mol_tables(mol, pv, mp):
+    '''Per (conformer, pivot) of a molecule with pivot tensors pv, mp
+    (nc, Q, 3): the reactive atoms' mean apm (nc, 3), the pivot
+    meanpoint's displacement from it md (nc, Q, 3) (the meanpoint itself
+    where that is zero) and the rotation axis rca (nc, Q, 3): the
+    reactive atoms' difference, or the pivot of a single reactive
+    atom.'''
+    apm = mol.atomcoords[:, mol.reactive_indices].mean(axis=1)
+    md = mp - apm[:, None]
+    md = np.where(np.all(md == 0., axis=-1)[..., None], mp, md)
+    if len(mol.reactive_indices) == 2:
+        rca = np.broadcast_to(
+            (mol.atomcoords[:, mol.reactive_indices[0]]
+             - mol.atomcoords[:, mol.reactive_indices[1]])[:, None],
+            pv.shape)
+    else:
+        rca = pv
+    return apm, md, rca
 
 
 def bimol_rigid_blocks(mol1, mol2, max_norm_delta=10, pairing_ok=None):
@@ -155,21 +181,8 @@ def bimol_rigid_blocks_fast(mol1, mol2, max_norm_delta, pairing_ok):
     starts[:, 1, 0] = s2x
     ends[:, 1, 0] = -s2x
 
-    def mol_tables(mol, pv, mp):
-        apm = mol.atomcoords[:, mol.reactive_indices].mean(axis=1)
-        md = mp - apm[:, None]
-        md = np.where(np.all(md == 0., axis=-1)[..., None], mp, md)
-        if len(mol.reactive_indices) == 2:
-            rca = np.broadcast_to(
-                (mol.atomcoords[:, mol.reactive_indices[0]]
-                 - mol.atomcoords[:, mol.reactive_indices[1]])[:, None],
-                pv.shape)
-        else:
-            rca = pv
-        return apm, md, rca
-
-    apm1, md1, rca1 = mol_tables(mol1, pv1, mp1)
-    apm2, md2, rca2 = mol_tables(mol2, pv2, mp2)
+    apm1, md1, rca1 = _mol_tables(mol1, pv1, mp1)
+    apm2, md2, rca2 = _mol_tables(mol2, pv2, mp2)
 
     # compact form: the five per-row vectors of a molecule depend on
     # (conformer, pivot) alone, so the device gathers them from a
@@ -274,22 +287,22 @@ def block_geometry(starts, ends, dirs, pvs, mds, apms, mps, rc_axes):
     return R_align, axis, cor, pos0
 
 
-def block_poses(coords1, coords2, c1, c2, R_align, axis, cor, pos0,
-                angle_grid, pairs, clash_thresh, clash=clash_ok):
-    '''Each block expanded over the angle grid (A, 2) in degrees, and
+def block_poses(coords, confs, R_align, axis, cor, pos0, angle_grid, pairs,
+                clash_thresh, clash=clash_ok):
+    '''Each block expanded over the angle grid (A, M) in degrees, and
     the clash screen of every pose with `clash` (K1's entry, or its
-    plain twin to compare with). Returns poses (Bb, A, N, 3) and
-    ok (Bb, A) bool.'''
+    plain twin to compare with). coords: the M molecules' conformer
+    ensembles (n_confs, N_m, 3); confs: each molecule's conformer per
+    block row (Bb,). Returns poses (Bb, A, N, 3) and ok (Bb, A) bool.'''
     R_step = rot_mat_from_pointer(axis[:, None, :, :],
-                                  angle_grid[None, :, :])   # (Bb, A, 2, 3, 3)
+                                  angle_grid[None, :, :])   # (Bb, A, M, 3, 3)
     R = torch.einsum('bamij,bmjk->bamik', R_step, R_align)
     t = cor[:, None] - torch.einsum('bamij,bmj->bami', R_step, cor) \
         + pos0[:, None]
-    f1 = torch.einsum('baij,bnj->bani', R[:, :, 0], coords1[c1]) \
-        + t[:, :, 0][:, :, None]
-    f2 = torch.einsum('baij,bnj->bani', R[:, :, 1], coords2[c2]) \
-        + t[:, :, 1][:, :, None]
-    poses = torch.cat([f1, f2], dim=2)
+    poses = torch.cat(
+        [torch.einsum('baij,bnj->bani', R[:, :, m], xyz[cm])
+         + t[:, :, m][:, :, None]
+         for m, (xyz, cm) in enumerate(zip(coords, confs))], dim=2)
     Bb, A, N = poses.shape[:3]
     ok = clash(poses.reshape(Bb * A, N, 3), pairs, clash_thresh)
     return poses, ok.reshape(Bb, A)
@@ -336,7 +349,8 @@ def compact_rows(tab1, tab2, ti):
     '''The per-row geometry of block_geometry gathered from the compact
     tables by the index rows ti (rows, 5) [t1, t2, c1, c2, v], the digon
     ends rebuilt from the pivot norms as the host code lays them out.
-    Returns (c1, c2, starts, ends, dirs, pvs, mds, apms, mps, rc_axes).'''
+    Returns ((c1, c2), starts, ends, dirs, pvs, mds, apms, mps,
+    rc_axes).'''
     r1 = tab1[ti[:, 0]]                                   # (rows, 5, 3)
     r2 = tab2[ti[:, 1]]
     c1, c2, v = ti[:, 2], ti[:, 3], ti[:, 4]
@@ -359,18 +373,19 @@ def compact_rows(tab1, tab2, ti):
     def pair(k):
         return torch.stack([r1[:, k], r2[:, k]], dim=1)
 
-    return (c1, c2, starts, ends, dirs, pair(0), pair(1), pair(2), pair(3),
-            pair(4))
+    return ((c1, c2), starts, ends, dirs, pair(0), pair(1), pair(2),
+            pair(3), pair(4))
 
 
-def block_screen(coords1, coords2, tab1, tab2, ti, angle_grid, pairs,
-                 clash_thresh, clash=clash_ok):
-    '''One chunk of the sweep from the compact form: geometry, poses,
-    clash screen and angular dedup. ti (rows, 5) index rows on the
-    device. Returns (poses (rows, A, N, 3), keep (rows, A)).'''
-    c1, c2, *geo = compact_rows(tab1, tab2, ti)
-    poses, ok = block_poses(coords1, coords2, c1, c2, *block_geometry(*geo),
-                            angle_grid, pairs, clash_thresh, clash=clash)
+def block_screen(coords, confs, geo, angle_grid, pairs, clash_thresh,
+                 clash=clash_ok):
+    '''One chunk of the sweep: geometry, poses, clash screen and angular
+    dedup of the block rows whose conformers `confs` and geometry `geo`
+    (block_geometry's eight inputs) are given, as sweep_inputs' rows()
+    or compact_rows give them. Returns (poses (rows, A, N, 3), keep
+    (rows, A)).'''
+    poses, ok = block_poses(coords, confs, *block_geometry(*geo), angle_grid,
+                            pairs, clash_thresh, clash=clash)
     return poses, angular_dedup(poses, ok)
 
 
@@ -378,12 +393,14 @@ _GEOMETRY = ('starts', 'ends', 'dirs', 'pvs', 'mds', 'apms', 'mps',
              'rc_axes')
 
 
-def sweep_inputs(blk, mol1, mol2, angles, device, dtype):
-    '''The device inputs of a sweep: (coords1, coords2, angle grid (A, 2),
-    pairs (P, 2) int32, rows) where rows(lo, hi) gives block_geometry's
-    inputs for block rows [lo, hi), prefixed by their conformer ids:
-    gathered from the compact tables when `blk` has them, else sliced
-    from its per-block fields (the loop form's ragged case).'''
+def sweep_inputs(blk, mols, angles, device, dtype):
+    '''The device inputs of a sweep over the molecules `mols`: (coords,
+    one (n_confs, N_m, 3) tensor per molecule; angle grid (A, M); pairs
+    (P, 2) int32, the cross-fragment pair list; rows) where rows(lo, hi)
+    gives, for block rows [lo, hi), their conformer ids per molecule and
+    block_geometry's eight inputs: gathered from the compact tables when
+    `blk` has them, else sliced from its per-block fields (the loop
+    form's ragged case, and three molecules).'''
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
                                device=device)
@@ -395,37 +412,39 @@ def sweep_inputs(blk, mol1, mol2, angles, device, dtype):
         def rows(lo, hi):
             return compact_rows(tab1, tab2, tidx[lo:hi])
     else:
-        cols = [torch.as_tensor(blk[k], device=device).long()
-                for k in ('c1', 'c2')] + [t(blk[k]) for k in _GEOMETRY]
+        # a (Bb, M) table, or (c1, c2) of a two-molecule dict
+        confs = [torch.as_tensor(c, device=device).long()
+                 for c in (np.asarray(blk['confs']).T if 'confs' in blk
+                           else (blk['c1'], blk['c2']))]
+        geo = [t(blk[k]) for k in _GEOMETRY]
 
         def rows(lo, hi):
-            return tuple(c[lo:hi] for c in cols)
+            return (tuple(c[lo:hi] for c in confs),
+                    *(g[lo:hi] for g in geo))
 
     pairs = torch.as_tensor(static_pairs(cross_fragment_pair_mask(
-        (mol1.n_atoms, mol2.n_atoms))), device=device)
-    return t(mol1.atomcoords), t(mol2.atomcoords), t(angles), pairs, rows
+        tuple(mol.n_atoms for mol in mols))), device=device)
+    return [t(mol.atomcoords) for mol in mols], t(angles), pairs, rows
 
 
-def screen_survivors(blk, mol1, mol2, angles, clash_thresh, *, device,
-                     dtype, block_chunk=None, clock=time.perf_counter,
-                     split=None):
+def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
+                     block_chunk=None, clock=time.perf_counter, split=None):
     '''The whole sweep over the block rows of `blk`, chunk by chunk:
     returns (survivor poses (S, N, 3) on the device in generation order,
     keep (Bb, A) numpy bool). split, when given, gets the seconds of the
     screen (geometry, poses, clash and compaction) and of the dedup.'''
-    coords1, coords2, grid, pairs, rows = sweep_inputs(
-        blk, mol1, mol2, angles, device, dtype)
-    Bb, A = len(blk['c1']), grid.shape[0]
-    N = coords1.shape[1] + coords2.shape[1]
-    chunk = block_chunk or _auto_chunk(Bb, A, N, coords1.element_size())
+    coords, grid, pairs, rows = sweep_inputs(blk, mols, angles, device,
+                                             dtype)
+    Bb, A = len(blk['ids']), grid.shape[0]
+    N = sum(c.shape[1] for c in coords)
+    chunk = block_chunk or _auto_chunk(Bb, A, N, coords[0].element_size())
     acc = DeviceSurvivors()
     t_screen = t_dedup = 0.0
     for lo in range(0, Bb, chunk):
         t0 = clock()
-        c1, c2, *geo = rows(lo, lo + chunk)
-        poses, ok = block_poses(coords1, coords2, c1, c2,
-                                *block_geometry(*geo), grid, pairs,
-                                clash_thresh)
+        confs, *geo = rows(lo, lo + chunk)
+        poses, ok = block_poses(coords, confs, *block_geometry(*geo), grid,
+                                pairs, clash_thresh)
         t1 = clock()
         keep = angular_dedup(poses, ok)
         t2 = clock()
@@ -441,12 +460,69 @@ def screen_survivors(blk, mol1, mol2, angles, clash_thresh, *, device,
 
 def assemble_survivors(surv_poses, keep, ids_arr):
     '''Survivor poses pulled to the host as float64 numpy (S, N, 3), and
-    each one's constraint ids (S, 2, 2): the survivors sit in block
+    each one's constraint ids (S, M, 2): the survivors sit in block
     order, so the ids are one repeat of the block ids by the per-block
     keep counts.'''
     counts = np.asarray(keep).sum(axis=1).astype(np.int64)
     cons = np.repeat(np.asarray(ids_arr), counts, axis=0)
     return surv_poses.cpu().to(torch.float64).numpy(), cons
+
+
+def rigid_embed(mols, make_blocks, no_blocks, systematic_angles,
+                clash_thresh, block_chunk, device, dtype, info):
+    '''The frame of a rigid cyclical embed: build the blocks with
+    make_blocks(device, clock, A), which returns (block dict or None,
+    its own entries for the split), sweep them, pull the survivors and report.
+    `no_blocks` ends the message raised when no block passes.
+    TSCODE_EMBED_TRACE=1 synchronises at the phase boundaries and
+    prints the split to stderr. Returns (poses (S, N, 3) float64 numpy,
+    constrained_indices (S, M, 2)).'''
+    dev = get_device(device)
+    dtype = dtype or default_dtype(dev)
+    trace = os.environ.get('TSCODE_EMBED_TRACE') == '1'
+
+    def clock():
+        if trace:
+            synchronize(dev)
+        return time.perf_counter()
+
+    angles = np.asarray(systematic_angles, dtype=float)
+    A = len(angles)
+    blk, split = make_blocks(dev, clock, A)
+    if blk is None:
+        raise ZeroCandidatesError(
+            '--> Cyclical embed did not find any suitable disposition of '
+            f'molecules ({no_blocks}).')
+    Bb = len(blk['ids'])
+    t0 = clock()
+    surv, keep = screen_survivors(blk, mols, angles, clash_thresh,
+                                  device=dev, dtype=dtype,
+                                  block_chunk=block_chunk, clock=clock,
+                                  split=split)
+    t1 = clock()
+    if surv.shape[0] == 0:
+        raise ZeroCandidatesError(
+            '--> Cyclical embed did not find any suitable disposition of '
+            'molecules.\n    This is probably because one molecule has two '
+            'reactive centers at a great distance,\n    preventing the '
+            'other two molecules from forming a closed, cyclical structure.')
+    poses, cons = assemble_survivors(surv, keep, blk['ids'])
+    split['assemble_s'] = time.perf_counter() - t1
+    if trace:
+        adjust = f'adjust {split["adjust_s"]:.3f}s ' \
+            f'({split["adjust_near_ties"]} near ties), ' \
+            if 'adjust_s' in split else ''
+        print(f'[cyc trace] blocks {split["blocks_s"]:.3f}s, {adjust}screen '
+              f'{split["screen_s"]:.3f}s, dedup {split["dedup_s"]:.3f}s, '
+              f'assemble {split["assemble_s"]:.3f}s ({Bb} blocks in '
+              f'{split["chunks"]} chunks of {split["chunk_rows"]}, '
+              f'{len(poses)} survivors)', file=sys.stderr, flush=True)
+    if info is not None:
+        info.update(candidates=int(Bb * A), blocks=int(Bb),
+                    survivors=int(len(poses)),
+                    dtype=str(dtype).split('.')[-1], device=str(dev),
+                    trace=trace, **split)
+    return poses, cons
 
 
 def cyclical_embed_bimol_rigid(mol1, mol2, systematic_angles,
@@ -463,76 +539,445 @@ def cyclical_embed_bimol_rigid(mol1, mol2, systematic_angles,
     Returns (poses (S, N, 3) float64 numpy, constrained_indices
     (S, 2, 2)). Raises ZeroCandidatesError when no block or no pose
     survives.'''
-    dev = get_device(device)
-    dtype = dtype or default_dtype(dev)
-    trace = os.environ.get('TSCODE_EMBED_TRACE') == '1'
+    def make_blocks(dev, clock, A):
+        t0 = clock()
+        blk = bimol_rigid_blocks(mol1, mol2, max_norm_delta=max_norm_delta,
+                                 pairing_ok=pairing_ok)
+        if blk is not None:
+            log(f'--> Performing cyclical embed ({len(blk["ids"]) * A} '
+                f'candidates, {len(blk["ids"])} blocks)')
+        return blk, {'blocks_s': clock() - t0}
 
-    def clock():
-        if trace:
-            synchronize(dev)
-        return time.perf_counter()
+    return rigid_embed((mol1, mol2), make_blocks, 'no compatible pivot pairs',
+                       systematic_angles, clash_thresh, block_chunk, device,
+                       dtype, info)
 
-    t0 = clock()
-    angles = np.asarray(systematic_angles, dtype=float)
-    A = len(angles)
-    blk = bimol_rigid_blocks(mol1, mol2, max_norm_delta=max_norm_delta,
-                             pairing_ok=pairing_ok)
-    if blk is None:
-        raise ZeroCandidatesError(
-            '--> Cyclical embed did not find any suitable disposition of '
-            'molecules (no compatible pivot pairs).')
-    Bb = len(blk['c1'])
-    log(f'--> Performing cyclical embed ({Bb * A} candidates, {Bb} blocks)')
-    t1 = clock()
 
-    split = {}
-    surv, keep = screen_survivors(blk, mol1, mol2, angles, clash_thresh,
-                                  device=dev, dtype=dtype,
-                                  block_chunk=block_chunk, clock=clock,
-                                  split=split)
-    t2 = clock()
-    if surv.shape[0] == 0:
-        raise ZeroCandidatesError(
-            '--> Cyclical embed did not find any suitable disposition of '
-            'molecules.\n    This is probably because one molecule has two '
-            'reactive centers at a great distance,\n    preventing the '
-            'other two molecules from forming a closed, cyclical structure.')
-    poses, cons = assemble_survivors(surv, keep, blk['ids'])
-    t3 = time.perf_counter()
+_COMPACT = ('tab1', 'tab2', 'tidx')
 
-    split.update(blocks_s=t1 - t0, assemble_s=t3 - t2)
-    if trace:
-        print(f'[cyc trace] blocks {split["blocks_s"]:.3f}s, screen '
-              f'{split["screen_s"]:.3f}s, dedup {split["dedup_s"]:.3f}s, '
-              f'assemble {split["assemble_s"]:.3f}s ({Bb} blocks in '
-              f'{split["chunks"]} chunks of {split["chunk_rows"]}, '
-              f'{len(poses)} survivors)', file=sys.stderr, flush=True)
-    if info is not None:
-        info.update(candidates=int(Bb * A), blocks=int(Bb),
-                    survivors=int(len(poses)),
-                    dtype=str(dtype).split('.')[-1], device=str(dev),
-                    trace=trace, **split)
-    return poses, cons
+
+def concat_blocks(blks):
+    '''Row-wise union of block dicts (multiembed sweeps every
+    arrangement's rows at once). The per-block fields concatenate as
+    they are; the compact form is kept only when every dict has it, each
+    dict's table indices (tidx[:, 0] and tidx[:, 1]) offset into the
+    concatenated tables.'''
+    out = {k: np.concatenate([b[k] for b in blks])
+           for k in blks[0] if k not in _COMPACT}
+    if all('tidx' in b for b in blks):
+        tidxs, off1, off2 = [], 0, 0
+        for b in blks:
+            t = b['tidx'].copy()
+            t[:, 0] += off1
+            t[:, 1] += off2
+            tidxs.append(t)
+            off1 += len(b['tab1'])
+            off2 += len(b['tab2'])
+        out['tab1'] = np.concatenate([b['tab1'] for b in blks])
+        out['tab2'] = np.concatenate([b['tab2'] for b in blks])
+        out['tidx'] = np.concatenate(tidxs)
+    return out
+
+
+# ------------------------------------------------------- three molecules
+
+# the direction adjustment's grid: 7 angles per molecule over +-30 degrees
+ADJ_STEPS = 6
+ADJ_RANGE = 30
+# two angle triples whose costs lie this close (degrees) are a near tie
+ADJ_TIE = 1e-9
+# blocks per call of the adjustment's grid search (343 x 3 rotations each)
+ADJ_CHUNK = 2048
+
+
+def get_directions(norms):
+    '''Facing directions of 2 or 3 molecules, toward the polygon's
+    centre: for a triangle from its circumcentre, with the sign fixed
+    where an obtuse angle puts the circumcentre outside, and a 1e-5 A
+    perturbation of the first side where a right angle puts it on a
+    side. norms (M,) -> (M, 3).'''
+    norms = np.array(norms, dtype=float)
+    if len(norms) == 2:
+        return _DIRECTIONS.copy()
+
+    vertices = np.zeros((3, 2))
+    vertices[1] = np.array([norms[0], 0])
+    a, b, c = norms[0] ** 2, norms[1] ** 2, norms[2] ** 2
+    x = (a - b + c) / (2 * a ** 0.5)
+    y = (c - x ** 2) ** 0.5
+    vertices[2] = np.array([x, y])
+
+    a = vertices[1, 0]
+    b = vertices[2, 0]
+    c = vertices[2, 1]
+    cc = np.array([a / 2, (b ** 2 + c ** 2 - a * b) / (2 * c)])
+
+    v0, v1, v2 = vertices
+    dirs = [cc - (v0 + v1) / 2, cc - (v1 + v2) / 2, cc - (v2 + v0) / 2]
+
+    if any(np.all(d == 0) for d in dirs):
+        norms[0] += 1e-5
+        return get_directions(norms)
+
+    def angle(u, w):
+        cosv = np.clip(u @ w / np.linalg.norm(u) / np.linalg.norm(w), -1, 1)
+        return np.degrees(np.arccos(cosv))
+
+    if angle(v0 - v2, v1 - v2) > 90:
+        dirs[0] = -dirs[0]
+    if angle(v1 - v0, v2 - v0) > 90:
+        dirs[1] = -dirs[1]
+    if angle(v0 - v1, v2 - v1) > 90:
+        dirs[2] = -dirs[2]
+
+    out = np.zeros((3, 3))
+    for i, d in enumerate(dirs):
+        d3 = np.concatenate([d, [0.]])
+        out[i] = d3 / np.linalg.norm(d3)
+    return out
+
+
+def cyclical_ids_trimol(pivots, orientation, offsets):
+    '''Constrained atom-index couples of a three-molecule arrangement,
+    each couple sorted: the orientation says which pivots are taken
+    end first.'''
+    swaps = [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+             (1, 0, 0), (1, 1, 0), (1, 0, 1), (1, 1, 1)]
+    cums = []
+    for m, p in enumerate(pivots):
+        ids = [p.start_atom.index + offsets[m], p.end_atom.index + offsets[m]]
+        if swaps[orientation][m]:
+            ids = list(reversed(ids))
+        cums.append(ids)
+    return [sorted(c) for c in ([cums[0][1], cums[1][0]],
+                                [cums[1][1], cums[2][0]],
+                                [cums[2][1], cums[0][0]])]
+
+
+def facing_matrix(arr_ids, offsets):
+    '''r[m, partner]: the local index of molecule m's reactive atom that
+    faces `partner`, from the arrangement's constrained couples.'''
+    r = np.zeros((3, 3), dtype=int)
+    for pair in arr_ids:
+        sides = []
+        for cum in pair:
+            m = 2 if cum >= offsets[2] else (1 if cum >= offsets[1] else 0)
+            sides.append((m, cum - offsets[m]))
+        (m1, i1), (m2, i2) = sides
+        r[m1, m2] = i1
+        r[m2, m1] = i2
+    return r
+
+
+def adjust_core(p_axes, p_means, a_pts, verts, angle_grid):
+    '''The grid search of the direction adjustment, a batch of blocks at
+    once: each molecule is turned about its triangle side by each angle
+    triple of the grid, and the triple with the least orbital
+    misalignment (the first such, as argmin takes it) gives the
+    block's directions, the displacements from each side's midpoint to
+    the mean of its molecule's two turned reactive atoms.
+    p_axes, p_means, verts (n, 3, 3); a_pts (n, 6, 3), the embedded
+    reactive atoms a01, a02, a10, a12, a20, a21; angle_grid (G, 3).
+    Returns (directions (n, 3, 3), gap (n,): second-least cost minus the
+    least).'''
+    R = rot_mat_from_pointer(p_axes[:, None, :, :],
+                             angle_grid[None, :, :])       # (n, G, 3, 3, 3)
+    new = [torch.einsum('ngij,nj->ngi', R[:, :, k // 2], a_pts[:, k])
+           for k in range(6)]                              # 6 x (n, G, 3)
+    a01, a02, a10, a12, a20, a21 = new
+    d = [p_means[:, None, 0] - (a01 + a02) / 2,
+         p_means[:, None, 1] - (a10 + a12) / 2,
+         p_means[:, None, 2] - (a20 + a21) / 2]
+
+    def ang(u, w):
+        cosv = torch.sum(u * w, dim=-1) / torch.clamp(
+            torch.linalg.norm(u, dim=-1) * torch.linalg.norm(w, dim=-1),
+            min=1e-30)
+        return torch.rad2deg(torch.arccos(torch.clamp(cosv, -1.0, 1.0)))
+
+    v0, v1, v2 = verts[:, None, 0], verts[:, None, 1], verts[:, None, 2]
+    cost = (ang(v0 - a02, a20 - v0) + ang(v1 - a01, a10 - v1)
+            + ang(v2 - a21, a12 - v2))                     # (n, G)
+    best = torch.argmin(cost, dim=1)
+    two = torch.topk(cost, 2, dim=1, largest=False).values
+    pick = best[:, None, None].expand(-1, 1, 3)
+    return (torch.stack([x.gather(1, pick)[:, 0] for x in d], dim=1),
+            two[:, 1] - two[:, 0])
+
+
+def adjust_step(starts, ends, pvs, mds, mps, rc_src, verts, dirs_in,
+                angle_grid):
+    '''One link of the adjustment chain for a batch of blocks: align
+    each molecule with the incoming directions, embed the reactive atoms
+    `rc_src` (n, 6, 3) and search the grid. Returns adjust_core's
+    (directions, gap).'''
+    owner = [0, 0, 1, 1, 2, 2]
+    ref = torch.stack([ends - starts, dirs_in], dim=-2)     # (n, 3, 2, 3)
+    tgt = torch.stack([pvs, mds], dim=-2)
+    R = align_vec_pair(ref, tgt)                            # (n, 3, 3, 3)
+    mid = (starts + ends) / 2
+    pos = mid - torch.einsum('nmij,nmj->nmi', R, mps)
+    a_pts = torch.einsum('nkij,nkj->nki', R[:, owner], rc_src) \
+        + pos[:, owner]
+    return adjust_core(ends - starts, mid, a_pts, verts, angle_grid)
+
+
+def adjust_grid():
+    '''(343, 3) angle triples of the adjustment, in numpy's three-array
+    meshgrid order.'''
+    return np.stack(np.meshgrid(*[np.arange(ADJ_STEPS + 1)] * 3),
+                    -1).reshape(-1, 3) * (2 * ADJ_RANGE / ADJ_STEPS) \
+        - ADJ_RANGE
+
+
+def adjust_chain(starts, ends, pvs, mds, mps, rc_src, verts, reset, dirs0,
+                 *, device, chunk=ADJ_CHUNK):
+    '''The chained direction adjustment over a block sequence (numpy
+    arrays, a row per block). A block with reset set (the first kept
+    orientation of a (conformer, pivot) combination) starts from its
+    combination's estimate dirs0; every other block starts from the
+    block before it, the previous kept orientation of its combination.
+    So a block's place in its chain is its rank among the kept
+    orientations, chains are at most 8 long, and link k of every chain
+    runs at once. Float64 on `device`. Returns (directions (B, 3, 3)
+    numpy, gap (B,) numpy: each block's second-least grid cost minus
+    its least).'''
+    reset = np.asarray(reset, dtype=bool)
+    B = len(reset)
+    if B and not reset[0]:
+        raise ValueError('the first block of a sequence must reset')
+    idx = np.arange(B)
+    rank = idx - np.maximum.accumulate(np.where(reset, idx, 0))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+
+    cols = [t(a) for a in (starts, ends, pvs, mds, mps, rc_src, verts)]
+    dirs0, grid = t(dirs0), t(adjust_grid())
+    out = torch.zeros((B, 3, 3), dtype=torch.float64, device=device)
+    gap = torch.zeros(B, dtype=torch.float64, device=device)
+    for k in range(int(rank.max()) + 1 if B else 0):
+        rows = torch.as_tensor(np.flatnonzero(rank == k), device=device)
+        for lo in range(0, rows.numel(), chunk):
+            r = rows[lo:lo + chunk]
+            dirs_in = dirs0[r] if k == 0 else out[r - 1]
+            out[r], gap[r] = adjust_step(*(c[r] for c in cols), dirs_in,
+                                         grid)
+    return out.cpu().numpy(), gap.cpu().numpy()
+
+
+_ADJUST = ('starts', 'ends', 'pvs', 'mds', 'mps', 'rc_src', 'verts', 'reset',
+           'dirs0')
+
+
+# which sides each of polygonize's 8 oriented triangles takes end first
+_FLIPS = np.array([[side in flips for side in range(3)] for flips in
+                   ((), (2,), (1,), (1, 2), (0,), (0, 1), (0, 2), (0, 1, 2))])
+# rc_src's rows: (molecule, partner it faces)
+_FACES = ((0, 1), (0, 2), (1, 0), (1, 2), (2, 0), (2, 1))
+
+
+def triangle_sides(norms):
+    '''polygonize's triangle for rows of side lengths (T, 3): the sides'
+    vertex couples (T, 3, 2, 3), base along +x and apex above it.'''
+    base, flank, closing = norms.T
+    apex_x = (base * base - flank * flank + closing * closing) / (2 * base)
+    vertices = np.zeros((len(norms), 3, 3))
+    vertices[:, 1, 0] = base
+    vertices[:, 2, 0] = apex_x
+    vertices[:, 2, 1] = np.sqrt(closing * closing - apex_x * apex_x)
+    return vertices[:, [[0, 1], [1, 2], [2, 0]]]
+
+
+def get_directions_rows(norms):
+    '''get_directions for rows of triangle side lengths: (T, 3) ->
+    (T, 3, 3).'''
+    norms = np.array(norms, dtype=float)
+    T = len(norms)
+    out = np.zeros((T, 3, 3))
+    todo = np.arange(T)
+    while todo.size:
+        n = norms[todo]
+        a, b, c = n[:, 0] ** 2, n[:, 1] ** 2, n[:, 2] ** 2
+        x = (a - b + c) / (2 * a ** 0.5)
+        y = (c - x ** 2) ** 0.5
+        v = np.zeros((len(n), 3, 2))
+        v[:, 1, 0] = n[:, 0]
+        v[:, 2, 0], v[:, 2, 1] = x, y
+        cc = np.stack([n[:, 0] / 2,
+                       (x ** 2 + y ** 2 - n[:, 0] * x) / (2 * y)], axis=1)
+        d = cc[:, None] - (v + np.roll(v, -1, axis=1)) / 2   # sides 01 12 20
+        right = np.all(d == 0, axis=2).any(axis=1)
+
+        def obtuse(at, p, q):
+            u, w = v[:, p] - v[:, at], v[:, q] - v[:, at]
+            cosv = np.clip((u * w).sum(1) / np.sqrt((u * u).sum(1))
+                           / np.sqrt((w * w).sum(1)), -1, 1)
+            return np.degrees(np.arccos(cosv)) > 90
+
+        # the side facing an obtuse angle has the circumcentre behind it
+        for side, at in ((0, 2), (1, 0), (2, 1)):
+            flip = obtuse(at, (at + 1) % 3, (at + 2) % 3)
+            d[flip, side] = -d[flip, side]
+        d3 = np.concatenate([d, np.zeros((len(n), 3, 1))], axis=2)
+        with np.errstate(invalid='ignore', divide='ignore'):
+            d3 = d3 / np.sqrt((d3 * d3).sum(-1))[..., None]
+        out[todo[~right]] = d3[~right]
+        todo = todo[right]
+        norms[todo, 0] += 1e-5
+    return out
+
+
+def trimol_rigid_blocks(mols, pairing_ok=None):
+    '''The blocks of the rigid three-molecule embed in generation order:
+    conformer triples and pivot triples in numpy's three-array meshgrid
+    order (second index slowest, third fastest), the triples whose pivot
+    norms close a triangle, then the 8 orientations that pass the
+    pairing gate. A dict of numpy arrays: block_geometry's fields but
+    dirs (Bb, 3, 3), confs (Bb, 3), ids (Bb, 3, 2), and the adjustment
+    chain's inputs (rc_src (Bb, 6, 3): the reactive atoms' coordinates
+    in conformer 0 of each molecule, as the reference takes them,
+    whatever the block's conformers; verts (Bb, 3, 3); reset (Bb,);
+    dirs0 (Bb, 3, 3)). None when no block passes. For each conformer of
+    the second molecule the (c1, c3, q2, q1, q3, v) grid is evaluated
+    with array ops and compacted by one nonzero, whose C order is the
+    generation order; so every conformer of a molecule must hold the
+    same pivots (ValueError otherwise).'''
+    for mol in mols:
+        if not hasattr(mol, 'pivots'):
+            raise ValueError(f'{mol.name}: call set_pivots() before embedding')
+    if any(all(len(pl) == 0 for pl in mol.pivots) for mol in mols):
+        return None
+    n_at = [m.n_atoms for m in mols]
+    offsets = (0, n_at[0], n_at[0] + n_at[1])
+    tens = [_pivot_tensors(m, off) for m, off in zip(mols, offsets)]
+    for mol, t in zip(mols, tens):
+        if t is None:
+            raise ValueError(
+                f'{mol.name}: its conformers hold different pivots; the '
+                f'rigid three-molecule embed needs the same pivot atoms '
+                f'and count in every conformer')
+    pv, mp = [t[0] for t in tens], [t[1] for t in tens]
+    Q = [p.shape[1] for p in pv]
+    # np.linalg.norm of each pivot on its own, as the scalar loop takes it
+    L = [np.array([[np.linalg.norm(p.pivot) for p in pl] for pl in m.pivots])
+         for m in mols]
+
+    # conformer-independent: the pairing gate, constraint ids and the
+    # adjustment's conformer-0 atoms per (q2, q1, q3, v)
+    pair_ok = np.ones((Q[1], Q[0], Q[2], 8), dtype=bool)
+    ids_grid = np.empty((Q[1], Q[0], Q[2], 8, 3, 2), dtype=np.int64)
+    src_grid = np.empty((Q[1], Q[0], Q[2], 8, 6, 3))
+    for q2 in range(Q[1]):
+        for q1 in range(Q[0]):
+            for q3 in range(Q[2]):
+                pivots = [mols[0].pivots[0][q1], mols[1].pivots[0][q2],
+                          mols[2].pivots[0][q3]]
+                for v in range(8):
+                    arr_ids = cyclical_ids_trimol(pivots, v, offsets)
+                    ids_grid[q2, q1, q3, v] = arr_ids
+                    if pairing_ok is not None and not pairing_ok(arr_ids):
+                        pair_ok[q2, q1, q3, v] = False
+                    r = facing_matrix(arr_ids, offsets)
+                    for k, (m, partner) in enumerate(_FACES):
+                        src_grid[q2, q1, q3, v, k] = \
+                            mols[m].atomcoords[0][r[m, partner]]
+
+    idx = []
+    for c2 in range(mols[1].n_confs):
+        n0 = L[0][:, None, None, :, None]          # (n1c, 1, 1, Q1, 1)
+        n1 = L[1][c2][None, None, :, None, None]   # (1, 1, Q2, 1, 1)
+        n2 = L[2][None, :, None, None, :]          # (1, n3c, 1, 1, Q3)
+        closes = (n0 < n2 + n1) & (n1 < n0 + n2) & (n2 < n1 + n0)
+        mask = closes[..., None] & pair_ok[None, None]
+        flat = np.nonzero(mask.reshape(-1))[0]
+        c1, c3, q2, q1, q3, v = np.unravel_index(flat, mask.shape)
+        idx.append(np.stack([c1, np.full_like(c1, c2), c3, q1, q2, q3, v]))
+    c1, c2, c3, q1, q2, q3, v = np.concatenate(idx, axis=1)
+    Bb = len(v)
+    if Bb == 0:
+        return None
+    cs, qs = (c1, c2, c3), (q1, q2, q3)
+
+    norms = np.stack([L[m][cs[m], qs[m]] for m in range(3)], axis=1)
+    sides = triangle_sides(norms)                          # (Bb, 3, 2, 3)
+    flip = _FLIPS[v][..., None]
+    combo = np.stack([c1, c2, c3, q1, q2, q3], axis=1)
+    a, b, c = norms[:, 0] ** 2, norms[:, 1] ** 2, norms[:, 2] ** 2
+    x = (a - b + c) / (2 * a ** 0.5)
+    verts = np.zeros((Bb, 3, 3))
+    verts[:, 1, 0] = norms[:, 0]
+    verts[:, 2, 0], verts[:, 2, 1] = x, (c - x ** 2) ** 0.5
+
+    def per_mol(m):
+        apm, md, rca = _mol_tables(mols[m], pv[m], mp[m])
+        c, q = cs[m], qs[m]
+        return pv[m][c, q], md[c, q], apm[c], mp[m][c, q], rca[c, q]
+
+    cols = [np.stack(f, axis=1) for f in zip(*(per_mol(m) for m in range(3)))]
+    return {
+        'starts': np.where(flip, sides[:, :, 1], sides[:, :, 0]),
+        'ends': np.where(flip, sides[:, :, 0], sides[:, :, 1]),
+        'pvs': cols[0], 'mds': cols[1], 'apms': cols[2], 'mps': cols[3],
+        'rc_axes': cols[4], 'verts': verts,
+        'dirs0': get_directions_rows(norms),
+        'rc_src': src_grid[q2, q1, q3, v],
+        'reset': np.concatenate([[True],
+                                 np.any(combo[1:] != combo[:-1], axis=1)]),
+        'confs': np.stack(cs, axis=1).astype(np.int32),
+        'ids': ids_grid[q2, q1, q3, v],
+    }
+
+
+def cyclical_embed_trimol_rigid(mols, systematic_angles, clash_thresh=1.5,
+                                pairing_ok=None, log=print, block_chunk=None,
+                                *, device, dtype=None, info=None):
+    '''Rigid three-molecule cyclical embed: the molecules on the sides
+    of the triangle their pivot norms close, 8 oriented triangles, the
+    chained direction adjustment (float64), then the block sweep of the
+    two-molecule embed over the (A, 3) angle grid, K1 screening the
+    cross-fragment pairs of the three fragments. Arguments and returns
+    as cyclical_embed_bimol_rigid, the constraint ids (S, 3, 2); info
+    also receives the adjustment's seconds and near ties.'''
+    def make_blocks(dev, clock, A):
+        t0 = clock()
+        blk = trimol_rigid_blocks(mols, pairing_ok)
+        if blk is None:
+            return None, {}
+        log(f'--> Performing cyclical embed ({len(blk["ids"]) * A} '
+            f'candidates, {len(blk["ids"])} blocks)')
+        t1 = clock()
+        blk['dirs'], gap = adjust_chain(*(blk[k] for k in _ADJUST),
+                                        device=dev)
+        return blk, {'blocks_s': t1 - t0, 'adjust_s': clock() - t1,
+                     'adjust_near_ties': int((gap < ADJ_TIE).sum())}
+
+    return rigid_embed(mols, make_blocks, 'no valid pivot triangles',
+                       systematic_angles, clash_thresh, block_chunk, device,
+                       dtype, info)
 
 
 def cyclical_embed(embedder, max_norm_delta=5):
-    '''Dispatcher of the cyclical embeds: the rigid bimolecular one runs
-    (with max_norm_delta=5, as the reference calls it from here); the
-    trimolecular and non-rigid ones raise NotImplementedError. Sets
-    embedder.constrained_indices and returns the poses.'''
+    '''Dispatcher of the cyclical embeds: the rigid two-molecule one
+    (with max_norm_delta=5, as the reference calls it from here) and the
+    rigid three-molecule one run; the non-rigid ones raise
+    NotImplementedError. Sets embedder.constrained_indices and returns
+    the poses.'''
     from tscode_tpu_torch.embedder import not_ported
     mols = embedder.objects
     if not embedder.options.rigid:
         raise not_ported('The non-rigid cyclical embed (bending)',
                          '12 and 13')
-    if len(mols) != 2:
-        raise not_ported('The trimolecular cyclical embed', 12)
-    poses, cons = cyclical_embed_bimol_rigid(
-        mols[0], mols[1], embedder.systematic_angles,
-        clash_thresh=embedder.options.clash_thresh,
-        max_norm_delta=max_norm_delta,
-        pairing_ok=embedder.pairing_ok_fn(), log=embedder.log,
-        device=embedder.device, dtype=embedder.dtype,
-        info=embedder.embed_info)
+    common = dict(clash_thresh=embedder.options.clash_thresh,
+                  pairing_ok=embedder.pairing_ok_fn(), log=embedder.log,
+                  device=embedder.device, dtype=embedder.dtype,
+                  info=embedder.embed_info)
+    if len(mols) == 2:
+        poses, cons = cyclical_embed_bimol_rigid(
+            mols[0], mols[1], embedder.systematic_angles,
+            max_norm_delta=max_norm_delta, **common)
+    else:
+        poses, cons = cyclical_embed_trimol_rigid(
+            mols, embedder.systematic_angles, **common)
     embedder.constrained_indices = cons
     return poses

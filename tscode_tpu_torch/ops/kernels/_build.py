@@ -55,6 +55,7 @@ class CudaKernel:
         self.symbols = symbols
         self.launches = 0          # kernel launches since the last reset
         self.entry_launches = dict.fromkeys(symbols, 0)   # the same, per entry
+        self.wrapper_launches = {}  # the same, per Python wrapper named
         self.build_seconds = None  # nvcc time in this process, 0.0 if fresh
         self._lib = None
         # one build at a time per library; libraries build in parallel
@@ -63,6 +64,7 @@ class CudaKernel:
     def reset_counts(self):
         self.launches = 0
         self.entry_launches = dict.fromkeys(self.symbols, 0)
+        self.wrapper_launches = {}
 
     def build(self):
         '''Compile when the library is missing or older than its source;
@@ -106,9 +108,11 @@ class CudaKernel:
         with open(path) as f:
             return f.read()
 
-    def launch(self, symbol, *args):
+    def launch(self, symbol, *args, wrapper=None):
         '''Call one exported entry (which launches the kernel on the
-        given stream) and count the launch; raise on a launch error.'''
+        given stream) and count the launch, also under the name of the
+        Python wrapper that asked for it, if given; raise on a launch
+        error.'''
         lib = self.build()
         code = getattr(lib, symbol)(*args)
         if code != 0:
@@ -117,6 +121,9 @@ class CudaKernel:
                 f'({lib.tt_error_string(code).decode()})')
         self.launches += 1
         self.entry_launches[symbol] += 1
+        if wrapper is not None:
+            self.wrapper_launches[wrapper] = \
+                self.wrapper_launches.get(wrapper, 0) + 1
 
 
 def stream_of(tensor):

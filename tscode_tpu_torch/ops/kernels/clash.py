@@ -65,6 +65,15 @@ def clash_regime(n_pairs, n_atoms, itemsize):
     return 'thread'
 
 
+def launches_by_entry():
+    '''Kernel launches since the last KERNEL.reset_counts(), per entry
+    point of this module: K1 `clash_ok`, K2
+    `compenetration_mask_kernel`.'''
+    n = KERNEL.wrapper_launches
+    return {k: n.get(k, 0) for k in ('clash_ok',
+                                     'compenetration_mask_kernel')}
+
+
 def launches_by_regime():
     '''Kernel launches since the last KERNEL.reset_counts(), per regime.'''
     n = KERNEL.entry_launches
@@ -141,7 +150,7 @@ def clash_ok_plain(poses, pairs, thresh, max_clashes=0):
 # --------------------------------------------------------------- kernels
 
 
-def _launch(poses, pairs, thresh, max_clashes):
+def _launch(poses, pairs, thresh, max_clashes, wrapper):
     if poses.dtype not in (torch.float32, torch.float64):
         raise TypeError(f'clash kernel takes float32/float64, '
                         f'got {poses.dtype}')
@@ -160,7 +169,8 @@ def _launch(poses, pairs, thresh, max_clashes):
     symbol, c_thr = _SYMBOL[regime, poses.dtype]
     KERNEL.launch(symbol, ptr(poses), B, N, ptr(pairs), pairs.shape[0],
                   c_thr(thresh_squared(thresh, poses.dtype)),
-                  int(max_clashes), ptr(out), stream_of(poses))
+                  int(max_clashes), ptr(out), stream_of(poses),
+                  wrapper=wrapper)
     return out
 
 
@@ -173,7 +183,28 @@ def clash_ok(poses, pairs, thresh, max_clashes=0):
         return clash_ok_plain(poses, pairs, thresh, max_clashes)
     pairs = torch.as_tensor(pairs, dtype=torch.int32,
                             device=poses.device).contiguous()
-    return _launch(poses, pairs, thresh, max_clashes)
+    return _launch(poses, pairs, thresh, max_clashes, 'clash_ok')
+
+
+# K2's pair lists on the device, one per (mask, device): a run screens
+# every batch against the same mask, so the list is built and copied once
+_PAIRS_OF_MASK = {}
+
+
+def pairs_of_mask(pair_mask, device):
+    '''The (P, 2) int32 pair list of an (N, N) bool pair mask as a tensor
+    on `device`, built at the first call with that mask and kept.'''
+    mask = pair_mask.cpu().numpy() if torch.is_tensor(pair_mask) \
+        else np.asarray(pair_mask)
+    mask = np.ascontiguousarray(mask, dtype=bool)
+    key = (mask.shape, mask.tobytes(), str(device))
+    pairs = _PAIRS_OF_MASK.get(key)
+    if pairs is None:
+        if len(_PAIRS_OF_MASK) >= 16:
+            _PAIRS_OF_MASK.clear()
+        pairs = _PAIRS_OF_MASK[key] = torch.as_tensor(static_pairs(mask),
+                                                      device=device)
+    return pairs
 
 
 def compenetration_mask_kernel(poses, pair_mask, thresh=1.5, max_clashes=0):
@@ -182,5 +213,5 @@ def compenetration_mask_kernel(poses, pair_mask, thresh=1.5, max_clashes=0):
     if poses.device.type == 'cpu':
         mask = torch.as_tensor(pair_mask, dtype=torch.bool)
         return clash_counts_plain(poses, mask, thresh) <= max_clashes
-    pairs = torch.as_tensor(static_pairs(pair_mask), device=poses.device)
-    return _launch(poses, pairs, thresh, max_clashes)
+    return _launch(poses, pairs_of_mask(pair_mask, poses.device), thresh,
+                   max_clashes, 'compenetration_mask_kernel')

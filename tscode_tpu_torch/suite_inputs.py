@@ -4,9 +4,28 @@ the string routes `sn2_string` (C2H4 + CH3Cl fixtures, noisy conformers)
 and `large_n_string` (two synthetic C24H49Cl chains, 148-atom poses),
 and the rigid cyclical routes `da_cyclical` and `da_cyclical_xl` (C2H4 +
 CH3Cl docked on two pairings, RIGID; the two differ only in the suite's
-conformer count). The rng calls are bench_suite._config_files' (seed 7,
-then `write_noisy` or `write_chloroalkane` per molecule), so the files
-are byte for byte the suite's at the same conformer count.
+conformer count), and the rigid multi-arrangement route `multiembed`
+(HCOOH with three reactive atoms + C2H4 with two, 12 arrangements). The
+rng calls are bench_suite._config_files' (seed 7, then `write_noisy` or
+`write_chloroalkane` per molecule), so the files are byte for byte the
+suite's at the same conformer count.
+
+Two inputs are the port's own:
+
+`trimolecular_rigid` is the suite's `trimolecular` (CH3Cl as it is, then
+max(2, n_confs // 4) conformers of HCOOH at noise 0.05, listed twice)
+with RIGID added to the keyword line, so that it runs the rigid
+three-molecule embed; give it four times the HCOOH conformer count
+wanted.
+
+`chelotropic` is
+    NOOPT RIGID DIST(A=2.5,B=2.5)
+    m1.xyz 0A 3B        (C2H4, n_confs noisy conformers)
+    m2.xyz 4AB          (HCOOOH, n_confs noisy conformers)
+the reference's chelotropic smoke input with the suite's jitter: the
+peroxy oxygen has two lobes, so its molecule has a pivot between them.
+(CH3Cl with one reactive atom has a single-lobe orbital, no pivot and so
+no candidate, in the JAX package as here.)
 
     config_files('sn2_string', workdir, n_confs=76) -> workdir/input.txt
     refine_input('ens.xyz', workdir) -> workdir/input.txt (REFINE)
@@ -21,7 +40,8 @@ from tscode_tpu_torch.io_xyz import read_xyz, write_xyz
 from tscode_tpu_torch.pipeline import FIXTURE_DIR
 
 NOISE = 0.12          # A of per-conformer jitter on the fixtures
-CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl')
+CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl',
+           'multiembed', 'chelotropic', 'trimolecular_rigid')
 
 
 def write_noisy(src, dst, n_confs, rng, noise=NOISE):
@@ -115,6 +135,26 @@ def config_files(name, workdir, n_confs):
         write_chloroalkane(j(workdir, 'm1.xyz'), 24, n_confs, rng)
         write_chloroalkane(j(workdir, 'm2.xyz'), 24, n_confs, rng)
         content = 'NOOPT DIST(a=3.2)\nm1.xyz 0a\nm2.xyz 0a\n'
+    elif name == 'multiembed':
+        write_noisy(j(FIXTURE_DIR, 'HCOOH.xyz'), j(workdir, 'm1.xyz'),
+                    n_confs, rng)
+        write_noisy(j(FIXTURE_DIR, 'C2H4.xyz'), j(workdir, 'm2.xyz'),
+                    n_confs, rng)
+        content = 'NOOPT RIGID\nm1.xyz 0 1 3\nm2.xyz 0 1\n'
+    elif name == 'chelotropic':
+        write_noisy(j(FIXTURE_DIR, 'C2H4.xyz'), j(workdir, 'm1.xyz'),
+                    n_confs, rng)
+        write_noisy(j(FIXTURE_DIR, 'HCOOOH.xyz'), j(workdir, 'm2.xyz'),
+                    n_confs, rng)
+        content = ('NOOPT RIGID DIST(A=2.5,B=2.5)\n'
+                   'm1.xyz 0A 3B\nm2.xyz 4AB\n')
+    elif name == 'trimolecular_rigid':
+        shutil.copy(j(FIXTURE_DIR, 'CH3Cl.xyz'), j(workdir, 'm1.xyz'))
+        write_noisy(j(FIXTURE_DIR, 'HCOOH.xyz'), j(workdir, 'm2.xyz'),
+                    max(2, n_confs // 4), rng, noise=0.05)
+        content = ('BYPASS RIGID DIST(A=2.5,x=2,y=2.5,C=1) SHRINK '
+                   'ROTRANGE=10 STEPS=2\nm1.xyz 0A 4y\n'
+                   'm2.xyz 1A 4x 0C 2C\nm2.xyz 1x 4y\n')
     else:
         raise ValueError(f'unknown input {name!r}; one of {CONFIGS}')
     path = j(workdir, 'input.txt')
