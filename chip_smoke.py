@@ -27,9 +27,19 @@ compenetration stage launches the mask entry K2 of the clash kernel,
 held against its plain version on the tensor the stage gave it), the
 chelotropic input at 62 conformers, and the trimolecular input with
 RIGID at 64 conformers of HCOOH (the chained direction adjustment, the
-clash kernel on the pair list of three fragments).
+clash kernel on the pair list of three fragments). Phases 13 to 15 run
+the bending routes: the force field's energy and gradient and batched
+FIRE on the card against the CPU (and the step's seconds, launches and
+the device's busy share, replayed from a CUDA graph and queued op by op);
+bench_suite's trimolecular input as written (non-rigid: molecules are
+bent where their pivots close no triangle) through the CLI, float64 (the
+JAX x64 counts and bends; bent coordinates against the CPU) and float32;
+the non-rigid chelotropic input and the monomolecular embed, card
+against CPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
+                                  # field and FIRE measurements
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
@@ -148,7 +158,28 @@ TRI_CONFS = 256
 TRI_F64 = (24576, 663552, 24417)     # blocks, candidates, embedded: the JAX
 #   x64 run on the CPU (`JAX_PLATFORMS=cpu python
 #   tests/test_torch_suite_counts.py trimolecular_rigid 256`)
-
+# the force field and FIRE (phase 13): the three molecules of the
+# trimolecular input as one topology; FF_STRUCTS jittered structures for
+# the energy and gradient, phase 12's survivors for FIRE
+FF_STRUCTS = 4096
+FF_JITTER = 0.1            # A
+FF_RTOL = 1e-9             # card against CPU, float64, relative to the largest
+FIRE_STEPS = 200
+FIRE_TIMED_STEPS = 40      # steps per timing of the FIRE step
+FIRE_CPU_ROWS = 512        # rows also relaxed on the CPU, float64
+FIRE_ATOL = 1e-6           # A, card float64 against CPU float64
+# the non-rigid three-molecule route (phase 14): bench_suite's
+# trimolecular as written at its default of 16, CH3Cl + 4 conformers of
+# HCOOH twice
+BEND_TRI_CONFS = 16
+BEND_TRI_F64 = {'bends': 5, 'bend_reverts': 0, 'bend_hits': 0,
+                'embedded': 135}
+#   the JAX x64 run on the CPU (`JAX_PLATFORMS=cpu python
+#   tests/test_torch_suite_counts.py trimolecular 16`)
+BEND_ATOL = 1e-6           # A, bent coordinates, card against CPU
+# the small bending routes (phase 15): conformers of each molecule
+CHEL_BEND_CONFS = 6        # at 7 to 9 the jitter breaks a bond of HCOOOH
+MONO_CONFS = 2
 
 class SmokeFailure(Exception):
     pass
@@ -1818,6 +1849,391 @@ def phase_trimol_route(card):
     return k1, sweep['err'], rec
 
 
+def profiled(fn):
+    '''fn() under torch.profiler, ended by a synchronise: (wall seconds,
+    seconds of kernel time on the card, kernel launches); the last two
+    None when the profiler saw no device time.'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(a.self_device_time_total for a in kernels) / 1e6
+    if busy == 0:
+        return wall, None, None
+    return wall, busy, sum(a.count for a in kernels)
+
+
+def trimol_topology():
+    '''The rigid three-molecule embed's survivors at TRI_CONFS (phase
+    12's, (S, 15, 3) float64 numpy) and the merged force field of its
+    three molecules (FFParams).'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    from tscode_tpu_torch.ff import build_ff_params, merge_ff_params
+    with tempfile.TemporaryDirectory(prefix='smoke_ff_') as tmp:
+        emb = embedder_setup(suite_input('trimolecular_rigid', tmp,
+                                         TRI_CONFS), torch.float64)
+    mols = emb.objects
+    poses, _ = cyc.cyclical_embed_trimol_rigid(
+        mols, emb.systematic_angles, emb.options.clash_thresh,
+        pairing_ok=emb.pairing_ok_fn(), log=lambda *a: None, device=DEV,
+        dtype=torch.float64)
+    offsets = np.concatenate([[0], np.cumsum([m.n_atoms for m in mols])[:-1]])
+    params = merge_ff_params(
+        [build_ff_params(m.atomcoords[0], m.atomnos, m.graph) for m in mols],
+        offsets)
+    return poses, params
+
+
+def fire_timing(card, what, x, params, profile, steps=FIRE_TIMED_STEPS):
+    '''Seconds per FIRE step of the batch x under the force field, over
+    `steps` steps after as many of warm-up, the step replayed from its
+    CUDA graph and queued op by op; with `profile`, launches per step
+    and the card's busy share from the profiler over as many again
+    (starting and stopping the profiler costs seconds). Prints one line;
+    returns the record.'''
+    import torch
+    from tscode_tpu_torch import optimizers as opt
+    from tscode_tpu_torch.ff import ff_energy
+    args = (x, ff_energy, steps, 0.05, 0.05, None, (params,))
+
+    def timed(run):
+        run(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps
+
+    rec = {'rows': int(x.shape[0]), 'atoms': int(x.shape[1]),
+           'dtype': str(x.dtype).split('.')[-1], 'steps': steps}
+    for name, run in (('graph', opt.fire_run_graph),
+                      ('eager', opt.fire_run_eager)):
+        rec[f'{name}_s_per_step'] = timed(run)
+        wall, busy, launches = profiled(lambda: run(*args)) if profile \
+            else (None, None, None)
+        rec[f'{name}_busy_share'] = None if busy is None else busy / wall
+        rec[f'{name}_launches_per_step'] = None if launches is None \
+            else launches / steps
+    print(f'[13 fire] {what}, {rec["rows"]} x {rec["atoms"]} atoms, '
+          f'{rec["dtype"]}, {steps} steps: graph replay '
+          f'{rec["graph_s_per_step"] * 1e3:.4f} ms a step (busy share '
+          f'{rec["graph_busy_share"]}, {rec["graph_launches_per_step"]} '
+          f'kernels a step), op by op {rec["eager_s_per_step"] * 1e3:.4f} '
+          f'ms a step (busy share {rec["eager_busy_share"]}, '
+          f'{rec["eager_launches_per_step"]} launches a step) [{card}]')
+    return rec
+
+
+def phase_ff_fire(card):
+    '''Phase 13: the force field and FIRE on the card. (a) ff_energy and
+    its autograd gradient on FF_STRUCTS jittered structures of the merged
+    three-molecule topology, card against CPU in float64. (b)
+    fire_minimize_batch on phase 12's survivors for FIRE_STEPS steps,
+    float64 and float32: no energy rises, stopped rows have their largest
+    atomic force under fmax, and the float64 coordinates of
+    FIRE_CPU_ROWS rows equal the CPU's. Then the step's times, at the
+    whole batch and at one structure (a bend's shape). Returns the
+    record.'''
+    import torch
+    from tscode_tpu_torch import optimizers as opt
+    from tscode_tpu_torch.ff import ff_energy, params_to_device
+    poses, ffp = trimol_topology()
+    rng = np.random.default_rng(13)
+    rec = {'card': card, 'survivors': len(poses), 'timing': []}
+
+    def energy_and_gradient(x, params):
+        x = x.clone().requires_grad_(True)
+        e = ff_energy(x, params)
+        return e.detach(), torch.autograd.grad(e.sum(), x)[0]
+
+    jit = torch.as_tensor(
+        poses[:FF_STRUCTS] + rng.normal(size=poses[:FF_STRUCTS].shape)
+        * FF_JITTER)
+    e_cpu, g_cpu = energy_and_gradient(
+        jit, params_to_device(ffp, 'cpu', torch.float64))
+    p64 = params_to_device(ffp, DEV, torch.float64)
+    e_gpu, g_gpu = energy_and_gradient(jit.to(DEV), p64)
+    e_err = float((e_gpu.cpu() - e_cpu).abs().max() / e_cpu.abs().max())
+    g_err = float((g_gpu.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    check(e_err <= FF_RTOL and g_err <= FF_RTOL, f'ff_energy card against '
+          f'CPU: energy {e_err:.2e}, gradient {g_err:.2e} (relative)')
+    print(f'[13 ff] {len(jit)} jittered structures of 15 atoms ('
+          f'{len(ffp.bonds)} bonds, {len(ffp.angles)} angles, '
+          f'{len(ffp.nb_pairs)} repulsion pairs), float64: energy within '
+          f'{e_err:.2e} and gradient within {g_err:.2e} of the CPU '
+          f'(relative to the largest; energies up to '
+          f'{float(e_cpu.max()):.1f} kcal/mol)')
+    rec.update(ff_energy_rel_err=e_err, ff_gradient_rel_err=g_err)
+
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split('.')[-1]
+        params = params_to_device(ffp, DEV, dtype)
+        x = torch.as_tensor(poses, dtype=dtype, device=DEV)
+        e0 = ff_energy(x, params)
+        c, e1, done = opt.fire_minimize_batch(
+            x, ff_energy, n_steps=FIRE_STEPS, energy_args=(params,))
+        f = opt.forces(c, ff_energy, (params,))
+        fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
+        slack = 1e-9 if dtype == torch.float64 else 1e-4
+        check(bool(torch.isfinite(c).all()) and
+              bool((e1 <= e0 + slack * (1 + e0.abs())).all()),
+              f'FIRE {name}: an energy rose')
+        check(bool((fmax[done] < 0.05 + slack).all()),
+              f'FIRE {name}: a stopped row has force '
+              f'{float(fmax[done].max()) if done.any() else 0}')
+        line = f'[13 fire] {len(x)} survivors, {name}, {FIRE_STEPS} steps: ' \
+            f'energy {float(e0.mean()):.3f} -> {float(e1.mean()):.3f} ' \
+            f'kcal/mol (mean), {int(done.sum())} rows stopped, largest ' \
+            f'force of a stopped row {float(fmax[done].max()) if done.any() else 0:.4f}'
+        if dtype == torch.float64:
+            rows = slice(0, FIRE_CPU_ROWS)
+            c_cpu, _, done_cpu = opt.fire_minimize_batch(
+                torch.as_tensor(poses[rows]), ff_energy, n_steps=FIRE_STEPS,
+                energy_args=(params_to_device(ffp, 'cpu', dtype),))
+            err = float((c[rows].cpu() - c_cpu).abs().max())
+            check(err <= FIRE_ATOL and
+                  torch.equal(done[rows].cpu(), done_cpu),
+                  f'FIRE float64: card {err:.2e} A from the CPU on '
+                  f'{FIRE_CPU_ROWS} rows')
+            rec['fire_card_vs_cpu_A'] = err
+            line += f'; {FIRE_CPU_ROWS} rows within {err:.2e} A of the ' \
+                f'CPU, same rows stopped'
+        print(line)
+        rec[f'fire_{name}'] = {
+            'e0_mean': float(e0.mean()), 'e1_mean': float(e1.mean()),
+            'stopped': int(done.sum())}
+        profile = dtype == torch.float64     # the launches are the same
+        rec['timing'].append(fire_timing(card, 'whole batch', x, params,
+                                         profile))
+        rec['timing'].append(fire_timing(card, 'one structure', x[:1],
+                                         params, profile))
+    return rec
+
+
+def recorded_bends():
+    '''Patch bending.bend_molecule so that every call that bends (no
+    cache hit) is recorded: returns (records, undo). A record is (mol,
+    conf, pivot, target, keywords, the result).'''
+    from tscode_tpu_torch import bending
+    entry, records = bending.bend_molecule, []
+
+    def spy(mol, conf, pivot, threshold, **kw):
+        hit = bending.bend_key(mol, pivot, threshold, conf=conf) \
+            in kw['cache']
+        out = entry(mol, conf, pivot, threshold, **kw)
+        if not hit:
+            records.append((mol, conf, pivot, threshold, kw, out))
+        return out
+
+    def undo():
+        bending.bend_molecule = entry
+
+    bending.bend_molecule = spy
+    return records, undo
+
+
+def bends_on_cpu(tag, records):
+    '''Every recorded bend run again on the CPU (float64, no cache) from
+    the same molecule, pivot and target: the bent conformer within
+    BEND_ATOL of the card's, the same pivots kept, the same verdict of
+    the scramble check. Returns the largest coordinate difference.'''
+    from tscode_tpu_torch import bending
+    worst = 0.0
+    for k, (mol, conf, pivot, target, kw, out) in enumerate(records):
+        kw = dict(kw, cache=None, stats=None, logfunction=None, device='cpu')
+        cpu = bending.bend_molecule(mol, conf, pivot, target, **kw)
+        err = float(np.abs(cpu.atomcoords[conf]
+                           - out.atomcoords[conf]).max())
+        check(err <= BEND_ATOL and (cpu is mol) == (out is mol) and
+              [p.index for p in cpu.pivots[conf]] ==
+              [p.index for p in out.pivots[conf]],
+              f'{tag}: bend {k} on the card lies {err:.2e} A from the CPU '
+              f'run (reverted: {out is mol} / {cpu is mol})')
+        worst = max(worst, err)
+    return worst
+
+
+def bend_split(tag, dtype, ce, secs, card):
+    print(f'[{tag} {dtype}] embed split: blocks {ce["blocks_s"]:.4f} s, '
+          f'bends {ce["bends_s"]:.4f} s ({ce["bends"]} bends, '
+          f'{ce["bend_relaxations"]} FIRE calls, {ce["bend_hits"]} cache '
+          f'hits, {ce["bend_reverts"]} reverts, {ce["groups"]} groups)'
+          + (f', adjust {ce["adjust_s"]:.4f} s' if 'adjust_s' in ce else '')
+          + f', screen {ce["screen_s"]:.4f} s, dedup {ce["dedup_s"]:.4f} s, '
+          f'assemble {ce["assemble_s"]:.4f} s ({ce["blocks"]} blocks in '
+          f'{ce["chunks"]} chunks); the bends are '
+          f'{ce["bends_s"] / secs:.1%} of the run\'s {secs:.3f} s [{card}]')
+
+
+def phase_bend_trimol_route(card):
+    '''Phase 14: the non-rigid three-molecule route through the CLI on
+    bench_suite's trimolecular input as written at BEND_TRI_CONFS (the
+    bends on the internal force field in float64, the chained direction
+    adjustment, the block sweep group by group with K1, BYPASS), float64
+    (the JAX x64 bends and survivors) then float32 (the same bent
+    molecules; the sweep held as phase 8 holds it), every bend run again
+    on the CPU, and the sweep checked on its own group by group.
+    Returns (K1 launches, largest disagreement, the bends' record).'''
+    import tempfile
+    import torch
+    from tscode_tpu_torch import bending
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    k1 = 0
+    ces, bends = {}, {}
+    with tempfile.TemporaryDirectory(prefix='smoke_bend_') as tmp:
+        inp = suite_input('trimolecular', tmp, BEND_TRI_CONFS)
+        for dtype in ('float64', 'float32'):
+            bends[dtype], undo = recorded_bends()
+            try:
+                report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+            finally:
+                undo()
+            ces[dtype] = ce = report['cyclical_embed']
+            entry = report['clash_entry_launches']
+            k1 += entry['clash_ok']
+            check(entry == {'clash_ok': ce['chunks'],
+                            'compenetration_mask_kernel': 0} and
+                  regimes['warp'] == ce['chunks'] >= ce['groups'],
+                  f'non-rigid trimolecular {dtype}: launches {entry} '
+                  f'{regimes}, expected K1\'s warp kernel once per chunk '
+                  f'({ce["chunks"]}) of {ce["groups"]} groups')
+            check(report['final_structures'] == ce['survivors'] and
+                  frames.shape == (min(ce['survivors'], 10000), 15, 3)
+                  and bool(np.isfinite(frames).all())
+                  and len(bends[dtype]) == ce['bends'],
+                  f'non-rigid trimolecular {dtype}: .xyz holds '
+                  f'{frames.shape}, final {report["final_structures"]}, '
+                  f'{len(bends[dtype])} bends recorded')
+            check(all(out.atomcoords.dtype == np.float64
+                      for *_, out in bends[dtype]),
+                  f'non-rigid trimolecular {dtype}: a bend left float64')
+            print(f'[14 bend trimolecular {dtype}] {ce["blocks"]} blocks, '
+                  f'{ce["candidates"]} candidates -> {ce["survivors"]} '
+                  f'embedded in {secs:.3f} s; launches {entry} {regimes}; '
+                  f'stages: {cli_stages(report)} [{card}]')
+            bend_split('14 bend trimolecular', dtype, ce, secs, card)
+        emb = embedder_setup(inp, torch.float64)
+    got = {'bends': ces['float64']['bends'],
+           'bend_reverts': ces['float64']['bend_reverts'],
+           'bend_hits': ces['float64']['bend_hits'],
+           'embedded': ces['float64']['survivors']}
+    check(got == BEND_TRI_F64, f'non-rigid trimolecular f64 {got} != '
+          f'{BEND_TRI_F64} (JAX x64)')
+    # the float32 run bends in float64 too: the same molecules
+    same = max(float(np.abs(a[-1].atomcoords - b[-1].atomcoords).max())
+               for a, b in zip(bends['float64'], bends['float32']))
+    check(len(bends['float32']) == len(bends['float64']) and same <= 1e-9,
+          f'the float32 run\'s bent molecules lie {same:.2e} A from the '
+          f'float64 run\'s')
+    t0 = time.perf_counter()
+    worst = bends_on_cpu('non-rigid trimolecular', bends['float64'])
+    cpu_s = time.perf_counter() - t0
+    n_relax = ces['float64']['bend_relaxations']
+    print(f'[14 bend trimolecular] {got["bends"]} bends ({n_relax} FIRE '
+          f'calls of {bending.BEND_FIRE_STEPS} steps), '
+          f'{got["bend_reverts"]} reverts, {got["bend_hits"]} cache hits, '
+          f'{got["embedded"]} embedded: the JAX x64 counts; bent '
+          f'coordinates within {worst:.2e} A of the CPU\'s (the same bends '
+          f'on the CPU: {cpu_s:.3f} s, on the card '
+          f'{ces["float64"]["bends_s"]:.3f} s); the float32 run\'s bent '
+          f'molecules within {same:.2e} A of the float64 run\'s [{card}]')
+
+    # the sweep on its own, with the float64 run's bent molecules
+    bent = {bending.bend_key(mol, pivot, target, conf=conf): out
+            for mol, conf, pivot, target, _, out in bends['float64']}
+    emb.log = lambda *a, **kw: None         # its log file is closed
+    groups = cyc.nonrigid_rows(
+        emb, 5, lambda mol, conf, pivot, target:
+        bent[bending.bend_key(mol, pivot, target, conf=conf)])
+    blks, _ = cyc.nonrigid_blocks(groups, torch.device(DEV))
+    sweeps = [sweep_check(card, f'14 bend trimolecular group {i}', blk,
+                          g['mols'], emb.systematic_angles)
+              for i, (g, blk) in enumerate(zip(groups, blks))]
+    sweep = {k: np.concatenate([s[k] for s in sweeps])
+             for k in ('keep64', 'keep32', 'tie_poses', 'tie_kept',
+                       'gate_tied', 'tied')}
+    sweep['near'] = sum(s['near'] for s in sweeps)
+    differ = hold_float32('14 bend trimolecular', sweep)
+    slack = float32_slack(sweep, differ)[0]
+    c64, c32 = (ces[d]['survivors'] for d in ('float64', 'float32'))
+    check(len(groups) == ces['float64']['groups'] and
+          int(sweep['keep64'].sum()) == c64 and
+          int(sweep['keep32'].sum()) == c32 and abs(c32 - c64) <= slack,
+          f'non-rigid trimolecular: the sweep on its own keeps '
+          f'{int(sweep["keep64"].sum())} / {int(sweep["keep32"].sum())} in '
+          f'{len(groups)} groups, the route {c64} / {c32} in '
+          f'{ces["float64"]["groups"]} (float32 slack {slack})')
+    rec = {d: {k: ces[d][k] for k in (
+        'bends', 'bend_relaxations', 'bend_hits', 'bend_reverts', 'groups',
+        'bends_s', 'blocks_s', 'adjust_s', 'screen_s', 'dedup_s',
+        'assemble_s', 'chunks')} for d in ces}
+    rec.update(cpu_bends_s=cpu_s, bent_vs_cpu_A=worst)
+    return k1, max(s['err'] for s in sweeps), rec
+
+
+def card_against_cpu(tag, name, n_confs, atoms, key):
+    '''One input through the CLI in float64 on the card and on the CPU:
+    the same stage counts, the written structures within BEND_ATOL (the
+    .xyz holds 6 decimals). Returns the card run's report.'''
+    import tempfile
+    out = {}
+    for device in (DEV, 'cpu'):
+        with tempfile.TemporaryDirectory(prefix='smoke_small_') as tmp:
+            inp = suite_input(name, tmp, n_confs)
+            out[device] = run_cli(tmp, inp, 'float64', device=device)
+    (report, frames, _, secs), (report_cpu, frames_cpu, _, secs_cpu) = \
+        out[DEV], out['cpu']
+    check(stage_counts(report) == stage_counts(report_cpu) and
+          frames.shape == frames_cpu.shape and frames.shape[1:] == (atoms, 3)
+          and len(frames) > 0,
+          f'{tag}: card stages {stage_counts(report)} frames '
+          f'{frames.shape}, CPU {stage_counts(report_cpu)} '
+          f'{frames_cpu.shape}')
+    err = float(np.abs(frames - frames_cpu).max())
+    check(err <= 2 * BEND_ATOL, f'{tag}: card structures {err:.2e} A from '
+          f'the CPU run\'s')
+    ce = report[key]
+    print(f'[{tag}] float64: {" -> ".join(map(str, stage_counts(report)))} '
+          f'on the card in {secs:.3f} s and on the CPU in {secs_cpu:.3f} s, '
+          f'structures within {err:.2e} A; {ce["bends"]} bends, '
+          f'{ce["bend_relaxations"]} FIRE calls, {ce["bend_reverts"]} '
+          f'reverts; launches {report["clash_entry_launches"]}')
+    return report
+
+
+def phase_small_bend_routes(card):
+    '''Phase 15: the non-rigid chelotropic input (phase 11's without
+    RIGID) at CHEL_BEND_CONFS conformers, which launches K2 on a
+    non-rigid route, and the monomolecular embed on MONO_CONFS
+    conformers of C2F2H4, each in float64 on the card against the CPU.
+    Returns (K1 launches, K2 launches).'''
+    report = card_against_cpu('15 chelotropic non-rigid',
+                              'chelotropic_nonrigid', CHEL_BEND_CONFS, 12,
+                              'chelotropic_embed')
+    entry = report['clash_entry_launches']
+    check(entry == {'clash_ok': report['chelotropic_embed']['chunks'],
+                    'compenetration_mask_kernel': 1},
+          f'non-rigid chelotropic: launches {entry}')
+    mono = card_against_cpu('15 monomolecular', 'monomolecular', MONO_CONFS,
+                            8, 'monomolecular_embed')
+    check(mono['monomolecular_embed']['bends'] > 0 and
+          mono['clash_entry_launches'] ==
+          {'clash_ok': 0, 'compenetration_mask_kernel': 0},
+          f'monomolecular: {mono["monomolecular_embed"]}, launches '
+          f'{mono["clash_entry_launches"]}')
+    return entry['clash_ok'], entry['compenetration_mask_kernel']
+
+
 def qcp_plan_sweep(card, out):
     '''K3's launch plans timed at every headline pass in float32 and on
     the long chunks (the measurement behind qcp.launch_plan): each
@@ -1897,6 +2313,14 @@ def cyclical_profile(card, out):
                   indent=1)
 
 
+def timed_phase(name, phase, *args):
+    '''phase(*args), its seconds printed.'''
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f'[seconds] {name}: {time.perf_counter() - t0:.1f} s')
+    return out
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_env()
@@ -1907,6 +2331,11 @@ def main():
     if sys.argv[1:2] == ['--profile-cyclical']:  # --profile-cyclical OUT.json
         phase_build()
         cyclical_profile(card, sys.argv[2])
+        return
+    if sys.argv[1:2] == ['--fire']:          # --fire OUT.json
+        phase_build()
+        with open(sys.argv[2], 'w') as f:
+            json.dump(phase_ff_fire(card), f, indent=1)
         return
     import tempfile
     import torch
@@ -1931,24 +2360,33 @@ def main():
             k1, e8, chunk8, xl_path = phase_cyclical_route(card, tmp)
             k3, recs9, e9 = phase_refine_route(
                 card, xl_path, os.path.join(keep, 'large_n_f64.xyz'))
-    k1_10, k2_10, e10, k2_rec, e10_k2 = phase_multiembed_route(card)
-    k1_11, k2_11, e11, k2_rec11, e11_k2 = phase_chelotropic_route(card)
-    k1_12, e12, chunk12 = phase_trimol_route(card)
-    kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12
+    print(f'[seconds] phases 1 to 9: {time.perf_counter() - t0:.1f} s')
+    k1_10, k2_10, e10, k2_rec, e10_k2 = timed_phase(
+        '10 multiembed', phase_multiembed_route, card)
+    k1_11, k2_11, e11, k2_rec11, e11_k2 = timed_phase(
+        '11 chelotropic', phase_chelotropic_route, card)
+    k1_12, e12, chunk12 = timed_phase('12 trimolecular', phase_trimol_route,
+                                      card)
+    fire = timed_phase('13 ff and fire', phase_ff_fire, card)
+    k1_14, e14, bend14 = timed_phase('14 bend trimolecular',
+                                     phase_bend_trimol_route, card)
+    k1_15, k2_15 = timed_phase('15 small bend routes',
+                               phase_small_bend_routes, card)
+    kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
     kernels[1]['launches'] += k3
     kernels[1]['passes'] += recs9
-    errs['clash'] = max(errs['clash'], e8, e10, e11, e12)
+    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14)
     errs['qcp_kill'] = max(errs['qcp_kill'], e9)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
-    check(k2_10 > 0 and k2_11 > 0, f'K2 launches: multiembed {k2_10}, '
-          f'chelotropic {k2_11}')
+    check(k2_10 > 0 and k2_11 > 0 and k2_15 > 0, f'K2 launches: multiembed '
+          f'{k2_10}, chelotropic {k2_11}, non-rigid chelotropic {k2_15}')
     kernels.insert(1, {
         'name': 'compenetration_mask_kernel', 'route': 'cuda',
         'source': 'tscode_tpu_torch/csrc/clash.cu',
         'replaces': 'tscode_tpu/ops/pallas/clash.py:55',
-        'launches': k2_10 + k2_11, 'max_abs_err': max(e10_k2, e11_k2),
+        'launches': k2_10 + k2_11 + k2_15, 'max_abs_err': max(e10_k2, e11_k2),
         'ms': k2_rec['float64']['ms'],
         'plain_ms': k2_rec['float64']['plain_ms'],
         'bound_ms': k2_rec['float64']['bound_ms'], 'bound_by': 'bytes',
@@ -1962,6 +2400,7 @@ def main():
           f'{jax_pkg[:5]}')
     print(f'[done] {time.perf_counter() - t0:.1f} s')
     print(f'nvidia-smi: {card}')
+    print(json.dumps({'bending': {'fire': fire, 'trimolecular': bend14}}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

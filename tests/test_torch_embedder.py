@@ -1,7 +1,8 @@
 '''The string route end to end on the CPU, float64: the port's Embedder
 and CLI against the JAX package's on the same input files (the written
 .xyz within 1e-6 A, the same stage counts), and the routes the port does
-not run yet raising NotImplementedError before any embed work.'''
+not run yet raising NotImplementedError before any embed work, while
+the bending routes are set up as the JAX package sets them up.'''
 
 import json
 import os
@@ -100,13 +101,6 @@ def test_resume_after_the_prunes(tmp_path):
 
 
 @pytest.mark.parametrize('content,files,item', [
-    ('NOOPT\nC2H4.xyz 0 3\nC2H4.xyz 0 3\nC2H4.xyz 0 3\n',
-     ('C2H4.xyz',), 'items 12 and 13'),    # non-rigid trimolecular cyclical
-    ('NOOPT DIST(a=2.2,b=2.3)\nC2H4.xyz 0a 3b\nCH3Cl.xyz 0a 4b\n',
-     ('C2H4.xyz', 'CH3Cl.xyz'), 'items 12 and 13'),  # non-rigid cyclical
-    ('NOOPT\nC2H4.xyz 0 3\nCH3Cl.xyz 0\n',
-     ('C2H4.xyz', 'CH3Cl.xyz'), 'items 12 and 13'), # non-rigid chelotropic
-    ('NOOPT\nC2F2H4.xyz 3 5\n', ('C2F2H4.xyz',), 'item 12'),  # monomolecular
     ('C2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
      'items 13 and 15'),                                      # optimisation
     ('NOOPT\ncsearch> C2H4.xyz 0\nCH3Cl.xyz 0\n',
@@ -124,6 +118,55 @@ def test_unported_routes_raise_before_the_embed(tmp_path, content, files,
     finally:
         os.chdir(cwd)
     assert not list(tmp_path.glob('tscode_embedded_*.xyz'))
+
+
+@pytest.mark.parametrize('content,files,embed', [
+    ('NOOPT\nC2H4.xyz 0 3\nC2H4.xyz 0 3\nC2H4.xyz 0 3\n', ('C2H4.xyz',),
+     'cyclical'),
+    ('NOOPT DIST(a=2.2,b=2.3)\nC2H4.xyz 0a 3b\nCH3Cl.xyz 0a 4b\n',
+     ('C2H4.xyz', 'CH3Cl.xyz'), 'cyclical'),
+    ('NOOPT\nC2H4.xyz 0 3\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
+     'chelotropic'),
+    ('NOOPT\nC2F2H4.xyz 3 5\n', ('C2F2H4.xyz',), 'monomolecular'),
+])
+def test_bending_routes_are_set_up(tmp_path, content, files, embed):
+    '''The non-rigid cyclical and chelotropic inputs and the
+    one-molecule input set up as the JAX package sets them up: embed
+    type, RIGID off, candidates.'''
+    from tscode_tpu.embedder import Embedder as JaxEmbedder
+    write_input(tmp_path, content, files)
+    cwd = os.getcwd()
+    try:
+        te = Embedder(str(tmp_path / 'input.txt'), stamp='np', device='cpu')
+        je = JaxEmbedder(str(tmp_path / 'input.txt'), stamp='jax')
+    finally:
+        os.chdir(cwd)
+    assert te.embed == je.embed == embed
+    # CH3Cl's single lobe gives the chelotropic input no pivot: 0, "Many"
+    assert te.candidates == je.candidates
+    assert (te.candidates > 0) == (embed != 'chelotropic')
+    assert not te.options.rigid and not je.options.rigid
+    if embed == 'monomolecular':
+        assert te.options.only_refined and \
+            te.options.fix_angles_in_deformation
+        assert [len(p) for p in te.objects[0].pivots] == \
+            [len(p) for p in je.objects[0].pivots]
+
+
+def test_bending_on_xtb_gradients_raises(monkeypatch):
+    '''qm_gradient_source: no callback (the internal force field) unless
+    the calculator is XTB and xtb is installed; then it raises the
+    calculators' ROADMAP item.'''
+    from types import SimpleNamespace
+    from tscode_tpu_torch import operators
+    emb = SimpleNamespace(options=SimpleNamespace(calculator='XTB'))
+    monkeypatch.setattr(operators, 'XTB_AVAILABLE', False)
+    assert operators.qm_gradient_source(emb, None) is None
+    monkeypatch.setattr(operators, 'XTB_AVAILABLE', True)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md item 15'):
+        operators.qm_gradient_source(emb, None)
+    emb.options.calculator = 'ORCA'
+    assert operators.qm_gradient_source(emb, None) is None
 
 
 def test_cuda_requested_without_a_card_raises(tmp_path, monkeypatch):

@@ -2,20 +2,22 @@
 Engine of the port: input DSL parsing, embed-type decision and the
 pipeline stages (counterpart of tscode_tpu/embedder.py).
 
-Ported: parsing, pairings, keywords, the routes that need no force
-field (the string embed; the rigid cyclical embed of two or three
-molecules; the rigid chelotropic embed; the multiembed, which docks
-every arrangement of the reactive atoms of two polyfunctional molecules;
-and the refine route of REFINE or refine>, which takes an ensemble as
-the structures), the compenetration stage (kernel K2 where the fragment
+Ported: parsing, pairings, keywords, every embed (the string embed; the
+cyclical embed of two or three molecules and the chelotropic embed,
+non-rigid, which bends molecules on the internal force field, or RIGID;
+the monomolecular embed, which bends one molecule; the multiembed, which
+docks every arrangement of the reactive atoms of two polyfunctional
+molecules) and the refine route of REFINE or refine>, which takes an
+ensemble as the structures, the compenetration stage (kernel K2 where
+the fragment
 sizes are known), the fitness stage, the similarity prunes (TFD, MOI,
 and on the refine route the bucketed RMSD prune with kernel K3 and the
 symmetry-corrected RMSD prune), structure writes, the run report and
 resume. Every other route raises NotImplementedError naming its
-ROADMAP.md item, before any embed work: the non-rigid (bending) cyclical
-and chelotropic embeds, the monomolecular embed, operators other than
-refine>, optimisation (inputs without NOOPT or BYPASS need calculators),
-SADDLE/TS, metadynamics and csearch augmentation.
+ROADMAP.md item, before any embed work: operators other than refine>,
+optimisation (inputs without NOOPT or BYPASS need calculators),
+SADDLE/TS, metadynamics and csearch augmentation; bending on XTB
+gradients raises at the first bend.
 
 The device and dtype are explicit: `Embedder(filename, device='cuda')`
 raises when there is no card, and the dtype defaults to float32 on CUDA
@@ -51,6 +53,7 @@ from tscode_tpu_torch.utils import (auto_newline, clean_directory,
 from tscode_tpu_torch import __version__
 from tscode_tpu_torch.backend import default_dtype, get_device
 from tscode_tpu_torch.embeds.cyclical import cyclical_embed
+from tscode_tpu_torch.embeds.monomolecular import monomolecular_embed
 from tscode_tpu_torch.embeds.string import string_embed
 from tscode_tpu_torch.multiembed import multiembed_dispatcher
 from tscode_tpu_torch.ops.clash import (count_intra_clashes_np,
@@ -470,9 +473,7 @@ class Embedder:
     # -------------------------------------------------------------- setup
 
     def _setup(self, p=True):
-        '''Embed-type decision, angle grids and pivots of the ported
-        routes; the monomolecular embed and the non-rigid forms raise
-        NotImplementedError.'''
+        '''Embed-type decision, angle grids, orbitals and pivots.'''
         if any('refine>' in op for op in self.options.operators) or \
                 self.options.noembed:
             self.embed = 'refine'
@@ -492,10 +493,15 @@ class Embedder:
         override = 'Single' if self.options.simpleorbitals else None
 
         if len(self.objects) == 1:
-            if len(self.objects[0].reactive_indices) == 2:
-                raise not_ported('The monomolecular embed', 12)
-            self.embed = 'error'
-            return
+            mol = self.objects[0]
+            if len(mol.reactive_indices) != 2:
+                self.embed = 'error'
+                return
+            self.embed = 'monomolecular'
+            mol.compute_orbitals(override=override)
+            set_pivots(mol, suprafacial=self.options.suprafacial)
+            self.options.only_refined = True
+            self.options.fix_angles_in_deformation = True
 
         elif len(self.objects) in (2, 3):
             n_reactive = [len(mol.reactive_indices) for mol in self.objects]
@@ -565,12 +571,7 @@ class Embedder:
         (its single reactive atoms' orbitals enlarged by 0.2 A) or
         'multiembed' (orbitals only: each arrangement is set up as a
         cyclical embed of its own). Sets the (A, M) grid of per-molecule
-        step angles over +-rotation_range and the pivots. The non-rigid
-        cyclical and chelotropic forms raise.'''
-        if kind != 'multiembed' and \
-                not (self.options.rigid or self._large_embed()):
-            raise not_ported(f'The non-rigid {kind} embed (bending)',
-                             '12 and 13')
+        step angles over +-rotation_range and the pivots.'''
         self.embed = kind
         if kind == 'chelotropic':
             for mol in self.objects:
@@ -599,12 +600,16 @@ class Embedder:
                 mol.compute_orbitals(override=override)
 
     def _get_number_of_candidates(self):
-        '''String embed: spin steps times the lobe-conformer products.
-        Multiembed: 0, logged as Many (each arrangement counts its own).
+        '''One molecule: its pivots over all conformers. String embed:
+        spin steps times the lobe-conformer products. Multiembed: 0,
+        logged as Many (each arrangement counts its own).
         Cyclical sweeps: two orientations per angle tuple, conformer
         tuple and pivot tuple, times four for three molecules; pairings
         fix orientations of a cyclical embed (half of two molecules'; a
         quarter or, from two pairings up, an eighth of three's).'''
+        if len(self.objects) == 1:
+            mol = self.objects[0]
+            return int(sum(len(mol.pivots[c]) for c in range(mol.n_confs)))
         if self.embed == 'string':
             return int(self.options.rotation_steps * np.prod(
                 [sum(len(mol.get_r_atoms(c)[0].center)
@@ -868,10 +873,10 @@ class RunEmbedding(Embedder):
 
     @_timed_stage
     def generate_candidates(self):
-        '''The embed on the run's device: string, rigid cyclical or
+        '''The embed on the run's device: string, cyclical or
         chelotropic (or, for an arrangement of a multiembed, its slice
-        `precomputed_embed` of the shared sweep), or multiembed; the
-        refine route has its structures already.'''
+        `precomputed_embed` of the shared sweep), monomolecular, or
+        multiembed; the refine route has its structures already.'''
         if self.embed == 'refine':
             self.log('\n')
             return
@@ -896,6 +901,8 @@ class RunEmbedding(Embedder):
                 self.constrained_indices = constrained
             else:
                 self.structures = cyclical_embed(self)
+        elif self.embed == 'monomolecular':
+            monomolecular_embed(self)
         elif self.embed == 'multiembed':
             self.structures = multiembed_dispatcher(self)
         else:
@@ -921,14 +928,15 @@ class RunEmbedding(Embedder):
 
     @_timed_stage
     def compenetration_refining(self):
-        '''The string and cyclical embeds screened every pose already.
-        Other routes are screened here: with fragment sizes (ids: the
+        '''The string and cyclical embeds screened every pose already,
+        and the monomolecular embed docks nothing. Other routes are
+        screened here: with fragment sizes (ids: the
         chelotropic embed and the multiembed parent), the cross-fragment
         clash screen (kernel K2 on CUDA); on the refine route, each
         structure's pairs closer than 0.5 A (pairs at distance 0
         excluded, as the reference does). Then the placeholder energies
         and exit status.'''
-        if self.embed not in ('string', 'cyclical'):
+        if self.embed not in ('string', 'cyclical', 'monomolecular'):
             self.log('--> Checking structures for compenetrations')
             t_start = time.perf_counter()
             if self.ids is not None:

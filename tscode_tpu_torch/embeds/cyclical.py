@@ -1,8 +1,8 @@
 '''
-Rigid cyclical embeds: two or three molecules docked across all their
+Cyclical embeds: two or three molecules docked across all their
 pairings at once, as in a Diels-Alder transition state (counterpart of
-the rigid parts of tscode_tpu/embeds/cyclical.py; the chelotropic embed
-and every arrangement of a multiembed are two-molecule cases).
+tscode_tpu/embeds/cyclical.py; the chelotropic embed and every
+arrangement of a multiembed are two-molecule cases).
 
 The sweep is cut into blocks,
 
@@ -25,9 +25,16 @@ directions are first corrected by a grid search over 343 angle triples
 a (conformer, pivot) combination; the chain runs in float64 whatever
 the sweep's dtype, since its argmin decides whole poses.
 
-The non-rigid (bending) cyclical embeds are not ported (ROADMAP.md
-items 12 and 13). Set TSCODE_EMBED_TRACE=1 to print the split of block
-building, adjustment, screen, dedup and assembly to stderr.
+The non-rigid embed (the program's default) walks the same
+combinations on the host and, where the pivot lengths of a combination
+close no digon or triangle, first BENDS the offending molecule
+(bending.bend_molecule, float64). A bend replaces the molecule for every
+later combination, so the block rows fall into groups by the coordinate
+arrays they were built from, and each group is swept with its own
+coordinates.
+
+Set TSCODE_EMBED_TRACE=1 to print the split of block building, bends,
+adjustment, screen, dedup and assembly to stderr.
 '''
 
 import os
@@ -393,17 +400,27 @@ _GEOMETRY = ('starts', 'ends', 'dirs', 'pvs', 'mds', 'apms', 'mps',
              'rc_axes')
 
 
-def sweep_inputs(blk, mols, angles, device, dtype):
+def sweep_inputs(blk, mols, angles, device, dtype, uploaded=None):
     '''The device inputs of a sweep over the molecules `mols`: (coords,
     one (n_confs, N_m, 3) tensor per molecule; angle grid (A, M); pairs
     (P, 2) int32, the cross-fragment pair list; rows) where rows(lo, hi)
     gives, for block rows [lo, hi), their conformer ids per molecule and
     block_geometry's eight inputs: gathered from the compact tables when
     `blk` has them, else sliced from its per-block fields (the loop
-    form's ragged case, and three molecules).'''
+    form's ragged case, and three molecules). uploaded: a dict that,
+    when given, keeps each coordinate array's tensor under the array's
+    id, so sweeps that share molecules upload them once (the caller
+    keeps the arrays alive).'''
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
                                device=device)
+
+    def ensemble(a):
+        if uploaded is None:
+            return t(a)
+        if id(a) not in uploaded:
+            uploaded[id(a)] = t(a)
+        return uploaded[id(a)]
 
     if 'tidx' in blk:
         tab1, tab2 = t(blk['tab1']), t(blk['tab2'])
@@ -424,17 +441,19 @@ def sweep_inputs(blk, mols, angles, device, dtype):
 
     pairs = torch.as_tensor(static_pairs(cross_fragment_pair_mask(
         tuple(mol.n_atoms for mol in mols))), device=device)
-    return [t(mol.atomcoords) for mol in mols], t(angles), pairs, rows
+    return [ensemble(mol.atomcoords) for mol in mols], t(angles), pairs, rows
 
 
 def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
-                     block_chunk=None, clock=time.perf_counter, split=None):
+                     block_chunk=None, clock=time.perf_counter, split=None,
+                     uploaded=None):
     '''The whole sweep over the block rows of `blk`, chunk by chunk:
     returns (survivor poses (S, N, 3) on the device in generation order,
     keep (Bb, A) numpy bool). split, when given, gets the seconds of the
-    screen (geometry, poses, clash and compaction) and of the dedup.'''
+    screen (geometry, poses, clash and compaction) and of the dedup.
+    uploaded: sweep_inputs' cache of coordinate tensors.'''
     coords, grid, pairs, rows = sweep_inputs(blk, mols, angles, device,
-                                             dtype)
+                                             dtype, uploaded)
     Bb, A = len(blk['ids']), grid.shape[0]
     N = sum(c.shape[1] for c in coords)
     chunk = block_chunk or _auto_chunk(Bb, A, N, coords[0].element_size())
@@ -468,6 +487,59 @@ def assemble_survivors(surv_poses, keep, ids_arr):
     return surv_poses.cpu().to(torch.float64).numpy(), cons
 
 
+def embed_clock(device):
+    '''(trace, clock): whether TSCODE_EMBED_TRACE=1 asks for the split,
+    and a clock that then waits for `device` before it reads the time,
+    so the split's seconds are the phases' own.'''
+    trace = os.environ.get('TSCODE_EMBED_TRACE') == '1'
+
+    def clock():
+        if trace:
+            synchronize(device)
+        return time.perf_counter()
+
+    return trace, clock
+
+
+def finish_embed(surv, keep, ids, split, A, dev, dtype, trace, info):
+    '''The end of a cyclical embed: the swept survivors `surv` (device)
+    and keep mask (Bb, A) become (poses (S, N, 3) float64 numpy,
+    constrained_indices (S, M, 2)); the split (a dict of seconds and
+    counts) is printed to stderr under TSCODE_EMBED_TRACE=1 and handed
+    to `info`. Raises ZeroCandidatesError when nothing survived.'''
+    if surv.shape[0] == 0:
+        raise ZeroCandidatesError(
+            '--> Cyclical embed did not find any suitable disposition of '
+            'molecules.\n    This is probably because one molecule has two '
+            'reactive centers at a great distance,\n    preventing the '
+            'other two molecules from forming a closed, cyclical structure.')
+    t0 = time.perf_counter()
+    poses, cons = assemble_survivors(surv, keep, ids)
+    split['assemble_s'] = time.perf_counter() - t0
+    Bb = len(ids)
+    if trace:
+        adjust = f'adjust {split["adjust_s"]:.3f}s ' \
+            f'({split["adjust_near_ties"]} near ties), ' \
+            if 'adjust_s' in split else ''
+        bends = f'bends {split["bends_s"]:.3f}s ({split["bends"]} bends, ' \
+            f'{split["bend_relaxations"]} relaxations, ' \
+            f'{split["bend_hits"]} cache hits, {split["bend_reverts"]} ' \
+            f'reverts, {split["groups"]} groups), ' \
+            if 'bends_s' in split else ''
+        print(f'[cyc trace] blocks {split["blocks_s"]:.3f}s, {bends}{adjust}'
+              f'screen {split["screen_s"]:.3f}s, dedup '
+              f'{split["dedup_s"]:.3f}s, assemble {split["assemble_s"]:.3f}s '
+              f'({Bb} blocks in {split["chunks"]} chunks of '
+              f'{split["chunk_rows"]}, {len(poses)} survivors)',
+              file=sys.stderr, flush=True)
+    if info is not None:
+        info.update(candidates=int(Bb * A), blocks=int(Bb),
+                    survivors=int(len(poses)),
+                    dtype=str(dtype).split('.')[-1], device=str(dev),
+                    trace=trace, **split)
+    return poses, cons
+
+
 def rigid_embed(mols, make_blocks, no_blocks, systematic_angles,
                 clash_thresh, block_chunk, device, dtype, info):
     '''The frame of a rigid cyclical embed: build the blocks with
@@ -479,50 +551,20 @@ def rigid_embed(mols, make_blocks, no_blocks, systematic_angles,
     constrained_indices (S, M, 2)).'''
     dev = get_device(device)
     dtype = dtype or default_dtype(dev)
-    trace = os.environ.get('TSCODE_EMBED_TRACE') == '1'
-
-    def clock():
-        if trace:
-            synchronize(dev)
-        return time.perf_counter()
-
+    trace, clock = embed_clock(dev)
     angles = np.asarray(systematic_angles, dtype=float)
-    A = len(angles)
-    blk, split = make_blocks(dev, clock, A)
+    blk, split = make_blocks(dev, clock, len(angles))
     if blk is None:
         raise ZeroCandidatesError(
             '--> Cyclical embed did not find any suitable disposition of '
             f'molecules ({no_blocks}).')
-    Bb = len(blk['ids'])
-    t0 = clock()
     surv, keep = screen_survivors(blk, mols, angles, clash_thresh,
                                   device=dev, dtype=dtype,
                                   block_chunk=block_chunk, clock=clock,
                                   split=split)
-    t1 = clock()
-    if surv.shape[0] == 0:
-        raise ZeroCandidatesError(
-            '--> Cyclical embed did not find any suitable disposition of '
-            'molecules.\n    This is probably because one molecule has two '
-            'reactive centers at a great distance,\n    preventing the '
-            'other two molecules from forming a closed, cyclical structure.')
-    poses, cons = assemble_survivors(surv, keep, blk['ids'])
-    split['assemble_s'] = time.perf_counter() - t1
-    if trace:
-        adjust = f'adjust {split["adjust_s"]:.3f}s ' \
-            f'({split["adjust_near_ties"]} near ties), ' \
-            if 'adjust_s' in split else ''
-        print(f'[cyc trace] blocks {split["blocks_s"]:.3f}s, {adjust}screen '
-              f'{split["screen_s"]:.3f}s, dedup {split["dedup_s"]:.3f}s, '
-              f'assemble {split["assemble_s"]:.3f}s ({Bb} blocks in '
-              f'{split["chunks"]} chunks of {split["chunk_rows"]}, '
-              f'{len(poses)} survivors)', file=sys.stderr, flush=True)
-    if info is not None:
-        info.update(candidates=int(Bb * A), blocks=int(Bb),
-                    survivors=int(len(poses)),
-                    dtype=str(dtype).split('.')[-1], device=str(dev),
-                    trace=trace, **split)
-    return poses, cons
+    clock()
+    return finish_embed(surv, keep, blk['ids'], split, len(angles), dev,
+                        dtype, trace, info)
 
 
 def cyclical_embed_bimol_rigid(mol1, mol2, systematic_angles,
@@ -957,17 +999,316 @@ def cyclical_embed_trimol_rigid(mols, systematic_angles, clash_thresh=1.5,
                        dtype, info)
 
 
+# ------------------------------------------------------------ non-rigid
+
+
+def _bend_blocked_by_bonded_pair(mol):
+    '''True when the molecule's two reactive atoms are directly bonded,
+    which makes bending it toward a pivot target meaningless. False for
+    a molecule with one reactive atom, which does NOT mean bendable: the
+    digon branch also requires two reactive atoms before it bends, and
+    that guard at its call site is load-bearing.'''
+    return (len(mol.reactive_indices) > 1
+            and mol.graph.has_edge(*sorted(
+                int(x) for x in mol.reactive_indices[:2])))
+
+
+_ROW_FIELDS = ('starts', 'ends', 'pvs', 'mds', 'apms', 'mps', 'rc_axes',
+               'confs', 'ids')
+_ROW_ADJUST = ('rc_src', 'verts', 'reset', 'dirs0')
+
+
+def nonrigid_rows(embedder, max_norm_delta, bend):
+    '''Phase 1 of the non-rigid embed, host-sequential: walk the
+    conformer and pivot combinations in the reference's order, bend
+    where the pivot lengths ask for it with bend(mol, conf, pivot,
+    target) (a bend replaces the molecule in the working list for every
+    later combination), and emit one row per kept orientation.
+
+    Two molecules: a combination whose pivot norms differ by
+    max_norm_delta or more bends every bendable molecule toward a shared
+    length (the shorter norm for a chelotropic embed, else 0.8 of the
+    shorter plus 0.2 of the longer) and embeds whatever the bends
+    achieved. Three molecules: a combination that closes no triangle is
+    skipped when a side exceeds the other two by 20% of its length or
+    more; else the worst side's molecule is bent to 0.9 of the other
+    two's sum, and the combination is kept if it closes a triangle then.
+
+    Returns the groups: a list of {'mols': the working list when the
+    rows were made, 'rows': [dict of _ROW_FIELDS (and _ROW_ADJUST for
+    three molecules) per row]}; a group ends where a bend, or a cache
+    hit that returns an earlier bent molecule, changes the identity of a
+    molecule's coordinate array.'''
+    mols = list(embedder.objects)
+    n_mols = len(mols)
+    offsets = tuple(int(x) for x in np.concatenate(
+        [[0], np.cumsum([m.n_atoms for m in mols])[:-1]]))
+    pairing_ok = embedder.pairing_ok_fn()
+
+    # conformer combos in the reference cartesian order
+    if n_mols == 2:
+        conf_combos = [(i1, i2) for i2 in range(mols[1].n_confs)
+                       for i1 in range(mols[0].n_confs)]
+    else:
+        conf_combos = [(i1, i2, i3)
+                       for i2 in range(mols[1].n_confs)
+                       for i1 in range(mols[0].n_confs)
+                       for i3 in range(mols[2].n_confs)]
+
+    total = sum(int(np.prod([len(m.pivots[c[i]])
+                             for i, m in enumerate(mols)]))
+                for c in conf_combos)
+    embedder.log(f'--> Performing {embedder.embed} embed '
+                 f'(non-rigid, {total} pivot combinations)')
+
+    groups = []
+
+    def row_group():
+        key = tuple(id(m.atomcoords) for m in mols)
+        if not groups or groups[-1]['key'] != key:
+            groups.append({'key': key, 'mols': list(mols), 'rows': []})
+        return groups[-1]['rows']
+
+    def pivots_of(conf_ids, qi):
+        return [mols[m].pivots[conf_ids[m]][qi[m]] for m in range(n_mols)]
+
+    for conf_ids in conf_combos:
+        if n_mols == 2:
+            piv_combos = [(q1, q2)
+                          for q2 in range(len(mols[1].pivots[conf_ids[1]]))
+                          for q1 in range(len(mols[0].pivots[conf_ids[0]]))]
+        else:
+            piv_combos = [(q1, q2, q3)
+                          for q2 in range(len(mols[1].pivots[conf_ids[1]]))
+                          for q1 in range(len(mols[0].pivots[conf_ids[0]]))
+                          for q3 in range(len(mols[2].pivots[conf_ids[2]]))]
+
+        for qi in piv_combos:
+            try:
+                pivots = pivots_of(conf_ids, qi)
+            except IndexError:
+                continue   # a bend reduced this molecule's pivot count
+            norms = np.array([np.linalg.norm(p.pivot) for p in pivots])
+
+            if n_mols == 2:
+                if abs(norms[0] - norms[1]) >= max_norm_delta:
+                    if embedder.embed == 'chelotropic':
+                        target = float(min(norms))
+                    else:
+                        r = 0.8
+                        target = float(min(norms) * r + max(norms) * (1 - r))
+                    for i, mol in enumerate(mols):
+                        if len(mol.reactive_indices) > 1 and not \
+                                _bend_blocked_by_bonded_pair(mol):
+                            mols[i] = bend(mol, conf_ids[i], pivots[i],
+                                           target)
+                    try:
+                        pivots = pivots_of(conf_ids, qi)
+                    except IndexError:
+                        continue
+                    norms = np.array([np.linalg.norm(p.pivot)
+                                      for p in pivots])
+            else:
+                if not all(norms[i] < norms[i - 1] + norms[i - 2]
+                           for i in (0, 1, 2)):
+                    deltas = [norms[i] - (norms[i - 1] + norms[i - 2])
+                              for i in range(3)]
+                    rel_delta = max(deltas[i] / norms[i] for i in range(3))
+                    if rel_delta >= 0.2:
+                        continue
+                    index = int(np.argmax(deltas))
+                    mol = mols[index]
+                    if _bend_blocked_by_bonded_pair(mol):
+                        continue
+                    maxval = norms[index - 1] + norms[index - 2]
+                    mols[index] = bend(mol, conf_ids[index], pivots[index],
+                                       0.9 * float(maxval))
+                    try:
+                        pivots = pivots_of(conf_ids, qi)
+                    except IndexError:
+                        continue
+                    norms = np.array([np.linalg.norm(p.pivot)
+                                      for p in pivots])
+                    if not all(norms[i] < norms[i - 1] + norms[i - 2]
+                               for i in (0, 1, 2)):
+                        continue
+
+            try:
+                polygon = polygonize(norms)
+            except Exception:
+                continue
+
+            # per-combination block values (constant across orientations)
+            pvs_c = np.array([p.pivot for p in pivots])
+            mps_c = np.array([p.meanpoint for p in pivots])
+            apms_c = np.zeros((n_mols, 3))
+            mds_c = np.zeros((n_mols, 3))
+            rc_axes_c = np.zeros((n_mols, 3))
+            for m in range(n_mols):
+                rc = mols[m].atomcoords[conf_ids[m]][mols[m].reactive_indices]
+                apm = rc.mean(axis=0)
+                md = pivots[m].meanpoint - apm
+                if np.all(md == 0.):
+                    md = pivots[m].meanpoint
+                apms_c[m] = apm
+                mds_c[m] = md
+                rc_axes_c[m] = (rc[0] - rc[1]) if len(rc) == 2 \
+                    else pivots[m].pivot
+
+            if n_mols == 3:
+                directions0 = get_directions(norms)
+                verts3 = np.zeros((3, 3))
+                verts3[1, 0] = norms[0]
+                a_, b_, c_ = norms ** 2
+                x_ = (a_ - b_ + c_) / (2 * a_ ** 0.5)
+                verts3[2, :2] = [x_, (c_ - x_ ** 2) ** 0.5]
+
+            rows = None
+            first_of_combo = True
+            for v in range(polygon.shape[0]):
+                arr_ids = (_cyclical_ids_bimol(pivots, v, offsets)
+                           if n_mols == 2 else
+                           cyclical_ids_trimol(pivots, v, offsets))
+                if pairing_ok is not None and not pairing_ok(arr_ids):
+                    continue
+                if rows is None:
+                    rows = row_group()
+                row = {'starts': np.array([polygon[v][m][0]
+                                           for m in range(n_mols)]),
+                       'ends': np.array([polygon[v][m][1]
+                                         for m in range(n_mols)]),
+                       'pvs': pvs_c, 'mps': mps_c, 'apms': apms_c,
+                       'mds': mds_c, 'rc_axes': rc_axes_c,
+                       'confs': np.array(conf_ids, dtype=np.int32),
+                       'ids': np.array(arr_ids)}
+                if n_mols == 3:
+                    # the adjustment chain restarts (reset) at each
+                    # combination's first kept row; its reactive-atom
+                    # coordinates are those of conformer 0 of each
+                    # molecule, whatever the row's conformers, as the
+                    # reference takes them
+                    r = facing_matrix(arr_ids, offsets)
+                    row.update(
+                        rc_src=np.array([mols[m].atomcoords[0][r[m, partner]]
+                                         for m, partner in _FACES]),
+                        verts=verts3, dirs0=directions0,
+                        reset=first_of_combo)
+                rows.append(row)
+                first_of_combo = False
+    return [g for g in groups if g['rows']]
+
+
+def nonrigid_blocks(groups, device):
+    '''The block dict of each of nonrigid_rows' groups (the fields of
+    trimol_rigid_blocks' dict, `dirs` among them), and the adjustment's
+    gap per row, None for two molecules. Three molecules' directions
+    come from ONE chained adjustment over every row: the chain restarts
+    at reset rows, so concatenating the groups changes nothing.'''
+    trimol = 'reset' in groups[0]['rows'][0]
+    fields = _ROW_FIELDS + (_ROW_ADJUST if trimol else ())
+    blks = [{k: np.array([row[k] for row in g['rows']]) for k in fields}
+            for g in groups]
+    if not trimol:
+        for b in blks:
+            b['dirs'] = np.tile(_DIRECTIONS, (len(b['ids']), 1, 1))
+        return blks, None
+    dirs, gap = adjust_chain(
+        *(np.concatenate([b[k] for b in blks]) for k in _ADJUST),
+        device=device)
+    lo = 0
+    for b in blks:
+        b['dirs'] = dirs[lo:lo + len(b['ids'])]
+        lo += len(b['ids'])
+    return blks, gap
+
+
+def cyclical_embed_nonrigid(embedder, max_norm_delta=5):
+    '''
+    General (non-rigid) cyclical embed for 2-3 molecules: pivot-length
+    mismatches that prevent a digon or triangle are corrected by BENDING
+    the offending molecules (nonrigid_rows; the bends run in float64 on
+    the embedder's device and are cached on the embedder). Then one
+    chained direction adjustment over all rows (three molecules), and
+    per group of rows that share their molecules' coordinates the block
+    sweep of the rigid embeds: geometry, poses, K1, angular dedup, a
+    chunk at a time. embedder.embed_info receives the counts and the
+    split, the bends among them. Returns (poses (S, N, 3) float64 numpy,
+    constrained_indices (S, M, 2)).
+    '''
+    from tscode_tpu_torch.bending import bend_molecule
+    from tscode_tpu_torch.operators import qm_gradient_source
+
+    dev, dtype = embedder.device, embedder.dtype
+    trace, clock = embed_clock(dev)
+    angles = np.asarray(embedder.systematic_angles, dtype=float)
+    cache = getattr(embedder, 'bent_mols_cache', None)
+    if cache is None:
+        cache = embedder.bent_mols_cache = {}
+    stats = {'bends': 0, 'relaxations': 0, 'hits': 0, 'reverts': 0}
+    bends_s = 0.0
+
+    def bend(mol, conf, pivot, target):
+        nonlocal bends_s
+        t0 = clock()
+        bent = bend_molecule(
+            mol, conf, pivot, target, cache=cache,
+            suprafacial=embedder.options.suprafacial,
+            protect_double_bonds=embedder.options.double_bond_protection,
+            logfunction=embedder.log,
+            gradient_fn=qm_gradient_source(embedder, mol), stats=stats,
+            device=dev)
+        bends_s += clock() - t0
+        return bent
+
+    t0 = clock()
+    groups = nonrigid_rows(embedder, max_norm_delta, bend)
+    if not groups:
+        raise ZeroCandidatesError(
+            '--> Cyclical embed did not find any suitable disposition of '
+            'molecules.')
+    t1 = clock()
+    split = {'blocks_s': t1 - t0 - bends_s, 'bends_s': bends_s,
+             'bends': stats['bends'],
+             'bend_relaxations': stats['relaxations'],
+             'bend_hits': stats['hits'], 'bend_reverts': stats['reverts'],
+             'groups': len(groups)}
+
+    blks, gap = nonrigid_blocks(groups, dev)
+    if gap is not None:
+        split.update(adjust_s=clock() - t1,
+                     adjust_near_ties=int((gap < ADJ_TIE).sum()))
+
+    survs, keeps, uploaded = [], [], {}
+    totals = {'screen_s': 0.0, 'dedup_s': 0.0, 'chunks': 0, 'chunk_rows': 0}
+    for g, blk in zip(groups, blks):
+        part = {}
+        surv, keep = screen_survivors(
+            blk, g['mols'], angles, embedder.options.clash_thresh,
+            device=dev, dtype=dtype, clock=clock, split=part,
+            uploaded=uploaded)
+        survs.append(surv)
+        keeps.append(keep)
+        for k in ('screen_s', 'dedup_s', 'chunks'):
+            totals[k] += part[k]
+        totals['chunk_rows'] = max(totals['chunk_rows'], part['chunk_rows'])
+    split.update(totals)
+    clock()
+    return finish_embed(torch.cat(survs), np.concatenate(keeps),
+                        np.concatenate([b['ids'] for b in blks]), split,
+                        len(angles), dev, dtype, trace,
+                        getattr(embedder, 'embed_info', None))
+
+
 def cyclical_embed(embedder, max_norm_delta=5):
-    '''Dispatcher of the cyclical embeds: the rigid two-molecule one
-    (with max_norm_delta=5, as the reference calls it from here) and the
-    rigid three-molecule one run; the non-rigid ones raise
-    NotImplementedError. Sets embedder.constrained_indices and returns
-    the poses.'''
-    from tscode_tpu_torch.embedder import not_ported
+    '''Dispatcher of the cyclical embeds: the non-rigid one unless RIGID
+    is set, else the rigid two-molecule one (with max_norm_delta=5, as
+    the reference calls it from here) or the rigid three-molecule one.
+    Sets embedder.constrained_indices and returns the poses.'''
     mols = embedder.objects
     if not embedder.options.rigid:
-        raise not_ported('The non-rigid cyclical embed (bending)',
-                         '12 and 13')
+        poses, cons = cyclical_embed_nonrigid(embedder, max_norm_delta)
+        embedder.constrained_indices = cons
+        return poses
     common = dict(clash_thresh=embedder.options.clash_thresh,
                   pairing_ok=embedder.pairing_ok_fn(), log=embedder.log,
                   device=embedder.device, dtype=embedder.dtype,

@@ -4,19 +4,20 @@ the string routes `sn2_string` (C2H4 + CH3Cl fixtures, noisy conformers)
 and `large_n_string` (two synthetic C24H49Cl chains, 148-atom poses),
 and the rigid cyclical routes `da_cyclical` and `da_cyclical_xl` (C2H4 +
 CH3Cl docked on two pairings, RIGID; the two differ only in the suite's
-conformer count), and the rigid multi-arrangement route `multiembed`
-(HCOOH with three reactive atoms + C2H4 with two, 12 arrangements). The
+conformer count), the rigid multi-arrangement route `multiembed`
+(HCOOH with three reactive atoms + C2H4 with two, 12 arrangements), and
+the non-rigid three-molecule route `trimolecular` (CH3Cl as it is, then
+max(2, n_confs // 4) conformers of HCOOH at noise 0.05, listed twice;
+no RIGID, so molecules are bent where their pivots close no triangle;
+give it four times the HCOOH conformer count wanted). The
 rng calls are bench_suite._config_files' (seed 7, then `write_noisy` or
 `write_chloroalkane` per molecule), so the files are byte for byte the
 suite's at the same conformer count.
 
-Two inputs are the port's own:
+Four inputs are the port's own:
 
-`trimolecular_rigid` is the suite's `trimolecular` (CH3Cl as it is, then
-max(2, n_confs // 4) conformers of HCOOH at noise 0.05, listed twice)
-with RIGID added to the keyword line, so that it runs the rigid
-three-molecule embed; give it four times the HCOOH conformer count
-wanted.
+`trimolecular_rigid` is the suite's `trimolecular` with RIGID added to
+the keyword line, so that it runs the rigid three-molecule embed.
 
 `chelotropic` is
     NOOPT RIGID DIST(A=2.5,B=2.5)
@@ -26,6 +27,14 @@ the reference's chelotropic smoke input with the suite's jitter: the
 peroxy oxygen has two lobes, so its molecule has a pivot between them.
 (CH3Cl with one reactive atom has a single-lobe orbital, no pivot and so
 no candidate, in the JAX package as here.)
+
+`chelotropic_nonrigid` is `chelotropic` without RIGID: the default,
+bending form of the same embed.
+
+`monomolecular` is
+    NOOPT
+    m1.xyz 3 5          (C2F2H4, n_confs conformers at noise 0.05)
+one molecule bent until its two reactive carbons' orbitals meet.
 
     config_files('sn2_string', workdir, n_confs=76) -> workdir/input.txt
     refine_input('ens.xyz', workdir) -> workdir/input.txt (REFINE)
@@ -41,7 +50,8 @@ from tscode_tpu_torch.pipeline import FIXTURE_DIR
 
 NOISE = 0.12          # A of per-conformer jitter on the fixtures
 CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl',
-           'multiembed', 'chelotropic', 'trimolecular_rigid')
+           'multiembed', 'chelotropic', 'chelotropic_nonrigid',
+           'trimolecular', 'trimolecular_rigid', 'monomolecular')
 
 
 def write_noisy(src, dst, n_confs, rng, noise=NOISE):
@@ -141,20 +151,26 @@ def config_files(name, workdir, n_confs):
         write_noisy(j(FIXTURE_DIR, 'C2H4.xyz'), j(workdir, 'm2.xyz'),
                     n_confs, rng)
         content = 'NOOPT RIGID\nm1.xyz 0 1 3\nm2.xyz 0 1\n'
-    elif name == 'chelotropic':
+    elif name in ('chelotropic', 'chelotropic_nonrigid'):
         write_noisy(j(FIXTURE_DIR, 'C2H4.xyz'), j(workdir, 'm1.xyz'),
                     n_confs, rng)
         write_noisy(j(FIXTURE_DIR, 'HCOOOH.xyz'), j(workdir, 'm2.xyz'),
                     n_confs, rng)
-        content = ('NOOPT RIGID DIST(A=2.5,B=2.5)\n'
+        rigid = ' RIGID' if name == 'chelotropic' else ''
+        content = (f'NOOPT{rigid} DIST(A=2.5,B=2.5)\n'
                    'm1.xyz 0A 3B\nm2.xyz 4AB\n')
-    elif name == 'trimolecular_rigid':
+    elif name in ('trimolecular', 'trimolecular_rigid'):
         shutil.copy(j(FIXTURE_DIR, 'CH3Cl.xyz'), j(workdir, 'm1.xyz'))
         write_noisy(j(FIXTURE_DIR, 'HCOOH.xyz'), j(workdir, 'm2.xyz'),
                     max(2, n_confs // 4), rng, noise=0.05)
-        content = ('BYPASS RIGID DIST(A=2.5,x=2,y=2.5,C=1) SHRINK '
+        rigid = ' RIGID' if name == 'trimolecular_rigid' else ''
+        content = (f'BYPASS{rigid} DIST(A=2.5,x=2,y=2.5,C=1) SHRINK '
                    'ROTRANGE=10 STEPS=2\nm1.xyz 0A 4y\n'
                    'm2.xyz 1A 4x 0C 2C\nm2.xyz 1x 4y\n')
+    elif name == 'monomolecular':
+        write_noisy(j(FIXTURE_DIR, 'C2F2H4.xyz'), j(workdir, 'm1.xyz'),
+                    n_confs, rng, noise=0.05)
+        content = 'NOOPT\nm1.xyz 3 5\n'
     else:
         raise ValueError(f'unknown input {name!r}; one of {CONFIGS}')
     path = j(workdir, 'input.txt')
