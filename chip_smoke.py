@@ -35,11 +35,20 @@ bench_suite's trimolecular input as written (non-rigid: molecules are
 bent where their pivots close no triangle) through the CLI, float64 (the
 JAX x64 counts and bends; bent coordinates against the CPU) and float32;
 the non-rigid chelotropic input and the monomolecular embed, card
-against CPU.
+against CPU. Phases 16 and 17 run the conformer search (csearch>: the
+torsions' clash back-off with K1's entry torsion_clash_ok, the TFD
+prune, the diverse selection) through the CLI, its random draws seeded
+as the JAX reference runs were: bench_suite's torsion_drive (the search
+on C2F2H4, then the monomolecular embed; float64 and float32, card
+against CPU) and csearch_string (6,561 candidates of a C10H21Cl chain
+searched, 1,000 kept, then the string embed against C2H4), the searched
+conformers held against the JAX package's, frame for frame.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
                                   # field and FIRE measurements
+    python3 chip_smoke.py --search   # phases 16 and 17 alone: the
+                                  # conformer search's routes
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
@@ -51,6 +60,7 @@ the line before it lists each kernel with its launches on the main path,
 its agreement with the plain version and both times.
 '''
 
+import importlib.metadata
 import json
 import os
 import subprocess
@@ -180,6 +190,33 @@ BEND_ATOL = 1e-6           # A, bent coordinates, card against CPU
 # the small bending routes (phase 15): conformers of each molecule
 CHEL_BEND_CONFS = 6        # at 7 to 9 the jitter breaks a bond of HCOOOH
 MONO_CONFS = 2
+# the conformer search (phases 16, 17): the port's searches draw from
+# np.random.RandomState(SEARCH_SEED), as the JAX x64 reference runs drew
+# from numpy's global generator seeded with it (`JAX_PLATFORMS=cpu
+# python tests/test_torch_suite_counts.py NAME N GOLDEN.npz` took the
+# counts and saved the searched conformers); the search runs in float64
+# whatever the embed's dtype
+SEARCH_SEED = 0
+SEARCH_ATOL = 1e-6         # A, searched conformers against the JAX package's
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                      'golden')
+# bench_suite's torsion_drive (phase 16) at the suite's count 16: the
+# search from each of 4 conformers of C2F2H4, then the monomolecular embed
+DRIVE_CONFS = 16
+DRIVE_F64 = {'searched': [3, 3, 3, 3], 'stages': (144, 144, 15),
+             'bends': 12, 'bend_reverts': 0, 'bend_hits': 0}
+DRIVE_GOLDEN = os.path.join(GOLDEN, 'torsion_drive_search.npz')
+# csearch_string (phase 17): 16 conformers of C2H4, the C10H21Cl chain
+# searched (8 three-fold rotors, 6,561 candidates, 1,000 kept by the
+# seeded draw), then the string embed; the chlorine lies on the reactive
+# axis, so the quadruplet ending on it is collinear (phase 7's rule)
+SEARCH_CONFS = 16
+SEARCH_CANDIDATES = 6561
+SEARCH_F64 = (1152000, 3001, 2906, 2906)   # candidates, clash-ok, novel, final
+SEARCH_COLLINEAR = [[1, 0, 6, 7]]          # C2H4 C1-C0...C0-Cl of the chain
+SEARCH_DROPPED_NOVEL = 1610  # JAX x64 novelty replay without that quadruplet
+SEARCH_GOLDEN = os.path.join(GOLDEN, 'csearch_string_search.npz')
+BACKOFF_KEEP = 16          # every 16th K1 back-off call kept for the check
 
 class SmokeFailure(Exception):
     pass
@@ -214,9 +251,14 @@ def phase_env():
         raise SmokeFailure(f'the package tscode_tpu_torch is missing ({e}); '
                            f'run this script from the root of a checkout') \
             from e
+    try:
+        sklearn = 'scikit-learn ' + importlib.metadata.version('scikit-learn') \
+            + ' installed, unused (the port clusters with its own cluster.py)'
+    except importlib.metadata.PackageNotFoundError:
+        sklearn = 'no scikit-learn (the port clusters with its own cluster.py)'
     print(f'[1 env] device {torch.cuda.get_device_name(0)} | nvidia-smi: '
           f'{card} | torch {torch.__version__} | cuda {torch.version.cuda} '
-          f'| networkx {networkx.__version__} | python '
+          f'| networkx {networkx.__version__} | {sklearn} | python '
           f'{sys.version.split()[0]}')
     return card
 
@@ -742,9 +784,11 @@ def phase_main_f32(card, mols):
     ]
 
 
-def run_cli(tmp, inp, dtype, device=None):
+def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED):
     '''One run of the port's CLI on `inp` in `dtype`, its stdout kept in
-    a file; the working directory is restored afterwards. The kernels'
+    a file; the working directory is restored afterwards. The Embedder
+    the CLI builds draws the searches' random numbers from
+    np.random.RandomState(seed) (the CLI itself has no seed). The kernels'
     launch counts are set to 0 first (qcp.KERNEL.launches holds the
     run's K3 launches after it). Returns (report, frames (F, N, 3),
     clash launches per regime, seconds); the report also gets the clash
@@ -767,7 +811,14 @@ def run_cli(tmp, inp, dtype, device=None):
         k2_calls.append((poses, pair_mask, thresh, max_clashes))
         return k2_entry(poses, pair_mask, thresh, max_clashes)
 
+    seeded = embedder.Embedder
+
+    class Seeded(seeded):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, rng=np.random.RandomState(seed), **kw)
+
     embedder.compenetration_mask_kernel = k2_recorded
+    embedder.Embedder = Seeded
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
     t0 = time.perf_counter()
@@ -779,6 +830,7 @@ def run_cli(tmp, inp, dtype, device=None):
     finally:
         os.chdir(cwd)
         embedder.compenetration_mask_kernel = k2_entry
+        embedder.Embedder = seeded
     secs = time.perf_counter() - t0
     launches = clash.launches_by_regime()
     entries = clash.launches_by_entry()
@@ -792,10 +844,11 @@ def run_cli(tmp, inp, dtype, device=None):
     return report, np.asarray(frames), launches, secs
 
 
-def string_setup(inp, dtype):
+def string_setup(inp, dtype, seed=SEARCH_SEED):
     '''The set-up of a string-route input through the port's Embedder
-    (its log kept quiet): (grid inputs on the card, spin angles, torsion
-    quadruplets) in `dtype`.'''
+    (its log kept quiet; a search drawing from
+    np.random.RandomState(seed)): (grid inputs on the card, spin angles,
+    torsion quadruplets) in `dtype`.'''
     import contextlib
     import io
     import os
@@ -806,7 +859,8 @@ def string_setup(inp, dtype):
     cwd = os.getcwd()
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            emb = Embedder(inp, stamp='smoke_setup', device=DEV, dtype=dtype)
+            emb = Embedder(inp, stamp='smoke_setup', device=DEV, dtype=dtype,
+                           rng=np.random.RandomState(seed))
         emb.logfile.close()
     finally:
         os.chdir(cwd)
@@ -1634,7 +1688,8 @@ def phase_multiembed_route(card):
             # an arrangement is a cyclical embed, whose compenetration
             # stage screens nothing: K2 is the parent's launch
             check(entry == {'clash_ok': me['chunks'],
-                            'compenetration_mask_kernel': 1},
+                            'compenetration_mask_kernel': 1,
+                            'torsion_clash_ok': 0},
                   f'multiembed {dtype}: launches {entry}, expected K1 once '
                   f'per chunk ({me["chunks"]}) and K2 once, for the parent')
             parent = stage_counts(report)
@@ -1737,7 +1792,8 @@ def phase_chelotropic_route(card):
             k1 += entry['clash_ok']
             k2 += entry['compenetration_mask_kernel']
             check(entry == {'clash_ok': ce['chunks'],
-                            'compenetration_mask_kernel': 1},
+                            'compenetration_mask_kernel': 1,
+                            'torsion_clash_ok': 0},
                   f'chelotropic {dtype}: launches {entry}, expected K1 once '
                   f'per chunk ({ce["chunks"]}) and K2 once')
             counts[dtype] = c = (ce['candidates'],) + stage_counts(report)
@@ -1800,7 +1856,8 @@ def phase_trimol_route(card):
             entry = report['clash_entry_launches']
             k1 += entry['clash_ok']
             check(entry == {'clash_ok': ce['chunks'],
-                            'compenetration_mask_kernel': 0} and
+                            'compenetration_mask_kernel': 0,
+                            'torsion_clash_ok': 0} and
                   regimes['warp'] == ce['chunks'],
                   f'trimolecular {dtype}: launches {entry} {regimes}, '
                   f'expected K1\'s warp kernel once per chunk '
@@ -2020,10 +2077,12 @@ def phase_ff_fire(card):
 
 
 def recorded_bends():
-    '''Patch bending.bend_molecule so that every call that bends (no
-    cache hit) is recorded: returns (records, undo). A record is (mol,
-    conf, pivot, target, keywords, the result).'''
+    '''Patch bending.bend_molecule (and the monomolecular embed's own
+    reference to it) so that every call that bends (no cache hit) is
+    recorded: returns (records, undo). A record is (mol, conf, pivot,
+    target, keywords, the result).'''
     from tscode_tpu_torch import bending
+    from tscode_tpu_torch.embeds import monomolecular
     entry, records = bending.bend_molecule, []
 
     def spy(mol, conf, pivot, threshold, **kw):
@@ -2035,9 +2094,9 @@ def recorded_bends():
         return out
 
     def undo():
-        bending.bend_molecule = entry
+        bending.bend_molecule = monomolecular.bend_molecule = entry
 
-    bending.bend_molecule = spy
+    bending.bend_molecule = monomolecular.bend_molecule = spy
     return records, undo
 
 
@@ -2102,7 +2161,8 @@ def phase_bend_trimol_route(card):
             entry = report['clash_entry_launches']
             k1 += entry['clash_ok']
             check(entry == {'clash_ok': ce['chunks'],
-                            'compenetration_mask_kernel': 0} and
+                            'compenetration_mask_kernel': 0,
+                            'torsion_clash_ok': 0} and
                   regimes['warp'] == ce['chunks'] >= ce['groups'],
                   f'non-rigid trimolecular {dtype}: launches {entry} '
                   f'{regimes}, expected K1\'s warp kernel once per chunk '
@@ -2222,16 +2282,329 @@ def phase_small_bend_routes(card):
                               'chelotropic_embed')
     entry = report['clash_entry_launches']
     check(entry == {'clash_ok': report['chelotropic_embed']['chunks'],
-                    'compenetration_mask_kernel': 1},
+                    'compenetration_mask_kernel': 1, 'torsion_clash_ok': 0},
           f'non-rigid chelotropic: launches {entry}')
     mono = card_against_cpu('15 monomolecular', 'monomolecular', MONO_CONFS,
                             8, 'monomolecular_embed')
     check(mono['monomolecular_embed']['bends'] > 0 and
           mono['clash_entry_launches'] ==
-          {'clash_ok': 0, 'compenetration_mask_kernel': 0},
+          {'clash_ok': 0, 'compenetration_mask_kernel': 0,
+           'torsion_clash_ok': 0},
           f'monomolecular: {mono["monomolecular_embed"]}, launches '
           f'{mono["clash_entry_launches"]}')
     return entry['clash_ok'], entry['compenetration_mask_kernel']
+
+
+def recorded_searches():
+    '''Patch torsions.csearch so that every search's conformers are
+    recorded, one array per search: returns (records, undo).'''
+    from tscode_tpu_torch import torsions
+    entry, records = torsions.csearch, []
+
+    def spy(*args, **kw):
+        out = entry(*args, **kw)
+        records.append(np.asarray(out))
+        return out
+
+    def undo():
+        torsions.csearch = entry
+
+    torsions.csearch = spy
+    return records, undo
+
+
+def recorded_backoff(calls, keep=BACKOFF_KEEP):
+    '''Patch the back-off's K1 entry so that every keep-th call on the
+    card (the poses it screened, copied, and the two masks) is appended
+    to `calls`; every call still launches K1, and calls on the CPU are
+    not counted. Returns undo.'''
+    from tscode_tpu_torch import torsions
+    entry, n = torsions.torsion_clash_ok, [0]
+
+    def spy(poses, move_mask, other_mask, *args, **kw):
+        if poses.is_cuda:
+            if n[0] % keep == 0:
+                calls.append((poses.clone(), move_mask, other_mask))
+            n[0] += 1
+        return entry(poses, move_mask, other_mask, *args, **kw)
+
+    def undo():
+        torsions.torsion_clash_ok = entry
+
+    torsions.torsion_clash_ok = spy
+    return undo
+
+
+def searched_against(tag, searches, golden):
+    '''Every search's conformers, in order, against the JAX x64 run's
+    (an .npz of frames and sizes): the same counts and frames within
+    SEARCH_ATOL. Returns the largest difference.'''
+    ref = np.load(golden)
+    sizes = [len(f) for f in searches]
+    check(sizes == ref['sizes'].tolist(), f'{tag}: the searches kept '
+          f'{sizes} conformers, the JAX x64 run {ref["sizes"].tolist()}')
+    err = float(np.abs(np.concatenate(searches) - ref['frames']).max())
+    check(err <= SEARCH_ATOL, f'{tag}: searched conformers {err:.2e} A '
+          f'from the JAX x64 run\'s')
+    return err
+
+
+def same_searches(tag, a, b, atol):
+    '''Two runs' searches: the same conformers within atol.'''
+    check(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b)),
+          f'{tag}: {[x.shape for x in a]} against {[y.shape for y in b]}')
+    err = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    check(err <= atol, f'{tag}: searched conformers {err:.2e} A apart')
+    return err
+
+
+def search_split(tag, report, secs, card):
+    '''Print the searches' counts and split (group, back-off, TFD prune,
+    selection) and K1's launches by entry.'''
+    cs = report['csearch']
+    tot = {k: sum(r[k] for r in cs) for k in (
+        'group_s', 'backoff_s', 'tfd_s', 'select_s', 'seconds')}
+    print(f'[{tag}] {len(cs)} searches, {sum(r["candidates"] for r in cs)} '
+          f'candidates ({[r["torsions"] for r in cs]} torsions, '
+          f'{[r["conformers"] for r in cs]} kept) in {tot["seconds"]:.3f} s: '
+          f'group {tot["group_s"]:.4f} s, back-off {tot["backoff_s"]:.4f} s, '
+          f'TFD {tot["tfd_s"]:.4f} s, selection {tot["select_s"]:.4f} s; K1 '
+          f'launches by entry {report["clash_entry_launches"]}; the run '
+          f'{secs:.3f} s, stages: {cli_stages(report)} [{card}]')
+    return tot
+
+
+def phase_torsion_drive(card):
+    '''Phase 16: bench_suite's torsion_drive through the CLI (csearch>
+    on each of 4 conformers of C2F2H4, the back-off launching K1's entry
+    torsion_clash_ok, then the monomolecular embed, which bends), in
+    float64 on the card and on the CPU (the JAX x64 searched conformers,
+    bends and stage counts; card within BEND_ATOL of the CPU), then in
+    float32 on the card (the search and the bends are float64 always:
+    the same conformers and bent molecules). K1's entry torsion_clash_ok
+    is held against its plain twin on every back-off call of the float64
+    card run (the thread kernel, a search's 3 poses) and timed on the
+    first. Returns (K1's launches, largest disagreement, the back-off's
+    record).'''
+    import tempfile
+    searches, undo = recorded_searches()
+    bends, undo_bends = recorded_bends()
+    calls = []
+    undo_calls = recorded_backoff(calls, keep=1)
+    try:
+        report = card_against_cpu('16 torsion_drive', 'torsion_drive',
+                                  DRIVE_CONFS, 8, 'monomolecular_embed')
+    finally:
+        undo()
+        undo_bends()
+        undo_calls()
+    n = len(DRIVE_F64['searched'])
+    check(len(searches) == 2 * n, f'torsion_drive: {len(searches)} '
+          f'searches in the card and CPU runs, expected {2 * n}')
+    err = searched_against('torsion_drive float64', searches[:n],
+                           DRIVE_GOLDEN)
+    cpu_err = same_searches('torsion_drive card against CPU', searches[:n],
+                            searches[n:], 1e-9)
+    me = report['monomolecular_embed']
+    got = {'searched': [r['conformers'] for r in report['csearch']],
+           'stages': stage_counts(report), 'bends': me['bends'],
+           'bend_reverts': me['bend_reverts'], 'bend_hits': me['bend_hits']}
+    check(got == DRIVE_F64, f'torsion_drive f64 {got} != {DRIVE_F64} '
+          f'(JAX x64)')
+    entry = report['clash_entry_launches']
+    check(entry['torsion_clash_ok'] > 0 and entry['clash_ok'] == 0 and
+          entry['compenetration_mask_kernel'] == 0,
+          f'torsion_drive f64: launches {entry}')
+    tot = search_split('16 torsion_drive float64', report,
+                       report['total_seconds'], card)
+    check(len(calls) == entry['torsion_clash_ok'], f'torsion_drive: '
+          f'{len(calls)} back-off calls recorded, {entry} launches')
+    k1_err, rec = backoff_kernel_check('16', card, calls, keep=1)
+    rec.update(launches=entry['torsion_clash_ok'], backoff_s=tot['backoff_s'],
+               search_s=tot['seconds'])
+
+    with tempfile.TemporaryDirectory(prefix='smoke_drive_') as tmp:
+        inp = suite_input('torsion_drive', tmp, DRIVE_CONFS)
+        s32, undo = recorded_searches()
+        b32, undo_bends = recorded_bends()
+        try:
+            report32, frames32, _, secs32 = run_cli(tmp, inp, 'float32')
+        finally:
+            undo()
+            undo_bends()
+    same_searches('torsion_drive float32 against float64', s32,
+                  searches[:n], 1e-12)
+    card_bends = bends[:len(bends) // 2]
+    check(len(b32) == len(card_bends) and all(
+        np.abs(a[-1].atomcoords - b[-1].atomcoords).max() <= 1e-9
+        for a, b in zip(b32, card_bends)),
+        f'torsion_drive float32: {len(b32)} bends, not the float64 run\'s '
+        f'{len(card_bends)} bent molecules')
+    check(stage_counts(report32) == DRIVE_F64['stages'] and
+          frames32.shape == (DRIVE_F64['stages'][-1], 8, 3) and
+          bool(np.isfinite(frames32).all()),
+          f'torsion_drive float32: stages {stage_counts(report32)}, frames '
+          f'{frames32.shape}')
+    entry32 = report32['clash_entry_launches']
+    search_split('16 torsion_drive float32', report32, secs32, card)
+    print(f'[16 torsion_drive] float64: searched {got["searched"]} '
+          f'conformers within {err:.2e} A of the JAX x64 run\'s (card '
+          f'against CPU {cpu_err:.2e} A), {got["bends"]} bends, stages '
+          f'{got["stages"]}: the JAX x64 counts; float32: the same '
+          f'conformers, bends and counts; the back-off {tot["backoff_s"]:.4f}'
+          f' s of the search\'s {tot["seconds"]:.3f} s [{card}]')
+    return entry['torsion_clash_ok'] + entry32['torsion_clash_ok'], k1_err, rec
+
+
+def backoff_kernel_check(phase, card, calls, keep=BACKOFF_KEEP):
+    '''K1's entry torsion_clash_ok against its plain twin on the kept
+    back-off calls (every keep-th; float64, the search's own tensors),
+    off threshold ties (pairs within CLASH_TIE of thr^2), and both timed
+    on the first (every candidate at the first retreat step of the first
+    torsion). Returns (largest disagreement, record).'''
+    from tscode_tpu_torch.ops.kernels import clash
+    err, n_tie = 0, 0
+    for k, (poses, move, other) in enumerate(calls):
+        pairs = clash.torsion_pairs(move, other, poses.device)
+        tie = clash_ties(poses, pairs, CLASH)
+        e, _ = compare_bits(clash.torsion_clash_ok(poses, move, other),
+                            clash.pair_clash_ok_plain(poses, pairs, CLASH),
+                            tie, f'back-off call {k * keep}')
+        err, n_tie = max(err, e), n_tie + int(tie.sum())
+    poses, move, other = calls[0]
+    pairs = clash.torsion_pairs(move, other, poses.device)
+    clash.KERNEL.reset_counts()
+    ms = device_ms(lambda: clash.torsion_clash_ok(poses, move, other))
+    regime = max(clash.launches_by_regime().items(), key=lambda kv: kv[1])[0]
+    plain_ms = cuda_ms(lambda: clash.pair_clash_ok_plain(poses, pairs, CLASH))
+    nbytes = poses.numel() * poses.element_size() + pairs.numel() * 4 + \
+        poses.shape[0]
+    rec = {'poses': poses.shape[0], 'N': poses.shape[1],
+           'P': int(pairs.shape[0]), 'dtype': 'float64', 'regime': regime,
+           'ms': ms, 'plain_ms': plain_ms,
+           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+           'calls_checked': len(calls), 'tie_poses': n_tie}
+    print(f'[{phase} back-off K1] torsion_clash_ok equal to its plain twin on '
+          f'{len(calls)} back-off calls ({n_tie} tie poses excluded); on '
+          f'{rec["poses"]} x {rec["N"]} float64, P = {rec["P"]} ({regime} '
+          f'regime): {ms:.4f} ms (device), plain {plain_ms:.4f} ms, bound '
+          f'{rec["bound_ms"]:.5f} ms (bytes) [{card}]')
+    return err, rec
+
+
+def search_string_replay(inp):
+    '''The float64 string grid of csearch_string on the card (the
+    searched chain set up again from the same seed): the poses within
+    1e-9 A^2 (listed) and CLASH_TIE (counted) of the clash threshold, the
+    collinear quadruplets and the novelty replay of the clash survivors
+    without them.'''
+    import torch
+    from tscode_tpu_torch.embeds.string import bcast_tiles
+    from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
+                                          torsion_end_sines,
+                                          torsion_fingerprints)
+    grid, angles, quads = string_setup(inp, torch.float64)
+    near, n_tie, lo, kept = [], 0, 0, []
+    for poses, ok in bcast_tiles(grid, angles, CLASH):
+        off = clash_offsets(poses, grid.pairs)
+        near += (lo + torch.nonzero(off < 1e-9).squeeze(1)).tolist()
+        n_tie += int((off < CLASH_TIE).sum())
+        lo += poses.shape[0]
+        kept.append(poses[ok])
+    survivors = torch.cat(kept)
+    col = (torsion_end_sines(survivors, quads) <= COLLINEAR_SINE) \
+        .any(dim=0).cpu().numpy()
+    fps = torsion_fingerprints(survivors, np.asarray(quads)[~col])
+    novel, lane_ok = tfd_novelty_device(fps.contiguous(), thresh=TFD_THRESH,
+                                        cache_cap=fps.shape[0])
+    check(lane_ok, 'csearch_string replay: the device novelty lane refused')
+    return (near, n_tie, survivors.shape[0],
+            np.asarray(quads)[col].tolist(), int(novel.sum()))
+
+
+def phase_search_string(card):
+    '''Phase 17: csearch_string through the CLI at SEARCH_CONFS, float64
+    then float32: the search of the C10H21Cl chain (6,561 candidates,
+    eight torsions' back-off with K1's entry torsion_clash_ok, the TFD
+    prune, the seeded draw of 1,000) equal to the JAX x64 run's frame for
+    frame, then the string embed against C2H4 (K1 `clash_ok`) held to
+    the JAX x64 counts by phase 7's rule for its collinear quadruplet;
+    K1's entry checked and timed on the back-off's own tensors. Returns
+    (K1 launches, largest disagreement, the back-off's record).'''
+    import tempfile
+    os.environ['TSCODE_EMBED_TRACE'] = '1'
+    counts, searches, entries, splits, calls = {}, {}, {}, {}, []
+    with tempfile.TemporaryDirectory(prefix='smoke_search_') as tmp:
+        inp = suite_input('csearch_string', tmp, SEARCH_CONFS)
+        for dtype in ('float64', 'float32'):
+            searches[dtype], undo = recorded_searches()
+            undo_calls = recorded_backoff(calls) if dtype == 'float64' \
+                else (lambda: None)
+            try:
+                report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+            finally:
+                undo()
+                undo_calls()
+            se, cs = report['string_embed'], report['csearch']
+            counts[dtype] = c = (se['candidates'], se['clash_ok'],
+                                 se['novel'], report['final_structures'])
+            entries[dtype] = entry = report['clash_entry_launches']
+            check(len(cs) == 1 and cs[0]['candidates'] == SEARCH_CANDIDATES
+                  and cs[0]['torsions'] == 8 and
+                  entry['torsion_clash_ok'] > 0 and entry['clash_ok'] > 0
+                  and entry['compenetration_mask_kernel'] == 0,
+                  f'csearch_string {dtype}: searches {cs}, launches {entry}')
+            check(frames.shape == (c[3], 38, 3) and
+                  bool(np.isfinite(frames).all()),
+                  f'csearch_string {dtype}: .xyz holds {frames.shape}, '
+                  f'expected ({c[3]}, 38, 3) finite')
+            splits[dtype] = search_split(f'17 csearch_string {dtype}', report,
+                                         secs, card)
+            print(f'[17 csearch_string {dtype}] {" -> ".join(map(str, c))} '
+                  f'(candidates -> clash-ok -> novel -> final), clash '
+                  f'launches {regimes}, novelty lane {se["tfd_lane"]}; embed '
+                  f'split: sweep {se["sweep_s"]:.4f} s, compaction '
+                  f'{se["compaction_s"]:.4f} s, novelty {se["novelty_s"]:.4f}'
+                  f' s, pull {se["pull_s"]:.4f} s [{card}]')
+        near, n_tie, n_ok, collinear, n_novel = search_string_replay(inp)
+    err = searched_against('csearch_string float64', searches['float64'],
+                           SEARCH_GOLDEN)
+    same_searches('csearch_string float32 against float64',
+                  searches['float32'], searches['float64'], 1e-12)
+    c64, c32 = counts['float64'], counts['float32']
+    check(c64[0] == c32[0] == SEARCH_F64[0], f'csearch_string candidates '
+          f'{c64[0]}, {c32[0]} != {SEARCH_F64[0]}')
+    check(n_ok == c64[1] and abs(c64[1] - SEARCH_F64[1]) <= len(near),
+          f'csearch_string f64 clash-ok {c64[1]} (replay {n_ok}) != '
+          f'{SEARCH_F64[1]} beyond {len(near)} poses within 1e-9 A^2')
+    check(abs(c32[1] - c64[1]) <= n_tie, f'csearch_string f32 clash-ok '
+          f'{c32[1]} outside {c64[1]} +- {n_tie}')
+    check(collinear == SEARCH_COLLINEAR, f'csearch_string: collinear '
+          f'quadruplets {collinear}, expected {SEARCH_COLLINEAR}')
+    check(n_novel == SEARCH_DROPPED_NOVEL, f'csearch_string replay without '
+          f'the collinear quadruplet: {n_novel} novel, JAX x64 gives '
+          f'{SEARCH_DROPPED_NOVEL}')
+    for dtype, c in counts.items():
+        for k, what in ((2, 'novel'), (3, 'final')):
+            lo, hi = bracket(SEARCH_F64[k], LARGE_SLACK)
+            check(lo <= c[k] <= hi, f'csearch_string {dtype} {what} {c[k]} '
+                  f'outside {(lo, hi)}')
+    k1_err, rec = backoff_kernel_check('17', card, calls)
+    rec.update(launches=entries['float64']['torsion_clash_ok'],
+               backoff_s=splits['float64']['backoff_s'],
+               search_s=splits['float64']['seconds'])
+    print(f'[17 csearch_string] gates held: the searched 1,000 conformers '
+          f'within {err:.2e} A of the JAX x64 run\'s, in order (float32 the '
+          f'same); candidates {SEARCH_F64[0]}, clash-ok {c64[1]} (JAX '
+          f'{SEARCH_F64[1]}; {len(near)} poses within 1e-9 A^2, {n_tie} '
+          f'within {CLASH_TIE} A^2), f32 clash-ok {c32[1]}; novel and final '
+          f'within {LARGE_SLACK:.0%} of {SEARCH_F64[2]} and {SEARCH_F64[3]}; '
+          f'replay without {SEARCH_COLLINEAR[0]} {n_novel} == '
+          f'{SEARCH_DROPPED_NOVEL}; the back-off: {rec["launches"]} K1 '
+          f'launches, {rec["backoff_s"]:.4f} s, K1 device time '
+          f'~{rec["launches"] * rec["ms"]:.2f} ms of it [{card}]')
+    k1 = sum(e['torsion_clash_ok'] + e['clash_ok'] for e in entries.values())
+    return k1, k1_err, rec
 
 
 def qcp_plan_sweep(card, out):
@@ -2332,6 +2705,13 @@ def main():
         phase_build()
         cyclical_profile(card, sys.argv[2])
         return
+    if sys.argv[1:2] == ['--search']:        # phases 16 and 17 alone
+        phase_build()
+        drive = timed_phase('16 torsion_drive', phase_torsion_drive, card)
+        chain = timed_phase('17 csearch_string', phase_search_string, card)
+        print(json.dumps({'torsion_backoff': {
+            'torsion_drive': drive[2], 'csearch_string': chain[2]}}))
+        return
     if sys.argv[1:2] == ['--fire']:          # --fire OUT.json
         phase_build()
         with open(sys.argv[2], 'w') as f:
@@ -2372,11 +2752,18 @@ def main():
                                      phase_bend_trimol_route, card)
     k1_15, k2_15 = timed_phase('15 small bend routes',
                                phase_small_bend_routes, card)
-    kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15
+    k1_16, e16, drive = timed_phase('16 torsion_drive', phase_torsion_drive,
+                                    card)
+    k1_17, e17, backoff = timed_phase('17 csearch_string',
+                                      phase_search_string, card)
+    kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
+        k1_16 + k1_17
+    kernels[0]['torsion_backoff'] = {'torsion_drive': drive,
+                                     'csearch_string': backoff}
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
     kernels[1]['launches'] += k3
     kernels[1]['passes'] += recs9
-    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14)
+    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e16, e17)
     errs['qcp_kill'] = max(errs['qcp_kill'], e9)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
@@ -2394,6 +2781,7 @@ def main():
         'routes': {'multiembed': dict(k2_rec, launches=k2_10),
                    'chelotropic': dict(k2_rec11, launches=k2_11)}})
     check('jax' not in sys.modules, 'jax was imported')
+    check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules
                      if m == 'tscode_tpu' or m.startswith('tscode_tpu.'))
     check(not jax_pkg, f'modules of the JAX package were imported: '

@@ -18,7 +18,7 @@ from tscode_tpu_torch.embedder import Embedder, RunEmbedding
 from tscode_tpu_torch.embeds import cyclical
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
-from tscode_tpu_torch.ops.linalg import rmsd_and_max
+from tscode_tpu_torch.ops.linalg import rmsd_and_max, rotate_dihedral
 from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
                                              prune_conformers_rmsd,
                                              prune_conformers_rmsd_device)
@@ -333,7 +333,8 @@ def test_clash_kernel_on_three_fragments(cuda_device, dtype):
         assert 0 < int(want.sum()) < poses.shape[0]
     assert clash.launches_by_regime() == {'thread': 0, 'warp': 2}
     assert clash.launches_by_entry() == {'clash_ok': 2,
-                                         'compenetration_mask_kernel': 0}
+                                         'compenetration_mask_kernel': 0,
+                                         'torsion_clash_ok': 0}
 
 
 def poses_itemsize(dtype):
@@ -510,3 +511,68 @@ def test_bend_molecule_on_card_matches_cpu(cuda_device):
     assert [p.index for p in card.pivots[0]] == \
         [p.index for p in cpu.pivots[0]]
     assert np.abs(card.atomcoords[0] - hcoooh().atomcoords[0]).max() > 0.05
+
+
+def chain_backoff_batch(device, n=729, scale=0.85):
+    """The C8 chain's six rotors, every angle set, from jittered and
+    shrunk starting points (so retreats happen), in float64 on `device`:
+    (coords, torsions, graph, angle sets)."""
+    from tscode_tpu_torch import torsions as tt
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.suite_inputs import chloroalkane
+    base, nos = chloroalkane(8)
+    graph = graphize(base, nos)
+    tors = tt.get_torsions(graph, [], tt.get_double_bonds_indices(base, nos))
+    for t in tors:
+        t.sort_torsion(graph, np.array([]))
+    angles = tt.cartesian_product(*[np.array(t.get_angles()) for t in tors])
+    rng = np.random.default_rng(6)
+    coords = (base + rng.normal(size=(len(angles),) + base.shape) * 0.05) \
+        * scale
+    return (torch.as_tensor(coords, dtype=torch.float64, device=device),
+            tors, graph, angles)
+
+
+def test_torsion_clash_ok_matches_plain(cuda_device):
+    """K1's back-off entry against its plain twin on the chain's rotated
+    candidates, off threshold ties; its launches are counted under its
+    own name."""
+    from tscode_tpu_torch import torsions as tt
+    coords, tors, graph, angles = chain_backoff_batch(cuda_device)
+    clash.KERNEL.reset_counts()
+    checked = 0
+    for t, torsion in enumerate(tors):
+        move = tt.get_rotation_mask(graph, torsion.torsion)
+        other = ~move
+        other[list(torsion.torsion[1:3])] = False
+        poses = rotate_dihedral(coords, torsion.torsion, torch.as_tensor(
+            angles[:, t], dtype=torch.float64, device=cuda_device), move)
+        pairs = clash.torsion_pairs(move, other, cuda_device)
+        pl = pairs.long()
+        d2 = torch.sum((poses[:, pl[:, 0]] - poses[:, pl[:, 1]]) ** 2, -1)
+        keep = ~((d2 - 2.25).abs() < 1e-4).any(dim=1)
+        got = clash.torsion_clash_ok(poses, move, other)
+        want = clash.pair_clash_ok_plain(poses, pairs, 1.5)
+        assert torch.equal(got[keep], want[keep])
+        checked += int(keep.sum())
+    assert checked > 0
+    assert clash.launches_by_entry() == {'clash_ok': 0,
+                                         'compenetration_mask_kernel': 0,
+                                         'torsion_clash_ok': len(tors)}
+
+
+def test_backoff_on_card_matches_cpu(cuda_device):
+    """The whole back-off of the chain's six torsions on the card (every
+    step on the whole batch, K1 each step) against the CPU (the pending
+    rows only), float64: coordinates within 1e-9 A, rotation counts
+    equal."""
+    from tscode_tpu_torch import torsions as tt
+    coords, tors, graph, angles = chain_backoff_batch(cuda_device)
+    clash.KERNEL.reset_counts()
+    got, got_n = tt.apply_torsion_group(coords, tors, graph, angles)
+    want, want_n = tt.apply_torsion_group(coords.cpu(), tors, graph, angles)
+    assert clash.launches_by_entry()['torsion_clash_ok'] == sum(
+        int(np.max(angles[:, t]) // 5) + 1 for t in range(len(tors)))
+    assert torch.equal(got_n.cpu(), want_n)
+    assert float((got.cpu() - want).abs().max()) <= 1e-9
+    assert 0 < int((want_n < len(tors)).sum()) < len(angles)

@@ -103,7 +103,7 @@ def test_resume_after_the_prunes(tmp_path):
 @pytest.mark.parametrize('content,files,item', [
     ('C2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
      'items 13 and 15'),                                      # optimisation
-    ('NOOPT\ncsearch> C2H4.xyz 0\nCH3Cl.xyz 0\n',
+    ('NOOPT\nopt> C2H4.xyz 0\nCH3Cl.xyz 0\n',
      ('C2H4.xyz', 'CH3Cl.xyz'), 'item 15'),                   # operators
     ('SADDLE\nC2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
      'item 15'),                                              # saddle

@@ -1,6 +1,7 @@
 '''The port imports torch and never jax, nor any module of the JAX
-package tscode_tpu (it carries its own host modules); on CPU tensors its
-kernel wrappers run the plain twins; CUDA is never chosen silently.'''
+package tscode_tpu (it carries its own host modules), nor scikit-learn
+(it clusters with its own cluster.py); on CPU tensors its kernel
+wrappers run the plain twins; CUDA is never chosen silently.'''
 
 import os
 import subprocess
@@ -17,9 +18,11 @@ from tscode_tpu_torch.ops.kernels import clash, qcp
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # run in the subprocesses after the port's work: neither jax nor any
-# module of the JAX package (tscode_tpu_torch shares its name's prefix)
+# module of the JAX package (tscode_tpu_torch shares its name's prefix),
+# nor scikit-learn
 NO_JAX_PACKAGE = (
     'assert "jax" not in sys.modules, "jax imported"\n'
+    'assert "sklearn" not in sys.modules, "sklearn imported"\n'
     'loaded = [m for m in sys.modules\n'
     '          if m == "tscode_tpu" or m.startswith("tscode_tpu.")]\n'
     'assert not loaded, loaded\n')
@@ -125,6 +128,44 @@ def test_cli_string_route_imports_no_jax(tmp_path):
     assert (tmp_path / 'tscode_unoptimized_nojax.xyz').exists()
 
 
+def test_cli_search_operators_import_no_jax_or_sklearn(tmp_path):
+    '''csearch>, csearch_hb> and rsearch> through the CLI with --device
+    cpu in one fresh interpreter (the string route behind a search of
+    the C6 chain; the clustered search selects its conformers by
+    k-means at CONFS=40): each ends normally and neither jax, a module
+    of the JAX package nor scikit-learn is imported.'''
+    from tscode_tpu_torch.suite_inputs import chloroalkane, write_noisy
+    from tscode_tpu_torch.io_xyz import write_xyz
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    for op in ('csearch', 'csearch_hb', 'rsearch'):
+        d = tmp_path / op
+        d.mkdir()
+        write_noisy(os.path.join(FIXTURE_DIR, 'C2H4.xyz'), str(d / 'm1.xyz'),
+                    2, np.random.default_rng(7))
+        coords, nos = chloroalkane(6)
+        with open(d / 'm2.xyz', 'w') as f:
+            write_xyz(coords, nos, f, title='chain')
+        (d / 'input.txt').write_text(f'NOOPT DIST(a=3.2) CONFS=40\n'
+                                     f'm1.xyz 0a\n{op}> m2.xyz 0a\n')
+    code = (
+        'import os, sys\n'
+        'from tscode_tpu_torch.__main__ import main\n'
+        'for op in ("csearch", "csearch_hb", "rsearch"):\n'
+        '    os.chdir(os.path.join(sys.argv[1], op))\n'
+        '    assert main(["input.txt", "--device", "cpu", "-n", "s"]) == 0\n'
+        + NO_JAX_PACKAGE +
+        'assert "tscode_tpu_torch.cluster" in sys.modules\n'
+        'print("NOJAX_OK")\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code, str(tmp_path)],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'NOJAX_OK' in r.stdout
+    assert r.stdout.count('normal termination') == 3
+    assert r.stdout.count('Selected the most diverse 40 conformers') == 2
+
+
 def test_cli_cyclical_and_refine_routes_import_no_jax(tmp_path):
     '''The rigid cyclical route (da_cyclical at 4 conformers) and then
     REFINE on its output, through the CLI with --device cpu in one fresh
@@ -219,7 +260,7 @@ def test_cli_cuda_without_a_card_fails_with_no_ensemble(tmp_path):
 
 @pytest.mark.parametrize('name', ['sn2_string', 'large_n_string',
                                   'da_cyclical', 'da_cyclical_xl',
-                                  'multiembed'])
+                                  'multiembed', 'torsion_drive'])
 def test_port_input_writer_matches_bench_suite(tmp_path, monkeypatch, name):
     '''The port's writer gives bench_suite._config_files' files byte for
     byte (the same rng calls, the port's io_xyz); da_cyclical_xl takes
@@ -233,11 +274,13 @@ def test_port_input_writer_matches_bench_suite(tmp_path, monkeypatch, name):
     bench_suite._config_files(name, str(tmp_path / 'suite'))
     path = config_files(name, str(tmp_path / 'port'), 3)
     assert path == str(tmp_path / 'port' / 'input.txt')
-    for f in ('input.txt', 'm1.xyz', 'm2.xyz'):
+    files = ('input.txt', 'm1.xyz') + \
+        (() if name == 'torsion_drive' else ('m2.xyz',))
+    for f in files:
         assert (tmp_path / 'port' / f).read_bytes() == \
             (tmp_path / 'suite' / f).read_bytes(), f
     with pytest.raises(ValueError):
-        config_files('torsion_drive', str(tmp_path / 'port'), 3)
+        config_files('no_such_input', str(tmp_path / 'port'), 3)
 
 
 def test_trimolecular_rigid_input_is_the_suites_plus_rigid(tmp_path,

@@ -174,3 +174,19 @@ def test_cartesian_product():
     np.testing.assert_array_equal(got, jl.cartesian_product(*arrays))
     pair = tl.cartesian_product(np.arange(3), np.arange(2))
     assert pair[:, 0].tolist() == [0, 1, 2, 0, 1, 2]    # first fastest
+
+
+@pytest.mark.parametrize('batch', [(), (6,), (3, 4)])
+def test_rotate_dihedral(batch):
+    '''A masked rotation about a torsion's central bond, batched over
+    the leading axes of the coordinates and the angles.'''
+    coords = rng.normal(size=batch + (9, 3)) * 1.5
+    angles = rng.uniform(-360, 360, size=batch)
+    quad = np.array([1, 3, 4, 7])
+    move = np.zeros(9, dtype=bool)
+    move[[4, 5, 7, 8]] = True
+    got = tl.rotate_dihedral(t64(coords), quad, t64(angles), move)
+    close(got, jl.rotate_dihedral(jnp.asarray(coords), jnp.asarray(quad),
+                                  jnp.asarray(angles), jnp.asarray(move)))
+    # the unmasked atoms stay exactly where they were
+    np.testing.assert_array_equal(to_np(got)[..., ~move, :], coords[..., ~move, :])

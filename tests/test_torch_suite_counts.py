@@ -1,18 +1,35 @@
 '''The stage counts of the rigid multi-arrangement, chelotropic and
-three-molecule routes and of the non-rigid three-molecule route, taken
-from the JAX package in float64 on the CPU: the reference counts that
-chip_smoke.py holds the port to on the card (its constants ME_*,
-CHEL_F64, TRI_F64 and BEND_TRI_F64). For the non-rigid route also the
-bends: how many ran, how many reverted to the unbent molecule and how
-many calls the cache answered.
+three-molecule routes, of the non-rigid three-molecule route and of the
+routes behind a conformer search (csearch>), taken from the JAX package
+in float64 on the CPU: the reference counts that chip_smoke.py holds the
+port to on the card (its constants ME_*, CHEL_F64, TRI_F64,
+BEND_TRI_F64, DRIVE_F64 and SEARCH_F64). For the non-rigid routes also
+the bends: how many ran, how many reverted to the unbent molecule and
+how many calls the cache answered; for the searches the conformers each
+search kept. Both packages draw the search's random numbers from a
+generator seeded with 0 (numpy's global one in the JAX package).
+
+csearch_string docks C2H4 on the chlorinated carbon of the searched
+chain: the chlorine lies on the reactive axis, so the torsion
+quadruplets that end on it are collinear and their dihedrals are
+rounding noise, as on large_n_string (ROADMAP.md section 3). For it the
+record also holds the clash survivors, those quadruplets and the
+novelty replay of the survivors without them (`replay`), which both
+packages must give exactly; its novel and final counts agree within
+10%.
 
 As a script it prints the JAX package's counts and seconds of one suite
-input (written by tscode_tpu_torch.suite_inputs.config_files) as JSON:
+input (written by tscode_tpu_torch.suite_inputs.config_files) as JSON,
+and with a third argument also saves the searched conformers (an .npz
+of `frames`, every search's output in order, and `sizes`):
 
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py multiembed 41
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py chelotropic 62
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py trimolecular_rigid 256
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py trimolecular 64
+    JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py torsion_drive 8
+    JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py csearch_string 16 \
+        tests/golden/csearch_string_search.npz
 
 As a test it takes the same counts at a few conformers from both
 packages and demands that they are equal.'''
@@ -23,6 +40,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -46,17 +64,35 @@ def jax_counts(name, n_confs, workdir):
     jax.config.update('jax_platforms', 'cpu')
     jax.config.update('jax_enable_x64', True)
     import tscode_tpu.bending as jb
+    import tscode_tpu.embeds.common as jcommon
     import tscode_tpu.embeds.cyclical as jc
+    import tscode_tpu.embeds.monomolecular as jmono
     import tscode_tpu.multiembed as jm
+    import tscode_tpu.torsions as jt
     from tscode_tpu.embedder import Embedder
     from tscode_tpu_torch.suite_inputs import config_files
 
     rec = {'name': name, 'n_confs': n_confs, 'children': []}
     build, finish, trimol = (jm._build_child, jm._finish_child,
                              jc.cyclical_embed_trimol_rigid)
-    bend = jb.bend_molecule
-    if name == 'trimolecular':
+    bend, search = jb.bend_molecule, jt.csearch
+    if name in BENDING:
         rec.update(bends=0, bend_reverts=0, bend_hits=0)
+    if name in SEARCHING:
+        rec.update(searched=[], frames=[])
+    survivors = []
+
+    class Survivors(jcommon.MaskedPullAccumulator):
+        def finish(self):
+            out = super().finish()
+            survivors.append([np.asarray(f) for f in out[0]])
+            return out
+
+    def spy_search(*args, **kw):
+        out = search(*args, **kw)
+        rec['searched'].append(len(out))
+        rec['frames'].append(np.asarray(out))
+        return out
 
     def spy_bend(mol, conf, pivot, threshold, **kw):
         hit = jb.bend_key(mol, pivot, threshold, conf=conf) in kw['cache']
@@ -94,7 +130,11 @@ def jax_counts(name, n_confs, workdir):
     cwd = os.getcwd()
     jm._build_child, jm._finish_child = spy_build, spy_finish
     jc.cyclical_embed_trimol_rigid = spy_trimol
-    jb.bend_molecule = spy_bend
+    jb.bend_molecule = jmono.bend_molecule = spy_bend
+    jt.csearch = spy_search
+    accumulator = jcommon.MaskedPullAccumulator
+    jcommon.MaskedPullAccumulator = Survivors
+    np.random.seed(0)
     t0 = time.perf_counter()
     try:
         emb = Embedder(inp, stamp='jax')
@@ -104,7 +144,9 @@ def jax_counts(name, n_confs, workdir):
         os.chdir(cwd)
         jm._build_child, jm._finish_child = build, finish
         jc.cyclical_embed_trimol_rigid = trimol
-        jb.bend_molecule = bend
+        jb.bend_molecule = jmono.bend_molecule = bend
+        jt.csearch = search
+        jcommon.MaskedPullAccumulator = accumulator
     rec['seconds'] = time.perf_counter() - t0
     with open(os.path.join(workdir, 'tscode_report_jax.json')) as f:
         rec['stages'] = stage_list(json.load(f))
@@ -112,24 +154,83 @@ def jax_counts(name, n_confs, workdir):
     # an arrangement without survivors is never finished
     rec['children'] = [c if len(c) == 3 else c + [0, 0]
                        for c in rec['children']]
+    if name in STRING:
+        from tscode_tpu.graphs import get_quadruplets, get_sum_graph
+        from tscode_tpu.ops.tfd import (is_new_structure_lru,
+                                        torsion_fingerprints)
+        (poses, _), = survivors
+        rec.update(string_replay(
+            poses, emb.objects, get_quadruplets, get_sum_graph,
+            lambda x, q: np.asarray(torsion_fingerprints(x, q)),
+            is_new_structure_lru))
     return rec
+
+
+def string_replay(poses, mols, get_quadruplets, get_sum_graph,
+                  fingerprints, is_new_structure_lru):
+    """The string embed's clash survivors `poses` (numpy) of the two
+    molecules `mols`: their count, the quadruplets with an end angle of
+    180 degrees in some survivor (end sine <= 1e-8) and the novelty
+    replay without them, with the given package's functions
+    (fingerprints: poses, quadruplets -> numpy)."""
+    m1, m2 = mols
+    quads = np.asarray(get_quadruplets(get_sum_graph(
+        (m1.graph, m2.graph), [[int(m1.reactive_indices[0]),
+                                int(m2.reactive_indices[0]) + m1.n_atoms]])))
+    p = poses[:, quads]
+
+    def sine(u, v):
+        return np.linalg.norm(np.cross(u, v), axis=-1) / (
+            np.linalg.norm(u, axis=-1) * np.linalg.norm(v, axis=-1))
+
+    b, c = p[..., 1, :], p[..., 2, :]
+    ends = np.minimum(sine(p[..., 0, :] - b, c - b),
+                      sine(b - c, p[..., 3, :] - c))
+    col = (ends <= 1e-8).any(axis=0)
+    fps = np.ascontiguousarray(fingerprints(poses, quads[~col]))
+    novel = is_new_structure_lru(fps, np.ones(len(fps), dtype=bool),
+                                 thresh=10)
+    return {'clash_ok': len(poses), 'collinear': quads[col].tolist(),
+            'replay': int(np.sum(novel))}
 
 
 def port_counts(name, n_confs, workdir):
     '''The same record from the port (float64, CPU), read from its run
     report.'''
     import torch
+    from tscode_tpu_torch import torsions
     from tscode_tpu_torch.embedder import Embedder
+    from tscode_tpu_torch.embeds import string
     from tscode_tpu_torch.suite_inputs import config_files
     inp = config_files(name, workdir, n_confs)
     cwd = os.getcwd()
+    search, frames = torsions.csearch, []
+
+    def spy_search(*args, **kw):
+        out = search(*args, **kw)
+        frames.append(np.asarray(out))
+        return out
+
+    torsions.csearch = spy_search
+    survivors = []
+
+    class Survivors(string.DeviceSurvivors):
+        def finish(self):
+            out = super().finish()
+            survivors.append(out[0][0])
+            return out
+
+    string.DeviceSurvivors = Survivors
     try:
-        emb = Embedder(inp, stamp='port', device='cpu', dtype=torch.float64)
+        emb = Embedder(inp, stamp='port', device='cpu', dtype=torch.float64,
+                       rng=np.random.RandomState(0))
         rec = {'name': name, 'n_confs': n_confs,
                'candidates': int(emb.candidates)}
         run = emb.run()
     finally:
         os.chdir(cwd)
+        torsions.csearch = search
+        string.DeviceSurvivors = Survivors.__base__
     with open(os.path.join(workdir, 'tscode_report_port.json')) as f:
         report = json.load(f)
     rec['stages'] = stage_list(report)
@@ -140,26 +241,66 @@ def port_counts(name, n_confs, workdir):
     if name == 'trimolecular_rigid':
         ce = report['cyclical_embed']
         rec['blocks'], rec['embed_candidates'] = ce['blocks'], ce['candidates']
-    if name == 'trimolecular':
-        ce = report['cyclical_embed']
+    if name in BENDING:
+        ce = report[BENDING[name]]
         rec.update(bends=ce['bends'], bend_reverts=ce['bend_reverts'],
                    bend_hits=ce['bend_hits'])
+    if name in SEARCHING:
+        rec['searched'] = [s['conformers'] for s in report['csearch']]
+        rec['frames'] = frames
+    if name in STRING:
+        from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph
+        from tscode_tpu_torch.ops.tfd import (is_new_structure_lru,
+                                              torsion_fingerprints)
+        poses, = survivors
+        rec.update(string_replay(
+            poses.numpy(), emb.objects, get_quadruplets, get_sum_graph,
+            lambda x, q: torsion_fingerprints(torch.as_tensor(x), q).numpy(),
+            is_new_structure_lru))
     return rec
+
+
+# the non-rigid inputs (the run report's record of their bends) and the
+# inputs behind a conformer search
+BENDING = {'trimolecular': 'cyclical_embed',
+           'torsion_drive': 'monomolecular_embed'}
+SEARCHING = ('torsion_drive', 'csearch_string')
+STRING = ('csearch_string',)
+STRING_SLACK = 0.10     # novel and final counts with a collinear quadruplet
 
 
 @pytest.mark.parametrize('name,n_confs', [('multiembed', 5),
                                           ('chelotropic', 3),
                                           ('trimolecular_rigid', 16),
-                                          ('trimolecular', 8)])
+                                          ('trimolecular', 8),
+                                          ('torsion_drive', 8),
+                                          ('csearch_string', 2)])
 def test_port_counts_equal_the_jax_package(tmp_path, name, n_confs):
     '''Every count this file's script reports is the same from both
-    packages at a few conformers, and the run is not an empty one.'''
+    packages at a few conformers, the searched conformers are the JAX
+    package's frame for frame (1e-6 A), and the run is not an empty
+    one.'''
     import torch_parity  # noqa: F401  (single-threaded torch in this worker)
     (tmp_path / 'jax').mkdir()
     (tmp_path / 'port').mkdir()
     want = jax_counts(name, n_confs, str(tmp_path / 'jax'))
     got = port_counts(name, n_confs, str(tmp_path / 'port'))
     want.pop('seconds')
+    if name in SEARCHING:
+        for a, b in zip(got.pop('frames'), want.pop('frames'), strict=True):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+        assert all(n > 1 for n in want['searched'])
+    if want.get('collinear'):
+        # the counts that rest on a collinear quadruplet's dihedral:
+        # every stage's output and the final count, within the slack
+        assert want['replay'] > 0
+        for a, b in zip(got['stages'], want['stages'], strict=True):
+            assert a[0] == b[0]
+            assert abs(a[2] - b[2]) <= STRING_SLACK * b[2]
+        assert abs(got['final'] - want['final']) <= \
+            STRING_SLACK * want['final']
+        got = dict(got, stages=want['stages'], final=want['final'])
     assert got == want
     assert want['final'] > 0 and want['stages'][0][2] >= want['final']
     if name == 'multiembed':
@@ -167,10 +308,15 @@ def test_port_counts_equal_the_jax_package(tmp_path, name, n_confs):
         assert sum(c[2] for c in want['children']) == want['stages'][0][2]
     if name == 'trimolecular_rigid':
         assert want['blocks'] > 0
-    if name == 'trimolecular':
+    if name in BENDING:
         assert want['bends'] > 0
 
 
 if __name__ == '__main__':
     with tempfile.TemporaryDirectory(prefix='suite_counts_') as d:
-        print(json.dumps(jax_counts(sys.argv[1], int(sys.argv[2]), d)))
+        rec = jax_counts(sys.argv[1], int(sys.argv[2]), d)
+    frames = rec.pop('frames', [])
+    if len(sys.argv) > 3:
+        np.savez_compressed(sys.argv[3], frames=np.concatenate(frames),
+                            sizes=np.array([len(f) for f in frames]))
+    print(json.dumps(rec))

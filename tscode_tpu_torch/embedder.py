@@ -8,16 +8,21 @@ non-rigid, which bends molecules on the internal force field, or RIGID;
 the monomolecular embed, which bends one molecule; the multiembed, which
 docks every arrangement of the reactive atoms of two polyfunctional
 molecules) and the refine route of REFINE or refine>, which takes an
-ensemble as the structures, the compenetration stage (kernel K2 where
-the fragment
-sizes are known), the fitness stage, the similarity prunes (TFD, MOI,
-and on the refine route the bucketed RMSD prune with kernel K3 and the
-symmetry-corrected RMSD prune), structure writes, the run report and
-resume. Every other route raises NotImplementedError naming its
-ROADMAP.md item, before any embed work: operators other than refine>,
+ensemble as the structures, the conformer-search operators csearch>,
+csearch_hb> and rsearch> (torsions.csearch_operator), the
+compenetration stage (kernel K2 where the fragment sizes are known),
+the fitness stage, the similarity prunes (TFD, MOI, and on the refine
+route the bucketed RMSD prune with kernel K3 and the symmetry-corrected
+RMSD prune), structure writes, the run report and resume. Every other
+route raises NotImplementedError naming its ROADMAP.md item, before any
+embed work: the other operators (where the dispatcher meets them),
 optimisation (inputs without NOOPT or BYPASS need calculators),
-SADDLE/TS, metadynamics and csearch augmentation; bending on XTB
-gradients raises at the first bend.
+SADDLE/TS, metadynamics and the csearch augmentation routine; bending
+on XTB gradients raises at the first bend.
+
+The conformer searches draw their random numbers from `rng`, an
+np.random.RandomState given to the constructor (unseeded when none is
+given, as numpy's global generator is for the JAX package).
 
 The device and dtype are explicit: `Embedder(filename, device='cuda')`
 raises when there is no card, and the dtype defaults to float32 on CUDA
@@ -39,7 +44,8 @@ from copy import deepcopy
 import numpy as np
 import torch
 
-from tscode_tpu_torch.errors import InputError, ZeroCandidatesError
+from tscode_tpu_torch.errors import (InputError, SegmentedGraphError,
+                                     ZeroCandidatesError)
 from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph, graphize
 from tscode_tpu_torch.io_xyz import write_xyz
 from tscode_tpu_torch.molecule import Molecule, align_by_moi, align_structures
@@ -65,6 +71,7 @@ from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd
 from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
 from tscode_tpu_torch.pivots import set_pivots
 from tscode_tpu_torch.rot_rmsd import prune_conformers_rmsd_rot_corr
+from tscode_tpu_torch.torsions import csearch
 
 
 def not_ported(what, item):
@@ -81,9 +88,10 @@ class Embedder:
     reads pairings, applies keywords and decides the embed type.'''
 
     def __init__(self, filename, stamp=None, procs=None, threads=None,
-                 run_in_place=False, *, device, dtype=None):
+                 run_in_place=False, *, device, dtype=None, rng=None):
         self.device = get_device(device)
         self.dtype = dtype or default_dtype(self.device)
+        self.rng = rng if rng is not None else np.random.RandomState()
         self.t_start_run = time.perf_counter()
         if not run_in_place:
             d = os.path.dirname(os.path.abspath(filename))
@@ -384,7 +392,8 @@ class Embedder:
         if o.metadynamics:
             raise not_ported('MTD metadynamics augmentation', 15)
         if o.csearch_aug:
-            raise not_ported('csearch augmentation', 14)
+            raise not_ported('The csearch augmentation routine (it '
+                             'alternates with force-field refining)', 15)
         if o.optimization:
             raise not_ported(
                 'Optimisation of the candidates (an input without NOOPT '
@@ -462,13 +471,17 @@ class Embedder:
             self.constrained_indices[0])
 
     def _apply_operators(self):
-        '''refine> is handled by the options (the refine route); every
-        other operator raises.'''
-        ops = sorted({op for mol_ops in self.options.operators_dict.values()
-                      for op in mol_ops} - {'refine'})
-        if ops:
-            raise not_ported(f'Operators ({", ".join(o + ">" for o in ops)})',
-                             15)
+        '''Run the op> prefixes right-to-left per molecule (reference
+        embedder.py:853-907); DRYRUN skips them.'''
+        from tscode_tpu_torch.operators import operate
+        for mol_index, op_list in self.options.operators_dict.items():
+            for op in op_list:
+                if self.options.dryrun:
+                    self.log(f'--> Dry run requested: skipping operator '
+                             f'"{op}>"')
+                    continue
+                self.objects[mol_index] = operate(op, self,
+                                                  self.objects[mol_index])
 
     # -------------------------------------------------------------- setup
 
@@ -787,6 +800,8 @@ class Embedder:
             report[f'{self.embed}_embed'] = self.embed_info
         if getattr(self, 'similarity_info', None):
             report['similarity'] = self.similarity_info
+        if getattr(self, 'search_info', None):
+            report['csearch'] = self.search_info
         energies = getattr(self, 'energies', None)
         if energies is not None and len(energies) and \
                 np.max(energies - np.min(energies)) > 0:
@@ -1088,6 +1103,48 @@ class RunEmbedding(Embedder):
         self.log()
 
     # ------------------------------------------------------- debug dumps
+
+    def csearch_augmentation(self, text='', max_structs=1000):
+        '''Hydrogen-bond-preserving random torsional augmentation of
+        every candidate, then the similarity prunes without RMSD
+        (reference embedder.py:1893-1948). The routine that alternates it
+        with force-field refining (csearch_augmentation_routine) needs
+        item 15.'''
+        self.log(f'--> Performing conformational augmentation of TS '
+                 f'candidates {text}')
+        before = len(self.structures)
+        t_start = time.perf_counter()
+        n_out = 100 if len(self.structures) * 100 < max_structs else \
+            round(max_structs / len(self.structures))
+        n_out = max(1, n_out)
+
+        for s, (structure, constraints) in enumerate(zip(
+                np.copy(self.structures),
+                np.copy(self.constrained_indices))):
+            try:
+                new_structures = csearch(
+                    structure, self.atomnos,
+                    constrained_indices=constraints, keep_hb=True, mode=2,
+                    n_out=n_out, title=f'Candidate_{s + 1}',
+                    logfunction=lambda *_a, **_k: None, rng=self.rng,
+                    device=self.device)
+            except SegmentedGraphError:
+                new_structures = []
+
+            if len(new_structures) != 0:
+                self.structures = np.concatenate(
+                    (self.structures, new_structures))
+                self.energies = np.concatenate(
+                    (self.energies, [1e10 for _ in new_structures]))
+                self.constrained_indices = np.concatenate(
+                    (self.constrained_indices,
+                     [constraints for _ in new_structures]))
+
+        self.exit_status = np.ones(len(self.structures), dtype=bool)
+        self.similarity_refining(rmsd=False)
+        self.log(f'Conformational augmentation completed - generated '
+                 f'{len(self.structures) - before} new conformers '
+                 f'({time_to_string(time.perf_counter() - t_start)})\n')
 
     def dump_status(self, outname, only_fixed_constraints=False):
         '''DEBUG artifacts of a stage: energies, structures, constraints

@@ -4,8 +4,11 @@ plain PyTorch twin.
 
 Replaces the Pallas TPU kernels of tscode_tpu/ops/pallas/clash.py:
 K1 `clash_ok_traced` (:119, the production screen) and K2
-`compenetration_mask_pallas` (:55, same math with a pair mask). Both
-entries below launch one of two CUDA kernels, chosen by `clash_regime`
+`compenetration_mask_pallas` (:55, same math with a pair mask). K1 has a
+second entry, `torsion_clash_ok`, the conformer search's clash test
+between the two sides of a rotated bond (the counterpart of
+tscode_tpu/ops/clash.py:168). Every entry below launches one of two
+CUDA kernels, chosen by `clash_regime`
 from the pair count: one thread per pose for small pair lists, one warp
 per pose (pair list resident in shared memory, poses double-buffered
 with cp.async) for large ones. Any batch size, atom count and pair
@@ -17,8 +20,9 @@ the kernels count a listed pair each time it is listed, the plain twin's
 pair mask only once, so the plain twin raises on a repeated pair.
 
 On a CPU tensor each entry runs the plain version (the matmul form of
-tscode_tpu/ops/clash.compenetration_mask); on a CUDA tensor it launches
-a kernel or raises.
+tscode_tpu/ops/clash.compenetration_mask; for `torsion_clash_ok` the
+direct differences of the kernels and of the JAX package's back-off);
+on a CUDA tensor it launches a kernel or raises.
 '''
 
 import ctypes
@@ -67,11 +71,11 @@ def clash_regime(n_pairs, n_atoms, itemsize):
 
 def launches_by_entry():
     '''Kernel launches since the last KERNEL.reset_counts(), per entry
-    point of this module: K1 `clash_ok`, K2
+    point of this module: K1 `clash_ok` and `torsion_clash_ok`, K2
     `compenetration_mask_kernel`.'''
     n = KERNEL.wrapper_launches
-    return {k: n.get(k, 0) for k in ('clash_ok',
-                                     'compenetration_mask_kernel')}
+    return {k: n.get(k, 0) for k in ('clash_ok', 'compenetration_mask_kernel',
+                                     'torsion_clash_ok')}
 
 
 def launches_by_regime():
@@ -147,6 +151,16 @@ def clash_ok_plain(poses, pairs, thresh, max_clashes=0):
     return clash_counts_plain(poses, mask, thresh) <= max_clashes
 
 
+def pair_clash_ok_plain(poses, pairs, thresh, max_clashes=0):
+    '''Plain PyTorch twin of `torsion_clash_ok` on its pair list: the
+    listed pairs' squared distances as direct differences, the kernels'
+    form, against thr^2 in the working dtype.'''
+    pl = torch.as_tensor(pairs, device=poses.device).long()
+    d = poses[:, pl[:, 0]] - poses[:, pl[:, 1]]
+    hit = torch.sum(d * d, dim=-1) < thresh_squared(thresh, poses.dtype)
+    return torch.sum(hit, dim=1) <= max_clashes
+
+
 # --------------------------------------------------------------- kernels
 
 
@@ -215,3 +229,25 @@ def compenetration_mask_kernel(poses, pair_mask, thresh=1.5, max_clashes=0):
         return clash_counts_plain(poses, mask, thresh) <= max_clashes
     return _launch(poses, pairs_of_mask(pair_mask, poses.device), thresh,
                    max_clashes, 'compenetration_mask_kernel')
+
+
+def torsion_pairs(move_mask, other_mask, device):
+    """The (P, 2) int32 device pair list `other x move` of a torsion's
+    two sides (host (N,) bool masks), built once per torsion and kept."""
+    other = np.asarray(other_mask, dtype=bool)
+    return pairs_of_mask(other[:, None] & np.asarray(move_mask, dtype=bool)
+                         [None, :], device)
+
+
+def torsion_clash_ok(poses, move_mask, other_mask, thresh=1.5, max_clashes=0):
+    """K1 for the conformer search's back-off: accept mask of poses
+    (B, N, 3) whose moved atoms (move_mask) come closer than `thresh` to
+    at most `max_clashes` of the other atoms (other_mask, the bond's two
+    atoms already left out by the caller). Returns (B,) bool."""
+    pairs = torsion_pairs(move_mask, other_mask, poses.device)
+    if poses.device.type == 'cpu':
+        return pair_clash_ok_plain(poses, pairs, thresh, max_clashes)
+    if pairs.shape[0] == 0:
+        return torch.ones(poses.shape[0], dtype=torch.bool,
+                          device=poses.device)
+    return _launch(poses, pairs, thresh, max_clashes, 'torsion_clash_ok')

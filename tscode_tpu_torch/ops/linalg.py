@@ -80,6 +80,20 @@ def rot_mat_from_pointer(pointer, angle_deg):
     return quaternion_to_rotation_matrix(torch.cat([xyz, w], dim=-1))
 
 
+def rotate_dihedral(coords, quad, angle_deg, move_mask):
+    """Rotate the masked atoms of a molecule by `angle_deg` about the
+    i2-i3 bond of a torsion quadruplet, batched over the leading axes of
+    coords (..., N, 3) and angle_deg (...,); quad (4,) ints, move_mask
+    (N,) bool."""
+    i2, i3 = int(quad[1]), int(quad[2])
+    mat = rot_mat_from_pointer(coords[..., i2, :] - coords[..., i3, :],
+                               angle_deg)
+    center = coords[..., i3, :].unsqueeze(-2)
+    moved = torch.einsum('...ij,...nj->...ni', mat, coords - center) + center
+    mask = torch.as_tensor(move_mask, dtype=torch.bool, device=coords.device)
+    return torch.where(mask[..., None], moved, coords)
+
+
 def rotation_matrix_from_vectors(vec1, vec2, eps=1e-12):
     '''Rotation aligning vec1 onto vec2 (Rodrigues), batched with
     broadcasting and branch-free. The parallel case gives the identity;

@@ -36,6 +36,18 @@ bending form of the same embed.
     m1.xyz 3 5          (C2F2H4, n_confs conformers at noise 0.05)
 one molecule bent until its two reactive carbons' orbitals meet.
 
+`torsion_drive` is the suite's own (its files byte for byte): the
+monomolecular input behind a conformer search,
+    NOOPT
+    csearch> m1.xyz 3 5 (C2F2H4, max(2, n_confs // 4) conformers at 0.05)
+
+`csearch_string` searches a flexible chain before the string embed:
+    NOOPT
+    m1.xyz 0            (C2H4, sn2_string's file at n_confs conformers)
+    csearch> m2.xyz 0   (the idealized C10H21Cl chain, one conformer)
+the chain has 8 three-fold rotors in one group, so the search rotates
+3^8 = 6,561 candidates with the clash back-off and keeps up to 1,000.
+
     config_files('sn2_string', workdir, n_confs=76) -> workdir/input.txt
     refine_input('ens.xyz', workdir) -> workdir/input.txt (REFINE)
 '''
@@ -51,7 +63,9 @@ from tscode_tpu_torch.pipeline import FIXTURE_DIR
 NOISE = 0.12          # A of per-conformer jitter on the fixtures
 CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl',
            'multiembed', 'chelotropic', 'chelotropic_nonrigid',
-           'trimolecular', 'trimolecular_rigid', 'monomolecular')
+           'trimolecular', 'trimolecular_rigid', 'monomolecular',
+           'torsion_drive', 'csearch_string')
+SEARCH_CHAIN = 10     # carbons of csearch_string's chain
 
 
 def write_noisy(src, dst, n_confs, rng, noise=NOISE):
@@ -171,6 +185,17 @@ def config_files(name, workdir, n_confs):
         write_noisy(j(FIXTURE_DIR, 'C2F2H4.xyz'), j(workdir, 'm1.xyz'),
                     n_confs, rng, noise=0.05)
         content = 'NOOPT\nm1.xyz 3 5\n'
+    elif name == 'torsion_drive':
+        write_noisy(j(FIXTURE_DIR, 'C2F2H4.xyz'), j(workdir, 'm1.xyz'),
+                    max(2, n_confs // 4), rng, noise=0.05)
+        content = 'NOOPT\ncsearch> m1.xyz 3 5\n'
+    elif name == 'csearch_string':
+        write_noisy(j(FIXTURE_DIR, 'C2H4.xyz'), j(workdir, 'm1.xyz'),
+                    n_confs, rng)
+        coords, nos = chloroalkane(SEARCH_CHAIN)
+        with open(j(workdir, 'm2.xyz'), 'w') as f:
+            write_xyz(coords, nos, f, title='conf 0')
+        content = 'NOOPT\nm1.xyz 0\ncsearch> m2.xyz 0\n'
     else:
         raise ValueError(f'unknown input {name!r}; one of {CONFIGS}')
     path = j(workdir, 'input.txt')

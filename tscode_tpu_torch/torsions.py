@@ -1,19 +1,43 @@
 '''
-Rotable-bond discovery on the molecular graph (the graph part of
-tscode_tpu/torsions.py, numpy and networkx only): double bonds, the
-Torsion class, the free/dummy-rotor rules, hydrogen bonds, rotation
-masks and get_torsions. The symmetry-corrected RMSD prune (rot_rmsd)
-uses them. The torsional conformer search of that module is ROADMAP.md
-item 14 and is not ported.
+Torsional conformer search (counterpart of tscode_tpu/torsions.py).
+
+Host side: rotable-bond discovery on the molecular graph (double bonds,
+the Torsion class, the free/dummy-rotor rules, hydrogen bonds, rotation
+masks, get_torsions; the symmetry-corrected RMSD prune uses them too)
+and the grouping of torsions by DBSCAN (cluster.dbscan_labels).
+
+Device side: every (starting point x angle set) candidate of a torsion
+group is rotated in one batch, torsion after torsion, with the
+reference's 5-degree clash back-off: per retreat step one rotation of
+the moving side and one launch of the clash kernel K1 through its entry
+`torsion_clash_ok`, the first clash-free retreat kept, no host sync in
+the loop. The search runs in float64 on the run's device whatever the
+embed's dtype: one flipped 1.5 A decision changes a whole conformer and
+every later random draw.
+
+Random draws (the shuffle of rsearch>, the diverse selection) come from
+an explicit np.random.RandomState: seeded as numpy's global generator
+is seeded before a JAX run, it draws the same stream.
 '''
+
+import time
 
 import networkx as nx
 import numpy as np
+import torch
 
+from tscode_tpu_torch.backend import get_device, synchronize
+from tscode_tpu_torch.cluster import dbscan_labels, kmeans
+from tscode_tpu_torch.errors import SegmentedGraphError
 from tscode_tpu_torch.graphs import (get_phenyl_ids, get_quadruplets,
-                                     get_sp_n, is_amide_n, is_ester_o,
-                                     is_sp_n, neighbors)
+                                     get_sp_n, graphize, is_amide_n,
+                                     is_ester_o, is_sp_n, neighbors)
+from tscode_tpu_torch.molecule import align_structures
+from tscode_tpu_torch.ops.kernels.clash import torsion_clash_ok
+from tscode_tpu_torch.ops.linalg import cartesian_product, normalize
+from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
 from tscode_tpu_torch.pt import SYMBOLS
+from tscode_tpu_torch.utils import flatten, time_to_string
 
 # --------------------------------------------------------- double bonds
 
@@ -252,3 +276,488 @@ def get_torsions(graph, hydrogen_bonds, double_bonds, keepdummy=False):
                 t.is_rotable(graph, hydrogen_bonds, keepdummy=keepdummy):
             torsions.append(t)
     return torsions
+
+
+def group_torsions_dbscan(coords, torsions, max_size=5):
+    """Spatially group torsions so each group is <= max_size
+    (reference torsion_module.py:373-397)."""
+    centers = np.array([(coords[t.torsion[1]] + coords[t.torsion[2]]) / 2
+                        for t in torsions])
+    n_clusters = 1
+    labels = np.zeros(len(torsions), dtype=int)
+    for eps in np.arange(10, 1.5, -0.5):
+        labels = dbscan_labels(centers, eps)
+        n_clusters = max(labels) + 1
+        biggest = max(np.count_nonzero(labels == i) for i in set(labels))
+        if biggest <= max_size:
+            break
+
+    groups = [[] for _ in range(n_clusters)]
+    for torsion, cluster in zip(torsions, labels):
+        groups[cluster].append(torsion)
+    return sorted(groups, key=len)
+
+
+# ------------------------------------------------------ device hot loop
+
+BACKOFF_STEP = 5.0
+
+
+def rotate_batch_with_backoff(coords_batch, quad, move_mask, angles,
+                              other_mask, max_steps):
+    """Rotate one torsion by per-candidate angles with the reference's
+    5-degree clash back-off (torsion_module.py:754-776): from the full
+    rotation, retreat in 5-degree steps until the moved side no longer
+    comes within 1.5 A of the static one (K1, `torsion_clash_ok`) or the
+    rotation is undone. A retreat that reaches exactly zero and is
+    clash-free still counts as rotated; angle-0 rows stay as they are
+    and do not. Returns (new coords, rotated flags).
+
+    coords_batch (B, N, 3) tensor; quad (4,) ints; move_mask and
+    other_mask (N,) host bool arrays (other_mask leaves out i2 and i3);
+    angles (B,) tensor of degrees; max_steps: retreat steps to try
+    (steps past a row's own angle are invalid for it).
+
+    Every step computes the same arithmetic per row; the loop around it
+    is the device's (`_whole_batch` on the card, `_pending_rows` on the
+    CPU). The axis and the moved atoms' Rodrigues terms are fixed for
+    the torsion, so a step only takes the cosine and sine of its
+    angle."""
+    device = coords_batch.device
+    move = torch.as_tensor(move_mask, device=device)[:, None]
+    i2, i3 = int(quad[1]), int(quad[2])
+    center = coords_batch[:, i3:i3 + 1]
+    axis = normalize(coords_batch[:, i2:i2 + 1] - center)
+    v = coords_batch - center
+    along = axis * torch.sum(axis * v, dim=-1, keepdim=True)
+    across = v - along
+    turned = torch.linalg.cross(axis.expand_as(v), v, dim=-1)
+    fixed = center + along
+
+    def retreat(s, rows=slice(None)):
+        eff = angles[rows] - s * BACKOFF_STEP
+        rad = torch.deg2rad(eff)[:, None, None]
+        cand = torch.where(move, fixed[rows] + across[rows] * torch.cos(rad)
+                           + turned[rows] * torch.sin(rad), coords_batch[rows])
+        return cand, torsion_clash_ok(cand, move_mask, other_mask) & \
+            (eff >= 0.0)
+
+    loop = _pending_rows if device.type == 'cpu' else _whole_batch
+    best, found = loop(retreat, coords_batch, max_steps)
+    rotated = found & (angles != 0.0)
+    return torch.where(rotated[:, None, None], best, coords_batch), rotated
+
+
+def _whole_batch(retreat, coords_batch, max_steps):
+    """The back-off's loop on the card: every step on the whole batch,
+    no host sync. Returns (first clash-free pose, found) per row."""
+    best = coords_batch
+    found = torch.zeros(len(coords_batch), dtype=torch.bool,
+                        device=coords_batch.device)
+    for s in range(max_steps + 1):
+        cand, ok = retreat(s)
+        best = torch.where((ok & ~found)[:, None, None], cand, best)
+        found = found | ok
+    return best, found
+
+
+def _pending_rows(retreat, coords_batch, max_steps):
+    """The back-off's loop on the CPU, where looking costs nothing: a
+    step takes only the rows still without a clash-free pose, and the
+    loop ends when none is left (an order of magnitude less back-off
+    time than `_whole_batch` on the CPU for csearch_string's search:
+    `python tests/test_torch_csearch.py`, PERF.md section 6)."""
+    best = coords_batch.clone()
+    found = torch.zeros(len(coords_batch), dtype=torch.bool)
+    rows = torch.arange(len(coords_batch))
+    for s in range(max_steps + 1):
+        cand, ok = retreat(s, rows)
+        best[rows[ok]] = cand[ok]
+        found[rows[ok]] = True
+        rows = rows[~ok]
+        if not len(rows):
+            break
+    return best, found
+
+
+def apply_torsion_group(coords_batch, torsions_group, graph, angle_sets):
+    """Apply one angle-set column per torsion, torsion after torsion
+    (the torsions of a group interact through their masks), each batched
+    over the candidates. coords_batch (B, N, 3) tensor, angle_sets
+    (B, T) host array. Returns (coords (B, N, 3), n_rotated (B,))."""
+    device = coords_batch.device
+    n_rotated = torch.zeros(len(coords_batch), dtype=torch.int32,
+                            device=device)
+    if len(coords_batch) == 0:
+        return coords_batch, n_rotated
+    for t, torsion in enumerate(torsions_group):
+        move_mask = get_rotation_mask(graph, torsion.torsion)
+        other_mask = ~move_mask
+        other_mask[list(torsion.torsion[1:3])] = False
+        angles = np.asarray(angle_sets[:, t], dtype=float)
+        max_steps = int(np.max(angles) // BACKOFF_STEP) \
+            if np.max(angles) > 0 else 0
+        coords_batch, rotated = rotate_batch_with_backoff(
+            coords_batch, torsion.torsion, move_mask,
+            torch.as_tensor(angles, dtype=coords_batch.dtype, device=device),
+            other_mask, max_steps)
+        n_rotated = n_rotated + rotated.to(torch.int32)
+    return coords_batch, n_rotated
+
+
+# ------------------------------------------------------------- csearch
+
+def _new_stats(stats, **fields):
+    """The search's record: counts and seconds of its parts (group,
+    back-off, TFD prune, selection), in `stats` when one is given."""
+    rec = stats if stats is not None else {}
+    rec.update(fields)
+    for k in ('group_s', 'backoff_s', 'tfd_s', 'select_s'):
+        rec.setdefault(k, 0.0)
+    return rec
+
+
+def csearch(coords, atomnos, constrained_indices=None, keep_hb=False,
+            ff_opt=False, n=100, n_out=100, mode=1, title='test',
+            logfunction=print, *, rng, device, stats=None):
+    """Torsional conformer search (reference torsion_module.py:523-653).
+    mode 0: clustered, keep the lowest-energy conformer of each cluster
+            (needs ff_opt, the force-field layer: not ported)
+    mode 1: clustered, keep the most diverse
+    mode 2: random angle sets
+    rng: np.random.RandomState of the random draws; device: where the
+    back-off, the TFD prune and the k-means run (in float64); stats: an
+    optional dict that receives the search's counts and seconds.
+    Returns the conformers (n, N, 3) as a numpy array."""
+    t0 = time.perf_counter()
+    device = get_device(device)
+    coords = np.asarray(coords, dtype=float)
+    rec = _new_stats(stats, title=title, mode=mode, torsions=0, groups=[],
+                     candidates=0, conformers=1)
+    if constrained_indices is not None and len(constrained_indices) > 0:
+        logfunction(f'Constraining {len(constrained_indices)} distance'
+                    f'{"s" if len(constrained_indices) > 1 else ""} - '
+                    f'{constrained_indices}')
+    else:
+        logfunction('Free conformational search: no constraints provided.')
+        constrained_indices = np.array([])
+
+    graph = graphize(coords, atomnos)
+    for i1, i2 in np.asarray(constrained_indices).reshape(-1, 2):
+        graph.add_edge(int(i1), int(i2))
+
+    if keep_hb:
+        hydrogen_bonds = get_hydrogen_bonds(coords, atomnos, graph)
+        for hb in hydrogen_bonds:
+            graph.add_edge(*hb)
+        logfunction(f'Preserving {len(hydrogen_bonds)} hydrogen bonds - '
+                    f'{hydrogen_bonds}' if hydrogen_bonds
+                    else 'No hydrogen bonds found.')
+    else:
+        hydrogen_bonds = []
+
+    fragments = list(nx.connected_components(graph))
+    if len(fragments) > 1:
+        s = (f'{title} has a segmented connectivity graph: double check '
+             'the input geometry.\nIf this is supposed to be a complex, '
+             'no hydrogen bonds connecting the molecules were found, and '
+             'the algorithm is not designed to reliably search loosely '
+             'bound multimolecular arrangements.')
+        if keep_hb:
+            raise SegmentedGraphError(s)
+        hydrogen_bonds.extend(get_hydrogen_bonds(coords, atomnos, graph,
+                                                 fragments=fragments))
+        if not hydrogen_bonds:
+            raise SegmentedGraphError(s)
+        for hb in hydrogen_bonds:
+            graph.add_edge(*hb)
+        if len(list(nx.connected_components(graph))) > 1:
+            raise SegmentedGraphError(s)
+
+    double_bonds = get_double_bonds_indices(coords, atomnos)
+    torsions = get_torsions(graph, hydrogen_bonds, double_bonds)
+    for t in torsions:
+        t.sort_torsion(graph, np.asarray(constrained_indices))
+    rec['torsions'] = len(torsions)
+
+    if not torsions:
+        logfunction(f'No rotable bonds found for {title}.')
+        out = np.array([coords])
+    elif mode in (0, 1):
+        out = clustered_csearch(coords, atomnos, torsions, graph,
+                                ff_opt=ff_opt, n=n, n_out=n_out, mode=mode,
+                                title=title, logfunction=logfunction,
+                                rng=rng, device=device, stats=rec)
+    else:
+        out = random_csearch(coords, atomnos, torsions, graph, n_out=n_out,
+                             title=title, logfunction=logfunction, rng=rng,
+                             device=device, stats=rec)
+    rec.update(conformers=len(out), seconds=time.perf_counter() - t0)
+    return out
+
+
+def _log_torsions(torsions, atomnos, logfunction):
+    logfunction('\n> Torsion list: (indices: n-fold)')
+    for i, t in enumerate(torsions):
+        logfunction(f' {i:2} - {str(t.torsion):21s} : {t.n_fold}-fold')
+    central = set(flatten([t.torsion[1:3] for t in torsions], int))
+    logfunction(f'\n> Rotable bonds ids: '
+                f'{" ".join(str(int(i)) for i in sorted(central))}')
+
+
+def _timed_backoff(rec, coords_batch, torsions, graph, angle_sets):
+    """apply_torsion_group, its seconds (synced) added to the record;
+    returns host arrays (coords, n_rotated)."""
+    t0 = time.perf_counter()
+    out, n_rotated = apply_torsion_group(coords_batch, torsions, graph,
+                                         angle_sets)
+    synchronize(coords_batch.device)
+    rec['backoff_s'] += time.perf_counter() - t0
+    rec['candidates'] += len(angle_sets)
+    return out.cpu().numpy(), n_rotated.cpu().numpy()
+
+
+# the reference's max_tries, which no caller of the search sets
+MAX_TRIES = 10000
+
+
+def random_csearch(coords, atomnos, torsions, graph, n_out=100,
+                   title='test', logfunction=print, *, rng, device,
+                   stats=None):
+    """Random angle sets, batched on the device
+    (reference torsion_module.py:399-521)."""
+    t_start = time.perf_counter()
+    rec = _new_stats(stats)
+    _log_torsions(torsions, atomnos, logfunction)
+    logfunction(f'\n--> Random dihedral CSearch on {title}\n    mode 2 '
+                f'(random) - {len(torsions)} torsions')
+
+    if len(torsions) == 0:
+        logfunction('  No rotable bonds - returning no conformers')
+        return np.zeros((0,) + coords.shape)
+    angles = cartesian_product(*[np.array(t.get_angles())
+                                 for t in torsions])
+    if len(angles) == 0:
+        logfunction('  No candidate angle sets - returning no conformers')
+        return np.zeros((0,) + coords.shape)
+    rng.shuffle(angles)
+
+    # the reference walks the WHOLE shuffled pool, stopping when n_out
+    # structures are accepted or when one is accepted at pool index ==
+    # MAX_TRIES exactly (torsion_module.py:509-510: the bound check
+    # lives inside the acceptance branch); here in device chunks with an
+    # early exit between chunks
+    accepted = []
+    chunk = 8192
+    start_coords = torch.as_tensor(coords, dtype=torch.float64,
+                                   device=device)
+    for start in range(0, len(angles), chunk):
+        block = angles[start:start + chunk]
+        new_coords, n_rotated = _timed_backoff(
+            rec, start_coords.expand((len(block),) + coords.shape),
+            torsions, graph, block)
+        stop = False
+        for j in np.nonzero(n_rotated > 0)[0]:
+            accepted.append(new_coords[j])
+            if len(accepted) == n_out or start + int(j) == MAX_TRIES:
+                stop = True
+                break
+        if stop:
+            break
+    new_structures = np.array(accepted) if accepted else \
+        np.zeros((0,) + coords.shape)
+
+    exhaustiveness = len(new_structures) / np.prod(
+        [t.n_fold for t in torsions])
+    logfunction(f'  Generated {len(new_structures)} conformers, (est. '
+                f'{round(100 * exhaustiveness, 2)} % of the total '
+                f'conformational space) - CSearch time '
+                f'{time_to_string(time.perf_counter() - t_start)}')
+    return new_structures
+
+
+def clustered_csearch(coords, atomnos, torsions, graph, ff_opt=False, n=100,
+                      n_out=100, mode=1, title='test', logfunction=print, *,
+                      rng, device, stats=None):
+    """Grouped systematic rotation (reference torsion_module.py:655-847).
+    Mode 0 and ff_opt need the force-field optimisation of every group's
+    conformers (optimization.optimize_batch), which is not ported: they
+    raise before any work."""
+    assert mode != 0 or ff_opt, \
+        'Either leave mode=1 or turn on force field optimization'
+    assert mode in (0, 1)
+    if ff_opt:
+        from tscode_tpu_torch.embedder import not_ported
+        raise not_ported('Force-field optimisation inside the conformer '
+                         'search (mode 0, ff_opt)', 15)
+
+    t_start_run = time.perf_counter()
+    rec = _new_stats(stats)
+
+    t0 = time.perf_counter()
+    if len(torsions) < 9:
+        grouped_torsions = [torsions]
+    else:
+        grouped_torsions = group_torsions_dbscan(coords, torsions, max_size=5)
+    rec['group_s'] += time.perf_counter() - t0
+    rec['groups'] = [len(t) for t in grouped_torsions]
+
+    _log_torsions(torsions, atomnos, logfunction)
+    logfunction(f'\n--> Clustered CSearch on {title}\n    mode {mode} '
+                f'(diversity) - {len(torsions)} torsions in '
+                f'{len(grouped_torsions)} '
+                f'group{"s" if len(grouped_torsions) != 1 else ""} - '
+                f'{[len(t) for t in grouped_torsions]}')
+
+    torsion_array = np.array([t.torsion for t in torsions])
+    output_structures = []
+    starting_points = np.array([coords])
+
+    for tg, torsions_group in enumerate(grouped_torsions):
+        angles = cartesian_product(*[np.array(t.get_angles())
+                                     for t in torsions_group])
+        candidates = len(angles) * len(starting_points)
+        logfunction(f'\n> Group {tg + 1}/{len(grouped_torsions)} - '
+                    f'{len(torsions_group)} bonds, '
+                    f'{[t.n_fold for t in torsions_group]} n-folds, '
+                    f'{len(starting_points)} starting point'
+                    f'{"s" if len(starting_points) > 1 else ""} = '
+                    f'{candidates} conformers')
+
+        # (starting points x angle sets), the starting point varying
+        # slowest to keep the reference's output order
+        S, A = len(starting_points), len(angles)
+        sp_batch = torch.as_tensor(np.repeat(starting_points, A, axis=0),
+                                   dtype=torch.float64, device=device)
+        rotated_coords, n_rotated = _timed_backoff(
+            rec, sp_batch, torsions_group, graph, np.tile(angles, (S, 1)))
+
+        # the reference emits each starting point, then its accepted
+        # rotations (torsion_module.py:736-781)
+        new_structures = []
+        for s in range(S):
+            new_structures.append(starting_points[s])
+            block = slice(s * A, (s + 1) * A)
+            new_structures.extend(rotated_coords[block][n_rotated[block] > 0])
+        new_structures = np.array(new_structures)
+
+        if tg + 1 != len(grouped_torsions):
+            if n is not None and len(new_structures) > n:
+                t0 = time.perf_counter()
+                new_structures = most_diverse_conformers(
+                    n, new_structures, torsion_array, rng=rng, device=device)
+                rec['select_s'] += time.perf_counter() - t0
+            logfunction(f'  Kept the most diverse {len(new_structures)} '
+                        f'starting points for next rotation cluster')
+
+        output_structures.extend(new_structures)
+        starting_points = new_structures
+
+    t0 = time.perf_counter()
+    output_structures, _ = prune_conformers_tfd(
+        np.array(output_structures), torsion_array, device=device)
+    rec['tfd_s'] += time.perf_counter() - t0
+
+    # gate on the LAST group's count, as the reference does (:829)
+    if len(new_structures) > n_out:
+        t0 = time.perf_counter()
+        output_structures = most_diverse_conformers(
+            n_out, output_structures, torsion_array, rng=rng, device=device)
+        rec['select_s'] += time.perf_counter() - t0
+
+    exhaustiveness = len(output_structures) / np.prod(
+        [t.n_fold for t in torsions])
+    logfunction(f'  Selected the most diverse '
+                f'{len(output_structures)} conformers, corresponding\n  to '
+                f'about {round(100 * exhaustiveness, 2)} % of the total '
+                f'conformational space - CSearch time '
+                f'{time_to_string(time.perf_counter() - t_start_run)}')
+    return output_structures
+
+
+def most_diverse_conformers(n, structures, torsion_array, *, rng, device):
+    """TFD-prune then k-means-select the n most diverse structures
+    (reference torsion_module.py:849-924). Above 300 the selection is n
+    distinct structures drawn from `rng` (the reference draws with
+    replacement; the JAX package fixed that, and so does the port). The
+    reference's energy-aware selection serves mode 0 only, which needs
+    the force field (ROADMAP item 15)."""
+    structures = np.asarray(structures)
+    if len(structures) <= n:
+        return structures
+    if n > 300:
+        return structures[np.sort(rng.choice(len(structures), size=n,
+                                             replace=False))]
+
+    structures, _ = prune_conformers_tfd(structures, torsion_array,
+                                         device=device)
+    if len(structures) <= n:
+        return structures
+
+    aligned = align_structures(structures)
+    labels, centers = kmeans(aligned.reshape(len(aligned), -1), n, rng,
+                             device=device)
+    centers = centers.reshape((n, *aligned.shape[1:3]))
+    clusters = [[] for _ in range(n)]
+    for c_coords, c in zip(aligned, labels):
+        clusters[c].append(c_coords)
+    r = np.arange(n)
+    output = []
+    for ci, cluster in enumerate(clusters):
+        if cluster:
+            cumdists = [np.sum(np.linalg.norm(centers[r != ci] - ref, axis=2))
+                        for ref in cluster]
+            output.append(cluster[int(np.argmax(cumdists))])
+    return np.array(output)
+
+
+def csearch_operator(embedder, mol, mode=1, keep_hb=False):
+    """csearch>/csearch_hb>/rsearch> operator: a new Molecule whose
+    ensemble is the searched conformers, one search from each input
+    conformer with max_confs split between them (reference
+    operators.py:158-224). Each search's record goes to
+    embedder.search_info (the run report's `csearch`)."""
+    from tscode_tpu_torch.molecule import Molecule
+    embedder.log(f'--> {mol.rootname}: csearch operator (mode {mode})')
+
+    keep_hb = keep_hb or embedder.options.keep_hb
+
+    # internal constraints of this molecule (a letter used twice on it),
+    # as the reference passes them (operators.py:187)
+    mol_id = embedder.objects.index(mol) if mol in embedder.objects else None
+    internal = None
+    if mol_id is not None and mol_id in getattr(embedder, 'pairings_dict', {}):
+        pairs = [tgt for tgt in embedder.pairings_dict[mol_id].values()
+                 if isinstance(tgt, tuple)]
+        internal = np.array(pairs) if pairs else None
+
+    n_confs = len(mol.atomcoords)
+    if n_confs > 1:
+        embedder.log('    multimolecular file: individual search from '
+                     'each conformer')
+    if not hasattr(embedder, 'search_info'):
+        embedder.search_info = []
+    batches = []
+    for i, start in enumerate(mol.atomcoords):
+        # the operator searches without force-field optimisation, as the
+        # reference's does (operators.py:184-194 passes no ff_opt)
+        rec = {}
+        batch = csearch(
+            start, mol.atomnos, constrained_indices=internal,
+            keep_hb=keep_hb, mode=mode,
+            n_out=max(embedder.options.max_confs // n_confs, 1),
+            title=f'{mol.rootname}_conf{i}' if n_confs > 1 else mol.rootname,
+            logfunction=embedder.log, rng=embedder.rng,
+            device=embedder.device, stats=rec)
+        embedder.search_info.append(rec)
+        if len(batch):
+            batches.append(np.asarray(batch))
+    conformers = np.concatenate(batches) if batches else mol.atomcoords[:1]
+
+    new_mol = Molecule.__new__(Molecule)
+    new_mol.__dict__.update(mol.__dict__)
+    new_mol.atomcoords = np.asarray(conformers)
+    new_mol.reactive_atoms = {}
+    if len(mol.reactive_indices):
+        new_mol.compute_orbitals()
+    return new_mol
