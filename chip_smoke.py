@@ -42,13 +42,22 @@ as the JAX reference runs were: bench_suite's torsion_drive (the search
 on C2F2H4, then the monomolecular embed; float64 and float32, card
 against CPU) and csearch_string (6,561 candidates of a C10H21Cl chain
 searched, 1,000 kept, then the string embed against C2H4), the searched
-conformers held against the JAX package's, frame for frame.
+conformers held against the JAX package's, frame for frame. Phases 18
+and 19 run the operators on the internal force field, float64 on the
+card, held to the JAX x64 records and to the port's CPU run: the
+atropisomer route (SADDLE + scan> of a ring torsion of a nine-carbon
+chlorocycloalkane: coarse sweeps, accurate re-scans, the dimer on each
+sub-peak, the RMSD prune of the maxima with K3, frequencies of each
+refined maximum; the dimer step, the band step and a Hessian timed),
+then neb>, saddle> and a distance scan on the same ring.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
                                   # field and FIRE measurements
     python3 chip_smoke.py --search   # phases 16 and 17 alone: the
                                   # conformer search's routes
+    python3 chip_smoke.py --scans    # phases 18 and 19 alone: the
+                                  # force-field operators
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
@@ -217,6 +226,19 @@ SEARCH_COLLINEAR = [[1, 0, 6, 7]]          # C2H4 C1-C0...C0-Cl of the chain
 SEARCH_DROPPED_NOVEL = 1610  # JAX x64 novelty replay without that quadruplet
 SEARCH_GOLDEN = os.path.join(GOLDEN, 'csearch_string_search.npz')
 BACKOFF_KEEP = 16          # every 16th K1 back-off call kept for the check
+# the force-field routes (phases 18 and 19), float64 on the card: the
+# SADDLE dihedral scan of suite_inputs' chlorocycloalkane ring at
+# DSCAN_RING carbons (scan> of C3-C4-C5-C6), then neb>, saddle> and the
+# C0-Cl distance scan on the same ring, held to the JAX x64 records of
+# tests/test_torch_suite_counts.py (`... dihedral_scan 9 GOLDEN.npz`,
+# `... ff_operators 9 GOLDEN.npz`) and to the port's CPU run
+DSCAN_RING = 9
+DSCAN_GOLDEN = os.path.join(GOLDEN, 'dihedral_scan.npz')
+FF_OPS_GOLDEN = os.path.join(GOLDEN, 'ff_operators.npz')
+SCAN_TIE = 1e-6            # kcal/mol: a point this close to a decision is a tie
+DIMER_TIMED_STEPS = 100    # dimer steps per timing of the replayed step
+BAND_TIMED_STEPS = 200     # band steps per timing of the replayed step
+EAGER_TIMED_STEPS = 5      # steps per timing of a step queued op by op
 
 class SmokeFailure(Exception):
     pass
@@ -256,9 +278,14 @@ def phase_env():
             + ' installed, unused (the port clusters with its own cluster.py)'
     except importlib.metadata.PackageNotFoundError:
         sklearn = 'no scikit-learn (the port clusters with its own cluster.py)'
+    try:
+        mpl = 'matplotlib ' + importlib.metadata.version('matplotlib') + \
+            ' (the plots are written)'
+    except importlib.metadata.PackageNotFoundError:
+        mpl = 'no matplotlib (the plots are skipped, and logged)'
     print(f'[1 env] device {torch.cuda.get_device_name(0)} | nvidia-smi: '
           f'{card} | torch {torch.__version__} | cuda {torch.version.cuda} '
-          f'| networkx {networkx.__version__} | {sklearn} | python '
+          f'| networkx {networkx.__version__} | {sklearn} | {mpl} | python '
           f'{sys.version.split()[0]}')
     return card
 
@@ -2607,6 +2634,235 @@ def phase_search_string(card):
     return k1, k1_err, rec
 
 
+def golden_record(path):
+    '''A force-field route's JAX x64 record as ff_records gives it, from
+    its .npz (counts as JSON under `record`, the arrays beside them).'''
+    g = np.load(path)
+    rec = json.loads(str(g['record']))
+    rec['arrays'] = {k: g[k] for k in g.files if k != 'record'}
+    return rec
+
+
+def held_records(what, got, want):
+    '''ff_records records equal in every count and index, arrays within
+    ff_records.FF_ATOL: the largest array difference, or a failure.'''
+    from tscode_tpu_torch import ff_records
+    try:
+        return ff_records.same_records(got, want)
+    except AssertionError as e:
+        raise SmokeFailure(f'{what}: {e}') from e
+
+
+def scan_ties(rec, tie=SCAN_TIE):
+    '''Energies of a dihedral-scan record within `tie` kcal/mol of a
+    decision: of the peak window (e_min + 5, e_min + 75), of a
+    neighbour or window comparison of the peak rule, and, in the
+    accurate re-scans, of the ad libitum stop (crest - last > 1, last <
+    first, last - min > 50) at every length from 20 points.'''
+    e, sizes, peaks = (rec['arrays']['sweep_energies'], rec['sweeps'],
+                       rec['peaks'])
+    near = 0
+    i = pos = 0
+    while i < len(sizes):
+        n_acc = len(peaks[i])
+        sweeps = []
+        for size in sizes[i:i + 1 + n_acc]:
+            sweeps.append(e[pos:pos + size])
+            pos += size
+        e_min = sweeps[0].min()
+        for m, sw in enumerate(sweeps):
+            gaps = [sw - e_min - 5.0, sw - e_min - 75.0, np.diff(sw),
+                    sw[2:] - sw[:-2], sw[-1:] - sw[:1]]
+            if m:
+                for k in range(20, len(sw) + 1):
+                    pre = sw[:k]
+                    gaps.append(np.array([pre.max() - pre[-1] - 1.0,
+                                          pre[-1] - pre[0],
+                                          pre[-1] - pre.min() - 50.0]))
+            near += int(sum(np.sum(np.abs(g) < tie) for g in gaps))
+        i += 1 + n_acc
+    return near
+
+
+def ff_step_times(card, guess, chain, atomnos):
+    '''The dimer step on `guess` and the climbing band step on `chain`
+    (force field of the ring from guess, float64 on the card), each
+    replayed from its CUDA graph and queued op by op (CUDA events around
+    the steps after a warm-up; kernels a step from the profiler), and one
+    Hessian with its eigensolve (vibrations.frequencies). Returns the
+    record, ms.'''
+    import torch
+    from tscode_tpu_torch import neb, optimizers, saddle, vibrations
+    from tscode_tpu_torch.ff import build_ff_params, ff_energy, params_to_device
+    from tscode_tpu_torch.graphs import graphize
+    params = params_to_device(build_ff_params(guess, atomnos,
+                                              graphize(guess, atomnos)),
+                              DEV, torch.float64)
+    x = torch.as_tensor(guess, dtype=torch.float64, device=DEV)
+    dimer = saddle._dimer_step(ff_energy, 12, 1e-3, 0.02, 0.05)
+    d_state = (x, saddle.dimer_start(x), torch.zeros((), dtype=torch.bool,
+                                                      device=DEV))
+    c = torch.as_tensor(chain, dtype=torch.float64, device=DEV)
+    b_state, dt0 = neb._band_state(c, 0.01)
+    band = neb._band_body(ff_energy, 1.0, 0.05, True)
+    d_args, b_args = (params,), (dt0, (params,))
+
+    def replayed(body, state, args, n):
+        optimizers.graph_loop(body, state, args, n)
+        return cuda_ms(lambda: optimizers.graph_loop(
+            body, state, args, n), reps=1) / n
+
+    def eager(body, state, args, n=EAGER_TIMED_STEPS):
+        def run():
+            st = state
+            for _ in range(n):
+                st = body(st, args)
+        ms = cuda_ms(run, reps=1) / n
+        _, _, launches = profiled(run)
+        return ms, None if launches is None else launches / n
+
+    rec = {'dimer_step_graph_ms': replayed(dimer, d_state, d_args,
+                                           DIMER_TIMED_STEPS),
+           'band_step_graph_ms': replayed(band, b_state, b_args,
+                                          BAND_TIMED_STEPS)}
+    rec['dimer_step_eager_ms'], rec['dimer_kernels_a_step'] = \
+        eager(dimer, d_state, d_args)
+    rec['band_step_eager_ms'], rec['band_kernels_a_step'] = \
+        eager(band, b_state, b_args)
+    rec['hessian_eigensolve_ms'] = cuda_ms(lambda: vibrations.frequencies(
+        guess, atomnos, lambda y: ff_energy(y, params), device=DEV), reps=3)
+    print(f'[18 dihedral_scan] step times, float64, {len(atomnos)} atoms: '
+          f'dimer step replayed {rec["dimer_step_graph_ms"]:.3f} ms, op by '
+          f'op {rec["dimer_step_eager_ms"]:.3f} ms '
+          f'({rec["dimer_kernels_a_step"]} kernels a step); NEB band step '
+          f'({len(chain)} images, climbing) replayed '
+          f'{rec["band_step_graph_ms"]:.3f} ms, op by op '
+          f'{rec["band_step_eager_ms"]:.3f} ms '
+          f'({rec["band_kernels_a_step"]} kernels a step); Hessian + '
+          f'eigensolve {rec["hessian_eigensolve_ms"]:.3f} ms [{card}]')
+    return rec
+
+
+def phase_dihedral_scan(card):
+    '''Phase 18: the atropisomer route at full size, float64 on the
+    card: `SADDLE` + scan> of the ring torsion C3-C4-C5-C6 of the
+    DSCAN_RING-carbon chlorocycloalkane through the Embedder (both coarse
+    sweeps, the accurate re-scans of their peaks, the dimer on every
+    sub-peak, the RMSD prune of the maxima with K3; then, apart from the
+    route, the frequencies of each refined maximum). Held to the JAX x64
+    record (every sweep's points,
+    peaks and sub-peaks, dimer flags, imaginary-mode counts and surviving
+    maxima equal; frames within ff_records.FF_ATOL A, energies within
+    as many kcal/mol) and to the port's CPU run; K3 against its plain twin on
+    the maxima pool. Returns (K3's launches, largest K3 disagreement,
+    record).'''
+    import tempfile
+    from tscode_tpu_torch.ops import rmsd_prune
+    from tscode_tpu_torch.ops.kernels import qcp
+    from tscode_tpu_torch.suite_inputs import chlorocycloalkane
+    from tscode_tpu_torch.ff_records import port_package, record
+    want = golden_record(DSCAN_GOLDEN)
+    ties = scan_ties(want)
+    pools = []
+    prune = rmsd_prune.prune_conformers_rmsd
+
+    def kept_pool(structures, atomnos, *args, **kw):
+        pools.append(np.array(structures))
+        return prune(structures, atomnos, *args, **kw)
+
+    with tempfile.TemporaryDirectory(prefix='smoke_scan_') as tmp:
+        for d in ('card', 'cpu'):
+            os.mkdir(os.path.join(tmp, d))
+        rmsd_prune.prune_conformers_rmsd = kept_pool
+        qcp.KERNEL.reset_counts()
+        try:
+            got = record(port_package(DEV), 'dihedral_scan', DSCAN_RING,
+                         os.path.join(tmp, 'card'))
+            launches = qcp.KERNEL.launches
+            cpu = record(port_package('cpu'), 'dihedral_scan', DSCAN_RING,
+                         os.path.join(tmp, 'cpu'))
+        finally:
+            rmsd_prune.prune_conformers_rmsd = prune
+    err = held_records('dihedral_scan float64 against JAX x64', got, want)
+    cpu_err = held_records('dihedral_scan card against CPU', got, cpu)
+    check(launches > 0 and len(pools) == 2 and len(pools[0]) > 1,
+          f'dihedral_scan: K3 launched {launches} times on pools of '
+          f'{[len(p) for p in pools]} maxima')
+    _, atomnos = chlorocycloalkane(DSCAN_RING)
+    recs, kept, k3_err, marked, _ = refine_k3_passes(
+        card, pools[0], atomnos != 1, 'dihedral_scan maxima')
+    check(kept == got['maxima'], f'dihedral_scan: K3 keeps {kept} of the '
+          f'pool, the route {got["maxima"]}')
+    times = got['times']
+    points = sum(got['sweeps'])
+    rec = {'points': points, 'sweeps': got['sweeps'],
+           'run_s': got['seconds'], 'scan_s': times['dihedral_scan'][0],
+           'sweeps_s': sum(times['_dihedral_sweep']),
+           'point_ms': 1e3 * sum(times['_dihedral_sweep']) / points,
+           'dimer_s': times['saddle_refine_structure'],
+           'frequencies_s': times['frequencies'],
+           'cpu_scan_s': cpu['seconds'], 'k3_launches': launches,
+           'k3_passes': recs, 'ties': ties}
+    rec.update(ff_step_times(card, want['arrays']['saddle_guess'][0],
+                             golden_record(FF_OPS_GOLDEN)['arrays'][
+                                 'neb_frames'][0], atomnos))
+    print(f'[18 dihedral_scan] float64, ring of {DSCAN_RING} carbons '
+          f'({len(atomnos)} atoms): sweeps {got["sweeps"]}, peaks '
+          f'{got["peaks"]}, dimers converged {got["saddle_converged"]}, '
+          f'imaginary modes {got["n_imag"]}, {got["maxima"]} maxima after '
+          f'the prune: the JAX x64 record (largest difference {err:.2e}; '
+          f'card against CPU {cpu_err:.2e}; {ties} points within '
+          f'{SCAN_TIE} kcal/mol of a decision); K3 {launches} launches, '
+          f'{marked} pairs near the threshold; run {got["seconds"]:.2f} s, '
+          f'scan {rec["scan_s"]:.2f} s: sweeps {rec["sweeps_s"]:.2f} s '
+          f'({points} points, {rec["point_ms"]:.1f} ms a point), dimers '
+          f'{", ".join(f"{t:.3f}" for t in rec["dimer_s"])} s; after the '
+          f'route, frequencies '
+          f'{", ".join(f"{t:.3f}" for t in rec["frequencies_s"])} s; the '
+          f'CPU run {cpu["seconds"]:.2f} s [{card}]')
+    return launches, k3_err, rec
+
+
+def phase_ff_operators(card):
+    '''Phase 19: neb> (the scan's first point and the point 120
+    degrees on, 7 images, climbing), saddle> (the scan's highest coarse
+    point) and scan> of the C0-Cl distance on the same ring, one input,
+    float64 on the card, their inputs from the JAX x64 dihedral-scan
+    record: held to the JAX x64 record (the TS image, the dimer's flag,
+    its imaginary modes, the distance scan's points and peak equal;
+    frames within ff_records.FF_ATOL A, energies within as many kcal/mol)
+    and to
+    the port's CPU run. Returns the record.'''
+    import tempfile
+    from tscode_tpu_torch.ff_records import port_package, record
+    scan = golden_record(DSCAN_GOLDEN)
+    want = golden_record(FF_OPS_GOLDEN)
+    with tempfile.TemporaryDirectory(prefix='smoke_ffops_') as tmp:
+        for d in ('card', 'cpu'):
+            os.mkdir(os.path.join(tmp, d))
+        got = record(port_package(DEV), 'ff_operators', DSCAN_RING,
+                     os.path.join(tmp, 'card'), scan)
+        cpu = record(port_package('cpu'), 'ff_operators', DSCAN_RING,
+                     os.path.join(tmp, 'cpu'), scan)
+    err = held_records('ff_operators float64 against JAX x64', got, want)
+    cpu_err = held_records('ff_operators card against CPU', got, cpu)
+    times = got['times']
+    rec = {'neb_s': times['run_neb'][0],
+           'saddle_s': times['saddle_refine_structure'][0],
+           'distance_s': times['distance_scan'][0],
+           'distance_points': got['distance_points'],
+           'cpu_s': cpu['seconds']}
+    print(f'[19 ff_operators] float64: neb> TS image {got["neb_ts"]} '
+          f'({rec["neb_s"]:.3f} s), saddle> converged '
+          f'{got["saddle_converged"]} with {got["n_imag"]} imaginary modes '
+          f'({rec["saddle_s"]:.3f} s), distance scan {got["distance_points"]}'
+          f' points, peak {got["distance_peak"]} ({rec["distance_s"]:.3f} s)'
+          f': the JAX x64 record (largest difference {err:.2e}; card '
+          f'against CPU {cpu_err:.2e}); the CPU run {cpu["seconds"]:.2f} s '
+          f'[{card}]')
+    return rec
+
+
 def qcp_plan_sweep(card, out):
     '''K3's launch plans timed at every headline pass in float32 and on
     the long chunks (the measurement behind qcp.launch_plan): each
@@ -2705,6 +2961,14 @@ def main():
         phase_build()
         cyclical_profile(card, sys.argv[2])
         return
+    if sys.argv[1:2] == ['--scans']:         # phases 18 and 19 alone
+        phase_build()
+        _, _, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
+                                 card)
+        ops = timed_phase('19 ff_operators', phase_ff_operators, card)
+        print(json.dumps({'ff_routes': {'dihedral_scan': scan,
+                                        'ff_operators': ops}}))
+        return
     if sys.argv[1:2] == ['--search']:        # phases 16 and 17 alone
         phase_build()
         drive = timed_phase('16 torsion_drive', phase_torsion_drive, card)
@@ -2756,15 +3020,18 @@ def main():
                                     card)
     k1_17, e17, backoff = timed_phase('17 csearch_string',
                                       phase_search_string, card)
+    k3_18, e18, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
+                                   card)
+    ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
         k1_16 + k1_17
     kernels[0]['torsion_backoff'] = {'torsion_drive': drive,
                                      'csearch_string': backoff}
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
-    kernels[1]['launches'] += k3
-    kernels[1]['passes'] += recs9
+    kernels[1]['launches'] += k3 + k3_18
+    kernels[1]['passes'] += recs9 + scan['k3_passes']
     errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e16, e17)
-    errs['qcp_kill'] = max(errs['qcp_kill'], e9)
+    errs['qcp_kill'] = max(errs['qcp_kill'], e9, e18)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check(k2_10 > 0 and k2_11 > 0 and k2_15 > 0, f'K2 launches: multiembed '
@@ -2789,6 +3056,9 @@ def main():
     print(f'[done] {time.perf_counter() - t0:.1f} s')
     print(f'nvidia-smi: {card}')
     print(json.dumps({'bending': {'fire': fire, 'trimolecular': bend14}}))
+    print(json.dumps({'ff_routes': {
+        'dihedral_scan': {k: v for k, v in scan.items() if k != 'k3_passes'},
+        'ff_operators': ops}}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -576,3 +576,117 @@ def test_backoff_on_card_matches_cpu(cuda_device):
     assert torch.equal(got_n.cpu(), want_n)
     assert float((got.cpu() - want).abs().max()) <= 1e-9
     assert 0 < int((want_n < len(tors)).sum()) < len(angles)
+
+
+def formic_conformers(n=5, seed=2):
+    '''HCOOH with its O-H turned about the C-O bond from 0 to 180
+    degrees in n steps, each jittered by 0.05 A, and its atomic numbers.'''
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    from tscode_tpu_torch.rot_rmsd import _rotate
+    mol = read_xyz(os.path.join(FIXTURE_DIR, 'HCOOH.xyz'))
+    mask = np.zeros(5, dtype=bool)
+    mask[4] = True
+    rng = np.random.default_rng(seed)
+    confs = np.array([_rotate(mol.atomcoords[0], (1, 0, 3, 4), a, mask)
+                      for a in np.linspace(0, 180, n)])
+    return confs + rng.normal(size=confs.shape) * 0.05, mol.atomnos
+
+
+def test_dimer_on_card_matches_cpu(cuda_device):
+    '''The dimer's 300 steps replayed from one CUDA graph (18 Hessian
+    actions and a force a step) on a jittered HCOOH, against the CPU's op
+    by op run, float64: coordinates within 1e-6 A, energy within 1e-6
+    kcal/mol, the same flag; a second structure of the same shape reuses
+    the captured step.'''
+    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.saddle import saddle_refine_structure
+    confs, nos = formic_conformers()
+    out = {}
+    for key, x in (('first', confs[1]), ('second', confs[3])):
+        for device in ('cpu', cuda_device):
+            out[key, str(device)] = saddle_refine_structure(
+                x, nos, graphize(confs[0], nos), device=device)
+        if key == 'first':
+            graphs = len(optimizers._graphs)
+    assert len(optimizers._graphs) == graphs
+    for key in ('first', 'second'):
+        (c, e, done), (cc, ce, cdone) = out[key, 'cpu'], \
+            out[key, str(cuda_device)]
+        assert np.abs(cc - c).max() <= 1e-6 and abs(ce - e) <= 1e-6
+        assert cdone == done
+
+
+def test_neb_on_card_matches_cpu(cuda_device):
+    '''run_neb between two HCOOH conformers (IDPP band of 7 images, 400
+    plain then 400 climbing steps, each phase one captured band step
+    replayed) against the CPU run, float64: band within 1e-6 A, energies
+    within 1e-6 kcal/mol, the same TS image. A second run of the same
+    shapes, after the memory the first one let go has been refilled
+    with NaN, replays the cached graphs and must agree as well.'''
+    import torch
+    from tscode_tpu_torch import ff, optimizers
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.neb import run_neb
+    confs, nos = formic_conformers()
+    params = ff.build_ff_params(confs[0], nos, graphize(confs[0], nos))
+
+    def neb(device):
+        return run_neb(confs[0], confs[-1], ff.ff_energy, device=device,
+                       energy_args=(ff.params_to_device(params, device,
+                                                        torch.float64),))
+    want = neb('cpu')
+    first = neb(cuda_device)
+    graphs = len(optimizers._graphs)
+    junk = [torch.full((n,), float('nan'), dtype=torch.float64,
+                       device=cuda_device) for n in range(1, 2000)]
+    second = neb(cuda_device)
+    del junk
+    assert len(optimizers._graphs) == graphs
+    c, e, ts = want
+    for cc, ce, cts in (first, second):
+        assert np.abs(cc - c).max() <= 1e-6
+        assert np.abs(ce - e).max() <= 1e-6 and cts == ts
+
+
+def test_hessian_on_card_matches_cpu(cuda_device):
+    '''Force-field frequencies (torch.func.hessian, Eckart projection,
+    eigvalsh) of one jittered HCOOH and of a batch of five, on the card
+    against the CPU, float64: within 1e-9 relative, the same imaginary
+    modes.'''
+    import torch
+    from tscode_tpu_torch import ff, vibrations
+    from tscode_tpu_torch.graphs import graphize
+    confs, nos = formic_conformers()
+    params = ff.build_ff_params(confs[0], nos, graphize(confs[0], nos))
+    out = {}
+    for device in ('cpu', cuda_device):
+        p = ff.params_to_device(params, device, torch.float64)
+
+        def energy(c, p=p):
+            return ff.ff_energy(c, p)
+        out[str(device)] = (
+            vibrations.frequencies(confs[2], nos, energy, device=device),
+            vibrations.frequencies_batch(confs, nos, energy, device=device))
+    (one, batch), (cone, cbatch) = out['cpu'], out[str(cuda_device)]
+    np.testing.assert_allclose(cone[0], one[0], rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(cbatch[0], batch[0], rtol=1e-9, atol=1e-9)
+    assert cone[1] == one[1]
+    np.testing.assert_array_equal(cbatch[1], batch[1])
+
+
+def test_ring_scan_on_card_matches_cpu(cuda_device, tmp_path):
+    '''chip_smoke.py phase 18's route on the six-carbon ring (SADDLE
+    dihedral scan through the Embedder: sweeps, peaks, the dimer, K3 on
+    the maxima, frequencies) on the card against the CPU, float64: every
+    count equal, frames and energies within 1e-6.'''
+    from test_torch_suite_counts import ff_counts, same_ff_records
+    for d in ('cpu', 'card'):
+        (tmp_path / d).mkdir()
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = ff_counts('port', 'dihedral_scan', 6, str(tmp_path / 'cpu'))
+        got = ff_counts('port', 'dihedral_scan', 6, str(tmp_path / 'card'),
+                        device=cuda_device)
+    assert want['maxima'] >= 1
+    same_ff_records(got, want)

@@ -4,6 +4,8 @@ and CLI against the JAX package's on the same input files (the written
 not run yet raising NotImplementedError before any embed work, while
 the bending routes are set up as the JAX package sets them up.'''
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -102,19 +104,37 @@ def test_resume_after_the_prunes(tmp_path):
 
 @pytest.mark.parametrize('content,files,item', [
     ('C2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
-     'items 13 and 15'),                                      # optimisation
+     'item 15b'),                                             # optimisation
     ('NOOPT\nopt> C2H4.xyz 0\nCH3Cl.xyz 0\n',
      ('C2H4.xyz', 'CH3Cl.xyz'), 'item 15'),                   # operators
     ('SADDLE\nC2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
-     'item 15'),                                              # saddle
+     'item 15b'),                                             # saddle
+    ('TS\nC2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
+     'item 15b'),                                             # TS
+    ('SADDLE\nscan> C2F2H4.xyz 3 0 1 5\n', ('C2F2H4.xyz',),
+     None),                                                   # a data run
 ])
 def test_unported_routes_raise_before_the_embed(tmp_path, content, files,
                                                 item):
+    '''Optimisation, an unported operator, SADDLE and TS on an embed
+    run raise their ROADMAP item before any embed work; a data run
+    (scan> here) optimises nothing, so SADDLE without NOOPT passes and
+    the run ends with its data.'''
     write_input(tmp_path, content, files)
     cwd = os.getcwd()
     try:
-        with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
-            Embedder(str(tmp_path / 'input.txt'), stamp='np', device='cpu')
+        if item is None:
+            with contextlib.redirect_stdout(io.StringIO()):
+                emb = Embedder(str(tmp_path / 'input.txt'), stamp='np',
+                               device='cpu')
+                emb.run()
+            assert emb.embed == 'data'
+            assert (tmp_path / 'C2F2H4_torsion_scan_clockwise.xyz').exists()
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f'ROADMAP.md {item}'):
+                Embedder(str(tmp_path / 'input.txt'), stamp='np',
+                         device='cpu')
     finally:
         os.chdir(cwd)
     assert not list(tmp_path.glob('tscode_embedded_*.xyz'))

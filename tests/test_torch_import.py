@@ -327,3 +327,42 @@ def test_native_builds_under_build_and_matches_numpy(monkeypatch):
     want = tfd.is_new_structure_lru(fps, accept, 10.0)
     np.testing.assert_array_equal(got, want)
     assert 12 <= int(want.sum()) < int(accept.sum())
+
+
+def test_cli_force_field_operators_import_no_jax(tmp_path):
+    '''The data operators on the internal force field through the CLI
+    with --device cpu in a fresh interpreter, one input line each
+    (neb> on two HCOOH conformers, saddle> on HCOOH, scan> of the F-C-C-F
+    torsion of C2F2H4 and of the O...H distance of HCOOH): every output
+    is written, and neither jax, a module of the JAX package nor
+    scikit-learn is imported.'''
+    import shutil
+    from tscode_tpu_torch.io_xyz import read_xyz, write_xyz
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    for name in ('HCOOH.xyz', 'C2F2H4.xyz'):
+        shutil.copy(os.path.join(FIXTURE_DIR, name), tmp_path)
+    mol = read_xyz(os.path.join(FIXTURE_DIR, 'HCOOH.xyz'))
+    rng = np.random.default_rng(1)
+    with open(tmp_path / 'pair.xyz', 'w') as f:
+        for _ in range(2):
+            write_xyz(mol.atomcoords[0] + rng.normal(size=(5, 3)) * 0.1,
+                      mol.atomnos, f, title='conf')
+    (tmp_path / 'input.txt').write_text(
+        'NOOPT\nneb> pair.xyz\nsaddle> HCOOH.xyz\nscan> C2F2H4.xyz 3 0 1 5\n'
+        'scan> HCOOH.xyz 1 4\n')
+    code = (
+        'import sys\n'
+        'from tscode_tpu_torch.__main__ import main\n'
+        'assert main(["input.txt", "--device", "cpu", "-n", "ff"]) == 0\n'
+        + NO_JAX_PACKAGE +
+        'for m in ("neb", "saddle", "scans"):\n'
+        '    assert "tscode_tpu_torch." + m in sys.modules, m\n'
+        'print("NOJAX_OK")\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'NOJAX_OK' in r.stdout
+    for name in ('pair_MEP.xyz', 'pair_NEB_TS.xyz', 'HCOOH_saddle.xyz',
+                 'C2F2H4_torsion_scan_clockwise.xyz', 'HCOOH_scan.xyz'):
+        assert (tmp_path / name).exists(), name

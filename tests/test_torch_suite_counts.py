@@ -18,10 +18,24 @@ novelty replay of the survivors without them (`replay`), which both
 packages must give exactly; its novel and final counts agree within
 10%.
 
+The force-field routes are recorded the same way (`ff_counts`, both
+packages, through tscode_tpu_torch.ff_records, which chip_smoke.py runs
+on the card): `dihedral_scan`
+(the SADDLE dihedral scan of a chlorocycloalkane ring, its third argument
+the ring's carbons) gives every sweep's points, the peaks and sub-peaks,
+each dimer's flag and the surviving maxima, with the imaginary-mode
+count of every refined maximum; `ff_operators` (neb>, saddle> and a
+distance scan on the same ring, their inputs taken from the JAX run of
+the dihedral scan: its first clockwise point, the point 120 degrees on,
+the highest) gives the band's TS image, the dimer's flag and the
+distance scan's points and peak.
+
 As a script it prints the JAX package's counts and seconds of one suite
 input (written by tscode_tpu_torch.suite_inputs.config_files) as JSON,
 and with a third argument also saves the searched conformers (an .npz
-of `frames`, every search's output in order, and `sizes`):
+of `frames`, every search's output in order, and `sizes`), or for the
+force-field routes every array of the record and, as JSON text under
+`record`, its counts:
 
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py multiembed 41
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py chelotropic 62
@@ -30,6 +44,10 @@ of `frames`, every search's output in order, and `sizes`):
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py torsion_drive 8
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py csearch_string 16 \
         tests/golden/csearch_string_search.npz
+    JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py dihedral_scan 8 \
+        tests/golden/dihedral_scan.npz
+    JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py ff_operators 8 \
+        tests/golden/ff_operators.npz
 
 As a test it takes the same counts at a few conformers from both
 packages and demands that they are equal.'''
@@ -45,6 +63,8 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
+
+from tscode_tpu_torch import ff_records  # noqa: E402
 
 
 def stage_list(report):
@@ -312,11 +332,53 @@ def test_port_counts_equal_the_jax_package(tmp_path, name, n_confs):
         assert want['bends'] > 0
 
 
+def ff_counts(pkg, name, n_carbons, workdir, scan=None, device='cpu'):
+    '''tscode_tpu_torch.ff_records.record of one force-field route of
+    `pkg`: 'jax', the JAX package in float64 on the CPU, or 'port', float64
+    on `device`.'''
+    if pkg == 'port':
+        package = ff_records.port_package(device)
+    else:
+        import jax
+        jax.config.update('jax_platforms', 'cpu')
+        jax.config.update('jax_enable_x64', True)
+        from tscode_tpu import ff, neb, saddle, scans, vibrations
+        from tscode_tpu.embedder import Embedder
+
+        def frequencies(x, atomnos, graph, guess):
+            params = ff.params_to_device(ff.build_ff_params(guess, atomnos,
+                                                            graph))
+            return vibrations.frequencies(
+                x, atomnos, lambda c: ff.ff_energy(c[None], params)[0])
+
+        package = ff_records.Package(neb, saddle, scans, Embedder, {}, 'jax',
+                                     frequencies)
+    return ff_records.record(package, name, n_carbons, workdir, scan)
+
+
+same_ff_records = ff_records.same_records
+
+
 if __name__ == '__main__':
+    name, n_confs = sys.argv[1], int(sys.argv[2])
     with tempfile.TemporaryDirectory(prefix='suite_counts_') as d:
-        rec = jax_counts(sys.argv[1], int(sys.argv[2]), d)
-    frames = rec.pop('frames', [])
-    if len(sys.argv) > 3:
-        np.savez_compressed(sys.argv[3], frames=np.concatenate(frames),
-                            sizes=np.array([len(f) for f in frames]))
+        if name in ('dihedral_scan', 'ff_operators'):
+            rec = ff_counts('jax', 'dihedral_scan', n_confs, d)
+            if name == 'ff_operators':
+                os.mkdir(os.path.join(d, 'ops'))
+                rec = ff_counts('jax', name, n_confs,
+                                os.path.join(d, 'ops'), scan=rec)
+            arrays = rec.pop('arrays')
+            rec.pop('times')
+            if len(sys.argv) > 3:
+                # the counts ride along as JSON text under `record`
+                np.savez_compressed(sys.argv[3], record=json.dumps(rec),
+                                    **arrays)
+        else:
+            rec = jax_counts(name, n_confs, d)
+            frames = rec.pop('frames', [])
+            if len(sys.argv) > 3:
+                np.savez_compressed(
+                    sys.argv[3], frames=np.concatenate(frames),
+                    sizes=np.array([len(f) for f in frames]))
     print(json.dumps(rec))

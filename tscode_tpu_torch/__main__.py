@@ -12,9 +12,9 @@ import os
 import sys
 
 NOT_PORTED_FLAGS = {
-    'test': ('-t/--test (installation smoke tests, tests_install.py)', 15),
+    'test': ('-t/--test (installation smoke tests, tests_install.py)', '15b'),
     'benchmark': ('-b/--benchmark (proc/thread tuning, concurrent_test.py)',
-                  15),
+                  '15b'),
     'trace': ('--trace (device profile of the run)', 6),
 }
 

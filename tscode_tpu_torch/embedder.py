@@ -13,12 +13,14 @@ csearch_hb> and rsearch> (torsions.csearch_operator), the
 compenetration stage (kernel K2 where the fragment sizes are known),
 the fitness stage, the similarity prunes (TFD, MOI, and on the refine
 route the bucketed RMSD prune with kernel K3 and the symmetry-corrected
-RMSD prune), structure writes, the run report and resume. Every other
-route raises NotImplementedError naming its ROADMAP.md item, before any
-embed work: the other operators (where the dispatcher meets them),
-optimisation (inputs without NOOPT or BYPASS need calculators),
-SADDLE/TS, metadynamics and the csearch augmentation routine; bending
-on XTB gradients raises at the first bend.
+RMSD prune), structure writes, the run report and resume; and the data
+runs of scan>, neb>, saddle> and mep_relax> on the internal force field,
+which end with their data (data_termination). Every other route raises
+NotImplementedError naming its ROADMAP.md item, before any embed work:
+the other operators (where the dispatcher meets them), optimisation
+(inputs without NOOPT or BYPASS need calculators) and SADDLE/TS on an
+embed run, metadynamics and the csearch augmentation routine; bending,
+NEB and saddle refinement on XTB gradients raise where they start.
 
 The conformer searches draw their random numbers from `rng`, an
 np.random.RandomState given to the constructor (unseeded when none is
@@ -75,12 +77,11 @@ from tscode_tpu_torch.torsions import csearch
 
 
 def not_ported(what, item):
-    '''The error of a route this port does not run yet; `item` is a
-    ROADMAP.md item number, or a string naming several.'''
-    label = f'item {item}' if isinstance(item, int) else f'items {item}'
+    '''The error of a route this port does not run yet; `item` names a
+    ROADMAP.md item (15b).'''
     return NotImplementedError(
         f'{what} is not ported to tscode_tpu_torch yet (ROADMAP.md '
-        f'{label}); run it with the JAX package: python -m tscode_tpu')
+        f'item {item}); run it with the JAX package: python -m tscode_tpu')
 
 
 class Embedder:
@@ -383,22 +384,35 @@ class Embedder:
                 f'Error in reading keywords from {filename}. '
                 f'Please check your syntax.')
 
+    # operators whose run ends with their data: _setup routes the run
+    # to data_termination and nothing is embedded or optimised
+    DATA_OPERATORS = ('pka>', 'scan>', 'neb>', 'saddle>', 'mep_relax>',
+                      'automep>')
+
+    def _data_run(self):
+        return any(tag in op for op in self.options.operators
+                   for tag in self.DATA_OPERATORS)
+
     def _check_ported_options(self):
         '''Keywords whose stages this port does not run raise here,
-        before any embed work.'''
+        before any embed work. A data run (scan>, neb>, saddle>,
+        mep_relax>) optimises nothing, so SADDLE/TS and the absence of
+        NOOPT pass there.'''
         o = self.options
-        if o.saddle:
-            raise not_ported('SADDLE/TS saddle refinement', 15)
+        data = self._data_run()
+        if o.saddle and not data:
+            raise not_ported('SADDLE/TS saddle refinement of the embedded '
+                             'candidates', '15b')
         if o.metadynamics:
-            raise not_ported('MTD metadynamics augmentation', 15)
+            raise not_ported('MTD metadynamics augmentation', '15b')
         if o.csearch_aug:
             raise not_ported('The csearch augmentation routine (it '
-                             'alternates with force-field refining)', 15)
-        if o.optimization:
+                             'alternates with force-field refining)', '15b')
+        if o.optimization and not data:
             raise not_ported(
                 'Optimisation of the candidates (an input without NOOPT '
                 'or BYPASS needs the force-field and calculator layers)',
-                '13 and 15')
+                '15b')
 
     def _calculator_setup(self):
         if self.options.theory_level is None and self.options.calculator:
@@ -487,6 +501,12 @@ class Embedder:
 
     def _setup(self, p=True):
         '''Embed-type decision, angle grids, orbitals and pivots.'''
+        if self._data_run():
+            # these operators already ran in _apply_operators and the run
+            # terminates with their data
+            self.embed = 'data'
+            return
+
         if any('refine>' in op for op in self.options.operators) or \
                 self.options.noembed:
             self.embed = 'refine'
@@ -1109,7 +1129,7 @@ class RunEmbedding(Embedder):
         every candidate, then the similarity prunes without RMSD
         (reference embedder.py:1893-1948). The routine that alternates it
         with force-field refining (csearch_augmentation_routine) needs
-        item 15.'''
+        item 15b.'''
         self.log(f'--> Performing conformational augmentation of TS '
                  f'candidates {text}')
         before = len(self.structures)
@@ -1224,7 +1244,7 @@ class RunEmbedding(Embedder):
                 f'match this input ({self.embed!r}).')
         if state['stage'] not in self.RESUME_STAGES:
             raise not_ported(f'Resuming after stage {state["stage"]!r} '
-                             f'(optimisation)', '13 and 15')
+                             f'(optimisation)', '15b')
         self.structures = state['structures']
         self.constrained_indices = state['constrained_indices']
         self.atomnos = state['atomnos']
@@ -1265,6 +1285,10 @@ class RunEmbedding(Embedder):
         if self.embed == 'error':
             self.log('--> Embed type not recognized, exiting.\n')
             self.normal_termination()
+            return
+
+        if self.embed == 'data':
+            self.data_termination()
             return
 
         if self.embed in ('cyclical', 'chelotropic') and \
@@ -1322,3 +1346,40 @@ class RunEmbedding(Embedder):
 
         self.log_warnings()
         self.normal_termination()
+
+    def data_termination(self):
+        '''scan>, neb>, saddle> and mep_relax> runs show their data
+        instead of embedding: two or more scan> molecules also get the
+        cumulative scan plot.'''
+        # per-molecule operator names only (the full input lines in
+        # options.operators would double-count and match filenames)
+        ops = [op.split('>')[0].strip()
+               for mol_ops in self.options.operators_dict.values()
+               for op in mol_ops]
+        if len([op for op in ops if op == 'scan']) > 1:
+            self.scan_termination()
+        self.log('--> Data run (pka>/scan>) complete.\n')
+        self.normal_termination()
+
+    def scan_termination(self):
+        '''Cumulative plot of the distance scans of every scan>
+        molecule (where matplotlib is installed).'''
+        from tscode_tpu_torch.utils import pyplot
+        name = f'{self.stamp}_cumulative_plt.svg'
+        plt = pyplot()
+        if plt is None:
+            self.log(f'\n--> matplotlib is not installed: skipped the '
+                     f'cumulative scan plot {name}')
+            return
+        plt.figure()
+        for mol in self.objects:
+            if hasattr(mol, 'scan_data'):
+                plt.plot(*mol.scan_data, label=mol.rootname)
+        plt.legend()
+        plt.title('Unified scan energetics')
+        plt.xlabel('Distance (A)')
+        plt.gca().invert_xaxis()
+        plt.ylabel('Rel. E. (kcal/mol)')
+        plt.savefig(name)
+        plt.close()
+        self.log(f'\n--> Written cumulative scan plot at {name}')

@@ -202,6 +202,19 @@ def params_to_device(params, device, dtype):
             index(params.dihedrals), value(params.dihedral_t0))
 
 
+def molecule_params(mol, device):
+    '''The force-field tables of a Molecule's topology, from its first
+    conformer, float64 on `device` (params_to_device's tuple), built
+    once and kept on the molecule: the scan points, the NEB of a
+    sub-peak and the neb> operator share them.'''
+    params = getattr(mol, '_ff_params_dev', None)
+    if params is None or params[0].device.type != torch.device(device).type:
+        params = params_to_device(build_ff_params(
+            mol.atomcoords[0], mol.atomnos, mol.graph), device, torch.float64)
+        mol._ff_params_dev = params
+    return params
+
+
 def merge_ff_params(params_list, offsets):
     '''Concatenate per-molecule FF params into one multimolecular set
     (indices shifted by each molecule's atom offset).'''

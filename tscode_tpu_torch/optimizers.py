@@ -1,7 +1,7 @@
 '''
 Batched first-order geometry optimisation (counterpart of
 tscode_tpu/optimizers.py, and of the two FIRE helpers of tscode_tpu/neb.py
-that the bend's external-gradient relaxation uses).
+that the band and the bend's external-gradient relaxation use).
 
 `fire_minimize_batch` advances every structure of a batch at once with
 per-structure adaptive time steps, any differentiable energy function
@@ -14,12 +14,15 @@ On the CPU the steps run one after the other as they are written
 captured once per problem shape in a CUDA graph and replayed
 (`fire_run_graph`): a step is some two hundred small launches, and a
 relaxation of one conformer is bound by their enqueue time otherwise.
+`graph_loop` captures and keeps such loop bodies; the dimer step
+(saddle.py) and the NEB band step (neb.py) run through it too.
 
 The sharded form (one slice of the batch per device) is not ported
 (ROADMAP.md item 16).
 '''
 
 from collections import OrderedDict
+import types
 
 import numpy as np
 import torch
@@ -155,47 +158,43 @@ def _tensors(tree):
     return [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
 
 
-class StepGraph:
-    '''One FIRE step (forces by autograd, then fire_step) captured in a
-    CUDA graph over tensors of its own: the state, the energy arguments
-    and the freeze mask. run() copies a problem of the captured shapes
-    in, replays the step and returns the state.'''
+class GraphLoop:
+    '''A loop body `body(state, args) -> state` (state a tuple of
+    tensors, args a tree of tensors and constants; the new state has the
+    old one's shapes and dtypes) captured once in a CUDA graph over
+    tensors of its own. run() copies a problem of the captured shapes
+    in, replays the body n_steps times and returns the state. The body
+    is kept as long as its graph, and with it whatever its closure
+    holds.'''
 
-    def __init__(self, coords, energy_fn, dt0, fmax, freeze_mask,
-                 energy_args):
-        self.dt0 = dt0
-        self.args = _map_tensors(energy_args, torch.clone)
-        self.freeze = None if freeze_mask is None else freeze_mask.clone()
-        self.state = fire_init(coords, dt0)
+    def __init__(self, body, state, args):
+        self.body = body
+        self.state = tuple(s.clone() for s in state)
+        self.args = _map_tensors(args, torch.clone)
+        device = self.state[0].device
 
         def step():
-            f = forces(self.state[0], energy_fn, self.args, self.freeze)
-            for old, new in zip(self.state,
-                                fire_step(self.state, f, dt0, fmax)):
+            for old, new in zip(self.state, body(self.state, self.args)):
                 old.copy_(new)
 
         # warm up on a side stream, as graph capture asks
-        side = torch.cuda.Stream(device=coords.device)
-        side.wait_stream(torch.cuda.current_stream(coords.device))
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(3):
                 step()
-        torch.cuda.current_stream(coords.device).wait_stream(side)
+        torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             step()
-        self.replays = 0
 
-    def run(self, coords, n_steps, freeze_mask, energy_args):
-        for own, new in zip(_tensors(self.args), _tensors(energy_args)):
+    def run(self, state, args, n_steps):
+        for own, new in zip(_tensors(self.args), _tensors(args)):
             own.copy_(new)
-        if self.freeze is not None:
-            self.freeze.copy_(freeze_mask)
-        for own, new in zip(self.state, fire_init(coords, self.dt0)):
+        for own, new in zip(self.state, state):
             own.copy_(new)
         for _ in range(n_steps):
             self.graph.replay()
-        self.replays += n_steps
         return tuple(s.clone() for s in self.state)
 
 
@@ -206,26 +205,62 @@ def _signature(t):
     return (tuple(t.shape), t.dtype)
 
 
-def fire_run_graph(coords, energy_fn, n_steps, dt0, fmax, freeze_mask,
-                   energy_args):
-    '''fire_run_eager on a CUDA device with the step replayed from a
-    CUDA graph. A graph is captured for each (energy function, device,
-    shapes and dtypes of the coordinates, the energy arguments and the
-    freeze mask, the arguments that are no tensors, which the capture
-    holds as constants, dt0, fmax) and kept for later calls.'''
-    key = (energy_fn, coords.device, _signature(coords), float(dt0),
-           float(fmax),
-           None if freeze_mask is None else _signature(freeze_mask),
-           tuple(_signature(x) if isinstance(x, torch.Tensor) else x
-                 for x in _leaves(energy_args)))
-    graph = _graphs.pop(key, None)
+def body_key(value):
+    '''What a loop body computes, as a key of its captured graph: a
+    function as its code, its defaults and, recursively, the values its
+    closure holds (so the bodies that one factory makes on equal
+    constants share a graph); a tuple or list item by item; anything
+    else as itself. A body reads tensors only through its state and
+    args: a graph replays the addresses it captured, so a tensor that a
+    closure or a default holds would be read from wherever its memory
+    has gone once the caller lets it go, and a new value of it would
+    never reach the graph. Such a body raises TypeError.'''
+    if isinstance(value, torch.Tensor):
+        raise TypeError(
+            'a captured loop body reads tensors through its state and '
+            'args only, not through its closure or defaults')
+    if isinstance(value, (tuple, list)):
+        return tuple(body_key(x) for x in value)
+    if isinstance(value, types.FunctionType):
+        return (value.__code__, body_key(value.__defaults__ or ()),
+                tuple(body_key(c.cell_contents)
+                      for c in value.__closure__ or ()))
+    return value
+
+
+def graph_loop(body, state, args, n_steps):
+    '''The state after n_steps calls of body(state, args), replayed
+    from a CUDA graph. The body reads tensors through state and args
+    only; its closure holds constants (numbers, flags, functions). A
+    graph is captured for each (body_key(body), device, shapes and
+    dtypes of the state and of the tensors of args, the leaves of args
+    that are no tensors, which the capture holds as constants) and kept
+    for later calls.'''
+    full = (body_key(body), state[0].device,
+            tuple(_signature(s) for s in state),
+            tuple(_signature(x) if isinstance(x, torch.Tensor) else x
+                  for x in _leaves(args)))
+    graph = _graphs.pop(full, None)
     if graph is None:
-        graph = StepGraph(coords, energy_fn, float(dt0), float(fmax),
-                          freeze_mask, energy_args)
+        graph = GraphLoop(body, state, args)
         while len(_graphs) >= GRAPH_CACHE:
             _graphs.popitem(last=False)
-    _graphs[key] = graph
-    return graph.run(coords, n_steps, freeze_mask, energy_args)
+    _graphs[full] = graph
+    return graph.run(state, args, n_steps)
+
+
+def fire_run_graph(coords, energy_fn, n_steps, dt0, fmax, freeze_mask,
+                   energy_args):
+    '''fire_run_eager on a CUDA device with the step (forces by
+    autograd, then fire_step) replayed from a CUDA graph (graph_loop),
+    one graph for each energy function, dt0, fmax and shapes.'''
+    def body(state, args):
+        energy_args, freeze = args
+        f = forces(state[0], energy_fn, energy_args, freeze)
+        return fire_step(state, f, dt0, fmax)
+
+    return graph_loop(body, fire_init(coords, dt0),
+                      (energy_args, freeze_mask), n_steps)
 
 
 def fire_run(coords, energy_fn, n_steps=500, dt0=0.05, fmax=0.05,

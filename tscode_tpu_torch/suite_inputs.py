@@ -48,6 +48,18 @@ monomolecular input behind a conformer search,
 the chain has 8 three-fold rotors in one group, so the search rotates
 3^8 = 6,561 candidates with the clash back-off and keeps up to 1,000.
 
+`dihedral_scan` drives a ring torsion of a chlorocycloalkane (the third
+argument is the ring's carbon count, not a conformer count):
+    SADDLE
+    scan> m1.xyz 9 12 15 18   (C3-C4-C5-C6, indices taken around the ring)
+The internal force field has no torsion terms and its repulsion starts
+inside 0.85 of the summed covalent radii, so a torsion whose side
+rotates rigidly (every torsion of the csearch_string chain) scans flat;
+a ring torsion moves only its last atom and the ring strains, which
+gives the coarse scans peaks, the accurate re-scans sub-peaks and the
+dimer (SADDLE) something to refine. `ff_operators_input` writes the
+other force-field operators' input on the same ring.
+
     config_files('sn2_string', workdir, n_confs=76) -> workdir/input.txt
     refine_input('ens.xyz', workdir) -> workdir/input.txt (REFINE)
 '''
@@ -64,7 +76,7 @@ NOISE = 0.12          # A of per-conformer jitter on the fixtures
 CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl',
            'multiembed', 'chelotropic', 'chelotropic_nonrigid',
            'trimolecular', 'trimolecular_rigid', 'monomolecular',
-           'torsion_drive', 'csearch_string')
+           'torsion_drive', 'csearch_string', 'dihedral_scan')
 SEARCH_CHAIN = 10     # carbons of csearch_string's chain
 
 
@@ -124,6 +136,62 @@ def chloroalkane(n_carbons):
             coords.extend(h_pair(c, -u[(i - 1) % 2], cont))
             nos.extend([1, 1])
     return np.array(coords), np.array(nos)
+
+
+def chlorocycloalkane(n_carbons, pucker=0.25):
+    '''Crown conformation of chlorocycloalkane C_nH_(2n-1)Cl as (coords
+    (N, 3), atomnos (N,)): ring carbons on a circle, alternately
+    `pucker` A above and below its plane, 1.526 A apart; two
+    substituents per carbon on the bisector plane at tetrahedral angles,
+    one of C0's a chlorine. Carbon k is atom 3k, its substituents 3k + 1
+    and 3k + 2 (atom 1 the chlorine).'''
+    cc, ch, ccl = 1.526, 1.09, 1.79
+    radius = np.sqrt(cc ** 2 - (2 * pucker) ** 2) / \
+        (2 * np.sin(np.pi / n_carbons))
+    phi = 2 * np.pi * np.arange(n_carbons) / n_carbons
+    ring = np.stack([radius * np.cos(phi), radius * np.sin(phi),
+                     pucker * (-1.0) ** np.arange(n_carbons)], axis=1)
+    coords, nos = [], []
+    for k, c in enumerate(ring):
+        u1 = ring[k - 1] - c
+        u2 = ring[(k + 1) % n_carbons] - c
+        u1, u2 = u1 / np.linalg.norm(u1), u2 / np.linalg.norm(u2)
+        bis = (u1 + u2) / np.linalg.norm(u1 + u2)
+        perp = np.cross(u1, u2)
+        perp /= np.linalg.norm(perp)
+        coords += [c, c + (ccl if k == 0 else ch) *
+                   (-0.57735 * bis + 0.8165 * perp),
+                   c + ch * (-0.57735 * bis - 0.8165 * perp)]
+        nos += [6, 17 if k == 0 else 1, 1]
+    return np.array(coords), np.array(nos)
+
+
+def ring_torsion(n_carbons):
+    '''The scanned torsion of `dihedral_scan`: carbons 3 to 6 of the
+    ring, counted around it.'''
+    return [3 * (k % n_carbons) for k in range(3, 7)]
+
+
+def ff_operators_input(workdir, n_carbons, start, far, top):
+    '''The force-field operators' input beside dihedral_scan's, on the
+    same ring, one data operator per molecule line:
+        NOOPT
+        neb> mneb.xyz       (two conformers: `start` and `far`)
+        saddle> msad.xyz    (one conformer: `top`)
+        scan> m1.xyz 0 1    (the ring as built; C0-Cl is bonded, so the
+                             distance scan separates it)
+    returns the input file's path.'''
+    j = os.path.join
+    coords, nos = chlorocycloalkane(n_carbons)
+    for name, frames in (('mneb.xyz', (start, far)), ('msad.xyz', (top,)),
+                         ('m1.xyz', (coords,))):
+        with open(j(workdir, name), 'w') as f:
+            for c, frame in enumerate(frames):
+                write_xyz(np.asarray(frame), nos, f, title=f'conf {c}')
+    path = j(workdir, 'input.txt')
+    with open(path, 'w') as f:
+        f.write('NOOPT\nneb> mneb.xyz\nsaddle> msad.xyz\nscan> m1.xyz 0 1\n')
+    return path
 
 
 def write_chloroalkane(dst, n_carbons, n_confs, rng, noise=0.05):
@@ -196,6 +264,12 @@ def config_files(name, workdir, n_confs):
         with open(j(workdir, 'm2.xyz'), 'w') as f:
             write_xyz(coords, nos, f, title='conf 0')
         content = 'NOOPT\nm1.xyz 0\ncsearch> m2.xyz 0\n'
+    elif name == 'dihedral_scan':
+        coords, nos = chlorocycloalkane(n_confs)
+        with open(j(workdir, 'm1.xyz'), 'w') as f:
+            write_xyz(coords, nos, f, title='conf 0')
+        quad = ' '.join(str(i) for i in ring_torsion(n_confs))
+        content = f'SADDLE\nscan> m1.xyz {quad}\n'
     else:
         raise ValueError(f'unknown input {name!r}; one of {CONFIGS}')
     path = j(workdir, 'input.txt')

@@ -589,7 +589,7 @@ def clustered_csearch(coords, atomnos, torsions, graph, ff_opt=False, n=100,
     if ff_opt:
         from tscode_tpu_torch.embedder import not_ported
         raise not_ported('Force-field optimisation inside the conformer '
-                         'search (mode 0, ff_opt)', 15)
+                         'search (mode 0, ff_opt)', '15b')
 
     t_start_run = time.perf_counter()
     rec = _new_stats(stats)
@@ -681,7 +681,7 @@ def most_diverse_conformers(n, structures, torsion_array, *, rng, device):
     distinct structures drawn from `rng` (the reference draws with
     replacement; the JAX package fixed that, and so does the port). The
     reference's energy-aware selection serves mode 0 only, which needs
-    the force field (ROADMAP item 15)."""
+    the force field (ROADMAP item 15b)."""
     structures = np.asarray(structures)
     if len(structures) <= n:
         return structures

@@ -192,3 +192,16 @@ def get_scan_peak_index(energies, max_thr=50, min_thr=0.1):
     if len(peaks) == 1:
         return peaks[0]
     return energies.index(max(energies[i] for i in peaks))
+
+
+def pyplot():
+    '''matplotlib.pyplot on the file-only Agg backend, or None where
+    matplotlib is not installed: every plot of the port is optional, no
+    number depends on one, and its caller logs the skip.'''
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    return plt
