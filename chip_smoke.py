@@ -49,7 +49,14 @@ atropisomer route (SADDLE + scan> of a ring torsion of a nine-carbon
 chlorocycloalkane: coarse sweeps, accurate re-scans, the dimer on each
 sub-peak, the RMSD prune of the maxima with K3, frequencies of each
 refined maximum; the dimer step, the band step and a Hessian timed),
-then neb>, saddle> and a distance scan on the same ring.
+then neb>, saddle> and a distance scan on the same ring. Phase 20 runs
+the optimisation route: sn2_string at 76 conformers without NOOPT (the
+calculators chosen by keyword), its 290 candidates through the
+force-field and the calculator's stages, every xtb call answered by the
+stand-in xtb of tests/torch_standin (a test double) first on PATH, each
+stage followed by the prunes (K3 on every RMSD pool), float64 held to
+the JAX x64 record taken with the same stand-in, and float32 within
+brackets.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
@@ -58,6 +65,8 @@ then neb>, saddle> and a distance scan on the same ring.
                                   # conformer search's routes
     python3 chip_smoke.py --scans    # phases 18 and 19 alone: the
                                   # force-field operators
+    python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
+                                  # route
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
@@ -239,6 +248,12 @@ SCAN_TIE = 1e-6            # kcal/mol: a point this close to a decision is a tie
 DIMER_TIMED_STEPS = 100    # dimer steps per timing of the replayed step
 BAND_TIMED_STEPS = 200     # band steps per timing of the replayed step
 EAGER_TIMED_STEPS = 5      # steps per timing of a step queued op by op
+
+# phase 20: the optimisation route, sn2_string without NOOPT (the
+# calculators chosen by keyword, every xtb call answered by the stand-in
+# of tests/torch_standin), held to the JAX x64 record of the same run
+OPT_CONFS = 76
+OPT_GOLDEN = os.path.join(GOLDEN, 'sn2_string_opt.npz')
 
 class SmokeFailure(Exception):
     pass
@@ -2863,6 +2878,140 @@ def phase_ff_operators(card):
     return rec
 
 
+def phase_opt_route(card):
+    '''Phase 20: the optimisation route at full size through the
+    Embedder the CLI builds: sn2_string at 76 conformers with NOOPT
+    replaced by CALC=XTB FFCALC=XTB FFOPT=ON, so its 290 candidates go
+    through the force-field pre-optimisation, loose and tight stages and
+    the calculator's loose and tight stages, each followed by the
+    prunes (the RMSD prune on K3). Every xtb call is answered by the
+    stand-in of tests/torch_standin (a test double, no number it gives is
+    chemistry), run as an executable first on PATH: settings were read
+    when this script imported them, without it, so the calculators come
+    from the keywords and a bend (none on this input) would stay on the
+    internal force field. Float64 on the card is held to the JAX x64
+    record taken with the same stand-in (tests/golden/sn2_string_opt.npz:
+    every stage's and prune's counts, exit status and stand-in calls
+    equal, stage energies within opt_records.OPT_ATOL kcal/mol away from
+    marked ties, final frames and the poses file's rows within
+    opt_records.OPT_ATOL A); K3 is held against its plain version on every
+    RMSD prune pool. Float32 (the embed's dtype) runs the route once more:
+    the embed's count into the first stage within STRING_F32_SLACK of
+    float64's, every stage run, the final count bracketed the same way
+    (at least +-2). Returns (K3 launches, largest K3 disagreement, record).'''
+    import contextlib
+    import tempfile
+    import torch
+    from tscode_tpu_torch import opt_records
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.ops.kernels import qcp
+    want = golden_record(OPT_GOLDEN)
+    marked = opt_records.energy_ties(want)
+    recs = {}
+    with tempfile.TemporaryDirectory(prefix='smoke_opt_') as tmp:
+        for dtype in ('float64', 'float32'):
+            d = os.path.join(tmp, dtype)
+            os.mkdir(d)
+            qcp.KERNEL.reset_counts()
+            with open(os.path.join(tmp, f'{dtype}.out'), 'w') as out, \
+                    contextlib.redirect_stdout(out):
+                recs[dtype] = opt_records.record(
+                    opt_records.port_package(DEV, getattr(torch, dtype)),
+                    'sn2_string_opt', OPT_CONFS, d, standin='path')
+            recs[dtype]['k3_launches'] = qcp.KERNEL.launches
+            with open(os.path.join(d, 'tscode_report_port.json')) as f:
+                recs[dtype]['report'] = json.load(f)
+            if dtype == 'float64':
+                atomnos = read_xyz(os.path.join(
+                    d, 'tscode_poses_port.xyz')).atomnos
+    got, f32 = recs['float64'], recs['float32']
+    launches = got.pop('k3_launches')
+    report = got.pop('report')
+    try:
+        err = opt_records.same_records(got, want, marked=marked)
+    except AssertionError as e:
+        raise SmokeFailure(f'opt_route float64 against JAX x64: {e}') from e
+    check(launches > 0, f'opt_route: K3 launched {launches} times')
+    heavy = np.asarray(atomnos) != 1
+    kept_by_prune = [p[2] for p in got['prunes'] if p[0] == 'rmsd']
+    k3_recs, k3_err, k3_marked, n_pools = [], 0.0, 0, 0
+    for i, (pool, n_kept) in enumerate(zip(got['pools'], kept_by_prune)):
+        if len(pool) < 2:
+            continue
+        n_pools += 1
+        r, kept, e, m, _ = refine_k3_passes(card, pool, heavy,
+                                            f'opt_route pool {i}')
+        check(kept == n_kept, f'opt_route pool {i}: K3 keeps {kept} of '
+              f'{len(pool)}, the route {n_kept}')
+        k3_recs += r
+        k3_err = max(k3_err, e)
+        k3_marked += m
+
+    stages = [s for s in report['stages'] if s['stage'] in
+              ('force_field_refining', 'optimization_refining')]
+    refine = report['refine']
+    wait = sum(r['seconds'] for r in refine)
+    prunes = sum(got['times']['prunes'])
+    rec = {'seconds': got['seconds'], 'calls': got['calls'],
+           'workers': [r['workers'] for r in refine],
+           'jobs': got['refine'], 'final': got['final'],
+           'stage_s': [s['seconds'] for s in stages],
+           'standin_wait_s': wait, 'prunes_s': prunes,
+           'k3_launches': launches, 'k3_pools': n_pools,
+           'k3_pool_sizes': [len(p) for p in got['pools']],
+           'ties': len(marked), 'float32_s': f32['seconds'],
+           'float32_jobs': f32['refine'], 'float32_final': f32['final'],
+           'k3_passes': k3_recs}
+    stage_s = ', '.join(f'{s["stage"]} {s["seconds"]:.3f} s '
+                        f'({s["structures_in"]} -> {s["structures_out"]})'
+                        for s in stages)
+    print(f'[20 opt_route float64] {got["refine"]} jobs through the five '
+          f'stages -> {got["final"]} final, {got["calls"]} stand-in calls, '
+          f'{rec["workers"]} thread workers: the JAX x64 record (largest '
+          f'difference {err:.2e}; {len(marked)} stage energies marked as '
+          f'ties); run {got["seconds"]:.2f} s [{card}]')
+    print(f'[20 opt_route float64] stages: {stage_s}; waiting on the '
+          f'stand-in {wait:.3f} s against {prunes:.3f} s in the prunes '
+          f'[{card}]')
+    print(f'[20 opt_route float64] K3: {launches} launches, held against '
+          f'plain on {len(k3_recs)} passes of the {n_pools} pools of 2 or '
+          f'more (pool sizes {rec["k3_pool_sizes"]}) '
+          f'({k3_marked} pairs near the threshold) [{card}]')
+
+    # float32: the embed's dtype; the stages' energies stay float64
+    lo, hi = bracket(got['refine'][0], STRING_F32_SLACK)
+    check(lo <= f32['refine'][0] <= hi, f'opt_route float32: '
+          f'{f32["refine"][0]} candidates into the stages, outside '
+          f'{(lo, hi)}')
+    check(len(f32['refine']) == 5, f'opt_route float32: '
+          f'{len(f32["refine"])} refine stages ran, expected 5')
+    lo, hi = bracket(got['final'], STRING_F32_SLACK)
+    lo, hi = min(lo, got['final'] - 2), max(hi, got['final'] + 2)
+    check(lo <= f32['final'] <= hi, f'opt_route float32: final '
+          f'{f32["final"]} outside {(lo, hi)}')
+    e32 = f32['arrays']['final_energies']
+    check(bool(np.isfinite(f32['arrays']['final_frames']).all())
+          and bool(np.isfinite(e32).all()) and bool((e32 < 1e10).all()),
+          'opt_route float32: final frames or energies not finite')
+    # OpenBabel is absent here too: the force-field stage's probe raises
+    # the JAX package's error (tests/test_torch_calculators.py holds the
+    # text to the JAX package's)
+    from tscode_tpu_torch.calculators.openbabel import probe_openbabel
+    from tscode_tpu_torch.errors import InputError
+    try:
+        probe_openbabel('UFF')
+    except InputError as e:
+        check(str(e).startswith('FFCALC=OB needs OpenBabel'),
+              f'opt_route: probe_openbabel raised {e}')
+        print(f'[20 opt_route] FFCALC=OB: {e}')
+    else:
+        print('[20 opt_route] FFCALC=OB: OpenBabel is installed here')
+    print(f'[20 opt_route float32] {f32["refine"]} jobs -> {f32["final"]} '
+          f'final, {f32["calls"]} stand-in calls, run {f32["seconds"]:.2f} '
+          f's: inside the brackets of float64\'s [{card}]')
+    return launches, k3_err, rec
+
+
 def qcp_plan_sweep(card, out):
     '''K3's launch plans timed at every headline pass in float32 and on
     the long chunks (the measurement behind qcp.launch_plan): each
@@ -2969,6 +3118,12 @@ def main():
         print(json.dumps({'ff_routes': {'dihedral_scan': scan,
                                         'ff_operators': ops}}))
         return
+    if sys.argv[1:2] == ['--opt']:           # phase 20 alone
+        phase_build()
+        _, _, opt = timed_phase('20 opt_route', phase_opt_route, card)
+        opt.pop('k3_passes')
+        print(json.dumps({'opt_route': opt}))
+        return
     if sys.argv[1:2] == ['--search']:        # phases 16 and 17 alone
         phase_build()
         drive = timed_phase('16 torsion_drive', phase_torsion_drive, card)
@@ -3023,15 +3178,18 @@ def main():
     k3_18, e18, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
                                    card)
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
+    k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
         k1_16 + k1_17
     kernels[0]['torsion_backoff'] = {'torsion_drive': drive,
                                      'csearch_string': backoff}
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
-    kernels[1]['launches'] += k3 + k3_18
-    kernels[1]['passes'] += recs9 + scan['k3_passes']
+    kernels[1]['launches'] += k3 + k3_18 + k3_20
+    kernels[1]['passes'] += recs9 + scan['k3_passes'] + opt.pop('k3_passes')
+    kernels[1]['routes'] = {'opt_route': {'launches': k3_20,
+                                          'pools': opt['k3_pools']}}
     errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e16, e17)
-    errs['qcp_kill'] = max(errs['qcp_kill'], e9, e18)
+    errs['qcp_kill'] = max(errs['qcp_kill'], e9, e18, e20)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check(k2_10 > 0 and k2_11 > 0 and k2_15 > 0, f'K2 launches: multiembed '
@@ -3059,6 +3217,7 @@ def main():
     print(json.dumps({'ff_routes': {
         'dihedral_scan': {k: v for k, v in scan.items() if k != 'k3_passes'},
         'ff_operators': ops}}))
+    print(json.dumps({'opt_route': opt}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

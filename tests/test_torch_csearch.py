@@ -278,10 +278,20 @@ def test_segmented_molecule_raises_in_both(monkeypatch):
 
 
 def test_stability_mode_needs_item_15():
+    '''Mode 0 optimises every group's conformers on a calculator: with
+    none given (no embedder, no calc) it raises the JAX package's
+    InputError, word for word (search mode 0 on the stand-in xtb:
+    tests/test_torch_opt_operators.py).'''
+    from tscode_tpu.errors import InputError as JaxInputError
+    from tscode_tpu_torch.errors import InputError
     coords, nos = chloroalkane(6)
-    with pytest.raises(NotImplementedError, match='item 15'):
+    with pytest.raises(JaxInputError) as want:
+        jt.csearch(coords, nos, mode=0, ff_opt=True, **QUIET)
+    with pytest.raises(InputError) as got:
         tt.csearch(coords, nos, mode=0, ff_opt=True,
                    rng=np.random.RandomState(0), device='cpu', **QUIET)
+    assert str(got.value) == str(want.value)
+    assert 'requires an external calculator' in str(got.value)
 
 
 def time_backoff_loops(reps=2):

@@ -690,3 +690,98 @@ def test_ring_scan_on_card_matches_cpu(cuda_device, tmp_path):
                         device=cuda_device)
     assert want['maxima'] >= 1
     same_ff_records(got, want)
+
+
+def spacing_embedders(tmp_path, devices):
+    '''Embedders of the adjust_spacings_batch case (C2H4 and CH3Cl,
+    DIST(a=2.8)) on each device, and three poses 6 A apart.'''
+    import shutil
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    for name in ('C2H4.xyz', 'CH3Cl.xyz'):
+        shutil.copy(os.path.join(FIXTURE_DIR, name), tmp_path)
+    inp = tmp_path / 'input.txt'
+    inp.write_text('NOOPT DIST(a=2.8)\nC2H4.xyz 0a\nCH3Cl.xyz 0a\n')
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            embs = [Embedder(str(inp), stamp=f's{i}', device=d)
+                    for i, d in enumerate(devices)]
+    finally:
+        os.chdir(cwd)
+    e = embs[0]
+    rng = np.random.default_rng(5)
+    poses = np.stack([np.concatenate([
+        e.objects[0].atomcoords[0],
+        e.objects[1].atomcoords[0] + np.array([6.0, 0, 0])
+        + rng.normal(size=3)]) for _ in range(3)])
+    return embs, poses, np.concatenate([e.objects[0].atomnos,
+                                        e.objects[1].atomnos])
+
+
+def test_adjust_spacings_on_card_matches_cpu(cuda_device, tmp_path):
+    '''adjust_spacings_batch (two FIRE phases of 500 and 200 steps over
+    the batch, each one captured step replayed) on the card against the
+    CPU, float64: structures within 1e-6 A, energies within 1e-6
+    kcal/mol, the same success flags.'''
+    from tscode_tpu_torch.optimization import adjust_spacings_batch
+    (cpu, card), poses, nos = spacing_embedders(tmp_path, ('cpu',
+                                                           cuda_device))
+    want = adjust_spacings_batch(cpu, poses, nos)
+    got = adjust_spacings_batch(card, poses, nos)
+    assert np.abs(got[0] - want[0]).max() <= 1e-6
+    assert np.abs(got[1] - want[1]).max() <= 1e-6
+    np.testing.assert_array_equal(got[2], want[2])
+    assert want[2].all()
+
+
+def test_saddle_refining_on_card_matches_cpu(cuda_device, tmp_path):
+    '''The SADDLE stage on the internal force field (no calculator):
+    the dimer of the first 2 candidates of sn2_string at 4 conformers,
+    float64 on the card (the captured dimer step, one structure at a
+    time) against the CPU: structures within 1e-6 A, energies within
+    1e-6 kcal/mol, the same flags.'''
+    out = {}
+    cwd = os.getcwd()
+    for device in ('cpu', cuda_device):
+        d = tmp_path / str(device).replace(':', '')
+        d.mkdir()
+        inp = config_files('sn2_string', str(d), 4)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                run = Embedder(inp, stamp='s', device=device,
+                               dtype=torch.float64).run()
+                run.logfile = io.StringIO()
+                run.apply_mask(run.MASKABLE,
+                               np.arange(len(run.structures)) < 2)
+                run.options.calculator = None
+                run.saddle_refining()
+        finally:
+            os.chdir(cwd)
+        out[str(device)] = run
+    want, got = out['cpu'], out[str(cuda_device)]
+    assert np.abs(got.structures - want.structures).max() <= 1e-6
+    assert np.abs(got.energies - want.energies).max() <= 1e-6
+    np.testing.assert_array_equal(got.exit_status, want.exit_status)
+
+
+def test_optimisation_route_on_card_matches_cpu(cuda_device, tmp_path):
+    '''sn2_string without NOOPT at 4 conformers (the calculators chosen
+    by keyword, every calculator call answered in process by the
+    stand-in xtb of tests/torch_standin, a test double), float64 on the
+    card against the CPU: every count, stage energy, exit status and
+    final frame (opt_records.same_records), the RMSD prunes on K3.'''
+    from tscode_tpu_torch import opt_records
+    recs = {}
+    for device in ('cpu', cuda_device):
+        d = tmp_path / str(device).replace(':', '')
+        d.mkdir()
+        before = qcp.KERNEL.launches
+        with contextlib.redirect_stdout(io.StringIO()):
+            recs[str(device)] = opt_records.record(
+                opt_records.port_package(device), 'sn2_string_opt', 4,
+                str(d), keywords='RMSD=0.02')
+        launches = qcp.KERNEL.launches - before
+    want, got = recs['cpu'], recs[str(cuda_device)]
+    assert not opt_records.energy_ties(want)
+    opt_records.same_records(got, want)
+    assert launches > 0 and want['final'] > 0

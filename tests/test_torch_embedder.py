@@ -1,8 +1,8 @@
 '''The string route end to end on the CPU, float64: the port's Embedder
 and CLI against the JAX package's on the same input files (the written
-.xyz within 1e-6 A, the same stage counts), and the routes the port does
-not run yet raising NotImplementedError before any embed work, while
-the bending routes are set up as the JAX package sets them up.'''
+.xyz within 1e-6 A, the same stage counts), the routes that need a
+calculator raising the JAX package's InputError when there is none, and
+the bending routes set up as the JAX package sets them up.'''
 
 import contextlib
 import io
@@ -104,22 +104,32 @@ def test_resume_after_the_prunes(tmp_path):
 
 @pytest.mark.parametrize('content,files,item', [
     ('C2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
-     'item 15b'),                                             # optimisation
+     'after'),                                                # optimisation
     ('NOOPT\nopt> C2H4.xyz 0\nCH3Cl.xyz 0\n',
-     ('C2H4.xyz', 'CH3Cl.xyz'), 'item 15'),                   # operators
+     ('C2H4.xyz', 'CH3Cl.xyz'), 'before'),                    # operators
     ('SADDLE\nC2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
-     'item 15b'),                                             # saddle
+     'after'),                                                # saddle
     ('TS\nC2H4.xyz 0\nCH3Cl.xyz 0\n', ('C2H4.xyz', 'CH3Cl.xyz'),
-     'item 15b'),                                             # TS
+     'after'),                                                # TS
     ('SADDLE\nscan> C2F2H4.xyz 3 0 1 5\n', ('C2F2H4.xyz',),
      None),                                                   # a data run
 ])
 def test_unported_routes_raise_before_the_embed(tmp_path, content, files,
-                                                item):
-    '''Optimisation, an unported operator, SADDLE and TS on an embed
-    run raise their ROADMAP item before any embed work; a data run
-    (scan> here) optimises nothing, so SADDLE without NOOPT passes and
-    the run ends with its data.'''
+                                                item, monkeypatch):
+    '''With no calculator on the machine: an opt> operator raises the
+    JAX package's InputError before any embed work; optimisation, and
+    SADDLE and TS (which need it), raise the JAX package's InputError
+    once the candidates are embedded and pruned, word for word; a data
+    run (scan> here) optimises nothing, so SADDLE without NOOPT passes
+    and the run ends with its data.'''
+    import tscode_tpu.options as joptions
+    from tscode_tpu.errors import InputError as JaxInputError
+    from tscode_tpu_torch import options
+    from tscode_tpu_torch.errors import InputError
+    for m in (options, joptions):
+        monkeypatch.setattr(m, 'CALCULATOR', None)
+        monkeypatch.setattr(m, 'FF_CALC', None)
+        monkeypatch.setattr(m, 'FF_OPT_BOOL', False)
     write_input(tmp_path, content, files)
     cwd = os.getcwd()
     try:
@@ -131,13 +141,19 @@ def test_unported_routes_raise_before_the_embed(tmp_path, content, files,
             assert emb.embed == 'data'
             assert (tmp_path / 'C2F2H4_torsion_scan_clockwise.xyz').exists()
         else:
-            with pytest.raises(NotImplementedError,
-                               match=f'ROADMAP.md {item}'):
-                Embedder(str(tmp_path / 'input.txt'), stamp='np',
-                         device='cpu')
+            with contextlib.redirect_stdout(io.StringIO()):
+                with pytest.raises(JaxInputError) as want:
+                    JaxEmbedder(str(tmp_path / 'input.txt'),
+                                stamp='jax').run()
+                with pytest.raises(InputError) as got:
+                    Embedder(str(tmp_path / 'input.txt'), stamp='np',
+                             device='cpu').run()
+            assert str(got.value) == str(want.value)
+            assert 'requires an external calculator' in str(got.value)
     finally:
         os.chdir(cwd)
-    assert not list(tmp_path.glob('tscode_embedded_*.xyz'))
+    embedded = list(tmp_path.glob('tscode_embedded_np.xyz'))
+    assert bool(embedded) == (item == 'after')
 
 
 @pytest.mark.parametrize('content,files,embed', [
@@ -175,18 +191,36 @@ def test_bending_routes_are_set_up(tmp_path, content, files, embed):
 
 def test_bending_on_xtb_gradients_raises(monkeypatch):
     '''qm_gradient_source: no callback (the internal force field) unless
-    the calculator is XTB and xtb is installed; then it raises the
-    calculators' ROADMAP item.'''
+    the calculator is XTB and xtb was on PATH when settings were read;
+    then the calculators' gradient callback, which gives the JAX
+    package's numbers on the same stand-in xtb (run in process).'''
     from types import SimpleNamespace
+    import tscode_tpu.calculators.gradients as jgradients
+    import tscode_tpu.operators as jops
+    import tscode_tpu.settings as jsettings
     from tscode_tpu_torch import operators
-    emb = SimpleNamespace(options=SimpleNamespace(calculator='XTB'))
+    from tscode_tpu_torch.calculators import gradients
+    from tscode_tpu_torch.opt_records import InProcessSubprocess
+    fake = InProcessSubprocess()
+    for m in (gradients, jgradients):
+        monkeypatch.setattr(m, 'subprocess', fake)
+    data = read_xyz(os.path.join(FIX, 'CH3Cl.xyz'))
+    mol = SimpleNamespace(atomnos=np.asarray(data.atomnos))
+    emb = SimpleNamespace(options=SimpleNamespace(
+        calculator='XTB', theory_level=None, solvent=None, charge=0),
+        procs=1, threads=2)
     monkeypatch.setattr(operators, 'XTB_AVAILABLE', False)
-    assert operators.qm_gradient_source(emb, None) is None
+    assert operators.qm_gradient_source(emb, mol) is None
     monkeypatch.setattr(operators, 'XTB_AVAILABLE', True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md item 15'):
-        operators.qm_gradient_source(emb, None)
+    monkeypatch.setattr(jsettings, 'XTB_AVAILABLE', True)
+    coords = np.asarray(data.atomcoords[0]) + 0.05
+    got = operators.qm_gradient_source(emb, mol)(coords)
+    want = jops.qm_gradient_source(emb, mol)(coords)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    assert np.abs(got[1]).max() > 0 and fake.calls == 2
     emb.options.calculator = 'ORCA'
-    assert operators.qm_gradient_source(emb, None) is None
+    assert operators.qm_gradient_source(emb, mol) is None
 
 
 def test_cuda_requested_without_a_card_raises(tmp_path, monkeypatch):
@@ -211,7 +245,8 @@ def test_cli_in_a_subprocess(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert 'TFD novelty filter ran on the host lane' in r.stdout
     assert frames(tmp_path, 'unoptimized', 'cli').shape == (55, 11, 3)
-    for flag in ('-t', '-b', '--trace=prof'):
-        r = subprocess.run(cmd + ['input.txt', flag], cwd=tmp_path, env=env,
-                           capture_output=True, text=True, timeout=300)
-        assert r.returncode != 0 and 'ROADMAP.md item' in r.stderr
+    # -t and -b run (tests/test_torch_opt_operators.py); --trace is
+    # not ported
+    r = subprocess.run(cmd + ['input.txt', '--trace=prof'], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and 'ROADMAP.md item 6' in r.stderr

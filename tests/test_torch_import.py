@@ -366,3 +366,51 @@ def test_cli_force_field_operators_import_no_jax(tmp_path):
     for name in ('pair_MEP.xyz', 'pair_NEB_TS.xyz', 'HCOOH_saddle.xyz',
                  'C2F2H4_torsion_scan_clockwise.xyz', 'HCOOH_scan.xyz'):
         assert (tmp_path / name).exists(), name
+
+
+PORTED_15B = ('calculators.common', 'calculators.dispatch', 'calculators.xtb',
+              'calculators.orca', 'calculators.gaussian', 'calculators.mopac',
+              'calculators.openbabel', 'calculators.gradients',
+              'optimization', 'automep', 'pka', 'nci', 'tests_install',
+              'concurrent_test', 'opt_records')
+
+
+def test_cli_optimisation_route_imports_no_jax(tmp_path):
+    '''The optimisation route (sn2_string without NOOPT, the calculators
+    chosen by keyword) and pka> through the CLI with --device cpu in one
+    fresh interpreter whose PATH starts with the stand-in xtb of
+    tests/torch_standin (a test double): both end normally, the route
+    writes its optimised poses, and neither jax, a module of the JAX
+    package nor scikit-learn is imported; every calculator module of
+    the port imports alone.'''
+    import shutil
+    from tscode_tpu_torch.opt_records import STANDIN_DIR
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    from tscode_tpu_torch.suite_inputs import config_files
+    (tmp_path / 'route').mkdir()
+    (tmp_path / 'pka').mkdir()
+    config_files('sn2_string_opt', str(tmp_path / 'route'), 4)
+    shutil.copy(os.path.join(FIXTURE_DIR, 'HCOOH.xyz'), tmp_path / 'pka')
+    (tmp_path / 'pka' / 'input.txt').write_text('pka> HCOOH.xyz 4\n')
+    code = (
+        'import importlib, os, sys\n'
+        'from tscode_tpu_torch.__main__ import main\n'
+        'root = sys.argv[1]\n'
+        'for name in ("route", "pka"):\n'
+        '    os.chdir(os.path.join(root, name))\n'
+        '    assert main(["input.txt", "--device", "cpu", "-n", "s"]) == 0\n'
+        'for name in sys.argv[2:]:\n'
+        '    importlib.import_module("tscode_tpu_torch." + name)\n'
+        + NO_JAX_PACKAGE +
+        'print("NOJAX_OK")\n')
+    env = dict(os.environ, PYTHONPATH=REPO,
+               PATH=STANDIN_DIR + os.pathsep + os.environ.get('PATH', ''))
+    r = subprocess.run([sys.executable, '-c', code, str(tmp_path)]
+                       + list(PORTED_15B), cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert 'NOJAX_OK' in r.stdout
+    assert r.stdout.count('normal termination') == 2
+    assert 'GFN2-xTB optimization took' in r.stdout
+    assert 'pKa energetics' in r.stdout
+    assert (tmp_path / 'route' / 'tscode_poses_s.xyz').exists()

@@ -46,23 +46,33 @@ def jax_operator_names():
 
 
 FF_OPERATORS = ('neb', 'saddle', 'scan', 'mep_relax')
+CALC_OPERATORS = ('automep', 'mtd', 'mtd_search', 'opt', 'pka')
 
 
 def test_dispatcher_knows_the_jax_packages_names():
-    '''The port's handlers are refine>, the three searches and the four
-    force-field operators; every other name of the JAX package's
-    dispatcher is listed as not ported.'''
+    '''The port's handlers are every name of the JAX package's
+    dispatcher: refine>, the three searches, the four force-field
+    operators and the five that need a calculator.'''
     ported = set(re.findall(r"'(\w+)': _\w+_operator",
                             inspect.getsource(operators.operate)))
-    assert ported == {'refine'} | set(SEARCHES) | set(FF_OPERATORS)
-    assert not ported & set(operators.NOT_PORTED)
-    assert ported | set(operators.NOT_PORTED) == jax_operator_names()
+    assert ported == {'refine'} | set(SEARCHES) | set(FF_OPERATORS) | \
+        set(CALC_OPERATORS)
+    assert ported == jax_operator_names()
 
 
-@pytest.mark.parametrize('name', sorted(operators.NOT_PORTED))
+@pytest.mark.parametrize('name', CALC_OPERATORS)
 def test_item_15_operators_raise_not_ported(name):
-    with pytest.raises(NotImplementedError, match='item 15'):
-        operators.operate(f'{name}>', None, None)
+    '''Without a calculator, opt>, mtd>, mtd_search>, automep> and pka>
+    raise the JAX package's InputError, word for word (run on the
+    stand-in xtb: tests/test_torch_opt_operators.py).'''
+    emb = SimpleNamespace(options=SimpleNamespace(calculator=None),
+                          objects=[])
+    mol = SimpleNamespace(name='m.xyz')
+    with pytest.raises(jops.InputError) as want:
+        jops.operate(f'{name}>', emb, mol)
+    with pytest.raises(InputError) as got:
+        operators.operate(f'{name}>', emb, mol)
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_operator_raises_input_error():

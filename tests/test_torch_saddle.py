@@ -169,11 +169,30 @@ def test_saddle_operator_on_a_gradient_callback(tmp_path, spied,
 
 
 def test_saddle_on_xtb_gradients_names_the_procedure(tmp_path, monkeypatch):
-    monkeypatch.setattr(operators, 'XTB_AVAILABLE', True)
+    '''With XTB chosen and installed, qm_gradient_source gives the
+    calculators' callbacks: the per-structure one (saddle>, bending) and
+    the per-image one (neb>, chain=True), equal to the JAX package's on
+    the same stand-in xtb run in process.'''
     from types import SimpleNamespace
-    emb = SimpleNamespace(options=SimpleNamespace(calculator='XTB'))
-    for proc in ('NEB', 'Saddle refinement'):
-        with pytest.raises(NotImplementedError, match=f'{proc} on XTB.*15b'):
-            operators.qm_gradient_source(emb, None, procedure=proc)
-    with pytest.raises(NotImplementedError, match='Bending on XTB'):
-        operators.qm_gradient_source(emb, None)
+    import tscode_tpu.calculators.gradients as jgradients
+    import tscode_tpu.settings as jsettings
+    from tscode_tpu_torch.calculators import gradients
+    from tscode_tpu_torch.opt_records import InProcessSubprocess
+    fake = InProcessSubprocess()
+    for m in (gradients, jgradients):
+        monkeypatch.setattr(m, 'subprocess', fake)
+    monkeypatch.setattr(operators, 'XTB_AVAILABLE', True)
+    monkeypatch.setattr(jsettings, 'XTB_AVAILABLE', True)
+    coords, nos = hcooh(seed=1)
+    mol = SimpleNamespace(atomnos=nos)
+    emb = SimpleNamespace(options=SimpleNamespace(
+        calculator='XTB', theory_level='GFN2-xTB', solvent=None, charge=0),
+        procs=1, threads=2)
+    chain = np.stack([coords, coords + 0.03, coords - 0.03])
+    got = operators.qm_gradient_source(emb, mol, chain=True)(chain)
+    want = jops.qm_gradient_source(emb, mol, chain=True)(chain)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    one = operators.qm_gradient_source(emb, mol)(coords)
+    assert one[0] == got[0][0]
+    np.testing.assert_array_equal(one[1], got[1][0])

@@ -30,6 +30,15 @@ the dihedral scan: its first clockwise point, the point 120 degrees on,
 the highest) gives the band's TS image, the dimer's flag and the
 distance scan's points and peak.
 
+The optimising routes are recorded the same way (`opt_counts`, both
+packages, through tscode_tpu_torch.opt_records, which chip_smoke.py runs
+on the card): `sn2_string_opt` (sn2_string without NOOPT, the
+calculators chosen by keyword, every calculator call answered by the
+stand-in xtb of tests/torch_standin, run as an executable first on
+PATH) gives every refine stage's energies and exit status, every
+prune's counts, the final frames and energies, the rows of the final
+poses file and the number of stand-in calls.
+
 As a script it prints the JAX package's counts and seconds of one suite
 input (written by tscode_tpu_torch.suite_inputs.config_files) as JSON,
 and with a third argument also saves the searched conformers (an .npz
@@ -48,6 +57,8 @@ force-field routes every array of the record and, as JSON text under
         tests/golden/dihedral_scan.npz
     JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py ff_operators 8 \
         tests/golden/ff_operators.npz
+    JAX_PLATFORMS=cpu python tests/test_torch_suite_counts.py sn2_string_opt 76 \
+        tests/golden/sn2_string_opt.npz
 
 As a test it takes the same counts at a few conformers from both
 packages and demands that they are equal.'''
@@ -64,7 +75,7 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
-from tscode_tpu_torch import ff_records  # noqa: E402
+from tscode_tpu_torch import ff_records, opt_records  # noqa: E402
 
 
 def stage_list(report):
@@ -359,10 +370,47 @@ def ff_counts(pkg, name, n_carbons, workdir, scan=None, device='cpu'):
 same_ff_records = ff_records.same_records
 
 
+def jax_opt_package():
+    '''opt_records.Package over the JAX package (float64, CPU).'''
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    jax.config.update('jax_enable_x64', True)
+    from tscode_tpu import rot_rmsd
+    from tscode_tpu.calculators import (dispatch, gaussian, gradients, mopac,
+                                        orca, xtb)
+    from tscode_tpu.embedder import Embedder
+    from tscode_tpu.ops import moi, rmsd_prune, tfd
+    return opt_records.Package(
+        dispatch, (xtb, gradients, orca, gaussian, mopac), Embedder, {},
+        'jax', [(tfd, 'prune_conformers_tfd', 'tfd'),
+                (moi, 'prune_by_moment_of_inertia', 'moi'),
+                (rmsd_prune, 'prune_conformers_rmsd', 'rmsd'),
+                (rot_rmsd, 'prune_conformers_rmsd_rot_corr',
+                 'rmsd_rot_corr')])
+
+
+def opt_counts(pkg, name, n_confs, workdir, device='cpu', **kw):
+    '''tscode_tpu_torch.opt_records.record of one optimising route of
+    `pkg`: 'jax', the JAX package in float64 on the CPU, or 'port',
+    float64 on `device`; kw go to record (standin, keywords, programs).'''
+    package = jax_opt_package() if pkg == 'jax' else \
+        opt_records.port_package(device)
+    return opt_records.record(package, name, n_confs, workdir, **kw)
+
+
 if __name__ == '__main__':
     name, n_confs = sys.argv[1], int(sys.argv[2])
     with tempfile.TemporaryDirectory(prefix='suite_counts_') as d:
-        if name in ('dihedral_scan', 'ff_operators'):
+        if name in ('sn2_string_opt', 'da_cyclical_opt'):
+            # the stand-in xtb as an executable, first on PATH
+            rec = opt_counts('jax', name, n_confs, d, standin='path')
+            arrays = rec.pop('arrays')
+            for key in ('times', 'pools'):
+                rec.pop(key)
+            if len(sys.argv) > 3:
+                np.savez_compressed(sys.argv[3], record=json.dumps(rec),
+                                    **arrays)
+        elif name in ('dihedral_scan', 'ff_operators'):
             rec = ff_counts('jax', 'dihedral_scan', n_confs, d)
             if name == 'ff_operators':
                 os.mkdir(os.path.join(d, 'ops'))

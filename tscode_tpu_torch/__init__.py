@@ -8,8 +8,9 @@ tensors every kernel wrapper runs its plain PyTorch twin instead.
 It imports nothing of `tscode_tpu` either: it carries its own copies of
 the JAX package's jax-free host modules (molecule, orbitals, graphs,
 io_xyz, pt, parameters, errors, native, options, settings, solvents,
-utils, quotes, references, modify_settings), whose native C++ helpers
-build with g++ into build/tscode_tpu_torch/native/.
+utils, quotes, references, modify_settings, nci, pka, and the
+calculator adapters of calculators/), whose native C++ helpers build
+with g++ into build/tscode_tpu_torch/native/.
 
 The CLI: `python -m tscode_tpu_torch input.txt [--device cuda|cpu]`.
 '''

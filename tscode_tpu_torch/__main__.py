@@ -12,9 +12,6 @@ import os
 import sys
 
 NOT_PORTED_FLAGS = {
-    'test': ('-t/--test (installation smoke tests, tests_install.py)', '15b'),
-    'benchmark': ('-b/--benchmark (proc/thread tuning, concurrent_test.py)',
-                  '15b'),
     'trace': ('--trace (device profile of the run)', 6),
 }
 
@@ -39,7 +36,7 @@ def main(argv=None):
                         help='pass the input text directly on the command '
                              'line')
     parser.add_argument('-t', '--test', action='store_true',
-                        help='run installation smoke tests (not ported)')
+                        help='run installation smoke tests on --device')
     parser.add_argument('-p', '--profile', action='store_true',
                         help='profile the run with cProfile')
     parser.add_argument('--procs', type=int, default=None,
@@ -49,7 +46,9 @@ def main(argv=None):
     parser.add_argument('-r', '--restart', default=None,
                         help='resume from a tscode_resume_*.pkl state file')
     parser.add_argument('-b', '--benchmark', action='store_true',
-                        help='proc/thread tuning benchmark (not ported)')
+                        help='run the proc/thread tuning benchmark on the '
+                             'input file (internal-FF FIRE on --device '
+                             'without xtb)')
     parser.add_argument('-s', '--setup', action='store_true',
                         help='guided calculator setup (writes overrides '
                              'to ~/.tscode_tpu_settings.json)')
@@ -75,6 +74,11 @@ def main(argv=None):
         run_setup()
         return 0
 
+    if args.test:
+        from tscode_tpu_torch.tests_install import run_tests
+        run_tests(args.device)
+        return 0
+
     if args.cl is not None:
         filename = os.path.abspath('tscode_tpu_cl_input.txt')
         with open(filename, 'w') as f:
@@ -84,6 +88,11 @@ def main(argv=None):
     else:
         parser.print_help()
         return 2
+
+    if args.benchmark:
+        from tscode_tpu_torch.concurrent_test import run_concurrent_test
+        run_concurrent_test(filename, device=args.device)
+        return 0
 
     import torch
 

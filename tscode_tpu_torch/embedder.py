@@ -8,19 +8,23 @@ non-rigid, which bends molecules on the internal force field, or RIGID;
 the monomolecular embed, which bends one molecule; the multiembed, which
 docks every arrangement of the reactive atoms of two polyfunctional
 molecules) and the refine route of REFINE or refine>, which takes an
-ensemble as the structures, the conformer-search operators csearch>,
-csearch_hb> and rsearch> (torsions.csearch_operator), the
-compenetration stage (kernel K2 where the fragment sizes are known),
-the fitness stage, the similarity prunes (TFD, MOI, and on the refine
-route the bucketed RMSD prune with kernel K3 and the symmetry-corrected
-RMSD prune), structure writes, the run report and resume; and the data
-runs of scan>, neb>, saddle> and mep_relax> on the internal force field,
-which end with their data (data_termination). Every other route raises
-NotImplementedError naming its ROADMAP.md item, before any embed work:
-the other operators (where the dispatcher meets them), optimisation
-(inputs without NOOPT or BYPASS need calculators) and SADDLE/TS on an
-embed run, metadynamics and the csearch augmentation routine; bending,
-NEB and saddle refinement on XTB gradients raise where they start.
+ensemble as the structures; the operators (operators.operate), run
+before the embed; the compenetration stage (kernel K2 where the fragment
+sizes are known), the fitness stage, the similarity prunes (TFD, MOI,
+and the bucketed RMSD prune with kernel K3 and the symmetry-corrected
+RMSD prune), the optimisation stages on the external calculators
+(force-field pre-optimisation, loose and tight; semiempirical/DFT loose
+and tight, ORCA's three-step schedule; each followed by the prunes),
+metadynamics augmentation, the csearch augmentation routine, saddle
+refinement (SADDLE/TS) and the NCI report, structure writes, the run
+report and resume after any of the seven stages; and the data runs of
+scan>, neb>, saddle>, mep_relax>, automep> and pka>, which end with their
+data (data_termination).
+
+The calculators run as subprocesses on a thread pool
+(calculators.dispatch); no torch op runs inside a job. Without a
+calculator an input that optimises raises the JAX package's InputError
+(optimization._no_calc_error) once the candidates are pruned.
 
 The conformer searches draw their random numbers from `rng`, an
 np.random.RandomState given to the constructor (unseeded when none is
@@ -28,8 +32,10 @@ given, as numpy's global generator is for the JAX package).
 
 The device and dtype are explicit: `Embedder(filename, device='cuda')`
 raises when there is no card, and the dtype defaults to float32 on CUDA
-and float64 on the CPU. Termination returns instead of exiting, so the
-engine is usable as a library (the CLI wraps it).
+and float64 on the CPU; the stages' energies and masks are float64 and
+the internal-force-field saddle refinement runs in float64 whatever the
+dtype. Termination returns instead of exiting, so the engine is usable
+as a library (the CLI wraps it).
 '''
 
 import json
@@ -53,6 +59,7 @@ from tscode_tpu_torch.io_xyz import write_xyz
 from tscode_tpu_torch.molecule import Molecule, align_by_moi, align_structures
 from tscode_tpu_torch.options import KEYWORDS, Options, OptionSetter
 from tscode_tpu_torch.orbitals import get_atom_builder
+from tscode_tpu_torch.pt import SYMBOLS
 from tscode_tpu_torch.quotes import quotes
 from tscode_tpu_torch.references import references
 from tscode_tpu_torch.settings import DEFAULT_LEVELS
@@ -74,14 +81,6 @@ from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
 from tscode_tpu_torch.pivots import set_pivots
 from tscode_tpu_torch.rot_rmsd import prune_conformers_rmsd_rot_corr
 from tscode_tpu_torch.torsions import csearch
-
-
-def not_ported(what, item):
-    '''The error of a route this port does not run yet; `item` names a
-    ROADMAP.md item (15b).'''
-    return NotImplementedError(
-        f'{what} is not ported to tscode_tpu_torch yet (ROADMAP.md '
-        f'item {item}); run it with the JAX package: python -m tscode_tpu')
 
 
 class Embedder:
@@ -132,7 +131,6 @@ class Embedder:
             self.check_objects_compenetration()
             self.check_saturation()
             self._set_options(filename)
-            self._check_ported_options()
             self._calculator_setup()
             self._print_references()
             self._apply_operators()
@@ -392,27 +390,6 @@ class Embedder:
     def _data_run(self):
         return any(tag in op for op in self.options.operators
                    for tag in self.DATA_OPERATORS)
-
-    def _check_ported_options(self):
-        '''Keywords whose stages this port does not run raise here,
-        before any embed work. A data run (scan>, neb>, saddle>,
-        mep_relax>) optimises nothing, so SADDLE/TS and the absence of
-        NOOPT pass there.'''
-        o = self.options
-        data = self._data_run()
-        if o.saddle and not data:
-            raise not_ported('SADDLE/TS saddle refinement of the embedded '
-                             'candidates', '15b')
-        if o.metadynamics:
-            raise not_ported('MTD metadynamics augmentation', '15b')
-        if o.csearch_aug:
-            raise not_ported('The csearch augmentation routine (it '
-                             'alternates with force-field refining)', '15b')
-        if o.optimization and not data:
-            raise not_ported(
-                'Optimisation of the candidates (an input without NOOPT '
-                'or BYPASS needs the force-field and calculator layers)',
-                '15b')
 
     def _calculator_setup(self):
         if self.options.theory_level is None and self.options.calculator:
@@ -822,6 +799,8 @@ class Embedder:
             report['similarity'] = self.similarity_info
         if getattr(self, 'search_info', None):
             report['csearch'] = self.search_info
+        if getattr(self, 'refine_info', None):
+            report['refine'] = self.refine_info
         energies = getattr(self, 'energies', None)
         if energies is not None and len(energies) and \
                 np.max(energies - np.min(energies)) > 0:
@@ -1122,14 +1101,12 @@ class RunEmbedding(Embedder):
             self.log(f'All structures passed the similarity check.{" " * 15}')
         self.log()
 
-    # ------------------------------------------------------- debug dumps
+    # ---------------------------------------------- augmentation stages
 
     def csearch_augmentation(self, text='', max_structs=1000):
         '''Hydrogen-bond-preserving random torsional augmentation of
         every candidate, then the similarity prunes without RMSD
-        (reference embedder.py:1893-1948). The routine that alternates it
-        with force-field refining (csearch_augmentation_routine) needs
-        item 15b.'''
+        (reference embedder.py:1893-1948).'''
         self.log(f'--> Performing conformational augmentation of TS '
                  f'candidates {text}')
         before = len(self.structures)
@@ -1165,6 +1142,143 @@ class RunEmbedding(Embedder):
         self.log(f'Conformational augmentation completed - generated '
                  f'{len(self.structures) - before} new conformers '
                  f'({time_to_string(time.perf_counter() - t_start)})\n')
+
+    def csearch_augmentation_routine(self):
+        '''Up to 3 augmentation+FF rounds, stopping after 2 without a new
+        minimum (reference embedder.py:1950-1983).'''
+        if not self.options.csearch_aug:
+            return
+        null_runs = 0
+        for i in range(3):
+            min_e = np.min(self.energies)
+            self.csearch_augmentation(text=f'(step {i + 1}/3)',
+                                      max_structs=self.options.max_confs)
+            self.force_field_refining()
+            if np.min(self.energies) < min_e:
+                delta = min_e - np.min(self.energies)
+                self.log(f'--> Lower minima found: {round(delta, 2)} '
+                         f'kcal/mol below previous best\n')
+            else:
+                self.log('--> No new minima found.\n')
+                null_runs += 1
+            if null_runs == 2:
+                break
+
+    @_timed_stage
+    def metadynamics_augmentation(self):
+        '''XTB MTD sampling around every candidate
+        (reference embedder.py:1858-1891).'''
+        from tscode_tpu_torch.calculators.xtb import xtb_metadyn_augmentation
+
+        self.log('--> Performing XTB Metadynamic augmentation of TS '
+                 'candidates')
+        before = len(self.structures)
+        t_start = time.perf_counter()
+
+        for s, (structure, constraints) in enumerate(zip(
+                np.copy(self.structures),
+                np.copy(self.constrained_indices))):
+            new_structures = xtb_metadyn_augmentation(
+                structure, self.atomnos, constrained_indices=constraints,
+                new_structures=5, title=s)
+            self.structures = np.concatenate(
+                (self.structures, new_structures))
+            self.energies = np.concatenate(
+                (self.energies, [0 for _ in new_structures]))
+            self.constrained_indices = np.concatenate(
+                (self.constrained_indices,
+                 [constraints for _ in new_structures]))
+
+        self.exit_status = np.ones(len(self.structures), dtype=bool)
+        self.log(f'Metadynamics augmentation completed - found '
+                 f'{len(self.structures) - before} new conformers '
+                 f'({time_to_string(time.perf_counter() - t_start)})\n')
+
+    @_timed_stage
+    def saddle_refining(self):
+        '''First-order saddle refinement of every candidate by the dimer
+        method: on the run's QM surface when a calculator is configured
+        (gradients from calculators.gradients, the host-loop dimer), on
+        the internal force field otherwise (the captured dimer step,
+        float64 on the run's device, one structure at a time as the JAX
+        package runs it).'''
+        if self.options.calculator is not None:
+            self.log(f'--> Saddle refinement (dimer method, '
+                     f'{self.options.theory_level} via '
+                     f'{self.options.calculator})')
+            from tscode_tpu_torch.calculators.gradients import \
+                make_gradient_fn
+            from tscode_tpu_torch.saddle import dimer_saddle_callback
+            grad_fn = make_gradient_fn(
+                self.atomnos, calculator=self.options.calculator,
+                method=self.options.theory_level,
+                solvent=self.options.solvent,
+                charge=self.options.charge, procs=self.procs)
+
+            new_structures, statuses = [], []
+            for i, structure in enumerate(self.structures):
+                c, e, ok = dimer_saddle_callback(structure, grad_fn)
+                new_structures.append(np.asarray(c))
+                statuses.append(bool(ok))
+                self.energies[i] = float(e)
+        else:
+            self.log('--> Saddle refinement (dimer method, internal FF)')
+            from tscode_tpu_torch.ff import (build_ff_params, ff_energy,
+                                             merge_ff_params,
+                                             params_to_device)
+            from tscode_tpu_torch.saddle import dimer_saddle
+
+            offsets = np.cumsum(
+                [0] + [len(g.nodes) for g in self.graphs])[:-1]
+            params_list = []
+            pos = 0
+            for g in self.graphs:
+                n_at = len(g.nodes)
+                params_list.append(build_ff_params(
+                    self.structures[0][pos:pos + n_at],
+                    self.atomnos[pos:pos + n_at], g))
+                pos += n_at
+            params = params_to_device(merge_ff_params(params_list, offsets),
+                                      self.device, torch.float64)
+
+            new_structures, statuses = [], []
+            for i, structure in enumerate(self.structures):
+                # the tables flow through energy_args: one captured
+                # dimer step serves every structure
+                c, e, ok = dimer_saddle(
+                    torch.as_tensor(structure, dtype=torch.float64,
+                                    device=self.device),
+                    ff_energy, energy_args=(params,))
+                new_structures.append(c.cpu().numpy())
+                statuses.append(bool(ok))
+                self.energies[i] = float(e)
+
+        self.structures = np.array(new_structures)
+        self.exit_status = np.array(statuses)
+        self.log(f'Saddle-refined {int(np.sum(self.exit_status))}/'
+                 f'{len(self.structures)} candidates\n')
+        self.similarity_refining()
+        self.write_structures('saddle', energies=True)
+
+    # ------------------------------------------------- optimization hooks
+
+    @_timed_stage
+    def force_field_refining(self, conv_thr='tight',
+                             only_fixed_constraints=False,
+                             prevent_scrambling=False):
+        from tscode_tpu_torch.optimization import force_field_refine
+        force_field_refine(self, conv_thr=conv_thr,
+                           only_fixed_constraints=only_fixed_constraints,
+                           prevent_scrambling=prevent_scrambling)
+
+    @_timed_stage
+    def optimization_refining(self, conv_thr='tight', maxiter=None,
+                              only_fixed_constraints=False):
+        from tscode_tpu_torch.optimization import optimization_refine
+        optimization_refine(self, conv_thr=conv_thr, maxiter=maxiter,
+                            only_fixed_constraints=only_fixed_constraints)
+
+    # ------------------------------------------------------- debug dumps
 
     def dump_status(self, outname, only_fixed_constraints=False):
         '''DEBUG artifacts of a stage: energies, structures, constraints
@@ -1217,7 +1331,8 @@ class RunEmbedding(Embedder):
 
     # ------------------------------------------------------------ resume
 
-    RESUME_STAGES = ('generated', 'pruned')
+    RESUME_STAGES = ('generated', 'pruned', 'ff_pre', 'ff_loose',
+                     'ff_tight', 'opt_loose', 'opt_tight')
 
     def save_resume(self, stage):
         '''Persist the run state so an interrupted run can continue.'''
@@ -1242,9 +1357,6 @@ class RunEmbedding(Embedder):
             raise InputError(
                 f'Resume file embed type {state["embed"]!r} does not '
                 f'match this input ({self.embed!r}).')
-        if state['stage'] not in self.RESUME_STAGES:
-            raise not_ported(f'Resuming after stage {state["stage"]!r} '
-                             f'(optimisation)', '15b')
         self.structures = state['structures']
         self.constrained_indices = state['constrained_indices']
         self.atomnos = state['atomnos']
@@ -1320,7 +1432,10 @@ class RunEmbedding(Embedder):
                                          verbose=True)
                 self.save_resume('pruned')
 
-            self.write_structures('unoptimized', energies=False)
+            if self.options.optimization:
+                self.optimization_stages()
+            else:
+                self.write_structures('unoptimized', energies=False)
 
         except ZeroCandidatesError:
             t_end_run = time.perf_counter()
@@ -1344,22 +1459,136 @@ class RunEmbedding(Embedder):
             clean_directory()
             return
 
+        if self.options.metadynamics:
+            self.metadynamics_augmentation()
+            self.optimization_refining()
+            self.similarity_refining()
+
+        self.csearch_augmentation_routine()
+
+        if self.options.saddle:
+            self.saddle_refining()
+
+        if self.options.nci and self.options.optimization:
+            from tscode_tpu_torch.nci import print_nci
+            print_nci(self)
+
         self.log_warnings()
         self.normal_termination()
 
+    def optimization_stages(self):
+        '''The force-field stages (pre-optimisation with every bond held
+        when XTB docks two or more molecules, loose, tight on the fixed
+        constraints), then the calculator's (ORCA first takes 3 and 5
+        iterations, then loose and tight), each saved for resume
+        (reference embedder.py:2300-2330).'''
+        if self.options.ff_opt:
+            if len(self.objects) > 1 and \
+                    self.options.ff_calc == 'XTB' and \
+                    not self._stage_done('ff_pre'):
+                self.force_field_refining(conv_thr='loose',
+                                          prevent_scrambling=True)
+                self.save_resume('ff_pre')
+            if not self._stage_done('ff_loose'):
+                self.force_field_refining(conv_thr='loose')
+                self.save_resume('ff_loose')
+            if not self._stage_done('ff_tight'):
+                self.force_field_refining(
+                    conv_thr='tight', only_fixed_constraints=True)
+                self.save_resume('ff_tight')
+
+        if not (self.options.ff_opt and
+                self.options.theory_level == getattr(
+                    self.options, 'ff_level', None)):
+            if self.options.calculator == 'ORCA' and \
+                    not self._stage_done('opt_loose'):
+                # stepwise ensemble pruning for expensive levels
+                # (reference embedder.py:2313-2323)
+                self.log('--> Performing ORCA optimization '
+                         '(3 iterations, step 1/3)\n')
+                self.optimization_refining(maxiter=3)
+                self.log('--> Performing ORCA optimization '
+                         '(5 iterations, step 2/3)\n')
+                self.optimization_refining(maxiter=5)
+                self.log('--> Performing ORCA optimization '
+                         '(convergence, step 3/3)\n')
+            if not self._stage_done('opt_loose'):
+                self.optimization_refining(conv_thr='loose')
+                self.save_resume('opt_loose')
+            if not self._stage_done('opt_tight'):
+                self.optimization_refining(
+                    conv_thr='tight', only_fixed_constraints=True)
+                self.save_resume('opt_tight')
+
     def data_termination(self):
-        '''scan>, neb>, saddle> and mep_relax> runs show their data
-        instead of embedding: two or more scan> molecules also get the
-        cumulative scan plot.'''
+        '''scan>, neb>, saddle>, mep_relax>, automep> and pka> runs show
+        their data instead of embedding: pka> molecules get the pKa
+        ladder, two or more scan> molecules the cumulative scan plot.'''
         # per-molecule operator names only (the full input lines in
         # options.operators would double-count and match filenames)
         ops = [op.split('>')[0].strip()
                for mol_ops in self.options.operators_dict.values()
                for op in mol_ops]
+        if any(op == 'pka' for op in ops):
+            self.pka_termination()
         if len([op for op in ops if op == 'scan']) > 1:
             self.scan_termination()
         self.log('--> Data run (pka>/scan>) complete.\n')
         self.normal_termination()
+
+    def pka_termination(self):
+        '''Formatted pKa ladder for every pka> molecule: free-energy
+        legs, and absolute pKas vs the PKA(mol)=n reference when given
+        (reference embedder.py:2395-2449).'''
+        self.log('\n--> pKa energetics (from best conformers)')
+        solv = self.options.solvent or 'gas phase'
+
+        rows = [(mol.rootname,
+                 f'{mol.reactive_indices[0]}'
+                 f'({SYMBOLS[mol.atomnos[mol.reactive_indices[0]]]})',
+                 mol.pka_data[0], round(mol.pka_data[1], 3))
+                for mol in self.objects if hasattr(mol, 'pka_data')]
+        headers = ['Name', '#(Symb)', 'Process', 'Energy (kcal/mol)']
+
+        if hasattr(self, 'pka_ref'):
+            dg_ref = next(mol.pka_data[1] for mol in self.objects
+                          if mol.name == self.pka_ref[0])
+            rt_ln10 = np.log(10) * 1.9872036e-3 * 298.15
+            headers.append(f'pKa ({solv}, 298.15 K)')
+            rows = [row + (round(
+                ((mol.pka_data[1] - dg_ref) if 'HA' in mol.pka_data[0]
+                 else (dg_ref - mol.pka_data[1])) / rt_ln10
+                + self.pka_ref[1], 3),)
+                for row, mol in zip(rows, (
+                    m for m in self.objects if hasattr(m, 'pka_data')))]
+
+        widths = [max(len(str(r[c])) for r in rows + [tuple(headers)])
+                  for c in range(len(headers))]
+        fmt = ' | '.join(f'{{:<{w}}}' for w in widths)
+        self.log('    ' + fmt.format(*headers))
+        self.log('    ' + '-+-'.join('-' * w for w in widths))
+        for row in rows:
+            self.log('    ' + fmt.format(*row))
+
+        if self.options.theory_level is not None:
+            self.log(f'\n  Level used is {self.options.theory_level} via '
+                     f'{self.options.calculator}' +
+                     (f', using the ALPB solvation model for '
+                      f'{self.options.solvent}'
+                      if self.options.solvent is not None else ''))
+
+        # acid/base pair: report the proton-transfer equilibrium
+        with_data = [m for m in self.objects if hasattr(m, 'pka_data')]
+        if len(with_data) == 2:
+            tags = tuple(m.pka_data[0] for m in with_data)
+            if 'HA -> A-' in tags and 'B -> BH+' in tags:
+                dg = sum(m.pka_data[1] for m in with_data)
+                k_eq = np.exp(-dg / (1.9872036e-3 * 298.15))
+                self.log('\n  Equilibrium data:')
+                self.log(f'    HA + B -> BH+ + A-    '
+                         f'K({solv}, 298.15 K) = {round(k_eq, 3)}')
+                self.log(f'                         '
+                         f'dG({solv}, 298.15 K) = {round(dg, 3)} kcal/mol')
 
     def scan_termination(self):
         '''Cumulative plot of the distance scans of every scan>

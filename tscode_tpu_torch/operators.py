@@ -3,23 +3,20 @@ Operator dispatcher: the `op>` prefixes of a molecule line, run before
 the embed (counterpart of tscode_tpu/operators.py). Each operator takes
 and returns a Molecule.
 
-Ported: refine> (the refine route, set up by the options), the
-conformer searches csearch>, csearch_hb> and rsearch>, and the
-operators on the internal force field whose run ends with their data:
-scan> (distance and dihedral scans), neb> and mep_relax> (climbing-image
-NEB) and saddle> (the dimer method). The others need the calculator
-layer (ROADMAP.md item 15b) and raise; an unknown name raises
-InputError. Also here: the gradient source of the bending, NEB and
-saddle procedures.
+refine> (the refine route, set up by the options), opt> (the ensemble
+optimised on the calculator, then pruned), the conformer searches
+csearch>, csearch_hb> and rsearch>, mtd> and mtd_search> (CREST), and
+the operators whose run ends with their data: scan> (distance and
+dihedral scans), neb> and mep_relax> (climbing-image NEB), saddle> (the
+dimer method), automep> (a ring-flip path) and pka>. An unknown name
+raises InputError. Also here: the gradient source of the bending, NEB
+and saddle procedures.
 '''
 
 import numpy as np
 
 from tscode_tpu_torch.errors import InputError
-from tscode_tpu_torch.settings import XTB_AVAILABLE
-
-# the JAX package's operators that need item 15b
-NOT_PORTED = ('opt', 'mtd_search', 'mtd', 'automep', 'pka')
+from tscode_tpu_torch.settings import DEFAULT_LEVELS, XTB_AVAILABLE
 
 
 def operate(op, embedder, mol):
@@ -27,19 +24,21 @@ def operate(op, embedder, mol):
     name = op.split('>')[0].strip()
     handlers = {
         'refine': _refine_operator,
+        'opt': _opt_operator,
         'csearch': _csearch_operator,
         'csearch_hb': _csearch_hb_operator,
         'rsearch': _rsearch_operator,
+        'mtd_search': _mtd_operator,
+        'mtd': _mtd_operator,
         'neb': _neb_operator,
         'saddle': _saddle_operator,
         'scan': _scan_operator,
+        'automep': _automep_operator,
         'mep_relax': _mep_relax_operator,
+        'pka': _pka_operator,
     }
     handler = handlers.get(name)
     if handler is None:
-        if name in NOT_PORTED:
-            from tscode_tpu_torch.embedder import not_ported
-            raise not_ported(f'The {name}> operator', '15b')
         raise InputError(f'Operator {name!r}> not recognized.')
     return handler(embedder, mol)
 
@@ -54,6 +53,38 @@ def _scan_operator(embedder, mol):
     # the run to the 'data' termination
     from tscode_tpu_torch.scans import scan_operator
     return scan_operator(embedder, mol)
+
+
+def _require_calc(embedder, what):
+    if embedder.options.calculator is None:
+        raise InputError(
+            f'{what} requires an external calculator (xtb/orca/gaussian/'
+            f'mopac), none of which was found on PATH.')
+
+
+def _opt_operator(embedder, mol):
+    _require_calc(embedder, 'opt>')
+    from tscode_tpu_torch.optimization import optimize_ensemble
+    return optimize_ensemble(embedder, mol)
+
+
+def _mtd_operator(embedder, mol):
+    _require_calc(embedder, 'mtd_search>')
+    from tscode_tpu_torch.calculators.xtb import crest_mtd_search_operator
+    return crest_mtd_search_operator(embedder, mol)
+
+
+def _automep_operator(embedder, mol):
+    from tscode_tpu_torch.automep import automep
+    n_images = getattr(embedder.options, 'images', None) or 9
+    automep(embedder, n_images=n_images)
+    return mol
+
+
+def _pka_operator(embedder, mol):
+    from tscode_tpu_torch.pka import pka_routine
+    pka_routine(mol.name, embedder)
+    return mol
 
 
 def _csearch_operator(embedder, mol):
@@ -71,19 +102,26 @@ def _rsearch_operator(embedder, mol):
     return csearch_operator(embedder, mol, mode=2)
 
 
-def qm_gradient_source(embedder, mol, chain=False, procedure='Bending'):
+def qm_gradient_source(embedder, mol, chain=False):
     '''(energy, gradient) callback resolved from the run's calculator
-    and theory level (chain=True: the per-image form for NEB bands).
-    Returns None when no gradient-capable calculator is available, in
-    which case `procedure` (bending, NEB, saddle refinement) uses the
-    internal force field. With XTB chosen and installed the callback
-    would come from the calculators, which are not ported: that raises,
-    naming the procedure.'''
+    and theory level, the analog of the reference's get_ase_calc
+    (ase_manipulations.py:123-214); chain=True gives the per-image form
+    for NEB bands. None when the calculator is not XTB or xtb was not
+    on PATH when settings were read: the procedures (bending, NEB,
+    saddle refinement) then run on the internal force field.'''
     if embedder.options.calculator != 'XTB' or not XTB_AVAILABLE:
         return None
-    from tscode_tpu_torch.embedder import not_ported
-    raise not_ported(f'{procedure} on XTB gradients (the calculators)',
-                     '15b')
+    from tscode_tpu_torch.calculators.gradients import (
+        make_chain_gradient_fn, make_gradient_fn)
+    make = make_chain_gradient_fn if chain else make_gradient_fn
+    return make(
+        mol.atomnos,
+        calculator='XTB',
+        method=embedder.options.theory_level or DEFAULT_LEVELS['XTB'],
+        solvent=embedder.options.solvent,
+        charge=embedder.options.charge,
+        procs=getattr(embedder, 'procs', None) or 1,
+        maxthreads=getattr(embedder, 'threads', None) or 4)
 
 
 def _neb_operator(embedder, mol):
@@ -124,8 +162,7 @@ def _neb_operator(embedder, mol):
         chain = aligned
         images = n
 
-    qm_grad = qm_gradient_source(embedder, mol, chain=True,
-                                 procedure='NEB')
+    qm_grad = qm_gradient_source(embedder, mol, chain=True)
     if qm_grad is not None:
         from tscode_tpu_torch.neb import run_neb_callback
         embedder.log(f'--> {mol.rootname}: CI-NEB with {images} images '
@@ -229,8 +266,7 @@ def _saddle_operator(embedder, mol):
     from tscode_tpu_torch.io_xyz import write_xyz
     from tscode_tpu_torch.saddle import saddle_refine_structure
 
-    qm_grad = qm_gradient_source(embedder, mol,
-                                 procedure='Saddle refinement')
+    qm_grad = qm_gradient_source(embedder, mol)
     if qm_grad is not None:
         from tscode_tpu_torch.saddle import dimer_saddle_callback
         embedder.log(f'--> {mol.rootname}: dimer saddle refinement '

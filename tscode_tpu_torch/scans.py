@@ -6,9 +6,10 @@ Each scan point is a constrained relaxation on the internal harmonic
 force field (graph-restrained), float64 on the run's device: batched
 FIRE on one structure, replayed from one captured CUDA graph for every
 point of a scan on the card (the tables, pairs, targets and freeze mask
-flow through energy_args). A scan on an external calculator, and the
-calculator forms of the sub-peak refinements, need the calculators
-(ROADMAP.md item 15b) and raise.
+flow through energy_args). With a calculator chosen, each point is a
+constrained optimisation on it (calculators.dispatch.optimize) and the
+sub-peak refinements run on its gradients (calculators.gradients: the
+host-loop dimer, the callback NEB).
 
 The plots are written where matplotlib is installed; the log says when
 one was skipped.
@@ -34,13 +35,6 @@ def _ff_spring_energy(c, p, prs, tgt):
     return ff_energy(c, p) + spring_energy(c, prs, tgt, k=50.0)
 
 
-def _calculator_not_ported(embedder, what):
-    if embedder.options.calculator is not None:
-        from tscode_tpu_torch.embedder import not_ported
-        raise not_ported(f'{what} on a calculator '
-                         f'({embedder.options.calculator})', '15b')
-
-
 def _measure(coords, quad, device):
     '''The dihedral of the quad atoms of coords (numpy), degrees.'''
     return float(dihedral_fn(torch.as_tensor(
@@ -52,8 +46,26 @@ def _relax_point(embedder, mol, coords, pair=None, pair_dist=None,
     '''One constrained relaxation on the internal force field, on the
     run's device: a harmonic spring (k = 50) holds `pair` at pair_dist,
     or `dihedral` is imposed geometrically and its four atoms frozen.
+    With a calculator chosen, a constrained optimisation on it instead.
     Returns (coords numpy, energy kcal/mol).'''
-    _calculator_not_ported(embedder, 'A scan point')
+    if embedder.options.calculator is not None:
+        from tscode_tpu_torch.calculators.dispatch import optimize
+        kwargs = {}
+        if dihedral is not None:
+            kwargs = dict(constrained_dihedrals=np.array([dihedral]),
+                          constrained_dih_angles=np.array([dihedral_angle]))
+        new_coords, energy, _ = optimize(
+            coords, mol.atomnos, embedder.options.calculator,
+            method=embedder.options.theory_level,
+            constrained_indices=(np.array([pair]) if pair is not None
+                                 else None),
+            constrained_distances=([pair_dist] if pair is not None
+                                   else None),
+            solvent=embedder.options.solvent,
+            charge=embedder.options.charge,
+            procs=embedder.procs, check=False, **kwargs)
+        return new_coords, energy
+
     from tscode_tpu_torch.rot_rmsd import _rotate
     from tscode_tpu_torch.torsions import get_rotation_mask
 
@@ -284,19 +296,30 @@ def _dihedral_sweep(embedder, mol, start_coords, quad, step_deg, min_steps,
 
 def _refine_subpeak(embedder, mol, fine_S, fine_E, sub_peak, label):
     '''SADDLE (dimer) or NEB refinement of one accurate-scan sub-peak,
-    per the run's options, on the internal force field; the plain
-    sub-peak geometry otherwise. Returns (coords, absolute energy), or
-    None when the refined geometry scrambled.'''
+    per the run's options, on the calculator's gradients when one is
+    chosen and on the internal force field otherwise; the plain
+    sub-peak geometry without either option. Returns (coords, absolute
+    energy), or None when the refined geometry scrambled.'''
     from tscode_tpu_torch.utils import molecule_check
 
     guess = fine_S[sub_peak]
 
     if embedder.options.saddle:
         embedder.log(f'  > Saddle opt on {label}')
-        _calculator_not_ported(embedder, 'A saddle refinement')
-        from tscode_tpu_torch.saddle import saddle_refine_structure
-        refined, energy, _ = saddle_refine_structure(
-            guess, mol.atomnos, mol.graph, device=embedder.device)
+        if embedder.options.calculator is not None:
+            from tscode_tpu_torch.calculators.gradients import \
+                make_gradient_fn
+            from tscode_tpu_torch.saddle import dimer_saddle_callback
+            grad_fn = make_gradient_fn(
+                mol.atomnos, calculator=embedder.options.calculator,
+                method=embedder.options.theory_level,
+                solvent=embedder.options.solvent,
+                charge=embedder.options.charge, procs=embedder.procs)
+            refined, energy, _ = dimer_saddle_callback(guess, grad_fn)
+        else:
+            from tscode_tpu_torch.saddle import saddle_refine_structure
+            refined, energy, _ = saddle_refine_structure(
+                guess, mol.atomnos, mol.graph, device=embedder.device)
         if molecule_check(guess, refined, mol.atomnos):
             return refined, energy
         embedder.log(f'    {label}: saddle opt scrambled the structure - '
@@ -305,14 +328,25 @@ def _refine_subpeak(embedder, mol, fine_S, fine_E, sub_peak, label):
 
     if embedder.options.neb:
         embedder.log(f'  > NEB TS opt on {label}')
-        _calculator_not_ported(embedder, 'An NEB refinement')
-        from tscode_tpu_torch.neb import run_neb
         lo = fine_S[sub_peak - 2]
         hi = fine_S[(sub_peak + 1) % len(fine_S)]
-        chain, energies, ts_index = run_neb(
-            lo, hi, ff_energy, n_images=5,
-            energy_args=(molecule_params(mol, embedder.device),),
-            device=embedder.device)
+        if embedder.options.calculator is not None:
+            from tscode_tpu_torch.calculators.gradients import \
+                make_chain_gradient_fn
+            from tscode_tpu_torch.neb import run_neb_callback
+            chain_fn = make_chain_gradient_fn(
+                mol.atomnos, calculator=embedder.options.calculator,
+                method=embedder.options.theory_level,
+                solvent=embedder.options.solvent,
+                charge=embedder.options.charge, procs=embedder.procs)
+            chain, energies, ts_index = run_neb_callback(
+                lo, hi, chain_fn, n_images=5, device=embedder.device)
+        else:
+            from tscode_tpu_torch.neb import run_neb
+            chain, energies, ts_index = run_neb(
+                lo, hi, ff_energy, n_images=5,
+                energy_args=(molecule_params(mol, embedder.device),),
+                device=embedder.device)
         refined = np.asarray(chain[ts_index])
         if molecule_check(lo, refined, mol.atomnos):
             return refined, float(energies[ts_index])

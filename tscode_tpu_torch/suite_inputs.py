@@ -48,6 +48,14 @@ monomolecular input behind a conformer search,
 the chain has 8 three-fold rotors in one group, so the search rotates
 3^8 = 6,561 candidates with the clash back-off and keeps up to 1,000.
 
+`sn2_string_opt` and `da_cyclical_opt` are `sn2_string` and
+`da_cyclical` (their files byte for byte) with NOOPT replaced by
+    CALC=XTB FFCALC=XTB FFOPT=ON
+so that the candidates go through the optimisation stages: the
+force-field pre-optimisation, loose and tight, then the calculator's
+loose and tight, each followed by the prunes. On da_cyclical the DIST
+letters set target distances the xtb adapter walks toward step by step.
+
 `dihedral_scan` drives a ring torsion of a chlorocycloalkane (the third
 argument is the ring's carbon count, not a conformer count):
     SADDLE
@@ -76,7 +84,9 @@ NOISE = 0.12          # A of per-conformer jitter on the fixtures
 CONFIGS = ('sn2_string', 'large_n_string', 'da_cyclical', 'da_cyclical_xl',
            'multiembed', 'chelotropic', 'chelotropic_nonrigid',
            'trimolecular', 'trimolecular_rigid', 'monomolecular',
-           'torsion_drive', 'csearch_string', 'dihedral_scan')
+           'torsion_drive', 'csearch_string', 'dihedral_scan',
+           'sn2_string_opt', 'da_cyclical_opt')
+OPT_KEYWORDS = 'CALC=XTB FFCALC=XTB FFOPT=ON'
 SEARCH_CHAIN = 10     # carbons of csearch_string's chain
 
 
@@ -206,6 +216,13 @@ def write_chloroalkane(dst, n_carbons, n_confs, rng, noise=0.05):
 def config_files(name, workdir, n_confs):
     '''Write input.txt and its molecule files for `name` (one of CONFIGS)
     at n_confs conformers per molecule; returns the input file's path.'''
+    if name in ('sn2_string_opt', 'da_cyclical_opt'):
+        path = config_files(name[:-len('_opt')], workdir, n_confs)
+        with open(path) as f:
+            content = f.read()
+        with open(path, 'w') as f:
+            f.write(content.replace('NOOPT', OPT_KEYWORDS, 1))
+        return path
     rng = np.random.default_rng(7)
     j = os.path.join
     if name == 'sn2_string':

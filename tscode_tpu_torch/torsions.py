@@ -419,10 +419,13 @@ def _new_stats(stats, **fields):
 
 def csearch(coords, atomnos, constrained_indices=None, keep_hb=False,
             ff_opt=False, n=100, n_out=100, mode=1, title='test',
-            logfunction=print, *, rng, device, stats=None):
+            logfunction=print, *, rng, device, stats=None, calc=None,
+            method=None, embedder=None):
     """Torsional conformer search (reference torsion_module.py:523-653).
     mode 0: clustered, keep the lowest-energy conformer of each cluster
-            (needs ff_opt, the force-field layer: not ported)
+            (needs ff_opt: every group's conformers are optimised on the
+            calculator, `calc` and `method` or the embedder's force-field
+            calculator, optimization.optimize_batch)
     mode 1: clustered, keep the most diverse
     mode 2: random angle sets
     rng: np.random.RandomState of the random draws; device: where the
@@ -485,8 +488,10 @@ def csearch(coords, atomnos, constrained_indices=None, keep_hb=False,
         out = np.array([coords])
     elif mode in (0, 1):
         out = clustered_csearch(coords, atomnos, torsions, graph,
+                                constrained_indices=constrained_indices,
                                 ff_opt=ff_opt, n=n, n_out=n_out, mode=mode,
-                                title=title, logfunction=logfunction,
+                                calc=calc, method=method, title=title,
+                                logfunction=logfunction, embedder=embedder,
                                 rng=rng, device=device, stats=rec)
     else:
         out = random_csearch(coords, atomnos, torsions, graph, n_out=n_out,
@@ -576,41 +581,43 @@ def random_csearch(coords, atomnos, torsions, graph, n_out=100,
     return new_structures
 
 
-def clustered_csearch(coords, atomnos, torsions, graph, ff_opt=False, n=100,
-                      n_out=100, mode=1, title='test', logfunction=print, *,
+def clustered_csearch(coords, atomnos, torsions, graph,
+                      constrained_indices=None, ff_opt=False, n=100,
+                      n_out=100, mode=1, calc=None, method=None,
+                      title='test', logfunction=print, embedder=None, *,
                       rng, device, stats=None):
     """Grouped systematic rotation (reference torsion_module.py:655-847).
-    Mode 0 and ff_opt need the force-field optimisation of every group's
-    conformers (optimization.optimize_batch), which is not ported: they
-    raise before any work."""
+    With ff_opt every group's conformers are optimised on the calculator
+    (optimization.optimize_batch, a thread pool of subprocesses) and the
+    energies ride along: mode 0 keeps the most stable, mode 1 the most
+    diverse (the lowest in energy of each cluster)."""
     assert mode != 0 or ff_opt, \
         'Either leave mode=1 or turn on force field optimization'
     assert mode in (0, 1)
-    if ff_opt:
-        from tscode_tpu_torch.embedder import not_ported
-        raise not_ported('Force-field optimisation inside the conformer '
-                         'search (mode 0, ff_opt)', '15b')
 
     t_start_run = time.perf_counter()
     rec = _new_stats(stats)
+    tag = ('stable', 'diverse')[mode]
 
     t0 = time.perf_counter()
     if len(torsions) < 9:
         grouped_torsions = [torsions]
     else:
-        grouped_torsions = group_torsions_dbscan(coords, torsions, max_size=5)
+        grouped_torsions = group_torsions_dbscan(
+            coords, torsions, max_size=3 if ff_opt else 5)
     rec['group_s'] += time.perf_counter() - t0
     rec['groups'] = [len(t) for t in grouped_torsions]
 
     _log_torsions(torsions, atomnos, logfunction)
     logfunction(f'\n--> Clustered CSearch on {title}\n    mode {mode} '
-                f'(diversity) - {len(torsions)} torsions in '
-                f'{len(grouped_torsions)} '
+                f'({"stability" if mode == 0 else "diversity"}) - '
+                f'{len(torsions)} torsions in {len(grouped_torsions)} '
                 f'group{"s" if len(grouped_torsions) != 1 else ""} - '
                 f'{[len(t) for t in grouped_torsions]}')
 
     torsion_array = np.array([t.torsion for t in torsions])
     output_structures = []
+    output_energies = []
     starting_points = np.array([coords])
 
     for tg, torsions_group in enumerate(grouped_torsions):
@@ -641,33 +648,60 @@ def clustered_csearch(coords, atomnos, torsions, graph, ff_opt=False, n=100,
             new_structures.extend(rotated_coords[block][n_rotated[block] > 0])
         new_structures = np.array(new_structures)
 
+        energies = None
+        if ff_opt:
+            from tscode_tpu_torch.optimization import optimize_batch
+            new_structures, energies = optimize_batch(
+                embedder, new_structures, atomnos, calc=calc, method=method,
+                constrained_indices=constrained_indices,
+                logfunction=logfunction)
+
         if tg + 1 != len(grouped_torsions):
             if n is not None and len(new_structures) > n:
                 t0 = time.perf_counter()
-                new_structures = most_diverse_conformers(
-                    n, new_structures, torsion_array, rng=rng, device=device)
+                if mode == 0:
+                    order = np.argsort(energies, kind='stable')
+                    new_structures = new_structures[order][:n]
+                    energies = np.asarray(energies)[order][:n]
+                else:
+                    new_structures, energies = most_diverse_conformers(
+                        n, new_structures, torsion_array, energies=energies,
+                        return_energies=True, rng=rng, device=device)
                 rec['select_s'] += time.perf_counter() - t0
-            logfunction(f'  Kept the most diverse {len(new_structures)} '
+            logfunction(f'  Kept the most {tag} {len(new_structures)} '
                         f'starting points for next rotation cluster')
 
+        # energies kept aligned with the aggregated structures (the
+        # reference pairs the final selection against the last group's
+        # energies through a truncating zip, torsion_module.py:830-840)
         output_structures.extend(new_structures)
+        output_energies.extend(
+            energies if energies is not None else [0.0] * len(new_structures))
         starting_points = new_structures
 
     t0 = time.perf_counter()
-    output_structures, _ = prune_conformers_tfd(
+    output_structures, keep = prune_conformers_tfd(
         np.array(output_structures), torsion_array, device=device)
+    output_energies = np.array(output_energies)[keep]
     rec['tfd_s'] += time.perf_counter() - t0
 
     # gate on the LAST group's count, as the reference does (:829)
     if len(new_structures) > n_out:
         t0 = time.perf_counter()
-        output_structures = most_diverse_conformers(
-            n_out, output_structures, torsion_array, rng=rng, device=device)
+        if mode == 0:
+            order = np.argsort(output_energies, kind='stable')
+            output_structures = output_structures[order][:n_out]
+        else:
+            output_structures = most_diverse_conformers(
+                n_out, output_structures, torsion_array,
+                energies=output_energies if ff_opt else None, rng=rng,
+                device=device)
         rec['select_s'] += time.perf_counter() - t0
 
     exhaustiveness = len(output_structures) / np.prod(
         [t.n_fold for t in torsions])
-    logfunction(f'  Selected the most diverse '
+    logfunction(f'  Selected the '
+                f'{"best" if mode == 0 else "most diverse"} '
                 f'{len(output_structures)} conformers, corresponding\n  to '
                 f'about {round(100 * exhaustiveness, 2)} % of the total '
                 f'conformational space - CSearch time '
@@ -675,28 +709,49 @@ def clustered_csearch(coords, atomnos, torsions, graph, ff_opt=False, n=100,
     return output_structures
 
 
-def most_diverse_conformers(n, structures, torsion_array, *, rng, device):
+def most_diverse_conformers(n, structures, torsion_array, energies=None,
+                            return_energies=False, *, rng, device):
     """TFD-prune then k-means-select the n most diverse structures
     (reference torsion_module.py:849-924). Above 300 the selection is n
     distinct structures drawn from `rng` (the reference draws with
-    replacement; the JAX package fixed that, and so does the port). The
-    reference's energy-aware selection serves mode 0 only, which needs
-    the force field (ROADMAP item 15b)."""
+    replacement; the JAX package fixed that, and so does the port).
+    energies, when given, must be aligned with structures: each cluster
+    then gives its lowest-energy member, and with return_energies=True
+    the selected structures' energies come back too."""
     structures = np.asarray(structures)
-    if len(structures) <= n:
-        return structures
-    if n > 300:
-        return structures[np.sort(rng.choice(len(structures), size=n,
-                                             replace=False))]
+    if energies is not None:
+        energies = np.asarray(energies)
+        assert len(energies) == len(structures)
 
-    structures, _ = prune_conformers_tfd(structures, torsion_array,
-                                         device=device)
+    def ret(structs, ens):
+        return (structs, ens) if return_energies else structs
+
     if len(structures) <= n:
-        return structures
+        return ret(structures, energies)
+    if n > 300:
+        indices = np.sort(rng.choice(len(structures), size=n, replace=False))
+        return ret(structures[indices],
+                   energies[indices] if energies is not None else None)
+
+    structures, keep = prune_conformers_tfd(structures, torsion_array,
+                                            device=device)
+    if energies is not None:
+        energies = energies[keep]
+    if len(structures) <= n:
+        return ret(structures, energies)
 
     aligned = align_structures(structures)
     labels, centers = kmeans(aligned.reshape(len(aligned), -1), n, rng,
                              device=device)
+    if energies is not None:
+        clusters = [[] for _ in range(n)]
+        for c_coords, energy, c in zip(aligned, energies, labels):
+            clusters[c].append((c_coords, energy))
+        picked = [sorted(group, key=lambda x: x[1])[0]
+                  for group in clusters if group]
+        return ret(np.array([p[0] for p in picked]),
+                   np.array([p[1] for p in picked]))
+
     centers = centers.reshape((n, *aligned.shape[1:3]))
     clusters = [[] for _ in range(n)]
     for c_coords, c in zip(aligned, labels):
@@ -708,7 +763,7 @@ def most_diverse_conformers(n, structures, torsion_array, *, rng, device):
             cumdists = [np.sum(np.linalg.norm(centers[r != ci] - ref, axis=2))
                         for ref in cluster]
             output.append(cluster[int(np.argmax(cumdists))])
-    return np.array(output)
+    return ret(np.array(output), None)
 
 
 def csearch_operator(embedder, mol, mode=1, keep_hb=False):
