@@ -56,7 +56,15 @@ force-field and the calculator's stages, every xtb call answered by the
 stand-in xtb of tests/torch_standin (a test double) first on PATH, each
 stage followed by the prunes (K3 on every RMSD pool), float64 held to
 the JAX x64 record taken with the same stand-in, and float32 within
-brackets.
+brackets. Phase 21 runs the sharded paths on a mesh that names the card
+four times (one process): sn2_string, da_cyclical_xl and REFINE on its
+output, multiembed, trimolecular RIGID and csearch_string through the
+CLI in float64 with every mesh call site forced, each against its
+unsharded run (every count equal, frames within 1e-6 A); K1, K2 and K3
+against their plain twins on the shard-shaped tensors those runs gave
+them; sharded_embed_screen_step; the sharded FIRE on phase 12's
+survivors. Four views of one card show the sharding's overhead, not a
+speed-up.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
@@ -67,6 +75,7 @@ brackets.
                                   # force-field operators
     python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
                                   # route
+    python3 chip_smoke.py --mesh     # phase 21 alone: the sharded paths
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
@@ -254,6 +263,16 @@ EAGER_TIMED_STEPS = 5      # steps per timing of a step queued op by op
 # of tests/torch_standin), held to the JAX x64 record of the same run
 OPT_CONFS = 76
 OPT_GOLDEN = os.path.join(GOLDEN, 'sn2_string_opt.npz')
+
+# phase 21: the sharded paths on a mesh naming the card MESH_SHARDS
+# times (one process; the counterpart of the JAX tests' virtual CPU
+# mesh), every route against its unsharded run in float64
+MESH_SHARDS = 4
+MESH_ROUTES = (('sn2_string', STRING_CONFS), ('da_cyclical_xl', CYC_CONFS),
+               ('multiembed', ME_CONFS), ('trimolecular_rigid', TRI_CONFS),
+               ('csearch_string', SEARCH_CONFS))
+MESH_ATOL = 1e-6           # A, sharded frames against unsharded
+MESH_SCREEN_B = 8 * MESH_SHARDS   # poses of sharded_embed_screen_step
 
 class SmokeFailure(Exception):
     pass
@@ -3012,6 +3031,315 @@ def phase_opt_route(card):
     return launches, k3_err, rec
 
 
+def route_counts(report):
+    '''Every count of a CLI run report: the stages, the prunes, the
+    embed's record, each arrangement of a multiembed, each search.'''
+    def rows(recs):
+        return [(r['stage'], r['structures_in'], r['structures_out'])
+                for r in recs]
+    out = {'stages': rows(report['stages']),
+           'similarity': rows(report.get('similarity', [])),
+           'final': report['final_structures']}
+    for key, fields in (('string_embed', ('candidates', 'clash_ok', 'novel')),
+                        ('cyclical_embed', ('blocks', 'candidates',
+                                            'survivors')),
+                        ('multiembed_embed', ('union_candidates',
+                                              'union_survivors'))):
+        if key in report:
+            out[key] = [report[key][f] for f in fields]
+    if 'multiembed_embed' in report:
+        out['children'] = [(c['blocks'], c['survivors'], c['structures'])
+                           for c in report['multiembed_embed']['children']]
+    if 'csearch' in report:
+        out['csearch'] = [(c['candidates'], c.get('conformers'))
+                          for c in report['csearch']]
+    return out
+
+
+class MeshRecorder:
+    '''While installed: the first string tile a sharded sweep builds
+    (poses and pair list, K1's input), every tensor a sharded
+    compenetration stage gives K2, and every slice a sharded prune pass
+    gives K3 (pool, act, end, rows).'''
+
+    def __init__(self):
+        from tscode_tpu_torch.embeds import string
+        from tscode_tpu_torch.parallel import prune, sharding
+        self.k1, self.k2, self.k3 = [], [], []
+        self.undo = []
+        self.sharded = False          # set while a sharded run goes
+        block = string.bcast_block
+
+        def k1_block(inp, angles, c2_lo, c2_hi, clash_thresh):
+            poses, ok = block(inp, angles, c2_lo, c2_hi, clash_thresh)
+            if self.sharded and not self.k1:
+                self.k1.append((poses, inp.pairs))
+            return poses, ok
+        k2_entry = sharding.compenetration_mask_kernel
+
+        def k2(poses, pair_mask, thresh=1.5, max_clashes=0):
+            self.k2.append((poses, pair_mask, thresh, max_clashes))
+            return k2_entry(poses, pair_mask, thresh, max_clashes)
+        pass_kill = prune.sharded_pass_kill
+
+        def k3(pools, act, end, thr, mesh, pair_kill=prune.qcp_kill):
+            def recorded(hs, a, e, t, rows):
+                self.k3.append((hs, a, e, rows))
+                return pair_kill(hs, a, e, t, rows=rows)
+            return pass_kill(pools, act, end, thr, mesh, recorded)
+        for mod, name, fn in ((string, 'bcast_block', k1_block),
+                              (sharding, 'compenetration_mask_kernel', k2),
+                              (prune, 'sharded_pass_kill', k3)):
+            self.undo.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+
+    def close(self):
+        for mod, name, fn in self.undo:
+            setattr(mod, name, fn)
+
+
+def mesh_cli(tmp, inp, mesh, sharded, rec):
+    '''run_cli in float64 on `inp`, unsharded (TSCODE_DISABLE_MESH=1) or
+    under `mesh` with every mesh call site forced (TSCODE_MESH=1), the
+    MeshRecorder `rec` told which. Returns run_cli's result and the
+    kernels' launches of the run (run_cli sets the counts to 0 first):
+    K1 `clash_ok`, K2 `compenetration_mask_kernel`, K1's back-off entry
+    `torsion_clash_ok`, K3.'''
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    from tscode_tpu_torch.parallel.sharding import default_mesh
+    key = 'TSCODE_MESH' if sharded else 'TSCODE_DISABLE_MESH'
+    os.environ[key] = '1'
+    rec.sharded = sharded
+    try:
+        with default_mesh(mesh):
+            out = run_cli(tmp, inp, 'float64')
+    finally:
+        del os.environ[key]
+        rec.sharded = False
+    launches = dict(clash.launches_by_entry(), qcp_kill=qcp.KERNEL.launches)
+    return out, launches
+
+
+def mesh_route(card, name, n_confs, mesh, rec, tmp):
+    '''One route unsharded then sharded through the CLI in float64: every
+    count equal, frames within MESH_ATOL. name 'refine' takes the
+    ensemble file to refine in place of n_confs. Returns (record, a copy
+    of the sharded run's frames file).'''
+    import shutil
+    runs = {}
+    for sharded in (False, True):
+        d = os.path.join(tmp, f'{name}_{"sharded" if sharded else "single"}')
+        os.makedirs(d)
+        if name == 'refine':
+            from tscode_tpu_torch.suite_inputs import refine_input
+            inp = refine_input(n_confs, d)
+        else:
+            inp = suite_input(name, d, n_confs)
+        (report, frames, _, secs), launches = mesh_cli(d, inp, mesh,
+                                                       sharded, rec)
+        runs[sharded] = (route_counts(report), frames, secs, launches, d)
+    (c0, f0, s0, l0, d0), (c1, f1, s1, l1, d1) = runs[False], runs[True]
+    check(c1 == c0, f'[21 mesh] {name}: sharded counts {c1} != unsharded '
+          f'{c0}')
+    check(f1.shape == f0.shape and len(f0) > 0 and
+          bool(np.isfinite(f1).all()), f'[21 mesh] {name}: frames '
+          f'{f1.shape} against {f0.shape}')
+    diff = float(np.abs(f1 - f0).max())
+    check(diff <= MESH_ATOL, f'[21 mesh] {name}: sharded frames {diff:.2e} '
+          f'A from the unsharded')
+    stamp = f'smoke_{DEV}_float64'
+    out = os.path.join(tmp, f'{name}_out.xyz')
+    shutil.copy(os.path.join(d1, f'tscode_unoptimized_{stamp}.xyz'), out)
+    r = {'counts': c1, 'final': c1['final'], 'max_frame_diff_A': diff,
+         'unsharded_s': s0, 'sharded_s': s1, 'unsharded_launches': l0,
+         'sharded_launches': l1}
+    print(f'[21 mesh] {name}: sharded == unsharded, final {c1["final"]}, '
+          f'frames within {diff:.2e} A; {s0:.3f} s unsharded, {s1:.3f} s '
+          f'on {mesh.size} shards of one card (the sharding overhead, not '
+          f'a speed-up); launches unsharded {l0}, sharded {l1} [{card}]')
+    return r, out
+
+
+def mesh_kernels(card, rec):
+    '''K1, K2 and K3 on the shard-shaped tensors the sharded runs gave
+    them, against their plain twins (off threshold ties) and timed
+    (device_ms; the plain twins with cuda_ms). Returns (records, largest
+    disagreement).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    check(rec.k1 and rec.k2 and rec.k3, f'[21 mesh] recorded K1 '
+          f'{len(rec.k1)}, K2 {len(rec.k2)}, K3 {len(rec.k3)} sharded inputs')
+    out, err = {}, 0
+    poses, pairs = rec.k1[0]
+    want = clash.clash_ok_plain(poses, pairs, CLASH)
+    e, _ = compare_bits(clash.clash_ok(poses, pairs, CLASH), want,
+                        clash_ties(poses, pairs, CLASH), '[21 mesh] K1')
+    err = max(err, e)
+    out['clash_ok'] = {
+        'shape': list(poses.shape), 'P': int(pairs.shape[0]),
+        'ms': device_ms(lambda: clash.clash_ok(poses, pairs, CLASH)),
+        'plain_ms': cuda_ms(lambda: clash.clash_ok_plain(poses, pairs,
+                                                         CLASH))}
+    for poses, pm, thresh, mc in rec.k2:
+        mask = torch.as_tensor(pm, device=poses.device)
+        pl = clash.pairs_of_mask(pm, poses.device)
+        e, _ = compare_bits(clash.compenetration_mask_kernel(poses, pm,
+                                                             thresh, mc),
+                            clash.clash_counts_plain(poses, mask, thresh)
+                            <= mc, clash_ties(poses, pl, thresh),
+                            '[21 mesh] K2')
+        err = max(err, e)
+    poses, pm, thresh, mc = rec.k2[0]
+    mask = torch.as_tensor(pm, device=poses.device)
+    out['compenetration_mask_kernel'] = {
+        'shape': list(poses.shape), 'shards': len(rec.k2),
+        'ms': device_ms(lambda: clash.compenetration_mask_kernel(
+            poses, pm, thresh, mc)),
+        'plain_ms': cuda_ms(lambda: clash.clash_counts_plain(
+            poses, mask, thresh) <= mc)}
+    for hs, act, end, rows in rec.k3:
+        pos = torch.arange(rows, device=hs.device)
+        e, _ = compare_bits(qcp.qcp_kill(hs, act, end, THR, rows=rows),
+                            qcp.qcp_kill_plain(hs, act, end, THR, rows),
+                            qcp_tie_rows(hs, act, end, pos,
+                                         QCP_TIE['float64']),
+                            '[21 mesh] K3')
+        err = max(err, e)
+    hs, act, end, rows = rec.k3[0]
+    out['qcp_kill'] = {
+        'slices': len(rec.k3), 'first_slice_rows': rows,
+        'pool': list(hs.shape),
+        'ms': device_ms(lambda: qcp.qcp_kill(hs, act, end, THR, rows=rows)),
+        'plain_ms': cuda_ms(lambda: qcp.qcp_kill_plain(hs, act, end, THR,
+                                                       rows), reps=3)}
+    for k, r in out.items():
+        print(f'[21 mesh] {k} on a shard\'s tensor {r}: equal to plain off '
+              f'ties [{card}]')
+    return out, err
+
+
+def mesh_screen_step(card, mesh, tmp):
+    '''sharded_embed_screen_step on MESH_SCREEN_B poses of the sn2_string
+    molecules over the mesh, against the same step on one shard.'''
+    import torch
+    from tscode_tpu_torch.embeds.common import stacked_lobes
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.parallel.sharding import (make_mesh,
+                                                    sharded_embed_screen_step)
+    emb = embedder_setup(suite_input('sn2_string', tmp, STRING_CONFS),
+                         torch.float64)
+    m1, m2 = emb.objects
+    (c1, v1), (c2, v2) = stacked_lobes(m1), stacked_lobes(m2)
+    rng = np.random.default_rng(21)
+    B = MESH_SCREEN_B
+    args = (m1.atomcoords, m2.atomcoords, c1, v1, c2, v2,
+            rng.integers(0, m1.n_confs, B), rng.integers(0, m2.n_confs, B),
+            rng.integers(0, c1.shape[1], B), rng.integers(0, c2.shape[1], B),
+            rng.choice(np.linspace(0.0, 350.0, 36), B),
+            cross_fragment_pair_mask((m1.n_atoms, m2.n_atoms)))
+    args = tuple(torch.as_tensor(a, device=DEV) if i < 6 or i == 10 else a
+                 for i, a in enumerate(args))
+    one = make_mesh(devices=[DEV])
+    p1, k1, n1 = sharded_embed_screen_step(one)(*args)
+    p4, k4, n4 = sharded_embed_screen_step(mesh)(*args)
+    diff = float((p4 - p1).abs().max())
+    check(torch.equal(k4, k1) and n4 == n1 and diff <= MESH_ATOL and
+          p4.shape == (B, m1.n_atoms + m2.n_atoms, 3),
+          f'[21 mesh] screen step: {n4} kept on {mesh.size} shards, {n1} on '
+          f'one, poses {diff:.2e} A apart')
+    print(f'[21 mesh] sharded_embed_screen_step, B = {B} on {mesh.size} '
+          f'shards: {n4} kept, equal to one shard (poses within '
+          f'{diff:.2e} A) [{card}]')
+    return {'B': B, 'kept': n4, 'max_pose_diff_A': diff}
+
+
+def mesh_fire(card, mesh):
+    '''fire_minimize_batch_sharded on phase 12's survivors for FIRE_STEPS
+    steps in float64 against the unsharded batch: coordinates within
+    MESH_ATOL, the same rows stopped; both timed (host clock, synced,
+    after a run that captures their graphs).'''
+    import torch
+    from tscode_tpu_torch import optimizers as opt
+    from tscode_tpu_torch.ff import ff_energy, params_to_device
+    poses, ffp = trimol_topology()
+    params = params_to_device(ffp, DEV, torch.float64)
+    x = torch.as_tensor(poses, dtype=torch.float64, device=DEV)
+    kw = dict(n_steps=FIRE_STEPS, energy_args=(params,))
+    secs = {}
+    for name, run in (('unsharded', lambda: opt.fire_minimize_batch(
+            x, ff_energy, **kw)), ('sharded', lambda: opt.
+            fire_minimize_batch_sharded(x, ff_energy, mesh, **kw))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs[name] = (time.perf_counter() - t0, out)
+    (c0, _, d0), (c1, _, d1) = secs['unsharded'][1], secs['sharded'][1]
+    diff = float((c1 - c0).abs().max())
+    check(diff <= MESH_ATOL and torch.equal(d0, d1), f'[21 mesh] FIRE: '
+          f'sharded {diff:.2e} A from unsharded, stopped rows '
+          f'{int(d1.sum())} against {int(d0.sum())}')
+    r = {'rows': len(x), 'steps': FIRE_STEPS, 'stopped': int(d1.sum()),
+         'max_diff_A': diff, 'unsharded_s': secs['unsharded'][0],
+         'sharded_s': secs['sharded'][0]}
+    print(f'[21 mesh] FIRE on {len(x)} survivors, {FIRE_STEPS} steps, '
+          f'float64: sharded within {diff:.2e} A of unsharded, '
+          f'{r["stopped"]} rows stopped in both; {r["unsharded_s"]:.4f} s '
+          f'unsharded, {r["sharded_s"]:.4f} s on {mesh.size} shards [{card}]')
+    return r
+
+
+def phase_mesh(card):
+    '''Phase 21: the sharded paths on a mesh naming the card MESH_SHARDS
+    times. Each route of MESH_ROUTES through the CLI in float64, first
+    unsharded, then with the mesh installed and every mesh call site
+    forced (TSCODE_MESH=1): the string sweep's c2 slices (K1 per shard),
+    the rigid block sweeps' row slices (K1 per shard), the back-off
+    (K1's torsion entry per shard), the compenetration stage (K2 per
+    shard), the TFD first-successor and moments sharded; then REFINE on
+    the rigid route's output (every RMSD pass split over the shards, K3
+    per slice). Every count equals the unsharded run's, frames within
+    MESH_ATOL. Then K1, K2 and K3 against their plain twins on the
+    shard-shaped inputs, sharded_embed_screen_step, and the sharded FIRE.
+    Returns (record, the sharded launches per kernel, largest
+    disagreement).'''
+    import tempfile
+    from tscode_tpu_torch.parallel.sharding import make_mesh
+    mesh = make_mesh(devices=[DEV] * MESH_SHARDS)
+    rec = MeshRecorder()
+    routes = {}
+    with tempfile.TemporaryDirectory(prefix='smoke_mesh_') as tmp:
+        try:
+            for name, n in MESH_ROUTES:
+                routes[name], out = mesh_route(card, name, n, mesh, rec, tmp)
+                if name == 'da_cyclical_xl':
+                    routes['refine'], _ = mesh_route(card, 'refine', out,
+                                                     mesh, rec, tmp)
+        finally:
+            rec.close()
+        screen = mesh_screen_step(card, mesh, tmp)
+    check(routes['sn2_string']['counts']['string_embed'] + [
+        routes['sn2_string']['final']] == list(STRING_F64),
+        f'[21 mesh] sn2_string sharded counts != {STRING_F64}')
+    check(routes['da_cyclical_xl']['counts']['cyclical_embed'][1:] + [
+        routes['da_cyclical_xl']['final']] == list(CYC_F64),
+        f'[21 mesh] da_cyclical_xl sharded counts != {CYC_F64}')
+    kernels, err = mesh_kernels(card, rec)
+    fire = mesh_fire(card, mesh)
+    launches = {'clash_ok': 0, 'compenetration_mask_kernel': 0,
+                'torsion_clash_ok': 0, 'qcp_kill': 0}
+    for r in routes.values():
+        for k in launches:
+            launches[k] += r['sharded_launches'][k]
+    check(all(launches.values()), f'[21 mesh] sharded launches {launches}: '
+          f'a kernel did not launch on a sharded path')
+    record = {'card': card, 'mesh': [str(d) for d in mesh.devices],
+              'routes': routes, 'kernels': kernels, 'screen_step': screen,
+              'fire': fire, 'sharded_launches': launches}
+    return record, launches, err
+
+
 def qcp_plan_sweep(card, out):
     '''K3's launch plans timed at every headline pass in float32 and on
     the long chunks (the measurement behind qcp.launch_plan): each
@@ -3091,6 +3419,97 @@ def cyclical_profile(card, out):
                   indent=1)
 
 
+GUARD_ORDER = ('none', 'always', 'skip', 'skip', 'always', 'none')
+
+
+def guard_modes():
+    """The ways a launch may treat the current device: `none` (no
+    switch, the launch as it was before the mesh), `always`
+    (torch.cuda.device around every launch and graph run) and `skip`
+    (_build.device_guard: a switch only to another card)."""
+    import contextlib
+    import torch
+    from tscode_tpu_torch.ops.kernels import _build
+    return {'none': lambda d: contextlib.nullcontext(),
+            'always': torch.cuda.device, 'skip': _build.device_guard}
+
+
+def guard_overhead(card, out):
+    """--guard OUT.json: the host's cost of the launch's device guard on
+    one card, in each of guard_modes, in the order GUARD_ORDER twice:
+    the wall per launch of K1's back-off entry (3 poses of 8 atoms, P =
+    16, float64: phase 16's shape) and of K3 on a k = 1 pass of 41 rows
+    (the headline's last pass), 2,000 launches each; the wall per
+    fire_minimize_batch call of one 15-atom structure over 50 steps (a
+    captured graph's run, phase 13's loop), 200 calls; and the
+    csearch_string search of phase 17 through the CLI, float64, whose
+    back-off launches K1 392 times and whose TFD prune launches no hand
+    kernel (the control for the host's speed)."""
+    import tempfile
+    import torch
+    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch.ops.kernels import _build, clash, qcp
+    modes, real = guard_modes(), _build.device_guard
+    dev = torch.device('cuda', 0)
+    rng = np.random.default_rng(0)
+    poses = torch.as_tensor(rng.normal(size=(3, 8, 3)) * 2, device=dev)
+    move = np.arange(8) < 4
+    hs = torch.as_tensor(rng.normal(size=(41, 4, 3)), device=dev)
+    act = torch.arange(41, device=dev)
+    end = torch.full((41,), 41, device=dev)
+    x = torch.as_tensor(rng.normal(size=(1, 15, 3)) * 2, device=dev)
+    center = torch.as_tensor(rng.normal(size=(15, 3)), device=dev)
+
+    def energy(c, center):
+        return torch.sum((c - center) ** 2 * (1 + c ** 2), dim=(-2, -1))
+
+    def per_call(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    rec = {m: {'k1_us': [], 'k3_us': [], 'fire_graph_ms': [],
+               'backoff_s': [], 'tfd_s': [], 'search_s': []} for m in modes}
+    try:
+        with tempfile.TemporaryDirectory(prefix='smoke_guard_') as tmp:
+            inp = suite_input('csearch_string', tmp, SEARCH_CONFS)
+            run_cli(tmp, inp, 'float64')           # warm-up, not kept
+            for mode in GUARD_ORDER * 2:
+                _build.device_guard = optimizers.device_guard = modes[mode]
+                r = rec[mode]
+                r['k1_us'].append(1e6 * per_call(
+                    lambda: clash.torsion_clash_ok(poses, move, ~move),
+                    2000))
+                r['k3_us'].append(1e6 * per_call(
+                    lambda: qcp.qcp_kill(hs, act, end, 0.5), 2000))
+                r['fire_graph_ms'].append(1e3 * per_call(
+                    lambda: optimizers.fire_minimize_batch(
+                        x, energy, n_steps=50, energy_args=(center,)),
+                    200))
+                report = run_cli(tmp, inp, 'float64')[0]
+                cs = report['csearch'][0]
+                check(report['clash_entry_launches']['torsion_clash_ok']
+                      == 392, f'guard {mode}: back-off launches '
+                      f'{report["clash_entry_launches"]}')
+                for k in ('backoff_s', 'tfd_s'):
+                    r[k].append(cs[k])
+                r['search_s'].append(cs['seconds'])
+    finally:
+        _build.device_guard = optimizers.device_guard = real
+    for mode, r in rec.items():
+        print(f'[guard {mode}] ' + ', '.join(
+            f'{k} {np.median(v):.4g} (of {len(v)}: '
+            f'{" ".join(f"{t:.4g}" for t in v)})' for k, v in r.items())
+            + f' [{card}]')
+    with open(out, 'w') as f:
+        json.dump({'card': card, 'order': GUARD_ORDER * 2, 'modes': rec}, f,
+                  indent=1)
+
+
 def timed_phase(name, phase, *args):
     '''phase(*args), its seconds printed.'''
     t0 = time.perf_counter()
@@ -3109,6 +3528,10 @@ def main():
     if sys.argv[1:2] == ['--profile-cyclical']:  # --profile-cyclical OUT.json
         phase_build()
         cyclical_profile(card, sys.argv[2])
+        return
+    if sys.argv[1:2] == ['--guard']:         # --guard OUT.json
+        phase_build()
+        guard_overhead(card, sys.argv[2])
         return
     if sys.argv[1:2] == ['--scans']:         # phases 18 and 19 alone
         phase_build()
@@ -3130,6 +3553,11 @@ def main():
         chain = timed_phase('17 csearch_string', phase_search_string, card)
         print(json.dumps({'torsion_backoff': {
             'torsion_drive': drive[2], 'csearch_string': chain[2]}}))
+        return
+    if sys.argv[1:2] == ['--mesh']:          # phase 21 alone
+        phase_build()
+        mesh, _, _ = timed_phase('21 mesh', phase_mesh, card)
+        print(json.dumps({'mesh': mesh}))
         return
     if sys.argv[1:2] == ['--fire']:          # --fire OUT.json
         phase_build()
@@ -3179,17 +3607,24 @@ def main():
                                    card)
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
+    mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
-        k1_16 + k1_17
+        k1_16 + k1_17 + sharded['clash_ok'] + sharded['torsion_clash_ok']
     kernels[0]['torsion_backoff'] = {'torsion_drive': drive,
                                      'csearch_string': backoff}
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
-    kernels[1]['launches'] += k3 + k3_18 + k3_20
+    kernels[1]['launches'] += k3 + k3_18 + k3_20 + sharded['qcp_kill']
+    kernels[0]['mesh'] = {'launches': sharded['clash_ok']
+                          + sharded['torsion_clash_ok'],
+                          **mesh['kernels']['clash_ok']}
+    kernels[1]['mesh'] = {'launches': sharded['qcp_kill'],
+                          **mesh['kernels']['qcp_kill']}
     kernels[1]['passes'] += recs9 + scan['k3_passes'] + opt.pop('k3_passes')
     kernels[1]['routes'] = {'opt_route': {'launches': k3_20,
                                           'pools': opt['k3_pools']}}
-    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e16, e17)
-    errs['qcp_kill'] = max(errs['qcp_kill'], e9, e18, e20)
+    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e16, e17,
+                        e21)
+    errs['qcp_kill'] = max(errs['qcp_kill'], e9, e18, e20, e21)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
     check(k2_10 > 0 and k2_11 > 0 and k2_15 > 0, f'K2 launches: multiembed '
@@ -3198,13 +3633,17 @@ def main():
         'name': 'compenetration_mask_kernel', 'route': 'cuda',
         'source': 'tscode_tpu_torch/csrc/clash.cu',
         'replaces': 'tscode_tpu/ops/pallas/clash.py:55',
-        'launches': k2_10 + k2_11 + k2_15, 'max_abs_err': max(e10_k2, e11_k2),
+        'launches': k2_10 + k2_11 + k2_15 +
+        sharded['compenetration_mask_kernel'],
+        'max_abs_err': max(e10_k2, e11_k2, e21),
         'ms': k2_rec['float64']['ms'],
         'plain_ms': k2_rec['float64']['plain_ms'],
         'bound_ms': k2_rec['float64']['bound_ms'], 'bound_by': 'bytes',
         'library_ms': None,
         'routes': {'multiembed': dict(k2_rec, launches=k2_10),
-                   'chelotropic': dict(k2_rec11, launches=k2_11)}})
+                   'chelotropic': dict(k2_rec11, launches=k2_11)},
+        'mesh': {'launches': sharded['compenetration_mask_kernel'],
+                 **mesh['kernels']['compenetration_mask_kernel']}})
     check('jax' not in sys.modules, 'jax was imported')
     check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules
@@ -3218,6 +3657,7 @@ def main():
         'dihedral_scan': {k: v for k, v in scan.items() if k != 'k3_passes'},
         'ff_operators': ops}}))
     print(json.dumps({'opt_route': opt}))
+    print(json.dumps({'mesh': mesh}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

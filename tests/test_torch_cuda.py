@@ -785,3 +785,165 @@ def test_optimisation_route_on_card_matches_cpu(cuda_device, tmp_path):
     assert not opt_records.energy_ties(want)
     opt_records.same_records(got, want)
     assert launches > 0 and want['final'] > 0
+
+
+# ------------------------------------------------------- multi-device
+
+
+def test_kernels_launch_on_their_tensors_card(cuda_device):
+    '''K1, K2 and K3 on tensors placed on cuda:1 while cuda:0 is the
+    current device, against their plain twins; FIRE's captured graph
+    too. It needs two cards: the one-card machine that runs
+    chip_smoke.py skips it, so it is not verified there.'''
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two GPUs: the kernels must launch on the card '
+                    'of their tensors, not on the current device')
+    from tscode_tpu_torch.optimizers import fire_minimize_batch
+    dev1 = torch.device('cuda', 1)
+    rng = np.random.default_rng(21)
+    pm = cross_fragment_pair_mask((6, 5))
+    with torch.cuda.device(0):
+        for n_atoms, sigma in ((11, 2.2), (160, 2.0)):     # thread, warp
+            if n_atoms == 11:
+                poses = torch.as_tensor(rng.normal(size=(4099, 11, 3))
+                                        * sigma, device=dev1)
+                mask = pm
+            else:
+                poses = torch.as_tensor(big_fragment_poses(rng, 512, 80),
+                                        device=dev1)
+                mask = cross_fragment_pair_mask((80, 80))
+            pairs = torch.as_tensor(clash.static_pairs(mask), device=dev1)
+            want = clash.clash_ok_plain(poses, pairs, 1.5)
+            assert torch.equal(clash.clash_ok(poses, pairs, 1.5), want)
+            assert torch.equal(
+                clash.compenetration_mask_kernel(poses, mask, 1.5), want)
+        hs = torch.as_tensor(near_dup_pool(rng, 3000, 4, 700), device=dev1)
+        act, end = pass_chunks(torch.ones(3000, dtype=torch.bool,
+                                          device=dev1), 3000, 10)
+        assert torch.equal(qcp.qcp_kill(hs, act, end, 0.5),
+                           qcp.qcp_kill_plain(hs, act, end, 0.5))
+        x = torch.as_tensor(rng.normal(size=(7, 6, 3)), device=dev1)
+        center = torch.as_tensor(rng.normal(size=(6, 3)), device=dev1)
+
+        def energy(c, center):
+            return torch.sum((c - center) ** 2, dim=(-2, -1))
+        got = fire_minimize_batch(x, energy, n_steps=50,
+                                  energy_args=(center,))
+        want = fire_minimize_batch(x.cpu(), energy, n_steps=50,
+                                   energy_args=(center.cpu(),))
+        assert got[0].device == dev1
+        assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-9
+        torch.cuda.synchronize(dev1)
+
+
+def test_device_guard_switches_only_to_another_card(cuda_device):
+    '''A launch on the current card sets no device; on another card it
+    enters that card and restores the current one afterwards.'''
+    from tscode_tpu_torch.ops.kernels._build import device_guard
+    here = torch.device('cuda', torch.cuda.current_device())
+    assert isinstance(device_guard(here), contextlib.nullcontext)
+    if torch.cuda.device_count() > 1:
+        with torch.cuda.device(0):
+            with device_guard(torch.device('cuda', 1)):
+                assert torch.cuda.current_device() == 1
+            assert torch.cuda.current_device() == 0
+
+
+def card_mesh():
+    from tscode_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh(devices=['cuda:0'] * 4)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_sharded_ops_on_a_card_mesh_match_unsharded(cuda_device, dtype):
+    '''K2 per shard, the TFD first-successor and moments sharded, and
+    the RMSD prune with every pass split over four slices (K3 per
+    slice), on a mesh naming cuda:0 four times, against one device.'''
+    from tscode_tpu_torch.ops.tfd import _first_similar_successor
+    from tscode_tpu_torch.parallel import prune as pp
+    from tscode_tpu_torch.parallel import sharding as sh
+    mesh = card_mesh()
+    rng = np.random.default_rng(23)
+    pm = cross_fragment_pair_mask((6, 5))
+    poses = torch.as_tensor(rng.normal(size=(4099, 11, 3)) * 2.2,
+                            dtype=dtype, device=cuda_device)
+    clash.KERNEL.reset_counts()
+    got = sh.sharded_compenetration_mask(poses, pm, mesh, 1.5)
+    assert clash.launches_by_entry()['compenetration_mask_kernel'] == 4
+    assert np.array_equal(
+        got, clash.compenetration_mask_kernel(poses, pm, 1.5).cpu().numpy())
+
+    tf = torch.as_tensor(rng.uniform(-180, 180, size=(5, 6))[
+        rng.integers(0, 5, 3000)] + rng.normal(size=(3000, 6)) * 3,
+        dtype=torch.float32, device=cuda_device)
+    assert np.array_equal(sh.sharded_first_similar_successor(tf, 10.0, mesh),
+                          _first_similar_successor(tf, 10.0))
+
+    hs = torch.as_tensor(near_dup_pool(rng, 6000, 4, 1500), dtype=dtype,
+                         device=cuda_device)
+    want = prune_conformers_rmsd_device(hs, pair_kill=qcp.qcp_kill_plain)
+    qcp.KERNEL.reset_counts()
+    got = pp.sharded_prune_rmsd(hs, mesh)
+    assert np.array_equal(got, want)
+    assert qcp.KERNEL.launches >= 4 * 2
+
+
+def test_sharded_routes_on_a_card_mesh_match_unsharded(cuda_device,
+                                                       tmp_path,
+                                                       monkeypatch):
+    '''The string sweep, the sharded FIRE and adjust_spacings_batch under
+    a cuda:0 x 4 mesh, float64, against the unsharded runs: the same
+    survivors, geometry within 1e-9 A.'''
+    from tscode_tpu_torch.embeds.string import string_embed
+    from tscode_tpu_torch.optimization import adjust_spacings_batch
+    from tscode_tpu_torch.optimizers import (fire_minimize_batch,
+                                             fire_minimize_batch_sharded)
+    from tscode_tpu_torch.parallel.sharding import default_mesh
+    mesh = card_mesh()
+    d = tmp_path / 'sn2'
+    d.mkdir()
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            sn2 = Embedder(config_files('sn2_string', str(d), 8),
+                           stamp='sn2', device=cuda_device)
+    finally:
+        os.chdir(cwd)
+    from tscode_tpu_torch.embeds import string
+    monkeypatch.setattr(string, 'TILE_ROWS', 2400)   # 4 tiles of 2 c2
+    kw = dict(log=lambda *a: None, device=cuda_device, dtype=torch.float64)
+    want = string_embed(*sn2.objects, sn2.systematic_angles, **kw)[0]
+    clash.KERNEL.reset_counts()
+    got = string_embed(*sn2.objects, sn2.systematic_angles, mesh=mesh,
+                       **kw)[0]
+    assert clash.launches_by_entry()['clash_ok'] == 4   # a tile a shard
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1e-9
+
+    (card,), poses, nos = spacing_embedders(tmp_path, (cuda_device,))
+    m1, m2 = card.objects
+
+    x = torch.as_tensor(np.concatenate([poses] * 7), device=cuda_device)
+    from tscode_tpu_torch.ff import (build_ff_params, ff_energy,
+                                     merge_ff_params, params_to_device)
+    params = params_to_device(merge_ff_params(
+        [build_ff_params(m.atomcoords[0], m.atomnos, m.graph)
+         for m in (m1, m2)], np.array([0, m1.n_atoms])), cuda_device,
+        torch.float64)
+    want = fire_minimize_batch(x, ff_energy, n_steps=100,
+                               energy_args=(params,))
+    got = fire_minimize_batch_sharded(x, ff_energy, mesh, n_steps=100,
+                                      energy_args=(params,))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+    assert float((got[0] - want[0]).abs().max()) <= 1e-9
+    assert torch.equal(got[2], want[2])
+
+    want = adjust_spacings_batch(card, poses, nos)
+    os.environ['TSCODE_MESH'] = '1'
+    try:
+        with default_mesh(mesh):
+            got = adjust_spacings_batch(card, poses, nos)
+    finally:
+        del os.environ['TSCODE_MESH']
+    assert np.abs(got[0] - want[0]).max() <= 1e-9
+    np.testing.assert_array_equal(got[2], want[2])

@@ -40,6 +40,7 @@ as a library (the CLI wraps it).
 
 import json
 import logging
+import math
 import os
 import pickle
 import random
@@ -78,6 +79,8 @@ from tscode_tpu_torch.ops.linalg import cartesian_product, rmsd_and_max
 from tscode_tpu_torch.ops.moi import prune_by_moment_of_inertia
 from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd
 from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
+from tscode_tpu_torch.parallel.sharding import (get_default_mesh, mesh_for,
+                                                sharded_compenetration_mask)
 from tscode_tpu_torch.pivots import set_pivots
 from tscode_tpu_torch.rot_rmsd import prune_conformers_rmsd_rot_corr
 from tscode_tpu_torch.torsions import csearch
@@ -883,6 +886,15 @@ class RunEmbedding(Embedder):
             self.log_warnings()
             raise ZeroCandidatesError()
 
+    def _mesh(self, n_items=None, threshold=4096):
+        '''The device mesh the pipeline shards over, or None: the default
+        mesh of the run's device type; with n_items given, only when the
+        size gate (n_items >= threshold) holds (TSCODE_MESH=1 forces the
+        sharded paths at any size).'''
+        if n_items is None:
+            return get_default_mesh(device=self.device)
+        return mesh_for(n_items, threshold, device=self.device)
+
     # ---------------------------------------------------------- pipeline
 
     @_timed_stage
@@ -899,7 +911,8 @@ class RunEmbedding(Embedder):
             structures, constrained = string_embed(
                 self.objects[0], self.objects[1], self.systematic_angles,
                 clash_thresh=self.options.clash_thresh, log=self.log,
-                device=self.device, dtype=self.dtype, info=self.embed_info)
+                device=self.device, dtype=self.dtype, info=self.embed_info,
+                mesh=self._mesh())
             self.structures = structures
             self.constrained_indices = constrained
         elif self.embed in ('cyclical', 'chelotropic'):
@@ -955,11 +968,18 @@ class RunEmbedding(Embedder):
             t_start = time.perf_counter()
             if self.ids is not None:
                 pm = cross_fragment_pair_mask(tuple(self.ids))
-                mask = compenetration_mask_kernel(
-                    torch.as_tensor(self.structures, dtype=self.dtype,
-                                    device=self.device),
-                    pm, thresh=self.options.clash_thresh,
-                    max_clashes=self.options.max_clashes).cpu().numpy()
+                mesh = self._mesh(len(self.structures))
+                if mesh is not None:
+                    mask = sharded_compenetration_mask(
+                        torch.as_tensor(self.structures, dtype=self.dtype),
+                        pm, mesh, thresh=self.options.clash_thresh,
+                        max_clashes=self.options.max_clashes)
+                else:
+                    mask = compenetration_mask_kernel(
+                        torch.as_tensor(self.structures, dtype=self.dtype,
+                                        device=self.device),
+                        pm, thresh=self.options.clash_thresh,
+                        max_clashes=self.options.max_clashes).cpu().numpy()
             else:
                 mask = (count_intra_clashes_np(self.structures, thresh=0.5)
                         <= self.options.max_clashes)
@@ -1045,7 +1065,7 @@ class RunEmbedding(Embedder):
                 before_tfd = len(self.structures)
                 self.structures, mask = prune_conformers_tfd(
                     self.structures, quadruplets, device=self.device,
-                    dtype=self.dtype)
+                    dtype=self.dtype, mesh=self._mesh(len(self.structures)))
                 self.apply_mask(attr, mask)
                 self._note_prune('tfd', before_tfd, t_start)
                 if False in mask:
@@ -1057,7 +1077,8 @@ class RunEmbedding(Embedder):
             before3 = len(self.structures)
             t_start = time.perf_counter()
             self.structures, mask = prune_by_moment_of_inertia(
-                self.structures, self.atomnos, device=self.device)
+                self.structures, self.atomnos, device=self.device,
+                mesh=self._mesh(len(self.structures)))
             self.apply_mask(attr, mask)
             self._note_prune('moi', before3, t_start)
             if before3 > len(self.structures):
@@ -1070,7 +1091,10 @@ class RunEmbedding(Embedder):
             t_start = time.perf_counter()
             _, mask = prune_conformers_rmsd(
                 self.structures, self.atomnos, rmsd_thr=self.options.rmsd,
-                device=self.device, dtype=self.dtype)
+                device=self.device, dtype=self.dtype,
+                # only when forced: the pool is copied to every card, and
+                # no size is yet measured where that pays (PERF.md)
+                mesh=self._mesh(len(self.structures), threshold=math.inf))
             # the prune returns its copy on the device in the run's
             # dtype; keep the host float64 rows it selects
             self.structures = self.structures[mask]

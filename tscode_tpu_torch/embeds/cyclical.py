@@ -52,6 +52,8 @@ from tscode_tpu_torch.ops.kernels.clash import clash_ok
 from tscode_tpu_torch.ops.linalg import (align_vec_pair, polygonize,
                                          rot_mat_from_pointer)
 from tscode_tpu_torch.ops.rmsd_prune import pair_gate_matrices
+from tscode_tpu_torch.parallel.sharding import gather, mesh_wants, \
+    shard_slices
 
 _DIRECTIONS = np.array([[0., 1., 0.], [0., -1., 0.]])
 
@@ -444,37 +446,75 @@ def sweep_inputs(blk, mols, angles, device, dtype, uploaded=None):
     return [ensemble(mol.atomcoords) for mol in mols], t(angles), pairs, rows
 
 
+def screen_chunk(inputs, lo, hi, clash_thresh, clock):
+    """One chunk of a sweep, block rows [lo, hi) of sweep_inputs'
+    `inputs`: (survivor candidates (rows * A, N, 3), keep (rows * A,),
+    seconds of the screen, seconds of the dedup)."""
+    coords, grid, pairs, rows = inputs
+    t0 = clock()
+    confs, *geo = rows(lo, hi)
+    poses, ok = block_poses(coords, confs, *block_geometry(*geo), grid,
+                            pairs, clash_thresh)
+    t1 = clock()
+    keep = angular_dedup(poses, ok)
+    t2 = clock()
+    return (poses.reshape(-1, poses.shape[2], 3), keep.reshape(-1),
+            t1 - t0, t2 - t1)
+
+
 def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
                      block_chunk=None, clock=time.perf_counter, split=None,
-                     uploaded=None):
+                     uploaded=None, mesh=None):
     '''The whole sweep over the block rows of `blk`, chunk by chunk:
     returns (survivor poses (S, N, 3) on the device in generation order,
     keep (Bb, A) numpy bool). split, when given, gets the seconds of the
     screen (geometry, poses, clash and compaction) and of the dedup.
-    uploaded: sweep_inputs' cache of coordinate tensors.'''
-    coords, grid, pairs, rows = sweep_inputs(blk, mols, angles, device,
-                                             dtype, uploaded)
-    Bb, A = len(blk['ids']), grid.shape[0]
+    uploaded: sweep_inputs' cache of coordinate tensors. mesh: a
+    parallel.sharding Mesh; with Bb * A candidates that clear
+    mesh_wants, the block rows are cut into
+    contiguous slices, one per device, each swept in chunks of
+    chunk / mesh.size rows on its own inputs into its own survivor
+    accumulator (the dedup is block-local: no collective), and the
+    survivors are joined in block order on the mesh's first device (the
+    JAX package's _block_program_sharded).'''
+    Bb, A = len(blk['ids']), len(angles)
+    if mesh is not None and mesh_wants(Bb * A):
+        inputs = {dev: sweep_inputs(blk, mols, angles, dev, dtype)
+                  for dev in dict.fromkeys(mesh.devices)}
+        slices = shard_slices(Bb, mesh)
+    else:
+        inputs = {device: sweep_inputs(blk, mols, angles, device, dtype,
+                                       uploaded)}
+        slices = [(device, 0, Bb)]
+    coords = inputs[slices[0][0]][0]
     N = sum(c.shape[1] for c in coords)
     chunk = block_chunk or _auto_chunk(Bb, A, N, coords[0].element_size())
-    acc = DeviceSurvivors()
+    chunk = -(-chunk // len(slices))
+    accs = [DeviceSurvivors() for _ in slices]
     t_screen = t_dedup = 0.0
-    for lo in range(0, Bb, chunk):
+    n_chunks = 0
+    for r0 in range(0, max(hi - lo for _, lo, hi in slices), chunk):
+        # every slice's chunk queued before their compaction reads a count
+        out = []
+        for dev, lo, hi in slices:
+            a, b = lo + r0, min(hi, lo + r0 + chunk)
+            out.append(screen_chunk(inputs[dev], a, b, clash_thresh, clock)
+                       if a < b else None)
         t0 = clock()
-        confs, *geo = rows(lo, lo + chunk)
-        poses, ok = block_poses(coords, confs, *block_geometry(*geo), grid,
-                                pairs, clash_thresh)
-        t1 = clock()
-        keep = angular_dedup(poses, ok)
-        t2 = clock()
-        acc.add((poses.reshape(-1, N, 3),), keep.reshape(-1))
-        t_screen += t1 - t0 + clock() - t2
-        t_dedup += t2 - t1
-    fields, keep = acc.finish()
+        for acc, o in zip(accs, out):
+            if o is not None:
+                acc.add((o[0],), o[1])
+                t_screen += o[2]
+                t_dedup += o[3]
+                n_chunks += 1
+        t_screen += clock() - t0
+    parts = [acc.finish() for acc in accs]
     if split is not None:
         split.update(screen_s=t_screen, dedup_s=t_dedup, chunk_rows=chunk,
-                     chunks=-(-Bb // chunk))
-    return fields[0], keep.reshape(Bb, A)
+                     chunks=n_chunks, shards=len(slices))
+    surv = parts[0][0][0] if len(parts) == 1 else \
+        gather([f[0] for f, _ in parts], mesh.devices[0])
+    return surv, np.concatenate([m for _, m in parts]).reshape(Bb, A)
 
 
 def assemble_survivors(surv_poses, keep, ids_arr):
@@ -541,14 +581,14 @@ def finish_embed(surv, keep, ids, split, A, dev, dtype, trace, info):
 
 
 def rigid_embed(mols, make_blocks, no_blocks, systematic_angles,
-                clash_thresh, block_chunk, device, dtype, info):
+                clash_thresh, block_chunk, device, dtype, info, mesh=None):
     '''The frame of a rigid cyclical embed: build the blocks with
     make_blocks(device, clock, A), which returns (block dict or None,
     its own entries for the split), sweep them, pull the survivors and report.
     `no_blocks` ends the message raised when no block passes.
     TSCODE_EMBED_TRACE=1 synchronises at the phase boundaries and
-    prints the split to stderr. Returns (poses (S, N, 3) float64 numpy,
-    constrained_indices (S, M, 2)).'''
+    prints the split to stderr. mesh: screen_survivors' mesh. Returns
+    (poses (S, N, 3) float64 numpy, constrained_indices (S, M, 2)).'''
     dev = get_device(device)
     dtype = dtype or default_dtype(dev)
     trace, clock = embed_clock(dev)
@@ -561,7 +601,7 @@ def rigid_embed(mols, make_blocks, no_blocks, systematic_angles,
     surv, keep = screen_survivors(blk, mols, angles, clash_thresh,
                                   device=dev, dtype=dtype,
                                   block_chunk=block_chunk, clock=clock,
-                                  split=split)
+                                  split=split, mesh=mesh)
     clock()
     return finish_embed(surv, keep, blk['ids'], split, len(angles), dev,
                         dtype, trace, info)
@@ -570,7 +610,7 @@ def rigid_embed(mols, make_blocks, no_blocks, systematic_angles,
 def cyclical_embed_bimol_rigid(mol1, mol2, systematic_angles,
                                clash_thresh=1.5, max_norm_delta=10,
                                pairing_ok=None, log=print, block_chunk=None,
-                               *, device, dtype=None, info=None):
+                               *, device, dtype=None, info=None, mesh=None):
     '''Rigid bimolecular cyclical embed.
 
     systematic_angles: (A, 2) per-molecule step angles in degrees (the
@@ -578,9 +618,9 @@ def cyclical_embed_bimol_rigid(mol1, mol2, systematic_angles,
     enforcing the user's pairings. device / dtype: where and in what the
     sweep runs (dtype defaults to float32 on CUDA, float64 on the CPU).
     info: a dict that, when given, receives the counts and the split.
-    Returns (poses (S, N, 3) float64 numpy, constrained_indices
-    (S, 2, 2)). Raises ZeroCandidatesError when no block or no pose
-    survives.'''
+    mesh: the sweep's mesh (screen_survivors). Returns (poses (S, N, 3)
+    float64 numpy, constrained_indices (S, 2, 2)). Raises
+    ZeroCandidatesError when no block or no pose survives.'''
     def make_blocks(dev, clock, A):
         t0 = clock()
         blk = bimol_rigid_blocks(mol1, mol2, max_norm_delta=max_norm_delta,
@@ -592,7 +632,7 @@ def cyclical_embed_bimol_rigid(mol1, mol2, systematic_angles,
 
     return rigid_embed((mol1, mol2), make_blocks, 'no compatible pivot pairs',
                        systematic_angles, clash_thresh, block_chunk, device,
-                       dtype, info)
+                       dtype, info, mesh)
 
 
 _COMPACT = ('tab1', 'tab2', 'tidx')
@@ -973,7 +1013,7 @@ def trimol_rigid_blocks(mols, pairing_ok=None):
 
 def cyclical_embed_trimol_rigid(mols, systematic_angles, clash_thresh=1.5,
                                 pairing_ok=None, log=print, block_chunk=None,
-                                *, device, dtype=None, info=None):
+                                *, device, dtype=None, info=None, mesh=None):
     '''Rigid three-molecule cyclical embed: the molecules on the sides
     of the triangle their pivot norms close, 8 oriented triangles, the
     chained direction adjustment (float64), then the block sweep of the
@@ -996,7 +1036,7 @@ def cyclical_embed_trimol_rigid(mols, systematic_angles, clash_thresh=1.5,
 
     return rigid_embed(mols, make_blocks, 'no valid pivot triangles',
                        systematic_angles, clash_thresh, block_chunk, device,
-                       dtype, info)
+                       dtype, info, mesh)
 
 
 # ------------------------------------------------------------ non-rigid
@@ -1312,7 +1352,7 @@ def cyclical_embed(embedder, max_norm_delta=5):
     common = dict(clash_thresh=embedder.options.clash_thresh,
                   pairing_ok=embedder.pairing_ok_fn(), log=embedder.log,
                   device=embedder.device, dtype=embedder.dtype,
-                  info=embedder.embed_info)
+                  info=embedder.embed_info, mesh=embedder._mesh())
     if len(mols) == 2:
         poses, cons = cyclical_embed_bimol_rigid(
             mols[0], mols[1], embedder.systematic_angles,

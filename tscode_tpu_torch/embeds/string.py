@@ -8,11 +8,15 @@ with no per-pose gathers, in tiles of whole c2 values; the C-order
 flattening is the reference's generation order, on which the novelty
 filter depends. Per tile: the poses, the clash screen (kernel K1 on
 CUDA, its plain twin on the CPU), survivor compaction on the device and
-the survivors' torsion fingerprints. The clash survivors and their
-fingerprints stay on the device; the order-dependent TFD novelty filter
-runs on the device on CUDA and as the host replay on the CPU (and after
-a cache overflow), so only the novelty mask reaches the host; then only
-the novel rows are pulled.
+the survivors' torsion fingerprints. With a mesh (parallel/sharding.py),
+the tiles are cut into contiguous runs, one per device, each tile
+screened with K1 on its device and compacted into that device's own
+survivor accumulator, and the survivors are joined in ascending c2 on
+the mesh's first device (the JAX package's _string_sweep_sharded). The
+clash survivors and their fingerprints stay on the device; the
+order-dependent TFD novelty filter runs on the device on CUDA and as the
+host replay on the CPU (and after a cache overflow), so only the novelty
+mask reaches the host; then only the novel rows are pulled.
 
 Set TSCODE_EMBED_TRACE=1 to print the split of sweep, compaction,
 novelty filter and pose pull to stderr.
@@ -36,6 +40,8 @@ from tscode_tpu_torch.ops.linalg import (rot_mat_from_pointer,
 from tscode_tpu_torch.ops.tfd import (is_new_structure_lru,
                                       tfd_novelty_device,
                                       torsion_fingerprints)
+from tscode_tpu_torch.parallel.sharding import gather, mesh_wants, \
+    shard_slices
 
 # grid rows per tile of whole c2 values: bounds the live intermediates
 TILE_ROWS = 1 << 18
@@ -80,21 +86,51 @@ def bcast_block(inp, angles, c2_lo, c2_hi, clash_thresh):
     return poses, clash_ok(poses, inp.pairs, clash_thresh)
 
 
+def tile_c2(inp, angles):
+    '''c2 values per tile: about TILE_ROWS grid rows.'''
+    return max(1, min(inp.coords2.shape[0], TILE_ROWS //
+                      (inp.n_poses_per_c2 * angles.shape[0])))
+
+
 def bcast_tiles(inp, angles, clash_thresh, c2_per_tile=None):
-    '''The whole grid in tiles of `c2_per_tile` whole c2 values (default:
-    about TILE_ROWS rows a tile), in generation order: yields
-    (poses, ok) per tile.'''
+    """The whole grid in tiles of `c2_per_tile` whole c2 values (default
+    tile_c2), in generation order: yields (poses, ok) per tile."""
     n2c = inp.coords2.shape[0]
-    g = c2_per_tile or max(1, min(
-        n2c, TILE_ROWS // (inp.n_poses_per_c2 * angles.shape[0])))
+    g = c2_per_tile or tile_c2(inp, angles)
     for c2_lo in range(0, n2c, g):
         yield bcast_block(inp, angles, c2_lo, min(n2c, c2_lo + g),
                           clash_thresh)
 
 
+def sweep(inputs, runs, clash_thresh):
+    """The grid's tiles of whole c2 values in runs, one run of tile
+    starts per device (runs [(device, starts)], inputs {device: (inp,
+    angles)}, every run's tiles tile_c2 values wide): each tile screened
+    by K1 on its run's device and compacted into that run's own
+    DeviceSurvivors; a round's tiles (one a run) are all queued before
+    their compaction reads a count. A tile has the same shape whatever
+    the runs, so its arithmetic is the same. Returns (clash survivors
+    (S, N, 3) on the first run's device, in ascending c2; ok (B,)
+    numpy)."""
+    inp0, ang0 = inputs[runs[0][0]]
+    n2c, g = inp0.coords2.shape[0], tile_c2(inp0, ang0)
+    accs = [DeviceSurvivors() for _ in runs]
+    for r in range(max(len(s) for _, s in runs)):
+        tiles = [bcast_block(*inputs[dev], s[r], min(n2c, s[r] + g),
+                             clash_thresh) if r < len(s) else None
+                 for dev, s in runs]
+        for acc, tile in zip(accs, tiles):
+            if tile is not None:
+                acc.add((tile[0],), tile[1])
+    parts = [acc.finish() for acc in accs]
+    kept = parts[0][0][0] if len(parts) == 1 else \
+        gather([f[0] for f, _ in parts], runs[0][0])
+    return kept, np.concatenate([m for _, m in parts])
+
+
 def string_embed(mol1, mol2, angles, clash_thresh=1.5, tfd_thresh=10,
                  log=print, *, device, dtype=None, device_novelty=None,
-                 info=None):
+                 info=None, mesh=None):
     '''String-embed poses of two single-reactive-atom molecules.
 
     angles: spin angles in degrees (the embedder's systematic_angles).
@@ -102,7 +138,11 @@ def string_embed(mol1, mol2, angles, clash_thresh=1.5, tfd_thresh=10,
     to float32 on CUDA, float64 on the CPU). device_novelty: run the
     device novelty filter (default: on CUDA only, the JAX package's
     backend policy). info: a dict that, when given, receives the
-    counts, the novelty lane and the stage times.
+    counts, the novelty lane and the stage times. mesh: a
+    parallel.sharding Mesh; with a grid that clears mesh_wants, the
+    tiles are cut into contiguous runs, one per mesh device (the JAX
+    package's _string_sweep_sharded), and the rest runs on the mesh's
+    first device.
     Returns (poses (S, N1+N2, 3) float64 numpy, constrained_indices
     (S, 1, 2)). Raises ZeroCandidatesError when no pose survives the
     clash screen, or none is novel.'''
@@ -127,17 +167,25 @@ def string_embed(mol1, mol2, angles, clash_thresh=1.5, tfd_thresh=10,
         return time.perf_counter()
 
     t_0 = clock()
-    acc = DeviceSurvivors()
-    for poses, ok in bcast_tiles(inp, ang, clash_thresh):
-        acc.add((poses,), ok)
+    n2c = inp.coords2.shape[0]
+    starts = list(range(0, n2c, tile_c2(inp, ang)))
+    inputs = {dev: (inp, ang)}
+    runs = [(dev, starts)]
+    if mesh is not None and mesh_wants(total):
+        for d in mesh.devices:
+            if d not in inputs:
+                inputs[d] = (inputs_from_numpy(mol1, mol2, d, dtype),
+                             spin_angles(angles, dtype, d))
+        runs = [(d, starts[lo:hi])
+                for d, lo, hi in shard_slices(len(starts), mesh)]
+        dev = mesh.devices[0]
+    kept_poses, ok_all = sweep(inputs, runs, clash_thresh)
     t_sweep = clock()
-    fields, ok_all = acc.finish()
     if not ok_all.any():
         raise ZeroCandidatesError(
             '--> String embed did not find any suitable disposition of '
             'molecules.\n    Try expanding the conformational space with '
             'the csearch> operator or see the SHRINK keyword.')
-    kept_poses = fields[0]
     kept_tfps = torsion_fingerprints(kept_poses, quadruplets)
     t_finish = clock()
 

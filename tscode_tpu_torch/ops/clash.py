@@ -17,7 +17,7 @@ from tscode_tpu_torch.ops.kernels.clash import (clash_counts_plain,
 
 __all__ = ['fragment_labels', 'cross_fragment_pair_mask', 'static_pairs',
            'pairwise_dist2', 'count_cross_clashes', 'compenetration_mask',
-           'count_intra_clashes_np']
+           'count_intra_clashes', 'count_intra_clashes_np']
 
 
 def fragment_labels(ids):
@@ -49,6 +49,21 @@ def compenetration_mask(poses, pair_mask, thresh=1.5, max_clashes=0):
     `max_clashes` masked contacts below `thresh` Angstrom. CUDA tensors
     run the clash kernel, CPU tensors its plain twin.'''
     return compenetration_mask_kernel(poses, pair_mask, thresh, max_clashes)
+
+
+def count_intra_clashes(coords, atom_mask=None, thresh=0.5):
+    '''The same count on the device, plain PyTorch in the matmul form:
+    per structure, the ordered atom pairs (of atom_mask's atoms, when
+    given) with 1e-6 A^2 < d^2 < thresh^2, the diagonal left out.
+    coords (..., N, 3) tensor -> (...,) int32.'''
+    d2 = pairwise_dist2(coords, coords)
+    n = coords.shape[-2]
+    off_diag = ~torch.eye(n, dtype=torch.bool, device=coords.device)
+    hit = (d2 < thresh * thresh) & (d2 > 1e-6) & off_diag
+    if atom_mask is not None:
+        m = torch.as_tensor(atom_mask, dtype=torch.bool, device=coords.device)
+        hit = hit & m[..., :, None] & m[..., None, :]
+    return torch.sum(hit, dim=(-2, -1)).to(torch.int32)
 
 
 def count_intra_clashes_np(coords, thresh=0.5):

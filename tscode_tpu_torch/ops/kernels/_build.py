@@ -12,6 +12,7 @@ Nothing here runs at import time: the CPU lane imports every module and
 has neither nvcc nor a card.
 '''
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -108,13 +109,16 @@ class CudaKernel:
         with open(path) as f:
             return f.read()
 
-    def launch(self, symbol, *args, wrapper=None):
+    def launch(self, symbol, *args, device, wrapper=None):
         '''Call one exported entry (which launches the kernel on the
-        given stream) and count the launch, also under the name of the
-        Python wrapper that asked for it, if given; raise on a launch
-        error.'''
+        given stream) with `device`, the card of the tensors it is
+        given, as the current device, so the launch and the device
+        attributes the entry reads are that card's; count the launch,
+        also under the name of the Python wrapper that asked for it, if
+        given; raise on a launch error.'''
         lib = self.build()
-        code = getattr(lib, symbol)(*args)
+        with device_guard(device):
+            code = getattr(lib, symbol)(*args)
         if code != 0:
             raise RuntimeError(
                 f'{self.name}.{symbol} launch failed: cudaError {code} '
@@ -124,6 +128,17 @@ class CudaKernel:
         if wrapper is not None:
             self.wrapper_launches[wrapper] = \
                 self.wrapper_launches.get(wrapper, 0) + 1
+
+
+def device_guard(device):
+    '''torch.cuda.device(device), or no switch at all when `device` is
+    the current card already: the one-card case, where each launch would
+    otherwise set and reset the current device.'''
+    import torch
+    device = torch.device(device)
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def stream_of(tensor):

@@ -184,7 +184,7 @@ def _launch(poses, pairs, thresh, max_clashes, wrapper):
     KERNEL.launch(symbol, ptr(poses), B, N, ptr(pairs), pairs.shape[0],
                   c_thr(thresh_squared(thresh, poses.dtype)),
                   int(max_clashes), ptr(out), stream_of(poses),
-                  wrapper=wrapper)
+                  device=poses.device, wrapper=wrapper)
     return out
 
 

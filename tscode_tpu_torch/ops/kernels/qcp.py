@@ -112,17 +112,17 @@ def pair_list_hits(P, Q, thr):
                       lambda idx: (P[idx], Q[idx]))
 
 
-def qcp_kill_plain(hs, act, end, thr):
+def qcp_kill_plain(hs, act, end, thr, rows=None):
     '''Plain PyTorch twin of `qcp_kill`, in (_ROW_TILE x _COL_BLOCK)
     pair tiles so memory stays bounded for any chunk length.'''
-    M = act.numel()
+    M = act.numel() if rows is None else int(rows)
     kill = torch.zeros(M, dtype=torch.bool, device=hs.device)
-    if M < 2:
+    if M < 1:
         return kill
-    rows = hs[act.long()]
+    rows_hs = hs[act.long()]
     end = end.long()
     end_host = end.cpu()
-    pos = torch.arange(M, device=hs.device)
+    pos = torch.arange(act.numel(), device=hs.device)
     for r0 in range(0, M, _ROW_TILE):
         r1 = min(M, r0 + _ROW_TILE)
         e = int(end_host[r0:r1].max())
@@ -130,7 +130,7 @@ def qcp_kill_plain(hs, act, end, thr):
             c1 = min(e, c0 + _COL_BLOCK)
             valid = (pos[None, c0:c1] > pos[r0:r1, None]) & \
                 (pos[None, c0:c1] < end[r0:r1, None])
-            hits = pair_gate_hits(rows[r0:r1], rows[c0:c1], valid, thr)
+            hits = pair_gate_hits(rows_hs[r0:r1], rows_hs[c0:c1], valid, thr)
             kill[r0:r1] |= hits.any(dim=1)
     return kill
 
@@ -177,9 +177,10 @@ def launch_plan(M):
     return lanes_log2, BUDGET_STEPS << lanes_log2
 
 
-def _checked(hs, act, end):
+def _checked(hs, act, end, rows):
     '''The kernel's arguments, checked: (act, end) as contiguous int32 on
-    hs's device; raises on what the kernels do not take.'''
+    hs's device and the row count M (end's length, at most act's);
+    raises on what the kernels do not take.'''
     if hs.dtype not in _SYMBOL:
         raise TypeError(f'qcp kernel takes float32/float64, got {hs.dtype}')
     if hs.dim() != 3 or hs.shape[2] != 3 or not hs.is_contiguous():
@@ -189,20 +190,25 @@ def _checked(hs, act, end):
         raise ValueError('pool too large for int32 row indices')
     act = act.to(device=hs.device, dtype=torch.int32).contiguous()
     end = end.to(device=hs.device, dtype=torch.int32).contiguous()
-    if act.dim() != 1 or act.shape != end.shape:
-        raise ValueError('act and end must be matching (M,) vectors')
-    return act, end
+    M = act.numel() if rows is None else int(rows)
+    if act.dim() != 1 or end.dim() != 1 or end.numel() != M or \
+            M > act.numel():
+        raise ValueError('end must be an (M,) vector and act an (M + ...,) '
+                         'vector')
+    return act, end, M
 
 
-def qcp_kill(hs, act, end, thr, plan=None):
+def qcp_kill(hs, act, end, thr, plan=None, rows=None):
     '''Kill bits of one prune pass: position p of `act` dies when some
     q in (p, end[p]) passes rmsd < thr and maxdev < 2*thr.
     hs (n, N, 3) float32/float64; act, end (M,) integer. -> (M,) bool.
-    plan: (lanes_log2, budget), default launch_plan(M).'''
+    rows: decide only the first M = rows positions, end then (M,) and
+    act the positions up to the largest end (a slice of a pass);
+    default all of act. plan: (lanes_log2, budget), default
+    launch_plan(M).'''
     if hs.device.type == 'cpu':
-        return qcp_kill_plain(hs, act, end, thr)
-    act, end = _checked(hs, act, end)
-    M = act.numel()
+        return qcp_kill_plain(hs, act, end, thr, rows)
+    act, end, M = _checked(hs, act, end, rows)
     lanes_log2, budget = plan or launch_plan(M)
     if not (0 <= lanes_log2 <= 5 and 0 <= budget <= _MAX_BUDGET):
         raise ValueError(f'bad launch plan {(lanes_log2, budget)}')
@@ -210,21 +216,21 @@ def qcp_kill(hs, act, end, thr, plan=None):
     symbol, c_thr = _SYMBOL[hs.dtype]
     KERNEL.launch(symbol, ptr(hs), hs.shape[1], ptr(act), ptr(end), M,
                   c_thr(float(thr)), lanes_log2, budget, ptr(kill),
-                  stream_of(hs))
+                  stream_of(hs), device=hs.device)
     return kill
 
 
-def qcp_kill_thread(hs, act, end, thr):
+def qcp_kill_thread(hs, act, end, thr, rows=None):
     '''The same kill bits from the thread-per-row kernel (one thread
     walks a row): the yardstick qcp_kill is timed against, CUDA only.'''
     if hs.device.type != 'cuda':
         raise ValueError('qcp_kill_thread runs on CUDA tensors only')
-    act, end = _checked(hs, act, end)
-    M = act.numel()
+    act, end, M = _checked(hs, act, end, rows)
     kill = torch.empty(M, dtype=torch.bool, device=hs.device)
     symbol, c_thr = _SYMBOL[hs.dtype]
     THREAD_KERNEL.launch(symbol, ptr(hs), hs.shape[1], ptr(act), ptr(end),
-                         M, c_thr(float(thr)), ptr(kill), stream_of(hs))
+                         M, c_thr(float(thr)), ptr(kill), stream_of(hs),
+                         device=hs.device)
     return kill
 
 

@@ -29,6 +29,22 @@ def normalize(vec, dim=-1):
     return vec / norm_of(vec, dim=dim).unsqueeze(-1)
 
 
+def safe_normalize(vec, dim=-1, eps=1e-30):
+    '''Unit vector(s); zero vectors map to zero instead of NaN.'''
+    return vec / torch.clamp(norm_of(vec, dim=dim), min=eps).unsqueeze(-1)
+
+
+def vec_angle(v1, v2):
+    '''Angle between vectors in degrees, batched.'''
+    cos = torch.sum(normalize(v1) * normalize(v2), dim=-1)
+    return torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))
+
+
+def point_angle(p1, p2, p3):
+    '''Angle p1-p2-p3 in degrees, batched.'''
+    return vec_angle(p1 - p2, p3 - p2)
+
+
 def dihedral(p):
     '''Praxeolitic dihedral angle in degrees from 4 points.
     p: (..., 4, 3) -> (...,).'''
@@ -289,6 +305,31 @@ def align_vec_pair(ref, tgt):
     GA = torch.sum(tgt * tgt, dim=(-2, -1))
     GB = torch.sum(ref * ref, dim=(-2, -1))
     return kabsch_rotation_from_correlation(S, GA, GB)
+
+
+def kabsch_align(p, q, mask=None):
+    '''Rotation R such that (R @ p_i) optimally overlays q_i (no
+    centering), optionally over the atoms of `mask` (..., N) only.
+    Batched: p, q (..., N, 3) -> (..., 3, 3).'''
+    if mask is not None:
+        m = mask[..., None].to(p.dtype)
+        p, q = p * m, q * m
+    S = torch.einsum('...ni,...nk->...ik', p, q)
+    GA = torch.sum(p * p, dim=(-2, -1))
+    GB = torch.sum(q * q, dim=(-2, -1))
+    return kabsch_rotation_from_correlation(S, GA, GB)
+
+
+def transform_coords(coords, rot, pos):
+    '''Rotate and translate coordinate blocks, batched: coords
+    (..., N, 3), rot (..., 3, 3), pos (..., 3) -> (..., N, 3).'''
+    return torch.einsum('...ij,...nj->...ni', rot, coords) + pos[..., None, :]
+
+
+def triangle_sides_ok(lengths):
+    '''Triangle inequality mask for batched side lengths (..., 3).'''
+    l0, l1, l2 = lengths[..., 0], lengths[..., 1], lengths[..., 2]
+    return (l0 < l1 + l2) & (l1 < l2 + l0) & (l2 < l0 + l1)
 
 
 def rmsd_and_max(p, q, mask=None):

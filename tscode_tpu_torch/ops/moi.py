@@ -20,16 +20,25 @@ from tscode_tpu_torch.ops.linalg import get_inertia_moments
 
 
 def moi_similarity_matrix(structures, masses, max_deviation=1e-2, *,
-                          device):
+                          device, mesh=None):
     '''(B, B) numpy bool: pair (i, j) similar when all three relative
     moment deviations |m_i - m_j| / m_i are below max_deviation (the
-    asymmetric denominator of the reference).'''
+    asymmetric denominator of the reference). mesh: a Mesh computes the
+    moments sharded over the structures (parallel.sharding.
+    sharded_moments). The branch is kept for parity with the JAX
+    package: the MOI prune sees at most a few hundred structures, below
+    the mesh's 4,096-item gate, so only TSCODE_MESH=1 takes it.'''
     device = get_device(device)
-    moments = get_inertia_moments(
-        torch.as_tensor(np.asarray(structures), dtype=torch.float64,
-                        device=device),
-        torch.as_tensor(np.asarray(masses), dtype=torch.float64,
-                        device=device))
+    if mesh is not None:
+        from tscode_tpu_torch.parallel.sharding import sharded_moments
+        moments = torch.as_tensor(sharded_moments(structures, masses, mesh),
+                                  device=device)
+    else:
+        moments = get_inertia_moments(
+            torch.as_tensor(np.asarray(structures), dtype=torch.float64,
+                            device=device),
+            torch.as_tensor(np.asarray(masses), dtype=torch.float64,
+                            device=device))
     mi = moments[:, None, :]
     mj = moments[None, :, :]
     rel = torch.abs(mi - mj) / mi
@@ -37,11 +46,11 @@ def moi_similarity_matrix(structures, masses, max_deviation=1e-2, *,
 
 
 def prune_by_moment_of_inertia(structures, atomnos, max_deviation=1e-2, *,
-                               device):
+                               device, mesh=None):
     '''Returns (pruned_structures, keep_mask) as numpy arrays. Heavy
     atoms only. Each structure links to its FIRST similar successor;
     each connected component keeps its first node in the networkx
-    graph's order.'''
+    graph's order. mesh: as moi_similarity_matrix.'''
     device = get_device(device)
     structures = np.asarray(structures)
     atomnos = np.asarray(atomnos)
@@ -53,7 +62,7 @@ def prune_by_moment_of_inertia(structures, atomnos, max_deviation=1e-2, *,
 
     sim = moi_similarity_matrix(structures[:, heavy],
                                 masses_of(atomnos[heavy]), max_deviation,
-                                device=device)
+                                device=device, mesh=mesh)
     np.fill_diagonal(sim, False)
 
     matches = []

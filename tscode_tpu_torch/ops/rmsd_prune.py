@@ -14,7 +14,9 @@ host. The pass's active rows and chunk ends are computed on the device
 scatter (no boolean index, so no sync); only the active count crosses
 to the host, to evaluate the next gate. The JAX package's single-program tiers
 (in-place, mid, mid2, finish) are TPU optimisations of these same
-semantics and are not ported.
+semantics and are not ported. With a mesh, each pass's positions are cut
+into contiguous slices of about equal pair work, one per device
+(parallel/prune.py).
 '''
 
 import numpy as np
@@ -22,7 +24,8 @@ import torch
 
 from tscode_tpu_torch.backend import get_device
 from tscode_tpu_torch.ops.kernels.qcp import qcp_kill
-from tscode_tpu_torch.ops.linalg import _qcp_lambda_max, rotation_from_key
+from tscode_tpu_torch.ops.linalg import (_qcp_lambda_max, rmsd_and_max,
+                                         rotation_from_key)
 
 K_SCHEDULE = (5e5, 2e5, 1e5, 5e4, 2e4, 1e4,
               5000, 2000, 1000, 500, 200, 100,
@@ -67,6 +70,18 @@ def pair_gate_matrices(P, n_atoms):
     return rmsd, maxdev
 
 
+def rmsd_similarity_sequential(ref_pose, poses, rmsd_thr):
+    '''True when ref_pose (N, 3) passes both gates (rmsd < thr and
+    maxdev < 2*thr) against ANY pose of poses (B, N, 3): the
+    reference's _rmsd_similarity, batched. Tensors or arrays, float64
+    on the CPU for arrays.'''
+    if len(poses) == 0:
+        return False
+    rmsd, maxdev = rmsd_and_max(torch.as_tensor(poses),
+                                torch.as_tensor(ref_pose)[None])
+    return bool(((rmsd < rmsd_thr) & (maxdev < 2 * rmsd_thr)).any())
+
+
 def pass_chunks(mask, n, k):
     '''Active rows of one pass and their chunk ends.
     mask (n_pool,) bool; chunks of n // k rows over the first n rows.
@@ -81,14 +96,17 @@ def pass_chunks(mask, n, k):
 
 def prune_conformers_rmsd_device(heavy_structures, rmsd_thr=0.5,
                                  init_mask=None, n_real=None,
-                                 pair_kill=qcp_kill):
+                                 pair_kill=qcp_kill, mesh=None):
     '''Bucketed RMSD prune of a device-resident pool. heavy_structures
     (n_pool, N, 3) tensor (or array, taken to a CPU tensor); the
     schedule follows the first n_real rows (default all), rows past it
     start dead, and init_mask (n_pool,) marks rows dead from the start.
     pair_kill is the per-pass engine (the CUDA kernel's wrapper, or its
-    plain twin to compare with). Returns the (n_pool,) bool keep mask
-    as a numpy array.'''
+    plain twin to compare with). mesh: a parallel.sharding Mesh: the
+    pool is copied to each of its devices once, and each pass's
+    positions are split over them (the same survivors;
+    parallel.prune.sharded_pass_kill). Returns the (n_pool,) bool keep
+    mask as a numpy array.'''
     hs = torch.as_tensor(heavy_structures)
     n_pool = hs.shape[0]
     n = int(n_real) if n_real is not None else n_pool
@@ -102,25 +120,35 @@ def prune_conformers_rmsd_device(heavy_structures, rmsd_thr=0.5,
         return mask.cpu().numpy()
 
     hs = hs.contiguous()
+    pools = None
+    if mesh is not None:
+        from tscode_tpu_torch.parallel.prune import sharded_pass_kill
+        from tscode_tpu_torch.parallel.sharding import replicated
+        pools = replicated(hs, mesh)
     active = int(mask.sum())
     for k in K_SCHEDULE:
         if not (k == 1 or 20 * k < active):
             continue
         act, end = pass_chunks(mask, n, int(k))
-        kill = pair_kill(hs, act, end, rmsd_thr)
+        if pools is None:
+            kill = pair_kill(hs, act, end, rmsd_thr)
+        else:
+            kill = sharded_pass_kill(pools, act, end, rmsd_thr, mesh,
+                                     pair_kill)
         mask[act] = ~kill     # every act row is active at pass start
         active = int(mask.sum())
     return mask.cpu().numpy()
 
 
 def prune_conformers_rmsd(structures, atomnos, rmsd_thr=0.5, *, device,
-                          dtype=None):
+                          dtype=None, mesh=None):
     '''Remove similar structures; returns (pruned, keep_mask) with the
     bucketed keep/kill semantics above, over heavy atoms only.
     structures (n, N_atoms, 3) tensor or array, moved to `device` (and
     cast to `dtype` when given), so a host ensemble with device='cuda'
     is pruned by the pair kernel; pruned is a tensor there, keep_mask
-    numpy bool.'''
+    numpy bool. mesh: a Mesh splits every pass over its devices
+    (prune_conformers_rmsd_device), the same survivors.'''
     device = get_device(device)
     if not torch.is_tensor(structures):
         structures = np.asarray(structures)
@@ -131,5 +159,5 @@ def prune_conformers_rmsd(structures, atomnos, rmsd_thr=0.5, *, device,
     heavy = torch.as_tensor(np.flatnonzero(np.asarray(atomnos) != 1),
                             device=device)
     mask = prune_conformers_rmsd_device(
-        structures[:, heavy].contiguous(), rmsd_thr=rmsd_thr)
+        structures[:, heavy].contiguous(), rmsd_thr=rmsd_thr, mesh=mesh)
     return structures[torch.as_tensor(mask, device=device)], mask

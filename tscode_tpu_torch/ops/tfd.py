@@ -80,18 +80,22 @@ def wrapped_l1(A, B):
     return acc
 
 
-def _first_similar_successor(tf_chunk, thresh):
-    '''For each row i of a chunk (L, Q) tensor, the smallest j > i with
-    wrapped-L1 distance < thresh, or -1, as a numpy int64 array,
-    computed in (512, 4096) tiles.'''
+def _first_similar_successor(tf_chunk, thresh, lo=0, hi=None):
+    '''For each row i in [lo, hi) (default all) of a chunk (L, Q)
+    tensor, the smallest j > i with wrapped-L1 distance < thresh, or -1,
+    as a numpy int64 array of hi - lo indices into the chunk, computed
+    in (512, 4096) tiles; a row tile stops at the column tile where all
+    its rows have found theirs.'''
     L = tf_chunk.shape[0]
+    hi = L if hi is None else hi
     dev = tf_chunk.device
-    first = np.full(L, -1, dtype=np.int64)
-    for r0 in range(0, L, _TFD_ROW_TILE):
-        r1 = min(r0 + _TFD_ROW_TILE, L)
+    first = np.full(hi - lo, -1, dtype=np.int64)
+    for r0 in range(lo, hi, _TFD_ROW_TILE):
+        r1 = min(r0 + _TFD_ROW_TILE, hi)
+        rows = first[r0 - lo:r1 - lo]
         i_g = torch.arange(r0, r1, device=dev)
         for c0 in range(r0, L, _TFD_COL_TILE):
-            if (first[r0:r1] >= 0).all():
+            if (rows >= 0).all():
                 break
             c1 = min(c0 + _TFD_COL_TILE, L)
             valid = ((wrapped_l1(tf_chunk[r0:r1], tf_chunk[c0:c1]) < thresh)
@@ -100,13 +104,12 @@ def _first_similar_successor(tf_chunk, thresh):
             firsts = torch.where(valid.any(dim=1),
                                  valid.to(torch.uint8).argmax(dim=1) + c0,
                                  -1).cpu().numpy()
-            undecided = first[r0:r1] < 0
-            first[r0:r1] = np.where(undecided, firsts, first[r0:r1])
+            rows[:] = np.where(rows < 0, firsts, rows)
     return first
 
 
 def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
-                         *, device, dtype=torch.float64):
+                         *, device, dtype=torch.float64, mesh=None):
     '''Prune torsionally similar structures; returns (pruned, keep_mask)
     as numpy arrays. The reference's bucketed loop:
      * per k in the schedule, run only when k == 1 or 5k < #active;
@@ -117,7 +120,9 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
        networkx graph, and each connected component keeps its first
        node in that graph's order.
     Fingerprints and distance tiles are computed on `device` (from
-    structures in `dtype`); the bookkeeping stays on the host.'''
+    structures in `dtype`); the bookkeeping stays on the host. mesh: a
+    parallel.sharding Mesh shards the first-similar-successor search's rows over its devices (the same
+    result; sharded_first_similar_successor).'''
     device = get_device(device)
     structures = np.asarray(structures)
     n = len(structures)
@@ -146,8 +151,14 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
             if _l <= 1:
                 continue
 
-            first = _first_similar_successor(tf_mat[lo:lo + _l],
-                                             float(thresh))
+            if mesh is not None:
+                from tscode_tpu_torch.parallel.sharding import \
+                    sharded_first_similar_successor
+                first = sharded_first_similar_successor(
+                    tf_mat[lo:lo + _l], float(thresh), mesh)
+            else:
+                first = _first_similar_successor(tf_mat[lo:lo + _l],
+                                                 float(thresh))
             matches = set()
             for i_rel in range(_l):
                 if first[i_rel] >= 0:

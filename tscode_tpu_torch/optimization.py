@@ -8,9 +8,12 @@ with no calculator chosen they raise the JAX package's InputError, so
 every pure-geometry route (NOOPT, BYPASS) runs without one.
 `adjust_spacings_batch` relaxes a batch of structures on the internal
 force field with batched FIRE, float64 on the run's device (one captured
-CUDA graph per phase on the card). The JAX package's mesh branch of it
-(its sharded FIRE, ROADMAP.md item 16) is not carried over.
+CUDA graph per phase on the card), sharded over the structures when a
+mesh is there for the batch (FIRE's state is per structure, so the
+result is the same).
 '''
+
+import functools
 
 import numpy as np
 import torch
@@ -81,7 +84,9 @@ def adjust_spacings_batch(embedder, structures, atomnos):
     from tscode_tpu_torch.ff import (build_ff_params, merge_ff_params,
                                      params_to_device)
     from tscode_tpu_torch.graphs import graphize
-    from tscode_tpu_torch.optimizers import fire_minimize_batch
+    from tscode_tpu_torch.optimizers import (fire_minimize_batch,
+                                             fire_minimize_batch_sharded)
+    from tscode_tpu_torch.parallel.sharding import mesh_for
     from tscode_tpu_torch.utils import scramble_check
 
     structures = np.asarray(structures, dtype=float)
@@ -129,14 +134,21 @@ def adjust_spacings_batch(embedder, structures, atomnos):
     sp, ncip = index(spring_pairs), index(nci_pairs)
     st = torch.as_tensor(np.array(spring_targets), dtype=f64, device=device)
 
+    # mesh scale-out: a slice of the batch per device, no collective
+    mesh = mesh_for(len(structures), device=device)
+    if mesh is not None:
+        relax = functools.partial(fire_minimize_batch_sharded, mesh=mesh)
+    else:
+        relax = fire_minimize_batch
+
     batch = torch.as_tensor(structures, dtype=f64, device=device)
     # coarse phase: springs + halfsprings (reference :264-270)
-    batch, _, _ = fire_minimize_batch(
+    batch, _, _ = relax(
         batch, _spacing_energy, n_steps=500,
         energy_args=(params, sp, st, ncip, scalar(50.0), scalar(500.0)))
     # tight phase: springs only, 10x stiffer (reference Spring.tighten +
     # set_constraint(springs) at :271-279)
-    batch, _, _ = fire_minimize_batch(
+    batch, _, _ = relax(
         batch, _spacing_energy, n_steps=200,
         energy_args=(params, sp, st, ncip, scalar(500.0), scalar(0.0)))
     # the force-field energy without the biasing springs

@@ -17,8 +17,10 @@ relaxation of one conformer is bound by their enqueue time otherwise.
 `graph_loop` captures and keeps such loop bodies; the dimer step
 (saddle.py) and the NEB band step (neb.py) run through it too.
 
-The sharded form (one slice of the batch per device) is not ported
-(ROADMAP.md item 16).
+`fire_minimize_batch_sharded` relaxes one contiguous slice of the batch
+on each device of a mesh (parallel/sharding.py): the FIRE state and the
+stop rule are per structure, so no collective is needed and the result
+equals the unsharded one.
 '''
 
 from collections import OrderedDict
@@ -26,6 +28,8 @@ import types
 
 import numpy as np
 import torch
+
+from tscode_tpu_torch.ops.kernels._build import device_guard
 
 # FIRE hyperparameters (standard values)
 _ALPHA0 = 0.1
@@ -171,31 +175,34 @@ class GraphLoop:
         self.body = body
         self.state = tuple(s.clone() for s in state)
         self.args = _map_tensors(args, torch.clone)
-        device = self.state[0].device
+        self.device = self.state[0].device
 
         def step():
             for old, new in zip(self.state, body(self.state, self.args)):
                 old.copy_(new)
 
-        # warm up on a side stream, as graph capture asks
-        side = torch.cuda.Stream(device=device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(3):
+        # capture on the state's card (the current device may be another
+        # one), warming up on a side stream, as graph capture asks
+        with device_guard(self.device):
+            side = torch.cuda.Stream(device=self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    step()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
                 step()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            step()
 
     def run(self, state, args, n_steps):
-        for own, new in zip(_tensors(self.args), _tensors(args)):
-            own.copy_(new)
-        for own, new in zip(self.state, state):
-            own.copy_(new)
-        for _ in range(n_steps):
-            self.graph.replay()
-        return tuple(s.clone() for s in self.state)
+        with device_guard(self.device):
+            for own, new in zip(_tensors(self.args), _tensors(args)):
+                own.copy_(new)
+            for own, new in zip(self.state, state):
+                own.copy_(new)
+            for _ in range(n_steps):
+                self.graph.replay()
+            return tuple(s.clone() for s in self.state)
 
 
 _graphs = OrderedDict()
@@ -294,6 +301,25 @@ def fire_minimize_batch(coords, energy_fn, n_steps=500, dt0=0.05,
     with torch.no_grad():
         e = energy_fn(c, *energy_args)
     return c, e, state[5]
+
+
+def fire_minimize_batch_sharded(coords, energy_fn, mesh, n_steps=500,
+                                dt0=0.05, fmax=0.05, energy_args=()):
+    '''fire_minimize_batch with the batch cut into contiguous slices in
+    mesh order, one on each device of `mesh` (energy_args copied to
+    each), every slice queued before any result is read; on CUDA each
+    slice replays its own graph on its own card. The results are
+    gathered, in order, on coords' device. freeze_mask is not taken:
+    the ensemble callers do not use it (as in the JAX package).'''
+    from tscode_tpu_torch.parallel.sharding import gather, shard_rows
+    parts = []
+    for dev, rows in shard_rows(coords, mesh):
+        args = _map_tensors(energy_args, lambda t: t.to(dev))
+        parts.append(fire_minimize_batch(rows.to(dev), energy_fn,
+                                         n_steps=n_steps, dt0=dt0,
+                                         fmax=fmax, energy_args=args))
+    return tuple(gather([p[i] for p in parts], coords.device)
+                 for i in range(3))
 
 
 def fire_minimize(coords, energy_fn, *, device, **kwargs):

@@ -36,6 +36,7 @@ from tscode_tpu_torch.molecule import align_structures
 from tscode_tpu_torch.ops.kernels.clash import torsion_clash_ok
 from tscode_tpu_torch.ops.linalg import cartesian_product, normalize
 from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
+from tscode_tpu_torch.parallel.sharding import gather, mesh_for, shard_slices
 from tscode_tpu_torch.pt import SYMBOLS
 from tscode_tpu_torch.utils import flatten, time_to_string
 
@@ -384,7 +385,31 @@ def apply_torsion_group(coords_batch, torsions_group, graph, angle_sets):
     """Apply one angle-set column per torsion, torsion after torsion
     (the torsions of a group interact through their masks), each batched
     over the candidates. coords_batch (B, N, 3) tensor, angle_sets
-    (B, T) host array. Returns (coords (B, N, 3), n_rotated (B,))."""
+    (B, T) host array. Returns (coords (B, N, 3), n_rotated (B,)).
+
+    With a mesh for the batch (parallel.sharding.mesh_for, by the
+    batch's device), the candidates are cut into contiguous slices, one
+    per device, each rotated with its own back-off (K1 per slice on
+    CUDA), and joined in order on coords_batch's device (the JAX
+    package's _rotate_backoff_sharded); a candidate's rotation depends
+    on itself alone."""
+    angle_sets = np.asarray(angle_sets)
+    steps = [int(np.max(a) // BACKOFF_STEP) if len(a) and np.max(a) > 0
+             else 0 for a in angle_sets.T]
+    mesh = mesh_for(len(coords_batch), device=coords_batch.device)
+    if mesh is None:
+        return _rotate_group(coords_batch, torsions_group, graph,
+                             angle_sets, steps)
+    parts = [_rotate_group(coords_batch[lo:hi].to(dev), torsions_group,
+                           graph, angle_sets[lo:hi], steps)
+             for dev, lo, hi in shard_slices(len(coords_batch), mesh)]
+    return tuple(gather([p[i] for p in parts], coords_batch.device)
+                 for i in range(2))
+
+
+def _rotate_group(coords_batch, torsions_group, graph, angle_sets, steps):
+    """apply_torsion_group on one device, with max_steps[t] retreat
+    steps for torsion t."""
     device = coords_batch.device
     n_rotated = torch.zeros(len(coords_batch), dtype=torch.int32,
                             device=device)
@@ -395,12 +420,10 @@ def apply_torsion_group(coords_batch, torsions_group, graph, angle_sets):
         other_mask = ~move_mask
         other_mask[list(torsion.torsion[1:3])] = False
         angles = np.asarray(angle_sets[:, t], dtype=float)
-        max_steps = int(np.max(angles) // BACKOFF_STEP) \
-            if np.max(angles) > 0 else 0
         coords_batch, rotated = rotate_batch_with_backoff(
             coords_batch, torsion.torsion, move_mask,
             torch.as_tensor(angles, dtype=coords_batch.dtype, device=device),
-            other_mask, max_steps)
+            other_mask, steps[t])
         n_rotated = n_rotated + rotated.to(torch.int32)
     return coords_batch, n_rotated
 
@@ -681,7 +704,8 @@ def clustered_csearch(coords, atomnos, torsions, graph,
 
     t0 = time.perf_counter()
     output_structures, keep = prune_conformers_tfd(
-        np.array(output_structures), torsion_array, device=device)
+        np.array(output_structures), torsion_array, device=device,
+        mesh=mesh_for(len(output_structures), device=device))
     output_energies = np.array(output_energies)[keep]
     rec['tfd_s'] += time.perf_counter() - t0
 
