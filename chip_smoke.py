@@ -64,7 +64,14 @@ unsharded run (every count equal, frames within 1e-6 A); K1, K2 and K3
 against their plain twins on the shard-shaped tensors those runs gave
 them; sharded_embed_screen_step; the sharded FIRE on phase 12's
 survivors. Four views of one card show the sharding's overhead, not a
-speed-up.
+speed-up. Phase 22 runs the CLI with --trace (torch.profiler) in float64
+on short routes of the earlier phases (sn2_string, the non-rigid
+chelotropic input, REFINE on da_cyclical_xl's output), each against its
+untraced run (the same counts and frames): every launch of K1, K2 and K3
+is found in the trace, under its kernel's name and inside its launch
+span, and each stage is a span; then a bend's FIRE graph is captured and
+replayed under the same trace, its capture and replay loop spans of
+their own.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
@@ -76,6 +83,7 @@ speed-up.
     python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
                                   # route
     python3 chip_smoke.py --mesh     # phase 21 alone: the sharded paths
+    python3 chip_smoke.py --trace    # phase 22 alone: the CLI's --trace
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
@@ -273,6 +281,20 @@ MESH_ROUTES = (('sn2_string', STRING_CONFS), ('da_cyclical_xl', CYC_CONFS),
                ('csearch_string', SEARCH_CONFS))
 MESH_ATOL = 1e-6           # A, sharded frames against unsharded
 MESH_SCREEN_B = 8 * MESH_SHARDS   # poses of sharded_embed_screen_step
+
+# phase 22: the CLI's --trace; each hand-kernel entry and its kernel's
+# __global__ name with the first template argument, as the trace names
+# the device events
+TRACE_KERNELS = {
+    'clash_ok_f32': ('clash_ok_kernel', 'float'),
+    'clash_ok_f64': ('clash_ok_kernel', 'double'),
+    'clash_ok_warp_f32': ('clash_ok_warp_kernel', 'float'),
+    'clash_ok_warp_f64': ('clash_ok_warp_kernel', 'double'),
+    'qcp_kill_f32': ('qcp_kill_warp_kernel', 'float'),
+    'qcp_kill_f64': ('qcp_kill_warp_kernel', 'double'),
+}
+TRACE_DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+TRACE_TOP = 10             # device operations listed per traced run
 
 class SmokeFailure(Exception):
     pass
@@ -845,7 +867,7 @@ def phase_main_f32(card, mols):
     ]
 
 
-def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED):
+def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     '''One run of the port's CLI on `inp` in `dtype`, its stdout kept in
     a file; the working directory is restored afterwards. The Embedder
     the CLI builds draws the searches' random numbers from
@@ -856,7 +878,9 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED):
     launches per entry, K1 `clash_ok` and K2
     `compenetration_mask_kernel`, as `clash_entry_launches`, and what
     the compenetration stage gave K2's entry, one (poses, pair mask,
-    thresh, max_clashes) per call, as `k2_calls`.'''
+    thresh, max_clashes) per call, as `k2_calls`, and each library's
+    launches per exported entry as `kernel_entries`. `args` go to the
+    CLI after the others (e.g. --trace DIR).'''
     import contextlib
     import os
     from tscode_tpu_torch import embedder
@@ -887,7 +911,7 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED):
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
                 contextlib.redirect_stdout(out):
             rc = cli([inp, '--device', device, '--dtype', dtype, '-n',
-                      stamp])
+                      stamp, *args])
     finally:
         os.chdir(cwd)
         embedder.compenetration_mask_kernel = k2_entry
@@ -900,6 +924,8 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED):
         report = json.load(f)
     report['clash_entry_launches'] = entries
     report['k2_calls'] = k2_calls
+    report['kernel_entries'] = {k.name: dict(k.entry_launches)
+                                for k in (clash.KERNEL, qcp.KERNEL)}
     frames = read_xyz(os.path.join(
         tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
     return report, np.asarray(frames), launches, secs
@@ -3162,9 +3188,10 @@ def mesh_route(card, name, n_confs, mesh, rec, tmp):
 
 def mesh_kernels(card, rec):
     '''K1, K2 and K3 on the shard-shaped tensors the sharded runs gave
-    them, against their plain twins (off threshold ties) and timed
-    (device_ms; the plain twins with cuda_ms). Returns (records, largest
-    disagreement).'''
+    them, against their plain twins (off threshold ties), timed
+    (device_ms; the plain twins with cuda_ms) and bounded (K1 and K2 by
+    their bytes, K3 by qcp_bound over the slice's walks). Returns
+    (records, largest disagreement).'''
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
     check(rec.k1 and rec.k2 and rec.k3, f'[21 mesh] recorded K1 '
@@ -3175,11 +3202,14 @@ def mesh_kernels(card, rec):
     e, _ = compare_bits(clash.clash_ok(poses, pairs, CLASH), want,
                         clash_ties(poses, pairs, CLASH), '[21 mesh] K1')
     err = max(err, e)
+    nbytes = poses.numel() * poses.element_size() + pairs.numel() * 4 + \
+        poses.shape[0]
     out['clash_ok'] = {
         'shape': list(poses.shape), 'P': int(pairs.shape[0]),
         'ms': device_ms(lambda: clash.clash_ok(poses, pairs, CLASH)),
         'plain_ms': cuda_ms(lambda: clash.clash_ok_plain(poses, pairs,
-                                                         CLASH))}
+                                                         CLASH)),
+        'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes'}
     for poses, pm, thresh, mc in rec.k2:
         mask = torch.as_tensor(pm, device=poses.device)
         pl = clash.pairs_of_mask(pm, poses.device)
@@ -3191,12 +3221,15 @@ def mesh_kernels(card, rec):
         err = max(err, e)
     poses, pm, thresh, mc = rec.k2[0]
     mask = torch.as_tensor(pm, device=poses.device)
+    nbytes = poses.numel() * poses.element_size() + pm.size + \
+        poses.shape[0]
     out['compenetration_mask_kernel'] = {
         'shape': list(poses.shape), 'shards': len(rec.k2),
         'ms': device_ms(lambda: clash.compenetration_mask_kernel(
             poses, pm, thresh, mc)),
         'plain_ms': cuda_ms(lambda: clash.clash_counts_plain(
-            poses, mask, thresh) <= mc)}
+            poses, mask, thresh) <= mc),
+        'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes'}
     for hs, act, end, rows in rec.k3:
         pos = torch.arange(rows, device=hs.device)
         e, _ = compare_bits(qcp.qcp_kill(hs, act, end, THR, rows=rows),
@@ -3206,12 +3239,18 @@ def mesh_kernels(card, rec):
                             '[21 mesh] K3')
         err = max(err, e)
     hs, act, end, rows = rec.k3[0]
+    # the slice's walks: positions past `rows` get an empty chunk
+    walk = qcp.walk_lengths(hs, act, torch.cat(
+        [end, end.new_zeros(act.numel() - rows)]), THR)[:rows]
+    bound, by = qcp_bound(rows, hs.shape[1] * 3 * hs.element_size(),
+                          int(walk.sum()), hs.shape[1], 'float64')
     out['qcp_kill'] = {
         'slices': len(rec.k3), 'first_slice_rows': rows,
-        'pool': list(hs.shape),
+        'pool': list(hs.shape), 'pairs': int(walk.sum()),
         'ms': device_ms(lambda: qcp.qcp_kill(hs, act, end, THR, rows=rows)),
         'plain_ms': cuda_ms(lambda: qcp.qcp_kill_plain(hs, act, end, THR,
-                                                       rows), reps=3)}
+                                                       rows), reps=3),
+        'bound_ms': bound, 'bound_by': by}
     for k, r in out.items():
         print(f'[21 mesh] {k} on a shard\'s tensor {r}: equal to plain off '
               f'ties [{card}]')
@@ -3338,6 +3377,425 @@ def phase_mesh(card):
               'routes': routes, 'kernels': kernels, 'screen_step': screen,
               'fire': fire, 'sharded_launches': launches}
     return record, launches, err
+
+
+def trace_events(path):
+    '''The events of a Chrome trace file (torch.profiler's JSON).'''
+    with open(path) as f:
+        return json.load(f)['traceEvents']
+
+
+def innermost_spans(spans, points):
+    '''For each (tid, ts, key) of `points`, the name of the innermost
+    host span of `spans` (user_annotation events, nested per thread)
+    enclosing ts on that thread: {key: name}. One sweep per thread.'''
+    by_tid = {}
+    for s in spans:
+        by_tid.setdefault(s['tid'], ([], []))[0].append(s)
+    for tid, ts, key in points:
+        by_tid.setdefault(tid, ([], []))[1].append((ts, key))
+    out = {}
+    for sp, pts in by_tid.values():
+        sp.sort(key=lambda e: (e['ts'], -e['dur']))
+        pts.sort()
+        stack, i = [], 0
+        for ts, key in pts:
+            while i < len(sp) and sp[i]['ts'] <= ts:
+                while stack and stack[-1]['ts'] + stack[-1]['dur'] < \
+                        sp[i]['ts']:
+                    stack.pop()
+                stack.append(sp[i])
+                i += 1
+            while stack and stack[-1]['ts'] + stack[-1]['dur'] < ts:
+                stack.pop()
+            out[key] = stack[-1]['name'] if stack else None
+    return out
+
+
+def busy_share(device, window):
+    '''The share of the window (t0, t1) in which some device event ran
+    (the union of their intervals).'''
+    t0, t1 = window
+    busy, end = 0.0, t0
+    for e in sorted(device, key=lambda e: e['ts']):
+        lo, hi = max(e['ts'], end), min(e['ts'] + e['dur'], t1)
+        if hi > lo:
+            busy += hi - lo
+            end = hi
+    return busy / (t1 - t0) if t1 > t0 else None
+
+
+def trace_kernels(tag, events, spans, api, report):
+    '''Each hand-kernel entry the run launched, found in the trace: its
+    device events under the kernel's __global__ name (TRACE_KERNELS) and
+    its launch spans `<library>.<entry>`, as many of each as the entry's
+    launch count; the i-th event lies after the i-th span began (the
+    stream runs them in launch order) and, when CUPTI correlates it with
+    its launch call (`api`: the CUDA API calls by correlation id), that
+    call lies inside the span. Each clash launch span lies inside
+    the span of the wrapper that asked for it, as many wrapper spans as
+    that wrapper's launches. Returns ({entry: record}, {id of a kernel
+    event: its launch span}).'''
+    import re
+    out, owner = {}, {}
+    for lib, entries in report['kernel_entries'].items():
+        for entry, n in entries.items():
+            name, arg = TRACE_KERNELS[entry]
+            pat = re.compile(rf'\b{name}<{arg}\b')
+            ks = sorted((e for e in events if e.get('cat') == 'kernel'
+                         and pat.search(e['name'])), key=lambda e: e['ts'])
+            ss = [s for s in spans if s['name'] == f'{lib}.{entry}']
+            check(len(ks) == n == len(ss), f'[22 trace] {tag}: {lib}.{entry}'
+                  f' launched {n} times, {len(ss)} launch spans, {len(ks)} '
+                  f'device events named {name}<{arg}...>')
+            correlated = 0
+            for k, s in zip(ks, ss):
+                a = api.get(k.get('args', {}).get('correlation'))
+                if a is not None:
+                    check(s['ts'] <= a['ts'] <= s['ts'] + s['dur'],
+                          f'[22 trace] {tag}: {k["name"][:60]} correlates '
+                          f'with a launch outside its span {s["name"]}')
+                    correlated += 1
+                check(k['ts'] >= s['ts'], f'[22 trace] {tag}: a '
+                      f'{name} event starts before its launch span')
+                owner[id(k)] = s['name']
+            if n:
+                out[f'{lib}.{entry}'] = {'launches': n, 'events': len(ks),
+                                         'correlated': correlated,
+                                         'kernel': ks[0]['name'][:80]}
+    for wrapper, n in report['clash_entry_launches'].items():
+        ws = [s for s in spans if s['name'] == wrapper]
+        check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
+              f'{len(ws)} {wrapper} spans')
+    for s in spans:
+        if s['name'].startswith('clash.'):
+            check(any(w['name'] in report['clash_entry_launches'] and
+                      w['tid'] == s['tid'] and w['ts'] <= s['ts'] and
+                      s['ts'] + s['dur'] <= w['ts'] + w['dur']
+                      for w in spans), f'[22 trace] {tag}: launch span '
+                  f'{s["name"]} outside any wrapper span')
+    return out, owner
+
+
+def trace_check(card, tag, path, report, secs, secs_plain):
+    '''One traced run's trace: it parses as Chrome-trace JSON; every hand
+    kernel found (trace_kernels); a span for each timed stage of the run
+    report; no fewer kernel events than kernel launch calls (a trace
+    taken right after a multi-gigabyte one lost some). Prints and
+    returns the trace's bytes, the wall seconds
+    traced and not, the device's busy share over the profile's window
+    and the TRACE_TOP device operations that took the most time, each
+    with the innermost host span around its launch.'''
+    t0 = time.perf_counter()
+    events = trace_events(path)
+    spans = [e for e in events if e.get('cat') == 'user_annotation'
+             and e.get('ph') == 'X']
+    names = {}
+    for s in spans:
+        names[s['name']] = names.get(s['name'], 0) + 1
+    for st in report['stages']:
+        check(st['stage'] in names, f'[22 trace] {tag}: no span of the '
+              f'stage {st["stage"]}')
+    api = {e['args']['correlation']: e for e in events
+           if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+           and 'correlation' in e.get('args', {})}
+    kernels, owner = trace_kernels(tag, events, spans, api, report)
+    device = [e for e in events if e.get('cat') in TRACE_DEVICE_CATS
+              and e.get('ph') == 'X']
+    check(device, f'[22 trace] {tag}: no device event in {path}')
+    n_kernels = sum(e.get('cat') == 'kernel' for e in events)
+    n_calls = sum(e['name'] in ('cudaLaunchKernel', 'cuLaunchKernel')
+                  for e in api.values())
+    check(n_kernels >= n_calls, f'[22 trace] {tag}: {n_kernels} kernel '
+          f'events for {n_calls} kernel launch calls: device events lost')
+    timed = [e for e in events if e.get('ph') == 'X' and 'dur' in e]
+    window = (min(e['ts'] for e in timed),
+              max(e['ts'] + e['dur'] for e in timed))
+    launch = {}
+    for e in device:
+        a = api.get(e.get('args', {}).get('correlation'))
+        if a is not None and id(e) not in owner:
+            launch[id(e)] = (a['tid'], a['ts'], id(e))
+    where = innermost_spans(spans, launch.values())
+    where.update(owner)
+    top = {}
+    for e in device:
+        key = (e['name'][:70], where.get(id(e)))
+        top[key] = top.get(key, 0.0) + e['dur']
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:TRACE_TOP]
+    rec = {'route': tag, 'trace_bytes': os.path.getsize(path),
+           'traced_s': secs, 'untraced_s': secs_plain,
+           'busy_share': busy_share(device, window),
+           'window_s': (window[1] - window[0]) / 1e6,
+           'device_events': len(device), 'spans': len(spans),
+           'kernel_events': n_kernels, 'kernel_launch_calls': n_calls,
+           'kernels': kernels, 'parse_s': time.perf_counter() - t0,
+           'top': [{'op': k[0], 'span': k[1], 'ms': v / 1e3}
+                   for k, v in top]}
+    print(f'[22 trace {tag}] {rec["trace_bytes"]} bytes, traced '
+          f'{secs:.3f} s, untraced {secs_plain:.3f} s, device busy '
+          f'{rec["busy_share"]:.4f} of {rec["window_s"]:.3f} s, '
+          f'{len(device)} device events ({rec["kernel_events"]} kernels for '
+          f'{rec["kernel_launch_calls"]} kernel launch calls, graphs '
+          f'aside), {len(spans)} spans; hand kernels {kernels} [{card}]')
+    for i, t in enumerate(rec['top']):
+        print(f'[22 trace {tag}] top {i + 1}: {t["ms"]:.4f} ms {t["op"]} '
+              f'(span {t["span"]}) [{card}]')
+    return rec, names
+
+
+class CaptureCount:
+    '''While open, the CUDA graphs that optimizers.graph_loop captures.'''
+
+    def __enter__(self):
+        from tscode_tpu_torch import optimizers
+        self.n, self.real = 0, optimizers.GraphLoop
+        count = self
+
+        class Counted(self.real):
+            def __init__(self, *args):
+                count.n += 1
+                super().__init__(*args)
+        optimizers.GraphLoop = Counted
+        return self
+
+    def __exit__(self, *exc):
+        from tscode_tpu_torch import optimizers
+        optimizers.GraphLoop = self.real
+
+
+def trace_file(trace_dir):
+    '''The one Chrome trace a --trace run wrote into trace_dir.'''
+    import glob
+    paths = glob.glob(os.path.join(trace_dir, '*.pt.trace.json'))
+    check(len(paths) == 1, f'[22 trace] trace files in {trace_dir}: {paths}')
+    return paths[0]
+
+
+NO_LAUNCHES = {'kernel_entries': {'clash': {}, 'qcp_kill': {}},
+               'clash_entry_launches': {}, 'stages': []}
+
+
+def traced_route(card, tag, tmp, inp):
+    '''One input through the CLI in float64 untraced, then with --trace:
+    the same stage counts and frames; the trace checked (trace_check).
+    Returns (traced run's report, trace record, span counts, launches of
+    both runs: K1, K2, K3).'''
+    trace_dir = os.path.join(tmp, 'trace')
+    runs = [run_cli(tmp, inp, 'float64', args=args)
+            for args in ((), ('--trace', trace_dir))]
+    (r0, f0, _, s0), (r1, f1, _, s1) = runs
+    check(stage_counts(r1) == stage_counts(r0) and f1.shape == f0.shape
+          and len(f0) and np.array_equal(f1, f0), f'[22 trace] {tag}: '
+          f'stages {stage_counts(r1)} frames {f1.shape} against the '
+          f'untraced run\'s {stage_counts(r0)} {f0.shape}, or other frames')
+    rec, names = trace_check(card, tag, trace_file(trace_dir), r1, s1, s0)
+    launches = [0, 0, 0]
+    for r, _, _, _ in runs:
+        e = r['clash_entry_launches']
+        launches[0] += e['clash_ok'] + e['torsion_clash_ok']
+        launches[1] += e['compenetration_mask_kernel']
+        launches[2] += sum(r['kernel_entries']['qcp_kill'].values())
+    return r1, rec, names, launches
+
+
+def traced_fire(card, tmp):
+    '''The FIRE graph under the CLI's trace (backend.DeviceTrace, as
+    --trace opens it): one fire_minimize_batch of a bend's length
+    (BEND_FIRE_STEPS steps) on the monomolecular input's MONO_CONFS
+    C2F2H4 conformers under the internal force field, float64, run with
+    the graph cache emptied untraced, then again emptied and traced (the
+    graph captured under the profiler), then traced no more (replayed
+    from that graph, not captured again): the same coordinates, energies
+    and stop flags bit for bit. In the trace: the capture and replay
+    spans, one cudaGraphLaunch a step inside the replay span, the same
+    kernels behind each.'''
+    import contextlib
+    import torch
+    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch.backend import DeviceTrace
+    from tscode_tpu_torch.bending import BEND_FIRE_STEPS
+    from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
+        params_to_device
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.io_xyz import read_xyz
+    ens = read_xyz(os.path.join(os.path.dirname(
+        suite_input('monomolecular', tmp, MONO_CONFS)), 'm1.xyz'))
+    coords, atomnos = np.asarray(ens.atomcoords), np.asarray(ens.atomnos)
+    params = params_to_device(build_ff_params(
+        coords[0], atomnos, graphize(coords[0], atomnos)), DEV,
+        torch.float64)
+    x = torch.as_tensor(coords, dtype=torch.float64, device=DEV)
+    trace_dir = os.path.join(tmp, 'trace')
+    runs, secs, caps = [], [], []
+    for traced, fresh in ((False, True), (True, True), (False, False)):
+        if fresh:
+            optimizers._graphs.clear()
+        with CaptureCount() as cap, DeviceTrace(trace_dir, DEV) if traced \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            out = optimizers.fire_minimize_batch(
+                x, ff_energy, n_steps=BEND_FIRE_STEPS, energy_args=(params,))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        runs.append(out)
+        caps.append(cap.n)
+    check(caps == [1, 1, 0] and all(
+        torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])),
+        f'[22 trace] FIRE: captures {caps} (untraced, traced, replayed), or '
+        f'the runs differ')
+    path = trace_file(trace_dir)
+    rec, names = trace_check(card, 'fire', path, NO_LAUNCHES, secs[1],
+                             secs[0])
+    events = trace_events(path)
+    run = [e for e in events if e.get('cat') == 'user_annotation'
+           and e['name'] == 'GraphLoop.run:fire_run_graph']
+    launches = {e['args']['correlation']: e for e in events
+                if e.get('name') == 'cudaGraphLaunch'}
+    per = {}
+    for e in events:
+        c = e.get('args', {}).get('correlation')
+        if e.get('cat') == 'kernel' and c in launches:
+            per[c] = per.get(c, 0) + 1
+    check(len(run) == 1 and names.get('fire_minimize_batch') == 1 and
+          names.get('GraphLoop.capture:fire_run_graph') == 1 and
+          len(launches) == BEND_FIRE_STEPS == len(per) and
+          len(set(per.values())) == 1 and all(
+              run[0]['ts'] <= a['ts'] <= run[0]['ts'] + run[0]['dur']
+              for a in launches.values()), f'[22 trace] FIRE: spans '
+          f'{names}, {len(launches)} graph launches for {BEND_FIRE_STEPS} '
+          f'steps, kernels a replay {sorted(set(per.values()))}')
+    rec.update(steps=BEND_FIRE_STEPS, shape=list(x.shape),
+               kernels_per_replay=next(iter(per.values())), captures=caps,
+               replayed_s=secs[2])
+    print(f'[22 trace fire] {x.shape[0]} x {x.shape[1]} atoms, '
+          f'{BEND_FIRE_STEPS} steps, float64: the graph captured under the '
+          f'profiler gives the untraced run\'s coordinates bit for bit and '
+          f'is replayed untraced without a new capture ({secs[2]:.4f} s); '
+          f'{BEND_FIRE_STEPS} cudaGraphLaunch inside '
+          f'GraphLoop.run:fire_run_graph, {rec["kernels_per_replay"]} '
+          f'kernels each [{card}]')
+    return rec
+
+
+def traced_thread(card, tmp):
+    '''A K1 launch from a worker thread, as the calculator dispatch runs
+    its jobs, under the CLI's trace (backend.DeviceTrace): its device
+    event is in the trace, found under the kernel's name; whether its
+    spans, entered on the worker, are there too is printed (the profiler
+    records the host ops of the thread that started it). Returns the
+    record.'''
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from tscode_tpu_torch.backend import DeviceTrace
+    from tscode_tpu_torch.ops.kernels import clash
+    rng = np.random.default_rng(22)
+    poses = torch.as_tensor(rng.normal(size=(256, 11, 3)) * 3,
+                            device=DEV)
+    pairs = torch.as_tensor([[i, j] for i in range(4) for j in range(4, 11)],
+                            dtype=torch.int32, device=DEV)
+    clash.KERNEL.reset_counts()
+    with DeviceTrace(tmp, DEV) as trace, ThreadPoolExecutor(1) as pool:
+        ok = pool.submit(clash.clash_ok, poses, pairs, CLASH).result()
+    check(torch.equal(ok, clash.clash_ok_plain(poses, pairs, CLASH)),
+          '[22 trace] thread: K1 against plain')
+    events = trace_events(trace.path)
+    kernels = sum(e.get('cat') == 'kernel' and
+                  'clash_ok_kernel<double' in e['name'] for e in events)
+    spans = sorted({e['name'] for e in events
+                    if e.get('cat') == 'user_annotation'})
+    check(kernels == clash.KERNEL.launches == 1, f'[22 trace] thread: '
+          f'{kernels} clash_ok_kernel events for '
+          f'{clash.KERNEL.launches} launch')
+    print(f'[22 trace thread] a K1 launch on a worker thread: its kernel '
+          f'in the trace; spans of the worker in the trace: {spans} '
+          f'[{card}]')
+    return {'kernel_events': kernels, 'worker_spans': spans}
+
+
+def phase_trace(card):
+    '''Phase 22: the CLI's --trace, float64, on short routes of the
+    earlier phases, each also run untraced (traced_route): sn2_string at
+    STRING_CONFS (K1's thread kernel, the TFD novelty lane; phase 6's
+    JAX x64 counts), the non-rigid chelotropic input at CHEL_BEND_CONFS
+    (K1 and K2 once; phase 15's), and REFINE on da_cyclical_xl's float64
+    output at CYC_CONFS, made as phase 8 makes it (K3's passes; the JAX
+    x64 counts of phase 9); then a bend's FIRE graph under the trace
+    (traced_fire) and a launch from a worker thread (traced_thread).
+    Returns (records, launches K1, K2, K3 of the CLI runs).'''
+    import tempfile
+    from tscode_tpu_torch.suite_inputs import refine_input
+    recs, launches = {}, [0, 0, 0]
+
+    def add(n):
+        for i in range(3):
+            launches[i] += n[i]
+    with tempfile.TemporaryDirectory(prefix='smoke_trace_') as tmp:
+        def route(tag, name, n_confs):
+            d = os.path.join(tmp, tag)
+            os.makedirs(d)
+            return traced_route(card, tag, d, suite_input(name, d, n_confs))
+        rep, recs['sn2_string'], names, n = route('sn2_string', 'sn2_string',
+                                                  STRING_CONFS)
+        add(n)
+        se = rep['string_embed']
+        got = (se['candidates'], se['clash_ok'], se['novel'],
+               rep['final_structures'])
+        check(got == STRING_F64 and se['tfd_lane'] == 'device' and
+              'tfd_novelty_device' in names and 'bcast_block' in names,
+              f'[22 trace] sn2_string: {got} (JAX x64 {STRING_F64}), lane '
+              f'{se["tfd_lane"]}, spans {sorted(names)}')
+        rep, recs['chelotropic_nonrigid'], names, n = route(
+            'chelotropic_nonrigid', 'chelotropic_nonrigid', CHEL_BEND_CONFS)
+        add(n)
+        check(rep['clash_entry_launches']['compenetration_mask_kernel'] == 1
+              and 'angular_dedup' in names, f'[22 trace] chelotropic: '
+              f'launches {rep["clash_entry_launches"]}, spans '
+              f'{sorted(names)}')
+        d = os.path.join(tmp, 'xl')
+        os.makedirs(d)
+        rep, _, _, secs = run_cli(d, suite_input('da_cyclical_xl', d,
+                                                 CYC_CONFS), 'float64')
+        add((rep['clash_entry_launches']['clash_ok'], 0, 0))
+        print(f'[22 trace] da_cyclical_xl at {CYC_CONFS}, REFINE\'s input, '
+              f'untraced in {secs:.3f} s [{card}]')
+        d2 = os.path.join(tmp, 'refine_xl')
+        os.makedirs(d2)
+        inp = refine_input(os.path.join(
+            d, f'tscode_unoptimized_smoke_{DEV}_float64.xyz'), d2)
+        rep, recs['refine_xl'], names, n = traced_route(card, 'refine_xl',
+                                                        d2, inp)
+        add(n)
+        got = refine_counts(rep)
+        check(got[:2] + got[3:] == REFINE_XL_F64 and n[2] > 0 and
+              'prune_conformers_rmsd_device' in names, f'[22 trace] '
+              f'refine_xl: {got} (JAX x64 {REFINE_XL_F64}), K3 {n[2]}, '
+              f'spans {sorted(names)}')
+        d3 = os.path.join(tmp, 'fire')
+        os.makedirs(d3)
+        recs['fire'] = traced_fire(card, d3)
+        recs['thread'] = traced_thread(card, os.path.join(tmp, 'thread'))
+    print(f'[22 trace] launches in the traced and untraced runs: K1 '
+          f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}; every launch '
+          f'of a traced run found in its trace [{card}]')
+    return recs, launches
+
+
+def trace_process(card):
+    '''Phase 22 in a process of its own (`chip_smoke.py --trace`), as
+    --trace profiles a CLI process from its start: a trace taken after
+    phases 1 to 21 in this process lost device events (4,176 kernel
+    events for 4,196 kernel launch calls on sn2_string), and one taken
+    after a 2.6 GB trace lost more. Its lines are printed here; returns
+    its (records, launches K1, K2, K3).'''
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--trace'], capture_output=True, text=True,
+                       timeout=900)
+    sys.stdout.write(r.stdout)
+    check(r.returncode == 0, f'phase 22 (chip_smoke.py --trace): exit code '
+          f'{r.returncode}: {r.stderr[-2000:]}')
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    return out['trace'], out['launches']
 
 
 def qcp_plan_sweep(card, out):
@@ -3559,6 +4017,11 @@ def main():
         mesh, _, _ = timed_phase('21 mesh', phase_mesh, card)
         print(json.dumps({'mesh': mesh}))
         return
+    if sys.argv[1:2] == ['--trace']:         # phase 22 alone
+        phase_build()
+        trace, launches = timed_phase('22 trace', phase_trace, card)
+        print(json.dumps({'trace': trace, 'launches': launches}))
+        return
     if sys.argv[1:2] == ['--fire']:          # --fire OUT.json
         phase_build()
         with open(sys.argv[2], 'w') as f:
@@ -3608,12 +4071,16 @@ def main():
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
+    trace, (k1_22, k2_22, k3_22) = timed_phase('22 trace', trace_process,
+                                                card)
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
-        k1_16 + k1_17 + sharded['clash_ok'] + sharded['torsion_clash_ok']
+        k1_16 + k1_17 + sharded['clash_ok'] + sharded['torsion_clash_ok'] \
+        + k1_22
     kernels[0]['torsion_backoff'] = {'torsion_drive': drive,
                                      'csearch_string': backoff}
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
-    kernels[1]['launches'] += k3 + k3_18 + k3_20 + sharded['qcp_kill']
+    kernels[1]['launches'] += k3 + k3_18 + k3_20 + sharded['qcp_kill'] + \
+        k3_22
     kernels[0]['mesh'] = {'launches': sharded['clash_ok']
                           + sharded['torsion_clash_ok'],
                           **mesh['kernels']['clash_ok']}
@@ -3634,7 +4101,7 @@ def main():
         'source': 'tscode_tpu_torch/csrc/clash.cu',
         'replaces': 'tscode_tpu/ops/pallas/clash.py:55',
         'launches': k2_10 + k2_11 + k2_15 +
-        sharded['compenetration_mask_kernel'],
+        sharded['compenetration_mask_kernel'] + k2_22,
         'max_abs_err': max(e10_k2, e11_k2, e21),
         'ms': k2_rec['float64']['ms'],
         'plain_ms': k2_rec['float64']['plain_ms'],
@@ -3658,6 +4125,7 @@ def main():
         'ff_operators': ops}}))
     print(json.dumps({'opt_route': opt}))
     print(json.dumps({'mesh': mesh}))
+    print(json.dumps({'trace': trace}))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

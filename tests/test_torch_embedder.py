@@ -245,8 +245,10 @@ def test_cli_in_a_subprocess(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert 'TFD novelty filter ran on the host lane' in r.stdout
     assert frames(tmp_path, 'unoptimized', 'cli').shape == (55, 11, 3)
-    # -t and -b run (tests/test_torch_opt_operators.py); --trace is
-    # not ported
-    r = subprocess.run(cmd + ['input.txt', '--trace=prof'], cwd=tmp_path,
-                       env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and 'ROADMAP.md item 6' in r.stderr
+    # -t and -b run (tests/test_torch_opt_operators.py); --trace writes
+    # one Chrome trace (tests/test_torch_trace.py)
+    r = subprocess.run(cmd + ['input.txt', '--device', 'cpu', '--trace=prof',
+                              '-n', 'traced'], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert len(list((tmp_path / 'prof').glob('*.pt.trace.json'))) == 1

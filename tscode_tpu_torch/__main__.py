@@ -5,15 +5,12 @@ CLI entry point of the port: `python -m tscode_tpu_torch input.txt
 The device defaults to cuda; without a card that raises, and nothing
 switches to the CPU on its own: pass `--device cpu` for a CPU run.
 `--dtype float64` runs the embed in float64 on the card too.
+`--trace DIR` profiles the run on its device (backend.DeviceTrace).
 '''
 
 import argparse
 import os
 import sys
-
-NOT_PORTED_FLAGS = {
-    'trace': ('--trace (device profile of the run)', 6),
-}
 
 
 def main(argv=None):
@@ -55,14 +52,11 @@ def main(argv=None):
     parser.add_argument('-c', '--cite', action='store_true',
                         help='print the literature citation and exit')
     parser.add_argument('--trace', metavar='DIR', default=None,
-                        help='device profile of the run (not ported)')
+                        help='capture a torch.profiler device profile of '
+                             'the run into DIR (open with tensorboard or '
+                             'Perfetto); the device-level analog of -p '
+                             'host profiling')
     args = parser.parse_args(argv)
-
-    for flag, (what, item) in NOT_PORTED_FLAGS.items():
-        if getattr(args, flag):
-            print(f'tscode_tpu_torch: {what} is not ported yet (ROADMAP.md '
-                  f'item {item}); use python -m tscode_tpu', file=sys.stderr)
-            return 2
 
     if args.cite:
         from tscode_tpu_torch.references import references
@@ -104,14 +98,24 @@ def main(argv=None):
                             dtype=args.dtype and getattr(torch, args.dtype))
         embedder.run(resume_from=args.restart)
 
-    if args.profile:
+    def _cprofile(fn):
         import cProfile
         import pstats
         with cProfile.Profile() as pr:
-            _run()
+            fn()
         pstats.Stats(pr).sort_stats('cumtime').print_stats(30)
+
+    run = (lambda: _cprofile(_run)) if args.profile else _run
+    if args.trace:
+        # DeviceTrace resolves the device before the profiler starts
+        # (cuda without a card raises there), as the JAX CLI pins its
+        # backend before jax.profiler.trace
+        from tscode_tpu_torch.backend import DeviceTrace
+        with DeviceTrace(args.trace, args.device) as trace:
+            run()
+        print(f'tscode_tpu_torch: device trace written to {trace.path}')
     else:
-        _run()
+        run()
     return 0
 
 

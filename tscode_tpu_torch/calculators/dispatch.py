@@ -24,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor, as_completed
 
 import numpy as np
 
+from tscode_tpu_torch.backend import traced
 from tscode_tpu_torch.settings import DEFAULT_LEVELS
 from tscode_tpu_torch.utils import (molecule_check, scramble_check,
                                     time_to_string, timing_wrapper)
@@ -111,6 +112,7 @@ def _constraints_for(embedder, i, only_fixed_constraints):
     return embedder.constrained_indices[i]
 
 
+@traced
 def _refine_stage(embedder, opt_callable, level_tag, workers,
                   conv_thr='tight', maxiter=None,
                   only_fixed_constraints=False, spring_constant=1,

@@ -67,7 +67,7 @@ from tscode_tpu_torch.settings import DEFAULT_LEVELS
 from tscode_tpu_torch.utils import (auto_newline, clean_directory,
                               saturation_check, time_to_string)
 from tscode_tpu_torch import __version__
-from tscode_tpu_torch.backend import default_dtype, get_device
+from tscode_tpu_torch.backend import default_dtype, get_device, span
 from tscode_tpu_torch.embeds.cyclical import cyclical_embed
 from tscode_tpu_torch.embeds.monomolecular import monomolecular_embed
 from tscode_tpu_torch.embeds.string import string_embed
@@ -832,12 +832,14 @@ class Embedder:
 
 def _timed_stage(fn):
     '''Record (stage, wall seconds, structures in/out) on the run, dumped
-    in tscode_report_<stamp>.json at termination.'''
+    in tscode_report_<stamp>.json at termination; the stage is a span of
+    the --trace profile under the same name.'''
     def wrapper(self, *args, **kwargs):
         t0 = time.perf_counter()
         before = len(getattr(self, 'structures', None)
                      if getattr(self, 'structures', None) is not None else ())
-        out = fn(self, *args, **kwargs)
+        with span(fn.__name__):
+            out = fn(self, *args, **kwargs)
         after = len(getattr(self, 'structures', None)
                     if getattr(self, 'structures', None) is not None else ())
         if not hasattr(self, 'stage_timings'):

@@ -44,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import default_dtype, get_device, synchronize
+from tscode_tpu_torch.backend import (default_dtype, get_device, synchronize,
+                                      traced)
 from tscode_tpu_torch.embeds.common import DeviceSurvivors
 from tscode_tpu_torch.errors import ZeroCandidatesError
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask, static_pairs
@@ -296,6 +297,7 @@ def block_geometry(starts, ends, dirs, pvs, mds, apms, mps, rc_axes):
     return R_align, axis, cor, pos0
 
 
+@traced
 def block_poses(coords, confs, R_align, axis, cor, pos0, angle_grid, pairs,
                 clash_thresh, clash=clash_ok):
     '''Each block expanded over the angle grid (A, M) in degrees, and
@@ -317,6 +319,7 @@ def block_poses(coords, confs, R_align, axis, cor, pos0, angle_grid, pairs,
     return poses, ok.reshape(Bb, A)
 
 
+@traced
 def greedy_keep_device(clash_ok, similar):
     '''The greedy angular dedup as a scan over the A angles, vectorised
     over blocks: angle t is kept when it passed the screen and is unlike
@@ -345,6 +348,7 @@ def greedy_angular_keep(clash_ok, similar):
     return keep
 
 
+@traced
 def angular_dedup(poses, ok):
     '''The block-local gates (rmsd < DEDUP_RMSD and maxdev <
     DEDUP_MAXDEV over the whole pose) and the greedy keep: poses
@@ -812,6 +816,7 @@ def adjust_grid():
         - ADJ_RANGE
 
 
+@traced
 def adjust_chain(starts, ends, pvs, mds, mps, rc_src, verts, reset, dirs0,
                  *, device, chunk=ADJ_CHUNK):
     '''The chained direction adjustment over a block sequence (numpy

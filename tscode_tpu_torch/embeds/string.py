@@ -31,7 +31,8 @@ import torch
 
 from tscode_tpu_torch.errors import ZeroCandidatesError
 from tscode_tpu_torch.graphs import get_quadruplets, get_sum_graph
-from tscode_tpu_torch.backend import default_dtype, get_device, synchronize
+from tscode_tpu_torch.backend import (default_dtype, get_device, synchronize,
+                                      traced)
 from tscode_tpu_torch.embeds.common import (DeviceSurvivors,
                                             inputs_from_numpy)
 from tscode_tpu_torch.ops.kernels.clash import clash_ok
@@ -56,6 +57,7 @@ def spin_angles(angles, dtype, device):
                            dtype=dtype, device=device)
 
 
+@traced
 def bcast_block(inp, angles, c2_lo, c2_hi, clash_thresh):
     '''Poses and clash accept mask of the grid rows of c2 values
     [c2_lo, c2_hi): (poses (B, N1+N2, 3), ok (B,) bool), built by

@@ -18,6 +18,7 @@ it is. The IDPP starting band relaxes under `fire_minimize_batch`.
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import traced
 from tscode_tpu_torch.errors import InputError
 from tscode_tpu_torch.optimizers import (fire_band_init, fire_band_update,
                                          fire_minimize_batch, graph_loop)
@@ -300,6 +301,7 @@ def run_neb_callback(start, end, grad_chain_fn, n_images=7, k_spring=1.0,
     return final, np.asarray(energies), ts_index
 
 
+@traced
 def run_neb(start, end, energy_fn, n_images=7, k_spring=1.0, n_steps=800,
             climb_after=400, dt0=0.01, fmax=0.05, chain=None,
             energy_args=(), *, device):

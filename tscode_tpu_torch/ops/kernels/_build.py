@@ -20,6 +20,8 @@ import subprocess
 import threading
 import time
 
+from tscode_tpu_torch.backend import span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -115,9 +117,13 @@ class CudaKernel:
         given, as the current device, so the launch and the device
         attributes the entry reads are that card's; count the launch,
         also under the name of the Python wrapper that asked for it, if
-        given; raise on a launch error.'''
+        given; raise on a launch error. Under the CLI's --trace the call
+        is the span `<library>.<entry>` (the only host-side mark of a
+        ctypes launch), inside a span named for the wrapper, if given.'''
         lib = self.build()
-        with device_guard(device):
+        with span(wrapper) if wrapper is not None \
+                else contextlib.nullcontext(), \
+                span(f'{self.name}.{symbol}'), device_guard(device):
             code = getattr(lib, symbol)(*args)
         if code != 0:
             raise RuntimeError(

@@ -14,7 +14,7 @@ import networkx as nx
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import get_device
+from tscode_tpu_torch.backend import get_device, traced
 from tscode_tpu_torch.pt import masses_of
 from tscode_tpu_torch.ops.linalg import get_inertia_moments
 
@@ -45,6 +45,7 @@ def moi_similarity_matrix(structures, masses, max_deviation=1e-2, *,
     return torch.all(rel < max_deviation, dim=-1).cpu().numpy()
 
 
+@traced
 def prune_by_moment_of_inertia(structures, atomnos, max_deviation=1e-2, *,
                                device, mesh=None):
     '''Returns (pruned_structures, keep_mask) as numpy arrays. Heavy

@@ -22,7 +22,7 @@ into contiguous slices of about equal pair work, one per device
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import get_device
+from tscode_tpu_torch.backend import get_device, span, traced
 from tscode_tpu_torch.ops.kernels.qcp import qcp_kill
 from tscode_tpu_torch.ops.linalg import (_qcp_lambda_max, rmsd_and_max,
                                          rotation_from_key)
@@ -94,6 +94,7 @@ def pass_chunks(mask, n, k):
     return act, end
 
 
+@traced
 def prune_conformers_rmsd_device(heavy_structures, rmsd_thr=0.5,
                                  init_mask=None, n_real=None,
                                  pair_kill=qcp_kill, mesh=None):
@@ -129,14 +130,15 @@ def prune_conformers_rmsd_device(heavy_structures, rmsd_thr=0.5,
     for k in K_SCHEDULE:
         if not (k == 1 or 20 * k < active):
             continue
-        act, end = pass_chunks(mask, n, int(k))
-        if pools is None:
-            kill = pair_kill(hs, act, end, rmsd_thr)
-        else:
-            kill = sharded_pass_kill(pools, act, end, rmsd_thr, mesh,
-                                     pair_kill)
-        mask[act] = ~kill     # every act row is active at pass start
-        active = int(mask.sum())
+        with span(f'rmsd_pass k={int(k)}'):
+            act, end = pass_chunks(mask, n, int(k))
+            if pools is None:
+                kill = pair_kill(hs, act, end, rmsd_thr)
+            else:
+                kill = sharded_pass_kill(pools, act, end, rmsd_thr, mesh,
+                                         pair_kill)
+            mask[act] = ~kill     # every act row is active at pass start
+            active = int(mask.sum())
     return mask.cpu().numpy()
 
 

@@ -21,7 +21,7 @@ import networkx as nx
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import get_device
+from tscode_tpu_torch.backend import get_device, traced
 from tscode_tpu_torch.ops.linalg import dihedral
 
 K_SCHEDULE = (5e5, 2e5, 1e5, 5e4, 2e4, 1e4,
@@ -80,6 +80,7 @@ def wrapped_l1(A, B):
     return acc
 
 
+@traced
 def _first_similar_successor(tf_chunk, thresh, lo=0, hi=None):
     '''For each row i in [lo, hi) (default all) of a chunk (L, Q)
     tensor, the smallest j > i with wrapped-L1 distance < thresh, or -1,
@@ -210,6 +211,7 @@ def novelty_block(block):
     return block
 
 
+@traced
 def tfd_novelty_device(fingerprints, accept_mask=None, thresh=10,
                        block=_NOVELTY_BLOCK, cache_cap=_NOVELTY_CACHE,
                        stats=None):

@@ -29,6 +29,7 @@ import types
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import span, traced
 from tscode_tpu_torch.ops.kernels._build import device_guard
 
 # FIRE hyperparameters (standard values)
@@ -176,6 +177,9 @@ class GraphLoop:
         self.state = tuple(s.clone() for s in state)
         self.args = _map_tensors(args, torch.clone)
         self.device = self.state[0].device
+        # the function that made the body, which names the graph's spans
+        # in the --trace profile (e.g. GraphLoop.run:fire_run_graph)
+        self.maker = body.__qualname__.split('.<locals>')[0]
 
         def step():
             for old, new in zip(self.state, body(self.state, self.args)):
@@ -183,7 +187,8 @@ class GraphLoop:
 
         # capture on the state's card (the current device may be another
         # one), warming up on a side stream, as graph capture asks
-        with device_guard(self.device):
+        with span(f'GraphLoop.capture:{self.maker}'), \
+                device_guard(self.device):
             side = torch.cuda.Stream(device=self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
@@ -195,7 +200,7 @@ class GraphLoop:
                 step()
 
     def run(self, state, args, n_steps):
-        with device_guard(self.device):
+        with span(f'GraphLoop.run:{self.maker}'), device_guard(self.device):
             for own, new in zip(_tensors(self.args), _tensors(args)):
                 own.copy_(new)
             for own, new in zip(self.state, state):
@@ -283,6 +288,7 @@ def fire_run(coords, energy_fn, n_steps=500, dt0=0.05, fmax=0.05,
                energy_args)
 
 
+@traced
 def fire_minimize_batch(coords, energy_fn, n_steps=500, dt0=0.05,
                         fmax=0.05, freeze_mask=None, energy_args=()):
     '''

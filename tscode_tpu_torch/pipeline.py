@@ -19,7 +19,8 @@ import time
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import default_dtype, get_device, synchronize
+from tscode_tpu_torch.backend import (default_dtype, get_device, synchronize,
+                                      traced)
 from tscode_tpu_torch.embeds.common import inputs_from_numpy
 from tscode_tpu_torch.embeds.string import (bcast_block, bcast_tiles,
                                             spin_angles)
@@ -75,6 +76,7 @@ def embed_clash_tiles(inp, n_angles=N_ANGLES, clash_thresh=1.5,
     return bcast_tiles(inp, angles, clash_thresh, g)
 
 
+@traced
 def clash_survivors(inp, n_angles=N_ANGLES, clash_thresh=1.5):
     '''Embed + clash + compaction: (ok (B,) bool, hs (S, H, 3)), the
     heavy atoms of the clash survivors in grid order. Heavy atoms are

@@ -21,6 +21,7 @@ where JAX's loop leaves the coordinates as they are.
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import traced
 from tscode_tpu_torch.ff import build_ff_params, ff_energy, params_to_device
 from tscode_tpu_torch.optimizers import forces, graph_loop
 
@@ -98,6 +99,7 @@ def dimer_start(coords):
     return v0 / torch.clamp(torch.linalg.norm(v0), min=1e-12)
 
 
+@traced
 def dimer_saddle(coords, energy_fn, n_steps=300, n_rot=12, dr=1e-3,
                  step_size=0.02, fmax=0.05, energy_args=()):
     '''

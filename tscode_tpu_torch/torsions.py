@@ -26,7 +26,7 @@ import networkx as nx
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import get_device, synchronize
+from tscode_tpu_torch.backend import get_device, synchronize, traced
 from tscode_tpu_torch.cluster import dbscan_labels, kmeans
 from tscode_tpu_torch.errors import SegmentedGraphError
 from tscode_tpu_torch.graphs import (get_phenyl_ids, get_quadruplets,
@@ -304,6 +304,7 @@ def group_torsions_dbscan(coords, torsions, max_size=5):
 BACKOFF_STEP = 5.0
 
 
+@traced
 def rotate_batch_with_backoff(coords_batch, quad, move_mask, angles,
                               other_mask, max_steps):
     """Rotate one torsion by per-candidate angles with the reference's

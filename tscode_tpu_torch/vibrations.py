@@ -21,6 +21,7 @@ numbers, with the count of imaginary modes beside them.
 import numpy as np
 import torch
 
+from tscode_tpu_torch.backend import traced
 from tscode_tpu_torch.pt import MASSES
 
 # sqrt(kcal/mol / (amu * A^2)) -> cm^-1
@@ -96,6 +97,7 @@ def _wavenumbers(h, coords, masses, project):
     return torch.where(torch.abs(freqs) < 1.0, 0.0, freqs)
 
 
+@traced
 def frequencies(coords, atomnos, energy_fn, project=True, *, device):
     '''Harmonic frequencies of one structure, float64 on `device`;
     energy_fn takes a (N, 3) tensor there and returns a scalar.
