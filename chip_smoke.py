@@ -85,6 +85,8 @@ their own.
     python3 chip_smoke.py --mesh     # phase 21 alone: the sharded paths
     python3 chip_smoke.py --trace    # phase 22 alone: the CLI's --trace
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
+    python3 chip_smoke.py --k1 OUT.json   # K1's thread regime: phase 3's
+                                  # checks and the ring's launch plans
     python3 chip_smoke.py --profile-cyclical OUT.json   # the cyclical
                                   # route's float32 run under the profiler
 
@@ -251,7 +253,19 @@ SEARCH_F64 = (1152000, 3001, 2906, 2906)   # candidates, clash-ok, novel, final
 SEARCH_COLLINEAR = [[1, 0, 6, 7]]          # C2H4 C1-C0...C0-Cl of the chain
 SEARCH_DROPPED_NOVEL = 1610  # JAX x64 novelty replay without that quadruplet
 SEARCH_GOLDEN = os.path.join(GOLDEN, 'csearch_string_search.npz')
-BACKOFF_KEEP = 16          # every 16th K1 back-off call kept for the check
+# csearch_string's back-off with one K1 launch a retreat step, the loop
+# torsion_backoff replaced (NVIDIA H100 80GB HBM3, 700 W)
+STEP_LOOP_BACKOFF_S = 0.2541
+# K1's thread regime (phase 3): the ring kernel and the v1 kernel against
+# plain at these batch sizes and atom counts (two fragments, P < 64)
+K1_BATCHES = (1, 15, 16, 17, 4099, 415872)
+K1_ATOMS = (8, 11, 12, 15)
+# the crossover sweep (phase 3): pair counts and the fragments that give
+# them, on N_POSES poses
+CROSSOVER_FRAGMENTS = {9: (3, 3), 30: (6, 5), 36: (6, 6), 49: (7, 7),
+                       56: (8, 7), 64: (8, 8), 75: (5, 5, 5), 144: (12, 12)}
+# the ring kernel's launch plans timed by --k1 (tile, stages)
+RING_VARIANTS = tuple((t, s) for t in (64, 128, 256) for s in (2, 3, 4))
 # the force-field routes (phases 18 and 19), float64 on the card: the
 # SADDLE dihedral scan of suite_inputs' chlorocycloalkane ring at
 # DSCAN_RING carbons (scan> of C3-C4-C5-C6), then neb>, saddle> and the
@@ -286,8 +300,11 @@ MESH_SCREEN_B = 8 * MESH_SHARDS   # poses of sharded_embed_screen_step
 # __global__ name with the first template argument, as the trace names
 # the device events
 TRACE_KERNELS = {
-    'clash_ok_f32': ('clash_ok_kernel', 'float'),
-    'clash_ok_f64': ('clash_ok_kernel', 'double'),
+    'clash_ok_f32': ('clash_ok_ring_kernel', 'float'),
+    'clash_ok_f64': ('clash_ok_ring_kernel', 'double'),
+    'clash_ok_v1_f32': ('clash_ok_kernel', 'float'),
+    'clash_ok_v1_f64': ('clash_ok_kernel', 'double'),
+    'torsion_backoff_f64': ('torsion_backoff_kernel', 'double'),
     'clash_ok_warp_f32': ('clash_ok_warp_kernel', 'float'),
     'clash_ok_warp_f64': ('clash_ok_warp_kernel', 'double'),
     'qcp_kill_f32': ('qcp_kill_warp_kernel', 'float'),
@@ -435,6 +452,294 @@ def compare_bits(got, want, tie, what):
           f'{what}: {int((diff & ~tie).sum())} rows disagree away from '
           f'any threshold tie')
     return int(diff[~tie].sum() > 0), int(tie.sum())
+
+
+def k1_bytes(poses, pairs):
+    '''Bytes K1 must move on one call: each pose read once, the pair
+    list read once, one byte written a pose.'''
+    return poses.numel() * poses.element_size() + pairs.numel() * 4 + \
+        poses.shape[0]
+
+
+def k1_yardstick(poses, pairs, mc=0):
+    '''K1's thread regime on one tensor: the ring kernel and the v1
+    kernel, both forced, device ms in the order v1, ring, ring, v1
+    (means of the two), and the ring's tiles per load path on one
+    launch.'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash
+    pairs = torch.as_tensor(pairs, dtype=torch.int32,
+                            device=poses.device).contiguous()
+    clash.reset_tile_paths()
+    clash.launch(poses, pairs, CLASH, mc, 'thread')
+    paths = clash.tile_paths()
+    (v1a, v1b), (ra, rb) = ab_ms(
+        lambda: clash.launch(poses, pairs, CLASH, mc, 'v1'),
+        lambda: clash.launch(poses, pairs, CLASH, mc, 'thread'))
+    return {'thread_ms': (ra + rb) / 2, 'v1_ms': (v1a + v1b) / 2,
+            'tile_paths': paths}
+
+
+def k1_line(rec):
+    '''K1's times as phase 5 and the route phases print them: the
+    route's kernel / ring kernel / v1 kernel / plain / bound.'''
+    return (f'K1 {rec["ms"]:.4f} ms ({rec["regime"]}) / ring '
+            f'{rec["thread_ms"]:.4f} / v1 kernel {rec["v1_ms"]:.4f} / plain '
+            f'{rec["plain_ms"]:.4f} / bound {rec["bound_ms"]:.4f} ms (bytes), '
+            f'device ms; ring tiles by load path {rec["tile_paths"]}')
+
+
+def thread_kernel_checks(card):
+    '''Phase 3: K1's ring kernel (the thread regime) and the v1 thread
+    kernel against plain, off ties, at every B of K1_BATCHES and N of
+    K1_ATOMS (two fragments), float32 and float64, max_clashes 0 and 3,
+    on a batch whose base lies on the 16-byte grid and on the slice
+    poses[1:] of a larger one (a base off the grid for N = 11 and 15);
+    the ring's tiles per load path. Returns the largest disagreement.'''
+    import torch
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.ops.kernels import clash
+    err = 0
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split('.')[-1]
+        for N in K1_ATOMS:
+            pm = cross_fragment_pair_mask((N // 2, N - N // 2))
+            pairs = torch.as_tensor(clash.static_pairs(pm), device=DEV)
+            full = (torch.randn((max(K1_BATCHES) + 1, N, 3), generator=gen,
+                                dtype=torch.float64, device=DEV)
+                    * 2.2).to(dtype)
+            paths, n_tie, n_pass = {}, 0, [0, 0]
+            for B in K1_BATCHES:
+                for where, poses in (('aligned', full[:B]),
+                                     ('offset', full[1:B + 1])):
+                    tie = clash_ties(poses, pairs, CLASH)
+                    for mc in (0, 3):
+                        want = clash.clash_ok_plain(poses, pairs, CLASH, mc)
+                        clash.reset_tile_paths()
+                        got = clash.launch(poses, pairs, CLASH, mc,
+                                           'thread')
+                        for k, v in clash.tile_paths().items():
+                            paths[where, k] = paths.get((where, k), 0) + v
+                        what = f'{name} B={B} N={N} {where} mc={mc}'
+                        e, _ = compare_bits(got, want, tie, f'K1 ring {what}')
+                        compare_bits(clash.launch(poses, pairs, CLASH, mc,
+                                                  'v1'), want, tie,
+                                     f'K1 v1 kernel {what}')
+                        err = max(err, e)
+                        n_pass[mc > 0] += int(want.sum())
+                    n_tie += int(tie.sum())
+            check(all(0 < n for n in n_pass), f'K1 {name} N={N}: '
+                  f'degenerate poses ({n_pass} pass)')
+            print(f'[3 kernels] K1 ring and v1 kernels {name} N={N} '
+                  f'(P={pairs.shape[0]}): B in {list(K1_BATCHES)}, aligned '
+                  f'and offset by one pose, max_clashes 0 and 3, equal to '
+                  f'plain ({n_tie} tie poses excluded); ring tiles by load '
+                  f'path {dict((f"{w} {k}", v) for (w, k), v in paths.items())}'
+                  f' [{card}]')
+    return err
+
+
+def large_pose_checks(name, dtype):
+    '''Phase 3: 5,000-atom poses, too large for the ring kernel, through
+    clash_ok: P = 54 (6 x 9 atoms of two 2,500-atom fragments) and
+    P = 49,900 (fragments of 10 and 4,990 atoms, no warp-regime slot
+    pair fits in float64), max_clashes 0 and 3, against the plain direct
+    differences of the pair list, off ties; the v1 kernel must have
+    taken every thread-regime launch. Returns the largest
+    disagreement.'''
+    import torch
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.ops.kernels import clash
+    err = 0
+    v1 = 'clash_ok_v1_f64' if dtype == torch.float64 else 'clash_ok_v1_f32'
+    for frags, spread in (((2500, 2500), 2.2), ((10, 4990), 26.4)):
+        if frags[0] == 2500:
+            pairs = np.array([(i, 2500 + j) for i in range(6)
+                              for j in range(9)], dtype=np.int32)
+        else:
+            pairs = clash.static_pairs(cross_fragment_pair_mask(frags))
+        pairs = torch.as_tensor(pairs, device=DEV)
+        gen = torch.Generator(device=DEV).manual_seed(frags[0])
+        poses = (torch.randn((67, 5000, 3), generator=gen, dtype=torch.float64,
+                             device=DEV) * spread).to(dtype)
+        tie = clash_ties(poses, pairs, CLASH)
+        regime = clash.clash_regime(pairs.shape[0], 5000,
+                                    poses.element_size())
+        for mc in (0, 3):
+            clash.KERNEL.reset_counts()
+            got = clash.clash_ok(poses, pairs, CLASH, mc)
+            check(regime == 'warp' or clash.KERNEL.entry_launches[v1] == 1,
+                  f'clash {name} 5,000 atoms P={pairs.shape[0]}: the v1 '
+                  f'kernel not launched ({clash.KERNEL.entry_launches})')
+            want = clash.pair_clash_ok_plain(poses, pairs, CLASH, mc)
+            e, _ = compare_bits(got, want, tie, f'clash {name} 5,000 atoms '
+                                f'P={pairs.shape[0]} mc={mc}')
+            err = max(err, e)
+            check(mc or 0 < int(want.sum()) < len(want), f'clash {name} '
+                  f'5,000 atoms P={pairs.shape[0]}: degenerate case')
+        print(f'[3 kernels] clash {name}: 67 poses of 5,000 atoms, '
+              f'P={pairs.shape[0]} ({regime} regime'
+              f'{", v1 kernel" if regime == "thread" else ""}), '
+              f'max_clashes 0 and 3, equal to plain ({int(tie.sum())} tie '
+              f'poses excluded)')
+    return err
+
+
+def crossover_sweep(card, n_poses=N_POSES, reps=10):
+    '''Both regimes (the ring kernel and the warp kernel, forced) and
+    the v1 kernel at each pair count of CROSSOVER_FRAGMENTS on n_poses
+    random poses, float32 and float64, device ms; printed, and returned
+    as {dtype: {P: {regime: ms}}}.'''
+    import torch
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.ops.kernels import clash
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split('.')[-1]
+        rows = out[name] = {}
+        for P, frags in CROSSOVER_FRAGMENTS.items():
+            pm = cross_fragment_pair_mask(frags)
+            pairs = torch.as_tensor(clash.static_pairs(pm), device=DEV)
+            gen = torch.Generator(device=DEV).manual_seed(P)
+            poses = (torch.randn((n_poses, sum(frags), 3), generator=gen,
+                                 dtype=torch.float64, device=DEV)
+                     * 2.2).to(dtype)
+            rows[P] = {r: device_ms(lambda: clash.launch(
+                poses, pairs, CLASH, 0, r), reps=reps)
+                for r in ('thread', 'warp', 'v1')}
+            rows[P]['N'] = sum(frags)
+            rows[P]['bound_ms'] = k1_bytes(poses, pairs) / \
+                HBM_BYTES_PER_S * 1e3
+            rows[P]['route'] = clash.clash_regime(P, sum(frags),
+                                                  poses.element_size())
+            del poses
+        print(f'[3 kernels] K1 crossover {name}, {n_poses} poses, device '
+              f'ms ring / warp / v1 kernel (bound; the route\'s regime): '
+              + '; '.join(f'P={P} N={r["N"]}: {r["thread"]:.4f} / '
+                          f'{r["warp"]:.4f} / {r["v1"]:.4f} '
+                          f'({r["bound_ms"]:.4f}; {r["route"]})'
+                          for P, r in rows.items()) + f' [{card}]')
+    return out
+
+
+def backoff_ties(call):
+    '''(tie, steps) of one torsion_backoff call (its arguments): the
+    candidates with a pair within CLASH_TIE of thr^2 at any step they
+    evaluate (up to their first clash-free step, while the angle left is
+    >= 0), and the steps each evaluates (0 for an angle-0 row, which the
+    kernel leaves as it is).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash
+    coords, quad, move, angles, other, max_steps = call
+    pairs = clash.torsion_pairs(move, other, coords.device)
+    pl = pairs.long()
+    retreat = clash.backoff_retreat(coords, clash.backoff_terms(coords, quad),
+                                    move, angles, pairs, CLASH)
+    tie = torch.zeros(len(coords), dtype=torch.bool, device=coords.device)
+    found = torch.zeros_like(tie)
+    steps = torch.zeros(len(coords), dtype=torch.int64, device=coords.device)
+    for s in range(max_steps + 1):
+        cand, ok = retreat(s)
+        live = ~found & (angles - s * clash.BACKOFF_STEP >= 0) & \
+            (angles != 0)
+        d = cand[:, pl[:, 0]] - cand[:, pl[:, 1]]
+        d2 = torch.sum(d * d, dim=-1)
+        tie |= live & ((d2 - CLASH * CLASH).abs() < CLASH_TIE).any(dim=1)
+        steps += live
+        found |= ok
+    return tie, steps
+
+
+def backoff_compare(call, what):
+    '''torsion_backoff against its plain twin on one call's arguments:
+    frames and flags bit-equal off the tie candidates (backoff_ties).
+    Returns (largest frame difference off ties, tie candidates, steps
+    evaluated, rows rotated, rows without a clash-free step).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash
+    got, got_rot = clash.torsion_backoff(*call)
+    want, want_rot = clash.torsion_backoff_plain(*call)
+    tie, steps = backoff_ties(call)
+    off = ~tie
+    check(torch.equal(got_rot[off], want_rot[off]) and
+          torch.equal(got[off], want[off]), f'{what}: torsion_backoff '
+          f'differs from its plain twin off ties: '
+          f'{int((got_rot != want_rot)[off].sum())} flags, largest frame '
+          f'difference {float((got - want)[off].abs().max()):.3e} A')
+    angles = call[3]
+    err = float((got - want)[off].abs().max()) if bool(off.any()) else 0.0
+    return (err, int(tie.sum()), steps, int(want_rot.sum()),
+            int(((angles != 0) & ~want_rot).sum()))
+
+
+def backoff_bound(call, steps):
+    '''(bound_ms, bound_by) of one back-off, the function (coords,
+    angles) -> (frames, flags): the poses, the angles, the pair list and
+    the moved atoms read once, the frames and flags written once (the
+    Rodrigues terms are this design's intermediates, not inputs),
+    against ~9 operations a pair and 12 a moved atom at every step each
+    candidate evaluates.'''
+    from tscode_tpu_torch.ops.kernels import clash
+    coords, quad, move, angles, other, max_steps = call
+    B, N = coords.shape[0], coords.shape[1]
+    P = int(clash.torsion_pairs(move, other, coords.device).shape[0])
+    M = int(np.count_nonzero(move))
+    nbytes = 2 * B * N * 3 * 8 + B * 8 + P * 8 + M * 4 + B
+    ops = int(steps.sum()) * (9 * P + 12 * M)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS['float64']
+    return max(t_bytes, t_ops) * 1e3, \
+        'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def backoff_phase3(card):
+    '''Phase 3: torsion_backoff against its plain twin on seeded
+    candidates of the C10H21Cl chain (every torsion), as they are and
+    shrunk to 0.75 (rows with no clash-free step), angles 0 to 240 in
+    5-degree steps (angle-0 rows), max_steps the largest angle's count
+    and a bucket past it. Returns the largest disagreement.'''
+    import torch
+    from tscode_tpu_torch import torsions as tt
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.ops.kernels import clash
+    from tscode_tpu_torch.suite_inputs import chloroalkane
+    base, nos = chloroalkane(10)
+    graph = graphize(base, nos)
+    tors = tt.get_torsions(graph, [], tt.get_double_bonds_indices(base, nos))
+    for t in tors:
+        t.sort_torsion(graph, np.array([]))
+    rng = np.random.default_rng(17)
+    err, n_tie, n_rot, n_never, n_calls = 0, 0, 0, 0, 0
+    clash.KERNEL.reset_counts()
+    for scale in (1.0, 0.75):
+        coords = torch.as_tensor(
+            (base + rng.normal(size=(4099,) + base.shape) * 0.05) * scale,
+            device=DEV)
+        angles = rng.integers(0, 49, size=4099) * 5.0
+        angles[:3] = (0.0, 0.0, 240.0)
+        angles = torch.as_tensor(angles, device=DEV)
+        for t in tors:
+            move = tt.get_rotation_mask(graph, t.torsion)
+            other = ~move
+            other[list(t.torsion[1:3])] = False
+            for steps in (48, 60):
+                e, tie, _, rot, never = backoff_compare(
+                    (coords, t.torsion, move, angles, other, steps),
+                    f'back-off {t.torsion} scale {scale} steps {steps}')
+                err = max(err, e)
+                n_tie, n_rot, n_never = n_tie + tie, n_rot + rot, \
+                    n_never + never
+                n_calls += 1
+    check(n_rot > 0 and n_never > 0 and
+          clash.launches_by_entry()['torsion_backoff'] == n_calls,
+          f'back-off phase 3: {n_rot} rotated, {n_never} rows without a '
+          f'clash-free step, launches {clash.launches_by_entry()}')
+    print(f'[3 kernels] torsion_backoff f64: {n_calls} calls on 4,099 '
+          f'candidates of the C10H21Cl chain ({len(tors)} torsions, as built '
+          f'and shrunk to 0.75, max_steps 48 and 60), frames and flags '
+          f'bit-equal to the plain twin off {n_tie} tie candidates; '
+          f'{n_rot} rotated, {n_never} without a clash-free step [{card}]')
+    return err
 
 
 def qcp_pair_flops(N, name):
@@ -588,7 +893,11 @@ def near_dup_blocks(rng, B, L, N):
     return P, rng.integers(1, L + 1, size=B)
 
 
-def phase_kernels():
+def phase_kernels(card):
+    '''Phase 3: every kernel against its plain twin at small shapes, K1's
+    thread regime at every shape of thread_kernel_checks, the back-off
+    entry (backoff_phase3), and the crossover sweep. Returns (largest
+    disagreement per kernel, the sweep).'''
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
@@ -642,6 +951,7 @@ def phase_kernels():
               f'(P=25600, N=320), max_clashes 0, 3 and 100, equal to plain '
               f'on {int((~tie).sum())} poses ({int(tie.sum())} tie poses '
               f'excluded)')
+        errs['clash'] = max(errs['clash'], large_pose_checks(name, dtype))
 
         # qcp: planted duplicates -> exactly 3 kills
         rng = np.random.default_rng(3)
@@ -701,7 +1011,9 @@ def phase_kernels():
               f'kept, kernel mask == plain mask')
         check(clash.KERNEL.launches > 0 and qcp.KERNEL.launches > 0,
               f'kernel launch counters stayed 0 ({name})')
-    return errs
+    errs['clash'] = max(errs['clash'], thread_kernel_checks(card))
+    errs['backoff'] = backoff_phase3(card)
+    return errs, crossover_sweep(card)
 
 
 def phase_main_f64(card, mols):
@@ -813,9 +1125,14 @@ def phase_main_f32(card, mols):
     ms_clash = device_ms(lambda: clash.clash_ok(poses, pairs, CLASH))
     ms_clash_plain = cuda_ms(lambda: clash.clash_ok_plain(poses, pairs,
                                                           CLASH))
-    print(f'[5 main f32] clash {tuple(poses.shape)}: kernel '
-          f'{ms_clash:.4f} ms, plain {ms_clash_plain:.4f} ms, equal '
-          f'({n_tie} tie poses) [{card}]')
+    head = dict(k1_yardstick(poses, pairs), ms=ms_clash,
+                plain_ms=ms_clash_plain,
+                regime=clash.clash_regime(pairs.shape[0], poses.shape[1],
+                                          poses.element_size()),
+                bound_ms=k1_bytes(poses, pairs) / HBM_BYTES_PER_S * 1e3,
+                shape=list(poses.shape), P=int(pairs.shape[0]))
+    print(f'[5 main f32] clash {tuple(poses.shape)}, P = {pairs.shape[0]}: '
+          f'{k1_line(head)}; equal to plain ({n_tie} tie poses) [{card}]')
 
     _, hs = clash_survivors(inp)
     recs, kept, err_qcp = qcp_headline_passes(card, hs, 'float32')
@@ -845,9 +1162,6 @@ def phase_main_f32(card, mols):
           f'thread-per-row kernel {ms_thread:.3f} / {ms_thread2:.3f} ms, '
           f'plain {ms_prune_plain:.3f} ms, {int(keep_k.sum())} vs '
           f'{int(keep_p.sum())} kept [{card}]')
-    n_pairs = pairs.shape[0]
-    clash_bytes = poses.numel() * poses.element_size() + n_pairs * 8 + \
-        poses.shape[0]
     first = recs[0]
     return [
         {'name': 'clash_ok', 'route': 'cuda',
@@ -855,8 +1169,8 @@ def phase_main_f32(card, mols):
          'replaces': 'tscode_tpu/ops/pallas/clash.py:119',
          'launches': launches['clash'], 'max_abs_err': err_clash,
          'ms': ms_clash, 'plain_ms': ms_clash_plain,
-         'bound_ms': clash_bytes / HBM_BYTES_PER_S * 1e3,
-         'bound_by': 'bytes', 'library_ms': None},
+         'bound_ms': head['bound_ms'], 'bound_by': 'bytes',
+         'library_ms': None, 'headline': head},
         {'name': 'qcp_kill', 'route': 'cuda',
          'source': 'tscode_tpu_torch/csrc/qcp_kill.cu',
          'replaces': 'tscode_tpu/ops/pallas/qcp.py:240',
@@ -1351,17 +1665,15 @@ def sweep_check(card, tag, blk, mols, angles):
                              key=lambda kv: kv[1])[0]
                 ms_plain = cuda_ms(lambda: clash.clash_ok_plain(flat, pairs,
                                                                 CLASH), reps=2)
-                nbytes = flat.numel() * flat.element_size() + \
-                    pairs.numel() * 4 + flat.shape[0]
                 rec = {'rows': int(poses.shape[0]), 'poses': flat.shape[0],
                        'N': N, 'P': int(pairs.shape[0]), 'regime': regime,
                        'ms': ms, 'plain_ms': ms_plain,
-                       'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+                       'bound_ms': k1_bytes(flat, pairs) /
+                       HBM_BYTES_PER_S * 1e3,
+                       **k1_yardstick(flat.contiguous(), pairs)}
                 print(f'[{tag}] first chunk, float64: {rec["rows"]} '
                       f'block rows, {rec["poses"]} poses of {N} atoms, P = '
-                      f'{pairs.shape[0]} ({regime} regime): K1 {ms:.4f} ms '
-                      f'(device), plain {ms_plain:.4f} ms, bound '
-                      f'{rec["bound_ms"]:.4f} ms (bytes); clash bits equal '
+                      f'{pairs.shape[0]}: {k1_line(rec)}; clash bits equal '
                       f'off {n_tie} tie poses, keep bits '
                       f'({int(keep.sum())} survivors) equal with either '
                       f'screen off {int(t.sum())} tied blocks [{card}]')
@@ -1721,14 +2033,15 @@ def k2_check(card, tag, report, ids, dtype_name):
     rec = {'poses': len(poses), 'N': int(poses.shape[1]),
            'P': int(pairs.shape[0]), 'dtype': dtype_name, 'ms': ms,
            'enqueued_ms': ms_enqueued, 'plain_ms': ms_plain,
-           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3,
+           'regime': clash.clash_regime(pairs.shape[0], poses.shape[1],
+                                        poses.element_size()),
+           **k1_yardstick(poses, pairs)}
     print(f'[{tag}] K2 on the stage\'s {len(poses)} structures of '
           f'{poses.shape[1]} atoms ({dtype_name}, P = {pairs.shape[0]}): '
           f'{n_pass} pass as embedded; equal to plain as embedded and pulled '
-          f'together, max_clashes 0 and 2; entry {ms:.4f} ms (device), '
-          f'{ms_enqueued:.4f} ms with its enqueue time, plain '
-          f'{ms_plain:.4f} ms, bound {rec["bound_ms"]:.5f} ms (bytes) '
-          f'[{card}]')
+          f'together, max_clashes 0 and 2; entry {k1_line(rec)}; '
+          f'{ms_enqueued:.4f} ms with its enqueue time [{card}]')
     return rec, err
 
 
@@ -1776,7 +2089,8 @@ def phase_multiembed_route(card):
             # stage screens nothing: K2 is the parent's launch
             check(entry == {'clash_ok': me['chunks'],
                             'compenetration_mask_kernel': 1,
-                            'torsion_clash_ok': 0},
+                            'torsion_clash_ok': 0,
+                            'torsion_backoff': 0},
                   f'multiembed {dtype}: launches {entry}, expected K1 once '
                   f'per chunk ({me["chunks"]}) and K2 once, for the parent')
             parent = stage_counts(report)
@@ -1880,7 +2194,8 @@ def phase_chelotropic_route(card):
             k2 += entry['compenetration_mask_kernel']
             check(entry == {'clash_ok': ce['chunks'],
                             'compenetration_mask_kernel': 1,
-                            'torsion_clash_ok': 0},
+                            'torsion_clash_ok': 0,
+                            'torsion_backoff': 0},
                   f'chelotropic {dtype}: launches {entry}, expected K1 once '
                   f'per chunk ({ce["chunks"]}) and K2 once')
             counts[dtype] = c = (ce['candidates'],) + stage_counts(report)
@@ -1944,7 +2259,8 @@ def phase_trimol_route(card):
             k1 += entry['clash_ok']
             check(entry == {'clash_ok': ce['chunks'],
                             'compenetration_mask_kernel': 0,
-                            'torsion_clash_ok': 0} and
+                            'torsion_clash_ok': 0,
+                            'torsion_backoff': 0} and
                   regimes['warp'] == ce['chunks'],
                   f'trimolecular {dtype}: launches {entry} {regimes}, '
                   f'expected K1\'s warp kernel once per chunk '
@@ -2249,7 +2565,8 @@ def phase_bend_trimol_route(card):
             k1 += entry['clash_ok']
             check(entry == {'clash_ok': ce['chunks'],
                             'compenetration_mask_kernel': 0,
-                            'torsion_clash_ok': 0} and
+                            'torsion_clash_ok': 0,
+                            'torsion_backoff': 0} and
                   regimes['warp'] == ce['chunks'] >= ce['groups'],
                   f'non-rigid trimolecular {dtype}: launches {entry} '
                   f'{regimes}, expected K1\'s warp kernel once per chunk '
@@ -2369,14 +2686,15 @@ def phase_small_bend_routes(card):
                               'chelotropic_embed')
     entry = report['clash_entry_launches']
     check(entry == {'clash_ok': report['chelotropic_embed']['chunks'],
-                    'compenetration_mask_kernel': 1, 'torsion_clash_ok': 0},
+                    'compenetration_mask_kernel': 1, 'torsion_clash_ok': 0,
+                    'torsion_backoff': 0},
           f'non-rigid chelotropic: launches {entry}')
     mono = card_against_cpu('15 monomolecular', 'monomolecular', MONO_CONFS,
                             8, 'monomolecular_embed')
     check(mono['monomolecular_embed']['bends'] > 0 and
           mono['clash_entry_launches'] ==
           {'clash_ok': 0, 'compenetration_mask_kernel': 0,
-           'torsion_clash_ok': 0},
+           'torsion_clash_ok': 0, 'torsion_backoff': 0},
           f'monomolecular: {mono["monomolecular_embed"]}, launches '
           f'{mono["clash_entry_launches"]}')
     return entry['clash_ok'], entry['compenetration_mask_kernel']
@@ -2400,25 +2718,27 @@ def recorded_searches():
     return records, undo
 
 
-def recorded_backoff(calls, keep=BACKOFF_KEEP):
-    '''Patch the back-off's K1 entry so that every keep-th call on the
-    card (the poses it screened, copied, and the two masks) is appended
-    to `calls`; every call still launches K1, and calls on the CPU are
-    not counted. Returns undo.'''
+def recorded_backoff(calls):
+    '''Patch the search's back-off entry so that every call on the card
+    (its arguments, the tensors copied; one a torsion) is appended to
+    `calls`; every call still launches the kernel, and calls on the CPU
+    are not recorded. Returns undo.'''
     from tscode_tpu_torch import torsions
-    entry, n = torsions.torsion_clash_ok, [0]
+    entry = torsions.torsion_backoff
 
-    def spy(poses, move_mask, other_mask, *args, **kw):
-        if poses.is_cuda:
-            if n[0] % keep == 0:
-                calls.append((poses.clone(), move_mask, other_mask))
-            n[0] += 1
-        return entry(poses, move_mask, other_mask, *args, **kw)
+    def spy(coords, quad, move_mask, angles, other_mask, max_steps, *args,
+            **kw):
+        if coords.is_cuda:
+            calls.append((coords.clone(), tuple(quad), np.array(move_mask),
+                          angles.clone(), np.array(other_mask),
+                          int(max_steps)))
+        return entry(coords, quad, move_mask, angles, other_mask, max_steps,
+                     *args, **kw)
 
     def undo():
-        torsions.torsion_clash_ok = entry
+        torsions.torsion_backoff = entry
 
-    torsions.torsion_clash_ok = spy
+    torsions.torsion_backoff = spy
     return undo
 
 
@@ -2468,16 +2788,17 @@ def phase_torsion_drive(card):
     float64 on the card and on the CPU (the JAX x64 searched conformers,
     bends and stage counts; card within BEND_ATOL of the CPU), then in
     float32 on the card (the search and the bends are float64 always:
-    the same conformers and bent molecules). K1's entry torsion_clash_ok
-    is held against its plain twin on every back-off call of the float64
-    card run (the thread kernel, a search's 3 poses) and timed on the
-    first. Returns (K1's launches, largest disagreement, the back-off's
+    the same conformers and bent molecules). The back-off entry
+    torsion_backoff (one launch a torsion) is held against its plain
+    twin on every back-off call of the float64 card run (a search's 3
+    candidates) and timed on the first. Returns (K1 `clash_ok` launches,
+    torsion_backoff launches, largest disagreement, the back-off's
     record).'''
     import tempfile
     searches, undo = recorded_searches()
     bends, undo_bends = recorded_bends()
     calls = []
-    undo_calls = recorded_backoff(calls, keep=1)
+    undo_calls = recorded_backoff(calls)
     try:
         report = card_against_cpu('16 torsion_drive', 'torsion_drive',
                                   DRIVE_CONFS, 8, 'monomolecular_embed')
@@ -2499,15 +2820,17 @@ def phase_torsion_drive(card):
     check(got == DRIVE_F64, f'torsion_drive f64 {got} != {DRIVE_F64} '
           f'(JAX x64)')
     entry = report['clash_entry_launches']
-    check(entry['torsion_clash_ok'] > 0 and entry['clash_ok'] == 0 and
-          entry['compenetration_mask_kernel'] == 0,
-          f'torsion_drive f64: launches {entry}')
+    n_tors = sum(r['torsions'] for r in report['csearch'])
+    check(entry == {'clash_ok': 0, 'compenetration_mask_kernel': 0,
+                    'torsion_clash_ok': 0, 'torsion_backoff': n_tors},
+          f'torsion_drive f64: launches {entry}, expected one '
+          f'torsion_backoff a torsion ({n_tors})')
     tot = search_split('16 torsion_drive float64', report,
                        report['total_seconds'], card)
-    check(len(calls) == entry['torsion_clash_ok'], f'torsion_drive: '
+    check(len(calls) == entry['torsion_backoff'], f'torsion_drive: '
           f'{len(calls)} back-off calls recorded, {entry} launches')
-    k1_err, rec = backoff_kernel_check('16', card, calls, keep=1)
-    rec.update(launches=entry['torsion_clash_ok'], backoff_s=tot['backoff_s'],
+    k1_err, rec = backoff_kernel_check('16', card, calls)
+    rec.update(launches=entry['torsion_backoff'], backoff_s=tot['backoff_s'],
                search_s=tot['seconds'])
 
     with tempfile.TemporaryDirectory(prefix='smoke_drive_') as tmp:
@@ -2540,42 +2863,47 @@ def phase_torsion_drive(card):
           f'{got["stages"]}: the JAX x64 counts; float32: the same '
           f'conformers, bends and counts; the back-off {tot["backoff_s"]:.4f}'
           f' s of the search\'s {tot["seconds"]:.3f} s [{card}]')
-    return entry['torsion_clash_ok'] + entry32['torsion_clash_ok'], k1_err, rec
+    check(entry32['torsion_clash_ok'] == 0 and entry32['torsion_backoff']
+          == n_tors, f'torsion_drive f32: launches {entry32}')
+    return 0, entry['torsion_backoff'] + entry32['torsion_backoff'], \
+        k1_err, rec
 
 
-def backoff_kernel_check(phase, card, calls, keep=BACKOFF_KEEP):
-    '''K1's entry torsion_clash_ok against its plain twin on the kept
-    back-off calls (every keep-th; float64, the search's own tensors),
-    off threshold ties (pairs within CLASH_TIE of thr^2), and both timed
-    on the first (every candidate at the first retreat step of the first
-    torsion). Returns (largest disagreement, record).'''
+def backoff_kernel_check(phase, card, calls):
+    '''The back-off entry torsion_backoff against its plain twin on the
+    recorded calls (float64, the search's own tensors): frames
+    and flags bit-equal off tie candidates (backoff_ties); the first call
+    timed: the kernel alone (device_ms on the call's Rodrigues terms),
+    the entry with its terms, and the plain twin (cuda_ms), against the
+    bound of its bytes and its candidates' steps. Returns (largest
+    disagreement, record).'''
     from tscode_tpu_torch.ops.kernels import clash
-    err, n_tie = 0, 0
-    for k, (poses, move, other) in enumerate(calls):
-        pairs = clash.torsion_pairs(move, other, poses.device)
-        tie = clash_ties(poses, pairs, CLASH)
-        e, _ = compare_bits(clash.torsion_clash_ok(poses, move, other),
-                            clash.pair_clash_ok_plain(poses, pairs, CLASH),
-                            tie, f'back-off call {k * keep}')
-        err, n_tie = max(err, e), n_tie + int(tie.sum())
-    poses, move, other = calls[0]
-    pairs = clash.torsion_pairs(move, other, poses.device)
-    clash.KERNEL.reset_counts()
-    ms = device_ms(lambda: clash.torsion_clash_ok(poses, move, other))
-    regime = max(clash.launches_by_regime().items(), key=lambda kv: kv[1])[0]
-    plain_ms = cuda_ms(lambda: clash.pair_clash_ok_plain(poses, pairs, CLASH))
-    nbytes = poses.numel() * poses.element_size() + pairs.numel() * 4 + \
-        poses.shape[0]
-    rec = {'poses': poses.shape[0], 'N': poses.shape[1],
-           'P': int(pairs.shape[0]), 'dtype': 'float64', 'regime': regime,
-           'ms': ms, 'plain_ms': plain_ms,
-           'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
-           'calls_checked': len(calls), 'tie_poses': n_tie}
-    print(f'[{phase} back-off K1] torsion_clash_ok equal to its plain twin on '
-          f'{len(calls)} back-off calls ({n_tie} tie poses excluded); on '
-          f'{rec["poses"]} x {rec["N"]} float64, P = {rec["P"]} ({regime} '
-          f'regime): {ms:.4f} ms (device), plain {plain_ms:.4f} ms, bound '
-          f'{rec["bound_ms"]:.5f} ms (bytes) [{card}]')
+    err, n_tie, n_rot = 0, 0, 0
+    for k, call in enumerate(calls):
+        e, tie, _, rot, _ = backoff_compare(call, f'[{phase}] back-off call '
+                                            f'{k}')
+        err, n_tie, n_rot = max(err, e), n_tie + tie, n_rot + rot
+    call = calls[0]
+    coords, quad, move, angles, other, steps = call
+    terms = clash.backoff_terms(coords, quad)
+    ms = device_ms(lambda: clash.backoff_launch(coords, terms, move, angles,
+                                                other, steps))
+    entry_ms = device_ms(lambda: clash.torsion_backoff(*call))
+    plain_ms = cuda_ms(lambda: clash.torsion_backoff_plain(*call))
+    bound, by = backoff_bound(call, backoff_ties(call)[1])
+    rec = {'candidates': coords.shape[0], 'N': coords.shape[1],
+           'P': int(clash.torsion_pairs(move, other, coords.device)
+                    .shape[0]),
+           'max_steps': steps, 'dtype': 'float64', 'ms': ms,
+           'entry_ms': entry_ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+           'bound_by': by, 'calls_checked': len(calls), 'tie_candidates':
+           n_tie, 'rotated': n_rot}
+    print(f'[{phase} back-off] torsion_backoff equal to its plain twin bit '
+          f'for bit on {len(calls)} back-off calls ({n_tie} tie candidates '
+          f'excluded, {n_rot} rotations); on {rec["candidates"]} x '
+          f'{rec["N"]} float64, P = {rec["P"]}, {steps} steps: kernel '
+          f'{ms:.4f} ms (device), with its terms {entry_ms:.4f} ms, plain '
+          f'loop {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}) [{card}]')
     return err, rec
 
 
@@ -2612,12 +2940,14 @@ def search_string_replay(inp):
 def phase_search_string(card):
     '''Phase 17: csearch_string through the CLI at SEARCH_CONFS, float64
     then float32: the search of the C10H21Cl chain (6,561 candidates,
-    eight torsions' back-off with K1's entry torsion_clash_ok, the TFD
-    prune, the seeded draw of 1,000) equal to the JAX x64 run's frame for
-    frame, then the string embed against C2H4 (K1 `clash_ok`) held to
-    the JAX x64 counts by phase 7's rule for its collinear quadruplet;
-    K1's entry checked and timed on the back-off's own tensors. Returns
-    (K1 launches, largest disagreement, the back-off's record).'''
+    eight torsions' back-off with K1's entry torsion_backoff, one launch
+    a torsion, the TFD prune, the seeded draw of 1,000) equal to the JAX
+    x64 run's frame for frame, then the string embed against C2H4 (K1
+    `clash_ok`) held to the JAX x64 counts by phase 7's rule for its
+    collinear quadruplet; the back-off entry checked and timed on the
+    search's own tensors. Returns (K1 `clash_ok` launches,
+    torsion_backoff launches, largest disagreement, the back-off's
+    record).'''
     import tempfile
     os.environ['TSCODE_EMBED_TRACE'] = '1'
     counts, searches, entries, splits, calls = {}, {}, {}, {}, []
@@ -2638,7 +2968,8 @@ def phase_search_string(card):
             entries[dtype] = entry = report['clash_entry_launches']
             check(len(cs) == 1 and cs[0]['candidates'] == SEARCH_CANDIDATES
                   and cs[0]['torsions'] == 8 and
-                  entry['torsion_clash_ok'] > 0 and entry['clash_ok'] > 0
+                  entry['torsion_backoff'] == 8 and entry['clash_ok'] > 0
+                  and entry['torsion_clash_ok'] == 0
                   and entry['compenetration_mask_kernel'] == 0,
                   f'csearch_string {dtype}: searches {cs}, launches {entry}')
             check(frames.shape == (c[3], 38, 3) and
@@ -2677,9 +3008,10 @@ def phase_search_string(card):
             check(lo <= c[k] <= hi, f'csearch_string {dtype} {what} {c[k]} '
                   f'outside {(lo, hi)}')
     k1_err, rec = backoff_kernel_check('17', card, calls)
-    rec.update(launches=entries['float64']['torsion_clash_ok'],
+    rec.update(launches=entries['float64']['torsion_backoff'],
                backoff_s=splits['float64']['backoff_s'],
-               search_s=splits['float64']['seconds'])
+               search_s=splits['float64']['seconds'],
+               backoff_s_step_loop=STEP_LOOP_BACKOFF_S)
     print(f'[17 csearch_string] gates held: the searched 1,000 conformers '
           f'within {err:.2e} A of the JAX x64 run\'s, in order (float32 the '
           f'same); candidates {SEARCH_F64[0]}, clash-ok {c64[1]} (JAX '
@@ -2687,11 +3019,12 @@ def phase_search_string(card):
           f'within {CLASH_TIE} A^2), f32 clash-ok {c32[1]}; novel and final '
           f'within {LARGE_SLACK:.0%} of {SEARCH_F64[2]} and {SEARCH_F64[3]}; '
           f'replay without {SEARCH_COLLINEAR[0]} {n_novel} == '
-          f'{SEARCH_DROPPED_NOVEL}; the back-off: {rec["launches"]} K1 '
-          f'launches, {rec["backoff_s"]:.4f} s, K1 device time '
-          f'~{rec["launches"] * rec["ms"]:.2f} ms of it [{card}]')
-    k1 = sum(e['torsion_clash_ok'] + e['clash_ok'] for e in entries.values())
-    return k1, k1_err, rec
+          f'{SEARCH_DROPPED_NOVEL}; the back-off: {rec["launches"]} '
+          f'torsion_backoff launches, {rec["backoff_s"]:.4f} s (a K1 '
+          f'launch a retreat step: {STEP_LOOP_BACKOFF_S} s), kernel device '
+          f'time ~{rec["launches"] * rec["ms"]:.3f} ms of it [{card}]')
+    return (sum(e['clash_ok'] for e in entries.values()),
+            sum(e['torsion_backoff'] for e in entries.values()), k1_err, rec)
 
 
 def golden_record(path):
@@ -3129,8 +3462,8 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
     under `mesh` with every mesh call site forced (TSCODE_MESH=1), the
     MeshRecorder `rec` told which. Returns run_cli's result and the
     kernels' launches of the run (run_cli sets the counts to 0 first):
-    K1 `clash_ok`, K2 `compenetration_mask_kernel`, K1's back-off entry
-    `torsion_clash_ok`, K3.'''
+    K1 `clash_ok`, K2 `compenetration_mask_kernel`, K1's search entries
+    `torsion_clash_ok` and `torsion_backoff`, K3.'''
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.parallel.sharding import default_mesh
     key = 'TSCODE_MESH' if sharded else 'TSCODE_DISABLE_MESH'
@@ -3202,14 +3535,16 @@ def mesh_kernels(card, rec):
     e, _ = compare_bits(clash.clash_ok(poses, pairs, CLASH), want,
                         clash_ties(poses, pairs, CLASH), '[21 mesh] K1')
     err = max(err, e)
-    nbytes = poses.numel() * poses.element_size() + pairs.numel() * 4 + \
-        poses.shape[0]
     out['clash_ok'] = {
         'shape': list(poses.shape), 'P': int(pairs.shape[0]),
         'ms': device_ms(lambda: clash.clash_ok(poses, pairs, CLASH)),
         'plain_ms': cuda_ms(lambda: clash.clash_ok_plain(poses, pairs,
                                                          CLASH)),
-        'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes'}
+        'bound_ms': k1_bytes(poses, pairs) / HBM_BYTES_PER_S * 1e3,
+        'bound_by': 'bytes',
+        'regime': clash.clash_regime(pairs.shape[0], poses.shape[1],
+                                     poses.element_size()),
+        **k1_yardstick(poses, pairs)}
     for poses, pm, thresh, mc in rec.k2:
         mask = torch.as_tensor(pm, device=poses.device)
         pl = clash.pairs_of_mask(pm, poses.device)
@@ -3335,7 +3670,7 @@ def phase_mesh(card):
     unsharded, then with the mesh installed and every mesh call site
     forced (TSCODE_MESH=1): the string sweep's c2 slices (K1 per shard),
     the rigid block sweeps' row slices (K1 per shard), the back-off
-    (K1's torsion entry per shard), the compenetration stage (K2 per
+    (one torsion_backoff a torsion a shard), the compenetration stage (K2 per
     shard), the TFD first-successor and moments sharded; then REFINE on
     the rigid route's output (every RMSD pass split over the shards, K3
     per slice). Every count equals the unsharded run's, frames within
@@ -3367,12 +3702,22 @@ def phase_mesh(card):
     kernels, err = mesh_kernels(card, rec)
     fire = mesh_fire(card, mesh)
     launches = {'clash_ok': 0, 'compenetration_mask_kernel': 0,
-                'torsion_clash_ok': 0, 'qcp_kill': 0}
+                'torsion_backoff': 0, 'qcp_kill': 0}
     for r in routes.values():
         for k in launches:
             launches[k] += r['sharded_launches'][k]
+        check(r['sharded_launches']['torsion_clash_ok'] ==
+              r['unsharded_launches']['torsion_clash_ok'] == 0,
+              f'[21 mesh] torsion_clash_ok launched on a route: {r}')
     check(all(launches.values()), f'[21 mesh] sharded launches {launches}: '
           f'a kernel did not launch on a sharded path')
+    cs = routes['csearch_string']
+    check(cs['unsharded_launches']['torsion_backoff'] == 8 and
+          cs['sharded_launches']['torsion_backoff'] == 8 * MESH_SHARDS,
+          f'[21 mesh] csearch_string back-off launches unsharded '
+          f'{cs["unsharded_launches"]}, sharded {cs["sharded_launches"]}: '
+          f'expected one torsion_backoff a torsion (8), a shard '
+          f'({MESH_SHARDS})')
     record = {'card': card, 'mesh': [str(d) for d in mesh.devices],
               'routes': routes, 'kernels': kernels, 'screen_step': screen,
               'fire': fire, 'sharded_launches': launches}
@@ -3429,10 +3774,15 @@ def trace_kernels(tag, events, spans, api, report):
     '''Each hand-kernel entry the run launched, found in the trace: its
     device events under the kernel's __global__ name (TRACE_KERNELS) and
     its launch spans `<library>.<entry>`, as many of each as the entry's
-    launch count; the i-th event lies after the i-th span began (the
-    stream runs them in launch order) and, when CUPTI correlates it with
-    its launch call (`api`: the CUDA API calls by correlation id), that
-    call lies inside the span. Each clash launch span lies inside
+    launch count, paired in time order (the stream runs them in launch
+    order). When CUPTI correlates the i-th event with its launch call
+    (`api`: the CUDA API calls by correlation id), that call lies inside
+    the i-th span; an event it does not correlate must start after the
+    span began. (A correlated event is not held to that: the kernel
+    records' clock, converted from the card's, ran up to 1.05 ms ahead
+    of the host's spans in some runs while its launch call lay inside
+    its span; `kernel_minus_launch_us` records that offset.) Each clash
+    launch span lies inside
     the span of the wrapper that asked for it, as many wrapper spans as
     that wrapper's launches. Returns ({entry: record}, {id of a kernel
     event: its launch span}).'''
@@ -3444,25 +3794,30 @@ def trace_kernels(tag, events, spans, api, report):
             pat = re.compile(rf'\b{name}<{arg}\b')
             ks = sorted((e for e in events if e.get('cat') == 'kernel'
                          and pat.search(e['name'])), key=lambda e: e['ts'])
-            ss = [s for s in spans if s['name'] == f'{lib}.{entry}']
+            ss = sorted((s for s in spans if s['name'] == f'{lib}.{entry}'),
+                        key=lambda s: s['ts'])
             check(len(ks) == n == len(ss), f'[22 trace] {tag}: {lib}.{entry}'
                   f' launched {n} times, {len(ss)} launch spans, {len(ks)} '
                   f'device events named {name}<{arg}...>')
-            correlated = 0
+            lead = []
             for k, s in zip(ks, ss):
                 a = api.get(k.get('args', {}).get('correlation'))
                 if a is not None:
                     check(s['ts'] <= a['ts'] <= s['ts'] + s['dur'],
                           f'[22 trace] {tag}: {k["name"][:60]} correlates '
                           f'with a launch outside its span {s["name"]}')
-                    correlated += 1
-                check(k['ts'] >= s['ts'], f'[22 trace] {tag}: a '
-                      f'{name} event starts before its launch span')
+                    lead.append(k['ts'] - a['ts'])
+                else:
+                    check(k['ts'] >= s['ts'], f'[22 trace] {tag}: an '
+                          f'uncorrelated {name} event starts '
+                          f'{s["ts"] - k["ts"]} us before its launch span')
                 owner[id(k)] = s['name']
             if n:
-                out[f'{lib}.{entry}'] = {'launches': n, 'events': len(ks),
-                                         'correlated': correlated,
-                                         'kernel': ks[0]['name'][:80]}
+                out[f'{lib}.{entry}'] = {
+                    'launches': n, 'events': len(ks), 'correlated': len(lead),
+                    'kernel': ks[0]['name'][:80],
+                    'kernel_minus_launch_us': [min(lead), max(lead)]
+                    if lead else None}
     for wrapper, n in report['clash_entry_launches'].items():
         ws = [s for s in spans if s['name'] == wrapper]
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
@@ -3590,12 +3945,13 @@ def traced_route(card, tag, tmp, inp):
           f'stages {stage_counts(r1)} frames {f1.shape} against the '
           f'untraced run\'s {stage_counts(r0)} {f0.shape}, or other frames')
     rec, names = trace_check(card, tag, trace_file(trace_dir), r1, s1, s0)
-    launches = [0, 0, 0]
+    launches = [0, 0, 0, 0]
     for r, _, _, _ in runs:
         e = r['clash_entry_launches']
         launches[0] += e['clash_ok'] + e['torsion_clash_ok']
         launches[1] += e['compenetration_mask_kernel']
         launches[2] += sum(r['kernel_entries']['qcp_kill'].values())
+        launches[3] += e['torsion_backoff']
     return r1, rec, names, launches
 
 
@@ -3701,16 +4057,66 @@ def traced_thread(card, tmp):
           '[22 trace] thread: K1 against plain')
     events = trace_events(trace.path)
     kernels = sum(e.get('cat') == 'kernel' and
-                  'clash_ok_kernel<double' in e['name'] for e in events)
+                  'clash_ok_ring_kernel<double' in e['name'] for e in events)
     spans = sorted({e['name'] for e in events
                     if e.get('cat') == 'user_annotation'})
     check(kernels == clash.KERNEL.launches == 1, f'[22 trace] thread: '
-          f'{kernels} clash_ok_kernel events for '
+          f'{kernels} clash_ok_ring_kernel events for '
           f'{clash.KERNEL.launches} launch')
     print(f'[22 trace thread] a K1 launch on a worker thread: its kernel '
           f'in the trace; spans of the worker in the trace: {spans} '
           f'[{card}]')
     return {'kernel_events': kernels, 'worker_spans': spans}
+
+
+def traced_backoff(card, tmp):
+    '''The search's back-off under the CLI's trace (backend.DeviceTrace,
+    as --trace opens it): apply_torsion_group on 512 candidates of the
+    C10H21Cl chain, one torsion_backoff a torsion, each launch's device
+    event found under the kernel's name inside its launch span inside
+    the wrapper's span (trace_kernels); frames against the CPU's loop
+    (1e-9 A). Returns the record.'''
+    import torch
+    from tscode_tpu_torch import torsions as tt
+    from tscode_tpu_torch.backend import DeviceTrace
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.ops.kernels import clash
+    from tscode_tpu_torch.suite_inputs import chloroalkane
+    base, nos = chloroalkane(10)
+    graph = graphize(base, nos)
+    tors = tt.get_torsions(graph, [], tt.get_double_bonds_indices(base, nos))
+    for t in tors:
+        t.sort_torsion(graph, np.array([]))
+    rng = np.random.default_rng(22)
+    coords = torch.as_tensor(
+        base + rng.normal(size=(512,) + base.shape) * 0.05, device=DEV)
+    angles = rng.integers(0, 49, size=(512, len(tors))) * 5.0
+    clash.KERNEL.reset_counts()
+    with DeviceTrace(tmp, DEV) as trace:
+        got, n_rot = tt.apply_torsion_group(coords, tors, graph, angles)
+        torch.cuda.synchronize()
+    entries = clash.launches_by_entry()
+    report = {'kernel_entries': {'clash': dict(clash.KERNEL.entry_launches)},
+              'clash_entry_launches': entries}
+    want, want_rot = tt.apply_torsion_group(coords.cpu(), tors, graph, angles)
+    diff = float((got.cpu() - want).abs().max())
+    check(diff <= 1e-9 and torch.equal(n_rot.cpu(), want_rot),
+          f'[22 trace] back-off: card {diff:.2e} A from the CPU loop')
+    events = trace_events(trace.path)
+    spans = [e for e in events if e.get('cat') == 'user_annotation'
+             and e.get('ph') == 'X']
+    api = {e['args']['correlation']: e for e in events
+           if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+           and 'correlation' in e.get('args', {})}
+    kernels, _ = trace_kernels('backoff', events, spans, api, report)
+    check(entries['torsion_backoff'] == len(tors) and
+          kernels['clash.torsion_backoff_f64']['events'] == len(tors),
+          f'[22 trace] back-off: launches {entries}, trace {kernels}')
+    print(f'[22 trace backoff] {len(tors)} torsion_backoff launches on 512 '
+          f'candidates, each found in the trace: {kernels}; frames within '
+          f'{diff:.1e} A of the CPU loop [{card}]')
+    return {'launches': entries['torsion_backoff'], 'kernels': kernels,
+            'max_diff_A': diff}
 
 
 def phase_trace(card):
@@ -3720,15 +4126,16 @@ def phase_trace(card):
     JAX x64 counts), the non-rigid chelotropic input at CHEL_BEND_CONFS
     (K1 and K2 once; phase 15's), and REFINE on da_cyclical_xl's float64
     output at CYC_CONFS, made as phase 8 makes it (K3's passes; the JAX
-    x64 counts of phase 9); then a bend's FIRE graph under the trace
-    (traced_fire) and a launch from a worker thread (traced_thread).
-    Returns (records, launches K1, K2, K3 of the CLI runs).'''
+    x64 counts of phase 9); then a launch from a worker thread
+    (traced_thread), the search's back-off (traced_backoff) and a bend's
+    FIRE graph under the trace (traced_fire). Returns (records, launches K1,
+    K2, K3 and torsion_backoff of the CLI runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0, 0, 0]
+    recs, launches = {}, [0, 0, 0, 0]
 
     def add(n):
-        for i in range(3):
+        for i in range(4):
             launches[i] += n[i]
     with tempfile.TemporaryDirectory(prefix='smoke_trace_') as tmp:
         def route(tag, name, n_confs):
@@ -3756,7 +4163,7 @@ def phase_trace(card):
         os.makedirs(d)
         rep, _, _, secs = run_cli(d, suite_input('da_cyclical_xl', d,
                                                  CYC_CONFS), 'float64')
-        add((rep['clash_entry_launches']['clash_ok'], 0, 0))
+        add((rep['clash_entry_launches']['clash_ok'], 0, 0, 0))
         print(f'[22 trace] da_cyclical_xl at {CYC_CONFS}, REFINE\'s input, '
               f'untraced in {secs:.3f} s [{card}]')
         d2 = os.path.join(tmp, 'refine_xl')
@@ -3771,10 +4178,13 @@ def phase_trace(card):
               'prune_conformers_rmsd_device' in names, f'[22 trace] '
               f'refine_xl: {got} (JAX x64 {REFINE_XL_F64}), K3 {n[2]}, '
               f'spans {sorted(names)}')
+        # the small traces before the FIRE graph's (50 MB): a trace taken
+        # after a large one may lose device events
+        recs['thread'] = traced_thread(card, os.path.join(tmp, 'thread'))
+        recs['backoff'] = traced_backoff(card, os.path.join(tmp, 'backoff'))
         d3 = os.path.join(tmp, 'fire')
         os.makedirs(d3)
         recs['fire'] = traced_fire(card, d3)
-        recs['thread'] = traced_thread(card, os.path.join(tmp, 'thread'))
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
           f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}; every launch '
           f'of a traced run found in its trace [{card}]')
@@ -3787,7 +4197,7 @@ def trace_process(card):
     phases 1 to 21 in this process lost device events (4,176 kernel
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
-    its (records, launches K1, K2, K3).'''
+    its (records, launches K1, K2, K3, torsion_backoff).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -3877,6 +4287,63 @@ def cyclical_profile(card, out):
                   indent=1)
 
 
+def k1_plan_sweep(card, out):
+    '''--k1 OUT.json: K1's thread regime on its own. The checks of phase
+    3 (thread_kernel_checks, backoff_phase3, crossover_sweep), then the
+    ring kernel's launch plans of RING_VARIANTS (tile, stages) on
+    N_POSES random poses of N = 11, 12 and 15 atoms (two fragments:
+    P = 30, 36, 56) and of N = 8 and 16 (P = 16 and 64; 8- and 16-way
+    bank conflicts in float32), float32 and float64, device ms, each
+    beside the v1 kernel and the bound, and the default plan on the
+    slice poses[1:] (the granule path): the measurement behind
+    THREAD_TILE and THREAD_STAGES. Written to OUT.'''
+    import torch
+    from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
+    from tscode_tpu_torch.ops.kernels import clash
+    rec = {'card': card, 'max_abs_err': thread_kernel_checks(card),
+           'backoff_err': backoff_phase3(card),
+           'crossover': crossover_sweep(card), 'plans': []}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split('.')[-1]
+        for N in (11, 12, 15, 8, 16):
+            pm = cross_fragment_pair_mask((N // 2, N - N // 2))
+            pairs = torch.as_tensor(clash.static_pairs(pm), device=DEV)
+            gen = torch.Generator(device=DEV).manual_seed(N)
+            full = (torch.randn((N_POSES + 1, N, 3), generator=gen,
+                                dtype=torch.float64, device=DEV)
+                    * 2.2).to(dtype)
+            poses = full[:N_POSES]
+            row = {'dtype': name, 'N': N, 'P': int(pairs.shape[0]),
+                   'bound_ms': k1_bytes(poses, pairs) / HBM_BYTES_PER_S * 1e3,
+                   'v1_ms': device_ms(lambda: clash.launch(
+                       poses, pairs, CLASH, 0, 'v1')),
+                   'offset_ms': device_ms(lambda: clash.launch(
+                       full[1:], pairs, CLASH, 0, 'thread')),
+                   'warp_ms': device_ms(lambda: clash.launch(
+                       poses, pairs, CLASH, 0, 'warp')), 'ring_ms': {}}
+            n_sm = torch.cuda.get_device_properties(
+                poses.device).multi_processor_count
+            for tile, stages in RING_VARIANTS:
+                plan = clash.thread_plan(N_POSES, N, row['P'],
+                                         poses.element_size(), n_sm=n_sm,
+                                         tile=tile, stages=stages)
+                row['ring_ms'][f'{tile}/{stages}'] = device_ms(
+                    lambda: clash.launch(poses, pairs, CLASH, 0, 'thread',
+                                         plan=plan))
+            best = min(row['ring_ms'].items(), key=lambda kv: kv[1])
+            print(f'[k1 plans {name} N={N} P={row["P"]}] bound '
+                  f'{row["bound_ms"]:.4f} ms, v1 kernel {row["v1_ms"]:.4f},'
+                  f' warp {row["warp_ms"]:.4f}, default plan on poses[1:] '
+                  f'{row["offset_ms"]:.4f}; ring by tile/stages: '
+                  + ', '.join(f'{k} {v:.4f}' for k, v in
+                              row['ring_ms'].items())
+                  + f'; best {best[0]} {best[1]:.4f} ms [{card}]')
+            rec['plans'].append(row)
+            del full, poses
+    with open(out, 'w') as f:
+        json.dump(rec, f, indent=1)
+
+
 GUARD_ORDER = ('none', 'always', 'skip', 'skip', 'always', 'none')
 
 
@@ -3895,14 +4362,14 @@ def guard_modes():
 def guard_overhead(card, out):
     """--guard OUT.json: the host's cost of the launch's device guard on
     one card, in each of guard_modes, in the order GUARD_ORDER twice:
-    the wall per launch of K1's back-off entry (3 poses of 8 atoms, P =
-    16, float64: phase 16's shape) and of K3 on a k = 1 pass of 41 rows
+    the wall per launch of K1's back-off entry torsion_backoff (3
+    candidates of 8 atoms, float64, 24 steps: phase 16's shape) and of K3 on a k = 1 pass of 41 rows
     (the headline's last pass), 2,000 launches each; the wall per
     fire_minimize_batch call of one 15-atom structure over 50 steps (a
     captured graph's run, phase 13's loop), 200 calls; and the
     csearch_string search of phase 17 through the CLI, float64, whose
-    back-off launches K1 392 times and whose TFD prune launches no hand
-    kernel (the control for the host's speed)."""
+    back-off launches torsion_backoff 8 times and whose TFD prune
+    launches no hand kernel (the control for the host's speed)."""
     import tempfile
     import torch
     from tscode_tpu_torch import optimizers
@@ -3912,6 +4379,7 @@ def guard_overhead(card, out):
     rng = np.random.default_rng(0)
     poses = torch.as_tensor(rng.normal(size=(3, 8, 3)) * 2, device=dev)
     move = np.arange(8) < 4
+    turns = torch.as_tensor([120.0, 240.0, 0.0], device=dev)
     hs = torch.as_tensor(rng.normal(size=(41, 4, 3)), device=dev)
     act = torch.arange(41, device=dev)
     end = torch.full((41,), 41, device=dev)
@@ -3940,7 +4408,8 @@ def guard_overhead(card, out):
                 _build.device_guard = optimizers.device_guard = modes[mode]
                 r = rec[mode]
                 r['k1_us'].append(1e6 * per_call(
-                    lambda: clash.torsion_clash_ok(poses, move, ~move),
+                    lambda: clash.torsion_backoff(poses, (0, 4, 3, 7), move,
+                                                  turns, ~move, 24),
                     2000))
                 r['k3_us'].append(1e6 * per_call(
                     lambda: qcp.qcp_kill(hs, act, end, 0.5), 2000))
@@ -3950,8 +4419,8 @@ def guard_overhead(card, out):
                     200))
                 report = run_cli(tmp, inp, 'float64')[0]
                 cs = report['csearch'][0]
-                check(report['clash_entry_launches']['torsion_clash_ok']
-                      == 392, f'guard {mode}: back-off launches '
+                check(report['clash_entry_launches']['torsion_backoff']
+                      == 8, f'guard {mode}: back-off launches '
                       f'{report["clash_entry_launches"]}')
                 for k in ('backoff_s', 'tfd_s'):
                     r[k].append(cs[k])
@@ -3987,6 +4456,10 @@ def main():
         phase_build()
         cyclical_profile(card, sys.argv[2])
         return
+    if sys.argv[1:2] == ['--k1']:            # --k1 OUT.json
+        phase_build()
+        k1_plan_sweep(card, sys.argv[2])
+        return
     if sys.argv[1:2] == ['--guard']:         # --guard OUT.json
         phase_build()
         guard_overhead(card, sys.argv[2])
@@ -4010,7 +4483,7 @@ def main():
         drive = timed_phase('16 torsion_drive', phase_torsion_drive, card)
         chain = timed_phase('17 csearch_string', phase_search_string, card)
         print(json.dumps({'torsion_backoff': {
-            'torsion_drive': drive[2], 'csearch_string': chain[2]}}))
+            'torsion_drive': drive[3], 'csearch_string': chain[3]}}))
         return
     if sys.argv[1:2] == ['--mesh']:          # phase 21 alone
         phase_build()
@@ -4031,7 +4504,7 @@ def main():
     import torch
     from tscode_tpu_torch.pipeline import build_workload
     phase_build()
-    errs = phase_kernels()
+    errs, crossover = timed_phase('3 kernels', phase_kernels, card)
     mols = build_workload()
     recs64, errs['qcp_f64'] = phase_main_f64(card, mols)
     phase_small_parity()
@@ -4062,35 +4535,31 @@ def main():
                                      phase_bend_trimol_route, card)
     k1_15, k2_15 = timed_phase('15 small bend routes',
                                phase_small_bend_routes, card)
-    k1_16, e16, drive = timed_phase('16 torsion_drive', phase_torsion_drive,
-                                    card)
-    k1_17, e17, backoff = timed_phase('17 csearch_string',
-                                      phase_search_string, card)
+    k1_16, nb_16, e16, drive = timed_phase('16 torsion_drive',
+                                           phase_torsion_drive, card)
+    k1_17, nb_17, e17, backoff = timed_phase('17 csearch_string',
+                                             phase_search_string, card)
     k3_18, e18, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
                                    card)
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
-    trace, (k1_22, k2_22, k3_22) = timed_phase('22 trace', trace_process,
-                                                card)
+    trace, (k1_22, k2_22, k3_22, nb_22) = timed_phase('22 trace',
+                                                       trace_process, card)
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
-        k1_16 + k1_17 + sharded['clash_ok'] + sharded['torsion_clash_ok'] \
-        + k1_22
-    kernels[0]['torsion_backoff'] = {'torsion_drive': drive,
-                                     'csearch_string': backoff}
+        k1_16 + k1_17 + sharded['clash_ok'] + k1_22
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
+    kernels[0]['crossover'] = crossover
     kernels[1]['launches'] += k3 + k3_18 + k3_20 + sharded['qcp_kill'] + \
         k3_22
-    kernels[0]['mesh'] = {'launches': sharded['clash_ok']
-                          + sharded['torsion_clash_ok'],
+    kernels[0]['mesh'] = {'launches': sharded['clash_ok'],
                           **mesh['kernels']['clash_ok']}
     kernels[1]['mesh'] = {'launches': sharded['qcp_kill'],
                           **mesh['kernels']['qcp_kill']}
     kernels[1]['passes'] += recs9 + scan['k3_passes'] + opt.pop('k3_passes')
     kernels[1]['routes'] = {'opt_route': {'launches': k3_20,
                                           'pools': opt['k3_pools']}}
-    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e16, e17,
-                        e21)
+    errs['clash'] = max(errs['clash'], e8, e10, e11, e12, e14, e21)
     errs['qcp_kill'] = max(errs['qcp_kill'], e9, e18, e20, e21)
     for k, key in zip(kernels, ('clash', 'qcp_kill')):
         k['max_abs_err'] = max(k['max_abs_err'], errs[key])
@@ -4111,6 +4580,17 @@ def main():
                    'chelotropic': dict(k2_rec11, launches=k2_11)},
         'mesh': {'launches': sharded['compenetration_mask_kernel'],
                  **mesh['kernels']['compenetration_mask_kernel']}})
+    kernels.insert(2, {
+        'name': 'torsion_backoff', 'route': 'cuda',
+        'source': 'tscode_tpu_torch/csrc/clash.cu',
+        'replaces': 'tscode_tpu/ops/pallas/clash.py:119',
+        'launches': nb_16 + nb_17 + sharded['torsion_backoff'] + nb_22,
+        'max_abs_err': max(errs['backoff'], e16, e17), 'ms': backoff['ms'],
+        'entry_ms': backoff['entry_ms'],
+        'plain_ms': backoff['plain_ms'], 'bound_ms': backoff['bound_ms'],
+        'bound_by': backoff['bound_by'], 'library_ms': None,
+        'routes': {'torsion_drive': drive, 'csearch_string': backoff},
+        'mesh': {'launches': sharded['torsion_backoff']}})
     check('jax' not in sys.modules, 'jax was imported')
     check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules

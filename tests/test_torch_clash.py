@@ -88,6 +88,8 @@ def test_pair_list_matches_jax_static_pairs():
     (30, 11, 4, 'thread'),              # the headline and sn2_string
     (CLASH_WARP_MIN_PAIRS - 1, 16, 8, 'thread'),
     (CLASH_WARP_MIN_PAIRS, 16, 4, 'warp'),
+    (CLASH_WARP_MIN_PAIRS - 1, 16, 4, 'thread'),
+    (CLASH_WARP_MIN_PAIRS, 16, 8, 'warp'),
     (5476, 148, 4, 'warp'),             # large_n_string
     (25600, 320, 8, 'warp'),            # two 160-atom fragments
     (62500, 500, 8, 'warp'),            # past the resident pair list

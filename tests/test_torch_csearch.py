@@ -29,6 +29,7 @@ from tscode_tpu.io_xyz import read_xyz
 from tscode_tpu_torch import cluster
 from tscode_tpu_torch import torsions as tt
 from tscode_tpu_torch.graphs import graphize
+from tscode_tpu_torch.ops.kernels import clash
 from tscode_tpu_torch.suite_inputs import chloroalkane
 from torch_parity import t64, to_np
 
@@ -80,7 +81,9 @@ def test_backoff_equals_the_jax_package(mol, scale, top, bucket, loop,
     bucket of steps, the port to the largest angle's own count, with the
     CPU's loop and with the card's (every step on the whole batch) run
     on CPU tensors.'''
-    monkeypatch.setattr(tt, '_pending_rows', getattr(tt, loop))
+    monkeypatch.setattr(tt, '_pending_rows', {
+        '_pending_rows': tt._pending_rows,
+        '_whole_batch': clash.whole_batch}[loop])
     rng = np.random.default_rng(11)
     base, nos = c2f2h4() if mol == 'C2F2H4' else chloroalkane(6)
     torsions, graph = torsions_of(base, nos)
@@ -301,7 +304,7 @@ def time_backoff_loops(reps=2):
     coords, nos = chloroalkane(10)
     out = {}
     for name, loop in (('pending_rows', tt._pending_rows),
-                       ('whole_batch', tt._whole_batch)):
+                       ('whole_batch', clash.whole_batch)):
         entry, tt._pending_rows = tt._pending_rows, loop
         try:
             for _ in range(reps):

@@ -334,7 +334,8 @@ def test_clash_kernel_on_three_fragments(cuda_device, dtype):
     assert clash.launches_by_regime() == {'thread': 0, 'warp': 2}
     assert clash.launches_by_entry() == {'clash_ok': 2,
                                          'compenetration_mask_kernel': 0,
-                                         'torsion_clash_ok': 0}
+                                         'torsion_clash_ok': 0,
+                                         'torsion_backoff': 0}
 
 
 def poses_itemsize(dtype):
@@ -558,24 +559,183 @@ def test_torsion_clash_ok_matches_plain(cuda_device):
     assert checked > 0
     assert clash.launches_by_entry() == {'clash_ok': 0,
                                          'compenetration_mask_kernel': 0,
-                                         'torsion_clash_ok': len(tors)}
+                                         'torsion_clash_ok': len(tors),
+                                         'torsion_backoff': 0}
 
 
 def test_backoff_on_card_matches_cpu(cuda_device):
-    """The whole back-off of the chain's six torsions on the card (every
-    step on the whole batch, K1 each step) against the CPU (the pending
-    rows only), float64: coordinates within 1e-9 A, rotation counts
-    equal."""
+    """The whole back-off of the chain's six torsions on the card (one
+    torsion_backoff launch a torsion, no torsion_clash_ok) against the
+    CPU (the pending rows only), float64: coordinates within 1e-9 A,
+    rotation counts equal."""
     from tscode_tpu_torch import torsions as tt
     coords, tors, graph, angles = chain_backoff_batch(cuda_device)
     clash.KERNEL.reset_counts()
     got, got_n = tt.apply_torsion_group(coords, tors, graph, angles)
     want, want_n = tt.apply_torsion_group(coords.cpu(), tors, graph, angles)
-    assert clash.launches_by_entry()['torsion_clash_ok'] == sum(
-        int(np.max(angles[:, t]) // 5) + 1 for t in range(len(tors)))
+    assert clash.launches_by_entry() == {'clash_ok': 0,
+                                         'compenetration_mask_kernel': 0,
+                                         'torsion_clash_ok': 0,
+                                         'torsion_backoff': len(tors)}
     assert torch.equal(got_n.cpu(), want_n)
     assert float((got.cpu() - want).abs().max()) <= 1e-9
     assert 0 < int((want_n < len(tors)).sum()) < len(angles)
+
+
+def backoff_ties(coords, quad, move, angles, other, steps):
+    """Candidates with a pair within 1e-4 A^2 of 1.5^2 at any retreat step
+    they evaluate (the kernel's pair scan may contract into FMAs)."""
+    pairs = clash.torsion_pairs(move, other, coords.device)
+    pl = pairs.long()
+    retreat = clash.backoff_retreat(coords, clash.backoff_terms(coords, quad),
+                                    move, angles, pairs)
+    tie = torch.zeros(len(coords), dtype=torch.bool, device=coords.device)
+    found = torch.zeros_like(tie)
+    for s in range(steps + 1):
+        cand, ok = retreat(s)
+        d = cand[:, pl[:, 0]] - cand[:, pl[:, 1]]
+        live = ~found & (angles - 5.0 * s >= 0)
+        tie |= live & ((torch.sum(d * d, -1) - 2.25).abs() < 1e-4).any(1)
+        found |= ok
+    return tie
+
+
+def test_torsion_backoff_matches_plain_bit_for_bit(cuda_device):
+    """torsion_backoff (one launch a torsion) against its plain twin (the
+    whole-batch loop on the card) on the chain's candidates, angle-0 rows
+    and angles beyond max_steps included, as they are and shrunk so that
+    rows find no clash-free step: frames and flags bit-equal off tie
+    candidates; float32 raises."""
+    from tscode_tpu_torch import torsions as tt
+    checked = never = 0
+    for scale in (0.85, 0.6):
+        coords, tors, graph, angles = chain_backoff_batch(cuda_device,
+                                                          scale=scale)
+        for t, torsion in enumerate(tors):
+            move, other = masks_of(tt, graph, torsion)
+            a = torch.as_tensor(angles[:, t], dtype=torch.float64,
+                                device=cuda_device)
+            a[:3] = torch.as_tensor([0.0, 0.0, 355.0])
+            for steps in (int(angles[:, t].max() // 5), 72):
+                call = (coords, torsion.torsion, move, a, other, steps)
+                got, got_rot = clash.torsion_backoff(*call)
+                want, want_rot = clash.torsion_backoff_plain(*call)
+                off = ~backoff_ties(*call)
+                assert torch.equal(got_rot[off], want_rot[off])
+                assert torch.equal(got[off], want[off])
+                assert not bool(got_rot[a == 0].any())
+                checked += int(off.sum())
+                never += int(((a > 0) & ~want_rot).sum())
+    assert checked > 0 and never > 0
+    with pytest.raises(TypeError):
+        clash.torsion_backoff(coords.float(), torsion.torsion, move, a.float(),
+                              other, 8)
+
+
+def masks_of(tt, graph, torsion):
+    move = tt.get_rotation_mask(graph, torsion.torsion)
+    other = ~move
+    other[list(torsion.torsion[1:3])] = False
+    return move, other
+
+
+def test_search_launches_one_backoff_a_torsion(cuda_device):
+    """A csearch on the card launches torsion_backoff once per torsion
+    and torsion_clash_ok never; its conformers equal the CPU's."""
+    from tscode_tpu_torch import torsions as tt
+    from tscode_tpu_torch.suite_inputs import chloroalkane
+    coords, nos = chloroalkane(8)
+    out = {}
+    for dev in (cuda_device, 'cpu'):
+        clash.KERNEL.reset_counts()
+        rec = {}
+        out[str(dev)] = tt.csearch(coords, nos, n_out=50, stats=rec,
+                                   rng=np.random.RandomState(0), device=dev,
+                                   logfunction=lambda *a, **k: None)
+        if dev != 'cpu':
+            assert clash.launches_by_entry() == {
+                'clash_ok': 0, 'compenetration_mask_kernel': 0,
+                'torsion_clash_ok': 0, 'torsion_backoff': rec['torsions']}
+    card, cpu = out[str(cuda_device)], out['cpu']
+    assert card.shape == cpu.shape and np.abs(card - cpu).max() <= 1e-9
+
+
+K1_BATCHES = (1, 15, 16, 17, 4099, 415872)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('N', [8, 11, 12, 15])
+def test_clash_ring_kernel_matches_plain(cuda_device, dtype, N):
+    """K1's thread regime (the ring kernel) and the v1 kernel against
+    plain off ties at every batch size of phase 3, max_clashes 0 and 3,
+    on an aligned batch and on the slice poses[1:] (its base off the
+    16-byte grid for N = 11 and 15): bulk tiles for the aligned batch,
+    granule tiles for the slice."""
+    pm = cross_fragment_pair_mask((N // 2, N - N // 2))
+    pairs = torch.as_tensor(clash.static_pairs(pm), device=cuda_device)
+    rng = np.random.default_rng(N)
+    full = torch.as_tensor(rng.normal(size=(max(K1_BATCHES) + 1, N, 3))
+                           * 2.2, dtype=dtype, device=cuda_device)
+    for B in K1_BATCHES:
+        for where, poses in (('aligned', full[:B]), ('offset', full[1:B + 1])):
+            P = poses.double()
+            pl = pairs.long()
+            d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+            keep = ~((d2 - 2.25).abs() < 1e-4).any(dim=1)
+            for mc in (0, 3):
+                want = clash.clash_ok_plain(poses, pairs, 1.5, mc)
+                clash.reset_tile_paths()
+                got = clash.launch(poses, pairs, 1.5, mc, 'thread')
+                paths = clash.tile_paths()
+                v1 = clash.launch(poses, pairs, 1.5, mc, 'v1')
+                assert torch.equal(got[keep], want[keep])
+                assert torch.equal(v1[keep], want[keep])
+                if where == 'aligned' and B % clash.THREAD_TILE == 0:
+                    assert paths['granule'] == 0
+                if poses.data_ptr() % 16:
+                    assert paths['bulk'] == 0
+                assert sum(paths.values()) == -(-B // clash.THREAD_TILE)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('frags', [(2500, 2500), (10, 4990)])
+def test_clash_large_poses_match_plain(cuda_device, dtype, frags):
+    """5,000-atom poses, too large for the ring kernel, with P < 64 (a
+    fragment pair of 6 x 9 atoms inside a screen of two large fragments,
+    listed by hand) and with P >= 64 where two warp-regime slots do not
+    fit in float64: the thread regime launches the v1 kernel, equal off
+    ties to the plain direct differences of the pair list (the matmul
+    form would need the 5,000 x 5,000 distance matrices)."""
+    N = sum(frags)
+    rng = np.random.default_rng(N + frags[0])
+    if frags[0] == 2500:
+        pairs_np = np.array([(i, 2500 + j) for i in range(6)
+                             for j in range(9)], dtype=np.int32)
+        spread = 2.2
+    else:
+        pairs_np = clash.static_pairs(cross_fragment_pair_mask(frags))
+        spread = 26.4     # about one clash a pose over 49,900 pairs
+    pairs = torch.as_tensor(pairs_np, device=cuda_device)
+    poses = torch.as_tensor(rng.normal(size=(67, N, 3)) * spread,
+                            dtype=dtype, device=cuda_device)
+    if frags[0] == 2500 or dtype == torch.float64:
+        assert clash.clash_regime(len(pairs_np), N,
+                                  poses.element_size()) == 'thread'
+    P = poses.double()
+    pl = pairs.long()
+    d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+    keep = ~((d2 - 2.25).abs() < 1e-4).any(dim=1)
+    for mc in (0, 3):
+        clash.KERNEL.reset_counts()
+        got = clash.clash_ok(poses, pairs, 1.5, mc)
+        want = clash.pair_clash_ok_plain(poses, pairs, 1.5, mc)
+        assert torch.equal(got[keep], want[keep])
+        assert 0 < int(want.sum()) < len(want) or mc
+        if clash.clash_regime(len(pairs_np), N,
+                              poses.element_size()) == 'thread':
+            sym = 'clash_ok_v1_f64' if dtype == torch.float64 \
+                else 'clash_ok_v1_f32'
+            assert clash.KERNEL.entry_launches[sym] == 1
 
 
 def formic_conformers(n=5, seed=2):

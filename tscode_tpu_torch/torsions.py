@@ -8,12 +8,13 @@ and the grouping of torsions by DBSCAN (cluster.dbscan_labels).
 
 Device side: every (starting point x angle set) candidate of a torsion
 group is rotated in one batch, torsion after torsion, with the
-reference's 5-degree clash back-off: per retreat step one rotation of
-the moving side and one launch of the clash kernel K1 through its entry
-`torsion_clash_ok`, the first clash-free retreat kept, no host sync in
-the loop. The search runs in float64 on the run's device whatever the
-embed's dtype: one flipped 1.5 A decision changes a whole conformer and
-every later random draw.
+reference's 5-degree clash back-off: on the card one launch of K1's
+back-off entry `torsion_backoff` per torsion (every retreat step of
+every candidate inside the kernel, the first clash-free retreat kept);
+on the CPU the steps one by one on the rows still undecided. The search
+runs in float64 on the run's device whatever the embed's dtype: one
+flipped 1.5 A decision changes a whole conformer and every later random
+draw.
 
 Random draws (the shuffle of rsearch>, the diverse selection) come from
 an explicit np.random.RandomState: seeded as numpy's global generator
@@ -33,8 +34,11 @@ from tscode_tpu_torch.graphs import (get_phenyl_ids, get_quadruplets,
                                      get_sp_n, graphize, is_amide_n,
                                      is_ester_o, is_sp_n, neighbors)
 from tscode_tpu_torch.molecule import align_structures
-from tscode_tpu_torch.ops.kernels.clash import torsion_clash_ok
-from tscode_tpu_torch.ops.linalg import cartesian_product, normalize
+from tscode_tpu_torch.ops.kernels.clash import (BACKOFF_STEP,
+                                                backoff_retreat,
+                                                backoff_terms, torsion_backoff,
+                                                torsion_pairs)
+from tscode_tpu_torch.ops.linalg import cartesian_product
 from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
 from tscode_tpu_torch.parallel.sharding import gather, mesh_for, shard_slices
 from tscode_tpu_torch.pt import SYMBOLS
@@ -301,74 +305,46 @@ def group_torsions_dbscan(coords, torsions, max_size=5):
 
 # ------------------------------------------------------ device hot loop
 
-BACKOFF_STEP = 5.0
-
-
 @traced
 def rotate_batch_with_backoff(coords_batch, quad, move_mask, angles,
                               other_mask, max_steps):
     """Rotate one torsion by per-candidate angles with the reference's
     5-degree clash back-off (torsion_module.py:754-776): from the full
     rotation, retreat in 5-degree steps until the moved side no longer
-    comes within 1.5 A of the static one (K1, `torsion_clash_ok`) or the
-    rotation is undone. A retreat that reaches exactly zero and is
-    clash-free still counts as rotated; angle-0 rows stay as they are
-    and do not. Returns (new coords, rotated flags).
+    comes within 1.5 A of the static one or the rotation is undone. A
+    retreat that reaches exactly zero and is clash-free still counts as
+    rotated; angle-0 rows stay as they are and do not. Returns (new
+    coords, rotated flags).
 
     coords_batch (B, N, 3) tensor; quad (4,) ints; move_mask and
     other_mask (N,) host bool arrays (other_mask leaves out i2 and i3);
     angles (B,) tensor of degrees; max_steps: retreat steps to try
     (steps past a row's own angle are invalid for it).
 
-    Every step computes the same arithmetic per row; the loop around it
-    is the device's (`_whole_batch` on the card, `_pending_rows` on the
-    CPU). The axis and the moved atoms' Rodrigues terms are fixed for
-    the torsion, so a step only takes the cosine and sine of its
-    angle."""
+    On the card: one launch of K1's back-off entry `torsion_backoff`.
+    On the CPU: the same arithmetic step by step (the Rodrigues terms
+    fixed for the torsion, a step only takes the cosine and sine of its
+    angle), each step on the rows still without a clash-free pose
+    (`_pending_rows`)."""
     device = coords_batch.device
-    move = torch.as_tensor(move_mask, device=device)[:, None]
-    i2, i3 = int(quad[1]), int(quad[2])
-    center = coords_batch[:, i3:i3 + 1]
-    axis = normalize(coords_batch[:, i2:i2 + 1] - center)
-    v = coords_batch - center
-    along = axis * torch.sum(axis * v, dim=-1, keepdim=True)
-    across = v - along
-    turned = torch.linalg.cross(axis.expand_as(v), v, dim=-1)
-    fixed = center + along
-
-    def retreat(s, rows=slice(None)):
-        eff = angles[rows] - s * BACKOFF_STEP
-        rad = torch.deg2rad(eff)[:, None, None]
-        cand = torch.where(move, fixed[rows] + across[rows] * torch.cos(rad)
-                           + turned[rows] * torch.sin(rad), coords_batch[rows])
-        return cand, torsion_clash_ok(cand, move_mask, other_mask) & \
-            (eff >= 0.0)
-
-    loop = _pending_rows if device.type == 'cpu' else _whole_batch
-    best, found = loop(retreat, coords_batch, max_steps)
+    if device.type != 'cpu':
+        return torsion_backoff(coords_batch, quad, move_mask, angles,
+                               other_mask, max_steps)
+    retreat = backoff_retreat(coords_batch, backoff_terms(coords_batch, quad),
+                              move_mask, angles,
+                              torsion_pairs(move_mask, other_mask, device))
+    best, found = _pending_rows(retreat, coords_batch, max_steps)
     rotated = found & (angles != 0.0)
     return torch.where(rotated[:, None, None], best, coords_batch), rotated
-
-
-def _whole_batch(retreat, coords_batch, max_steps):
-    """The back-off's loop on the card: every step on the whole batch,
-    no host sync. Returns (first clash-free pose, found) per row."""
-    best = coords_batch
-    found = torch.zeros(len(coords_batch), dtype=torch.bool,
-                        device=coords_batch.device)
-    for s in range(max_steps + 1):
-        cand, ok = retreat(s)
-        best = torch.where((ok & ~found)[:, None, None], cand, best)
-        found = found | ok
-    return best, found
 
 
 def _pending_rows(retreat, coords_batch, max_steps):
     """The back-off's loop on the CPU, where looking costs nothing: a
     step takes only the rows still without a clash-free pose, and the
     loop ends when none is left (an order of magnitude less back-off
-    time than `_whole_batch` on the CPU for csearch_string's search:
-    `python tests/test_torch_csearch.py`, PERF.md section 6)."""
+    time than the plain twin's loop, clash.whole_batch, on the CPU for
+    csearch_string's search: `python tests/test_torch_csearch.py`,
+    PERF.md section 6)."""
     best = coords_batch.clone()
     found = torch.zeros(len(coords_batch), dtype=torch.bool)
     rows = torch.arange(len(coords_batch))
@@ -390,10 +366,10 @@ def apply_torsion_group(coords_batch, torsions_group, graph, angle_sets):
 
     With a mesh for the batch (parallel.sharding.mesh_for, by the
     batch's device), the candidates are cut into contiguous slices, one
-    per device, each rotated with its own back-off (K1 per slice on
-    CUDA), and joined in order on coords_batch's device (the JAX
-    package's _rotate_backoff_sharded); a candidate's rotation depends
-    on itself alone."""
+    per device, each rotated with its own back-off (one `torsion_backoff`
+    launch per torsion and slice on CUDA), and joined in order on
+    coords_batch's device (the JAX package's _rotate_backoff_sharded); a
+    candidate's rotation depends on itself alone."""
     angle_sets = np.asarray(angle_sets)
     steps = [int(np.max(a) // BACKOFF_STEP) if len(a) and np.max(a) > 0
              else 0 for a in angle_sets.T]
