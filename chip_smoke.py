@@ -4,7 +4,13 @@ Smoke run of the PyTorch + CUDA port (tscode_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels from csrc/, holds each against its
 plain PyTorch twin on the card, drives the headline slice (415,872-pose
 string-embed grid -> clash screen -> exact bucketed RMSD prune) in
-float64 and float32 and checks its counts, then runs the production
+float64 and float32 as one captured program (phases 4 and 5: a CUDA
+graph of the grid, the clash kernel, a size-bounded compaction and every
+prune pass, gated on the card, replayed with one host read a run; its
+keep mask held to the host loop's, its time to the host-driven slice's,
+its device busy share and kernels a replay from the profiler; the pair
+kill's device-count entry held to the host entry on every pass) and
+checks its counts, then runs the production
 string route through the port's CLI (input file -> Embedder -> string
 embed -> TFD novelty -> TFD and MOI prunes -> .xyz) on bench_suite's
 sn2_string input at 76 conformers (831,744 candidates), in float64
@@ -309,6 +315,8 @@ TRACE_KERNELS = {
     'clash_ok_warp_f64': ('clash_ok_warp_kernel', 'double'),
     'qcp_kill_f32': ('qcp_kill_warp_kernel', 'float'),
     'qcp_kill_f64': ('qcp_kill_warp_kernel', 'double'),
+    'qcp_kill_dev_f32': ('qcp_kill_warp_kernel', 'float'),
+    'qcp_kill_dev_f64': ('qcp_kill_warp_kernel', 'double'),
 }
 TRACE_DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 TRACE_TOP = 10             # device operations listed per traced run
@@ -787,11 +795,54 @@ def schedule_passes(hs):
     return passes, int(keep.sum())
 
 
-def qcp_pass(card, hs, act, end, name, what, plain_time):
+def dev_entry_pass(hs, act, end, k, got, plain_time):
+    '''K3's device-count entry (qcp_kill_dev) on the pass (act, end) of
+    schedule value k, in buffers of hs's rows with the count on the card,
+    as device_schedule gives it: its kill bits against qcp_kill's `got`
+    (one kernel: bit for bit), the alive bits it clears, nothing written
+    with the gate shut (k = M // 20 + 1 when that is not 1), its device
+    time, and its plain twin's if asked. Returns (record, rows that
+    differ).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import qcp
+    M, L = act.numel(), hs.shape[0]
+    act_b = torch.zeros(L, dtype=torch.int32, device=hs.device)
+    end_b = torch.zeros_like(act_b)
+    act_b[:M], end_b[:M] = act, end
+    m = torch.tensor([M], dtype=torch.int32, device=hs.device)
+    live = torch.zeros(L, dtype=torch.bool, device=hs.device)
+    live[act.long()] = True
+    alive, kill = live.clone(), torch.zeros(L, dtype=torch.bool,
+                                            device=hs.device)
+    qcp.qcp_kill_dev(hs, act_b, end_b, m, k, THR, alive, kill)
+    differ = int((kill[:M] != got).sum())
+    want = live.clone()
+    want[act.long()[got]] = False
+    check(differ == 0 and torch.equal(alive, want), f'qcp_kill_dev at k={k}'
+          f', M={M}: {differ} kill bits differ from qcp_kill\'s, alive bits '
+          f'equal: {torch.equal(alive, want)}')
+    shut = M // 20 + 1
+    if shut > 1:
+        alive, sentinel = live.clone(), torch.ones_like(kill)
+        qcp.qcp_kill_dev(hs, act_b, end_b, m, shut, THR, alive, sentinel)
+        check(torch.equal(alive, live) and bool(sentinel.all()),
+              f'qcp_kill_dev wrote with its gate shut (k={shut}, M={M})')
+    ms = [device_ms(lambda: qcp.qcp_kill_dev(hs, act_b, end_b, m, k, THR,
+                                             alive, kill)) for _ in range(2)]
+    plain = cuda_ms(lambda: qcp.qcp_kill_dev_plain(
+        hs, act_b, end_b, m, k, THR, live.clone(), kill), reps=1) \
+        if plain_time else None
+    return {'dev_ms': ms, 'dev_plain_ms': plain, 'dev_equal': True,
+            'dev_gate_shut_checked': shut > 1,
+            'dev_blocks': qcp.device_pass_blocks(L)}, differ
+
+
+def qcp_pass(card, hs, act, end, name, what, plain_time, k=None):
     '''K3 on one pass: kill bits of the kernel and of the thread-per-row
     kernel against plain off ties, the walks (plain helper on the card),
-    the A/B times, plain's time if asked, and the bound. Returns
-    (record, largest disagreement off ties).'''
+    the A/B times, plain's time if asked, and the bound; with k, the
+    pass's schedule value, also the device-count entry (dev_entry_pass).
+    Returns (record, largest disagreement off ties).'''
     import torch
     from tscode_tpu_torch.ops.kernels import qcp
     M, N = act.numel(), hs.shape[1]
@@ -820,12 +871,21 @@ def qcp_pass(card, hs, act, end, name, what, plain_time):
            'plan': list(qcp.launch_plan(M)),
            'equal_to_thread_kernel': bool(torch.equal(got, thread))}
     plain = f', plain {plain_ms:.4f}' if plain_time else ''
+    dev = ''
+    if k is not None:
+        dev_rec, _ = dev_entry_pass(hs, act, end, k, got, plain_time)
+        rec.update(dev_rec)
+        dev = (f'; device-count entry {dev_rec["dev_ms"][0]:.4f} / '
+               f'{dev_rec["dev_ms"][1]:.4f} ms on {dev_rec["dev_blocks"]} '
+               f'blocks, its kill bits equal' + (
+                   f', plain twin {dev_rec["dev_plain_ms"]:.4f} ms'
+                   if plain_time else ''))
     print(f'[5 qcp {name}] {what}: M={M} N={N}, longest walk {longest}, '
           f'{pairs} pairs, {rec["kills"]} kills ({int(tie.sum())} tie rows '
           f'differ), plan {rec["plan"]}: kernel {c1:.4f} / {c2:.4f} ms, '
           f'thread-per-row {p1:.4f} / {p2:.4f} ms{plain}, bound '
           f'{bound:.4f} ms ({by}); kill bits equal to the thread-per-row '
-          f'kernel\'s: {rec["equal_to_thread_kernel"]} [{card}]')
+          f'kernel\'s: {rec["equal_to_thread_kernel"]}{dev} [{card}]')
     return rec, err
 
 
@@ -836,7 +896,7 @@ def qcp_headline_passes(card, hs, name):
     passes, kept = schedule_passes(hs)
     recs, err = [], 0
     for i, (k, act, end) in enumerate(passes):
-        rec, e = qcp_pass(card, hs, act, end, name, f'k={k}', i == 0)
+        rec, e = qcp_pass(card, hs, act, end, name, f'k={k}', i == 0, k)
         recs.append(rec)
         err = max(err, e)
     return recs, kept, err
@@ -865,7 +925,7 @@ def qcp_long_chunks(card):
         for dtype in (torch.float32, torch.float64):
             hs, act, end = long_chunk(N, dtype)
             rec, e = qcp_pass(card, hs, act, end, str(dtype).split('.')[-1],
-                              f'one chunk of {LONG_ROWS}', True)
+                              f'one chunk of {LONG_ROWS}', True, 1)
             recs.append(rec)
             err = max(err, e)
     return recs, err
@@ -1016,7 +1076,163 @@ def phase_kernels(card):
     return errs, crossover_sweep(card)
 
 
+def main_launches(tag):
+    '''Launches of the main path's kernels since the counts were reset:
+    K1 (every clash entry), K3's device-count entry (the captured
+    schedule's pass; counted where it was queued: the warm-up run, the
+    capture's warm-ups and the capture) and K3's host entry, which the
+    main path must not launch (the host loop's). Fails unless K1 and the
+    device-count entry launched and the host entry did not.'''
+    from tscode_tpu_torch.ops.kernels import clash, qcp
+    by_entry = qcp.KERNEL.entry_launches
+    launches = {
+        'clash': clash.KERNEL.launches,
+        'qcp_kill_dev': sum(by_entry[f'qcp_kill_dev_{t}']
+                            for t in ('f32', 'f64')),
+        'qcp_kill': sum(by_entry[f'qcp_kill_{t}'] for t in ('f32', 'f64'))}
+    check(launches['clash'] > 0 and launches['qcp_kill_dev'] > 0
+          and launches['qcp_kill'] == 0, f'{tag}: the main path launched '
+          f'{launches} (K1 and qcp_kill_dev wanted, qcp_kill none)')
+    return launches
+
+
+def host_driven_run(inp):
+    '''The slice as the host drives it (run_pipeline's form before the
+    captured program): clash_survivors, then the prune's host loop, the
+    clock stopped when the keep mask is on the host; timed as the
+    replays are, with no sync instrumentation. -> (seconds, keep).'''
+    import torch
+    from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd_device
+    from tscode_tpu_torch.pipeline import clash_survivors
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hs = clash_survivors(inp)
+    keep = prune_conformers_rmsd_device(hs, THR)
+    return time.perf_counter() - t0, keep
+
+
+class synced:
+    '''Records the host syncs of the block: torch.cuda's sync debug
+    mode warns at each synchronising operation (a prototype: it does not
+    see every one), and the warnings are kept.'''
+
+    def __enter__(self):
+        import torch
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self.seen = self._catch.__enter__()
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        return self.seen
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self.seen[:] = [w for w in self.seen
+                        if 'synchroniz' in str(w.message)]
+        return self._catch.__exit__(*exc)
+
+
+def captured_record(card, tag, mols, dtype, secs, info, n_ok, n_final):
+    '''The captured headline program against the host-driven slice, in
+    one process: run_pipeline's best of 3 replays (secs) beside the best
+    of 3 host-driven runs (both timed with no sync instrumentation), the
+    keep mask of the replay equal to the host loop's on the same
+    survivors, bit for bit; then one replay under the profiler (device
+    busy share, device operations a replay, K1's and K3's kernels among
+    them; no device time there fails), the ring's tile counter across a
+    replay, and the host syncs of a run (the stats read) and of one
+    more, untimed host-driven run. Prints one line; returns the
+    record.'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import clash
+    from tscode_tpu_torch.pipeline import (N_ANGLES, inputs_from_numpy,
+                                           pipeline_call, pool_size,
+                                           spin_angles)
+    inp = inputs_from_numpy(*mols, DEV, dtype)
+    host = [host_driven_run(inp) for _ in range(3)]
+    host_s = min(h[0] for h in host)
+    check(all(np.array_equal(h[1][:n_ok], info['keep']) for h in host),
+          f'{tag}: the captured keep mask differs from the host loop\'s on '
+          f'the same survivors')
+    with synced() as host_syncs:
+        host_driven_run(inp)
+    angles = spin_angles(N_ANGLES, dtype, torch.device(DEV))
+    s_pool = pool_size(n_ok)
+
+    def run():
+        return pipeline_call(inp, angles, s_pool, n_ok, CLASH,
+                             THR)[2].tolist()
+
+    clash.reset_tile_paths()
+    torch.cuda.synchronize()
+    with synced() as syncs:
+        stats = run()
+    tiles = clash.tile_paths()
+    check(stats == [n_final, n_ok, 1], f'{tag}: a replay gave {stats}')
+    wall, busy, ops, names = profiled_kernels(run)
+    k1 = sum(c for n, (c, _) in names.items() if 'clash_ok_ring_kernel' in n)
+    k3 = sum(c for n, (c, _) in names.items() if 'qcp_kill_warp_kernel' in n)
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:TRACE_TOP]
+    check(sum(tiles.values()) > 0, f'{tag}: K1 loaded no tile in a replay')
+    check(busy is not None, f'{tag}: the profiler saw no device time in '
+          f'a replay')
+    check(k1 > 0 and k3 > 0, f'{tag}: a replay ran {k1} K1 and {k3} K3 '
+          f'kernels')
+    rec = {'dtype': str(dtype).split('.')[-1], 'replay_s': secs,
+           'replay_runs_s': info['run_s'], 'host_driven_s': host_s,
+           'host_driven_runs_s': [h[0] for h in host],
+           'busy_share': busy / wall,
+           'profiled_wall_s': wall, 'device_ops_per_replay': ops,
+           'k1_per_replay': k1, 'k3_per_replay': k3,
+           'k1_tiles_per_replay': tiles,
+           'host_reads_per_run': len(syncs),
+           'top_device_ops': [[n[:80], c, ms] for n, (c, ms) in top],
+           'host_syncs_per_host_driven_run': len(host_syncs),
+           'warmup_embed_clash_s': info['embed_clash_s'],
+           'warmup_prune_s': info['prune_s']}
+    print(f'[{tag}] captured program: best of 3 replays {secs:.6f} s '
+          f'(runs {", ".join(f"{t:.6f}" for t in info["run_s"])}) against '
+          f'the host-driven best of 3 {host_s:.6f} s (runs '
+          f'{", ".join(f"{h[0]:.6f}" for h in host)}); keep masks equal; a '
+          f'replay under the profiler: busy {rec["busy_share"]} of '
+          f'{wall:.6f} s, {ops} device operations, {k1} K1 and {k3} K3 '
+          f'kernels, K1 tiles {tiles}; host reads a run {len(syncs)}, '
+          f'host syncs of a host-driven run {len(host_syncs)} [{card}]')
+    for n, (c, ms) in top:
+        print(f'[{tag}] a replay\'s device time: {ms:.4f} ms in {c} x '
+              f'{n[:100]}')
+    return rec
+
+
+def profiled_kernels(fn):
+    '''profiled(fn) with the device operations by name: (wall, busy,
+    operations, {name: (count, device ms)}); the last three None / {}
+    when the profiler saw no device time.'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [a for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(a.self_device_time_total for a in ops) / 1e6
+    if busy == 0:
+        return wall, None, None, {}
+    return wall, busy, sum(a.count for a in ops), \
+        {a.key: (a.count, a.self_device_time_total / 1e3) for a in ops}
+
+
 def phase_main_f64(card, mols):
+    '''Phase 4: the headline in float64 through run_pipeline, the
+    captured program (the JAX x64 counts, exactly; its keep mask the
+    host loop's), then K3 and its device-count entry on each pass.
+    Returns (pass records, largest K3 disagreement off ties, the main
+    path's launches by kernel, the captured record).'''
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
@@ -1025,16 +1241,16 @@ def phase_main_f64(card, mols):
     qcp.KERNEL.reset_counts()
     n_poses, secs, n_ok, n_final, info = run_pipeline(
         *mols, device=DEV, dtype=torch.float64, return_masks=True)
-    launches = {'clash': clash.KERNEL.launches,
-                'qcp_kill': qcp.KERNEL.launches}
-    check(all(v > 0 for v in launches.values()),
-          f'main path f64 did not launch every kernel: {launches}')
+    launches = main_launches('main path f64')
     print(f'[4 main f64] {n_poses} poses -> {n_ok} clash-ok -> {n_final} '
-          f'final in {secs:.4f} s, kernel launches {launches}, clash by '
+          f'final, best of 3 replays of the captured program {secs:.6f} s, '
+          f'kernel launches (warm-up and capture) {launches}, clash by '
           f'regime {clash.launches_by_regime()} [{card}]')
     check(n_poses == N_POSES, f'{n_poses} poses, expected {N_POSES}')
     check((n_ok, n_final) == F64_COUNTS,
           f'f64 counts {(n_ok, n_final)} != {F64_COUNTS}')
+    rec = captured_record(card, '4 main f64', mols, torch.float64, secs,
+                          info, n_ok, n_final)
 
     inp = inputs_from_numpy(*mols, DEV, torch.float64)
     poses, ok = embed_clash_all(inp)
@@ -1053,7 +1269,7 @@ def phase_main_f64(card, mols):
     recs, kept, err = qcp_headline_passes(card, hs, 'float64')
     check(kept == F64_COUNTS[1], f'f64 pass-by-pass schedule keeps {kept}, '
           f'expected {F64_COUNTS[1]}')
-    return recs, err
+    return recs, err, launches, rec
 
 
 def phase_small_parity():
@@ -1077,6 +1293,12 @@ def phase_small_parity():
 
 
 def phase_main_f32(card, mols):
+    '''Phase 5: the headline in float32 through run_pipeline, the
+    captured program (counts in their brackets; the keep mask the host
+    loop's), timed against the host-driven slice; then K1, K3 and K3's
+    device-count entry against their plain twins at the slice's shapes,
+    timed. Returns (the kernel records of the JSON line, the captured
+    record).'''
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd_device
@@ -1084,33 +1306,21 @@ def phase_main_f32(card, mols):
                                            inputs_from_numpy, run_pipeline)
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
-    n_poses, secs, n_ok, n_final = run_pipeline(
-        *mols, device=DEV, dtype=torch.float32)
-    launches = {'clash': clash.KERNEL.launches,
-                'qcp_kill': qcp.KERNEL.launches}
-    check(all(v > 0 for v in launches.values()),
-          f'main path f32 did not launch every kernel: {launches}')
-    print(f'[5 main f32] warm-up: {n_poses} poses -> {n_ok} clash-ok -> '
-          f'{n_final} final in {secs:.4f} s, kernel launches {launches}, '
-          f'clash by regime {clash.launches_by_regime()} [{card}]')
+    n_poses, secs, n_ok, n_final, info = run_pipeline(
+        *mols, device=DEV, dtype=torch.float32, return_masks=True)
+    launches = main_launches('main path f32')
+    print(f'[5 main f32] {n_poses} poses -> {n_ok} clash-ok -> {n_final} '
+          f'final, best of 3 replays of the captured program {secs:.6f} s, '
+          f'{n_poses / secs:.0f} poses/s (the warm-up run: embed+clash '
+          f'{info["embed_clash_s"]:.4f} s, prune {info["prune_s"]:.4f} s), '
+          f'kernel launches (warm-up and capture) {launches}, clash by '
+          f'regime {clash.launches_by_regime()} [{card}]')
     check(F32_OK[0] <= n_ok <= F32_OK[1],
           f'f32 clash-ok {n_ok} outside {F32_OK}')
     check(F32_FINAL[0] <= n_final <= F32_FINAL[1],
           f'f32 final {n_final} outside {F32_FINAL}')
-
-    best = None
-    for _ in range(3):
-        r = run_pipeline(*mols, device=DEV, dtype=torch.float32,
-                         return_masks=True)
-        check(r[2:4] == (n_ok, n_final), f'f32 rep counts {r[2:4]} differ '
-              f'from warm-up {(n_ok, n_final)}')
-        if best is None or r[1] < best[1]:
-            best = r
-    info = best[4]
-    print(f'[5 main f32] best of 3: {best[1]:.4f} s, '
-          f'{n_poses / best[1]:.0f} poses/s (embed+clash '
-          f'{info["embed_clash_s"]:.4f} s, prune {info["prune_s"]:.4f} s) '
-          f'[{card}]')
+    captured = captured_record(card, '5 main f32', mols, torch.float32,
+                               secs, info, n_ok, n_final)
 
     # kernel vs plain at the slice's shapes: the grid's poses for the
     # clash, the clash survivors' heavy atoms for the prune
@@ -1174,10 +1384,21 @@ def phase_main_f32(card, mols):
         {'name': 'qcp_kill', 'route': 'cuda',
          'source': 'tscode_tpu_torch/csrc/qcp_kill.cu',
          'replaces': 'tscode_tpu/ops/pallas/qcp.py:240',
+         # the host loop's entry, held to none on the main path (which
+         # runs the device-count entry); the route phases add theirs
          'launches': launches['qcp_kill'], 'max_abs_err': err_qcp,
          'ms': sum(first['ms']) / 2, 'plain_ms': first['plain_ms'],
          'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
          'library_ms': None, 'passes': recs + long_recs},
+        {'name': 'qcp_kill_dev', 'route': 'cuda',
+         'source': 'tscode_tpu_torch/csrc/qcp_kill.cu',
+         'replaces': 'tscode_tpu/ops/pallas/qcp.py:240',
+         'launches': launches['qcp_kill_dev'], 'max_abs_err': 0,
+         'ms': sum(first['dev_ms']) / 2, 'plain_ms': first['dev_plain_ms'],
+         'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
+         'library_ms': None, 'pass': first['pass'], 'M': first['M'],
+         'qcp_kill_ms': sum(first['ms']) / 2, 'blocks': first['dev_blocks'],
+         'captured': {'float32': captured}},
     ]
 
 
@@ -2313,21 +2534,7 @@ def profiled(fn):
     '''fn() under torch.profiler, ended by a synchronise: (wall seconds,
     seconds of kernel time on the card, kernel launches); the last two
     None when the profiler saw no device time.'''
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [a for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(a.self_device_time_total for a in kernels) / 1e6
-    if busy == 0:
-        return wall, None, None
-    return wall, busy, sum(a.count for a in kernels)
+    return profiled_kernels(fn)[:3]
 
 
 def trimol_topology():
@@ -3085,7 +3292,7 @@ def ff_step_times(card, guess, chain, atomnos):
     Hessian with its eigensolve (vibrations.frequencies). Returns the
     record, ms.'''
     import torch
-    from tscode_tpu_torch import neb, optimizers, saddle, vibrations
+    from tscode_tpu_torch import capture, neb, saddle, vibrations
     from tscode_tpu_torch.ff import build_ff_params, ff_energy, params_to_device
     from tscode_tpu_torch.graphs import graphize
     params = params_to_device(build_ff_params(guess, atomnos,
@@ -3101,8 +3308,8 @@ def ff_step_times(card, guess, chain, atomnos):
     d_args, b_args = (params,), (dt0, (params,))
 
     def replayed(body, state, args, n):
-        optimizers.graph_loop(body, state, args, n)
-        return cuda_ms(lambda: optimizers.graph_loop(
+        capture.graph_loop(body, state, args, n)
+        return cuda_ms(lambda: capture.graph_loop(
             body, state, args, n), reps=1) / n
 
     def eager(body, state, args, n=EAGER_TIMED_STEPS):
@@ -3788,9 +3995,14 @@ def trace_kernels(tag, events, spans, api, report):
     event: its launch span}).'''
     import re
     out, owner = {}, {}
+    launched = {TRACE_KERNELS[e]
+                for entries in report['kernel_entries'].values()
+                for e, n in entries.items() if n}
     for lib, entries in report['kernel_entries'].items():
         for entry, n in entries.items():
             name, arg = TRACE_KERNELS[entry]
+            if not n and (name, arg) in launched:
+                continue    # another entry launched this kernel
             pat = re.compile(rf'\b{name}<{arg}\b')
             ks = sorted((e for e in events if e.get('cat') == 'kernel'
                          and pat.search(e['name'])), key=lambda e: e['ts'])
@@ -3900,23 +4112,23 @@ def trace_check(card, tag, path, report, secs, secs_plain):
 
 
 class CaptureCount:
-    '''While open, the CUDA graphs that optimizers.graph_loop captures.'''
+    '''While open, the CUDA graphs that capture.graph_loop captures.'''
 
     def __enter__(self):
-        from tscode_tpu_torch import optimizers
-        self.n, self.real = 0, optimizers.GraphLoop
+        from tscode_tpu_torch import capture
+        self.n, self.real = 0, capture.GraphLoop
         count = self
 
         class Counted(self.real):
             def __init__(self, *args):
                 count.n += 1
                 super().__init__(*args)
-        optimizers.GraphLoop = Counted
+        capture.GraphLoop = Counted
         return self
 
     def __exit__(self, *exc):
-        from tscode_tpu_torch import optimizers
-        optimizers.GraphLoop = self.real
+        from tscode_tpu_torch import capture
+        capture.GraphLoop = self.real
 
 
 def trace_file(trace_dir):
@@ -3968,7 +4180,7 @@ def traced_fire(card, tmp):
     kernels behind each.'''
     import contextlib
     import torch
-    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch import capture, optimizers
     from tscode_tpu_torch.backend import DeviceTrace
     from tscode_tpu_torch.bending import BEND_FIRE_STEPS
     from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
@@ -3986,7 +4198,7 @@ def traced_fire(card, tmp):
     runs, secs, caps = [], [], []
     for traced, fresh in ((False, True), (True, True), (False, False)):
         if fresh:
-            optimizers._graphs.clear()
+            capture._graphs.clear()
         with CaptureCount() as cap, DeviceTrace(trace_dir, DEV) if traced \
                 else contextlib.nullcontext():
             t0 = time.perf_counter()
@@ -4372,7 +4584,7 @@ def guard_overhead(card, out):
     launches no hand kernel (the control for the host's speed)."""
     import tempfile
     import torch
-    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch import capture, optimizers
     from tscode_tpu_torch.ops.kernels import _build, clash, qcp
     modes, real = guard_modes(), _build.device_guard
     dev = torch.device('cuda', 0)
@@ -4405,7 +4617,7 @@ def guard_overhead(card, out):
             inp = suite_input('csearch_string', tmp, SEARCH_CONFS)
             run_cli(tmp, inp, 'float64')           # warm-up, not kept
             for mode in GUARD_ORDER * 2:
-                _build.device_guard = optimizers.device_guard = modes[mode]
+                _build.device_guard = capture.device_guard = modes[mode]
                 r = rec[mode]
                 r['k1_us'].append(1e6 * per_call(
                     lambda: clash.torsion_backoff(poses, (0, 4, 3, 7), move,
@@ -4426,7 +4638,7 @@ def guard_overhead(card, out):
                     r[k].append(cs[k])
                 r['search_s'].append(cs['seconds'])
     finally:
-        _build.device_guard = optimizers.device_guard = real
+        _build.device_guard = capture.device_guard = real
     for mode, r in rec.items():
         print(f'[guard {mode}] ' + ', '.join(
             f'{k} {np.median(v):.4g} (of {len(v)}: '
@@ -4506,10 +4718,14 @@ def main():
     phase_build()
     errs, crossover = timed_phase('3 kernels', phase_kernels, card)
     mols = build_workload()
-    recs64, errs['qcp_f64'] = phase_main_f64(card, mols)
+    recs64, errs['qcp_f64'], main64, captured64 = timed_phase(
+        '4 main f64', phase_main_f64, card, mols)
     phase_small_parity()
-    kernels = phase_main_f32(card, mols)
+    kernels = timed_phase('5 main f32', phase_main_f32, card, mols)
     kernels[1]['passes'] += recs64
+    kernels[1]['launches'] += main64['qcp_kill']
+    kernels[2]['launches'] += main64['qcp_kill_dev']
+    kernels[2]['captured']['float64'] = captured64
     errs['qcp_kill'] = max(errs['qcp_kill'], errs.pop('qcp_f64'))
     kernels[0]['launches'] += phase_string_route(card)
     with tempfile.TemporaryDirectory(prefix='smoke_keep_') as keep:

@@ -20,6 +20,7 @@ from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
 from tscode_tpu_torch.ops.linalg import rmsd_and_max, rotate_dihedral
 from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
+                                             pass_chunks_fixed,
                                              prune_conformers_rmsd,
                                              prune_conformers_rmsd_device)
 from tscode_tpu_torch.pipeline import build_workload, run_pipeline
@@ -256,6 +257,94 @@ def test_prune_kernel_matches_plain_f64(cuda_device):
     np.testing.assert_array_equal(keep, want)
 
 
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_device_entry_matches_qcp_kill(cuda_device, dtype):
+    '''K3's device-count entry on random passes of M = 1 to 10^5 rows
+    (buffers of 10^5 entries, the count on the card): its kill bits are
+    qcp_kill's, bit for bit (one kernel), and the killed rows' alive
+    bits are cleared; with the gate shut it writes nothing.'''
+    n = 100_000
+    hs = torch.as_tensor(near_dup_pool(np.random.default_rng(5), n, 4,
+                                       30_000), dtype=dtype,
+                         device=cuda_device)
+    rng = np.random.default_rng(6)
+    kills = 0
+    for M, k in ((1, 1), (2, 1), (37, 1), (1000, 20), (5000, 200),
+                 (33_000, 1000), (70_000, 2), (n, 4000)):
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[rng.choice(n, M, replace=False)] = True
+        mask = mask.to(cuda_device)
+        act, end, m = pass_chunks_fixed(mask, n, k)
+        assert int(m) == M
+        alive = mask.clone()
+        kill = qcp.qcp_kill_dev(hs, act, end, m, k, 0.5, alive)
+        want = qcp.qcp_kill(hs, act[:M], end[:M], 0.5)
+        assert torch.equal(kill[:M], want), (M, k)
+        expect = mask.clone()
+        expect[act[:M].long()[want]] = False
+        assert torch.equal(alive, expect), (M, k)
+        kills += int(want.sum())
+        if M >= 40:                            # k = M // 20 shuts the gate
+            alive = mask.clone()
+            kill = torch.ones(n, dtype=torch.bool, device=cuda_device)
+            qcp.qcp_kill_dev(hs, act, end, m, M // 20, 0.5, alive, kill)
+            assert torch.equal(alive, mask) and bool(kill.all())
+    assert kills > 0
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_captured_schedule_matches_host_loop(cuda_device, dtype,
+                                             monkeypatch):
+    '''warmup_prune_kernels captures the schedule of a 10^4-row pool;
+    two prunes of it replay the graph (the host loop patched to raise)
+    and equal the host loop's mask.'''
+    from tscode_tpu_torch.ops import rmsd_prune as tprune
+    monkeypatch.setattr(tprune, '_SCHEDULE_WARMED', set())
+    hs = torch.as_tensor(near_dup_pool(np.random.default_rng(7), 10_000, 4,
+                                       2_500), dtype=dtype, device=cuda_device)
+    want = prune_conformers_rmsd_device(hs)
+    qcp.KERNEL.reset_counts()
+    tprune.warmup_prune_kernels(4, dtype, n_pool=10_000, n_real=10_000,
+                                device=cuda_device)
+    captured = qcp.KERNEL.launches
+    assert captured > 0 and captured == sum(
+        v for e, v in qcp.KERNEL.entry_launches.items() if '_dev_' in e)
+
+    def host_loop(*args, **kwargs):
+        raise AssertionError('the host loop ran')
+
+    monkeypatch.setattr(tprune, 'host_schedule', host_loop)
+    for _ in range(2):
+        np.testing.assert_array_equal(prune_conformers_rmsd_device(hs), want)
+    assert qcp.KERNEL.launches == captured          # replays, no launch
+    assert 0 < want.sum() < 10_000
+
+
+def test_pipeline_replay_makes_no_host_sync(cuda_device):
+    '''The captured slice at 6 conformers, float64: a replay makes no
+    host sync (set_sync_debug_mode('error')), and its stats, clash mask
+    and keep mask are run_pipeline's and the CPU run's.'''
+    from tscode_tpu_torch import pipeline as tp
+    mols = build_workload(n_confs=6)
+    gpu = run_pipeline(*mols, device=cuda_device, dtype=torch.float64,
+                       return_masks=True)
+    cpu = run_pipeline(*mols, device='cpu', return_masks=True)
+    assert gpu[2:4] == cpu[2:4] == (1362, 6)
+    inp = tp.inputs_from_numpy(*mols, cuda_device, torch.float64)
+    angles = tp.spin_angles(tp.N_ANGLES, torch.float64, cuda_device)
+    s_pool = tp.pool_size(1362)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        ok, keep, stats = tp.pipeline_call(inp, angles, s_pool, 1362)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert stats.tolist() == [6, 1362, 1]
+    np.testing.assert_array_equal(ok.cpu().numpy(), cpu[4]['clash_ok'])
+    np.testing.assert_array_equal(keep[:1362].cpu().numpy(), cpu[4]['keep'])
+    assert not keep[1362:].any()
+
+
 def test_small_slice_on_card_matches_cpu(cuda_device):
     mols = build_workload(n_confs=6)
     before = (clash.KERNEL.launches, qcp.KERNEL.launches)
@@ -457,7 +546,7 @@ def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
     the card (the step replayed from a CUDA graph) within 1e-6 A of the
     CPU with the same rows stopped, the op-by-op loop on the card too;
     a second call of the same shapes replays the kept graph.'''
-    from tscode_tpu_torch import ff, optimizers
+    from tscode_tpu_torch import capture, ff, optimizers
     mol = hcoooh()
     params = ff.build_ff_params(mol.atomcoords[0], mol.atomnos, mol.graph)
     rng = np.random.default_rng(42)
@@ -483,9 +572,9 @@ def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
     args = (x, ff.ff_energy, 150, 0.05, 0.05,
             torch.as_tensor(freeze, device=cuda_device), (p,))
     eager = optimizers.fire_run_eager(*args)
-    graphs = len(optimizers._graphs)
+    graphs = len(capture._graphs)
     graph = optimizers.fire_run_graph(*args)
-    assert len(optimizers._graphs) == graphs
+    assert len(capture._graphs) == graphs
     for a, b in zip(eager, graph):
         assert float((a.double() - b.double()).abs().max()) <= 1e-9
 
@@ -759,7 +848,7 @@ def test_dimer_on_card_matches_cpu(cuda_device):
     by op run, float64: coordinates within 1e-6 A, energy within 1e-6
     kcal/mol, the same flag; a second structure of the same shape reuses
     the captured step.'''
-    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch import capture, optimizers
     from tscode_tpu_torch.graphs import graphize
     from tscode_tpu_torch.saddle import saddle_refine_structure
     confs, nos = formic_conformers()
@@ -769,8 +858,8 @@ def test_dimer_on_card_matches_cpu(cuda_device):
             out[key, str(device)] = saddle_refine_structure(
                 x, nos, graphize(confs[0], nos), device=device)
         if key == 'first':
-            graphs = len(optimizers._graphs)
-    assert len(optimizers._graphs) == graphs
+            graphs = len(capture._graphs)
+    assert len(capture._graphs) == graphs
     for key in ('first', 'second'):
         (c, e, done), (cc, ce, cdone) = out[key, 'cpu'], \
             out[key, str(cuda_device)]
@@ -786,7 +875,7 @@ def test_neb_on_card_matches_cpu(cuda_device):
     shapes, after the memory the first one let go has been refilled
     with NaN, replays the cached graphs and must agree as well.'''
     import torch
-    from tscode_tpu_torch import ff, optimizers
+    from tscode_tpu_torch import capture, ff, optimizers
     from tscode_tpu_torch.graphs import graphize
     from tscode_tpu_torch.neb import run_neb
     confs, nos = formic_conformers()
@@ -798,12 +887,12 @@ def test_neb_on_card_matches_cpu(cuda_device):
                                                         torch.float64),))
     want = neb('cpu')
     first = neb(cuda_device)
-    graphs = len(optimizers._graphs)
+    graphs = len(capture._graphs)
     junk = [torch.full((n,), float('nan'), dtype=torch.float64,
                        device=cuda_device) for n in range(1, 2000)]
     second = neb(cuda_device)
     del junk
-    assert len(optimizers._graphs) == graphs
+    assert len(capture._graphs) == graphs
     c, e, ts = want
     for cc, ce, cts in (first, second):
         assert np.abs(cc - c).max() <= 1e-6

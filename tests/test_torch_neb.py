@@ -233,13 +233,14 @@ def test_ff_operators_equal_the_jax_package(tmp_path):
 
 @pytest.mark.parametrize('route', ['band', 'dimer'])
 def test_loop_bodies_key_their_constants_and_hold_no_tensor(route):
-    '''A captured loop body's graph key (optimizers.body_key): two
+    '''A captured loop body's graph key (capture.body_key): two
     bodies made on equal constants share one key, a change of any
     constant or of the energy function gives another, and a body whose
     closure holds a tensor (which the graph would read by its address
     after the caller let it go) is refused.'''
     from tscode_tpu_torch import saddle
-    from tscode_tpu_torch.optimizers import body_key, fire_band_update
+    from tscode_tpu_torch.capture import body_key
+    from tscode_tpu_torch.optimizers import fire_band_update
     if route == 'band':
         def make(energy_fn=ff.ff_energy, k=1.0, fmax=0.05, climbing=True):
             return neb._band_body(energy_fn, k, fmax, climbing)

@@ -15,6 +15,14 @@
 // order; end (M,), the exclusive end (a position in act) of each
 // position's chunk; thr; the launch plan (lanes_log2, budget). Output
 // kill (M,). One launch covers one whole prune pass, with no host sync.
+// The second entry, qcp_kill_dev_f32/f64, takes a pass whose row count M
+// the card holds (an int32 in device memory, written by the compaction
+// before it): it reads M, runs only when the schedule's gate k == 1 or
+// 20 k < M is open, derives the plan from M as the host would, clears
+// alive[act[p]] for each killed row, and its grid is fixed for the
+// largest M its buffers hold. So a whole schedule of passes can be
+// captured in one CUDA graph (ops/rmsd_prune.device_schedule). Both
+// entries launch the same kernel, so the pair arithmetic is the same.
 //
 // Pair arithmetic, operation by operation as the thread-per-row design
 // had it (the float64 gates rest on it): the 3x3 correlation S summed in
@@ -260,15 +268,41 @@ __device__ __forceinline__ T row_norm2(const T* P, int stride) {
   return G;
 }
 
+// the lanes per row (log2) of a pass over M rows, ops/kernels/qcp.py's
+// launch_plan: the most, up to 32, that keep the pass at plan_warps warps
+__device__ __forceinline__ int plan_lanes(long long M, int plan_warps) {
+  int l = 0;
+  while (l < 5 && (M * (2LL << l) + 31) / 32 <= plan_warps) ++l;
+  return l;
+}
+
+// One kernel for both entries. With m_dev null the host gives the pass
+// (M, lanes_log2, budget). With m_dev set (the capturable entry) the
+// block reads M there, leaves when the schedule's gate of pass k, k == 1
+// or 20 k < M, is shut, and derives the plan from M by launch_plan's
+// rule; the grid then covers the largest plan of any M the buffers hold
+// and the blocks past the pass's rows leave at once. With alive set, a
+// killed row's bit alive[act[p]] is cleared too (the kernel never reads
+// alive, so the update is safe inside the pass).
 template <typename T, int NA, bool VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 qcp_kill_warp_kernel(const T* __restrict__ hs, int N,
                      const int* __restrict__ act,
                      const int* __restrict__ end, int M, T thr,
                      int lanes_log2, int budget,
-                     unsigned char* __restrict__ kill) {
+                     unsigned char* __restrict__ kill,
+                     const int* __restrict__ m_dev, long long k,
+                     int plan_warps, int budget_steps,
+                     unsigned char* __restrict__ alive) {
   __shared__ int undecided[kWarps * 32];
   __shared__ int n_undecided, next_row;
+  if (m_dev != nullptr) {                   // uniform over the grid
+    M = *m_dev;
+    if (!(k == 1 || 20 * k < (long long)M)) return;
+    lanes_log2 = plan_lanes(M, plan_warps);
+    budget = budget_steps << lanes_log2;
+  }
+  if ((long long)blockIdx.x * (kWarps * (32 >> lanes_log2)) >= M) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = 1 << lanes_log2;            // lanes per row in phase 1
   const int sub = lane & (g - 1), grp = lane >> lanes_log2;
@@ -314,9 +348,10 @@ qcp_kill_warp_kernel(const T* __restrict__ hs, int N,
     q += g;
   }
   if (live && sub == 0) {
-    if (hit || lim >= e)
+    if (hit || lim >= e) {
       kill[p] = hit;
-    else
+      if (hit && alive != nullptr) alive[act[p]] = 0;
+    } else
       undecided[atomicAdd(&n_undecided, 1)] = p;
   }
   __syncthreads();
@@ -351,42 +386,78 @@ qcp_kill_warp_kernel(const T* __restrict__ hs, int N,
       Q2 = Q2n;
       qj_next = qj_after;
     }
-    if (lane == 0) kill[r] = found;
+    if (lane == 0) {
+      kill[r] = found;
+      if (found && alive != nullptr) alive[act[r]] = 0;
+    }
   }
 }
 
+// what a launch is given besides the pool: the pass's rows, its plan (or
+// the device count, the gate and the plan rule), the outputs
+struct PassArgs {
+  const int* act;
+  const int* end;
+  int M, lanes_log2, budget;
+  unsigned char* kill;
+  const int* m_dev;
+  long long k;
+  int plan_warps, budget_steps;
+  unsigned char* alive;
+};
+
 template <typename T, int NA, bool VEC>
-int launch_instance(const T* hs, int N, const int* act, const int* end,
-                    int M, T thr, int lanes_log2, int budget,
-                    unsigned char* kill, cudaStream_t stream) {
-  const int rows_per_block = kWarps * (32 >> lanes_log2);
-  const int blocks = (M + rows_per_block - 1) / rows_per_block;
+int launch_instance(const T* hs, int N, T thr, const PassArgs& a, int blocks,
+                    cudaStream_t stream) {
   qcp_kill_warp_kernel<T, NA, VEC><<<blocks, kWarps * 32, 0, stream>>>(
-      hs, N, act, end, M, thr, lanes_log2, budget, kill);
+      hs, N, a.act, a.end, a.M, thr, a.lanes_log2, a.budget, a.kill, a.m_dev,
+      a.k, a.plan_warps, a.budget_steps, a.alive);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_qcp(const void* hs, int N, const void* act, const void* end,
-               int M, T thr, int lanes_log2, int budget, void* kill,
+int launch_qcp(const void* hs, int N, T thr, const PassArgs& a, int blocks,
                void* stream) {
-  if (M <= 0) return 0;
-  if (lanes_log2 < 0 || lanes_log2 > 5 || budget < 0)
-    return (int)cudaErrorInvalidValue;
+  if (blocks <= 0) return 0;
   const T* h = (const T*)hs;
-  const int* a = (const int*)act;
-  const int* e = (const int*)end;
-  unsigned char* k = (unsigned char*)kill;
   cudaStream_t s = (cudaStream_t)stream;
   if (N == 4) {
     if ((uintptr_t)hs % 16 == 0)
-      return launch_instance<T, 4, true>(h, N, a, e, M, thr, lanes_log2,
-                                         budget, k, s);
-    return launch_instance<T, 4, false>(h, N, a, e, M, thr, lanes_log2,
-                                        budget, k, s);
+      return launch_instance<T, 4, true>(h, N, thr, a, blocks, s);
+    return launch_instance<T, 4, false>(h, N, thr, a, blocks, s);
   }
-  return launch_instance<T, 0, false>(h, N, a, e, M, thr, lanes_log2, budget,
-                                      k, s);
+  return launch_instance<T, 0, false>(h, N, thr, a, blocks, s);
+}
+
+// a pass of M rows given by the host: exactly its plan's blocks
+template <typename T>
+int launch_host_pass(const void* hs, int N, const void* act, const void* end,
+                     int M, T thr, int lanes_log2, int budget, void* kill,
+                     void* stream) {
+  if (M <= 0) return 0;
+  if (lanes_log2 < 0 || lanes_log2 > 5 || budget < 0)
+    return (int)cudaErrorInvalidValue;
+  const int rows_per_block = kWarps * (32 >> lanes_log2);
+  const PassArgs a{(const int*)act, (const int*)end, M, lanes_log2, budget,
+                   (unsigned char*)kill, nullptr, 0, 0, 0, nullptr};
+  return launch_qcp<T>(hs, N, thr, a, (M + rows_per_block - 1) /
+                                          rows_per_block, stream);
+}
+
+// a pass whose row count M lies in device memory (m_dev) and whose gate
+// is k's: `blocks` fixed by the caller for the largest M it can hold
+template <typename T>
+int launch_device_pass(const void* hs, int N, const void* act,
+                       const void* end, const void* m_dev, long long k, T thr,
+                       int plan_warps, int budget_steps, int blocks,
+                       void* kill, void* alive, void* stream) {
+  if (m_dev == nullptr || k < 1 || plan_warps < 1 || budget_steps < 0 ||
+      budget_steps > (1 << 20))
+    return (int)cudaErrorInvalidValue;
+  const PassArgs a{(const int*)act, (const int*)end, 0, 0, 0,
+                   (unsigned char*)kill, (const int*)m_dev, k, plan_warps,
+                   budget_steps, (unsigned char*)alive};
+  return launch_qcp<T>(hs, N, thr, a, blocks, stream);
 }
 
 }  // namespace
@@ -396,15 +467,32 @@ extern "C" {
 int qcp_kill_f32(const void* hs, int N, const void* act, const void* end,
                  int M, float thr, int lanes_log2, int budget, void* kill,
                  void* stream) {
-  return launch_qcp<float>(hs, N, act, end, M, thr, lanes_log2, budget, kill,
-                           stream);
+  return launch_host_pass<float>(hs, N, act, end, M, thr, lanes_log2, budget,
+                                 kill, stream);
 }
 
 int qcp_kill_f64(const void* hs, int N, const void* act, const void* end,
                  int M, double thr, int lanes_log2, int budget, void* kill,
                  void* stream) {
-  return launch_qcp<double>(hs, N, act, end, M, thr, lanes_log2, budget,
-                            kill, stream);
+  return launch_host_pass<double>(hs, N, act, end, M, thr, lanes_log2,
+                                  budget, kill, stream);
+}
+
+int qcp_kill_dev_f32(const void* hs, int N, const void* act, const void* end,
+                     const void* m_dev, long long k, float thr,
+                     int plan_warps, int budget_steps, int blocks, void* kill,
+                     void* alive, void* stream) {
+  return launch_device_pass<float>(hs, N, act, end, m_dev, k, thr, plan_warps,
+                                   budget_steps, blocks, kill, alive, stream);
+}
+
+int qcp_kill_dev_f64(const void* hs, int N, const void* act, const void* end,
+                     const void* m_dev, long long k, double thr,
+                     int plan_warps, int budget_steps, int blocks,
+                     void* kill, void* alive, void* stream) {
+  return launch_device_pass<double>(hs, N, act, end, m_dev, k, thr,
+                                    plan_warps, budget_steps, blocks, kill,
+                                    alive, stream);
 }
 
 const char* tt_error_string(int code) {

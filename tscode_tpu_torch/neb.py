@@ -10,7 +10,7 @@ surface), or a host callback that returns energies and gradients.
 
 On a CUDA device one band step (forces by torch.autograd, the band
 composition, the FIRE update) is captured in a CUDA graph and replayed
-(`optimizers.graph_loop`); on the CPU the steps run op by op and stop
+(`capture.graph_loop`); on the CPU the steps run op by op and stop
 once the band has converged, from where JAX's loop leaves the chain as
 it is. The IDPP starting band relaxes under `fire_minimize_batch`.
 '''
@@ -19,9 +19,10 @@ import numpy as np
 import torch
 
 from tscode_tpu_torch.backend import traced
+from tscode_tpu_torch.capture import graph_loop
 from tscode_tpu_torch.errors import InputError
 from tscode_tpu_torch.optimizers import (fire_band_init, fire_band_update,
-                                         fire_minimize_batch, graph_loop)
+                                         fire_minimize_batch)
 
 
 def interpolate_chain(start, end, n_images):

@@ -13,8 +13,12 @@ Interface of one prune pass: the pool hs (n, N, 3), the active rows
 act (M,) in pool order, and end (M,), the exclusive chunk end of each
 position (a position in act). `qcp_kill` evaluates the whole pass in one
 launch, with the lanes-per-row plan of `launch_plan`; `qcp_kill_blocks`
-keeps K3's block contract on top of it. On a CPU tensor both run the
-plain twin; on a CUDA tensor they launch the kernel or raise.
+keeps K3's block contract on top of it. `qcp_kill_dev` launches the same
+kernel on a pass whose row count the card holds, gated on the card by
+the schedule's rule, and clears the killed rows' alive bits itself: the
+pass of the captured schedule (ops/rmsd_prune.device_schedule). On a
+CPU tensor each runs its plain twin; on a CUDA tensor it launches the
+kernel or raises.
 
 `qcp_kill_thread` launches the thread-per-row design
 (`csrc/qcp_kill_thread.cu`, one thread walks a row), kept only as the
@@ -35,9 +39,19 @@ _HEAD = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 _PLAN = (ctypes.c_int, ctypes.c_int)         # lanes_log2, budget
 _TAIL = (ctypes.c_void_p, ctypes.c_void_p)
 
+# the device-count entry: pool, N, act, end, the count M's address, k;
+# then thr; then the plan rule (PLAN_WARPS, BUDGET_STEPS), the blocks,
+# kill, alive and the stream
+_DEV_HEAD = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong)
+_DEV_TAIL = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p)
+
 KERNEL = CudaKernel('qcp_kill', {
     'qcp_kill_f32': _HEAD + (ctypes.c_float,) + _PLAN + _TAIL,
     'qcp_kill_f64': _HEAD + (ctypes.c_double,) + _PLAN + _TAIL,
+    'qcp_kill_dev_f32': _DEV_HEAD + (ctypes.c_float,) + _DEV_TAIL,
+    'qcp_kill_dev_f64': _DEV_HEAD + (ctypes.c_double,) + _DEV_TAIL,
 })
 THREAD_KERNEL = CudaKernel('qcp_kill_thread', {
     'qcp_kill_f32': _HEAD + (ctypes.c_float,) + _TAIL,
@@ -46,6 +60,8 @@ THREAD_KERNEL = CudaKernel('qcp_kill_thread', {
 
 _SYMBOL = {torch.float32: ('qcp_kill_f32', ctypes.c_float),
            torch.float64: ('qcp_kill_f64', ctypes.c_double)}
+_DEV_SYMBOL = {torch.float32: 'qcp_kill_dev_f32',
+               torch.float64: 'qcp_kill_dev_f64'}
 
 # launch plan, from the plan sweep of chip_smoke.py --qcp-plans on an
 # H100 (PERF.md): lanes per row grow while the pass still fills this
@@ -54,6 +70,8 @@ _SYMBOL = {torch.float32: ('qcp_kill_f32', ctypes.c_float),
 PLAN_WARPS = 132 * 32
 BUDGET_STEPS = 1
 _MAX_BUDGET = 1 << 30
+# warps a block of csrc/qcp_kill.cu (kWarps): 4 x (32 >> lanes_log2) rows
+_BLOCK_WARPS = 4
 
 # pair tile of the plain twin: 256 x 2048 pairs bound its memory
 _ROW_TILE = 256
@@ -217,6 +235,65 @@ def qcp_kill(hs, act, end, thr, plan=None, rows=None):
     KERNEL.launch(symbol, ptr(hs), hs.shape[1], ptr(act), ptr(end), M,
                   c_thr(float(thr)), lanes_log2, budget, ptr(kill),
                   stream_of(hs), device=hs.device)
+    return kill
+
+
+def device_pass_blocks(n):
+    '''Blocks of a device-count launch (qcp_kill_dev) over buffers of n
+    rows: the most that any pass of M <= n rows needs under launch_plan.
+    Within one plan the blocks grow with M, so the largest M of each plan
+    decides: n itself, or the last M before the plan's lanes double.'''
+    best = 0
+    for M in {n} | {min(n, (32 * PLAN_WARPS) >> (l + 1)) for l in range(5)}:
+        lanes_log2, _ = launch_plan(M)
+        best = max(best, -(-M // (_BLOCK_WARPS * (32 >> lanes_log2))))
+    return best
+
+
+def qcp_kill_dev_plain(hs, act, end, m, k, thr, alive, kill):
+    '''Plain PyTorch twin of `qcp_kill_dev` (reads the count on the
+    host).'''
+    M = int(m.reshape(()))
+    if k == 1 or 20 * k < M:
+        kill[:M] = qcp_kill_plain(hs, act[:M], end[:M], thr)
+        alive[act[:M].long()[kill[:M]]] = False
+    return kill
+
+
+def qcp_kill_dev(hs, act, end, m, k, thr, alive, kill=None):
+    '''K3 on a pass whose row count lies on the device, with no host
+    sync, so that a schedule of passes can be captured in a CUDA graph:
+    hs (n, N, 3) float32/float64; act, end (L,) int32 buffers whose first
+    M entries are the pass (as qcp_kill takes them); m (1,) int32, M; k
+    the pass's value of K_SCHEDULE: the pass runs only when k == 1 or
+    20 k < M, decided on the card. alive (n,) bool: each killed row's bit
+    alive[act[p]] is cleared in place. kill (L,) bool (default zeros):
+    the pass's bits, written in its first M entries. When the gate is
+    shut nothing is written. Returns kill. The plan is launch_plan(M),
+    derived on the card; the grid, device_pass_blocks(L), covers it for
+    any M <= L.'''
+    if kill is None:
+        kill = torch.zeros(act.numel(), dtype=torch.bool, device=hs.device)
+    if hs.device.type == 'cpu':
+        return qcp_kill_dev_plain(hs, act, end, m, k, thr, alive, kill)
+    act, end, L = _checked(hs, act, end, None)
+    m = m.to(device=hs.device, dtype=torch.int32).contiguous()
+    if m.numel() != 1:
+        raise ValueError(f'm must hold one count, got {m.numel()}')
+    for name, t, size in (('alive', alive, hs.shape[0]), ('kill', kill, L)):
+        if t.device != hs.device or t.dtype != torch.bool or \
+                t.numel() != size or not t.is_contiguous():
+            raise ValueError(f'{name} must be a contiguous bool tensor of '
+                             f'{size} elements on {hs.device}: it is written '
+                             f'in place')
+    if not (k == int(k) >= 1):
+        raise ValueError(f'k must be a whole number >= 1, got {k}')
+    _, c_thr = _SYMBOL[hs.dtype]
+    KERNEL.launch(_DEV_SYMBOL[hs.dtype], ptr(hs), hs.shape[1], ptr(act),
+                  ptr(end), ptr(m), ctypes.c_longlong(int(k)),
+                  c_thr(float(thr)), PLAN_WARPS, BUDGET_STEPS,
+                  device_pass_blocks(L), ptr(kill), ptr(alive), stream_of(hs),
+                  device=hs.device)
     return kill
 
 

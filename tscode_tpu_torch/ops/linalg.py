@@ -130,13 +130,14 @@ def rotation_matrix_from_vectors(vec1, vec2, eps=1e-12):
         torch.stack([-v[..., 1], v[..., 0], zeros], dim=-1),
     ], dim=-2)
 
-    eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(kmat.shape)
+    # built on the device, with no copy from the host, so that a CUDA
+    # graph can capture this function (the headline program)
+    eye3 = torch.eye(3, dtype=v.dtype, device=v.device)
+    eye = eye3.expand(kmat.shape)
     factor = (1 - c) / torch.clamp(s2, min=eps)
     general = eye + kmat + (kmat @ kmat) * factor[..., None, None]
 
-    ex = torch.tensor([1., 0., 0.], dtype=v.dtype, device=v.device)
-    ey = torch.tensor([0., 1., 0.], dtype=v.dtype, device=v.device)
-    helper = torch.where(torch.abs(a[..., :1]) < 0.9, ex, ey)
+    helper = torch.where(torch.abs(a[..., :1]) < 0.9, eye3[0], eye3[1])
     perp = normalize(torch.linalg.cross(a, helper, dim=-1))
     antiparallel = rot_mat_from_pointer(
         perp, torch.full(v.shape[:-1], 180.0, dtype=v.dtype,

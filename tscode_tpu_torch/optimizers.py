@@ -14,8 +14,10 @@ On the CPU the steps run one after the other as they are written
 captured once per problem shape in a CUDA graph and replayed
 (`fire_run_graph`): a step is some two hundred small launches, and a
 relaxation of one conformer is bound by their enqueue time otherwise.
-`graph_loop` captures and keeps such loop bodies; the dimer step
-(saddle.py) and the NEB band step (neb.py) run through it too.
+`capture.graph_loop` captures and keeps such loop bodies; the dimer
+step (saddle.py), the NEB band step (neb.py), the prune schedule
+(ops/rmsd_prune.py) and the pipeline's program (pipeline.py) run through
+it too.
 
 `fire_minimize_batch_sharded` relaxes one contiguous slice of the batch
 on each device of a mesh (parallel/sharding.py): the FIRE state and the
@@ -23,14 +25,11 @@ stop rule are per structure, so no collective is needed and the result
 equals the unsharded one.
 '''
 
-from collections import OrderedDict
-import types
-
 import numpy as np
 import torch
 
-from tscode_tpu_torch.backend import span, traced
-from tscode_tpu_torch.ops.kernels._build import device_guard
+from tscode_tpu_torch.backend import traced
+from tscode_tpu_torch.capture import graph_loop, map_tensors
 
 # FIRE hyperparameters (standard values)
 _ALPHA0 = 0.1
@@ -41,8 +40,6 @@ _N_MIN = 5
 _DT_MAX_FACTOR = 10.0
 # the largest displacement of an atom in one step, A
 _MAX_DISP = 0.2
-# captured steps kept, least recently used first out
-GRAPH_CACHE = 8
 
 
 def spring_energy(coords, pairs, targets, k=5.0):
@@ -142,125 +139,6 @@ def fire_run_eager(coords, energy_fn, n_steps, dt0, fmax, freeze_mask,
     return state
 
 
-def _map_tensors(tree, fn):
-    '''`tree` (a tensor, a tuple or list of trees, or anything else)
-    with fn applied to its tensors.'''
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, (tuple, list)):
-        return tuple(_map_tensors(t, fn) for t in tree)
-    return tree
-
-
-def _leaves(tree):
-    '''The leaves of `tree`, tensors or not, in order.'''
-    if isinstance(tree, (tuple, list)):
-        return [x for t in tree for x in _leaves(t)]
-    return [tree]
-
-
-def _tensors(tree):
-    return [x for x in _leaves(tree) if isinstance(x, torch.Tensor)]
-
-
-class GraphLoop:
-    '''A loop body `body(state, args) -> state` (state a tuple of
-    tensors, args a tree of tensors and constants; the new state has the
-    old one's shapes and dtypes) captured once in a CUDA graph over
-    tensors of its own. run() copies a problem of the captured shapes
-    in, replays the body n_steps times and returns the state. The body
-    is kept as long as its graph, and with it whatever its closure
-    holds.'''
-
-    def __init__(self, body, state, args):
-        self.body = body
-        self.state = tuple(s.clone() for s in state)
-        self.args = _map_tensors(args, torch.clone)
-        self.device = self.state[0].device
-        # the function that made the body, which names the graph's spans
-        # in the --trace profile (e.g. GraphLoop.run:fire_run_graph)
-        self.maker = body.__qualname__.split('.<locals>')[0]
-
-        def step():
-            for old, new in zip(self.state, body(self.state, self.args)):
-                old.copy_(new)
-
-        # capture on the state's card (the current device may be another
-        # one), warming up on a side stream, as graph capture asks
-        with span(f'GraphLoop.capture:{self.maker}'), \
-                device_guard(self.device):
-            side = torch.cuda.Stream(device=self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    step()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                step()
-
-    def run(self, state, args, n_steps):
-        with span(f'GraphLoop.run:{self.maker}'), device_guard(self.device):
-            for own, new in zip(_tensors(self.args), _tensors(args)):
-                own.copy_(new)
-            for own, new in zip(self.state, state):
-                own.copy_(new)
-            for _ in range(n_steps):
-                self.graph.replay()
-            return tuple(s.clone() for s in self.state)
-
-
-_graphs = OrderedDict()
-
-
-def _signature(t):
-    return (tuple(t.shape), t.dtype)
-
-
-def body_key(value):
-    '''What a loop body computes, as a key of its captured graph: a
-    function as its code, its defaults and, recursively, the values its
-    closure holds (so the bodies that one factory makes on equal
-    constants share a graph); a tuple or list item by item; anything
-    else as itself. A body reads tensors only through its state and
-    args: a graph replays the addresses it captured, so a tensor that a
-    closure or a default holds would be read from wherever its memory
-    has gone once the caller lets it go, and a new value of it would
-    never reach the graph. Such a body raises TypeError.'''
-    if isinstance(value, torch.Tensor):
-        raise TypeError(
-            'a captured loop body reads tensors through its state and '
-            'args only, not through its closure or defaults')
-    if isinstance(value, (tuple, list)):
-        return tuple(body_key(x) for x in value)
-    if isinstance(value, types.FunctionType):
-        return (value.__code__, body_key(value.__defaults__ or ()),
-                tuple(body_key(c.cell_contents)
-                      for c in value.__closure__ or ()))
-    return value
-
-
-def graph_loop(body, state, args, n_steps):
-    '''The state after n_steps calls of body(state, args), replayed
-    from a CUDA graph. The body reads tensors through state and args
-    only; its closure holds constants (numbers, flags, functions). A
-    graph is captured for each (body_key(body), device, shapes and
-    dtypes of the state and of the tensors of args, the leaves of args
-    that are no tensors, which the capture holds as constants) and kept
-    for later calls.'''
-    full = (body_key(body), state[0].device,
-            tuple(_signature(s) for s in state),
-            tuple(_signature(x) if isinstance(x, torch.Tensor) else x
-                  for x in _leaves(args)))
-    graph = _graphs.pop(full, None)
-    if graph is None:
-        graph = GraphLoop(body, state, args)
-        while len(_graphs) >= GRAPH_CACHE:
-            _graphs.popitem(last=False)
-    _graphs[full] = graph
-    return graph.run(state, args, n_steps)
-
-
 def fire_run_graph(coords, energy_fn, n_steps, dt0, fmax, freeze_mask,
                    energy_args):
     '''fire_run_eager on a CUDA device with the step (forces by
@@ -320,7 +198,7 @@ def fire_minimize_batch_sharded(coords, energy_fn, mesh, n_steps=500,
     from tscode_tpu_torch.parallel.sharding import gather, shard_rows
     parts = []
     for dev, rows in shard_rows(coords, mesh):
-        args = _map_tensors(energy_args, lambda t: t.to(dev))
+        args = map_tensors(energy_args, lambda t: t.to(dev))
         parts.append(fire_minimize_batch(rows.to(dev), energy_fn,
                                          n_steps=n_steps, dt0=dt0,
                                          fmax=fmax, energy_args=args))

@@ -13,7 +13,7 @@ The finite-difference action with dr = 1e-3 cancels about three digits,
 so the dimer runs in float64 on the run's device. On a CUDA device one
 dimer step (18 Hessian actions, each the forces of two displaced copies
 in one autograd pass, and a force) is captured in a CUDA graph and
-replayed n_steps times with no host sync (`optimizers.graph_loop`); on
+replayed n_steps times with no host sync (`capture.graph_loop`); on
 the CPU the steps run op by op and stop once `done` has latched, from
 where JAX's loop leaves the coordinates as they are.
 '''
@@ -22,8 +22,9 @@ import numpy as np
 import torch
 
 from tscode_tpu_torch.backend import traced
+from tscode_tpu_torch.capture import graph_loop
 from tscode_tpu_torch.ff import build_ff_params, ff_energy, params_to_device
-from tscode_tpu_torch.optimizers import forces, graph_loop
+from tscode_tpu_torch.optimizers import forces
 
 
 def _dimer_step(energy_fn, n_rot, dr, step_size, fmax):
