@@ -35,8 +35,11 @@ chelotropic input at 62 conformers, and the trimolecular input with
 RIGID at 64 conformers of HCOOH (the chained direction adjustment, the
 clash kernel on the pair list of three fragments). Phases 13 to 15 run
 the bending routes: the force field's energy and gradient and batched
-FIRE on the card against the CPU (and the step's seconds, launches and
-the device's busy share, replayed from a CUDA graph and queued op by op);
+FIRE on the card against the CPU (one launch of the force field's FIRE
+kernel, csrc/ff_fire.cu, held against its plain twin and the graph path,
+timed and bounded at the whole batch and at one structure; the graph
+path's step seconds, launches and the device's busy share, replayed and
+queued op by op);
 bench_suite's trimolecular input as written (non-rigid: molecules are
 bent where their pivots close no triangle) through the CLI, float64 (the
 JAX x64 counts and bends; bent coordinates against the CPU) and float32;
@@ -75,9 +78,11 @@ on short routes of the earlier phases (sn2_string, the non-rigid
 chelotropic input, REFINE on da_cyclical_xl's output), each against its
 untraced run (the same counts and frames): every launch of K1, K2 and K3
 is found in the trace, under its kernel's name and inside its launch
-span, and each stage is a span; then a bend's FIRE graph is captured and
-replayed under the same trace, its capture and replay loop spans of
-their own.
+span, and each stage is a span; then a bend's FIRE call, one ff_fire
+launch found the same way, and a dimer graph captured and replayed under
+the same trace, its capture and replay loop spans of their own. Every
+FIRE call of the force field's energies on the card launches ff_fire
+once (FireCalls), in every phase that runs one.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
@@ -317,7 +322,16 @@ TRACE_KERNELS = {
     'qcp_kill_f64': ('qcp_kill_warp_kernel', 'double'),
     'qcp_kill_dev_f32': ('qcp_kill_warp_kernel', 'float'),
     'qcp_kill_dev_f64': ('qcp_kill_warp_kernel', 'double'),
+    'ff_fire_f32': ('ff_fire_kernel', 'float'),
+    'ff_fire_f64': ('ff_fire_kernel', 'double'),
 }
+# phase 22: dimer steps replayed under the trace (the captured graph's
+# check; a step is ~2,600 kernels)
+TRACE_DIMER_STEPS = 20
+# the force field's FIRE kernel: operations of one evaluation of each
+# term (the function's work counts each term once a step, whatever the
+# kernel recomputes) and of the FIRE update of one atom, for its bound
+FF_TERM_FLOPS = {'pair': 20, 'angle': 60, 'dihedral': 110, 'atom': 60}
 TRACE_DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 TRACE_TOP = 10             # device operations listed per traced run
 
@@ -374,8 +388,8 @@ def phase_env():
 def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
-    from tscode_tpu_torch.ops.kernels import clash, qcp
-    libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL)
+    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp
+    libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1402,6 +1416,89 @@ def phase_main_f32(card, mols):
     ]
 
 
+class FireCalls:
+    '''While open: the fire_minimize_batch calls (the name in optimizers
+    and the names bending, scans and neb imported) on a non-empty CUDA
+    batch, by whether the energy registers force-field terms
+    (`fire_terms`), and the CPU calls; the graph runs (fire_run_graph)
+    by the same split; the force field's FIRE kernel's launches (its
+    counts set to 0 on entry). record() gives them.'''
+
+    MODULES = ('optimizers', 'bending', 'scans', 'neb')
+
+    def __enter__(self):
+        import importlib
+        from tscode_tpu_torch import optimizers
+        from tscode_tpu_torch.ops.kernels import ff_fire
+        self.calls = {'registered': 0, 'other': 0, 'cpu': 0}
+        self.graph = {'registered': 0, 'other': 0}
+        self.undo = []
+        fire, graph = optimizers.fire_minimize_batch, optimizers.fire_run_graph
+
+        def kind(energy_fn):
+            return 'registered' if hasattr(energy_fn, 'fire_terms') \
+                else 'other'
+
+        def fire_spy(coords, energy_fn, *args, **kw):
+            if not coords.is_cuda:
+                self.calls['cpu'] += 1
+            elif coords.shape[0]:
+                self.calls[kind(energy_fn)] += 1
+            return fire(coords, energy_fn, *args, **kw)
+
+        def graph_spy(coords, energy_fn, *args):
+            self.graph[kind(energy_fn)] += 1
+            return graph(coords, energy_fn, *args)
+
+        for name in self.MODULES:
+            mod = importlib.import_module(f'tscode_tpu_torch.{name}')
+            self.undo.append((mod, 'fire_minimize_batch', fire))
+            mod.fire_minimize_batch = fire_spy
+        self.undo.append((optimizers, 'fire_run_graph', graph))
+        optimizers.fire_run_graph = graph_spy
+        ff_fire.KERNEL.reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from tscode_tpu_torch.ops.kernels import ff_fire
+        self.launches = ff_fire.KERNEL.launches
+        for mod, name, fn in reversed(self.undo):
+            setattr(mod, name, fn)
+
+    def record(self):
+        return {'ff_fire_launches': self.launches, 'calls': dict(self.calls),
+                'graph_runs': dict(self.graph)}
+
+
+# the force field's FIRE kernel's launches on the main path, by phase
+FIRE_LAUNCHES = {}
+
+
+def count_fire(phase, tag, rec, launched=True):
+    '''check_fire, and the launches added to FIRE_LAUNCHES[phase];
+    prints them. Returns the launches.'''
+    n = check_fire(tag, rec, launched)
+    FIRE_LAUNCHES[phase] = FIRE_LAUNCHES.get(phase, 0) + n
+    print(f'[{phase} ff_fire] {tag}: {n} launches of the force field\'s '
+          f'FIRE kernel for {rec["calls"]["registered"]} FIRE calls on the '
+          f'card; graph runs {rec["graph_runs"]}')
+    return n
+
+
+def check_fire(tag, rec, launched=True):
+    '''Every FIRE call of a registered energy on the card launched the
+    force field's kernel once, none replayed a graph; with `launched`,
+    at least one did. Returns the kernel's launches.'''
+    n = rec['ff_fire_launches']
+    check(n == rec['calls']['registered'] and
+          rec['graph_runs']['registered'] == 0 and (n > 0 or not launched),
+          f'{tag}: ff_fire launched {n} times for '
+          f'{rec["calls"]["registered"]} FIRE calls of the force field\'s '
+          f'energies, {rec["graph_runs"]["registered"]} graph runs of them '
+          f'(expected one launch a call, no graph)')
+    return n
+
+
 def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     '''One run of the port's CLI on `inp` in `dtype`, its stdout kept in
     a file; the working directory is restored afterwards. The Embedder
@@ -1414,14 +1511,15 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     `compenetration_mask_kernel`, as `clash_entry_launches`, and what
     the compenetration stage gave K2's entry, one (poses, pair mask,
     thresh, max_clashes) per call, as `k2_calls`, and each library's
-    launches per exported entry as `kernel_entries`. `args` go to the
-    CLI after the others (e.g. --trace DIR).'''
+    launches per exported entry as `kernel_entries`, and the run's FIRE
+    calls and the force field's FIRE kernel's launches (FireCalls) as
+    `fire`. `args` go to the CLI after the others (e.g. --trace DIR).'''
     import contextlib
     import os
     from tscode_tpu_torch import embedder
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
-    from tscode_tpu_torch.ops.kernels import clash, qcp
+    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp
     device = device or DEV
     stamp = f'smoke_{device}_{dtype}'
     cwd = os.getcwd()
@@ -1444,7 +1542,7 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
-                contextlib.redirect_stdout(out):
+                contextlib.redirect_stdout(out), FireCalls() as fire:
             rc = cli([inp, '--device', device, '--dtype', dtype, '-n',
                       stamp, *args])
     finally:
@@ -1460,7 +1558,9 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     report['clash_entry_launches'] = entries
     report['k2_calls'] = k2_calls
     report['kernel_entries'] = {k.name: dict(k.entry_launches)
-                                for k in (clash.KERNEL, qcp.KERNEL)}
+                                for k in (clash.KERNEL, qcp.KERNEL,
+                                          ff_fire.KERNEL)}
+    report['fire'] = fire.record()
     frames = read_xyz(os.path.join(
         tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
     return report, np.asarray(frames), launches, secs
@@ -2600,22 +2700,126 @@ def fire_timing(card, what, x, params, profile, steps=FIRE_TIMED_STEPS):
     return rec
 
 
+def ff_fire_bound(x, params, steps):
+    '''(ms, 'operations' or 'bytes'): the least time of the FIRE kernel's
+    function on the batch x (B, N, 3) under the force field `params`,
+    the larger of its bytes (coordinates read and written once, the
+    flags and counts written, the tables read once) over the memory rate
+    and its operations (each term once and each atom's update a force
+    evaluation, FF_TERM_FLOPS, times the evaluations `steps` this run's
+    structures took) over the card's peak for the type.'''
+    nb, na, npairs, nd = (int(params[k].shape[0]) for k in (0, 2, 4, 6))
+    per = FF_TERM_FLOPS['pair'] * (nb + npairs) + \
+        FF_TERM_FLOPS['angle'] * na + FF_TERM_FLOPS['dihedral'] * nd + \
+        FF_TERM_FLOPS['atom'] * x.shape[1]
+    ops_ms = per * int(steps.sum()) / \
+        PEAK_FLOPS[str(x.dtype).split('.')[-1]] * 1e3
+    nbytes = 2 * x.numel() * x.element_size() + 5 * x.shape[0] + \
+        sum(t.numel() * t.element_size() for t in params)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms \
+        else (bytes_ms, 'bytes')
+
+
+def fire_kernel_record(card, what, x, params, n_steps):
+    '''The force field's FIRE kernel on the batch x (ff_fire.launch,
+    n_steps) against its plain twin on the card and against the graph
+    path (fire_run_graph) on the same call: float64 within FIRE_ATOL of
+    both with the same rows stopped (and the plain twin's force
+    evaluations); float32 as phase 13 holds fire_minimize_batch (finite,
+    no energy rises, stopped rows under fmax), its distance to the two
+    printed. Timed: the kernel with device_ms, the plain twin and the
+    graph path with cuda_ms; bounded (ff_fire_bound). Prints one line;
+    returns (the record, the force evaluations of each structure).'''
+    import torch
+    from tscode_tpu_torch import optimizers as opt
+    from tscode_tpu_torch.ff import FireTerms, ff_energy, incidence
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    terms = FireTerms(params)
+    name = str(x.dtype).split('.')[-1]
+    c, done, steps = ff_fire.launch(x, terms, n_steps)
+    ca, da, sa = ff_fire.launch(x, terms, n_steps, staged=False)
+    cp, dp, sp = ff_fire.ff_fire_plain(x, terms, n_steps)
+    graph = opt.fire_run_graph(x, ff_energy, n_steps, 0.05, 0.05, None,
+                               (params,))
+    plain_err = float((c - cp).abs().max())
+    graph_err = float((c - graph[0]).abs().max())
+    atom_err = float((c - ca).abs().max())
+    same = [int((done != d).sum()) for d in (dp, graph[5], da)]
+    if x.dtype == torch.float64:
+        check(plain_err <= FIRE_ATOL and graph_err <= FIRE_ATOL and
+              atom_err <= FIRE_ATOL and same == [0, 0, 0] and
+              torch.equal(steps, sp) and torch.equal(steps, sa),
+              f'ff_fire {what} float64: {plain_err:.2e} A from its plain '
+              f'twin, {graph_err:.2e} A from the graph path, {atom_err:.2e} '
+              f'A from the per-atom form, stop flags unlike theirs in '
+              f'{same} rows')
+    else:
+        e0, e1 = ff_energy(x, params), ff_energy(c, params)
+        f = ff_fire.ff_forces_plain(c, terms)
+        fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
+        check(bool(torch.isfinite(c).all()) and
+              bool((e1 <= e0 + 1e-4 * (1 + e0.abs())).all()) and
+              bool((fmax[done] < 0.05 + 1e-4).all()),
+              f'ff_fire {what} float32: an energy rose or a stopped row '
+              f'has force {float(fmax[done].max()) if done.any() else 0}')
+    bound, by = ff_fire_bound(x, params, steps)
+    _, codes, _ = incidence(params, x.shape[1])
+    plan = ff_fire.launch_plan(x.shape[1], sum(
+        int(params[k].shape[0]) for k in (0, 2, 4, 6)), codes.numel(),
+        x.element_size())
+    rec = {'what': what, 'rows': int(x.shape[0]), 'atoms': int(x.shape[1]),
+           'dtype': name, 'n_steps': n_steps, 'plan': list(plan),
+           'force_evaluations': int(steps.sum()),
+           'mean_steps': float(steps.float().mean()),
+           'stopped': int(done.sum()), 'plain_diff_A': plain_err,
+           'graph_diff_A': graph_err, 'per_atom_diff_A': atom_err,
+           'flags_unlike_plain_graph_per_atom': same,
+           'ms': device_ms(lambda: ff_fire.launch(x, terms, n_steps),
+                           reps=5),
+           'per_atom_ms': device_ms(lambda: ff_fire.launch(
+               x, terms, n_steps, staged=False), reps=5),
+           'plain_ms': cuda_ms(lambda: ff_fire.ff_fire_plain(
+               x, terms, n_steps), reps=1),
+           'graph_ms': cuda_ms(lambda: opt.fire_run_graph(
+               x, ff_energy, n_steps, 0.05, 0.05, None, (params,)), reps=1),
+           'bound_ms': bound, 'bound_by': by}
+    print(f'[13 ff_fire] {what}, {rec["rows"]} x {rec["atoms"]} atoms, '
+          f'{name}, {n_steps} steps ({rec["mean_steps"]:.1f} force '
+          f'evaluations a structure, {rec["stopped"]} stopped): kernel '
+          f'{rec["ms"]:.4f} ms (plan {plan}; the per-atom form '
+          f'{rec["per_atom_ms"]:.4f} ms), plain twin {rec["plain_ms"]:.4f} '
+          f'ms, graph path {rec["graph_ms"]:.4f} ms, bound {bound:.6f} ms '
+          f'({by}); {plain_err:.2e} A from the plain twin, {graph_err:.2e} A '
+          f'from the graph path and {atom_err:.2e} A from the per-atom form, '
+          f'stop flags unlike theirs in {same} rows [{card}]')
+    return rec, steps
+
+
 def phase_ff_fire(card):
     '''Phase 13: the force field and FIRE on the card. (a) ff_energy and
     its autograd gradient on FF_STRUCTS jittered structures of the merged
     three-molecule topology, card against CPU in float64. (b)
     fire_minimize_batch on phase 12's survivors for FIRE_STEPS steps,
-    float64 and float32: no energy rises, stopped rows have their largest
-    atomic force under fmax, and the float64 coordinates of
-    FIRE_CPU_ROWS rows equal the CPU's. Then the step's times, at the
-    whole batch and at one structure (a bend's shape). Returns the
-    record.'''
+    float64 and float32 (one launch of the force field's FIRE kernel
+    each): no energy rises, stopped rows have their largest atomic force
+    under fmax, and the float64 coordinates of FIRE_CPU_ROWS rows equal
+    the CPU's. (c) The kernel against its plain twin and the graph path,
+    timed and bounded, at the whole batch (FIRE_STEPS) and at one
+    structure (a bend's call, BEND_FIRE_STEPS, on the survivor whose
+    relaxation took the batch's median count of steps), in both types
+    (fire_kernel_record). Then the graph path's step times, at the whole
+    batch and at one structure. Returns the record; its `kernel` holds
+    the float64 kernel records and `launches` the kernel's launches by
+    the fire_minimize_batch calls.'''
     import torch
     from tscode_tpu_torch import optimizers as opt
+    from tscode_tpu_torch.bending import BEND_FIRE_STEPS
     from tscode_tpu_torch.ff import ff_energy, params_to_device
     poses, ffp = trimol_topology()
     rng = np.random.default_rng(13)
-    rec = {'card': card, 'survivors': len(poses), 'timing': []}
+    rec = {'card': card, 'survivors': len(poses), 'timing': [],
+           'kernel': [], 'launches': 0}
 
     def energy_and_gradient(x, params):
         x = x.clone().requires_grad_(True)
@@ -2646,8 +2850,11 @@ def phase_ff_fire(card):
         params = params_to_device(ffp, DEV, dtype)
         x = torch.as_tensor(poses, dtype=dtype, device=DEV)
         e0 = ff_energy(x, params)
-        c, e1, done = opt.fire_minimize_batch(
-            x, ff_energy, n_steps=FIRE_STEPS, energy_args=(params,))
+        with FireCalls() as calls:
+            c, e1, done = opt.fire_minimize_batch(
+                x, ff_energy, n_steps=FIRE_STEPS, energy_args=(params,))
+            torch.cuda.synchronize()
+        rec['launches'] += count_fire('13', f'FIRE {name}', calls.record())
         f = opt.forces(c, ff_energy, (params,))
         fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
         slack = 1e-9 if dtype == torch.float64 else 1e-4
@@ -2678,6 +2885,15 @@ def phase_ff_fire(card):
         rec[f'fire_{name}'] = {
             'e0_mean': float(e0.mean()), 'e1_mean': float(e1.mean()),
             'stopped': int(done.sum())}
+        # one structure: a bend's call (BEND_FIRE_STEPS) on the survivor
+        # whose relaxation in the batch took the median count of steps
+        whole, steps = fire_kernel_record(card, 'whole batch', x, params,
+                                          FIRE_STEPS)
+        i = int(torch.argsort(steps)[len(steps) // 2])
+        one, _ = fire_kernel_record(card, f'one structure (row {i})',
+                                    x[i:i + 1], params, BEND_FIRE_STEPS)
+        rec['kernel' if dtype == torch.float64 else 'kernel_f32'] = \
+            [whole, one]
         profile = dtype == torch.float64     # the launches are the same
         rec['timing'].append(fire_timing(card, 'whole batch', x, params,
                                          profile))
@@ -2770,6 +2986,12 @@ def phase_bend_trimol_route(card):
             ces[dtype] = ce = report['cyclical_embed']
             entry = report['clash_entry_launches']
             k1 += entry['clash_ok']
+            count_fire('14', f'non-rigid trimolecular {dtype}',
+                       report['fire'])
+            check(report['fire']['calls']['registered'] ==
+                  ce['bend_relaxations'], f'non-rigid trimolecular '
+                  f'{dtype}: {report["fire"]} for '
+                  f'{ce["bend_relaxations"]} bend relaxations')
             check(entry == {'clash_ok': ce['chunks'],
                             'compenetration_mask_kernel': 0,
                             'torsion_clash_ok': 0,
@@ -2891,6 +3113,8 @@ def phase_small_bend_routes(card):
     report = card_against_cpu('15 chelotropic non-rigid',
                               'chelotropic_nonrigid', CHEL_BEND_CONFS, 12,
                               'chelotropic_embed')
+    count_fire('15', 'chelotropic non-rigid', report['fire'],
+               launched=report['chelotropic_embed']['bend_relaxations'] > 0)
     entry = report['clash_entry_launches']
     check(entry == {'clash_ok': report['chelotropic_embed']['chunks'],
                     'compenetration_mask_kernel': 1, 'torsion_clash_ok': 0,
@@ -2898,6 +3122,7 @@ def phase_small_bend_routes(card):
           f'non-rigid chelotropic: launches {entry}')
     mono = card_against_cpu('15 monomolecular', 'monomolecular', MONO_CONFS,
                             8, 'monomolecular_embed')
+    count_fire('15', 'monomolecular', mono['fire'])
     check(mono['monomolecular_embed']['bends'] > 0 and
           mono['clash_entry_launches'] ==
           {'clash_ok': 0, 'compenetration_mask_kernel': 0,
@@ -3021,6 +3246,7 @@ def phase_torsion_drive(card):
     cpu_err = same_searches('torsion_drive card against CPU', searches[:n],
                             searches[n:], 1e-9)
     me = report['monomolecular_embed']
+    count_fire('16', 'torsion_drive float64', report['fire'])
     got = {'searched': [r['conformers'] for r in report['csearch']],
            'stages': stage_counts(report), 'bends': me['bends'],
            'bend_reverts': me['bend_reverts'], 'bend_hits': me['bend_hits']}
@@ -3063,6 +3289,7 @@ def phase_torsion_drive(card):
           f'torsion_drive float32: stages {stage_counts(report32)}, frames '
           f'{frames32.shape}')
     entry32 = report32['clash_entry_launches']
+    count_fire('16', 'torsion_drive float32', report32['fire'])
     search_split('16 torsion_drive float32', report32, secs32, card)
     print(f'[16 torsion_drive] float64: searched {got["searched"]} '
           f'conformers within {err:.2e} A of the JAX x64 run\'s (card '
@@ -3376,8 +3603,9 @@ def phase_dihedral_scan(card):
         rmsd_prune.prune_conformers_rmsd = kept_pool
         qcp.KERNEL.reset_counts()
         try:
-            got = record(port_package(DEV), 'dihedral_scan', DSCAN_RING,
-                         os.path.join(tmp, 'card'))
+            with FireCalls() as fire:
+                got = record(port_package(DEV), 'dihedral_scan', DSCAN_RING,
+                             os.path.join(tmp, 'card'))
             launches = qcp.KERNEL.launches
             cpu = record(port_package('cpu'), 'dihedral_scan', DSCAN_RING,
                          os.path.join(tmp, 'cpu'))
@@ -3385,6 +3613,7 @@ def phase_dihedral_scan(card):
             rmsd_prune.prune_conformers_rmsd = prune
     err = held_records('dihedral_scan float64 against JAX x64', got, want)
     cpu_err = held_records('dihedral_scan card against CPU', got, cpu)
+    count_fire('18', 'dihedral_scan', fire.record())
     check(launches > 0 and len(pools) == 2 and len(pools[0]) > 1,
           f'dihedral_scan: K3 launched {launches} times on pools of '
           f'{[len(p) for p in pools]} maxima')
@@ -3440,12 +3669,14 @@ def phase_ff_operators(card):
     with tempfile.TemporaryDirectory(prefix='smoke_ffops_') as tmp:
         for d in ('card', 'cpu'):
             os.mkdir(os.path.join(tmp, d))
-        got = record(port_package(DEV), 'ff_operators', DSCAN_RING,
-                     os.path.join(tmp, 'card'), scan)
+        with FireCalls() as fire:
+            got = record(port_package(DEV), 'ff_operators', DSCAN_RING,
+                         os.path.join(tmp, 'card'), scan)
         cpu = record(port_package('cpu'), 'ff_operators', DSCAN_RING,
                      os.path.join(tmp, 'cpu'), scan)
     err = held_records('ff_operators float64 against JAX x64', got, want)
     cpu_err = held_records('ff_operators card against CPU', got, cpu)
+    count_fire('19', 'ff_operators', fire.record())
     times = got['times']
     rec = {'neb_s': times['run_neb'][0],
            'saddle_s': times['saddle_refine_structure'][0],
@@ -3837,8 +4068,9 @@ def mesh_screen_step(card, mesh, tmp):
 def mesh_fire(card, mesh):
     '''fire_minimize_batch_sharded on phase 12's survivors for FIRE_STEPS
     steps in float64 against the unsharded batch: coordinates within
-    MESH_ATOL, the same rows stopped; both timed (host clock, synced,
-    after a run that captures their graphs).'''
+    MESH_ATOL, the same rows stopped; the force field's FIRE kernel
+    launched once a call unsharded and once a shard sharded; both timed
+    (host clock, synced, after a warm-up run).'''
     import torch
     from tscode_tpu_torch import optimizers as opt
     from tscode_tpu_torch.ff import ff_energy, params_to_device
@@ -3846,16 +4078,22 @@ def mesh_fire(card, mesh):
     params = params_to_device(ffp, DEV, torch.float64)
     x = torch.as_tensor(poses, dtype=torch.float64, device=DEV)
     kw = dict(n_steps=FIRE_STEPS, energy_args=(params,))
-    secs = {}
+    secs, launches = {}, {}
     for name, run in (('unsharded', lambda: opt.fire_minimize_batch(
             x, ff_energy, **kw)), ('sharded', lambda: opt.
             fire_minimize_batch_sharded(x, ff_energy, mesh, **kw))):
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
+        with FireCalls() as fire:
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
         secs[name] = (time.perf_counter() - t0, out)
+        launches[name] = count_fire('21', f'mesh FIRE {name}',
+                                    fire.record())
+    check(launches == {'unsharded': 2, 'sharded': 2 * MESH_SHARDS},
+          f'[21 mesh] FIRE kernel launches {launches} in two calls each, '
+          f'expected 2 and {2 * MESH_SHARDS}')
     (c0, _, d0), (c1, _, d1) = secs['unsharded'][1], secs['sharded'][1]
     diff = float((c1 - c0).abs().max())
     check(diff <= MESH_ATOL and torch.equal(d0, d1), f'[21 mesh] FIRE: '
@@ -3863,7 +4101,7 @@ def mesh_fire(card, mesh):
           f'{int(d1.sum())} against {int(d0.sum())}')
     r = {'rows': len(x), 'steps': FIRE_STEPS, 'stopped': int(d1.sum()),
          'max_diff_A': diff, 'unsharded_s': secs['unsharded'][0],
-         'sharded_s': secs['sharded'][0]}
+         'sharded_s': secs['sharded'][0], 'ff_fire_launches': launches}
     print(f'[21 mesh] FIRE on {len(x)} survivors, {FIRE_STEPS} steps, '
           f'float64: sharded within {diff:.2e} A of unsharded, '
           f'{r["stopped"]} rows stopped in both; {r["unsharded_s"]:.4f} s '
@@ -3989,10 +4227,10 @@ def trace_kernels(tag, events, spans, api, report):
     records' clock, converted from the card's, ran up to 1.05 ms ahead
     of the host's spans in some runs while its launch call lay inside
     its span; `kernel_minus_launch_us` records that offset.) Each clash
-    launch span lies inside
-    the span of the wrapper that asked for it, as many wrapper spans as
-    that wrapper's launches. Returns ({entry: record}, {id of a kernel
-    event: its launch span}).'''
+    and ff_fire launch span lies inside the span of the wrapper that
+    asked for it, as many wrapper spans as that wrapper's launches.
+    Returns ({entry: record}, {id of a kernel event: its launch
+    span}).'''
     import re
     out, owner = {}, {}
     launched = {TRACE_KERNELS[e]
@@ -4030,13 +4268,15 @@ def trace_kernels(tag, events, spans, api, report):
                     'kernel': ks[0]['name'][:80],
                     'kernel_minus_launch_us': [min(lead), max(lead)]
                     if lead else None}
-    for wrapper, n in report['clash_entry_launches'].items():
+    wrappers = dict(report['clash_entry_launches'], ff_fire=sum(
+        report['kernel_entries'].get('ff_fire', {}).values()))
+    for wrapper, n in wrappers.items():
         ws = [s for s in spans if s['name'] == wrapper]
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
               f'{len(ws)} {wrapper} spans')
     for s in spans:
-        if s['name'].startswith('clash.'):
-            check(any(w['name'] in report['clash_entry_launches'] and
+        if s['name'].startswith(('clash.', 'ff_fire.')):
+            check(any(w['name'] in wrappers and
                       w['tid'] == s['tid'] and w['ts'] <= s['ts'] and
                       s['ts'] + s['dur'] <= w['ts'] + w['dur']
                       for w in spans), f'[22 trace] {tag}: launch span '
@@ -4147,7 +4387,7 @@ def traced_route(card, tag, tmp, inp):
     '''One input through the CLI in float64 untraced, then with --trace:
     the same stage counts and frames; the trace checked (trace_check).
     Returns (traced run's report, trace record, span counts, launches of
-    both runs: K1, K2, K3).'''
+    both runs: K1, K2, K3, torsion_backoff, ff_fire).'''
     trace_dir = os.path.join(tmp, 'trace')
     runs = [run_cli(tmp, inp, 'float64', args=args)
             for args in ((), ('--trace', trace_dir))]
@@ -4157,36 +4397,44 @@ def traced_route(card, tag, tmp, inp):
           f'stages {stage_counts(r1)} frames {f1.shape} against the '
           f'untraced run\'s {stage_counts(r0)} {f0.shape}, or other frames')
     rec, names = trace_check(card, tag, trace_file(trace_dir), r1, s1, s0)
-    launches = [0, 0, 0, 0]
+    launches = [0, 0, 0, 0, 0]
     for r, _, _, _ in runs:
         e = r['clash_entry_launches']
         launches[0] += e['clash_ok'] + e['torsion_clash_ok']
         launches[1] += e['compenetration_mask_kernel']
         launches[2] += sum(r['kernel_entries']['qcp_kill'].values())
         launches[3] += e['torsion_backoff']
+        launches[4] += check_fire(f'[22 trace] {tag}', r['fire'], False)
     return r1, rec, names, launches
 
 
 def traced_fire(card, tmp):
-    '''The FIRE graph under the CLI's trace (backend.DeviceTrace, as
+    """A bend's FIRE call under the CLI's trace (backend.DeviceTrace, as
     --trace opens it): one fire_minimize_batch of a bend's length
     (BEND_FIRE_STEPS steps) on the monomolecular input's MONO_CONFS
-    C2F2H4 conformers under the internal force field, float64, run with
-    the graph cache emptied untraced, then again emptied and traced (the
-    graph captured under the profiler), then traced no more (replayed
-    from that graph, not captured again): the same coordinates, energies
-    and stop flags bit for bit. In the trace: the capture and replay
-    spans, one cudaGraphLaunch a step inside the replay span, the same
-    kernels behind each.'''
+    C2F2H4 conformers under the internal force field, float64, untraced
+    then traced: one launch of the force field's FIRE kernel each, no
+    graph captured, the same coordinates, energies and stop flags bit for
+    bit; in the trace one ff_fire_kernel<double> event inside its launch
+    span ff_fire.ff_fire_f64 inside the wrapper's span ff_fire
+    (trace_check). Then the captured graph on a body that still runs
+    through capture.graph_loop, the dimer step (saddle._dimer_step) from
+    the first conformer for TRACE_DIMER_STEPS steps: run with the graph
+    cache emptied untraced, then again emptied and traced (the graph
+    captured under the profiler), then traced no more (replayed from that
+    graph, not captured again): the same state bit for bit; in the trace
+    the capture and replay spans, one cudaGraphLaunch a step inside the
+    replay span, the same kernels behind each. Returns the record."""
     import contextlib
     import torch
-    from tscode_tpu_torch import capture, optimizers
+    from tscode_tpu_torch import capture, optimizers, saddle
     from tscode_tpu_torch.backend import DeviceTrace
     from tscode_tpu_torch.bending import BEND_FIRE_STEPS
     from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
         params_to_device
     from tscode_tpu_torch.graphs import graphize
     from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.ops.kernels import ff_fire
     ens = read_xyz(os.path.join(os.path.dirname(
         suite_input('monomolecular', tmp, MONO_CONFS)), 'm1.xyz'))
     coords, atomnos = np.asarray(ens.atomcoords), np.asarray(ens.atomnos)
@@ -4194,30 +4442,70 @@ def traced_fire(card, tmp):
         coords[0], atomnos, graphize(coords[0], atomnos)), DEV,
         torch.float64)
     x = torch.as_tensor(coords, dtype=torch.float64, device=DEV)
-    trace_dir = os.path.join(tmp, 'trace')
+
+    fire_dir = os.path.join(tmp, 'fire')
+    runs, secs = [], []
+    for traced in (False, True):
+        ff_fire.KERNEL.reset_counts()
+        with CaptureCount() as cap, DeviceTrace(fire_dir, DEV) if traced \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            runs.append(optimizers.fire_minimize_batch(
+                x, ff_energy, n_steps=BEND_FIRE_STEPS, energy_args=(params,)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        check(cap.n == 0 and ff_fire.KERNEL.entry_launches ==
+              {'ff_fire_f32': 0, 'ff_fire_f64': 1}, f'[22 trace] FIRE: '
+              f'{cap.n} graphs captured, kernel launches '
+              f'{ff_fire.KERNEL.entry_launches} (traced: {traced})')
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          '[22 trace] FIRE: the traced run differs from the untraced one')
+    report = dict(NO_LAUNCHES, kernel_entries=dict(
+        NO_LAUNCHES['kernel_entries'],
+        ff_fire=dict(ff_fire.KERNEL.entry_launches)))
+    rec, names = trace_check(card, 'fire', trace_file(fire_dir), report,
+                             secs[1], secs[0])
+    check(names.get('fire_minimize_batch') == 1 and
+          names.get('ff_fire') == 1 and
+          not any(n.startswith('GraphLoop') for n in names) and
+          rec['kernels']['ff_fire.ff_fire_f64']['events'] == 1,
+          f'[22 trace] FIRE: spans {names}, kernels {rec["kernels"]}')
+    rec.update(steps=BEND_FIRE_STEPS, shape=list(x.shape))
+    print(f'[22 trace fire] {x.shape[0]} x {x.shape[1]} atoms, '
+          f'{BEND_FIRE_STEPS} steps, float64: one ff_fire launch, its '
+          f'ff_fire_kernel<double> event inside ff_fire.ff_fire_f64 inside '
+          f'ff_fire; no graph captured; the traced coordinates equal the '
+          f'untraced ones bit for bit ({secs[1]:.4f} / {secs[0]:.4f} s) '
+          f'[{card}]')
+
+    dimer_dir = os.path.join(tmp, 'dimer')
+    body = saddle._dimer_step(ff_energy, 12, 1e-3, 0.02, 0.05)
+    maker = '_dimer_step'
+    state = (x[0], saddle.dimer_start(x[0]),
+             torch.zeros((), dtype=torch.bool, device=DEV))
     runs, secs, caps = [], [], []
     for traced, fresh in ((False, True), (True, True), (False, False)):
         if fresh:
             capture._graphs.clear()
-        with CaptureCount() as cap, DeviceTrace(trace_dir, DEV) if traced \
+        with CaptureCount() as cap, DeviceTrace(dimer_dir, DEV) if traced \
                 else contextlib.nullcontext():
             t0 = time.perf_counter()
-            out = optimizers.fire_minimize_batch(
-                x, ff_energy, n_steps=BEND_FIRE_STEPS, energy_args=(params,))
+            out = capture.graph_loop(body, state, (params,),
+                                     TRACE_DIMER_STEPS)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         runs.append(out)
         caps.append(cap.n)
     check(caps == [1, 1, 0] and all(
         torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])),
-        f'[22 trace] FIRE: captures {caps} (untraced, traced, replayed), or '
-        f'the runs differ')
-    path = trace_file(trace_dir)
-    rec, names = trace_check(card, 'fire', path, NO_LAUNCHES, secs[1],
-                             secs[0])
+        f'[22 trace] dimer: captures {caps} (untraced, traced, replayed), '
+        f'or the runs differ')
+    path = trace_file(dimer_dir)
+    rec_d, names = trace_check(card, 'dimer', path, NO_LAUNCHES, secs[1],
+                               secs[0])
     events = trace_events(path)
     run = [e for e in events if e.get('cat') == 'user_annotation'
-           and e['name'] == 'GraphLoop.run:fire_run_graph']
+           and e['name'] == f'GraphLoop.run:{maker}']
     launches = {e['args']['correlation']: e for e in events
                 if e.get('name') == 'cudaGraphLaunch'}
     per = {}
@@ -4225,24 +4513,23 @@ def traced_fire(card, tmp):
         c = e.get('args', {}).get('correlation')
         if e.get('cat') == 'kernel' and c in launches:
             per[c] = per.get(c, 0) + 1
-    check(len(run) == 1 and names.get('fire_minimize_batch') == 1 and
-          names.get('GraphLoop.capture:fire_run_graph') == 1 and
-          len(launches) == BEND_FIRE_STEPS == len(per) and
+    check(len(run) == 1 and names.get(f'GraphLoop.capture:{maker}') == 1
+          and len(launches) == TRACE_DIMER_STEPS == len(per) and
           len(set(per.values())) == 1 and all(
               run[0]['ts'] <= a['ts'] <= run[0]['ts'] + run[0]['dur']
-              for a in launches.values()), f'[22 trace] FIRE: spans '
-          f'{names}, {len(launches)} graph launches for {BEND_FIRE_STEPS} '
+              for a in launches.values()), f'[22 trace] dimer: spans '
+          f'{names}, {len(launches)} graph launches for {TRACE_DIMER_STEPS} '
           f'steps, kernels a replay {sorted(set(per.values()))}')
-    rec.update(steps=BEND_FIRE_STEPS, shape=list(x.shape),
-               kernels_per_replay=next(iter(per.values())), captures=caps,
-               replayed_s=secs[2])
-    print(f'[22 trace fire] {x.shape[0]} x {x.shape[1]} atoms, '
-          f'{BEND_FIRE_STEPS} steps, float64: the graph captured under the '
-          f'profiler gives the untraced run\'s coordinates bit for bit and '
-          f'is replayed untraced without a new capture ({secs[2]:.4f} s); '
-          f'{BEND_FIRE_STEPS} cudaGraphLaunch inside '
-          f'GraphLoop.run:fire_run_graph, {rec["kernels_per_replay"]} '
-          f'kernels each [{card}]')
+    rec_d.update(steps=TRACE_DIMER_STEPS, atoms=int(x.shape[1]),
+                 kernels_per_replay=next(iter(per.values())), captures=caps,
+                 replayed_s=secs[2])
+    rec['dimer_graph'] = rec_d
+    print(f'[22 trace dimer] {x.shape[1]} atoms, {TRACE_DIMER_STEPS} dimer '
+          f'steps, float64: the graph captured under the profiler gives the '
+          f'untraced run\'s state bit for bit and is replayed untraced '
+          f'without a new capture ({secs[2]:.4f} s); {TRACE_DIMER_STEPS} '
+          f'cudaGraphLaunch inside GraphLoop.run:{maker}, '
+          f'{rec_d["kernels_per_replay"]} kernels each [{card}]')
     return rec
 
 
@@ -4340,14 +4627,15 @@ def phase_trace(card):
     output at CYC_CONFS, made as phase 8 makes it (K3's passes; the JAX
     x64 counts of phase 9); then a launch from a worker thread
     (traced_thread), the search's back-off (traced_backoff) and a bend's
-    FIRE graph under the trace (traced_fire). Returns (records, launches K1,
-    K2, K3 and torsion_backoff of the CLI runs).'''
+    FIRE call and a captured dimer graph under the trace (traced_fire).
+    Returns (records, launches K1, K2, K3, torsion_backoff and ff_fire of
+    the runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0, 0, 0, 0]
+    recs, launches = {}, [0, 0, 0, 0, 0]
 
     def add(n):
-        for i in range(4):
+        for i in range(5):
             launches[i] += n[i]
     with tempfile.TemporaryDirectory(prefix='smoke_trace_') as tmp:
         def route(tag, name, n_confs):
@@ -4375,7 +4663,7 @@ def phase_trace(card):
         os.makedirs(d)
         rep, _, _, secs = run_cli(d, suite_input('da_cyclical_xl', d,
                                                  CYC_CONFS), 'float64')
-        add((rep['clash_entry_launches']['clash_ok'], 0, 0, 0))
+        add((rep['clash_entry_launches']['clash_ok'], 0, 0, 0, 0))
         print(f'[22 trace] da_cyclical_xl at {CYC_CONFS}, REFINE\'s input, '
               f'untraced in {secs:.3f} s [{card}]')
         d2 = os.path.join(tmp, 'refine_xl')
@@ -4390,16 +4678,18 @@ def phase_trace(card):
               'prune_conformers_rmsd_device' in names, f'[22 trace] '
               f'refine_xl: {got} (JAX x64 {REFINE_XL_F64}), K3 {n[2]}, '
               f'spans {sorted(names)}')
-        # the small traces before the FIRE graph's (50 MB): a trace taken
-        # after a large one may lose device events
+        # the small traces before the dimer graph's: a trace taken after
+        # a large one may lose device events
         recs['thread'] = traced_thread(card, os.path.join(tmp, 'thread'))
         recs['backoff'] = traced_backoff(card, os.path.join(tmp, 'backoff'))
         d3 = os.path.join(tmp, 'fire')
         os.makedirs(d3)
         recs['fire'] = traced_fire(card, d3)
+        launches[4] += 2
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
-          f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}; every launch '
-          f'of a traced run found in its trace [{card}]')
+          f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, ff_fire '
+          f'{launches[4]}; every launch of a traced run found in its trace '
+          f'[{card}]')
     return recs, launches
 
 
@@ -4409,7 +4699,7 @@ def trace_process(card):
     phases 1 to 21 in this process lost device events (4,176 kernel
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
-    its (records, launches K1, K2, K3, torsion_backoff).'''
+    its (records, launches K1, K2, K3, torsion_backoff, ff_fire).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -4760,8 +5050,15 @@ def main():
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
-    trace, (k1_22, k2_22, k3_22, nb_22) = timed_phase('22 trace',
-                                                       trace_process, card)
+    trace, (k1_22, k2_22, k3_22, nb_22, ff_22) = timed_phase(
+        '22 trace', trace_process, card)
+    FIRE_LAUNCHES['22'] = ff_22
+    check(all(FIRE_LAUNCHES.get(p, 0) > 0 for p in
+              ('13', '14', '16', '18', '21', '22')), f'ff_fire launches by '
+          f'phase {FIRE_LAUNCHES}: a phase that runs FIRE on the force '
+          f'field did not launch it')
+    print(f'[ff_fire] launches of the force field\'s FIRE kernel by phase '
+          f'{FIRE_LAUNCHES} [{card}]')
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
         k1_16 + k1_17 + sharded['clash_ok'] + k1_22
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
@@ -4807,6 +5104,18 @@ def main():
         'bound_by': backoff['bound_by'], 'library_ms': None,
         'routes': {'torsion_drive': drive, 'csearch_string': backoff},
         'mesh': {'launches': sharded['torsion_backoff']}})
+    whole = fire['kernel'][0]
+    kernels.append({
+        'name': 'ff_fire', 'route': 'cuda',
+        'source': 'tscode_tpu_torch/csrc/ff_fire.cu',
+        'replaces': 'tscode_tpu/optimizers.py:41',
+        'launches': sum(FIRE_LAUNCHES.values()),
+        'max_abs_err': max(r['plain_diff_A'] for r in fire['kernel']),
+        'ms': whole['ms'], 'plain_ms': whole['plain_ms'],
+        'bound_ms': whole['bound_ms'], 'bound_by': whole['bound_by'],
+        'library_ms': None, 'graph_ms': whole['graph_ms'],
+        'launches_by_phase': dict(FIRE_LAUNCHES),
+        'records': fire['kernel'] + fire['kernel_f32']})
     check('jax' not in sys.modules, 'jax was imported')
     check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules

@@ -543,10 +543,12 @@ def test_ff_energy_and_gradient_on_card_match_cpu(cuda_device):
 
 def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
     '''1,024 jittered HCOOOH structures relaxed for 150 steps, float64:
-    the card (the step replayed from a CUDA graph) within 1e-6 A of the
-    CPU with the same rows stopped, the op-by-op loop on the card too;
-    a second call of the same shapes replays the kept graph.'''
+    the card (one launch of the force field's FIRE kernel) within 1e-6 A
+    of the CPU with the same rows stopped; the op-by-op loop and the
+    step replayed from a CUDA graph on the card too, a second graph run
+    of the same shapes replaying the kept graph.'''
     from tscode_tpu_torch import capture, ff, optimizers
+    from tscode_tpu_torch.ops.kernels import ff_fire
     mol = hcoooh()
     params = ff.build_ff_params(mol.atomcoords[0], mol.atomnos, mol.graph)
     rng = np.random.default_rng(42)
@@ -554,6 +556,7 @@ def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
     freeze = np.zeros(6, dtype=bool)
     freeze[0] = True
     runs = {}
+    launches = ff_fire.KERNEL.launches
     for device in ('cpu', cuda_device):
         p = ff.params_to_device(params, device, torch.float64)
         x = torch.as_tensor(X, device=device)
@@ -562,6 +565,7 @@ def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
             energy_args=(p,))
         e0 = ff.ff_energy(x, p)
         assert bool((runs[str(device)][1] <= e0 + 1e-9).all())
+    assert ff_fire.KERNEL.launches == launches + 1
     c_cpu, e_cpu, done_cpu = runs['cpu']
     c, e, done = runs[str(cuda_device)]
     assert c.is_cuda and float((c.cpu() - c_cpu).abs().max()) <= 1e-6
@@ -572,11 +576,111 @@ def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
     args = (x, ff.ff_energy, 150, 0.05, 0.05,
             torch.as_tensor(freeze, device=cuda_device), (p,))
     eager = optimizers.fire_run_eager(*args)
-    graphs = len(capture._graphs)
     graph = optimizers.fire_run_graph(*args)
+    graphs = len(capture._graphs)
+    again = optimizers.fire_run_graph(*args)
     assert len(capture._graphs) == graphs
-    for a, b in zip(eager, graph):
+    for a, b, r in zip(eager, graph, again):
         assert float((a.double() - b.double()).abs().max()) <= 1e-9
+        assert torch.equal(b, r)
+    assert float((graph[0] - c).abs().max()) <= 1e-6 and \
+        torch.equal(graph[5], done)
+
+
+def fire_kernel_case(device, shape, dtype):
+    '''(coords, FireTerms, the energy and its args) of a FIRE kernel
+    test: C2H4 with its E/Z dihedral under the bend's energy (bonds at
+    2,000, a spring on 0-4 with k a device tensor), one structure or a
+    batch of 2,000, jittered by 0.2 A.'''
+    from tscode_tpu_torch import bending, ff
+    from tscode_tpu_torch.molecule import Molecule
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    mol = Molecule(os.path.join(FIXTURE_DIR, 'C2H4.xyz'))
+    params = ff.params_to_device(ff.build_ff_params(
+        mol.atomcoords[0], mol.atomnos, mol.graph,
+        protect_double_bonds=True), device, dtype)
+    B = {'one': 1, 'batch': 2000}[shape]
+    rng = np.random.default_rng(43)
+    x = torch.as_tensor(mol.atomcoords[0] + rng.normal(size=(B, 6, 3)) * 0.2,
+                        dtype=dtype, device=device)
+    args = (params, torch.as_tensor([[0, 4]], device=device),
+            torch.as_tensor([2.0], dtype=dtype, device=device),
+            torch.tensor(80.0, dtype=dtype, device=device))
+    return x, bending._bend_energy.fire_terms(*args), \
+        bending._bend_energy, args
+
+
+FIRE_FREEZE = {'none': None, 'atoms': np.arange(6) == 1,
+               'rows': np.random.default_rng(7).random((2000, 6)) < 0.2}
+
+
+@pytest.mark.parametrize('freeze', list(FIRE_FREEZE))
+@pytest.mark.parametrize('shape', ['one', 'batch'])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_ff_fire_kernel_matches_plain(cuda_device, dtype, shape, freeze):
+    '''The force field's FIRE kernel against its plain twin on the card,
+    300 steps: float64 within 1e-6 A with the same rows stopped and the
+    same force evaluations; float32 as phase 13 holds it (no energy
+    rises, stopped rows under fmax, frozen atoms in place). Two
+    launches give the same bits; the per-atom form lies within 1e-9 A of
+    the staged one (float64) with the same stops.'''
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    x, terms, energy, args = fire_kernel_case(cuda_device, shape, dtype)
+    mask = FIRE_FREEZE[freeze]
+    if mask is not None and mask.ndim == 2:
+        mask = mask[:len(x)]
+    before = ff_fire.KERNEL.launches
+    c, done, steps = ff_fire.ff_fire(x, terms, 300, freeze_mask=mask)
+    c2, done2, steps2 = ff_fire.ff_fire(x, terms, 300, freeze_mask=mask)
+    assert ff_fire.KERNEL.launches == before + 2
+    assert torch.equal(c, c2) and torch.equal(done, done2) and \
+        torch.equal(steps, steps2)
+    c3, done3, steps3 = ff_fire.launch(x, terms, 300, freeze_mask=mask,
+                                       staged=False)
+    if dtype == torch.float64:
+        assert float((c - c3).abs().max()) <= 1e-9
+        assert torch.equal(done, done3) and torch.equal(steps, steps3)
+    assert c.is_cuda and bool(torch.isfinite(c).all())
+    if mask is not None:
+        frozen = torch.as_tensor(np.broadcast_to(mask, x.shape[:2]).copy(),
+                                 device=cuda_device)
+        assert torch.equal(c[frozen], x[frozen])
+    if dtype == torch.float64:
+        cp, dp, sp = ff_fire.ff_fire_plain(x, terms, 300, freeze_mask=mask)
+        assert float((c - cp).abs().max()) <= 1e-6
+        assert torch.equal(done, dp) and torch.equal(steps, sp)
+        assert shape == 'one' or int(done.sum()) > 0
+    else:
+        e0, e1 = energy(x, *args), energy(c, *args)
+        assert bool((e1 <= e0 + 1e-4 * (1 + e0.abs())).all())
+        # the stopped rows' largest force in float64 at the kernel's
+        # coordinates: under fmax but for float32's rounding of the bend's
+        # stiff bonds (k = 2,000 kcal/mol/A^2: 2 k d eps32 ~ 4e-4 a term)
+        _, terms64, _, _ = fire_kernel_case(cuda_device, shape,
+                                            torch.float64)
+        f = ff_fire.ff_forces_plain(c.double(), terms64, mask)
+        fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
+        assert bool((fmax[done] < 0.05 + 1e-3).all()), \
+            float(fmax[done].max())
+
+
+@pytest.mark.parametrize('shape', ['one', 'batch'])
+def test_ff_fire_kernel_matches_the_graph_path(cuda_device, shape):
+    '''fire_minimize_batch of the bend's energy on the card (the kernel,
+    one launch) against the same call's captured graph (fire_run_graph,
+    autograd forces), float64, 300 steps: within 1e-6 A, the same rows
+    stopped.'''
+    from tscode_tpu_torch import optimizers
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    x, _, energy, args = fire_kernel_case(cuda_device, shape, torch.float64)
+    before = ff_fire.KERNEL.launches
+    c, e, done = optimizers.fire_minimize_batch(x, energy, n_steps=300,
+                                                energy_args=args)
+    assert ff_fire.KERNEL.launches == before + 1
+    state = optimizers.fire_run_graph(x, energy, 300, 0.05, 0.05, None, args)
+    assert float((state[0] - c).abs().max()) <= 1e-6
+    assert torch.equal(state[5], done)
+    assert float((energy(state[0], *args) - e).abs().max()) <= 1e-6
 
 
 def test_bend_molecule_on_card_matches_cpu(cuda_device):
@@ -1041,9 +1145,10 @@ def test_optimisation_route_on_card_matches_cpu(cuda_device, tmp_path):
 
 def test_kernels_launch_on_their_tensors_card(cuda_device):
     '''K1, K2 and K3 on tensors placed on cuda:1 while cuda:0 is the
-    current device, against their plain twins; FIRE's captured graph
-    too. It needs two cards: the one-card machine that runs
-    chip_smoke.py skips it, so it is not verified there.'''
+    current device, against their plain twins; FIRE's captured graph and
+    the force field's FIRE kernel too. It needs two cards: the one-card
+    machine that runs chip_smoke.py skips it, so it is not verified
+    there.'''
     if torch.cuda.device_count() < 2:
         pytest.skip('needs two GPUs: the kernels must launch on the card '
                     'of their tensors, not on the current device')
@@ -1082,6 +1187,14 @@ def test_kernels_launch_on_their_tensors_card(cuda_device):
                                    energy_args=(center.cpu(),))
         assert got[0].device == dev1
         assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-9
+        # the force field's FIRE kernel
+        from tscode_tpu_torch.ops.kernels import ff_fire
+        x, terms, _, _ = fire_kernel_case(dev1, 'batch', torch.float64)
+        got = ff_fire.ff_fire(x, terms, 100)
+        want = ff_fire.ff_fire_plain(x, terms, 100)
+        assert got[0].device == dev1
+        assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        assert torch.equal(got[1], want[1])
         torch.cuda.synchronize(dev1)
 
 

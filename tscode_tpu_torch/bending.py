@@ -22,8 +22,8 @@ target); a hit returns the same Molecule object.
 import numpy as np
 import torch
 
-from tscode_tpu_torch.ff import (K_BOND, build_ff_params, ff_energy,
-                                 pair_distances, params_to_device)
+from tscode_tpu_torch.ff import (K_BOND, FireTerms, build_ff_params,
+                                 ff_energy, pair_distances, params_to_device)
 from tscode_tpu_torch.optimizers import (fire_band_init, fire_band_update,
                                          fire_minimize_batch, spring_energy)
 from tscode_tpu_torch.pivots import set_pivots
@@ -36,9 +36,9 @@ BEND_FMAX = 0.05
 
 
 def _bend_energy(c, params, pairs, targets, k):
-    '''FF + reactive-pair spring; a module-level function, so one
-    captured FIRE step serves every bend iteration and every molecule of
-    a topology's shape. k is a 0-dim tensor: the bend loop escalates it
+    '''FF + reactive-pair spring; a module-level function carrying the
+    FIRE kernel's terms (fire_terms), one for every bend iteration and
+    every molecule. k is a 0-dim tensor: the bend loop escalates it
     when progress stalls.
 
     Bonds are additionally stiffened to _BEND_BOND_K, so the deformation
@@ -50,6 +50,13 @@ def _bend_energy(c, params, pairs, targets, k):
         e = e + (_BEND_BOND_K - K_BOND) * torch.sum((d - bond_r0) ** 2,
                                                     dim=-1)
     return e
+
+
+# the terms of the force-field FIRE kernel: bonds at _BEND_BOND_K, the
+# reactive-pair spring with k on the device
+_bend_energy.fire_terms = lambda params, pairs, targets, k: FireTerms(
+    params, bond_k=_BEND_BOND_K, spring_pairs=pairs, spring_targets=targets,
+    spring_k=k)
 
 
 def _relax_with_gradient(coords, gradient_fn, pair, target, k=20.0,

@@ -28,6 +28,7 @@ K_ANGLE = 30.0      # kcal/mol/rad^2
 K_REP = 50.0        # kcal/mol at full overlap
 K_DIH = 30.0        # kcal/mol/rad^2 (double-bond E/Z protection)
 REP_SCALE = 0.85    # fraction of summed covalent radii where repulsion starts
+HALF_SPRING_ONSET = 2.5   # A: a half-spring pulls only beyond it
 
 
 @dataclass
@@ -184,6 +185,74 @@ def ff_energy(coords, params_arrays):
         e = e + K_DIH * torch.sum(delta ** 2, dim=-1)
 
     return e
+
+
+@dataclass
+class FireTerms:
+    '''The terms ops/kernels/ff_fire relaxes a batch on: the force field
+    of `params` (params_to_device's tuple of 6 or 8 tensors) with its
+    bond constant `bond_k`, harmonic springs spring_k (d - t)^2 on the
+    (C, 2) int64 pairs `spring_pairs` with targets `spring_targets`
+    (C,), and half-springs half_k max(d - HALF_SPRING_ONSET, 0)^2 on the
+    (H, 2) int64 pairs `half_pairs`. spring_k and half_k are numbers or
+    0-dim tensors on the tables' device (read there, never on the host).
+    Empty or missing spring tables are no terms. The per-atom incidence
+    of the force field's terms is `incidence(params, N)`, kept beside the
+    tables.'''
+    params: tuple
+    bond_k: float = K_BOND
+    spring_pairs: torch.Tensor = None
+    spring_targets: torch.Tensor = None
+    spring_k: object = 0.0
+    half_pairs: torch.Tensor = None
+    half_k: object = 0.0
+
+    def tables(self):
+        '''(bonds, bond_r0, angles, angle_t0, nb_pairs, nb_r0, dihedrals,
+        dihedral_t0), empty dihedral tables for a 6-table set.'''
+        p = self.params
+        if len(p) == 8:
+            return tuple(p)
+        return tuple(p) + (p[0].new_zeros((0, 4)), p[1].new_zeros(0))
+
+
+def incidence(params, n_atoms):
+    '''Each atom's force-field terms, as CSR on the tables' device:
+    offsets (n_atoms + 1,) int32 and codes (E,) int32 with code = 4 term
+    + role, the terms numbered bonds, angles, repulsion pairs, dihedrals
+    in table order, the role the atom's column in its term's row; an
+    atom's codes in increasing order; and positions (4 T,) int32, the
+    entry of each code (-1 for a role a term does not have). Built with
+    device ops (no host read) once per table set and atom count, and
+    kept on the tables' bonds tensor.'''
+    bonds = params[0]
+    kept = bonds.__dict__.setdefault('_fire_incidence', {})
+    key = (n_atoms, len(params))
+    if key not in kept:
+        dev = bonds.device
+        atoms, codes, base = [], [], 0
+        for table in params[0:len(params):2]:
+            n, width = table.shape
+            term = torch.arange(base, base + n, device=dev)
+            atoms.append(table.reshape(-1))
+            codes.append((4 * term[:, None] + torch.arange(
+                width, device=dev)).reshape(-1))
+            base += n
+        atoms, codes = torch.cat(atoms), torch.cat(codes)
+        order = torch.sort(atoms, stable=True)[1]
+        counts = torch.zeros(n_atoms + 1, dtype=torch.int64,
+                             device=dev).index_add_(
+            0, atoms + 1, torch.ones_like(atoms))
+        codes = codes[order].to(torch.int32)
+        pos = torch.full((4 * base,), -1, dtype=torch.int32, device=dev)
+        pos[codes.long()] = torch.arange(len(codes), dtype=torch.int32,
+                                         device=dev)
+        kept[key] = (torch.cumsum(counts, 0).to(torch.int32), codes, pos)
+    return kept[key]
+
+
+# ff_energy(coords, params) is FireTerms(params): the kernel's terms
+ff_energy.fire_terms = FireTerms
 
 
 def params_to_device(params, device, dtype):

@@ -7,10 +7,10 @@ The stages run the external calculators through calculators.dispatch;
 with no calculator chosen they raise the JAX package's InputError, so
 every pure-geometry route (NOOPT, BYPASS) runs without one.
 `adjust_spacings_batch` relaxes a batch of structures on the internal
-force field with batched FIRE, float64 on the run's device (one captured
-CUDA graph per phase on the card), sharded over the structures when a
-mesh is there for the batch (FIRE's state is per structure, so the
-result is the same).
+force field with batched FIRE, float64 on the run's device (one launch
+of the force field's FIRE kernel per phase on the card), sharded over
+the structures when a mesh is there for the batch (FIRE's state is per
+structure, so the result is the same).
 '''
 
 import functools
@@ -54,8 +54,8 @@ def _spacing_energy(coords, params, sp, st, ncip, k_spring, k_nci):
     '''The force field plus the springs on the pairings with a target
     and the half-springs (active beyond 2.5 A) on the non-covalent
     pairings: the objective of adjust_spacings_batch. Module-level, with
-    every table and constant in energy_args, so one captured FIRE step
-    serves each phase.'''
+    every table and constant in energy_args: one function, carrying the
+    FIRE kernel's terms (fire_terms), serves each phase.'''
     from tscode_tpu_torch.ff import ff_energy, pair_distances
     e = ff_energy(coords, params)
     if sp.shape[0]:
@@ -66,6 +66,17 @@ def _spacing_energy(coords, params, sp, st, ncip, k_spring, k_nci):
         e = e + k_nci * torch.sum(torch.clamp(dn - 2.5, min=0.0) ** 2,
                                   dim=-1)
     return e
+
+
+def _spacing_terms(params, sp, st, ncip, k_spring, k_nci):
+    '''_spacing_energy's terms for the force-field FIRE kernel: the
+    springs and the half-springs (onset ff.HALF_SPRING_ONSET = 2.5 A).'''
+    from tscode_tpu_torch.ff import FireTerms
+    return FireTerms(params, spring_pairs=sp, spring_targets=st,
+                     spring_k=k_spring, half_pairs=ncip, half_k=k_nci)
+
+
+_spacing_energy.fire_terms = _spacing_terms
 
 
 def adjust_spacings_batch(embedder, structures, atomnos):

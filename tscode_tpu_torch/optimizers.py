@@ -9,13 +9,21 @@ per-structure adaptive time steps, any differentiable energy function
 atoms. The loop runs a fixed number of steps, `done` is a mask on the
 device and nothing inside the loop waits for the device.
 
-On the CPU the steps run one after the other as they are written
-(`fire_run_eager`). On a CUDA device one step, forces included, is
-captured once per problem shape in a CUDA graph and replayed
-(`fire_run_graph`): a step is some two hundred small launches, and a
-relaxation of one conformer is bound by their enqueue time otherwise.
-`capture.graph_loop` captures and keeps such loop bodies; the dimer
-step (saddle.py), the NEB band step (neb.py), the prune schedule
+On a CUDA device an energy of the internal force field's family (one
+that carries `fire_terms(*energy_args) -> ff.FireTerms`: ff.ff_energy,
+bending._bend_energy, scans._ff_spring_energy,
+optimization._spacing_energy) is relaxed by one launch of the
+hand-written kernel ops/kernels/ff_fire, every step inside, its forces
+analytic: the counterpart of the JAX package's one jitted program. Any
+other energy (neb._idpp_energy, a caller's own function) takes the
+generic form, chosen by what the function is, not as a fallback: on the
+CPU the steps run one after the other as they are written
+(`fire_run_eager`, for every energy); on a CUDA device one step, forces
+included, is captured once per problem shape in a CUDA graph and
+replayed (`fire_run_graph`): a step is some two hundred small launches,
+and a relaxation of one conformer is bound by their enqueue time
+otherwise. `capture.graph_loop` captures and keeps such loop bodies; the
+dimer step (saddle.py), the NEB band step (neb.py), the prune schedule
 (ops/rmsd_prune.py) and the pipeline's program (pipeline.py) run through
 it too.
 
@@ -178,13 +186,25 @@ def fire_minimize_batch(coords, energy_fn, n_steps=500, dt0=0.05,
     value.
     freeze_mask: optional (N,) or (B, N) bool, True atoms do not move.
     Returns (coords, energies, converged (B,) bool), on coords' device.
+
+    On a CUDA device an energy_fn with a `fire_terms` attribute (the
+    force field's family) is relaxed in one launch of
+    ops/kernels/ff_fire.ff_fire on energy_fn.fire_terms(*energy_args);
+    the returned energies are energy_fn's at the result. Every other
+    energy, and every CPU run, takes fire_run.
     '''
-    state = fire_run(coords, energy_fn, n_steps, dt0, fmax, freeze_mask,
-                     energy_args)
-    c = state[0]
+    terms = getattr(energy_fn, 'fire_terms', None)
+    if terms is not None and coords.is_cuda:
+        from tscode_tpu_torch.ops.kernels.ff_fire import ff_fire
+        c, done, _ = ff_fire(coords, terms(*energy_args), n_steps, dt0,
+                             fmax, freeze_mask)
+    else:
+        state = fire_run(coords, energy_fn, n_steps, dt0, fmax,
+                         freeze_mask, energy_args)
+        c, done = state[0], state[5]
     with torch.no_grad():
         e = energy_fn(c, *energy_args)
-    return c, e, state[5]
+    return c, e, done
 
 
 def fire_minimize_batch_sharded(coords, energy_fn, mesh, n_steps=500,
@@ -192,7 +212,8 @@ def fire_minimize_batch_sharded(coords, energy_fn, mesh, n_steps=500,
     '''fire_minimize_batch with the batch cut into contiguous slices in
     mesh order, one on each device of `mesh` (energy_args copied to
     each), every slice queued before any result is read; on CUDA each
-    slice replays its own graph on its own card. The results are
+    slice launches the force field's kernel, or replays its own graph,
+    on its own card. The results are
     gathered, in order, on coords' device. freeze_mask is not taken:
     the ensemble callers do not use it (as in the JAX package).'''
     from tscode_tpu_torch.parallel.sharding import gather, shard_rows

@@ -4,9 +4,9 @@ scans (4 indices) (counterpart of tscode_tpu/scans.py).
 
 Each scan point is a constrained relaxation on the internal harmonic
 force field (graph-restrained), float64 on the run's device: batched
-FIRE on one structure, replayed from one captured CUDA graph for every
-point of a scan on the card (the tables, pairs, targets and freeze mask
-flow through energy_args). With a calculator chosen, each point is a
+FIRE on one structure, one launch of the force field's FIRE kernel a
+point on the card (the tables, pairs, targets and freeze mask flow
+through energy_args). With a calculator chosen, each point is a
 constrained optimisation on it (calculators.dispatch.optimize) and the
 sub-peak refinements run on its gradients (calculators.gradients: the
 host-loop dimer, the callback NEB).
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from tscode_tpu_torch.errors import InputError
-from tscode_tpu_torch.ff import ff_energy, molecule_params
+from tscode_tpu_torch.ff import FireTerms, ff_energy, molecule_params
 from tscode_tpu_torch.io_xyz import write_xyz
 from tscode_tpu_torch.ops.linalg import dihedral as dihedral_fn
 from tscode_tpu_torch.optimizers import fire_minimize_batch, spring_energy
@@ -31,8 +31,13 @@ from tscode_tpu_torch.utils import (get_scan_peak_index, pyplot,
 
 
 def _ff_spring_energy(c, p, prs, tgt):
-    # module-level, so one captured FIRE step serves the whole scan
+    # module-level, carrying the FIRE kernel's terms (fire_terms below)
     return ff_energy(c, p) + spring_energy(c, prs, tgt, k=50.0)
+
+
+# the terms of the force-field FIRE kernel
+_ff_spring_energy.fire_terms = lambda p, prs, tgt: FireTerms(
+    p, spring_pairs=prs, spring_targets=tgt, spring_k=50.0)
 
 
 def _measure(coords, quad, device):
