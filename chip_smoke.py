@@ -36,10 +36,12 @@ RIGID at 64 conformers of HCOOH (the chained direction adjustment, the
 clash kernel on the pair list of three fragments). Phases 13 to 15 run
 the bending routes: the force field's energy and gradient and batched
 FIRE on the card against the CPU (one launch of the force field's FIRE
-kernel, csrc/ff_fire.cu, held against its plain twin and the graph path,
-timed and bounded at the whole batch and at one structure; the graph
-path's step seconds, launches and the device's busy share, replayed and
-queued op by op);
+kernel, csrc/ff_fire.cu, held in each of its forms against its plain
+twin and the graph path, timed and bounded at the whole batch and at one
+structure; the forms' sweeps over the batch size and over chains of 24
+to 200 atoms behind the plan rule; a 2,500-atom structure in the large
+form; the graph path's step seconds,
+launches and the device's busy share, replayed and queued op by op);
 bench_suite's trimolecular input as written (non-rigid: molecules are
 bent where their pivots close no triangle) through the CLI, float64 (the
 JAX x64 counts and bends; bent coordinates against the CPU) and float32;
@@ -226,6 +228,21 @@ FIRE_STEPS = 200
 FIRE_TIMED_STEPS = 40      # steps per timing of the FIRE step
 FIRE_CPU_ROWS = 512        # rows also relaxed on the CPU, float64
 FIRE_ATOL = 1e-6           # A, card float64 against CPU float64
+# the FIRE kernel's sweep behind ff_fire.launch_plan's rule: the first B
+# of phase 12's survivors, each form, both types
+FIRE_SWEEP_ROWS = (1, 8, 64, 512, 1024, 2048, 4096, 8192, 24417)
+FIRE_SWEEP_STEPS = 100
+# and past the 15-atom topology: (atoms, structures) of chains of
+# suite_inputs.chain_ff (24: the warp form's eight a block in ~half an
+# SM's shared memory in float64; 32: the conformer search's; 74:
+# large_n's; 200: past the lone form's shared memory)
+FIRE_SIZE_CASES = ((24, 1), (24, 1024), (24, 8192), (32, 1), (32, 1024),
+                   (32, 8192), (74, 1), (74, 1024), (200, 1), (200, 1024))
+FIRE_AB_SLACK = 1.02       # the chosen form against the block form's time
+# a structure past the block form's shared memory (~2,410 atoms in
+# float64): the chain of suite_inputs.chain_ff, relaxed for a few steps
+FIRE_LARGE_N = 2500
+FIRE_LARGE_STEPS = 10
 # the non-rigid three-molecule route (phase 14): bench_suite's
 # trimolecular as written at its default of 16, CH3Cl + 4 conformers of
 # HCOOH twice
@@ -322,8 +339,10 @@ TRACE_KERNELS = {
     'qcp_kill_f64': ('qcp_kill_warp_kernel', 'double'),
     'qcp_kill_dev_f32': ('qcp_kill_warp_kernel', 'float'),
     'qcp_kill_dev_f64': ('qcp_kill_warp_kernel', 'double'),
-    'ff_fire_f32': ('ff_fire_kernel', 'float'),
-    'ff_fire_f64': ('ff_fire_kernel', 'double'),
+    # the FIRE kernel's forms: ff_fire_group_kernel (lone, warp),
+    # ff_fire_large_kernel
+    'ff_fire_f32': ('ff_fire_(?:group|large)_kernel', 'float'),
+    'ff_fire_f64': ('ff_fire_(?:group|large)_kernel', 'double'),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -389,7 +408,8 @@ def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
     from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp
-    libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL)
+    libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
+            ff_fire.BLOCK_KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -2721,79 +2741,334 @@ def ff_fire_bound(x, params, steps):
         else (bytes_ms, 'bytes')
 
 
+def fire_f32_ok(what, x, c, done, params, terms):
+    '''Phase 13's float32 rule for a FIRE result: finite, no energy
+    rises, the stopped rows' largest atomic force under fmax.'''
+    import torch
+    from tscode_tpu_torch.ff import ff_energy
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    e0, e1 = ff_energy(x, params), ff_energy(c, params)
+    f = ff_fire.ff_forces_plain(c, terms)
+    fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
+    check(bool(torch.isfinite(c).all()) and
+          bool((e1 <= e0 + 1e-4 * (1 + e0.abs())).all()) and
+          bool((fmax[done] < 0.05 + 1e-4).all()),
+          f'ff_fire {what} float32: an energy rose or a stopped row '
+          f'has force {float(fmax[done].max()) if done.any() else 0}')
+
+
+def fire_shapes(x, params):
+    '''(FireTerms, kinds, incidence entries) of the force field `params`
+    for the batch x: what ff_fire.launch_plan reads.'''
+    from tscode_tpu_torch.ff import FireTerms, incidence
+    kinds = tuple(int(params[k].shape[0]) for k in (0, 2, 4, 6))
+    _, codes, _ = incidence(params, x.shape[1])
+    return FireTerms(params), kinds, codes.numel()
+
+
+def fire_form_record(card, what, x, params, n_steps, form, want):
+    '''One form of the FIRE kernel (ff_fire.launch, regime=form) on the
+    call: against the plain twin's result `want` (float64: within
+    FIRE_ATOL, the same stop flags and force evaluations; float32:
+    fire_f32_ok), two launches bit for bit, timed with device_ms; its
+    registers and resident warps (ff_fire.kernel_info), microseconds a
+    step (the time over the longest structure's force evaluations).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    terms, _, _ = fire_shapes(x, params)
+    plan = ff_fire.plan_for(x, terms, form)
+    c, done, steps = ff_fire.launch(x, terms, n_steps, regime=form)
+    c2, done2, steps2 = ff_fire.launch(x, terms, n_steps, regime=form)
+    check(torch.equal(c, c2) and torch.equal(done, done2) and
+          torch.equal(steps, steps2), f'ff_fire {what}, form {form}: two '
+          f'launches differ')
+    cp, dp, sp = want
+    err = float((c - cp).abs().max())
+    flags = int((done != dp).sum())
+    if x.dtype == torch.float64:
+        check(err <= FIRE_ATOL and flags == 0 and torch.equal(steps, sp),
+              f'ff_fire {what}, form {form}, float64: {err:.2e} A from its '
+              f'plain twin, stop flags unlike its in {flags} rows, '
+              f'{int((steps != sp).sum())} force-evaluation counts unlike')
+    else:
+        fire_f32_ok(f'{what}, form {form}', x, c, done, params, terms)
+    ms = device_ms(lambda: ff_fire.launch(x, terms, n_steps, regime=form),
+                   reps=5)
+    return {'ms': ms, 'us_per_step': ms * 1e3 / max(1, int(steps.max())),
+            'plain_diff_A': err, 'flags_unlike_plain': flags,
+            'threads': plan.threads, 'structures_a_block': plan.groups,
+            'warps_a_structure': plan.warps, 'cluster': plan.cluster,
+            'smem': plan.smem,
+            **ff_fire.kernel_info(plan, x.shape[1], x.dtype, x.device)}
+
+
 def fire_kernel_record(card, what, x, params, n_steps):
     '''The force field's FIRE kernel on the batch x (ff_fire.launch,
-    n_steps) against its plain twin on the card and against the graph
-    path (fire_run_graph) on the same call: float64 within FIRE_ATOL of
-    both with the same rows stopped (and the plain twin's force
-    evaluations); float32 as phase 13 holds fire_minimize_batch (finite,
-    no energy rises, stopped rows under fmax), its distance to the two
-    printed. Timed: the kernel with device_ms, the plain twin and the
-    graph path with cuda_ms; bounded (ff_fire_bound). Prints one line;
-    returns (the record, the force evaluations of each structure).'''
+    n_steps, the form launch_plan picks) against its plain twin on the
+    card and against the graph path (fire_run_graph) on the same call:
+    float64 within FIRE_ATOL of both with the same rows stopped (and the
+    plain twin's force evaluations); float32 as phase 13 holds
+    fire_minimize_batch (fire_f32_ok), its distance to the two printed.
+    Then every form on the same call (fire_form_record; at these
+    shapes each fits, and a refusal fails the phase): held the same way,
+    timed, its registers and resident warps; the chosen form no slower
+    than the block form (the first design) in this run.
+    The plain twin and the graph path timed with cuda_ms; bounded
+    (ff_fire_bound). Prints a line a form and one for the call; returns
+    (the record, the force evaluations of each structure).'''
     import torch
     from tscode_tpu_torch import optimizers as opt
-    from tscode_tpu_torch.ff import FireTerms, ff_energy, incidence
+    from tscode_tpu_torch.ff import ff_energy
     from tscode_tpu_torch.ops.kernels import ff_fire
-    terms = FireTerms(params)
+    terms, _, _ = fire_shapes(x, params)
     name = str(x.dtype).split('.')[-1]
+    plan = ff_fire.plan_for(x, terms)
     c, done, steps = ff_fire.launch(x, terms, n_steps)
-    ca, da, sa = ff_fire.launch(x, terms, n_steps, staged=False)
     cp, dp, sp = ff_fire.ff_fire_plain(x, terms, n_steps)
     graph = opt.fire_run_graph(x, ff_energy, n_steps, 0.05, 0.05, None,
                                (params,))
     plain_err = float((c - cp).abs().max())
     graph_err = float((c - graph[0]).abs().max())
-    atom_err = float((c - ca).abs().max())
-    same = [int((done != d).sum()) for d in (dp, graph[5], da)]
+    same = [int((done != d).sum()) for d in (dp, graph[5])]
     if x.dtype == torch.float64:
         check(plain_err <= FIRE_ATOL and graph_err <= FIRE_ATOL and
-              atom_err <= FIRE_ATOL and same == [0, 0, 0] and
-              torch.equal(steps, sp) and torch.equal(steps, sa),
+              same == [0, 0] and torch.equal(steps, sp),
               f'ff_fire {what} float64: {plain_err:.2e} A from its plain '
-              f'twin, {graph_err:.2e} A from the graph path, {atom_err:.2e} '
-              f'A from the per-atom form, stop flags unlike theirs in '
-              f'{same} rows')
+              f'twin, {graph_err:.2e} A from the graph path, stop flags '
+              f'unlike theirs in {same} rows')
     else:
-        e0, e1 = ff_energy(x, params), ff_energy(c, params)
-        f = ff_fire.ff_forces_plain(c, terms)
-        fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
-        check(bool(torch.isfinite(c).all()) and
-              bool((e1 <= e0 + 1e-4 * (1 + e0.abs())).all()) and
-              bool((fmax[done] < 0.05 + 1e-4).all()),
-              f'ff_fire {what} float32: an energy rose or a stopped row '
-              f'has force {float(fmax[done].max()) if done.any() else 0}')
+        fire_f32_ok(what, x, c, done, params, terms)
+    forms = {}
+    for form in ff_fire.FORMS:
+        forms[form] = fire_form_record(card, what, x, params, n_steps, form,
+                                       (cp, dp, sp))
+        r = forms[form]
+        print(f'[13 ff_fire] {what}, {name}, form {form}'
+              f'{" (chosen)" if form == plan.form else ""}: '
+              f'{r["ms"]:.4f} ms, {r["us_per_step"]:.3f} us a step, '
+              f'{r["registers"]} registers a thread ({r["local_bytes"]} B '
+              f'spilled), {r["resident_warps"]} resident warps an SM '
+              f'({r["blocks_per_sm"]} blocks of {r["threads"]} threads, '
+              f'{r["structures_a_block"]} structures a block, '
+              f'{r["smem"]} shared bytes); {r["plain_diff_A"]:.2e} A from '
+              f'the plain twin [{card}]')
+    chosen, block = forms[plan.form]['ms'], forms['block']['ms']
+    check(chosen <= block * FIRE_AB_SLACK, f'ff_fire {what} {name}: the '
+          f'chosen form {plan.form} {chosen:.4f} ms, slower than the block '
+          f'form {block:.4f} ms')
     bound, by = ff_fire_bound(x, params, steps)
-    _, codes, _ = incidence(params, x.shape[1])
-    plan = ff_fire.launch_plan(x.shape[1], sum(
-        int(params[k].shape[0]) for k in (0, 2, 4, 6)), codes.numel(),
-        x.element_size())
     rec = {'what': what, 'rows': int(x.shape[0]), 'atoms': int(x.shape[1]),
-           'dtype': name, 'n_steps': n_steps, 'plan': list(plan),
+           'dtype': name, 'n_steps': n_steps, 'form': plan.form,
            'force_evaluations': int(steps.sum()),
            'mean_steps': float(steps.float().mean()),
+           'max_steps': int(steps.max()),
            'stopped': int(done.sum()), 'plain_diff_A': plain_err,
-           'graph_diff_A': graph_err, 'per_atom_diff_A': atom_err,
-           'flags_unlike_plain_graph_per_atom': same,
-           'ms': device_ms(lambda: ff_fire.launch(x, terms, n_steps),
-                           reps=5),
-           'per_atom_ms': device_ms(lambda: ff_fire.launch(
-               x, terms, n_steps, staged=False), reps=5),
+           'graph_diff_A': graph_err,
+           'flags_unlike_plain_graph': same, 'ms': chosen,
+           'block_ms': block, 'us_per_step': forms[plan.form]['us_per_step'],
+           'forms': forms,
            'plain_ms': cuda_ms(lambda: ff_fire.ff_fire_plain(
                x, terms, n_steps), reps=1),
            'graph_ms': cuda_ms(lambda: opt.fire_run_graph(
                x, ff_energy, n_steps, 0.05, 0.05, None, (params,)), reps=1),
            'bound_ms': bound, 'bound_by': by}
+    rec['bound_share'] = bound / chosen
     print(f'[13 ff_fire] {what}, {rec["rows"]} x {rec["atoms"]} atoms, '
           f'{name}, {n_steps} steps ({rec["mean_steps"]:.1f} force '
-          f'evaluations a structure, {rec["stopped"]} stopped): kernel '
-          f'{rec["ms"]:.4f} ms (plan {plan}; the per-atom form '
-          f'{rec["per_atom_ms"]:.4f} ms), plain twin {rec["plain_ms"]:.4f} '
-          f'ms, graph path {rec["graph_ms"]:.4f} ms, bound {bound:.6f} ms '
-          f'({by}); {plain_err:.2e} A from the plain twin, {graph_err:.2e} A '
-          f'from the graph path and {atom_err:.2e} A from the per-atom form, '
-          f'stop flags unlike theirs in {same} rows [{card}]')
+          f'evaluations a structure, at most {rec["max_steps"]}, '
+          f'{rec["stopped"]} stopped): form {plan.form} {chosen:.4f} ms '
+          f'({rec["us_per_step"]:.3f} us a step; the block form '
+          f'{block:.4f} ms), plain twin {rec["plain_ms"]:.4f} ms, graph '
+          f'path {rec["graph_ms"]:.4f} ms, bound {bound:.6f} ms ({by}, '
+          f'{100 * rec["bound_share"]:.2f}% of it); {plain_err:.2e} A from '
+          f'the plain twin, {graph_err:.2e} A from the graph path, stop '
+          f'flags unlike theirs in {same} rows [{card}]')
     return rec, steps
+
+
+def fire_sweep(card, poses, ffp):
+    '''The sweep behind ff_fire.launch_plan's rule: the first B of
+    phase 12's survivors for B in FIRE_SWEEP_ROWS, FIRE_SWEEP_STEPS
+    steps, every form (ff_fire.FORMS), both types, in device time; the
+    form the rule picks beside the fastest. Prints a line a shape;
+    returns the rows.'''
+    import torch
+    from tscode_tpu_torch.ff import params_to_device
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        params = params_to_device(ffp, DEV, dtype)
+        for B in FIRE_SWEEP_ROWS:
+            x = torch.as_tensor(poses[:B], dtype=dtype, device=DEV)
+            terms, _, _ = fire_shapes(x, params)
+            row = {'rows': len(x), 'dtype': str(dtype).split('.')[-1],
+                   'chosen': ff_fire.plan_for(x, terms).form,
+                   'lone_warps': ff_fire.plan_for(x, terms, 'lone').warps}
+            for form in ff_fire.FORMS:
+                row[form] = device_ms(lambda: ff_fire.launch(
+                    x, terms, FIRE_SWEEP_STEPS, regime=form), reps=3)
+            row['fastest'] = min(ff_fire.FORMS, key=row.get)
+            rows.append(row)
+            print(f'[13 fire sweep] {row["rows"]} x {x.shape[1]} atoms, '
+                  f'{row["dtype"]}, {FIRE_SWEEP_STEPS} steps: ' +
+                  ', '.join(f'{f} {row[f]:.4f} ms' for f in ff_fire.FORMS) +
+                  f' (lone on {row["lone_warps"]} warps a structure); '
+                  f'fastest {row["fastest"]}, the rule picks '
+                  f'{row["chosen"]} [{card}]')
+    return rows
+
+
+def fire_size_sweep(card):
+    '''The plan rule past the 15-atom topology: chains of
+    suite_inputs.chain_ff at FIRE_SIZE_CASES' atoms and structures,
+    FIRE_SWEEP_STEPS steps, both types, every form whose shared memory
+    fits (a refusal is checked: only past SMEM_BYTES, never the large
+    form), each form's resident warps, in device time; from
+    BATCH_MIN_ROWS structures also the lone form at each width the rule
+    weighs (ff_fire.lone_widths); the rule's pick beside the fastest.
+    Float64: one structure's forms within FIRE_ATOL of the plain twin, a
+    batch's of the rule's form, with the same force evaluations. Prints
+    a line a shape; returns the rows.'''
+    import torch
+    from tscode_tpu_torch.ff import params_to_device
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    rows = []
+    for n_atoms in sorted({n for n, _ in FIRE_SIZE_CASES}):
+        counts = [B for n, B in FIRE_SIZE_CASES if n == n_atoms]
+        X, ffp = chain_ff(n_atoms, max(counts), seed=n_atoms)
+        for dtype in (torch.float64, torch.float32):
+            params = params_to_device(ffp, DEV, dtype)
+            for B in counts:
+                x = torch.as_tensor(X[:B], dtype=dtype, device=DEV)
+                terms, kinds, entries = fire_shapes(x, params)
+                plan = ff_fire.plan_for(x, terms)
+                if dtype == torch.float64 and B == 1:
+                    ref = ff_fire.ff_fire_plain(x, terms, FIRE_SWEEP_STEPS)
+                elif dtype == torch.float64:
+                    ref = ff_fire.launch(x, terms, FIRE_SWEEP_STEPS)
+                row = {'atoms': n_atoms, 'rows': B, 'entries': entries,
+                       'dtype': str(dtype).split('.')[-1],
+                       'chosen': plan.form, 'chosen_warps': plan.warps,
+                       'refused': [], 'warps': {}}
+                for form in ff_fire.FORMS:
+                    try:
+                        fp = ff_fire.plan_for(x, terms, form)
+                    except ValueError:   # past a block's shared memory
+                        check(form != 'large', f'ff_fire {n_atoms} atoms: '
+                              f'the large form refused')
+                        row['refused'].append(form)
+                        continue
+                    row['warps'][form] = ff_fire.kernel_info(
+                        fp, n_atoms, dtype, x.device)['resident_warps']
+                    got = ff_fire.launch(x, terms, FIRE_SWEEP_STEPS,
+                                         regime=form)
+                    if dtype == torch.float64:
+                        err = float((got[0] - ref[0]).abs().max())
+                        check(err <= FIRE_ATOL and
+                              torch.equal(got[2], ref[2]),
+                              f'ff_fire {n_atoms} atoms x {B}, form '
+                              f'{form}: {err:.2e} A from the reference, '
+                              f'force evaluations unlike')
+                    row[form] = device_ms(lambda: ff_fire.launch(
+                        x, terms, FIRE_SWEEP_STEPS, regime=form), reps=3)
+                row['fastest'] = min((f for f in ff_fire.FORMS if f in row),
+                                     key=row.get)
+                widths = ''
+                if B >= ff_fire.BATCH_MIN_ROWS and 'lone' in row:
+                    row['lone_widths'] = {
+                        p.warps: [device_ms(lambda: ff_fire.launch(
+                            x, terms, FIRE_SWEEP_STEPS, plan=p), reps=3),
+                            ff_fire.kernel_info(p, n_atoms, dtype,
+                                                x.device)['resident_warps']]
+                        for p in ff_fire.lone_widths(n_atoms, kinds, entries,
+                                                     x.element_size())}
+                    widths = '; lone by warps a structure: ' + ', '.join(
+                        f'{w} {ms:.4f} ms ({r} warps)'
+                        for w, (ms, r) in row['lone_widths'].items())
+                rows.append(row)
+                print(f'[13 fire size sweep] {B} x {n_atoms} atoms '
+                      f'({entries} entries), {row["dtype"]}, '
+                      f'{FIRE_SWEEP_STEPS} steps: ' + ', '.join(
+                          f'{f} {row[f]:.4f} ms ({row["warps"][f]} warps)'
+                          for f in ff_fire.FORMS if f in row) +
+                      f'; refused {row["refused"]}{widths}; fastest '
+                      f'{row["fastest"]}, the rule picks {row["chosen"]} '
+                      f'on {plan.warps} warps a structure [{card}]')
+    return rows
+
+
+def fire_large_record(card):
+    '''A FIRE_LARGE_N-atom chain (suite_inputs.chain_ff), float64,
+    FIRE_LARGE_STEPS steps through ff_fire.ff_fire: the plan's large form
+    (the block form's shared memory does not hold it) against its plain
+    twin within FIRE_ATOL with the same force evaluations, two launches
+    bit for bit, and so the form with its coordinates in device memory;
+    timed (the plain twin on its one run, host enqueue included) and
+    bounded. Prints one line; returns the record.'''
+    import torch
+    from tscode_tpu_torch.ff import params_to_device
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    X, ffp = chain_ff(FIRE_LARGE_N, 1, seed=13)
+    params = params_to_device(ffp, DEV, torch.float64)
+    x = torch.as_tensor(X, device=DEV)
+    terms, kinds, entries = fire_shapes(x, params)
+    plan = ff_fire.launch_plan(1, x.shape[1], kinds, entries, 8)
+    try:
+        ff_fire.launch_plan(1, x.shape[1], kinds, entries, 8, 'block')
+        block_fits = True
+    except ValueError:
+        block_fits = False
+    check(plan.form == 'large' and not block_fits, f'ff_fire at '
+          f'{FIRE_LARGE_N} atoms: form {plan.form}, block form fits '
+          f'{block_fits}')
+    c, done, steps = ff_fire.ff_fire(x, terms, FIRE_LARGE_STEPS)
+    c2, _, _ = ff_fire.ff_fire(x, terms, FIRE_LARGE_STEPS)
+    # the plain twin (~10,000 launches a step) timed on its one run
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cp, dp, sp = ff_fire.ff_fire_plain(x, terms, FIRE_LARGE_STEPS)
+    stop.record()
+    stop.synchronize()
+    err = float((c - cp).abs().max())
+    moved = float((c - x).abs().max())
+    check(torch.equal(c, c2) and err <= FIRE_ATOL and torch.equal(done, dp)
+          and torch.equal(steps, sp) and moved > 1e-3, f'ff_fire at '
+          f'{FIRE_LARGE_N} atoms: {err:.2e} A from its plain twin, moved '
+          f'{moved:.2e} A')
+    ms = device_ms(lambda: ff_fire.ff_fire(x, terms, FIRE_LARGE_STEPS),
+                   reps=3)
+    # the same form with the coordinates left in device memory (the
+    # form of structures past a block's copy): the same bits
+    dm = plan._replace(staged=False, smem=0)
+    c3, _, _ = ff_fire.launch(x, terms, FIRE_LARGE_STEPS, plan=dm)
+    check(torch.equal(c3, c), f'ff_fire at {FIRE_LARGE_N} atoms: the '
+          f'large form with its coordinates in device memory differs')
+    device_memory_ms = device_ms(lambda: ff_fire.launch(
+        x, terms, FIRE_LARGE_STEPS, plan=dm), reps=1)
+    bound, by = ff_fire_bound(x, params, steps)
+    rec = {'atoms': int(x.shape[1]), 'repulsion_pairs': kinds[2],
+           'entries': entries, 'dtype': 'float64',
+           'n_steps': FIRE_LARGE_STEPS, 'form': plan.form,
+           'cluster': plan.cluster, 'force_evaluations': int(steps.sum()),
+           'plain_diff_A': err, 'ms': ms,
+           'us_per_step': ms * 1e3 / max(1, int(steps.max())),
+           'coords_in_device_memory_ms': device_memory_ms,
+           'plain_ms': start.elapsed_time(stop),
+           'bound_ms': bound, 'bound_by': by,
+           **ff_fire.kernel_info(plan, x.shape[1], x.dtype, x.device)}
+    print(f'[13 ff_fire] {rec["atoms"]} atoms ({kinds[2]} repulsion pairs), '
+          f'float64, {FIRE_LARGE_STEPS} steps: form large (a cluster of '
+          f'{plan.cluster} blocks, the coordinates in each block\'s shared '
+          f'memory) {ms:.4f} ms, {rec["us_per_step"]:.1f} us a step '
+          f'({device_memory_ms:.4f} ms with them in device memory), '
+          f'{rec["registers"]} registers a thread; plain twin '
+          f'{rec["plain_ms"]:.1f} ms, bound {bound:.6f} ms ({by}); {err:.2e} '
+          f'A from the plain twin, the same force evaluations; the block '
+          f'form does not fit [{card}]')
+    return rec
 
 
 def phase_ff_fire(card):
@@ -2807,11 +3082,14 @@ def phase_ff_fire(card):
     the CPU's. (c) The kernel against its plain twin and the graph path,
     timed and bounded, at the whole batch (FIRE_STEPS) and at one
     structure (a bend's call, BEND_FIRE_STEPS, on the survivor whose
-    relaxation took the batch's median count of steps), in both types
-    (fire_kernel_record). Then the graph path's step times, at the whole
-    batch and at one structure. Returns the record; its `kernel` holds
-    the float64 kernel records and `launches` the kernel's launches by
-    the fire_minimize_batch calls.'''
+    relaxation took the batch's median count of steps), in both types,
+    in every form (fire_kernel_record). Then the graph path's step times,
+    at the whole batch and at one structure; the forms' sweep over the
+    batch size (fire_sweep) and over chain sizes (fire_size_sweep); a
+    FIRE_LARGE_N-atom structure (fire_large_record). Returns the record;
+    its `kernel` holds the
+    float64 kernel records and `launches` the kernel's launches by the
+    fire_minimize_batch calls.'''
     import torch
     from tscode_tpu_torch import optimizers as opt
     from tscode_tpu_torch.bending import BEND_FIRE_STEPS
@@ -2899,6 +3177,9 @@ def phase_ff_fire(card):
                                          profile))
         rec['timing'].append(fire_timing(card, 'one structure', x[:1],
                                          params, profile))
+    rec['sweep'] = fire_sweep(card, poses, ffp)
+    rec['size_sweep'] = fire_size_sweep(card)
+    rec['large_n'] = fire_large_record(card)
     return rec
 
 
@@ -4415,8 +4696,9 @@ def traced_fire(card, tmp):
     C2F2H4 conformers under the internal force field, float64, untraced
     then traced: one launch of the force field's FIRE kernel each, no
     graph captured, the same coordinates, energies and stop flags bit for
-    bit; in the trace one ff_fire_kernel<double> event inside its launch
-    span ff_fire.ff_fire_f64 inside the wrapper's span ff_fire
+    bit; in the trace one event of the chosen form's kernel
+    (ff_fire_group_kernel<double, ...> for the lone form) inside its
+    launch span ff_fire.ff_fire_f64 inside the wrapper's span ff_fire
     (trace_check). Then the captured graph on a body that still runs
     through capture.graph_loop, the dimer step (saddle._dimer_step) from
     the first conformer for TRACE_DIMER_STEPS steps: run with the graph
@@ -4473,7 +4755,8 @@ def traced_fire(card, tmp):
     rec.update(steps=BEND_FIRE_STEPS, shape=list(x.shape))
     print(f'[22 trace fire] {x.shape[0]} x {x.shape[1]} atoms, '
           f'{BEND_FIRE_STEPS} steps, float64: one ff_fire launch, its '
-          f'ff_fire_kernel<double> event inside ff_fire.ff_fire_f64 inside '
+          f'{rec["kernels"]["ff_fire.ff_fire_f64"]["kernel"]} event inside '
+          f'ff_fire.ff_fire_f64 inside '
           f'ff_fire; no graph captured; the traced coordinates equal the '
           f'untraced ones bit for bit ({secs[1]:.4f} / {secs[0]:.4f} s) '
           f'[{card}]')
@@ -5104,16 +5387,22 @@ def main():
         'bound_by': backoff['bound_by'], 'library_ms': None,
         'routes': {'torsion_drive': drive, 'csearch_string': backoff},
         'mesh': {'launches': sharded['torsion_backoff']}})
-    whole = fire['kernel'][0]
+    whole, one = fire['kernel']
     kernels.append({
         'name': 'ff_fire', 'route': 'cuda',
         'source': 'tscode_tpu_torch/csrc/ff_fire.cu',
         'replaces': 'tscode_tpu/optimizers.py:41',
         'launches': sum(FIRE_LAUNCHES.values()),
-        'max_abs_err': max(r['plain_diff_A'] for r in fire['kernel']),
+        'max_abs_err': max([r['plain_diff_A'] for r in fire['kernel']] +
+                           [fire['large_n']['plain_diff_A']]),
         'ms': whole['ms'], 'plain_ms': whole['plain_ms'],
         'bound_ms': whole['bound_ms'], 'bound_by': whole['bound_by'],
-        'library_ms': None, 'graph_ms': whole['graph_ms'],
+        'library_ms': None, 'form': whole['form'],
+        'block_ms': whole['block_ms'], 'graph_ms': whole['graph_ms'],
+        'one_structure': {k: one[k] for k in (
+            'form', 'ms', 'block_ms', 'us_per_step', 'plain_ms', 'bound_ms',
+            'bound_by', 'n_steps', 'force_evaluations')},
+        'large_n': fire['large_n'],
         'launches_by_phase': dict(FIRE_LAUNCHES),
         'records': fire['kernel'] + fire['kernel_f32']})
     check('jax' not in sys.modules, 'jax was imported')

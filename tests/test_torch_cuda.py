@@ -590,8 +590,8 @@ def test_fire_minimize_batch_on_card_matches_cpu(cuda_device):
 def fire_kernel_case(device, shape, dtype):
     '''(coords, FireTerms, the energy and its args) of a FIRE kernel
     test: C2H4 with its E/Z dihedral under the bend's energy (bonds at
-    2,000, a spring on 0-4 with k a device tensor), one structure or a
-    batch of 2,000, jittered by 0.2 A.'''
+    2,000, a spring on 0-4 with k a device tensor), one structure, three
+    or a batch of 2,000, jittered by 0.2 A.'''
     from tscode_tpu_torch import bending, ff
     from tscode_tpu_torch.molecule import Molecule
     from tscode_tpu_torch.pipeline import FIXTURE_DIR
@@ -599,7 +599,7 @@ def fire_kernel_case(device, shape, dtype):
     params = ff.params_to_device(ff.build_ff_params(
         mol.atomcoords[0], mol.atomnos, mol.graph,
         protect_double_bonds=True), device, dtype)
-    B = {'one': 1, 'batch': 2000}[shape]
+    B = FIRE_ROWS[shape]
     rng = np.random.default_rng(43)
     x = torch.as_tensor(mol.atomcoords[0] + rng.normal(size=(B, 6, 3)) * 0.2,
                         dtype=dtype, device=device)
@@ -610,20 +610,58 @@ def fire_kernel_case(device, shape, dtype):
         bending._bend_energy, args
 
 
+FIRE_ROWS = {'one': 1, 'three': 3, 'batch': 2000}
 FIRE_FREEZE = {'none': None, 'atoms': np.arange(6) == 1,
                'rows': np.random.default_rng(7).random((2000, 6)) < 0.2}
 
 
+def fire_forms_hold(x, terms, n_steps, mask, ref, energy=None):
+    '''Every form of the force field's FIRE kernel (ff_fire.launch,
+    regime=...) on one call: two launches give the same bits; float64
+    within 1e-6 A of the plain twin's result `ref` (coords, done, steps)
+    with the same stop flags and force evaluations; float32 as phase 13
+    holds it (finite, no energy rises under `energy`, the stopped rows'
+    force under the float64 terms `ref` below fmax but for float32's
+    rounding of the bend's stiff bonds: 2 k d eps32 ~ 4e-4 a term);
+    frozen atoms in place. Returns {form: coords}.'''
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    got = {}
+    for form in ff_fire.FORMS:
+        c, done, steps = ff_fire.launch(x, terms, n_steps, freeze_mask=mask,
+                                        regime=form)
+        c2, done2, steps2 = ff_fire.launch(x, terms, n_steps,
+                                           freeze_mask=mask, regime=form)
+        assert torch.equal(c, c2) and torch.equal(done, done2) and \
+            torch.equal(steps, steps2), form
+        assert c.is_cuda and bool(torch.isfinite(c).all()), form
+        if mask is not None:
+            frozen = torch.as_tensor(
+                np.broadcast_to(mask, x.shape[:2]).copy(), device=x.device)
+            assert torch.equal(c[frozen], x[frozen]), form
+        if x.dtype == torch.float64:
+            cp, dp, sp = ref
+            assert float((c - cp).abs().max()) <= 1e-6, form
+            assert torch.equal(done, dp) and torch.equal(steps, sp), form
+        else:
+            e0, e1 = energy(x), energy(c)
+            assert bool((e1 <= e0 + 1e-4 * (1 + e0.abs())).all()), form
+            f = ff_fire.ff_forces_plain(c.double(), ref, mask)
+            fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
+            assert bool((fmax[done] < 0.05 + 1e-3).all()), \
+                (form, float(fmax[done].max()))
+        got[form] = c
+    return got
+
+
 @pytest.mark.parametrize('freeze', list(FIRE_FREEZE))
-@pytest.mark.parametrize('shape', ['one', 'batch'])
+@pytest.mark.parametrize('shape', list(FIRE_ROWS))
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_ff_fire_kernel_matches_plain(cuda_device, dtype, shape, freeze):
     '''The force field's FIRE kernel against its plain twin on the card,
-    300 steps: float64 within 1e-6 A with the same rows stopped and the
-    same force evaluations; float32 as phase 13 holds it (no energy
-    rises, stopped rows under fmax, frozen atoms in place). Two
-    launches give the same bits; the per-atom form lies within 1e-9 A of
-    the staged one (float64) with the same stops.'''
+    300 steps, in every form (fire_forms_hold): float64 within 1e-6 A
+    with the same rows stopped and the same force evaluations; float32
+    as phase 13 holds it. The entry (ff_fire.ff_fire) launches once a
+    call, in the form plan_for picks.'''
     from tscode_tpu_torch.ops.kernels import ff_fire
     x, terms, energy, args = fire_kernel_case(cuda_device, shape, dtype)
     mask = FIRE_FREEZE[freeze]
@@ -631,37 +669,152 @@ def test_ff_fire_kernel_matches_plain(cuda_device, dtype, shape, freeze):
         mask = mask[:len(x)]
     before = ff_fire.KERNEL.launches
     c, done, steps = ff_fire.ff_fire(x, terms, 300, freeze_mask=mask)
-    c2, done2, steps2 = ff_fire.ff_fire(x, terms, 300, freeze_mask=mask)
-    assert ff_fire.KERNEL.launches == before + 2
-    assert torch.equal(c, c2) and torch.equal(done, done2) and \
-        torch.equal(steps, steps2)
-    c3, done3, steps3 = ff_fire.launch(x, terms, 300, freeze_mask=mask,
-                                       staged=False)
+    assert ff_fire.KERNEL.launches == before + 1
     if dtype == torch.float64:
-        assert float((c - c3).abs().max()) <= 1e-9
-        assert torch.equal(done, done3) and torch.equal(steps, steps3)
-    assert c.is_cuda and bool(torch.isfinite(c).all())
-    if mask is not None:
-        frozen = torch.as_tensor(np.broadcast_to(mask, x.shape[:2]).copy(),
-                                 device=cuda_device)
-        assert torch.equal(c[frozen], x[frozen])
-    if dtype == torch.float64:
-        cp, dp, sp = ff_fire.ff_fire_plain(x, terms, 300, freeze_mask=mask)
-        assert float((c - cp).abs().max()) <= 1e-6
-        assert torch.equal(done, dp) and torch.equal(steps, sp)
-        assert shape == 'one' or int(done.sum()) > 0
+        plain = ff_fire.ff_fire_plain(x, terms, 300, freeze_mask=mask)
+        assert shape != 'batch' or int(plain[1].sum()) > 0
     else:
-        e0, e1 = energy(x, *args), energy(c, *args)
-        assert bool((e1 <= e0 + 1e-4 * (1 + e0.abs())).all())
-        # the stopped rows' largest force in float64 at the kernel's
-        # coordinates: under fmax but for float32's rounding of the bend's
-        # stiff bonds (k = 2,000 kcal/mol/A^2: 2 k d eps32 ~ 4e-4 a term)
-        _, terms64, _, _ = fire_kernel_case(cuda_device, shape,
-                                            torch.float64)
-        f = ff_fire.ff_forces_plain(c.double(), terms64, mask)
-        fmax = torch.linalg.norm(f, dim=-1).amax(dim=-1)
-        assert bool((fmax[done] < 0.05 + 1e-3).all()), \
-            float(fmax[done].max())
+        _, plain, _, _ = fire_kernel_case(cuda_device, shape, torch.float64)
+    got = fire_forms_hold(x, terms, 300, mask, plain,
+                          lambda y: energy(y, *args))
+    assert torch.equal(c, got[ff_fire.plan_for(x, terms).form])
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_ff_fire_forms_hold_springs_and_half_springs(cuda_device, dtype):
+    '''adjust_spacings_batch's energy on the three-molecule fixture
+    (springs and half-springs, their constants device tensors) in every
+    form against the plain twin, 300 steps, three structures.'''
+    from tscode_tpu_torch import ff, optimization
+    from tscode_tpu_torch.molecule import Molecule
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    mols = [Molecule(os.path.join(FIXTURE_DIR, n))
+            for n in ('CH3Cl.xyz', 'HCOOH.xyz', 'C2H4.xyz')]
+    parts = [ff.build_ff_params(m.atomcoords[0], m.atomnos, m.graph)
+             for m in mols]
+    params = ff.merge_ff_params(parts, np.array([0, 5, 10]))
+    coords = np.concatenate([m.atomcoords[0] + 3.0 * k
+                             for k, m in enumerate(mols)])
+    rng = np.random.default_rng(44)
+    terms = {}
+    for t in (torch.float64, dtype):
+        p = ff.params_to_device(params, cuda_device, t)
+        args = (p, torch.as_tensor([[0, 15], [1, 14]], device=cuda_device),
+                torch.as_tensor([2.2, 3.1], dtype=t, device=cuda_device),
+                torch.as_tensor([[0, 14], [2, 15]], device=cuda_device),
+                torch.tensor(50.0, dtype=t, device=cuda_device),
+                torch.tensor(500.0, dtype=t, device=cuda_device))
+        terms[t] = (optimization._spacing_energy.fire_terms(*args), args)
+    t_x, args = terms[dtype]
+    assert t_x.spring_pairs.shape[0] and t_x.half_pairs.shape[0]
+    x = torch.as_tensor(coords + rng.normal(size=(3,) + coords.shape) * 0.1,
+                        dtype=dtype, device=cuda_device)
+    plain = ff_fire.ff_fire_plain(x, t_x, 300) if dtype == torch.float64 \
+        else terms[torch.float64][0]
+    fire_forms_hold(x, t_x, 300, None, plain,
+                    lambda y: optimization._spacing_energy(y, *args))
+
+
+@pytest.mark.parametrize('rows', ['one', 'batch'])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_ff_fire_forms_hold_a_74_atom_chain(cuda_device, dtype, rows):
+    '''A 74-atom chain (suite_inputs.chain_ff: large_n's length, past the
+    one-warp atom sums of N <= 32), one structure and a batch of
+    BATCH_MIN_ROWS, 100 steps, in every form against the plain twin
+    (fire_forms_hold: float64 within 1e-6 A, the same stops and force
+    evaluations, two launches the same bits); ff_fire.ff_fire launches
+    the form plan_for picks.'''
+    from tscode_tpu_torch import ff
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    B = 1 if rows == 'one' else ff_fire.BATCH_MIN_ROWS
+    X, params = chain_ff(74, B, seed=74)
+    p = {t: ff.params_to_device(params, cuda_device, t)
+         for t in (torch.float64, dtype)}
+    terms = ff.FireTerms(p[dtype])
+    x = torch.as_tensor(X, dtype=dtype, device=cuda_device)
+    plain = ff_fire.ff_fire_plain(x, terms, 100) \
+        if dtype == torch.float64 else ff.FireTerms(p[torch.float64])
+    got = fire_forms_hold(x, terms, 100, None, plain,
+                          lambda y: ff.ff_energy(y, p[dtype]))
+    if dtype == torch.float64:
+        assert int(plain[2].max()) > 10
+    c, _, _ = ff_fire.ff_fire(x, terms, 100)
+    assert torch.equal(c, got[ff_fire.plan_for(x, terms).form])
+
+
+FIRE_OPT_IN = """
+import sys
+import torch
+from tscode_tpu_torch import ff
+from tscode_tpu_torch.ops.kernels import ff_fire
+from tscode_tpu_torch.suite_inputs import chain_ff
+for n, B in ((32, 8), (74, 1)):
+    X, params = chain_ff(n, B, seed=n)
+    terms = ff.FireTerms(ff.params_to_device(params, sys.argv[1],
+                                             torch.float64))
+    x = torch.as_tensor(X, device=sys.argv[1])
+    c, done, steps = ff_fire.launch(x, terms, 10, regime='warp')
+    print(n, ff_fire.launch_plan(B, n, tuple(
+        t.shape[0] for t in terms.tables()[0::2]),
+        ff.incidence(terms.params, n)[1].numel(), 8, 'warp').smem,
+        int(steps.max()))
+"""
+
+
+def test_ff_fire_kernels_opt_in_their_own_shared_memory(cuda_device):
+    '''In a fresh process, the warp form at 32 atoms (its N <= 32
+    kernel: 8 structures in ~208 KB of shared memory) and then at 74
+    atoms (its N > 32 kernel: one structure in ~140 KB): each kernel
+    raises its own shared-memory limit, so the second launch runs.'''
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, '-c', FIRE_OPT_IN, str(cuda_device)],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rows = [line.split() for line in r.stdout.splitlines()]
+    assert [int(n) for n, _, _ in rows] == [32, 74]
+    assert int(rows[0][1]) > int(rows[1][1]) > 48 * 1024
+    assert all(int(steps) == 10 for _, _, steps in rows)
+
+
+def test_ff_fire_runs_a_2500_atom_structure(cuda_device):
+    '''A 2,500-atom chain (3.1M repulsion pairs), float64, 5 steps:
+    launch_plan takes the large form (a cluster a structure), which
+    matches the plain twin within 1e-6 A with the same force evaluations
+    and gives the same bits twice, and so does its variant with the
+    coordinates in device memory; the block form's shared memory does
+    not hold the structure (its launch raised before the large form).'''
+    from tscode_tpu_torch import ff
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    X, params = chain_ff(2500, 2, seed=5)
+    p = ff.params_to_device(params, cuda_device, torch.float64)
+    terms = ff.FireTerms(p)
+    x = torch.as_tensor(X, device=cuda_device)
+    kinds = tuple(t.shape[0] for t in terms.tables()[0::2])
+    _, codes, _ = ff.incidence(p, 2500)
+    assert ff_fire.launch_plan(2, 2500, kinds, codes.numel(),
+                               8).form == 'large'
+    with pytest.raises(ValueError):
+        ff_fire.launch_plan(2, 2500, kinds, codes.numel(), 8, 'block')
+    c, done, steps = ff_fire.ff_fire(x, terms, 5)
+    c2, _, _ = ff_fire.ff_fire(x, terms, 5)
+    cp, dp, sp = ff_fire.ff_fire_plain(x, terms, 5)
+    assert torch.equal(c, c2)
+    assert float((c - cp).abs().max()) <= 1e-6
+    assert torch.equal(done, dp) and torch.equal(steps, sp)
+    assert float((c - x).abs().max()) > 1e-3
+    # the large form past its blocks' copies of the coordinates (they
+    # stay in device memory): the same sums in the same order
+    plan = ff_fire.launch_plan(2, 2500, kinds, codes.numel(), 8)
+    assert plan.staged
+    c3, done3, steps3 = ff_fire.launch(
+        x, terms, 5, plan=plan._replace(staged=False, smem=0))
+    assert torch.equal(c3, c) and torch.equal(done3, done) and \
+        torch.equal(steps3, steps)
 
 
 @pytest.mark.parametrize('shape', ['one', 'batch'])

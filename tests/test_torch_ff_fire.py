@@ -31,6 +31,7 @@ from tscode_tpu_torch import optimizers as topt
 from tscode_tpu_torch import scans as tscans
 from tscode_tpu_torch.molecule import Molecule as PortMolecule
 from tscode_tpu_torch.ops.kernels import ff_fire as kff
+from tscode_tpu_torch.suite_inputs import chain_ff
 
 FIX = os.path.join(os.path.dirname(__file__), 'fixtures')
 RTOL = 1e-9          # forces, relative to the largest
@@ -40,9 +41,10 @@ FIRE_ATOL = 1e-9     # A, the plain twin's relaxation against the JAX scan
 def fixture_params(name, protect=False):
     '''(coordinates, FFParams) of a fixture molecule; 'trimolecular' is
     CH3Cl + HCOOH + C2H4 merged into one topology, as the three-molecule
-    routes relax them.'''
-    names = {'trimolecular': ('CH3Cl.xyz', 'HCOOH.xyz', 'C2H4.xyz')}.get(
-        name, (name,))
+    routes relax them, 'three_hcooh' the 15-atom topology of the rigid
+    three-molecule route's survivors.'''
+    names = {'trimolecular': ('CH3Cl.xyz', 'HCOOH.xyz', 'C2H4.xyz'),
+             'three_hcooh': ('HCOOH.xyz',) * 3}.get(name, (name,))
     mols = [PortMolecule(os.path.join(FIX, n)) for n in names]
     parts = [tff.build_ff_params(m.atomcoords[0], m.atomnos, m.graph,
                                  protect_double_bonds=protect) for m in mols]
@@ -318,22 +320,188 @@ def test_fire_minimize_batch_routes_the_registered_energies(monkeypatch,
 
 
 def test_launch_plan_stages_the_term_forces_that_fit():
-    '''The kernel's plan: the staged form (a thread a term, the entries'
+    '''The block form's plan: staged (a thread a term, the entries'
     forces in shared memory) while they fit beside the structure, at
-    most MAX_THREADS threads; the per-atom form past that.'''
+    most MAX_THREADS threads; a thread an atom computing its terms past
+    that.'''
     # the three-molecule topology, float64
     coords, params = fixture_params('trimolecular')
     n = len(coords)
     tp = tff.params_to_device(params, 'cpu', torch.float64)
     _, codes, _ = tff.incidence(tp, n)
-    n_terms = sum(len(getattr(params, f)) for f in
+    kinds = tuple(len(getattr(params, f)) for f in
                   ('bonds', 'angles', 'nb_pairs', 'dihedrals'))
-    staged, threads, smem = kff.launch_plan(n, n_terms, len(codes), 8)
-    assert staged and threads == 32 * -(-max(n, n_terms) // 32)
-    assert smem == (4 * 3 * n + 3 * len(codes)) * 8
+    plan = kff.launch_plan(1, n, kinds, len(codes), 8, 'block')
+    assert plan.staged and plan.threads == 32 * -(-max(n, sum(kinds)) // 32)
+    assert plan.smem == (4 * 3 * n + 3 * len(codes)) * 8
     # 300 atoms and all their pairs: the entries do not fit
-    staged, threads, smem = kff.launch_plan(300, 44850, 89700, 8)
-    assert not staged and threads == kff.MAX_THREADS
-    assert smem == 4 * 3 * 300 * 8
-    assert kff.launch_plan(5, 3, 6, 4) == (True, 32, (60 + 18) * 4)
-    assert kff.launch_plan(5, 3, 6, 4, staged=False) == (False, 32, 60 * 4)
+    plan = kff.launch_plan(1, 300, (0, 0, 44850, 0), 89700, 8, 'block')
+    assert not plan.staged and plan.threads == kff.MAX_THREADS
+    assert plan.smem == 4 * 3 * 300 * 8
+    plan = kff.launch_plan(1, 5, (3, 0, 0, 0), 6, 4, 'block')
+    assert (plan.staged, plan.threads, plan.smem) == (True, 32, (60 + 18) * 4)
+    # the largest entry count that stages, and one more
+    fit = (kff.SMEM_BYTES - 60 * 4) // 12
+    assert kff.launch_plan(1, 5, (3, 0, 0, 0), fit, 4, 'block').staged
+    plan = kff.launch_plan(1, 5, (3, 0, 0, 0), fit + 1, 4, 'block')
+    assert (plan.staged, plan.threads, plan.smem) == (False, 32, 60 * 4)
+
+
+def dense_chain_counts(n):
+    '''(kinds, incidence entries) of an n-atom chain's force field whose
+    repulsion table holds every pair at least 1-3 apart (ff.py), counted
+    without building it: n - 1 bonds, about 2 n angles.'''
+    bonds, angles = n - 1, 2 * n
+    pairs = n * (n - 1) // 2 - bonds - angles
+    return (bonds, angles, pairs, 0), 2 * bonds + 3 * angles + 2 * pairs
+
+
+PLAN_CASES = {
+    # the rigid three-molecule route's 24,417 survivors (phase 13)
+    'batch_15_atoms': (24417, 'three_hcooh', 'warp'),
+    # a bend's or a scan point's lone structure
+    'one_15_atoms': (1, 'three_hcooh', 'lone'),
+    # the conformer search's 32-atom chain, alone
+    'one_32_atoms': (1, 32, 'lone'),
+    # past the shared memory of one block: a cluster a structure
+    'one_2500_atoms': (1, 2500, 'large'),
+    'batch_2500_atoms': (8, 2500, 'large'),
+    'one_5000_atoms': (1, 5000, 'large'),
+    # past one block's copy of the coordinates: device memory
+    'one_20000_atoms': (1, 20000, 'large')}
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('case', list(PLAN_CASES))
+def test_launch_plan_picks_the_form(case, dtype):
+    '''launch_plan's rule at the shapes the routes launch and past the
+    block form's size limit: the lone form for one structure (its warps
+    each on terms of one kind; N <= 32: one warp sums the atoms), the
+    batch form from BATCH_MIN_ROWS structures, and the large form, which
+    refuses no size, where a structure's state does not fit a block (the
+    block form raises past its four arrays of 3 N values, ~2,410 atoms
+    in float64, as its launch did).'''
+    B, what, form = PLAN_CASES[case]
+    itemsize = torch.finfo(dtype).bits // 8
+    if isinstance(what, str):
+        coords, params = fixture_params(what)
+        n = len(coords)
+        kinds = tuple(len(getattr(params, f)) for f in
+                      ('bonds', 'angles', 'nb_pairs', 'dihedrals'))
+        tp = tff.params_to_device(params, 'cpu', torch.float64)
+        entries = len(tff.incidence(tp, n)[1])
+    elif what <= 32:
+        _, params = chain_ff(what, 1)
+        n = what
+        kinds = tuple(len(getattr(params, f)) for f in
+                      ('bonds', 'angles', 'nb_pairs', 'dihedrals'))
+        entries = 2 * (kinds[0] + kinds[2]) + 3 * kinds[1]
+    else:
+        n = what
+        kinds, entries = dense_chain_counts(n)
+    plan = kff.launch_plan(B, n, kinds, entries, itemsize)
+    assert plan.form == form
+    assert plan.smem <= kff.SMEM_BYTES and plan.threads % 32 == 0
+    if form == 'lone':
+        lo, slots = plan.slots
+        # each kind from a multiple of 32: no warp holds two kinds
+        assert all(x % 32 == 0 for x in lo) and slots % 32 == 0
+        assert plan.groups == 1 and plan.threads == 32 * plan.warps
+        assert plan.warps == min(slots // 32, kff.LONE_WARPS)
+        assert plan.smem == (3 * n + 3 * entries) * itemsize   # n <= 32
+    elif form == 'large':
+        assert plan.cluster == min(kff.MAX_CLUSTER,
+                                   -(-n // kff.ATOMS_A_BLOCK))
+        # a thread an atom, in whole warps, up to LARGE_THREADS a block
+        per_block = -(-n // plan.cluster)
+        assert plan.threads == min(32 * -(-per_block // 32),
+                                   kff.LARGE_THREADS)
+        # each block's copy of the coordinates where it fits
+        fits = 3 * n * itemsize <= kff.SMEM_BYTES
+        assert plan.staged == fits
+        assert plan.smem == (3 * n * itemsize if fits else 0)
+        if 12 * n * itemsize > kff.SMEM_BYTES:
+            with pytest.raises(ValueError):
+                kff.launch_plan(B, n, kinds, entries, itemsize, 'block')
+    else:
+        assert B >= kff.BATCH_MIN_ROWS
+    if B < kff.BATCH_MIN_ROWS and form != 'large':
+        assert kff.launch_plan(kff.BATCH_MIN_ROWS, n, kinds, entries,
+                               itemsize).form == 'warp'
+
+
+# resident warps an SM under each plan (the lone form by its warps a
+# structure, 'warp' the warp form), as the H100 gave them in phase 13's
+# sweeps (chip_smoke.py fire_size_sweep), and the plan the rule takes
+RESIDENT_CASES = {
+    # the widths that keep 16 warps: the narrowest
+    'narrowest_of_16': (1024, 32, 8, {1: 4, 2: 8, 4: 16, 8: 16, 16: 16,
+                                      'warp': 8}, ('lone', 4)),
+    # one structure's shared memory a block an SM: the widest
+    'most_below_16': (1024, 74, 8, {1: 1, 2: 2, 4: 4, 8: 8, 16: 16,
+                                    'warp': 1}, ('lone', 16)),
+    'float32_two_blocks': (1024, 74, 4, {1: 3, 2: 6, 4: 12, 8: 16,
+                                         16: 16, 'warp': 3}, ('lone', 8)),
+    # a width past 16 resident warps gains nothing over 16
+    'capped_at_16': (1024, 24, 4, {1: 4, 2: 8, 4: 16, 8: 16, 10: 20,
+                                   'warp': 8}, ('lone', 4)),
+    # the warp form keeps more warps resident: it takes the batch
+    'warp_keeps_more': (1024, 'three_hcooh', 8, {1: 5, 2: 10, 3: 15,
+                                                 'warp': 24}, ('warp', 1)),
+    # as many: the lone form
+    'warp_ties': (8192, 32, 4, {1: 4, 2: 8, 4: 16, 8: 16, 16: 16,
+                                'warp': 16}, ('lone', 4)),
+    # below BATCH_MIN_ROWS the full width, whatever the occupancy
+    'few_rows': (512, 32, 8, {1: 4, 2: 8, 4: 16, 8: 16, 16: 1,
+                              'warp': 99}, ('lone', 16))}
+
+
+@pytest.mark.parametrize('case', list(RESIDENT_CASES))
+def test_launch_plan_weighs_resident_warps(case):
+    '''launch_plan with the card's resident warps (plan_for's
+    `resident`): from BATCH_MIN_ROWS structures the lone form narrows to
+    the narrowest width that keeps LONE_RESIDENT_WARPS warps resident
+    (else the one that keeps the most), and the warp form takes the
+    batch only where its block holds WARP_GROUPS structures and keeps
+    more warps resident than that.'''
+    B, what, itemsize, table, want = RESIDENT_CASES[case]
+    if isinstance(what, str):
+        coords, params = fixture_params(what)
+    else:
+        coords, params = chain_ff(what, 1)
+        coords = coords[0]
+    n = len(coords)
+    kinds = tuple(len(getattr(params, f)) for f in
+                  ('bonds', 'angles', 'nb_pairs', 'dihedrals'))
+    tp = tff.params_to_device(params, 'cpu', torch.float64)
+    entries = len(tff.incidence(tp, n)[1])
+    widths = [p.warps for p in kff.lone_widths(n, kinds, entries, itemsize)]
+    assert set(table) == set(widths) | {'warp'}
+
+    def resident(plan):
+        return table['warp' if plan.form == 'warp' else plan.warps]
+
+    plan = kff.launch_plan(B, n, kinds, entries, itemsize, resident=resident)
+    assert (plan.form, plan.warps) == want
+    assert plan.threads == 32 * plan.warps * plan.groups
+    assert plan.smem <= kff.SMEM_BYTES
+    # the form asked for by name: the lone form at the rule's width
+    if want[0] == 'lone':
+        assert kff.launch_plan(B, n, kinds, entries, itemsize, 'lone',
+                               resident) == plan
+
+
+def test_plain_fire_equals_the_jax_package_on_a_long_chain():
+    '''ff_fire_plain against the JAX fire_minimize_batch on a 122-atom
+    chain (7,020 repulsion pairs), past the fixtures' sizes: 20 steps,
+    float64, within 1e-6 A, the same stops.'''
+    X, params = chain_ff(122, 2, seed=3, noise=0.1)
+    jfn, jargs, tfn, targs = energy_case('ff_energy', params, X.shape[1])
+    cj, _, dj = jopt.fire_minimize_batch(jnp.asarray(X), jfn, n_steps=20,
+                                         energy_args=jargs)
+    c, done, steps = kff.ff_fire(t64(X), tfn.fire_terms(*targs), 20)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj), rtol=0,
+                               atol=1e-6)
+    assert done.tolist() == np.asarray(dj).tolist()
+    assert bool((steps[~done] == 20).all())
+    assert np.abs(c.numpy() - X).max() > 1e-2

@@ -8,65 +8,82 @@
 // as one step (autograd forces, then optimizers.fire_step: ~180 kernels)
 // captured in a CUDA graph and replayed n_steps times from the host.
 //
-// Here one thread block relaxes one structure for all its steps:
-//   - its coordinates, velocities, forces and stepped velocities live in
-//     dynamic shared memory (4 x 3N values); the FIRE controls (dt,
-//     alpha, steps since the last uphill one, done) in registers, the
-//     same in every thread, since every thread derives them from the
-//     same block reductions;
-//   - the analytic force on an atom is summed from zero in a fixed
-//     order: the force-field terms of the atom's incidence list (CSR
-//     built on the device once per topology, ff.incidence: code = 4 term
-//     + role, terms numbered bonds, angles, repulsion pairs, E/Z
-//     dihedrals), then the springs, then the half-springs. Staged form
-//     (the rule): a thread a term computes the term once and writes its
-//     forces on its 2 to 4 atoms to those atoms' incidence entries in
-//     shared memory (positions ff.incidence gives); after a barrier a
-//     thread an atom sums its entries in order. Per-atom form (tables
-//     whose entries do not fit in shared memory beside the structure,
-//     ~9,600 entries in f64): a thread an atom computes each of its
-//     terms itself. Both sum the same values in the same order. No
-//     atomics: the same inputs give the same bits on every run;
-//   - a step is fire_step's arithmetic (optimizers.py): the power and
-//     the two norms as one fixed-order block reduction (warp butterflies,
-//     then the warps in order), the uphill / grow / dt / alpha rules, the
-//     semi-implicit Euler step, the 0.2 A cap on the largest atomic
-//     displacement (a second reduction; the velocity is rescaled too);
-//     frozen atoms get no force; a structure whose largest atomic force
-//     is under fmax stops with its coordinates as they are, and its
-//     block leaves the loop (fire_minimize_batch returns only the
-//     coordinates, the energies and the flags, which the JAX scan's
-//     masked steps leave as they are).
-// Three block barriers a step (the coordinates written, one in each
-// reduction), four staged (the entries written).
+// What every form computes: from rest, for each structure, up to n_steps
+// steps of fire_step's arithmetic (optimizers.py) on the analytic forces
+// of ff_forces.cuh: the power and the two norms, the uphill / grow / dt /
+// alpha rules, the semi-implicit Euler step, the 0.2 A cap on the largest
+// atomic displacement (the velocity rescaled too); frozen atoms get no
+// force; a structure whose largest atomic force is under fmax stops with
+// its coordinates as they are and leaves the loop (fire_minimize_batch
+// returns only the coordinates, the energies and the flags, which the
+// JAX scan's masked steps leave as they are). Each atom's force is summed
+// from zero in ff.incidence order, every sum in a fixed order, no
+// atomics: two launches give the same bits. The tables of the terms are
+// read once a launch (ops/kernels/ff_fire.packed_terms: int32 atoms and
+// incidence entries, rows of 4) into registers or shared memory.
 //
-// Bound. A batch is bound by operations: each step of each structure
-// evaluates every term (a pair term ~20 flops, an angle ~60, a dihedral
-// ~110, with acos / atan2 / sin / cos; the per-atom form once per atom
-// of the term) and ~60 flops of update an atom; the tables (a few KB)
-// stay in L1/L2 and the coordinates are read and written once. The work
-// follows the data: the steps each structure takes before it stops
-// (returned per structure). One structure (a bend, a scan point) is
-// bound by latency: a chain of dependent steps in one block on one SM.
-// The per-atom form's step is the longest atom's terms in sequence; the
-// staged form cuts it to one term's latency per round of blockDim.x
-// terms, the longest atom's sum of shared-memory entries and the
-// barriers: 4.6 against 17 us a step at 15 atoms in f64, and 4.5
-// against 16.9 ms on 24,417 such structures (chip_smoke.py phase 13,
-// NVIDIA H100 80GB HBM3, 700 W). The design does not try to fill the
-// card with one structure. Tensor cores and TMA are not used.
+// Bound. A batch is bound by operations: a step of a structure evaluates
+// every term once (a pair ~20 flops, an angle ~60, a dihedral ~110, with
+// acos / atan2 / sin / cos) and updates every atom (~60 flops); the
+// tables (a few KB) are read once and the coordinates read and written
+// once. The work follows the data: the steps each structure takes before
+// it stops (returned per structure). A lone structure (a bend, a scan
+// point) is bound by latency: a chain of dependent steps, each as long as
+// its slowest term, the atom sums, the reductions and the barriers.
+// Measured (chip_smoke.py phase 13, NVIDIA H100 80GB HBM3, 700 W, f64):
+// the 24,417 x 15 batch 2.08 ms in the warp form, 4.6% of its operations
+// bound (4.55 ms in the first design); a bend's call of one 15-atom
+// structure 0.130 ms in the lone form, 2.0 us a step (0.300 ms).
 //
-// Blocks of whole warps, up to 256 threads (ops/kernels/ff_fire.
-// launch_plan: one a term or an atom, whichever is more, staged; one an
-// atom otherwise); a thread walks several where there are more; the
-// others only join the reductions. Entries ff_fire_f32 / ff_fire_f64
-// return the cudaError_t of the launch.
+// The forms (ops/kernels/ff_fire.launch_plan picks one from B, N, the
+// terms, the entries and the card's resident warps by the rule that
+// phase 13's sweeps on the card set):
+//   group  one structure on W warps, G structures a block, a thread a
+//          term slot (its term's atoms, entries and reference value in
+//          registers for the launch). Each term's forces go to its
+//          atoms' incidence entries in shared memory; then the atoms are
+//          summed. N <= 32: the first warp owns an atom a lane (force,
+//          velocity in registers) and does the sums, both reductions and
+//          the update with shuffles alone, so a step pays two barriers;
+//          N > 32: the W warps share the atoms and reduce through shared
+//          memory (four barriers). The barriers are the structure's own
+//          (__syncwarp for one warp, a named barrier for W), so the
+//          structures of a block stop independently.
+//          "lone": the slots grouped by kind, each warp holding terms of
+//          one kind, so bonds, angles and pairs run side by side on their
+//          own warps; one structure on as many warps as its slots or
+//          atoms fill (up to 16), a batch's structures on fewer, so that
+//          more of them are in flight. "warp": one warp a structure, the
+//          slots packed, eight structures a block (small structures in
+//          large batches).
+//   large  any N that device memory holds: a thread-block cluster a
+//          structure (up to 8 blocks, the atoms split between them, a
+//          thread an atom up to 512 a block); the per-atom arrays in
+//          device memory (they stay in L2), each atom's
+//          owner computing its terms itself in incidence order (the
+//          dense repulsion table rules out staging at these sizes); the
+//          blocks' partial sums exchanged through distributed shared
+//          memory, read in rank order; cluster barriers between the
+//          phases. A cluster rather than a cooperative grid: its blocks
+//          are co-scheduled by the hardware, so a batch of large
+//          structures needs no co-residency of the whole grid, and its
+//          barrier is the hardware's.
+// The first design, a block a structure, stays in ff_fire_block.cu as
+// the yardstick (launch(..., regime='block')).
+// Entries ff_fire_f32 / ff_fire_f64 return the cudaError_t of the launch;
+// ff_fire_info reports a form's registers, local memory and resident
+// blocks.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "ff_forces.cuh"
+
+namespace cg = cooperative_groups;
+using namespace ffk;
 
 namespace {
 
-constexpr int MAX_WARPS = 8;           // ff_fire.MAX_THREADS / 32
 constexpr int N_MIN = 5;
 constexpr double ALPHA0 = 0.1;
 constexpr double F_INC = 1.1;
@@ -74,523 +91,694 @@ constexpr double F_DEC = 0.5;
 constexpr double F_ALPHA = 0.99;
 constexpr double DT_MAX_FACTOR = 10.0;
 constexpr double MAX_DISP = 0.2;
-constexpr double FLOOR = 1e-12;
-constexpr double COS_CLIP = 1.0 - 1e-9;
-constexpr double K_ANGLE = 30.0;
-constexpr double K_REP = 50.0;
-constexpr double K_DIH = 30.0;
-constexpr double HALF_ONSET = 2.5;
 constexpr long long STATIC_SMEM = 48 * 1024;
 constexpr int MAX_DEVICES = 64;
+constexpr int LARGE_THREADS = 512;     // the large form: an atom a thread
+constexpr int GROUP_THREADS = 512;     // group form: W warps x G groups
+constexpr int WARP_THREADS = 256;      // the warp form: G one-warp groups
+constexpr int MAX_GROUPS = 15;         // named barriers 1..15
+constexpr int MAX_CLUSTER = 8;         // the portable cluster size
+
+enum Form : int { FORM_LONE = 0, FORM_WARP = 1, FORM_LARGE = 2 };
+// the launch plan, a host array: ops/kernels/ff_fire.Plan.args
+enum PlanField : int { P_FORM, P_THREADS, P_GROUPS, P_WARPS, P_CLUSTER,
+                       P_SMEM, P_STAGED, P_SLOTS, P_LO0, P_LO1, P_LO2,
+                       P_LO3, P_ENTRIES };
 
 template <typename T>
-struct Terms {
-  const long long* bonds;
-  const T* bond_r0;
-  long long nb;
+struct Tables {
+  int nb, na, np, nd;             // bonds, angles, repulsion pairs, dihedrals
   T bond_k;
-  const long long* angles;
-  const T* angle_t0;
-  long long na;
-  const long long* pairs;
-  const T* pair_r0;
-  long long np;
-  const long long* dih;
-  const T* dih_t0;
-  long long nd;
+  // packed once a topology (ops/kernels/ff_fire.packed_terms): each
+  // term's atoms and incidence entries (rows of 4, -1 for a role it
+  // lacks) and its reference value
+  const int4* atoms;
+  const int4* entries;
+  const T* t0;
+  // ff.incidence: each atom's entries, codes 4 term + role
   const int* inc_off;
   const int* inc_code;
-  const int* inc_pos;
-  const long long* springs;
-  const T* spring_t;
-  long long ns;
-  const T* k_s;
-  const long long* half;
-  long long nh;
-  const T* k_h;
+  Springs<T> springs;
 };
 
-enum PairKind { BOND, REPULSION, SPRING, HALF };
-
-__device__ __forceinline__ double my_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float my_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double my_acos(double x) { return acos(x); }
-__device__ __forceinline__ float my_acos(float x) { return acosf(x); }
-__device__ __forceinline__ double my_atan2(double y, double x) {
-  return atan2(y, x);
-}
-__device__ __forceinline__ float my_atan2(float y, float x) {
-  return atan2f(y, x);
-}
-__device__ __forceinline__ double my_sin(double x) { return sin(x); }
-__device__ __forceinline__ float my_sin(float x) { return sinf(x); }
-__device__ __forceinline__ double my_cos(double x) { return cos(x); }
-__device__ __forceinline__ float my_cos(float x) { return cosf(x); }
-
 template <typename T>
-__device__ __forceinline__ T tmax(T a, T b) { return a > b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T tmin(T a, T b) { return a < b ? a : b; }
-
-// the forces of a pair term with dE/dd = g(d) on its two atoms:
-// out[0] = -g/d (x_i - x_j), out[1] = +g/d (x_i - x_j)
-template <typename T>
-__device__ __forceinline__ void pair_forces(const T* c, long long i,
-                                            long long j, PairKind kind, T p,
-                                            T k, T (*out)[3]) {
-  const T dx = c[3 * i] - c[3 * j];
-  const T dy = c[3 * i + 1] - c[3 * j + 1];
-  const T dz = c[3 * i + 2] - c[3 * j + 2];
-  const T d = my_sqrt(dx * dx + dy * dy + dz * dz);
-  T g;
-  if (kind == REPULSION) {
-    const T o = p - d;
-    g = o > T(0) ? -(T(2) * k) * o : T(0);
-  } else if (kind == HALF) {
-    const T x = d - p;
-    g = x > T(0) ? (T(2) * k) * x : T(0);
-  } else {
-    g = (T(2) * k) * (d - p);
-  }
-  const T coef = d > T(0) ? g / d : T(0);
-  const T s = -coef;
-  out[0][0] = s * dx;
-  out[0][1] = s * dy;
-  out[0][2] = s * dz;
-  out[1][0] = coef * dx;
-  out[1][1] = coef * dy;
-  out[1][2] = coef * dz;
-}
-
-// K_ANGLE (acos(cos) - t0)^2 on (i, j, k), j central, forces in the
-// order i, j, k; no force outside the cosine's clip, the norm product
-// floored at 1e-12 (ff_energy)
-template <typename T>
-__device__ __forceinline__ void angle_forces(const T* c, const long long* q,
-                                             T t0, T (*out)[3]) {
-  const long long i = q[0], j = q[1], k = q[2];
-  T v1[3], v2[3];
-  for (int x = 0; x < 3; ++x) {
-    v1[x] = c[3 * i + x] - c[3 * j + x];
-    v2[x] = c[3 * k + x] - c[3 * j + x];
-  }
-  const T n1sq = v1[0] * v1[0] + v1[1] * v1[1] + v1[2] * v1[2];
-  const T n2sq = v2[0] * v2[0] + v2[1] * v2[1] + v2[2] * v2[2];
-  T den = my_sqrt(n1sq) * my_sqrt(n2sq);
-  const bool floored = den < T(FLOOR);
-  den = tmax(den, T(FLOOR));
-  const T cs = (v1[0] * v2[0] + v1[1] * v2[1] + v1[2] * v2[2]) / den;
-  const bool outside = cs < -T(COS_CLIP) || cs > T(COS_CLIP);
-  const T g = outside ? T(0)
-                      : (T(2) * T(K_ANGLE)) * (my_acos(cs) - t0) *
-                            (T(-1) / my_sqrt(T(1) - cs * cs));
-  for (int x = 0; x < 3; ++x) {
-    const T dc1 = floored ? v2[x] / den : v2[x] / den - cs * v1[x] / n1sq;
-    const T dc2 = floored ? v1[x] / den : v1[x] / den - cs * v2[x] / n2sq;
-    const T fi = -g * dc1, fk = -g * dc2;
-    out[0][x] = fi;
-    out[1][x] = -(fi + fk);
-    out[2][x] = fk;
-  }
+__device__ __forceinline__ int kind_of(const Tables<T>& t, int term) {
+  return term < t.nb ? BOND
+         : term < t.nb + t.na ? ANGLE
+         : term < t.nb + t.na + t.np ? REPULSION : DIHEDRAL;
 }
 
 template <typename T>
-__device__ __forceinline__ void cross(const T* a, const T* b, T* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
+__device__ __forceinline__ TermRec<T> term_rec(int kind, int4 q, T t0) {
+  TermRec<T> r;
+  r.kind = kind;
+  r.a[0] = q.x;
+  r.a[1] = q.y;
+  r.a[2] = q.z < 0 ? 0 : q.z;
+  r.a[3] = q.w < 0 ? 0 : q.w;
+  r.t0 = t0;
+  return r;
 }
 
+// a term from the packed tables
 template <typename T>
-__device__ __forceinline__ T dot3(const T* a, const T* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+struct PackedLoad {
+  const Tables<T>& t;
+  __device__ __forceinline__ TermRec<T> operator()(int term) const {
+    return term_rec(kind_of(t, term), __ldg(t.atoms + term),
+                    __ldg(t.t0 + term));
+  }
+};
+
+// write a term's forces o (w atoms) to its atoms' incidence entries
+template <typename T>
+__device__ __forceinline__ void stage(T* contrib, int4 e, int w,
+                                      T (*o)[3]) {
+  const int ent[4] = {e.x, e.y, e.z, e.w};
+  for (int r = 0; r < 4; ++r)
+    if (r < w)
+      for (int x = 0; x < 3; ++x) contrib[3 * ent[r] + x] = o[r][x];
 }
 
-// K_DIH wrap(phi - t0)^2 on (p0, p1, p2, p3): phi as ff_energy takes it,
-// its gradient in Bekker's closed form (d wrap / d phi = 1); no force
-// from a quadruplet with a collinear end
+// ------------------------------------------------------------ FIRE rules
+
+// a structure's FIRE controls and the step's rules (fire_step)
 template <typename T>
-__device__ __forceinline__ void dihedral_forces(const T* c,
-                                                const long long* q, T t0,
-                                                T (*out)[3]) {
-  T b0[3], b1[3], b2[3];
-  for (int x = 0; x < 3; ++x) {
-    b0[x] = c[3 * q[0] + x] - c[3 * q[1] + x];
-    b1[x] = c[3 * q[2] + x] - c[3 * q[1] + x];
-    b2[x] = c[3 * q[3] + x] - c[3 * q[2] + x];
+struct Fire {
+  T dt, alpha, dt_max;
+  int n_pos;
+  // set by rules(): the step's uphill flag, dt, next alpha and the
+  // velocity mix factor q = |v| / max(|f|, 1e-12)
+  bool uphill;
+  T dt_new, alpha_next, q;
+
+  __device__ __forceinline__ explicit Fire(double dt0)
+      : dt(T(dt0)), alpha(T(ALPHA0)), dt_max(T(dt0 * DT_MAX_FACTOR)),
+        n_pos(0), uphill(false), dt_new(T(0)), alpha_next(T(0)),
+        q(T(0)) {}
+
+  // the rules of one step from its power and squared norms; stepped()
+  // mixes with this step's alpha until advance()
+  __device__ __forceinline__ void rules(T power, T ff, T vv) {
+    q = ksqrt(vv) * (ff < T(FLOOR) * T(FLOOR) ? T(1) / T(FLOOR)
+                                              : krsqrt(ff));
+    uphill = power <= T(0);
+    const int n_new = uphill ? 0 : n_pos + 1;
+    const bool grow = n_new > N_MIN;
+    dt_new = uphill ? dt * T(F_DEC) : (grow ? tmin(dt * T(F_INC), dt_max)
+                                             : dt);
+    alpha_next = uphill ? T(ALPHA0) : (grow ? alpha * T(F_ALPHA) : alpha);
+    n_pos = n_new;
   }
-  T m[3], n[3];
-  cross(b0, b1, m);
-  cross(b2, b1, n);
-  const T mm = dot3(m, m), nn = dot3(n, n);
-  if (!(mm > T(0)) || !(nn > T(0))) {
-    for (int r = 0; r < 4; ++r) out[r][0] = out[r][1] = out[r][2] = T(0);
-    return;
+
+  // one component's stepped velocity
+  __device__ __forceinline__ T stepped(T v, T f) const {
+    const T mixed = (T(1) - alpha) * v + (alpha * f) * q;
+    return (uphill ? T(0) : mixed) + dt_new * f;
   }
-  const T nb1 = my_sqrt(dot3(b1, b1));
-  const T nb1c = tmax(nb1, T(FLOOR));
-  T b1n[3], v[3], w[3], bv[3];
-  for (int x = 0; x < 3; ++x) b1n[x] = b1[x] / nb1c;
-  const T s0 = dot3(b0, b1n), s2 = dot3(b2, b1n);
-  for (int x = 0; x < 3; ++x) {
-    v[x] = b0[x] - s0 * b1n[x];
-    w[x] = b2[x] - s2 * b1n[x];
+
+  __device__ __forceinline__ void advance() {
+    dt = dt_new;
+    alpha = alpha_next;
   }
-  cross(b1n, v, bv);
-  const T phi = my_atan2(dot3(bv, w), dot3(v, w));
-  const T u = phi - t0;
-  const T g = (T(2) * T(K_DIH)) * my_atan2(my_sin(u), my_cos(u));
-  const T nb1sq = nb1 * nb1;
-  const T a = dot3(b0, b1) / nb1sq;
-  const T cc = -dot3(b2, b1) / nb1sq;
-  for (int x = 0; x < 3; ++x) {
-    const T d0 = nb1 / mm * m[x];
-    const T d3 = -nb1 / nn * n[x];
-    out[0][x] = -g * d0;
-    out[1][x] = -g * ((a - T(1)) * d0 - cc * d3);
-    out[2][x] = -g * ((cc - T(1)) * d3 - a * d0);
-    out[3][x] = -g * d3;
-  }
+};
+
+// the cap's factor from the largest squared atomic step: min(0.2 /
+// max(d, 1e-12), 1), whose quotient is at least 1 (so the factor 1)
+// wherever d <= 0.2; the division only past it
+template <typename T>
+__device__ __forceinline__ T cap_scale(T md) {
+  const T d = ksqrt(md);
+  return d <= T(MAX_DISP) ? T(1)
+                          : tmin(T(MAX_DISP) / tmax(d, T(FLOOR)), T(1));
 }
 
-// the forces of force-field term `term` (numbered as in ff.incidence) on
-// its atoms, in role order; returns the number of atoms
+// sums of s0..s2 and the max of m3 over a warp, the same bits in every
+// lane
 template <typename T>
-__device__ __forceinline__ int term_forces(const T* c, long long term,
-                                           const Terms<T>& t, T (*out)[3]) {
-  const long long ang0 = t.nb, rep0 = ang0 + t.na, dih0 = rep0 + t.np;
-  if (term < ang0) {
-    pair_forces(c, __ldg(t.bonds + 2 * term), __ldg(t.bonds + 2 * term + 1),
-                BOND, __ldg(t.bond_r0 + term), t.bond_k, out);
-    return 2;
-  }
-  if (term < rep0) {
-    const long long r = term - ang0;
-    const long long q[3] = {__ldg(t.angles + 3 * r),
-                            __ldg(t.angles + 3 * r + 1),
-                            __ldg(t.angles + 3 * r + 2)};
-    angle_forces(c, q, __ldg(t.angle_t0 + r), out);
-    return 3;
-  }
-  if (term < dih0) {
-    const long long r = term - rep0;
-    pair_forces(c, __ldg(t.pairs + 2 * r), __ldg(t.pairs + 2 * r + 1),
-                REPULSION, __ldg(t.pair_r0 + r), T(K_REP), out);
-    return 2;
-  }
-  const long long r = term - dih0;
-  const long long q[4] = {__ldg(t.dih + 4 * r), __ldg(t.dih + 4 * r + 1),
-                          __ldg(t.dih + 4 * r + 2), __ldg(t.dih + 4 * r + 3)};
-  dihedral_forces(c, q, __ldg(t.dih_t0 + r), out);
-  return 4;
-}
-
-// the springs' and the half-springs' forces on atom a, added to f in
-// order
-template <typename T>
-__device__ __forceinline__ void add_springs(const T* c, int a,
-                                            const Terms<T>& t, T* f) {
-  T out[2][3];
-  if (t.ns) {
-    const T k = *t.k_s;
-    for (long long s = 0; s < t.ns; ++s) {
-      const long long i = __ldg(t.springs + 2 * s);
-      const long long j = __ldg(t.springs + 2 * s + 1);
-      if (i != a && j != a) continue;
-      pair_forces(c, i, j, SPRING, __ldg(t.spring_t + s), k, out);
-      for (int r = 0; r < 2; ++r)
-        if ((r ? j : i) == a)
-          for (int x = 0; x < 3; ++x) f[x] += out[r][x];
-    }
-  }
-  if (t.nh) {
-    const T k = *t.k_h;
-    for (long long s = 0; s < t.nh; ++s) {
-      const long long i = __ldg(t.half + 2 * s);
-      const long long j = __ldg(t.half + 2 * s + 1);
-      if (i != a && j != a) continue;
-      pair_forces(c, i, j, HALF, T(HALF_ONSET), k, out);
-      for (int r = 0; r < 2; ++r)
-        if ((r ? j : i) == a)
-          for (int x = 0; x < 3; ++x) f[x] += out[r][x];
-    }
-  }
-}
-
-// the force on atom a, summed from zero in the fixed order, each term
-// computed here (the per-atom form, for tables too large to stage)
-template <typename T>
-__device__ void atom_force(const T* c, int a, const Terms<T>& t, T* f) {
-  f[0] = f[1] = f[2] = T(0);
-  const int lo = __ldg(t.inc_off + a), hi = __ldg(t.inc_off + a + 1);
-  T out[4][3];
-  for (int e = lo; e < hi; ++e) {
-    const int code = __ldg(t.inc_code + e);
-    term_forces(c, code >> 2, t, out);
-    for (int x = 0; x < 3; ++x) f[x] += out[code & 3][x];
-  }
-  add_springs(c, a, t, f);
-}
-
-// the force on atom a from the staged term forces (contrib, in CSR
-// order), summed from zero in the same fixed order as atom_force
-template <typename T>
-__device__ void atom_force_staged(const T* c, int a, const Terms<T>& t,
-                                  const T* contrib, T* f) {
-  f[0] = f[1] = f[2] = T(0);
-  const int lo = __ldg(t.inc_off + a), hi = __ldg(t.inc_off + a + 1);
-  for (int e = lo; e < hi; ++e)
-    for (int x = 0; x < 3; ++x) f[x] += contrib[3 * e + x];
-  add_springs(c, a, t, f);
-}
-
-// sums of s0..s2 and the max of m3 over the block, the same bits in
-// every thread: a butterfly in each warp, then the warps in order
-template <typename T>
-__device__ __forceinline__ void block_reduce(T& s0, T& s1, T& s2, T& m3,
-                                             T (*buf)[MAX_WARPS]) {
+__device__ __forceinline__ void warp_reduce(T& s0, T& s1, T& s2, T& m3) {
   for (int o = 16; o > 0; o >>= 1) {
     s0 += __shfl_xor_sync(0xffffffffu, s0, o);
     s1 += __shfl_xor_sync(0xffffffffu, s1, o);
     s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     m3 = tmax(m3, __shfl_xor_sync(0xffffffffu, m3, o));
   }
-  const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    buf[0][w] = s0;
-    buf[1][w] = s1;
-    buf[2][w] = s2;
-    buf[3][w] = m3;
-  }
-  __syncthreads();
-  s0 = buf[0][0];
-  s1 = buf[1][0];
-  s2 = buf[2][0];
-  m3 = buf[3][0];
-  for (int k = 1; k < nw; ++k) {
-    s0 += buf[0][k];
-    s1 += buf[1][k];
-    s2 += buf[2][k];
-    m3 = tmax(m3, buf[3][k]);
-  }
 }
 
 template <typename T>
-__device__ __forceinline__ T block_max(T m, T* buf) {
+__device__ __forceinline__ T warp_max(T m) {
   for (int o = 16; o > 0; o >>= 1)
     m = tmax(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = buf[0];
-  for (int k = 1; k < (int)(blockDim.x >> 5); ++k) m = tmax(m, buf[k]);
   return m;
 }
 
+// a barrier over the `count` threads of one structure: the warp's own,
+// or named barrier `id`
+__device__ __forceinline__ void group_sync(int id, int count) {
+  if (count == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// sums of s0..s2 and the max of m3 over the nw warps of one structure
+// (warp butterflies, then the warps in order through buf[4][nw]), the
+// same bits in every thread; sync is the structure's barrier
+template <typename T, typename S>
+__device__ __forceinline__ void group_reduce(T& s0, T& s1, T& s2, T& m3,
+                                             T* buf, int w, int nw,
+                                             const S& sync) {
+  warp_reduce(s0, s1, s2, m3);
+  if ((threadIdx.x & 31) == 0) {
+    buf[w] = s0;
+    buf[nw + w] = s1;
+    buf[2 * nw + w] = s2;
+    buf[3 * nw + w] = m3;
+  }
+  sync();
+  s0 = buf[0];
+  s1 = buf[nw];
+  s2 = buf[2 * nw];
+  m3 = buf[3 * nw];
+  for (int k = 1; k < nw; ++k) {
+    s0 += buf[k];
+    s1 += buf[nw + k];
+    s2 += buf[2 * nw + k];
+    m3 = tmax(m3, buf[3 * nw + k]);
+  }
+}
+
+template <typename T, typename S>
+__device__ __forceinline__ T group_max(T m, T* buf, int w, int nw,
+                                       const S& sync) {
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) buf[w] = m;
+  sync();
+  m = buf[0];
+  for (int k = 1; k < nw; ++k) m = tmax(m, buf[k]);
+  return m;
+}
+
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+struct GroupSync {
+  int id, count;
+  __device__ __forceinline__ void operator()() const {
+    group_sync(id, count);
+  }
+};
+
+// ------------------------------------------------------------ group form
+
+// the slots of the term pass: kind k's terms at slots lo[k] ..
+// lo[k] + count - 1 (packed: the terms in order; grouped by kind: each
+// kind from a multiple of 32)
+struct Slots {
+  int lo[4];
+  int n;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-ff_fire_kernel(const T* __restrict__ coords, T* __restrict__ out,
-               bool* __restrict__ done_out, int* __restrict__ steps_out,
-               int N, const Terms<T> t,
-               const unsigned char* __restrict__ freeze,
-               long long freeze_stride, int n_steps, double dt0,
-               double fmax, int staged) {
+__device__ __forceinline__ int slot_term(const Tables<T>& t, const Slots& s,
+                                         int slot) {
+  const int count[4] = {t.nb, t.na, t.np, t.nd};
+  int base = 0;
+  for (int k = 0; k < 4; ++k) {
+    if (slot >= s.lo[k] && slot < s.lo[k] + count[k])
+      return base + slot - s.lo[k];
+    base += count[k];
+  }
+  return -1;
+}
+
+// the shared values of one structure in the group form
+__host__ __device__ __forceinline__ long long group_values(int N, int E,
+                                                           int W,
+                                                           bool small) {
+  return small ? 3LL * N + 3LL * E : 12LL * N + 3LL * E + 5LL * W;
+}
+
+// BATCH: the warp form's instantiation, its registers capped so that
+// 3 (f64) or 4 (f32) blocks of WARP_THREADS fit an SM
+template <typename T, bool SMALL, bool BATCH>
+__global__ void __launch_bounds__(BATCH ? WARP_THREADS : GROUP_THREADS,
+                                  BATCH ? (sizeof(T) == 8 ? 3 : 4) : 1)
+ff_fire_group_kernel(const T* __restrict__ coords, T* __restrict__ out,
+                     bool* __restrict__ done_out,
+                     int* __restrict__ steps_out, long long B, int N,
+                     const Tables<T> t,
+                     const unsigned char* __restrict__ freeze,
+                     long long freeze_stride, int n_steps, double dt0,
+                     double fmax, int W, int G, int E, const Slots sl) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[4][MAX_WARPS];
-  __shared__ T red_disp[MAX_WARPS];
-  T* c = reinterpret_cast<T*>(smem_raw);
-  T* v = c + 3 * N;
+  __shared__ int stop[MAX_GROUPS];
+  const int gt = 32 * W;
+  const int g = threadIdx.x / gt, tig = threadIdx.x - g * gt;
+  const long long b = (long long)blockIdx.x * G + g;
+  if (b >= B) return;             // a whole structure's threads leave
+  const GroupSync sync{1 + g, gt};
+  T* c = reinterpret_cast<T*>(smem_raw) + g * group_values(N, E, W, SMALL);
+  T* contrib = c + 3 * N;
+  T* v = contrib + 3 * E;         // N > 32: the atoms' state, reductions
   T* f = v + 3 * N;
   T* vs = f + 3 * N;
-  T* contrib = vs + 3 * N;        // staged: each incidence entry's force
-  const long long n_terms = t.nb + t.na + t.np + t.nd;
-  const long long b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  T* red = vs + 3 * N;
+  T* red_disp = red + 4 * W;
+  const SmemCoords<T> at{c};
   const T* cin = coords + b * 3 * N;
-  for (int k = tid; k < 3 * N; k += nt) {
+  for (int k = tig; k < 3 * N; k += gt) {
     c[k] = cin[k];
-    v[k] = T(0);
+    if (!SMALL) v[k] = T(0);
   }
   const unsigned char* fr = freeze ? freeze + b * freeze_stride : nullptr;
-  T dt = T(dt0), alpha = T(ALPHA0);
-  const T dt_max = T(dt0 * DT_MAX_FACTOR), fmax_t = T(fmax);
-  int n_pos = 0, steps = 0;
+  // this thread's first slot, held for the launch
+  const int my_term = tig < sl.n ? slot_term(t, sl, tig) : -1;
+  TermRec<T> mine{};
+  int4 my_e = make_int4(0, 0, 0, 0);
+  if (my_term >= 0) {
+    mine = PackedLoad<T>{t}(my_term);
+    my_e = __ldg(t.entries + my_term);
+  }
+  // N <= 32: lane a of the first warp owns atom a for the launch
+  const int lane = tig & 31;
+  const bool first = tig < 32;
+  int lo = 0, hi = 0;
+  bool held = false;             // an atom that moves
+  T va[3] = {T(0), T(0), T(0)};
+  if (SMALL && first && lane < N) {
+    lo = __ldg(t.inc_off + lane);
+    hi = __ldg(t.inc_off + lane + 1);
+    held = !(fr && fr[lane]);
+  }
+  if (tig == 0) stop[g] = 0;
+  Fire<T> fire(dt0);
+  const T fmax_t = T(fmax);
+  int steps = 0;
   bool done = false;
-  __syncthreads();
+  sync();
   for (int step = 0; step < n_steps; ++step) {
-    if (staged) {
-      // each term once, by a thread of its own, its forces written to
-      // the incidence entries of its atoms
-      for (long long term = tid; term < n_terms; term += nt) {
-        T o[4][3];
-        const int w = term_forces(c, term, t, o);
-        for (int r = 0; r < w; ++r) {
-          const int e = __ldg(t.inc_pos + 4 * term + r);
-          for (int x = 0; x < 3; ++x) contrib[3 * e + x] = o[r][x];
+    for (int s = tig; s < sl.n; s += gt) {
+      const bool own = s == tig;
+      const int term = own ? my_term : slot_term(t, sl, s);
+      if (term < 0) continue;
+      const TermRec<T> r = own ? mine : PackedLoad<T>{t}(term);
+      const int4 e = own ? my_e : __ldg(t.entries + term);
+      T o[4][3];
+      stage(contrib, e, term_forces(at, r, t.bond_k, o), o);
+    }
+    sync();
+    if (SMALL) {
+      if (first) {
+        T fa[3] = {T(0), T(0), T(0)};
+        if (held) atom_force_staged(at, lane, lo, hi, contrib, t.springs, fa);
+        T power = fa[0] * va[0] + fa[1] * va[1] + fa[2] * va[2];
+        T ff = fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2];
+        T vv = va[0] * va[0] + va[1] * va[1] + va[2] * va[2];
+        T fm = ff;
+        warp_reduce(power, ff, vv, fm);
+        ++steps;
+        if (ksqrt(fm) < fmax_t) {     // stopped: coordinates as they are
+          done = true;
+          if (lane == 0) stop[g] = 1;
+        } else {
+          fire.rules(power, ff, vv);
+          T vsa[3], sq = T(0);
+          for (int x = 0; x < 3; ++x) {
+            vsa[x] = fire.stepped(va[x], fa[x]);
+            const T st = fire.dt_new * vsa[x];
+            sq += st * st;
+          }
+          const T scale = cap_scale(warp_max(sq));
+          if (lane < N)
+            for (int x = 0; x < 3; ++x) {
+              c[3 * lane + x] = c[3 * lane + x] +
+                                (fire.dt_new * vsa[x]) * scale;
+              va[x] = vsa[x] * scale;
+            }
+          fire.advance();
         }
       }
-      __syncthreads();
-    }
-    T power = T(0), ff = T(0), vv = T(0), fm = T(0);
-    for (int a = tid; a < N; a += nt) {
-      T fa[3] = {T(0), T(0), T(0)};
-      if (!(fr && fr[a])) {
-        if (staged)
-          atom_force_staged(c, a, t, contrib, fa);
-        else
-          atom_force(c, a, t, fa);
+      sync();
+      if (stop[g]) break;
+    } else {
+      T power = T(0), ff = T(0), vv = T(0), fm = T(0);
+      for (int a = tig; a < N; a += gt) {
+        T fa[3] = {T(0), T(0), T(0)};
+        if (!(fr && fr[a]))
+          atom_force_staged(at, a, __ldg(t.inc_off + a),
+                            __ldg(t.inc_off + a + 1), contrib, t.springs,
+                            fa);
+        for (int x = 0; x < 3; ++x) f[3 * a + x] = fa[x];
+        const T* vp = v + 3 * a;
+        power += fa[0] * vp[0] + fa[1] * vp[1] + fa[2] * vp[2];
+        ff += fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2];
+        vv += vp[0] * vp[0] + vp[1] * vp[1] + vp[2] * vp[2];
+        fm = tmax(fm, fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2]);
       }
-      for (int x = 0; x < 3; ++x) f[3 * a + x] = fa[x];
-      const T* va = v + 3 * a;
-      power += fa[0] * va[0] + fa[1] * va[1] + fa[2] * va[2];
-      ff += fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2];
-      vv += va[0] * va[0] + va[1] * va[1] + va[2] * va[2];
-      fm = tmax(fm, fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2]);
-    }
-    block_reduce(power, ff, vv, fm, red);
-    ++steps;
-    if (my_sqrt(fm) < fmax_t) {       // stopped: coordinates as they are
-      done = true;
-      break;
-    }
-    const T f_norm = my_sqrt(ff), v_norm = my_sqrt(vv);
-    const bool uphill = power <= T(0);
-    const int n_pos_new = uphill ? 0 : n_pos + 1;
-    const bool grow = n_pos_new > N_MIN;
-    const T dt_new = uphill ? dt * T(F_DEC)
-                            : (grow ? tmin(dt * T(F_INC), dt_max) : dt);
-    const T alpha_new = uphill ? T(ALPHA0) : (grow ? alpha * T(F_ALPHA)
-                                                   : alpha);
-    const T f_den = tmax(f_norm, T(FLOOR));
-    T md = T(0);
-    for (int a = tid; a < N; a += nt) {
-      T sq = T(0);
-      for (int x = 0; x < 3; ++x) {
-        const int k = 3 * a + x;
-        const T mixed = (T(1) - alpha) * v[k] + alpha * f[k] * v_norm / f_den;
-        const T vk = (uphill ? T(0) : mixed) + dt_new * f[k];
-        vs[k] = vk;
-        const T st = dt_new * vk;
-        sq += st * st;
+      group_reduce(power, ff, vv, fm, red, tig >> 5, W, sync);
+      ++steps;
+      if (ksqrt(fm) < fmax_t) {
+        done = true;
+        break;
       }
-      md = tmax(md, sq);
-    }
-    const T max_disp = my_sqrt(block_max(md, red_disp));
-    const T scale = tmin(T(MAX_DISP) / tmax(max_disp, T(FLOOR)), T(1));
-    for (int a = tid; a < N; a += nt) {
-      for (int x = 0; x < 3; ++x) {
-        const int k = 3 * a + x;
-        c[k] = c[k] + (dt_new * vs[k]) * scale;
-        v[k] = vs[k] * scale;
+      fire.rules(power, ff, vv);
+      T md = T(0);
+      for (int a = tig; a < N; a += gt) {
+        T sq = T(0);
+        for (int x = 0; x < 3; ++x) {
+          const int k = 3 * a + x;
+          const T vk = fire.stepped(v[k], f[k]);
+          vs[k] = vk;
+          const T st = fire.dt_new * vk;
+          sq += st * st;
+        }
+        md = tmax(md, sq);
       }
+      const T scale = cap_scale(group_max(md, red_disp, tig >> 5, W, sync));
+      for (int a = tig; a < N; a += gt)
+        for (int x = 0; x < 3; ++x) {
+          const int k = 3 * a + x;
+          c[k] = c[k] + (fire.dt_new * vs[k]) * scale;
+          v[k] = vs[k] * scale;
+        }
+      fire.advance();
+      sync();
     }
-    dt = dt_new;
-    alpha = alpha_new;
-    n_pos = n_pos_new;
-    __syncthreads();
   }
-  __syncthreads();
   T* o = out + b * 3 * N;
-  for (int k = tid; k < 3 * N; k += nt) o[k] = c[k];
-  if (tid == 0) {
+  for (int k = tig; k < 3 * N; k += gt) o[k] = c[k];
+  if (tig == 0) {
     done_out[b] = done;
     steps_out[b] = steps;
   }
 }
 
-// raise the kernel's dynamic shared memory limit past 48 KB on the
-// current card, once per (type, card, larger size)
-template <typename T>
-int opt_in_smem(long long bytes) {
-  static long long done[MAX_DEVICES] = {0};
+// ------------------------------------------------------------ large form
+
+// a cluster a structure; work holds the velocities, forces and stepped
+// velocities (3 x B x 3N). SHARED: each block keeps all the structure's
+// coordinates in its shared memory, an owner writing its atoms' new
+// ones into every block's copy (distributed shared memory); otherwise
+// out holds them during the run, read through L2.
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(LARGE_THREADS)
+ff_fire_large_kernel(const T* __restrict__ coords, T* out, T* work,
+                     bool* __restrict__ done_out,
+                     int* __restrict__ steps_out, long long B, int N,
+                     const Tables<T> t,
+                     const unsigned char* __restrict__ freeze,
+                     long long freeze_stride, int n_steps, double dt0,
+                     double fmax) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[4 * (LARGE_THREADS / 32)];
+  __shared__ T red_disp[LARGE_THREADS / 32];
+  __shared__ T part[4];           // this block's sums, read by the cluster
+  __shared__ T part_disp[1];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long b = blockIdx.x / CL;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int w = tid >> 5, nw = nt >> 5;
+  const BlockSync sync;
+  const int per = (N + CL - 1) / CL;  // this block's atoms a0 .. a1 - 1
+  const int a0 = rank * per, a1 = min(N, a0 + per);
+  T* c = SHARED ? reinterpret_cast<T*>(smem_raw) : out + b * 3 * N;
+  T* v = work + b * 3 * N;
+  T* f = v + B * 3 * N;
+  T* vs = f + B * 3 * N;
+  const T* cin = coords + b * 3 * N;
+  if (SHARED)
+    for (int k = tid; k < 3 * N; k += nt) c[k] = cin[k];
+  for (int k = 3 * a0 + tid; k < 3 * a1; k += nt) {
+    if (!SHARED) c[k] = cin[k];
+    v[k] = T(0);
+  }
+  const unsigned char* fr = freeze ? freeze + b * freeze_stride : nullptr;
+  const PackedLoad<T> load{t};
+  Fire<T> fire(dt0);
+  const T fmax_t = T(fmax);
+  int steps = 0;
+  bool done = false;
+  __threadfence();
+  cluster.sync();
+  for (int step = 0; step < n_steps; ++step) {
+    T power = T(0), ff = T(0), vv = T(0), fm = T(0);
+    for (int a = a0 + tid; a < a1; a += nt) {
+      T fa[3] = {T(0), T(0), T(0)};
+      if (!(fr && fr[a])) {
+        const int lo = __ldg(t.inc_off + a), hi = __ldg(t.inc_off + a + 1);
+        if (SHARED)
+          atom_force(SmemCoords<T>{c}, a, lo, hi, t.inc_code, load,
+                     t.bond_k, t.springs, fa);
+        else
+          atom_force(GlobalCoords<T>{c}, a, lo, hi, t.inc_code, load,
+                     t.bond_k, t.springs, fa);
+      }
+      for (int x = 0; x < 3; ++x) f[3 * a + x] = fa[x];
+      const T* vp = v + 3 * a;
+      power += fa[0] * vp[0] + fa[1] * vp[1] + fa[2] * vp[2];
+      ff += fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2];
+      vv += vp[0] * vp[0] + vp[1] * vp[1] + vp[2] * vp[2];
+      fm = tmax(fm, fa[0] * fa[0] + fa[1] * fa[1] + fa[2] * fa[2]);
+    }
+    group_reduce(power, ff, vv, fm, red, w, nw, sync);
+    if (tid == 0) {
+      part[0] = power;
+      part[1] = ff;
+      part[2] = vv;
+      part[3] = fm;
+    }
+    cluster.sync();
+    // the blocks' sums in rank order: the same bits in every block
+    power = ff = vv = fm = T(0);
+    for (int r = 0; r < CL; ++r) {
+      const T* p = cluster.map_shared_rank(part, r);
+      power += p[0];
+      ff += p[1];
+      vv += p[2];
+      fm = tmax(fm, p[3]);
+    }
+    ++steps;
+    if (ksqrt(fm) < fmax_t) {
+      done = true;
+      break;
+    }
+    fire.rules(power, ff, vv);
+    T md = T(0);
+    for (int a = a0 + tid; a < a1; a += nt) {
+      T sq = T(0);
+      for (int x = 0; x < 3; ++x) {
+        const int k = 3 * a + x;
+        const T vk = fire.stepped(v[k], f[k]);
+        vs[k] = vk;
+        const T st = fire.dt_new * vk;
+        sq += st * st;
+      }
+      md = tmax(md, sq);
+    }
+    md = group_max(md, red_disp, w, nw, sync);
+    if (tid == 0) part_disp[0] = md;
+    cluster.sync();
+    md = T(0);
+    for (int r = 0; r < CL; ++r)
+      md = tmax(md, *cluster.map_shared_rank(part_disp, r));
+    const T scale = cap_scale(md);
+    // every block has read its copy's coordinates (the barrier above)
+    for (int a = a0 + tid; a < a1; a += nt)
+      for (int x = 0; x < 3; ++x) {
+        const int k = 3 * a + x;
+        const T ck = c[k] + (fire.dt_new * vs[k]) * scale;
+        if (SHARED)
+          for (int r = 0; r < CL; ++r) cluster.map_shared_rank(c, r)[k] = ck;
+        else
+          c[k] = ck;
+        v[k] = vs[k] * scale;
+      }
+    fire.advance();
+    __threadfence();
+    cluster.sync();
+  }
+  if (SHARED)
+    for (int k = 3 * a0 + tid; k < 3 * a1; k += nt) out[b * 3 * N + k] = c[k];
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    done_out[b] = done;
+    steps_out[b] = steps;
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// raise a kernel's dynamic shared memory limit past 48 KB on the current
+// card, once per (kernel, card, larger size)
+int opt_in_smem(const void* fn, int id, long long bytes) {
+  static long long done[32][MAX_DEVICES] = {{0}};
   if (bytes <= STATIC_SMEM) return 0;
   int dev = 0, err = (int)cudaGetDevice(&dev);
   if (err) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (done[dev] >= bytes) return 0;
-  err = (int)cudaFuncSetAttribute(ff_fire_kernel<T>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)bytes);
-  if (!err) done[dev] = bytes;
+  if (done[id][dev] >= bytes) return 0;
+  err = (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (!err) done[id][dev] = bytes;
   return err;
+}
+
+// the kernel of a form, and its own slot in opt_in_smem's table
+template <typename T>
+const void* form_kernel(int form, bool small, bool shared, int* id) {
+  *id = (sizeof(T) == 8 ? 16 : 0) + 4 * form + 2 * small + shared;
+  switch (form) {
+    case FORM_LONE:
+      return small ? (const void*)ff_fire_group_kernel<T, true, false>
+                   : (const void*)ff_fire_group_kernel<T, false, false>;
+    case FORM_WARP:
+      return small ? (const void*)ff_fire_group_kernel<T, true, true>
+                   : (const void*)ff_fire_group_kernel<T, false, true>;
+    default:
+      return shared ? (const void*)ff_fire_large_kernel<T, true>
+                    : (const void*)ff_fire_large_kernel<T, false>;
+  }
 }
 
 template <typename T>
 int launch(const void* coords, void* out, void* done, void* steps,
-           long long B, int N, const void* bonds, const void* bond_r0,
-           long long nb, T bond_k, const void* angles, const void* angle_t0,
-           long long na, const void* pairs, const void* pair_r0,
-           long long np, const void* dih, const void* dih_t0, long long nd,
-           const void* inc_off, const void* inc_code, const void* inc_pos,
-           const void* springs, const void* spring_t, long long ns,
-           const void* k_s, const void* half, long long nh, const void* k_h,
-           const void* freeze, long long freeze_stride, int n_steps,
-           double dt0, double fmax, int staged, int threads, long long smem,
-           void* stream) {
+           void* work, long long B, int N, const long long* plan, int nb,
+           int na, int np, int nd, T bond_k, const void* atoms,
+           const void* entries, const void* t0, const void* inc_off,
+           const void* inc_code, const void* springs, const void* spring_t,
+           long long ns, const void* k_s, const void* half, long long nh,
+           const void* k_h, const void* freeze, long long freeze_stride,
+           int n_steps, double dt0, double fmax, void* stream) {
   if (B <= 0) return 0;
-  if (threads <= 0 || threads > MAX_WARPS * 32 || threads % 32)
+  const int form = (int)plan[P_FORM], threads = (int)plan[P_THREADS];
+  const int G = (int)plan[P_GROUPS], W = (int)plan[P_WARPS];
+  const int CL = (int)plan[P_CLUSTER];
+  const long long smem = plan[P_SMEM];
+  const bool group = form == FORM_LONE || form == FORM_WARP;
+  const int most = form == FORM_LONE ? GROUP_THREADS
+                   : form == FORM_WARP ? WARP_THREADS : LARGE_THREADS;
+  if (form < FORM_LONE || form > FORM_LARGE || threads <= 0 ||
+      threads % 32 || threads > most ||
+      (group && (G < 1 || G > MAX_GROUPS || 32 * W * G != threads)) ||
+      (form == FORM_LARGE && (CL < 1 || CL > MAX_CLUSTER)))
     return (int)cudaErrorInvalidValue;
-  int err = opt_in_smem<T>(smem);
+  const bool small = N <= 32, shared = plan[P_STAGED] != 0;
+  int id = 0;
+  const void* fn = form_kernel<T>(form, small, shared, &id);
+  int err = opt_in_smem(fn, id, smem);
   if (err) return err;
-  Terms<T> t;
-  t.bonds = static_cast<const long long*>(bonds);
-  t.bond_r0 = static_cast<const T*>(bond_r0);
+  Tables<T> t;
   t.nb = nb;
-  t.bond_k = bond_k;
-  t.angles = static_cast<const long long*>(angles);
-  t.angle_t0 = static_cast<const T*>(angle_t0);
   t.na = na;
-  t.pairs = static_cast<const long long*>(pairs);
-  t.pair_r0 = static_cast<const T*>(pair_r0);
   t.np = np;
-  t.dih = static_cast<const long long*>(dih);
-  t.dih_t0 = static_cast<const T*>(dih_t0);
   t.nd = nd;
+  t.bond_k = bond_k;
+  t.atoms = static_cast<const int4*>(atoms);
+  t.entries = static_cast<const int4*>(entries);
+  t.t0 = static_cast<const T*>(t0);
   t.inc_off = static_cast<const int*>(inc_off);
   t.inc_code = static_cast<const int*>(inc_code);
-  t.inc_pos = static_cast<const int*>(inc_pos);
-  t.springs = static_cast<const long long*>(springs);
-  t.spring_t = static_cast<const T*>(spring_t);
-  t.ns = ns;
-  t.k_s = static_cast<const T*>(k_s);
-  t.half = static_cast<const long long*>(half);
-  t.nh = nh;
-  t.k_h = static_cast<const T*>(k_h);
-  ff_fire_kernel<T><<<(unsigned)B, threads, (size_t)smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(coords), static_cast<T*>(out),
-      static_cast<bool*>(done), static_cast<int*>(steps), N, t,
-      static_cast<const unsigned char*>(freeze), freeze_stride, n_steps,
-      dt0, fmax, staged);
+  t.springs.pairs = static_cast<const long long*>(springs);
+  t.springs.target = static_cast<const T*>(spring_t);
+  t.springs.n = ns;
+  t.springs.k = static_cast<const T*>(k_s);
+  t.springs.half = static_cast<const long long*>(half);
+  t.springs.nh = nh;
+  t.springs.k_h = static_cast<const T*>(k_h);
+  const T* c = static_cast<const T*>(coords);
+  T* o = static_cast<T*>(out);
+  bool* d = static_cast<bool*>(done);
+  int* s = static_cast<int*>(steps);
+  const unsigned char* fr = static_cast<const unsigned char*>(freeze);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group) {
+    Slots sl;
+    for (int k = 0; k < 4; ++k) sl.lo[k] = (int)plan[P_LO0 + k];
+    sl.n = (int)plan[P_SLOTS];
+    const unsigned grid = (unsigned)((B + G - 1) / G);
+    const int E = (int)plan[P_ENTRIES];
+    using K = void (*)(const T*, T*, bool*, int*, long long, int,
+                       const Tables<T>, const unsigned char*, long long, int,
+                       double, double, int, int, int, const Slots);
+    const K kernel = reinterpret_cast<K>(const_cast<void*>(fn));
+    kernel<<<grid, threads, (size_t)smem, st>>>(
+        c, o, d, s, B, N, t, fr, freeze_stride, n_steps, dt0, fmax, W, G, E,
+        sl);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(B * CL), 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = (int)cudaLaunchKernelEx(
+        &cfg, shared ? ff_fire_large_kernel<T, true>
+                     : ff_fire_large_kernel<T, false>,
+        c, o, static_cast<T*>(work), d, s, B, N, t, fr, freeze_stride,
+        n_steps, dt0, fmax);
+    if (err) return err;
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int info(const long long* plan, int N, int* out) {
+  int id = 0;
+  const void* fn = form_kernel<T>((int)plan[P_FORM], N <= 32,
+                                  plan[P_STAGED] != 0, &id);
+  cudaFuncAttributes a;
+  int err = (int)cudaFuncGetAttributes(&a, fn);
+  if (err) return err;
+  err = opt_in_smem(fn, id, plan[P_SMEM]);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, (int)plan[P_THREADS], (size_t)plan[P_SMEM]);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-#define FF_FIRE_ENTRY(NAME, T)                                              \
-  int NAME(const void* coords, void* out, void* done, void* steps,         \
-           long long B, int N, const void* bonds, const void* bond_r0,     \
-           long long nb, T bond_k, const void* angles,                     \
-           const void* angle_t0, long long na, const void* pairs,          \
-           const void* pair_r0, long long np, const void* dih,             \
-           const void* dih_t0, long long nd, const void* inc_off,          \
-           const void* inc_code, const void* inc_pos, const void* springs, \
-           const void* spring_t, long long ns, const void* k_s,            \
-           const void* half, long long nh, const void* k_h,                \
-           const void* freeze, long long freeze_stride, int n_steps,       \
-           double dt0, double fmax, int staged, int threads,               \
-           long long smem, void* stream) {                                 \
-    return launch<T>(coords, out, done, steps, B, N, bonds, bond_r0, nb,   \
-                     bond_k, angles, angle_t0, na, pairs, pair_r0, np,     \
-                     dih, dih_t0, nd, inc_off, inc_code, inc_pos, springs, \
-                     spring_t, ns, k_s, half, nh, k_h, freeze,             \
-                     freeze_stride, n_steps, dt0, fmax, staged, threads,   \
-                     smem, stream);                                        \
+#define FF_FIRE_ENTRY(NAME, T)                                               \
+  int NAME(const void* coords, void* out, void* done, void* steps,          \
+           void* work, long long B, int N, const long long* plan, int nb,   \
+           int na, int np, int nd, T bond_k, const void* atoms,             \
+           const void* entries, const void* t0, const void* inc_off,        \
+           const void* inc_code, const void* springs,                       \
+           const void* spring_t, long long ns, const void* k_s,             \
+           const void* half, long long nh, const void* k_h,                 \
+           const void* freeze, long long freeze_stride, int n_steps,        \
+           double dt0, double fmax, void* stream) {                         \
+    return launch<T>(coords, out, done, steps, work, B, N, plan, nb, na,    \
+                     np, nd, bond_k, atoms, entries, t0, inc_off, inc_code, \
+                     springs, spring_t, ns, k_s, half, nh, k_h, freeze,     \
+                     freeze_stride, n_steps, dt0, fmax, stream);            \
   }
 
 FF_FIRE_ENTRY(ff_fire_f32, float)
 FF_FIRE_ENTRY(ff_fire_f64, double)
+
+// out: registers a thread, local (spilled) bytes a thread, resident
+// blocks an SM of the plan's kernel at its threads and shared bytes
+int ff_fire_info(const long long* plan, int N, int f64, int* out) {
+  return f64 ? info<double>(plan, N, out) : info<float>(plan, N, out);
+}
 
 const char* tt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

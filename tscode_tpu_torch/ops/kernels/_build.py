@@ -3,8 +3,8 @@ Build and load the hand-written CUDA kernels of `tscode_tpu_torch/csrc`.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for Hopper (`sm_90a`) into `build/tscode_tpu_torch/lib<name>.so` beside
-the package, at first use, and again whenever the source is newer than
-the library. The library is loaded with ctypes: pointers and the stream
+the package, at first use, and again whenever the source or a header of
+`csrc/` (`*.cuh`) is newer than the library. The library is loaded with ctypes: pointers and the stream
 pass as `c_void_p`, and every entry returns the `cudaError_t` of its
 launch. A failed build or a nonzero launch error raises.
 
@@ -14,6 +14,7 @@ has neither nvcc nor a card.
 
 import contextlib
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -69,9 +70,14 @@ class CudaKernel:
         self.entry_launches = dict.fromkeys(self.symbols, 0)
         self.wrapper_launches = {}
 
+    def sources(self):
+        '''The source and the headers of csrc/ it may include.'''
+        return [self.source] + sorted(glob.glob(os.path.join(CSRC_DIR,
+                                                             '*.cuh')))
+
     def build(self):
-        '''Compile when the library is missing or older than its source;
-        returns the loaded ctypes library.'''
+        '''Compile when the library is missing or older than its source
+        or a header of csrc/; returns the loaded ctypes library.'''
         with self._lock:
             if self._lib is not None:
                 return self._lib
@@ -79,7 +85,7 @@ class CudaKernel:
             t0 = time.perf_counter()
             if (not os.path.exists(self.library) or
                     os.path.getmtime(self.library)
-                    < os.path.getmtime(self.source)):
+                    < max(map(os.path.getmtime, self.sources()))):
                 tmp = f'{self.library}.{os.getpid()}.tmp'
                 cmd = [nvcc_path(), *NVCC_FLAGS, '-o', tmp, self.source]
                 r = subprocess.run(cmd, capture_output=True, text=True,

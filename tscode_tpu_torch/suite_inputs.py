@@ -148,6 +148,21 @@ def chloroalkane(n_carbons):
     return np.array(coords), np.array(nos)
 
 
+def chain_ff(n_atoms, n_confs, seed=0, noise=0.05):
+    '''(n_confs jittered conformers (n_confs, n_atoms, 3), the force
+    field of their topology (ff.FFParams)) of the zigzag chloroalkane
+    cut to its first n_atoms atoms: FIRE on the internal force field at
+    sizes no suite input reaches (2,500 atoms: ~3.1M repulsion pairs).'''
+    from tscode_tpu_torch.ff import build_ff_params
+    from tscode_tpu_torch.graphs import graphize
+    coords, nos = chloroalkane(max(2, -(-(n_atoms - 2) // 3)))
+    coords, nos = coords[:n_atoms], nos[:n_atoms]
+    params = build_ff_params(coords, nos, graphize(coords, nos))
+    rng = np.random.default_rng(seed)
+    return coords + rng.normal(size=(n_confs,) + coords.shape) * noise, \
+        params
+
+
 def chlorocycloalkane(n_carbons, pucker=0.25):
     '''Crown conformation of chlorocycloalkane C_nH_(2n-1)Cl as (coords
     (N, 3), atomnos (N,)): ring carbons on a circle, alternately
