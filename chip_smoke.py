@@ -53,7 +53,13 @@ as the JAX reference runs were: bench_suite's torsion_drive (the search
 on C2F2H4, then the monomolecular embed; float64 and float32, card
 against CPU) and csearch_string (6,561 candidates of a C10H21Cl chain
 searched, 1,000 kept, then the string embed against C2H4), the searched
-conformers held against the JAX package's, frame for frame. Phases 18
+conformers held against the JAX package's, frame for frame; the
+search's TFD prune runs each pass of its K schedule as one launch of T1
+(csrc/tfd_first.cu) and one host read, 10 of each, checked, and T1 is
+held against its plain twin (the old tile loop on the same card tensor)
+on every pass of the prune's own input, identical, each pass timed and
+bounded, the prune's seconds split (fingerprints, T1, reads, networkx
+bookkeeping) beside the old tile loop's. Phases 18
 and 19 run the operators on the internal force field, float64 on the
 card, held to the JAX x64 records and to the port's CPU run: the
 atropisomer route (SADDLE + scan> of a ring torsion of a nine-carbon
@@ -71,8 +77,8 @@ brackets. Phase 21 runs the sharded paths on a mesh that names the card
 four times (one process): sn2_string, da_cyclical_xl and REFINE on its
 output, multiembed, trimolecular RIGID and csearch_string through the
 CLI in float64 with every mesh call site forced, each against its
-unsharded run (every count equal, frames within 1e-6 A); K1, K2 and K3
-against their plain twins on the shard-shaped tensors those runs gave
+unsharded run (every count equal, frames within 1e-6 A; T1 once a
+pass a shard); K1, K2 and K3 against their plain twins on the shard-shaped tensors those runs gave
 them; sharded_embed_screen_step; the sharded FIRE on phase 12's
 survivors. Four views of one card show the sharding's overhead, not a
 speed-up. Phase 22 runs the CLI with --trace (torch.profiler) in float64
@@ -82,7 +88,8 @@ untraced run (the same counts and frames): every launch of K1, K2 and K3
 is found in the trace, under its kernel's name and inside its launch
 span, and each stage is a span; then a bend's FIRE call, one ff_fire
 launch found the same way, and a dimer graph captured and replayed under
-the same trace, its capture and replay loop spans of their own. Every
+the same trace, its capture and replay loop spans of their own, and a
+TFD prune's T1 launches, each found the same way. Every
 FIRE call of the force field's energies on the card launches ff_fire
 once (FireCalls), in every phase that runs one.
 
@@ -281,6 +288,13 @@ SEARCH_F64 = (1152000, 3001, 2906, 2906)   # candidates, clash-ok, novel, final
 SEARCH_COLLINEAR = [[1, 0, 6, 7]]          # C2H4 C1-C0...C0-Cl of the chain
 SEARCH_DROPPED_NOVEL = 1610  # JAX x64 novelty replay without that quadruplet
 SEARCH_GOLDEN = os.path.join(GOLDEN, 'csearch_string_search.npz')
+# the search's TFD prune (6,561 rows, 8 torsions): the passes of its K
+# schedule that run (k = 1,000 down to 1), one T1 launch and one host
+# read each
+SEARCH_TFD_PASSES = 10
+# T1's bound: float64 operations a pair and a torsion (subtract, abs,
+# subtract, abs, min, add)
+TFD_PAIR_FLOPS = 6
 # csearch_string's back-off with one K1 launch a retreat step, the loop
 # torsion_backoff replaced (NVIDIA H100 80GB HBM3, 700 W)
 STEP_LOOP_BACKOFF_S = 0.2541
@@ -343,6 +357,8 @@ TRACE_KERNELS = {
     # ff_fire_large_kernel
     'ff_fire_f32': ('ff_fire_(?:group|large)_kernel', 'float'),
     'ff_fire_f64': ('ff_fire_(?:group|large)_kernel', 'double'),
+    # T1, the TFD prune's search (no template)
+    'tfd_first_successor': ('tfd_first_kernel', None),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -407,9 +423,9 @@ def phase_env():
 def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
-    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp
+    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp, tfd
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
-            ff_fire.BLOCK_KERNEL)
+            ff_fire.BLOCK_KERNEL, tfd.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1490,6 +1506,12 @@ class FireCalls:
                 'graph_runs': dict(self.graph)}
 
 
+# T1's launches in the CLI runs on the card, by phase (run_cli), and the
+# phase that runs (timed_phase)
+TFD_LAUNCHES = {}
+PHASE = [None]
+
+
 # the force field's FIRE kernel's launches on the main path, by phase
 FIRE_LAUNCHES = {}
 
@@ -1533,13 +1555,15 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     thresh, max_clashes) per call, as `k2_calls`, and each library's
     launches per exported entry as `kernel_entries`, and the run's FIRE
     calls and the force field's FIRE kernel's launches (FireCalls) as
-    `fire`. `args` go to the CLI after the others (e.g. --trace DIR).'''
+    `fire`, and T1's launches as `tfd_launches` (also added to
+    TFD_LAUNCHES under the running phase, for a run on the card). `args`
+    go to the CLI after the others (e.g. --trace DIR).'''
     import contextlib
     import os
     from tscode_tpu_torch import embedder
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
-    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp
+    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp, tfd
     device = device or DEV
     stamp = f'smoke_{device}_{dtype}'
     cwd = os.getcwd()
@@ -1559,6 +1583,7 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     embedder.Embedder = Seeded
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
+    tfd.KERNEL.reset_counts()
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
@@ -1579,7 +1604,11 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     report['k2_calls'] = k2_calls
     report['kernel_entries'] = {k.name: dict(k.entry_launches)
                                 for k in (clash.KERNEL, qcp.KERNEL,
-                                          ff_fire.KERNEL)}
+                                          ff_fire.KERNEL, tfd.KERNEL)}
+    report['tfd_launches'] = tfd.KERNEL.launches
+    if device != 'cpu' and tfd.KERNEL.launches:
+        TFD_LAUNCHES[PHASE[0]] = TFD_LAUNCHES.get(PHASE[0], 0) + \
+            tfd.KERNEL.launches
     report['fire'] = fire.record()
     frames = read_xyz(os.path.join(
         tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
@@ -3622,6 +3651,254 @@ def backoff_kernel_check(phase, card, calls):
     return err, rec
 
 
+def recorded_tfd_prunes():
+    """Patch the search's TFD prune (torsions.prune_conformers_tfd) so
+    that each call records its input (structures and quadruplets,
+    copied), its keep mask, T1's launches in the call, the passes it ran
+    ((d, k, num_active, seconds to the end of its kernel) of each call of
+    the pass entry), the seconds the
+    card took to finish the work queued before the call (a synchronize
+    on entry) and the call's own seconds. Returns (records, undo)."""
+    import torch
+    from tscode_tpu_torch import torsions
+    from tscode_tpu_torch.ops import tfd
+    from tscode_tpu_torch.ops.kernels import tfd as kt
+    entry, pass_entry = torsions.prune_conformers_tfd, tfd.first_successor_pass
+    records, passes = [], []
+
+    def pass_spy(tf, d, k, num_active, thresh, rows=None):
+        t0 = time.perf_counter()
+        out = pass_entry(tf, d, k, num_active, thresh, rows)
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        passes.append((d, k, num_active, time.perf_counter() - t0, t0))
+        return out
+
+    def spy(structures, quadruplets, *args, **kw):
+        n0 = kt.KERNEL.launches
+        passes.clear()
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = entry(structures, quadruplets, *args, **kw)
+        t2 = time.perf_counter()
+        # the host's seconds before the first pass call (fingerprints),
+        # after each pass call up to the next (its read and bookkeeping)
+        starts = [p[4] for p in passes] + [t2]
+        gaps = [starts[0] - t1] + [starts[i + 1] - p[4] - p[3]
+                                   for i, p in enumerate(passes)]
+        records.append({'structures': np.array(structures),
+                        'quadruplets': np.array(quadruplets),
+                        'keep': np.array(out[1]),
+                        'launches': kt.KERNEL.launches - n0,
+                        'passes': [p[:4] for p in passes],
+                        'queued_s': t1 - t0, 'prune_s': t2 - t1,
+                        'host_gaps_s': gaps})
+        return out
+
+    def undo():
+        torsions.prune_conformers_tfd = entry
+        tfd.first_successor_pass = pass_entry
+
+    torsions.prune_conformers_tfd = spy
+    tfd.first_successor_pass = pass_spy
+    return records, undo
+
+
+def tfd_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode('warn'): the number of
+    synchronizing CUDA operations it made (host reads, uploads from
+    pageable memory), and their distinct warning texts."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    texts = [str(w.message) for w in seen
+             if 'called a synchronizing' in str(w.message)]
+    return len(texts), sorted({t[:120] for t in texts})
+
+
+def first_graph_s(edges):
+    """Seconds of a fresh process's first networkx graph built from a
+    two-edge `edges` ('set' or 'list'), networkx imported before: a set
+    goes through networkx's type probes (which import pandas and scipy),
+    a list is taken as an edge list at once."""
+    code = ('import time, networkx as nx; t = time.perf_counter(); '
+            f'nx.Graph({edges}([(0, 1), (2, 3)])); '
+            'print(time.perf_counter() - t)')
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, timeout=120)
+    check(r.returncode == 0, f'first_graph_s({edges}): {r.stderr[-500:]}')
+    return float(r.stdout.strip())
+
+
+def tfd_timed_prune(structures, quads, pass_fn):
+    """prune_conformers_tfd on the card (float64, as the search runs it)
+    with the pass entry replaced by pass_fn, timed: (keep, passes
+    [(tf, d, k, num_active, first numpy)], split seconds: fingerprints,
+    the pass calls up to their kernels' end, the reads, the rest (the
+    networkx bookkeeping), the whole prune). The pass's result is read
+    inside the timed call, so the prune's own read is a no-op."""
+    import torch
+    from tscode_tpu_torch.ops import tfd
+    fp_entry, pass_entry = tfd.torsion_fingerprints, tfd.first_successor_pass
+    passes, t = [], dict.fromkeys(('fingerprints_s', 'pass_s', 'read_s'), 0.0)
+
+    def fp_spy(coords, q):
+        t0 = time.perf_counter()
+        out = fp_entry(coords, q)
+        torch.cuda.synchronize()
+        t['fingerprints_s'] += time.perf_counter() - t0
+        return out
+
+    def pass_spy(tf, d, k, num_active, thresh, rows=None):
+        t0 = time.perf_counter()
+        out = pass_fn(tf, d, k, num_active, thresh, rows)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = out.cpu()
+        t['pass_s'] += t1 - t0
+        t['read_s'] += time.perf_counter() - t1
+        passes.append((tf, d, k, num_active, host.numpy()))
+        return host
+
+    tfd.torsion_fingerprints, tfd.first_successor_pass = fp_spy, pass_spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, keep = tfd.prune_conformers_tfd(structures, quads, device=DEV)
+        t['prune_s'] = time.perf_counter() - t0
+    finally:
+        tfd.torsion_fingerprints, tfd.first_successor_pass = fp_entry, \
+            pass_entry
+    t['bookkeeping_s'] = t['prune_s'] - t['fingerprints_s'] - t['pass_s'] - \
+        t['read_s']
+    return keep, passes, t
+
+
+def tfd_prune_check(phase, card, rec):
+    """T1 on the search's own TFD prune input (`rec`, recorded from the
+    float64 CLI run): the prune again on the card, its mask the CLI's;
+    one launch and one host read a pass (the reads counted under the
+    sync debug mode, with the fingerprints handed over: one upload);
+    every pass's first array against the plain twin on the same card
+    tensor (the old per-chunk tile loop), identical; each pass timed
+    (device_ms; the twin with cuda_ms) and bounded from its walked pairs;
+    the prune's seconds split (fingerprints, T1, reads, bookkeeping), and
+    the whole prune with the old tile loop as the pass entry, the same
+    run's yardstick (new, old, new). Returns (largest disagreement,
+    record)."""
+    import torch
+    from tscode_tpu_torch.ops import tfd
+    from tscode_tpu_torch.ops.kernels import tfd as kt
+    structures, quads = rec['structures'], rec['quadruplets']
+    kt.KERNEL.reset_counts()
+    keep, passes, split = tfd_timed_prune(structures, quads,
+                                          kt.first_successor_pass)
+    launches = kt.KERNEL.launches
+    check(np.array_equal(keep, rec['keep']) and launches == len(passes) ==
+          rec['launches'] == SEARCH_TFD_PASSES,
+          f'[{phase} T1] the prune again: {launches} launches, '
+          f'{len(passes)} passes (the CLI run {rec["launches"]}, expected '
+          f'{SEARCH_TFD_PASSES}), mask equal {np.array_equal(keep, rec["keep"])}')
+    # host reads: the synchronizing operations of the prune (given its
+    # fingerprints) less those of the same prune whose pass entry hands
+    # back the recorded first arrays, already on the host
+    fps = passes[0][0].cpu().numpy()
+    syncs, texts = tfd_syncs(lambda: tfd.prune_conformers_tfd(
+        structures, quads, tf_mat=fps, device=DEV))
+    recorded = {p[2]: torch.from_numpy(p[-1]) for p in passes}
+    real = tfd.first_successor_pass
+    tfd.first_successor_pass = lambda tf, d, k, *a, **kw: recorded[k]
+    try:
+        base, base_texts = tfd_syncs(lambda: tfd.prune_conformers_tfd(
+            structures, quads, tf_mat=fps, device=DEV))
+    finally:
+        tfd.first_successor_pass = real
+    reads = syncs - base
+    check(reads == len(passes), f'[{phase} T1] {syncs} synchronizing '
+          f'operations in a prune of {len(passes)} passes, {base} without '
+          f'its pass calls: expected one read a pass ({texts}; {base_texts})')
+    n, Q = fps.shape
+    rows, err = [], 0
+    for tf, d, k, m, first in passes:
+        twin = kt.first_successor_pass_plain(tf, d, k, m, TFD_THRESH)
+        twin = twin.cpu().numpy()
+        again = kt.first_successor_pass(tf, d, k, m, TFD_THRESH).cpu().numpy()
+        err = max(err, int(np.abs(twin.astype(np.int64) - first).max()),
+                  int(np.abs(again.astype(np.int64) - first).max()))
+        check(np.array_equal(twin, first) and np.array_equal(again, first),
+              f'[{phase} T1] pass k = {k}: the kernel\'s first array differs '
+              f'from its plain twin\'s')
+        walked = kt.walked_pairs(first, d, k, m)
+        flops = walked * Q * TFD_PAIR_FLOPS
+        nbytes = n * Q * 4 + n * 4
+        b_ops = flops / PEAK_FLOPS['float64'] * 1e3
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            'k': k, 'd': d, 'num_active': m,
+            'chunks': len(list(kt.pass_chunks(d, k, m))),
+            'hits': int((first >= 0).sum()), 'walked_pairs': walked,
+            'ms': device_ms(lambda: kt.first_successor_pass(
+                tf, d, k, m, TFD_THRESH)),
+            'plain_ms': cuda_ms(lambda: kt.first_successor_pass_plain(
+                tf, d, k, m, TFD_THRESH), reps=1),
+            'bound_ms': max(b_ops, b_bytes),
+            'bound_by': 'operations' if b_ops >= b_bytes else 'bytes',
+            'launches': 1, 'ops_ms': b_ops, 'bytes_ms': b_bytes})
+    for r in rows:
+        print(f'[{phase} T1] pass k = {r["k"]}: {r["num_active"]} active, '
+              f'{r["chunks"]} chunks, {r["hits"]} hits, {r["walked_pairs"]} '
+              f'pairs walked; kernel {r["ms"]:.4f} ms (device), plain twin '
+              f'(the tile loop) {r["plain_ms"]:.4f} ms, bound '
+              f'{r["bound_ms"]:.6f} ms ({r["bound_by"]}), {r["launches"]} '
+              f'launch [{card}]')
+    _, old_passes, old = tfd_timed_prune(structures, quads,
+                                         kt.first_successor_pass_plain)
+    check(len(old_passes) == len(passes) and all(
+        np.array_equal(a[-1], b[-1]) for a, b in zip(old_passes, passes)),
+        f'[{phase} T1] the tile loop as the pass entry ran other passes')
+    _, _, split2 = tfd_timed_prune(structures, quads, kt.first_successor_pass)
+    best = min((split, split2), key=lambda t: t['prune_s'])
+    tot = {key: sum(r[key] for r in rows) for key in
+           ('ms', 'plain_ms', 'bound_ms', 'walked_pairs')}
+    out = {'rows': n, 'torsions': Q, 'passes': rows, 'launches': launches,
+           'host_reads': reads, 'ms': tot['ms'],
+           'plain_ms': tot['plain_ms'], 'bound_ms': tot['bound_ms'],
+           'bound_by': 'operations' if sum(r['ops_ms'] for r in rows) >=
+           sum(r['bytes_ms'] for r in rows) else 'bytes',
+           'walked_pairs': tot['walked_pairs'], 'split': best,
+           'prune_s_runs': [split['prune_s'], split2['prune_s']],
+           'tile_loop_split': old, 'max_abs_err': err,
+           'kept': int(keep.sum()), 'cli_prune_s': rec['prune_s'],
+           'cli_queued_s': rec['queued_s'],
+           'cli_host_gaps_s': rec['host_gaps_s'],
+           'first_graph_s': {e: first_graph_s(e) for e in ('set', 'list')}}
+    print(f'[{phase} T1] the search\'s TFD prune, {n} x {Q} float32 '
+          f'fingerprints -> {out["kept"]} kept: {launches} T1 launches and '
+          f'{out["host_reads"]} host reads for {len(passes)} passes; every '
+          f'first array equal to the plain twin\'s; T1 {tot["ms"]:.4f} ms '
+          f'(device, all passes), plain twin {tot["plain_ms"]:.1f} ms, bound '
+          f'{tot["bound_ms"]:.6f} ms over {tot["walked_pairs"]} pairs; the '
+          f'prune {split["prune_s"]:.4f} / {split2["prune_s"]:.4f} s '
+          f'(fingerprints {best["fingerprints_s"]:.4f}, T1 calls '
+          f'{best["pass_s"]:.4f}, reads {best["read_s"]:.4f}, bookkeeping '
+          f'{best["bookkeeping_s"]:.4f}); with the tile loop '
+          f'{old["prune_s"]:.4f} s (its calls and reads '
+          f'{old["pass_s"] + old["read_s"]:.4f}, bookkeeping '
+          f'{old["bookkeeping_s"]:.4f}); in the CLI run the prune took '
+          f'{rec["prune_s"]:.4f} s after {rec["queued_s"]:.4f} s of queued '
+          f'device work; a fresh process\'s first networkx graph from a set '
+          f'{out["first_graph_s"]["set"]:.4f} s, from a list (as the prune '
+          f'builds it) {out["first_graph_s"]["list"]:.4f} s [{card}]')
+    return err, out
+
+
 def search_string_replay(inp):
     '''The float64 string grid of csearch_string on the card (the
     searched chain set up again from the same seed): the poses within
@@ -3660,23 +3937,44 @@ def phase_search_string(card):
     x64 run's frame for frame, then the string embed against C2H4 (K1
     `clash_ok`) held to the JAX x64 counts by phase 7's rule for its
     collinear quadruplet; the back-off entry checked and timed on the
-    search's own tensors. Returns (K1 `clash_ok` launches,
+    search's own tensors; T1, the TFD prune's search, one launch and one
+    host read a pass of the search's prune, held against its plain twin
+    on every pass of the float64 run's prune input and timed
+    (tfd_prune_check). Returns (K1 `clash_ok` launches,
     torsion_backoff launches, largest disagreement, the back-off's
-    record).'''
+    record, T1's record).'''
     import tempfile
     os.environ['TSCODE_EMBED_TRACE'] = '1'
     counts, searches, entries, splits, calls = {}, {}, {}, {}, []
+    prunes, t1_runs = {}, {}
     with tempfile.TemporaryDirectory(prefix='smoke_search_') as tmp:
         inp = suite_input('csearch_string', tmp, SEARCH_CONFS)
         for dtype in ('float64', 'float32'):
             searches[dtype], undo = recorded_searches()
+            prunes[dtype], undo_prunes = recorded_tfd_prunes()
             undo_calls = recorded_backoff(calls) if dtype == 'float64' \
                 else (lambda: None)
             try:
                 report, frames, regimes, secs = run_cli(tmp, inp, dtype)
             finally:
                 undo()
+                undo_prunes()
                 undo_calls()
+            t1_runs[dtype] = report['tfd_launches']
+            check(prunes[dtype] and prunes[dtype][0]['launches'] ==
+                  len(prunes[dtype][0]['passes']) == SEARCH_TFD_PASSES,
+                  f'csearch_string {dtype}: the search\'s TFD prune made '
+                  f'{[(r["launches"], len(r["passes"])) for r in prunes[dtype]]}'
+                  f' (T1 launches, passes), expected {SEARCH_TFD_PASSES} each')
+            print(f'[17 T1] csearch_string {dtype}: the search\'s TFD prune '
+                  f'{prunes[dtype][0]["prune_s"]:.4f} s after '
+                  f'{prunes[dtype][0]["queued_s"]:.4f} s of queued device '
+                  f'work; {prunes[dtype][0]["launches"]} T1 launches, the pass '
+                  f'calls {[round(p[3], 5) for p in prunes[dtype][0]["passes"]]}'
+                  f' s, the host before the first and after each '
+                  f'{[round(g, 4) for g in prunes[dtype][0]["host_gaps_s"]]} s;'
+                  f' the run\'s TFD prunes '
+                  f'{[round(r["prune_s"], 4) for r in prunes[dtype]]} s [{card}]')
             se, cs = report['string_embed'], report['csearch']
             counts[dtype] = c = (se['candidates'], se['clash_ok'],
                                  se['novel'], report['final_structures'])
@@ -3723,6 +4021,10 @@ def phase_search_string(card):
             check(lo <= c[k] <= hi, f'csearch_string {dtype} {what} {c[k]} '
                   f'outside {(lo, hi)}')
     k1_err, rec = backoff_kernel_check('17', card, calls)
+    _, t1 = tfd_prune_check('17', card, prunes['float64'][0])
+    t1.update(cli_launches=t1_runs, tfd_s={d: splits[d]['tfd_s'] for d in
+                                           splits},
+              search_s={d: splits[d]['seconds'] for d in splits})
     rec.update(launches=entries['float64']['torsion_backoff'],
                backoff_s=splits['float64']['backoff_s'],
                search_s=splits['float64']['seconds'],
@@ -3738,8 +4040,13 @@ def phase_search_string(card):
           f'torsion_backoff launches, {rec["backoff_s"]:.4f} s (a K1 '
           f'launch a retreat step: {STEP_LOOP_BACKOFF_S} s), kernel device '
           f'time ~{rec["launches"] * rec["ms"]:.3f} ms of it [{card}]')
+    print(f'[17 csearch_string] T1: {SEARCH_TFD_PASSES} launches and '
+          f'reads in each run\'s search prune, {t1_runs} in the runs; TFD '
+          f'prune {t1["tfd_s"]["float64"]:.4f} s (float64), '
+          f'{t1["tfd_s"]["float32"]:.4f} s (float32) [{card}]')
     return (sum(e['clash_ok'] for e in entries.values()),
-            sum(e['torsion_backoff'] for e in entries.values()), k1_err, rec)
+            sum(e['torsion_backoff'] for e in entries.values()),
+            k1_err, rec, t1)
 
 
 def golden_record(path):
@@ -4182,7 +4489,7 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
     MeshRecorder `rec` told which. Returns run_cli's result and the
     kernels' launches of the run (run_cli sets the counts to 0 first):
     K1 `clash_ok`, K2 `compenetration_mask_kernel`, K1's search entries
-    `torsion_clash_ok` and `torsion_backoff`, K3.'''
+    `torsion_clash_ok` and `torsion_backoff`, K3, T1 `tfd_first`.'''
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.parallel.sharding import default_mesh
     key = 'TSCODE_MESH' if sharded else 'TSCODE_DISABLE_MESH'
@@ -4194,7 +4501,8 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
     finally:
         del os.environ[key]
         rec.sharded = False
-    launches = dict(clash.launches_by_entry(), qcp_kill=qcp.KERNEL.launches)
+    launches = dict(clash.launches_by_entry(), qcp_kill=qcp.KERNEL.launches,
+                    tfd_first=out[0]['tfd_launches'])
     return out, launches
 
 
@@ -4399,7 +4707,7 @@ def phase_mesh(card):
     (one torsion_backoff a torsion a shard), the compenetration stage (K2 per
     shard), the TFD first-successor and moments sharded; then REFINE on
     the rigid route's output (every RMSD pass split over the shards, K3
-    per slice). Every count equals the unsharded run's, frames within
+    per slice); each TFD prune pass one T1 launch a shard. Every count equals the unsharded run's, frames within
     MESH_ATOL. Then K1, K2 and K3 against their plain twins on the
     shard-shaped inputs, sharded_embed_screen_step, and the sharded FIRE.
     Returns (record, the sharded launches per kernel, largest
@@ -4428,7 +4736,7 @@ def phase_mesh(card):
     kernels, err = mesh_kernels(card, rec)
     fire = mesh_fire(card, mesh)
     launches = {'clash_ok': 0, 'compenetration_mask_kernel': 0,
-                'torsion_backoff': 0, 'qcp_kill': 0}
+                'torsion_backoff': 0, 'qcp_kill': 0, 'tfd_first': 0}
     for r in routes.values():
         for k in launches:
             launches[k] += r['sharded_launches'][k]
@@ -4444,6 +4752,15 @@ def phase_mesh(card):
           f'{cs["unsharded_launches"]}, sharded {cs["sharded_launches"]}: '
           f'expected one torsion_backoff a torsion (8), a shard '
           f'({MESH_SHARDS})')
+    t1 = (cs['unsharded_launches']['tfd_first'],
+          cs['sharded_launches']['tfd_first'])
+    check(t1[0] >= SEARCH_TFD_PASSES and t1[1] == MESH_SHARDS * t1[0],
+          f'[21 mesh] csearch_string T1 launches unsharded {t1[0]}, sharded '
+          f'{t1[1]}: expected one a pass ({SEARCH_TFD_PASSES} in the search\'s '
+          f'prune), one a pass a shard sharded')
+    print(f'[21 mesh] csearch_string: T1 launched {t1[0]} times unsharded, '
+          f'{t1[1]} times on {MESH_SHARDS} shards (one a pass a shard, one '
+          f'gather and read a pass) [{card}]')
     record = {'card': card, 'mesh': [str(d) for d in mesh.devices],
               'routes': routes, 'kernels': kernels, 'screen_step': screen,
               'fire': fire, 'sharded_launches': launches}
@@ -4522,7 +4839,8 @@ def trace_kernels(tag, events, spans, api, report):
             name, arg = TRACE_KERNELS[entry]
             if not n and (name, arg) in launched:
                 continue    # another entry launched this kernel
-            pat = re.compile(rf'\b{name}<{arg}\b')
+            pat = re.compile(rf'\b{name}<{arg}\b' if arg else
+                             rf'\b{name}\b')
             ks = sorted((e for e in events if e.get('cat') == 'kernel'
                          and pat.search(e['name'])), key=lambda e: e['ts'])
             ss = sorted((s for s in spans if s['name'] == f'{lib}.{entry}'),
@@ -4668,7 +4986,7 @@ def traced_route(card, tag, tmp, inp):
     '''One input through the CLI in float64 untraced, then with --trace:
     the same stage counts and frames; the trace checked (trace_check).
     Returns (traced run's report, trace record, span counts, launches of
-    both runs: K1, K2, K3, torsion_backoff, ff_fire).'''
+    both runs: K1, K2, K3, torsion_backoff, ff_fire, T1).'''
     trace_dir = os.path.join(tmp, 'trace')
     runs = [run_cli(tmp, inp, 'float64', args=args)
             for args in ((), ('--trace', trace_dir))]
@@ -4678,7 +4996,7 @@ def traced_route(card, tag, tmp, inp):
           f'stages {stage_counts(r1)} frames {f1.shape} against the '
           f'untraced run\'s {stage_counts(r0)} {f0.shape}, or other frames')
     rec, names = trace_check(card, tag, trace_file(trace_dir), r1, s1, s0)
-    launches = [0, 0, 0, 0, 0]
+    launches = [0, 0, 0, 0, 0, 0]
     for r, _, _, _ in runs:
         e = r['clash_entry_launches']
         launches[0] += e['clash_ok'] + e['torsion_clash_ok']
@@ -4686,6 +5004,7 @@ def traced_route(card, tag, tmp, inp):
         launches[2] += sum(r['kernel_entries']['qcp_kill'].values())
         launches[3] += e['torsion_backoff']
         launches[4] += check_fire(f'[22 trace] {tag}', r['fire'], False)
+        launches[5] += r['tfd_launches']
     return r1, rec, names, launches
 
 
@@ -4901,6 +5220,62 @@ def traced_backoff(card, tmp):
             'max_diff_A': diff}
 
 
+def tfd_grid(rng, q, dup=0.4, jitter=1.0):
+    """float32 fingerprints of a clustered 3^q torsion grid, as a
+    conformer search makes them: every combination of three staggered
+    angles a torsion, in random order, a share `dup` of the rows copies
+    of others, every angle jittered (normal, degrees), wrapped."""
+    axes = np.meshgrid(*[np.array([-60.0, 60.0, 180.0])] * q, indexing='ij')
+    grid = np.stack([a.ravel() for a in axes], axis=1)
+    grid = grid[rng.permutation(len(grid))]
+    who = rng.random(len(grid)) < dup
+    grid[who] = grid[rng.integers(0, len(grid), int(who.sum()))]
+    fps = grid + rng.normal(size=grid.shape) * jitter
+    return ((fps + 180) % 360 - 180).astype(np.float32)
+
+
+def traced_tfd(card, tmp):
+    """The TFD prune under the CLI's trace (backend.DeviceTrace): a 3^7
+    torsion grid's fingerprints pruned on the card, one T1 launch a pass,
+    each launch's device event found under the kernel's name inside its
+    launch span `tfd_first.tfd_first_successor` (trace_kernels), one
+    `first_successor_pass` span a launch; the mask against the CPU
+    run's. Returns the record."""
+    import torch
+    from tscode_tpu_torch.backend import DeviceTrace
+    from tscode_tpu_torch.ops.kernels import tfd as kt
+    from tscode_tpu_torch.ops.tfd import prune_conformers_tfd
+    fps = tfd_grid(np.random.default_rng(22), 7)
+    dummy = np.zeros((len(fps), 1, 3))
+    quads = np.zeros((fps.shape[1], 4), dtype=int)
+    kt.KERNEL.reset_counts()
+    with DeviceTrace(tmp, DEV) as trace:
+        _, keep = prune_conformers_tfd(dummy, quads, tf_mat=fps, device=DEV)
+        torch.cuda.synchronize()
+    n = kt.KERNEL.launches
+    _, want = prune_conformers_tfd(dummy, quads, tf_mat=fps, device='cpu')
+    check(np.array_equal(keep, want) and n > 0, f'[22 trace] TFD prune: '
+          f'{n} T1 launches, the mask equal to the CPU run\'s '
+          f'{np.array_equal(keep, want)}')
+    events = trace_events(trace.path)
+    spans = [e for e in events if e.get('cat') == 'user_annotation'
+             and e.get('ph') == 'X']
+    api = {e['args']['correlation']: e for e in events
+           if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+           and 'correlation' in e.get('args', {})}
+    report = {'kernel_entries': {'tfd_first': dict(kt.KERNEL.entry_launches)},
+              'clash_entry_launches': {}}
+    kernels, _ = trace_kernels('tfd', events, spans, api, report)
+    wrapper = sum(s['name'] == 'first_successor_pass' for s in spans)
+    check(kernels['tfd_first.tfd_first_successor']['events'] == n == wrapper,
+          f'[22 trace] TFD prune: {n} launches, trace {kernels}, {wrapper} '
+          f'first_successor_pass spans')
+    print(f'[22 trace tfd] the TFD prune of {len(fps)} fingerprints: {n} T1 '
+          f'launches, each found in the trace: {kernels}; {int(keep.sum())} '
+          f'kept, the CPU run\'s mask [{card}]')
+    return {'launches': n, 'kernels': kernels, 'kept': int(keep.sum())}
+
+
 def phase_trace(card):
     '''Phase 22: the CLI's --trace, float64, on short routes of the
     earlier phases, each also run untraced (traced_route): sn2_string at
@@ -4911,14 +5286,15 @@ def phase_trace(card):
     x64 counts of phase 9); then a launch from a worker thread
     (traced_thread), the search's back-off (traced_backoff) and a bend's
     FIRE call and a captured dimer graph under the trace (traced_fire).
-    Returns (records, launches K1, K2, K3, torsion_backoff and ff_fire of
-    the runs).'''
+    Then the TFD prune's T1 launches under the trace (traced_tfd).
+    Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire and
+    T1 of the runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0, 0, 0, 0, 0]
+    recs, launches = {}, [0, 0, 0, 0, 0, 0]
 
     def add(n):
-        for i in range(5):
+        for i in range(6):
             launches[i] += n[i]
     with tempfile.TemporaryDirectory(prefix='smoke_trace_') as tmp:
         def route(tag, name, n_confs):
@@ -4946,7 +5322,8 @@ def phase_trace(card):
         os.makedirs(d)
         rep, _, _, secs = run_cli(d, suite_input('da_cyclical_xl', d,
                                                  CYC_CONFS), 'float64')
-        add((rep['clash_entry_launches']['clash_ok'], 0, 0, 0, 0))
+        add((rep['clash_entry_launches']['clash_ok'], 0, 0, 0, 0,
+             rep['tfd_launches']))
         print(f'[22 trace] da_cyclical_xl at {CYC_CONFS}, REFINE\'s input, '
               f'untraced in {secs:.3f} s [{card}]')
         d2 = os.path.join(tmp, 'refine_xl')
@@ -4969,10 +5346,12 @@ def phase_trace(card):
         os.makedirs(d3)
         recs['fire'] = traced_fire(card, d3)
         launches[4] += 2
+        recs['tfd'] = traced_tfd(card, os.path.join(tmp, 'tfd'))
+        launches[5] += recs['tfd']['launches']
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
           f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, ff_fire '
-          f'{launches[4]}; every launch of a traced run found in its trace '
-          f'[{card}]')
+          f'{launches[4]}, T1 {launches[5]}; every launch of a traced run '
+          f'found in its trace [{card}]')
     return recs, launches
 
 
@@ -4982,7 +5361,7 @@ def trace_process(card):
     phases 1 to 21 in this process lost device events (4,176 kernel
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
-    its (records, launches K1, K2, K3, torsion_backoff, ff_fire).'''
+    its (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -5223,7 +5602,9 @@ def guard_overhead(card, out):
 
 
 def timed_phase(name, phase, *args):
-    '''phase(*args), its seconds printed.'''
+    '''phase(*args), its seconds printed; PHASE holds its number while
+    it runs.'''
+    PHASE[0] = name.split()[0]
     t0 = time.perf_counter()
     out = phase(*args)
     print(f'[seconds] {name}: {time.perf_counter() - t0:.1f} s')
@@ -5268,7 +5649,8 @@ def main():
         drive = timed_phase('16 torsion_drive', phase_torsion_drive, card)
         chain = timed_phase('17 csearch_string', phase_search_string, card)
         print(json.dumps({'torsion_backoff': {
-            'torsion_drive': drive[3], 'csearch_string': chain[3]}}))
+            'torsion_drive': drive[3], 'csearch_string': chain[3]},
+            'tfd_first_successor': chain[4]}))
         return
     if sys.argv[1:2] == ['--mesh']:          # phase 21 alone
         phase_build()
@@ -5300,6 +5682,7 @@ def main():
     kernels[2]['launches'] += main64['qcp_kill_dev']
     kernels[2]['captured']['float64'] = captured64
     errs['qcp_kill'] = max(errs['qcp_kill'], errs.pop('qcp_f64'))
+    PHASE[0] = '6-9'
     kernels[0]['launches'] += phase_string_route(card)
     with tempfile.TemporaryDirectory(prefix='smoke_keep_') as keep:
         route = phase_large_route(card, keep)
@@ -5326,16 +5709,21 @@ def main():
                                phase_small_bend_routes, card)
     k1_16, nb_16, e16, drive = timed_phase('16 torsion_drive',
                                            phase_torsion_drive, card)
-    k1_17, nb_17, e17, backoff = timed_phase('17 csearch_string',
-                                             phase_search_string, card)
+    k1_17, nb_17, e17, backoff, t1 = timed_phase('17 csearch_string',
+                                                 phase_search_string, card)
     k3_18, e18, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
                                    card)
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
-    trace, (k1_22, k2_22, k3_22, nb_22, ff_22) = timed_phase(
+    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22) = timed_phase(
         '22 trace', trace_process, card)
     FIRE_LAUNCHES['22'] = ff_22
+    TFD_LAUNCHES['22'] = t1_22
+    check(all(TFD_LAUNCHES.get(p, 0) > 0 for p in ('16', '17', '21', '22')),
+          f'T1 launches by phase {TFD_LAUNCHES}: a phase that runs the TFD '
+          f'prune on the card did not launch it')
+    print(f'[tfd_first] launches of T1 by phase {TFD_LAUNCHES} [{card}]')
     check(all(FIRE_LAUNCHES.get(p, 0) > 0 for p in
               ('13', '14', '16', '18', '21', '22')), f'ff_fire launches by '
           f'phase {FIRE_LAUNCHES}: a phase that runs FIRE on the force '
@@ -5405,6 +5793,17 @@ def main():
         'large_n': fire['large_n'],
         'launches_by_phase': dict(FIRE_LAUNCHES),
         'records': fire['kernel'] + fire['kernel_f32']})
+    kernels.append({
+        'name': 'tfd_first_successor', 'route': 'cuda',
+        'source': 'tscode_tpu_torch/csrc/tfd_first.cu',
+        'replaces': 'tscode_tpu/ops/tfd.py:75',
+        'launches': sum(TFD_LAUNCHES.values()),
+        'max_abs_err': t1['max_abs_err'], 'ms': t1['ms'],
+        'plain_ms': t1['plain_ms'], 'bound_ms': t1['bound_ms'],
+        'bound_by': t1['bound_by'], 'library_ms': None,
+        'launches_by_phase': dict(TFD_LAUNCHES),
+        'mesh': {'launches': sharded['tfd_first']},
+        'csearch_string': t1})
     check('jax' not in sys.modules, 'jax was imported')
     check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules

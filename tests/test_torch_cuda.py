@@ -18,6 +18,7 @@ from tscode_tpu_torch.embedder import Embedder, RunEmbedding
 from tscode_tpu_torch.embeds import cyclical
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
+from tscode_tpu_torch.ops.kernels import tfd as tfd_k
 from tscode_tpu_torch.ops.linalg import rmsd_and_max, rotate_dihedral
 from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
                                              pass_chunks_fixed,
@@ -25,7 +26,9 @@ from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
                                              prune_conformers_rmsd_device)
 from tscode_tpu_torch.pipeline import build_workload, run_pipeline
 from tscode_tpu_torch.suite_inputs import config_files
-from torch_parity import cuda_device, near_dup_blocks, near_dup_pool  # noqa: F401
+from torch_parity import (TFD_ENSEMBLES, TFD_PASS_CASES,  # noqa: F401
+                          cuda_device, near_dup_blocks, near_dup_pool,
+                          tfd_pass_fps)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
@@ -1391,8 +1394,10 @@ def test_sharded_ops_on_a_card_mesh_match_unsharded(cuda_device, dtype):
     tf = torch.as_tensor(rng.uniform(-180, 180, size=(5, 6))[
         rng.integers(0, 5, 3000)] + rng.normal(size=(3000, 6)) * 3,
         dtype=torch.float32, device=cuda_device)
+    tfd_k.KERNEL.reset_counts()
     assert np.array_equal(sh.sharded_first_similar_successor(tf, 10.0, mesh),
                           _first_similar_successor(tf, 10.0))
+    assert tfd_k.KERNEL.launches == 4
 
     hs = torch.as_tensor(near_dup_pool(rng, 6000, 4, 1500), dtype=dtype,
                          device=cuda_device)
@@ -1462,3 +1467,64 @@ def test_sharded_routes_on_a_card_mesh_match_unsharded(cuda_device,
         del os.environ['TSCODE_MESH']
     assert np.abs(got[0] - want[0]).max() <= 1e-9
     np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize('name', sorted(TFD_ENSEMBLES))
+def test_tfd_first_matches_twin_on_every_pass(cuda_device, monkeypatch,
+                                              name):
+    '''T1 in the TFD prune on the card: one launch a pass, each pass's
+    first array equal to the CPU twin's bit for bit (and to the old tile
+    loop on the same card tensor), the mask equal to the CPU run's.'''
+    from tscode_tpu_torch.ops import tfd
+    fps = TFD_ENSEMBLES[name]()
+    passes = []
+    entry = tfd.first_successor_pass
+
+    def spy(tf, d, k, num_active, thresh, rows=None):
+        out = entry(tf, d, k, num_active, thresh, rows)
+        passes.append((tf, d, k, num_active, out.cpu().numpy()))
+        return out
+    monkeypatch.setattr(tfd, 'first_successor_pass', spy)
+    dummy = np.zeros((len(fps), 1, 3))
+    quads = np.zeros((fps.shape[1], 4), dtype=int)
+    _, want = tfd.prune_conformers_tfd(dummy, quads, tf_mat=fps,
+                                       device='cpu')
+    on_cpu, passes[:] = list(passes), []
+    tfd_k.KERNEL.reset_counts()
+    _, got = tfd.prune_conformers_tfd(dummy, quads, tf_mat=fps,
+                                      device=cuda_device)
+    assert tfd_k.KERNEL.launches == len(passes) == len(on_cpu) >= 5
+    assert np.array_equal(got, want)
+    for (_, d, k, m, first), (tf, *_, card_first) in zip(on_cpu, passes):
+        assert tf.is_cuda
+        np.testing.assert_array_equal(card_first, first)
+        old = tfd_k.first_successor_pass_plain(tf, d, k, m, 10.0)
+        np.testing.assert_array_equal(old.cpu().numpy(), first)
+    assert any((f < 0).any() and (f >= 0).any() for *_, f in on_cpu)
+
+
+@pytest.mark.parametrize('case', TFD_PASS_CASES)
+def test_tfd_first_matches_twin_on_hand_made_passes(cuda_device, case):
+    '''T1 against its twin on the passes at the reference's quirks (n
+    not a multiple of 32, empty and one-row chunks, chunks past
+    num_active, Q = 1 to 40), whole and in row slices; the wrapper
+    refuses what the kernel does not take.'''
+    n, d, k, num_active, q = case
+    fps = tfd_pass_fps(n, q)
+    want = tfd_k.first_successor_pass(torch.as_tensor(fps), d, k,
+                                      num_active, 10.0).numpy()
+    tf = torch.as_tensor(fps, device=cuda_device)
+    tfd_k.KERNEL.reset_counts()
+    got = tfd_k.first_successor_pass(tf, d, k, num_active, 10.0)
+    assert got.is_cuda and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    for r0, r1 in ((0, n // 3), (n // 3, n - 1), (n - 1, n)):
+        part = tfd_k.first_successor_pass(tf, d, k, num_active, 10.0,
+                                          rows=(r0, r1))
+        np.testing.assert_array_equal(part.cpu().numpy(), want[r0:r1])
+    assert tfd_k.KERNEL.launches == 4
+    assert (want < 0).any()
+    with pytest.raises(TypeError):
+        tfd_k.first_successor_pass(tf.double(), d, k, num_active, 10.0)
+    with pytest.raises(ValueError):
+        tfd_k.first_successor_pass(tf, d, k, n + 1, 10.0)

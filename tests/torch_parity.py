@@ -52,3 +52,56 @@ def near_dup_pool(rng, n, N, n_base, scale=1.5):
     sigma = rng.choice([0.02, 0.1, 0.15, 0.2, 0.25], size=n)
     return base[rng.integers(0, n_base, size=n)] + \
         rng.normal(size=(n, N, 3)) * sigma[:, None, None]
+
+
+def tfd_grid_fps(rng, q, dup=0.4, jitter=1.0):
+    '''Fingerprints of a clustered 3^q torsion grid, as a conformer search
+    makes them: every combination of three staggered angles a torsion, in
+    random order; a share `dup` of the rows replaced by copies of other
+    rows; every angle jittered by `jitter` degrees (normal) and wrapped to
+    [-180, 180), float32. Pairs of copies sum to ~8 degrees over seven
+    torsions at jitter 1, so a TFD prune's chunks hold hits, misses and
+    long walks.'''
+    axes = np.meshgrid(*[np.array([-60.0, 60.0, 180.0])] * q, indexing='ij')
+    grid = np.stack([a.ravel() for a in axes], axis=1)
+    grid = grid[rng.permutation(len(grid))]
+    n = len(grid)
+    who = rng.random(n) < dup
+    grid[who] = grid[rng.integers(0, n, int(who.sum()))]
+    fps = grid + rng.normal(size=grid.shape) * jitter
+    return ((fps + 180) % 360 - 180).astype(np.float32)
+
+
+def tfd_clustered_fps(rng, n, q, n_clusters, spread):
+    '''n float32 fingerprints of q torsions around n_clusters random
+    centers, `spread` degrees (normal) from them, wrapped.'''
+    centers = rng.uniform(-180, 180, size=(n_clusters, q))
+    fps = centers[rng.integers(0, n_clusters, n)] + \
+        rng.normal(size=(n, q)) * spread
+    return ((fps + 180) % 360 - 180).astype(np.float32)
+
+
+# the TFD prune's search: the ensembles whose every pass the tests hold,
+# and hand-made passes (n, d, k, num_active, Q) at the reference's quirks
+TFD_ENSEMBLES = {
+    'grid_3^7': lambda: tfd_grid_fps(np.random.default_rng(17), 7),
+    'clustered_1500': lambda: tfd_clustered_fps(np.random.default_rng(4),
+                                                1500, 6, 60, 1.2),
+}
+TFD_PASS_CASES = [
+    (50, 10, 5, 23, 6),        # num_active < d (k - 1): the last chunk empty
+    (50, 10, 5, 41, 6),        # the last chunk one row
+    (50, 10, 5, 42, 6),        # the last chunk two rows
+    (7, 1, 5, 7, 3),           # chunks of one row
+    (1030, 515, 2, 1030, 4),   # chunks across the 512-row tile
+    (1536, 511, 3, 1400, 5),   # 511, 511 past num_active's 1,400, 378
+    (4100, 4100, 1, 4100, 1),  # one chunk across the 4,096-column tile
+    (8193, 4096, 2, 8193, 2),  # 4,096 and 4,097 rows
+    (900, 300, 3, 700, 40),    # Q = 40, the last chunk ending early
+]
+
+
+def tfd_pass_fps(n, q):
+    '''The fingerprints of a hand-made pass of TFD_PASS_CASES.'''
+    return tfd_clustered_fps(np.random.default_rng(n + q), n, q,
+                             max(2, n // 6), 10.0 / q * 0.6)

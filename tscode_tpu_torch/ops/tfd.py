@@ -12,9 +12,11 @@ accelerators and in its TFD prune; a decision can differ from it only
 for a sum within float32 rounding of the threshold.) No (L, L, Q)
 tensor is built: distances are accumulated over torsions.
 
-Host side, as in the JAX package: the reference's bucketed prune
-bookkeeping (first similar successor per structure, networkx
-components, first node kept) and the sequential novelty replay.
+The TFD prune: each pass's first similar successors in one call of
+ops/kernels/tfd.first_successor_pass (the CUDA kernel T1 on the card,
+the tile loop of _first_similar_successor on the CPU); on the host, as
+in the JAX package, the reference's bookkeeping (networkx components,
+first node kept) and the sequential novelty replay.
 '''
 
 import networkx as nx
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from tscode_tpu_torch.backend import get_device, traced
+from tscode_tpu_torch.ops.kernels.tfd import first_successor_pass, pass_chunks
 from tscode_tpu_torch.ops.linalg import dihedral
 
 K_SCHEDULE = (5e5, 2e5, 1e5, 5e4, 2e4, 1e4,
@@ -86,7 +89,8 @@ def _first_similar_successor(tf_chunk, thresh, lo=0, hi=None):
     tensor, the smallest j > i with wrapped-L1 distance < thresh, or -1,
     as a numpy int64 array of hi - lo indices into the chunk, computed
     in (512, 4096) tiles; a row tile stops at the column tile where all
-    its rows have found theirs.'''
+    its rows have found theirs. The body of T1's plain twin
+    (ops/kernels/tfd.first_successor_pass_plain), a chunk at a time.'''
     L = tf_chunk.shape[0]
     hi = L if hi is None else hi
     dev = tf_chunk.device
@@ -109,6 +113,15 @@ def _first_similar_successor(tf_chunk, thresh, lo=0, hi=None):
     return first
 
 
+def chunk_matches(first):
+    '''The reference's match set of one chunk from its first similar
+    successors (numpy, chunk-relative, -1 for none): (i, first[i]) for
+    each row with one, inserted in row order, so its iteration order,
+    and the graph built from it, are the reference's.'''
+    idx = np.flatnonzero(first >= 0)
+    return set(zip(idx.tolist(), first[idx].tolist()))
+
+
 def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
                          *, device, dtype=torch.float64, mesh=None):
     '''Prune torsionally similar structures; returns (pruned, keep_mask)
@@ -120,10 +133,13 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
        successor only; the matches go through a python set into a
        networkx graph, and each connected component keeps its first
        node in that graph's order.
-    Fingerprints and distance tiles are computed on `device` (from
-    structures in `dtype`); the bookkeeping stays on the host. mesh: a
-    parallel.sharding Mesh shards the first-similar-successor search's rows over its devices (the same
-    result; sharded_first_similar_successor).'''
+    Fingerprints are computed on `device` (from structures in `dtype`)
+    and never compacted, so no chunk's search reads the mask: each pass
+    is one call of ops/kernels/tfd.first_successor_pass over all its
+    chunks (one T1 launch on CUDA, the tile loop on the CPU) and one
+    host read; the bookkeeping stays on the host. mesh: a
+    parallel.sharding Mesh shards each pass's rows over its devices (the
+    same result; sharded_first_similar_successor).'''
     device = get_device(device)
     structures = np.asarray(structures)
     n = len(structures)
@@ -137,6 +153,7 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
     else:
         tf_mat = torch.as_tensor(np.asarray(tf_mat), dtype=torch.float32,
                                  device=device)
+    tf_mat = tf_mat.contiguous()
 
     final_mask = np.ones(n, dtype=bool)
     for k in K_SCHEDULE:
@@ -144,30 +161,26 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
         if not (k == 1 or 5 * k < num_active):
             continue
 
-        d = int(n // k)
-        for step in range(int(k)):
-            lo = d * step
-            hi = num_active if step == k - 1 else int(d * (step + 1))
-            _l = hi - lo
-            if _l <= 1:
-                continue
-
-            if mesh is not None:
-                from tscode_tpu_torch.parallel.sharding import \
-                    sharded_first_similar_successor
-                first = sharded_first_similar_successor(
-                    tf_mat[lo:lo + _l], float(thresh), mesh)
-            else:
-                first = _first_similar_successor(tf_mat[lo:lo + _l],
-                                                 float(thresh))
-            matches = set()
-            for i_rel in range(_l):
-                if first[i_rel] >= 0:
-                    matches.add((int(i_rel), int(first[i_rel])))
+        k = int(k)
+        d = n // k
+        if mesh is not None:
+            from tscode_tpu_torch.parallel.sharding import \
+                sharded_first_similar_successor
+            first = sharded_first_similar_successor(
+                tf_mat, float(thresh), mesh, d=d, k=k, num_active=num_active)
+        else:
+            first = first_successor_pass(tf_mat, d, k, num_active,
+                                         float(thresh)).cpu().numpy()
+        for lo, hi in pass_chunks(d, k, num_active):
+            matches = chunk_matches(first[lo:hi])
             if not matches:
                 continue
 
-            g = nx.Graph(matches)
+            # the set's edges as a list, in its iteration order: the same
+            # graph, but networkx takes a list as an edge list at once,
+            # where a set first goes through its type probes, which
+            # import pandas and scipy in a process's first call
+            g = nx.Graph(list(matches))
             groups = [tuple(g.subgraph(c).nodes)
                       for c in nx.connected_components(g)]
             for group in groups:

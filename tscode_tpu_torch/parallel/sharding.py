@@ -32,10 +32,10 @@ import torch
 
 from tscode_tpu_torch.ops.kernels.clash import compenetration_mask_kernel
 from tscode_tpu_torch.ops.kernels.qcp import pair_gate_hits
+from tscode_tpu_torch.ops.kernels.tfd import first_successor_pass, pass_rows
 from tscode_tpu_torch.ops.linalg import (get_inertia_moments,
                                          rot_mat_from_pointer,
                                          rotation_matrix_from_vectors)
-from tscode_tpu_torch.ops.tfd import _first_similar_successor
 
 
 @dataclass(frozen=True)
@@ -223,18 +223,30 @@ def sharded_moments(structures, masses, mesh):
     return gather(parts, 'cpu').numpy()
 
 
-def sharded_first_similar_successor(tf_chunk, thresh, mesh):
-    '''Mesh-parallel form of ops.tfd._first_similar_successor: for each
-    fingerprint row i, the smallest j > i with wrapped-L1 < thresh, or
-    -1 (numpy int64). Rows sharded, columns replicated, global indices:
-    each device runs the one-device search, early stop included, on its
-    row slice. That stop reads each tile's result on the host, so the
-    slices run one after the other, not overlapped.'''
-    tf = torch.as_tensor(tf_chunk)
+def sharded_first_similar_successor(tf, thresh, mesh, d=None, k=1,
+                                    num_active=None):
+    '''Mesh-parallel form of ops/kernels/tfd.first_successor_pass: one
+    pass of the TFD prune's search over fingerprints tf (n, Q), the
+    pass's rows sharded, the columns replicated, global indices: each
+    shard's slice is one call on its device (one T1 launch on a card),
+    queued for every shard before the one gather and the one host read.
+    The pass (d, k, num_active) defaults to one chunk of all n rows,
+    i.e. ops.tfd._first_similar_successor of tf. Returns (n,) numpy
+    int64: for each row the chunk-relative index of its first similar
+    successor, or -1.'''
+    tf = torch.as_tensor(tf).contiguous()
+    n = tf.shape[0]
+    k = int(k)
+    d = n // k if d is None else int(d)
+    num_active = n if num_active is None else int(num_active)
+    cover = pass_rows(d, k, num_active)
     cols = replicated(tf, mesh)
-    return np.concatenate([_first_similar_successor(cols[dev], thresh, lo, hi)
-                           for dev, lo, hi in shard_slices(tf.shape[0],
-                                                           mesh)])
+    parts = [first_successor_pass(cols[dev], d, k, num_active, thresh,
+                                  rows=(lo, hi))
+             for dev, lo, hi in shard_slices(cover, mesh)]
+    first = np.full(n, -1, dtype=np.int64)
+    first[:cover] = gather(parts, mesh.devices[0]).cpu().numpy()
+    return first
 
 
 def _one_shot_keep(parts, oks, rmsd_thr):
