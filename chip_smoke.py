@@ -19,9 +19,12 @@ large_n_string (148-atom poses, the clash kernel's warp regime): the CLI
 at 16 conformers, the exact novelty replay without the collinear
 torsion quadruplet, and the 207,936-pose grid at 76 conformers. Phase 8
 runs the rigid cyclical route through the CLI on da_cyclical_xl at 62
-conformers (1,660,608 candidates: the block sweep with the clash
-kernel, the angular dedup, the prunes), float64 exact and float32 within
-brackets from its near ties; phase 9 runs REFINE through the CLI (the
+conformers (1,660,608 candidates: the block sweep, each chunk's poses,
+clash screen and angular dedup one launch of the block-sweep kernel B1,
+csrc/block_screen.cu, the prunes), float64 exact and float32 within
+brackets from its near ties, B1 held against its plain twin on every
+chunk of the sweep (keep bits off the tied blocks, poses within 1e-9 A)
+and timed beside its bytes bound; phase 9 runs REFINE through the CLI (the
 RMSD prune with the pair-kill kernel, the symmetry-corrected prune) on
 phase 8's float64 output and on phase 7's, in float64 and in float32
 (the CLI's default on the card), the float32 runs held by the float64
@@ -102,6 +105,8 @@ once (FireCalls), in every phase that runs one.
                                   # force-field operators
     python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
                                   # route
+    python3 chip_smoke.py --sweep    # phases 8 and 10 to 12 alone: the
+                                  # block sweeps, B1 against its twin
     python3 chip_smoke.py --mesh     # phase 21 alone: the sharded paths
     python3 chip_smoke.py --trace    # phase 22 alone: the CLI's --trace
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
@@ -190,6 +195,9 @@ CYC_F64 = (1660608, 19562, 19562)    # candidates, embedded, final: the JAX
 # ~100 A^2 round at ~1e-5 A^2, so a float32 gate value lies ~1e-6 A from
 # the float64 one; ten times that is marked
 GATE_TIE = 1e-5
+# A: B1's float64 poses against its plain twin's (the einsum's sums may
+# round apart by an ulp)
+B1_POSE_ATOL = 1e-9
 # the refine route (phase 9): REFINE on phase 8's float64 output (the
 # first 10,000 frames, the write truncation) and on phase 7's float64
 # large_n_string output
@@ -359,6 +367,9 @@ TRACE_KERNELS = {
     'ff_fire_f64': ('ff_fire_(?:group|large)_kernel', 'double'),
     # T1, the TFD prune's search (no template)
     'tfd_first_successor': ('tfd_first_kernel', None),
+    # B1, the block sweep
+    'block_screen_f32': ('block_screen_kernel', 'float'),
+    'block_screen_f64': ('block_screen_kernel', 'double'),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -423,9 +434,10 @@ def phase_env():
 def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
-    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp, tfd
+    from tscode_tpu_torch.ops.kernels import (block_screen, clash, ff_fire,
+                                              qcp, tfd)
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
-            ff_fire.BLOCK_KERNEL, tfd.KERNEL)
+            ff_fire.BLOCK_KERNEL, tfd.KERNEL, block_screen.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1509,6 +1521,8 @@ class FireCalls:
 # T1's launches in the CLI runs on the card, by phase (run_cli), and the
 # phase that runs (timed_phase)
 TFD_LAUNCHES = {}
+# B1's launches on the main path, by phase
+B1_LAUNCHES = {}
 PHASE = [None]
 
 
@@ -1556,14 +1570,16 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     launches per exported entry as `kernel_entries`, and the run's FIRE
     calls and the force field's FIRE kernel's launches (FireCalls) as
     `fire`, and T1's launches as `tfd_launches` (also added to
-    TFD_LAUNCHES under the running phase, for a run on the card). `args`
-    go to the CLI after the others (e.g. --trace DIR).'''
+    TFD_LAUNCHES under the running phase, for a run on the card), and
+    B1's as `b1_launches` (B1_LAUNCHES likewise). `args` go to the CLI
+    after the others (e.g. --trace DIR).'''
     import contextlib
     import os
     from tscode_tpu_torch import embedder
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
-    from tscode_tpu_torch.ops.kernels import clash, ff_fire, qcp, tfd
+    from tscode_tpu_torch.ops.kernels import (block_screen, clash, ff_fire,
+                                              qcp, tfd)
     device = device or DEV
     stamp = f'smoke_{device}_{dtype}'
     cwd = os.getcwd()
@@ -1584,6 +1600,7 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
     tfd.KERNEL.reset_counts()
+    block_screen.KERNEL.reset_counts()
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
@@ -1604,11 +1621,14 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     report['k2_calls'] = k2_calls
     report['kernel_entries'] = {k.name: dict(k.entry_launches)
                                 for k in (clash.KERNEL, qcp.KERNEL,
-                                          ff_fire.KERNEL, tfd.KERNEL)}
+                                          ff_fire.KERNEL, tfd.KERNEL,
+                                          block_screen.KERNEL)}
     report['tfd_launches'] = tfd.KERNEL.launches
-    if device != 'cpu' and tfd.KERNEL.launches:
-        TFD_LAUNCHES[PHASE[0]] = TFD_LAUNCHES.get(PHASE[0], 0) + \
-            tfd.KERNEL.launches
+    report['b1_launches'] = block_screen.KERNEL.launches
+    for by_phase, n in ((TFD_LAUNCHES, tfd.KERNEL.launches),
+                        (B1_LAUNCHES, block_screen.KERNEL.launches)):
+        if device != 'cpu' and n:
+            by_phase[PHASE[0]] = by_phase.get(PHASE[0], 0) + n
     report['fire'] = fire.record()
     frames = read_xyz(os.path.join(
         tmp, f'tscode_unoptimized_{stamp}.xyz')).atomcoords
@@ -1971,92 +1991,262 @@ def embedder_setup(inp, dtype):
     return emb
 
 
+def clash_walked(poses, pairs):
+    '''Pairs a clash screen with an early exit must evaluate on poses
+    (B, N, 3): for each pose, its listed pairs up to and including its
+    first with d^2 < thr^2 (float64), all of them when none is.'''
+    import torch
+    pl = pairs.long()
+    P = pl.shape[0]
+    step = max(1, (1 << 25) // max(1, P))
+    n = 0
+    for lo in range(0, poses.shape[0], step):
+        X = poses[lo:lo + step].double()
+        hit = torch.sum((X[:, pl[:, 0]] - X[:, pl[:, 1]]) ** 2, -1) < \
+            CLASH * CLASH
+        first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1, P)
+        n += int(first.sum())
+    return n
+
+
+def lazy_keep(ok, gate):
+    '''B1's dedup in its order, on the host (tests/torch_parity.py's
+    copy): ok (rows, A) numpy bool, gate(b, t, t0) whether pose t of row
+    b passes both gates against pose t0. In each row the smallest live
+    angle is kept and every live angle after it is gated against it,
+    dropping out on a hit. Returns (keep (rows, A) bool, the gate pairs
+    evaluated: the data-dependent work of B1's bound).'''
+    import numpy as np
+    ok = np.asarray(ok, dtype=bool)
+    keep = np.zeros_like(ok)
+    n = 0
+    for b in range(ok.shape[0]):
+        live = [int(t) for t in np.flatnonzero(ok[b])]
+        while live:
+            t0 = live.pop(0)
+            keep[b, t0] = True
+            n += len(live)
+            live = [t for t in live if not gate(b, t, t0)]
+    return keep, n
+
+
+def b1_bound(coords, rows, A, N, P, itemsize, M, clash_pairs, gate_pairs,
+             passed):
+    '''(bound ms, 'bytes' or 'operations', bytes, operations) of one B1
+    call on `rows` block rows: each input read once (the conformers, the
+    ids, the 18 geometry values and the grid's sine and cosine a row and
+    molecule, the pair list) and each output written once (the poses,
+    a keep byte a pose); the operations its data need: each pose built
+    (~100 a molecule for its transform, 18 an atom), the clash pairs
+    walked to each pose's first hit (9 each), the squared norm of each
+    of the `passed` poses that passed the screen (6 N), the gate pairs
+    the dedup evaluates (K3's ~24 N + ~380 each, Newton's 30 steps).'''
+    nbytes = sum(c.numel() for c in coords) * itemsize + rows * M * 4 + \
+        rows * M * 18 * itemsize + A * M * 2 * itemsize + P * 8 + \
+        rows * A * N * 3 * itemsize + rows * A
+    ops = rows * A * (100 * M + 18 * N) + 9 * clash_pairs + \
+        6 * N * passed + (24 * N + 380) * gate_pairs
+    name = 'float64' if itemsize == 8 else 'float32'
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[name] * 1e3
+    return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops
+            else 'operations', nbytes, ops)
+
+
 def sweep_check(card, tag, blk, mols, angles):
     '''The block sweep of a cyclical route on its own, chunk by chunk as
-    the route cuts it, over the block rows `blk` of the molecules `mols`:
-    in float64 each pose's clash offset and each block's gate offsets
-    (the smallest |rmsd - 1| and |maxdev - 2| over its pose pairs), so
-    every block with a near tie is known; in float32 the keep mask, held
-    against float64's off the tied blocks; and on the first chunk K1
-    against the plain clash twin (clash bits off tie poses, keep bits off
-    tied blocks; K1 in device time, plain with its enqueue time).
-    Returns a dict: keep64, keep32 (Bb, A); per block tie_poses (its
-    poses within CLASH_TIE of the clash threshold), tie_kept (those of
-    them that float64 keeps), gate_tied (a pose pair within GATE_TIE of
-    a dedup gate) and tied (a tie pose or a tied gate); near (the
-    float64 poses within 1e-9 A^2 of the clash threshold); err (the
-    largest disagreement); rec (the first chunk's record).'''
+    the route cuts it on the card (cyclical._card_chunk), over the block
+    rows `blk` of the molecules `mols`, each chunk one launch of B1
+    (ops/kernels/block_screen). In float64 B1 is held against its plain
+    twin on the same card tensors, run in the twin's own chunks
+    (cyclical._auto_chunk) with its gate matrices: poses within
+    B1_POSE_ATOL, keep bits equal off the tied blocks, which each pose's
+    clash offset and each block's gate offsets (the smallest |rmsd - 1|
+    and |maxdev - 2| over its pose pairs) mark; the clash pairs walked
+    and the gate pairs B1 evaluates (lazy_keep on the twin's gates) are
+    counted for its bound; on the first chunk B1 (device time, one
+    launch on packed inputs) and the twin (one pass over the chunk,
+    enqueue time included) are timed, and K1 is held against the plain
+    clash twin on the twin's first poses (K1 in device time, plain with
+    its enqueue time). In float32 B1's keep mask, held against float64's
+    off the tied blocks (hold_float32). Returns a dict: keep64, keep32
+    (Bb, A); per block tie_poses (its poses within CLASH_TIE of the
+    clash threshold), tie_kept (those of them that float64 keeps),
+    gate_tied (a pose pair within GATE_TIE of a dedup gate) and tied (a
+    tie pose or a tied gate); near (the float64 poses within 1e-9 A^2 of
+    the clash threshold); err (the largest disagreement: K1's bits, B1's
+    poses in A); rec (K1's record); b1 (B1's record on the first chunk,
+    with the whole sweep's chunks, launches, pairs and tied blocks).'''
     import torch
     from tscode_tpu_torch.embeds import cyclical as cyc
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
     from tscode_tpu_torch.ops.kernels import clash
     from tscode_tpu_torch.ops.rmsd_prune import pair_gate_matrices
     keeps, tie_poses, tie_kept, gate_tied = {}, [], [], []
-    near, err, rec = 0, 0, None
+    near, err, b1err, rec, b1rec = 0, 0, 0.0, None, None
+    walked = {'clash': 0, 'gate': 0, 'passed': 0}
+    differ = 0
     for dtype in (torch.float64, torch.float32):
         coords, grid, pairs, rows = cyc.sweep_inputs(
             blk, mols, angles, torch.device(DEV), dtype)
+        half = b1.half_angles(grid)
+        gates = (cyc.DEDUP_RMSD, cyc.DEDUP_MAXDEV)
         Bb, A = len(blk['ids']), grid.shape[0]
         N = sum(c.shape[1] for c in coords)
-        chunk = cyc._auto_chunk(Bb, A, N, coords[0].element_size())
+        itemsize = coords[0].element_size()
+        chunk = cyc._card_chunk(Bb, A, N, itemsize)
         parts = []
         for lo in range(0, Bb, chunk):
-            confs, *geo = rows(lo, lo + chunk)
-            poses, ok = cyc.block_poses(coords, confs,
-                                        *cyc.block_geometry(*geo), grid,
-                                        pairs, CLASH)
-            keep = cyc.angular_dedup(poses, ok)
+            hi = min(Bb, lo + chunk)
+            confs, *geo = rows(lo, hi)
+            geometry = cyc.block_geometry(*geo)
+            before = b1.KERNEL.launches
+            poses, keep = b1.block_screen(coords, confs, geometry, half,
+                                          pairs, CLASH, gates)
+            check(b1.KERNEL.launches == before + 1, f'{tag} {dtype}: B1 '
+                  f'launched {b1.KERNEL.launches - before} times for a chunk')
             parts.append(keep)
             if dtype != torch.float64:
                 continue
-            flat = poses.reshape(-1, N, 3)
-            off = clash_offsets(flat, pairs)
-            near += int((off < 1e-9).sum())
-            rmsd, maxdev = pair_gate_matrices(poses, N)
-            gate = torch.minimum((rmsd - cyc.DEDUP_RMSD).abs(),
-                                 (maxdev - cyc.DEDUP_MAXDEV).abs())
-            tie_poses.append((off < CLASH_TIE).reshape(-1, A).sum(dim=1))
-            tie_kept.append(((off < CLASH_TIE).reshape(-1, A)
-                             & keep).sum(dim=1))
-            gate_tied.append(gate.amin(dim=(1, 2)) < GATE_TIE)
-            t = (tie_poses[-1] > 0) | gate_tied[-1]
+            sub = cyc._auto_chunk(hi - lo, A, N, itemsize)
+            for s in range(0, hi - lo, sub):
+                sl = slice(s, s + sub)
+                pp, ok = cyc.block_poses(
+                    coords, [c[sl] for c in confs], *(g[sl] for g in geometry),
+                    grid, pairs, CLASH, clash=clash.clash_ok_plain)
+                rmsd, maxdev = pair_gate_matrices(pp, N)
+                similar = (rmsd < cyc.DEDUP_RMSD) & (maxdev < cyc.DEDUP_MAXDEV)
+                twin_keep = cyc.greedy_keep_device(ok, similar)
+                d = float((poses[sl] - pp).abs().max())
+                b1err = max(b1err, d)
+                check(d <= B1_POSE_ATOL, f'{tag} f64 rows {lo + s}..: B1\'s '
+                      f'poses lie {d:.2e} A from the twin\'s')
+                flat = pp.reshape(-1, N, 3)
+                off = clash_offsets(flat, pairs)
+                near += int((off < 1e-9).sum())
+                gate = torch.minimum((rmsd - cyc.DEDUP_RMSD).abs(),
+                                     (maxdev - cyc.DEDUP_MAXDEV).abs())
+                tie_poses.append((off < CLASH_TIE).reshape(-1, A).sum(dim=1))
+                tie_kept.append(((off < CLASH_TIE).reshape(-1, A)
+                                 & twin_keep).sum(dim=1))
+                gate_tied.append(gate.amin(dim=(1, 2)) < GATE_TIE)
+                tied = (tie_poses[-1] > 0) | gate_tied[-1]
+                other = (keep[sl] != twin_keep).any(dim=1)
+                differ += int(other.sum())
+                check(not bool((other & ~tied).any()), f'{tag} f64 rows '
+                      f'{lo + s}..: B1\'s keep bits differ from the twin\'s '
+                      f'in {int((other & ~tied).sum())} untied blocks')
+                sim = similar.cpu().numpy()
+                _, n = lazy_keep(ok.cpu().numpy(),
+                                 lambda b, t, t0: sim[b, t, t0])
+                walked['gate'] += n
+                walked['passed'] += int(ok.sum())
+                walked['clash'] += clash_walked(flat, pairs)
+                if lo == 0 and s == 0:
+                    rec = k1_chunk_record(card, tag, flat, ok.reshape(-1),
+                                          off, pairs, N)
+                    err = max(err, rec['err'])
+                del pp, ok, rmsd, maxdev, similar, gate
             if lo == 0:
-                plain_ok = clash.clash_ok_plain(flat, pairs, CLASH)
-                e, n_tie = compare_bits(ok.reshape(-1), plain_ok,
-                                        off < CLASH_TIE, f'clash f64 {tag} '
-                                        f'chunk')
-                err = max(err, e)
-                plain_keep = cyc.angular_dedup(poses, plain_ok.reshape(-1, A))
-                check(torch.equal(plain_keep[~t], keep[~t]),
-                      f'{tag} chunk: keep bits with K1 and with the plain '
-                      f'clash differ off the tied blocks')
-                clash.KERNEL.reset_counts()
-                ms = device_ms(lambda: clash.clash_ok(flat, pairs, CLASH))
-                regime = max(clash.launches_by_regime().items(),
-                             key=lambda kv: kv[1])[0]
-                ms_plain = cuda_ms(lambda: clash.clash_ok_plain(flat, pairs,
-                                                                CLASH), reps=2)
-                rec = {'rows': int(poses.shape[0]), 'poses': flat.shape[0],
-                       'N': N, 'P': int(pairs.shape[0]), 'regime': regime,
-                       'ms': ms, 'plain_ms': ms_plain,
-                       'bound_ms': k1_bytes(flat, pairs) /
-                       HBM_BYTES_PER_S * 1e3,
-                       **k1_yardstick(flat.contiguous(), pairs)}
-                print(f'[{tag}] first chunk, float64: {rec["rows"]} '
-                      f'block rows, {rec["poses"]} poses of {N} atoms, P = '
-                      f'{pairs.shape[0]}: {k1_line(rec)}; clash bits equal '
-                      f'off {n_tie} tie poses, keep bits '
-                      f'({int(keep.sum())} survivors) equal with either '
-                      f'screen off {int(t.sum())} tied blocks [{card}]')
+                b1rec = b1_chunk_timing(coords, confs, geo, geometry, grid,
+                                        pairs, poses, keep, sub)
+                first_walked, chunk64 = dict(walked), chunk
+            del poses
         keeps[dtype] = torch.cat(parts).cpu().numpy()
         del parts
     tie_poses = torch.cat(tie_poses).cpu().numpy()
     tie_kept = torch.cat(tie_kept).cpu().numpy()
     gate_tied = torch.cat(gate_tied).cpu().numpy()
+    tied = (tie_poses > 0) | gate_tied
+    first = b1rec['rows']
+    bound, by, nbytes, ops = b1_bound(
+        coords, first, A, N, int(pairs.shape[0]), 8, len(coords),
+        first_walked['clash'], first_walked['gate'], first_walked['passed'])
+    b1rec.update(
+        blocks=Bb, A=A, N=N, P=int(pairs.shape[0]), chunk_rows=chunk64,
+        chunks=-(-Bb // chunk64), bound_ms=bound, bound_by=by, bytes=nbytes,
+        operations=ops, clash_pairs=first_walked['clash'],
+        gate_pairs=first_walked['gate'], sweep_gate_pairs=walked['gate'],
+        gate_matrix_pairs=Bb * A * A, b1_twin_differ=differ,
+        tied_blocks=int(tied.sum()), max_pose_diff_A=b1err,
+        plan=b1.launch_plan(A, N, int(pairs.shape[0]), 8))
+    print(f'[{tag}] B1, float64, first chunk of {first} block rows x {A} '
+          f'angles, N = {N}, P = {b1rec["P"]}: {b1rec["ms"]:.4f} ms device '
+          f'(wrapper {b1rec["wrapper_ms"]:.4f}), twin {b1rec["plain_ms"]:.2f} '
+          f'ms over its {b1rec["twin_chunks"]} chunks, bound {bound:.4f} ms '
+          f'({by}; {nbytes} bytes, {ops} operations), plan '
+          f'{b1rec["plan"]}; the sweep in {b1rec["chunks"]} chunks of '
+          f'{chunk64}: keep bits equal to the twin\'s off {int(tied.sum())} '
+          f'tied blocks ({differ} blocks differ, all tied), poses within '
+          f'{b1err:.2e} A; B1 evaluated {walked["gate"]} gate pairs against '
+          f'{Bb * A * A} in the twin\'s matrices, {walked["clash"]} clash '
+          f'pairs [{card}]')
     return {'keep64': keeps[torch.float64], 'keep32': keeps[torch.float32],
             'tie_poses': tie_poses, 'tie_kept': tie_kept,
-            'gate_tied': gate_tied,
-            'tied': (tie_poses > 0) | gate_tied, 'near': near, 'err': err,
-            'rec': rec}
+            'gate_tied': gate_tied, 'tied': tied, 'near': near, 'err': err,
+            'rec': rec, 'b1': b1rec}
+
+
+def k1_chunk_record(card, tag, flat, plain_ok, off, pairs, N):
+    '''K1 held against the plain clash twin's bits `plain_ok` on the
+    poses `flat` (the twin's first chunk of a sweep), off the poses within
+    CLASH_TIE of the threshold, and timed (device time; plain with its
+    enqueue time), with the v1 kernel and the ring as yardsticks.'''
+    from tscode_tpu_torch.ops.kernels import clash
+    e, n_tie = compare_bits(clash.clash_ok(flat, pairs, CLASH), plain_ok,
+                            off < CLASH_TIE, f'clash f64 {tag} chunk')
+    clash.KERNEL.reset_counts()
+    ms = device_ms(lambda: clash.clash_ok(flat, pairs, CLASH))
+    regime = max(clash.launches_by_regime().items(),
+                 key=lambda kv: kv[1])[0]
+    ms_plain = cuda_ms(lambda: clash.clash_ok_plain(flat, pairs, CLASH),
+                       reps=2)
+    rec = {'poses': flat.shape[0], 'N': N, 'P': int(pairs.shape[0]),
+           'regime': regime, 'ms': ms, 'plain_ms': ms_plain,
+           'bound_ms': k1_bytes(flat, pairs) / HBM_BYTES_PER_S * 1e3,
+           'err': e, **k1_yardstick(flat.contiguous(), pairs)}
+    print(f'[{tag}] K1 on the twin\'s first chunk, float64: {rec["poses"]} '
+          f'poses of {N} atoms, P = {pairs.shape[0]}: {k1_line(rec)}; clash '
+          f'bits equal to plain off {n_tie} tie poses [{card}]')
+    return rec
+
+
+def b1_chunk_timing(coords, confs, geo, geometry, grid, pairs, poses, keep,
+                    sub):
+    '''B1 on one chunk: the kernel alone on packed inputs in device time
+    (its output bits the same as the route's call's), the wrapper as the
+    route calls it (block_geometry's output and the sweep's half angles
+    given), and its twin (cyclical.block_screen_plain) in one pass over
+    the chunk in its own chunks of `sub` rows (CUDA events, enqueue time
+    included).'''
+    import torch
+    from tscode_tpu_torch.embeds import cyclical as cyc
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
+    half = b1.half_angles(grid)
+    gates = (cyc.DEDUP_RMSD, cyc.DEDUP_MAXDEV)
+    conf, packed = b1.pack_rows(confs, geometry)
+    out, kept = torch.empty_like(poses), torch.empty_like(keep)
+    ms = device_ms(lambda: b1.launch(coords, conf, packed, half, pairs,
+                                     CLASH, gates, out, kept), reps=5)
+    check(torch.equal(out, poses) and torch.equal(kept, keep), 'B1 on '
+          'packed inputs gave other bits than the route\'s call')
+    del out, kept
+    wrapper_ms = device_ms(lambda: b1.block_screen(
+        coords, confs, geometry, half, pairs, CLASH, gates), reps=5)
+    rows = poses.shape[0]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in range(0, rows, sub):
+        cyc.block_screen_plain(coords, [c[s:s + sub] for c in confs],
+                               [g[s:s + sub] for g in geo], grid, pairs,
+                               CLASH)
+    stop.record()
+    stop.synchronize()
+    return {'rows': rows, 'ms': ms, 'wrapper_ms': wrapper_ms,
+            'plain_ms': start.elapsed_time(stop), 'twin_chunks':
+            -(-rows // sub), 'library_ms': None}
 
 
 def hold_float32(tag, sweep):
@@ -2097,7 +2287,9 @@ def float32_slack(sweep, differ, rows=slice(None)):
 
 def embed_split(tag, dtype, report, key, card):
     '''Print the sweep's split of a cyclical-family CLI run from its
-    report; returns the dedup's share of the sweep.'''
+    report (on the card B1's chunks are all screen: the dedup reads 0.0);
+    checks that B1 ran, once a chunk, and K1 did not. Returns the
+    sweep's seconds (screen and dedup).'''
     ce = report[key]
     sweep = ce['screen_s'] + ce['dedup_s']
     gen = next(s['seconds'] for s in report['stages']
@@ -2106,13 +2298,26 @@ def embed_split(tag, dtype, report, key, card):
         f'near ties)' if 'adjust_s' in ce else ''
     print(f'[{tag} {dtype}] sweep split: blocks {ce["blocks_s"]:.4f} s'
           f'{adjust}, screen {ce["screen_s"]:.4f} s, dedup '
-          f'{ce["dedup_s"]:.4f} s, assemble {ce["assemble_s"]:.4f} s '
+          f'{ce["dedup_s"]:.4f} s ({ce["sweep_kernel"]}), assemble '
+          f'{ce["assemble_s"]:.4f} s '
           f'({ce.get("union_blocks", ce.get("blocks"))} blocks in '
-          f'{ce["chunks"]} chunks of {ce["chunk_rows"]}); the dedup (pair '
-          f'gates and greedy scan) is {ce["dedup_s"] / sweep:.1%} of the '
-          f'sweep and {ce["dedup_s"] / gen:.1%} of generate_candidates '
-          f'[{card}]')
-    return ce['dedup_s'] / sweep
+          f'{ce["chunks"]} chunks of {ce["chunk_rows"]}, B1 launched '
+          f'{report["b1_launches"]} times); the sweep is {sweep:.4f} s, '
+          f'{sweep / gen:.1%} of generate_candidates [{card}]')
+    check_b1_route(f'{tag} {dtype}', report, ce)
+    return sweep
+
+
+def check_b1_route(tag, report, ce):
+    '''A block sweep on the card: B1 once a chunk (of each shard), the
+    split says so, no K1 launch on the sweep.'''
+    check(ce['sweep_kernel'] == 'B1' and ce['dedup_s'] == 0.0 and
+          report['b1_launches'] == ce['chunks'] > 0 and
+          report['clash_entry_launches']['clash_ok'] == 0,
+          f'{tag}: sweep {ce["sweep_kernel"]}, B1 launched '
+          f'{report["b1_launches"]} times for {ce["chunks"]} chunks, K1 '
+          f'{report["clash_entry_launches"]["clash_ok"]} times, dedup '
+          f'{ce["dedup_s"]} s')
 
 
 def cli_stages(report):
@@ -2123,13 +2328,13 @@ def cli_stages(report):
 
 def phase_cyclical_route(card, tmp):
     '''Phase 8: the rigid cyclical route through the CLI on bench_suite's
-    da_cyclical_xl at CYC_CONFS conformers (the block sweep with K1,
-    the angular dedup, the similarity prunes, the .xyz), float64 (the
-    JAX x64 counts exactly) then float32 (brackets from the float64
-    near ties), and the sweep checked on its own. The inputs and the
-    float64 output stay in `tmp`. Returns (K1 launches, largest
-    disagreement, K1's record on the first chunk, path of the float64
-    output ensemble).'''
+    da_cyclical_xl at CYC_CONFS conformers (the block sweep, one B1
+    launch a chunk, the similarity prunes, the .xyz), float64 (the JAX
+    x64 counts exactly) then float32 (brackets from the float64 near
+    ties), and the sweep checked on its own (sweep_check: B1 against its
+    twin). The inputs and the float64 output stay in `tmp`. Returns (K1
+    launches, largest K1 disagreement, K1's record on the twin's first
+    chunk, path of the float64 output ensemble, B1's record).'''
     import os
     import torch
     from tscode_tpu_torch.embeds import cyclical as cyc
@@ -2141,19 +2346,20 @@ def phase_cyclical_route(card, tmp):
         ce = report['cyclical_embed']
         counts[dtype] = c = (ce['candidates'], ce['survivors'],
                              report['final_structures'])
-        n_launch = sum(regimes.values())
-        launches += n_launch
-        check(regimes['thread'] == n_launch == ce['chunks'],
-              f'cyclical {dtype}: K1 launches {regimes}, expected one '
-              f'thread-regime launch per chunk ({ce["chunks"]})')
+        launches += sum(regimes.values())
+        check(sum(regimes.values()) == 0 and report['b1_launches'] ==
+              ce['chunks'] == 1, f'cyclical {dtype}: K1 launches {regimes}, '
+              f'B1 {report["b1_launches"]}, expected one B1 launch for the '
+              f'one chunk, no K1 ({ce["chunks"]} chunks)')
         check(frames.shape == (min(c[2], 10000), 11, 3)
               and bool(np.isfinite(frames).all()),
               f'cyclical {dtype}: .xyz holds {frames.shape}, expected '
               f'({min(c[2], 10000)}, 11, 3) finite')
         print(f'[8 cyclical {dtype}] {" -> ".join(map(str, c))} '
-              f'(candidates -> embedded -> final) in {secs:.3f} s, K1 '
-              f'launches {regimes}; stages: {cli_stages(report)}; report '
-              f'total {report["total_seconds"]} s [{card}]')
+              f'(candidates -> embedded -> final) in {secs:.3f} s, B1 '
+              f'launches {report["b1_launches"]}, K1 {regimes}; stages: '
+              f'{cli_stages(report)}; report total '
+              f'{report["total_seconds"]} s [{card}]')
         embed_split('8 cyclical', dtype, report, 'cyclical_embed', card)
     emb = embedder_setup(inp, torch.float64)
     blk = cyc.bimol_rigid_blocks(*emb.objects, 5, emb.pairing_ok_fn())
@@ -2176,7 +2382,7 @@ def phase_cyclical_route(card, tmp):
           f'{slack[0]} (embedded: the angles of the blocks that differ) and '
           f'+- {slack[1]} (final: and the clash-tie survivors)')
     return launches, sweep['err'], sweep['rec'], os.path.join(
-        tmp, f'tscode_unoptimized_smoke_{DEV}_float64.xyz')
+        tmp, f'tscode_unoptimized_smoke_{DEV}_float64.xyz'), sweep['b1']
 
 
 def refine_pool(path):
@@ -2433,12 +2639,13 @@ def stage_counts(report):
 def phase_multiembed_route(card):
     '''Phase 10: the multi-arrangement route through the CLI on
     bench_suite's multiembed at ME_CONFS conformers (12 arrangements'
-    block rows in one sweep with K1, each arrangement's stages and the
-    parent's compenetration stage with K2, the prunes), float64 (the JAX
-    x64 counts at every stage) then float32 (held as phase 8 holds it),
-    the union sweep checked on its own, and K2 on the parent's
-    structures. Returns (K1 launches, K2 launches, largest K1
-    disagreement, K2's records by dtype, largest K2 disagreement).'''
+    block rows in one sweep, one B1 launch a chunk, each arrangement's
+    stages and the parent's compenetration stage with K2, the prunes),
+    float64 (the JAX x64 counts at every stage) then float32 (held as
+    phase 8 holds it), the union sweep checked on its own (B1 against
+    its twin), and K2 on the parent's structures. Returns (K1 launches,
+    K2 launches, largest K1 disagreement, K2's records by dtype, largest
+    K2 disagreement, B1's record).'''
     import tempfile
     import torch
     from tscode_tpu_torch import multiembed
@@ -2457,12 +2664,16 @@ def phase_multiembed_route(card):
             kids = me['children']
             # an arrangement is a cyclical embed, whose compenetration
             # stage screens nothing: K2 is the parent's launch
-            check(entry == {'clash_ok': me['chunks'],
+            check(entry == {'clash_ok': 0,
                             'compenetration_mask_kernel': 1,
                             'torsion_clash_ok': 0,
-                            'torsion_backoff': 0},
-                  f'multiembed {dtype}: launches {entry}, expected K1 once '
-                  f'per chunk ({me["chunks"]}) and K2 once, for the parent')
+                            'torsion_backoff': 0} and
+                  report['b1_launches'] == me['chunks'] ==
+                  (2 if dtype == 'float64' else 1),
+                  f'multiembed {dtype}: launches {entry}, B1 '
+                  f'{report["b1_launches"]}, expected B1 once per chunk '
+                  f'({me["chunks"]}: 2 in float64, 1 in float32), no K1, K2 '
+                  f'once, for the parent')
             parent = stage_counts(report)
             check(frames.shape == (min(parent[2], 10000), 11, 3)
                   and bool(np.isfinite(frames).all()),
@@ -2474,7 +2685,8 @@ def phase_multiembed_route(card):
                   f'{me["union_survivors"]} survivors of the sweep; parent '
                   f'{" -> ".join(map(str, parent))} (in -> after '
                   f'compenetration -> final) in {secs:.3f} s; launches '
-                  f'{entry}; stages: {cli_stages(report)}; report total '
+                  f'{entry}, B1 {report["b1_launches"]}; stages: '
+                  f'{cli_stages(report)}; report total '
                   f'{report["total_seconds"]} s [{card}]')
             print(f'[10 multiembed {dtype}] per arrangement, blocks / '
                   f'survivors / structures / seconds: ' + ', '.join(
@@ -2539,13 +2751,13 @@ def phase_multiembed_route(card):
           f'that differ ({slack[0]} in all), later counts within those and '
           f'its clash-tie survivors ({slack[1]} in all)')
     recs, e2 = k2_checks(card, '10 multiembed', reports, (5, 6))
-    return k1, k2, sweep['err'], recs, e2
+    return k1, k2, sweep['err'], recs, e2, sweep['b1']
 
 
 def phase_chelotropic_route(card):
     '''Phase 11: the rigid chelotropic route through the CLI on the
     port's chelotropic input at CHEL_CONFS conformers (the block sweep
-    with K1, the compenetration stage with K2, the prunes), float64
+    with B1, the compenetration stage with K2, the prunes), float64
     (the JAX x64 counts) then float32 (held as phase 8 holds it), and K2
     on its structures. Returns as phase_multiembed_route.'''
     import tempfile
@@ -2562,12 +2774,14 @@ def phase_chelotropic_route(card):
             entry = report['clash_entry_launches']
             k1 += entry['clash_ok']
             k2 += entry['compenetration_mask_kernel']
-            check(entry == {'clash_ok': ce['chunks'],
+            check(entry == {'clash_ok': 0,
                             'compenetration_mask_kernel': 1,
                             'torsion_clash_ok': 0,
-                            'torsion_backoff': 0},
-                  f'chelotropic {dtype}: launches {entry}, expected K1 once '
-                  f'per chunk ({ce["chunks"]}) and K2 once')
+                            'torsion_backoff': 0} and
+                  report['b1_launches'] == ce['chunks'] == 1,
+                  f'chelotropic {dtype}: launches {entry}, B1 '
+                  f'{report["b1_launches"]}, expected B1 once for the one '
+                  f'chunk ({ce["chunks"]}), no K1, K2 once')
             counts[dtype] = c = (ce['candidates'],) + stage_counts(report)
             reports[dtype] = report
             check(frames.shape == (min(c[3], 10000), 12, 3)
@@ -2575,9 +2789,9 @@ def phase_chelotropic_route(card):
                   f'chelotropic {dtype}: .xyz holds {frames.shape}')
             print(f'[11 chelotropic {dtype}] {" -> ".join(map(str, c))} '
                   f'(candidates -> embedded -> after compenetration -> '
-                  f'final) in {secs:.3f} s; launches {entry}; stages: '
-                  f'{cli_stages(report)}; report total '
-                  f'{report["total_seconds"]} s [{card}]')
+                  f'final) in {secs:.3f} s; launches {entry}, B1 '
+                  f'{report["b1_launches"]}; stages: {cli_stages(report)}; '
+                  f'report total {report["total_seconds"]} s [{card}]')
             embed_split('11 chelotropic', dtype, report, 'chelotropic_embed',
                         card)
         emb = embedder_setup(inp, torch.float64)
@@ -2603,17 +2817,18 @@ def phase_chelotropic_route(card):
           f'the clash-tie survivors)')
     recs, e2 = k2_checks(card, '11 chelotropic', reports,
                          [m.n_atoms for m in emb.objects])
-    return k1, k2, sweep['err'], recs, e2
+    return k1, k2, sweep['err'], recs, e2, sweep['b1']
 
 
 def phase_trimol_route(card):
     '''Phase 12: the rigid three-molecule route through the CLI on
     bench_suite's trimolecular input with RIGID at TRI_CONFS // 4
     conformers of HCOOH (the chained direction adjustment, the block
-    sweep with K1 over the pair list of three fragments, BYPASS), float64
+    sweep with B1 over the pair list of three fragments, BYPASS), float64
     (the JAX x64 blocks, candidates and survivors) then float32, and
-    the sweep checked on its own with K1 against plain on its first
-    chunk. Returns (K1 launches, largest disagreement, K1's record).'''
+    the sweep checked on its own (B1 against its twin; K1 against plain
+    on the twin's first chunk). Returns (K1 launches, largest K1
+    disagreement, K1's record, B1's record).'''
     import tempfile
     import torch
     from tscode_tpu_torch.embeds import cyclical as cyc
@@ -2627,14 +2842,14 @@ def phase_trimol_route(card):
             ce = report['cyclical_embed']
             entry = report['clash_entry_launches']
             k1 += entry['clash_ok']
-            check(entry == {'clash_ok': ce['chunks'],
+            check(entry == {'clash_ok': 0,
                             'compenetration_mask_kernel': 0,
                             'torsion_clash_ok': 0,
                             'torsion_backoff': 0} and
-                  regimes['warp'] == ce['chunks'],
-                  f'trimolecular {dtype}: launches {entry} {regimes}, '
-                  f'expected K1\'s warp kernel once per chunk '
-                  f'({ce["chunks"]})')
+                  report['b1_launches'] == ce['chunks'] == 1,
+                  f'trimolecular {dtype}: launches {entry} {regimes}, B1 '
+                  f'{report["b1_launches"]}, expected B1 once for the one '
+                  f'chunk ({ce["chunks"]}), no K1')
             counts[dtype] = c = (ce['blocks'], ce['candidates'],
                                  ce['survivors'])
             check(report['final_structures'] == c[2] and
@@ -2644,7 +2859,7 @@ def phase_trimol_route(card):
                   f'{report["final_structures"]}')
             print(f'[12 trimolecular {dtype}] {" -> ".join(map(str, c))} '
                   f'(blocks -> candidates -> embedded) in {secs:.3f} s; '
-                  f'launches {entry} {regimes}; adjust chain '
+                  f'B1 launches {report["b1_launches"]}; adjust chain '
                   f'{ce["adjust_s"]:.4f} s in float64, '
                   f'{ce["adjust_near_ties"]} blocks whose two best grid '
                   f'costs lie within {cyc.ADJ_TIE} degrees; stages: '
@@ -2676,7 +2891,7 @@ def phase_trimol_route(card):
           f'{" -> ".join(map(str, c64))} (JAX x64), float32 '
           f'{" -> ".join(map(str, c32))} within +- {slack} (the angles of '
           f'the blocks that differ)')
-    return k1, sweep['err'], rec
+    return k1, sweep['err'], rec, sweep['b1']
 
 
 def profiled(fn):
@@ -3273,7 +3488,7 @@ def phase_bend_trimol_route(card):
     '''Phase 14: the non-rigid three-molecule route through the CLI on
     bench_suite's trimolecular input as written at BEND_TRI_CONFS (the
     bends on the internal force field in float64, the chained direction
-    adjustment, the block sweep group by group with K1, BYPASS), float64
+    adjustment, the block sweep group by group with B1, BYPASS), float64
     (the JAX x64 bends and survivors) then float32 (the same bent
     molecules; the sweep held as phase 8 holds it), every bend run again
     on the CPU, and the sweep checked on its own group by group.
@@ -3302,14 +3517,16 @@ def phase_bend_trimol_route(card):
                   ce['bend_relaxations'], f'non-rigid trimolecular '
                   f'{dtype}: {report["fire"]} for '
                   f'{ce["bend_relaxations"]} bend relaxations')
-            check(entry == {'clash_ok': ce['chunks'],
+            check(entry == {'clash_ok': 0,
                             'compenetration_mask_kernel': 0,
                             'torsion_clash_ok': 0,
                             'torsion_backoff': 0} and
-                  regimes['warp'] == ce['chunks'] >= ce['groups'],
+                  report['b1_launches'] == ce['chunks'] >= ce['groups'] and
+                  ce['sweep_kernel'] == 'B1',
                   f'non-rigid trimolecular {dtype}: launches {entry} '
-                  f'{regimes}, expected K1\'s warp kernel once per chunk '
-                  f'({ce["chunks"]}) of {ce["groups"]} groups')
+                  f'{regimes}, B1 {report["b1_launches"]}, expected B1 once '
+                  f'per chunk ({ce["chunks"]}) of {ce["groups"]} groups, no '
+                  f'K1')
             check(report['final_structures'] == ce['survivors'] and
                   frames.shape == (min(ce['survivors'], 10000), 15, 3)
                   and bool(np.isfinite(frames).all())
@@ -3322,7 +3539,8 @@ def phase_bend_trimol_route(card):
                   f'non-rigid trimolecular {dtype}: a bend left float64')
             print(f'[14 bend trimolecular {dtype}] {ce["blocks"]} blocks, '
                   f'{ce["candidates"]} candidates -> {ce["survivors"]} '
-                  f'embedded in {secs:.3f} s; launches {entry} {regimes}; '
+                  f'embedded in {secs:.3f} s; launches {entry}, B1 '
+                  f'{report["b1_launches"]}; '
                   f'stages: {cli_stages(report)} [{card}]')
             bend_split('14 bend trimolecular', dtype, ce, secs, card)
         emb = embedder_setup(inp, torch.float64)
@@ -3380,7 +3598,8 @@ def phase_bend_trimol_route(card):
         'bends', 'bend_relaxations', 'bend_hits', 'bend_reverts', 'groups',
         'bends_s', 'blocks_s', 'adjust_s', 'screen_s', 'dedup_s',
         'assemble_s', 'chunks')} for d in ces}
-    rec.update(cpu_bends_s=cpu_s, bent_vs_cpu_A=worst)
+    rec.update(cpu_bends_s=cpu_s, bent_vs_cpu_A=worst,
+               b1_groups=[s['b1'] for s in sweeps])
     return k1, max(s['err'] for s in sweeps), rec
 
 
@@ -3410,7 +3629,8 @@ def card_against_cpu(tag, name, n_confs, atoms, key):
           f'on the card in {secs:.3f} s and on the CPU in {secs_cpu:.3f} s, '
           f'structures within {err:.2e} A; {ce["bends"]} bends, '
           f'{ce["bend_relaxations"]} FIRE calls, {ce["bend_reverts"]} '
-          f'reverts; launches {report["clash_entry_launches"]}')
+          f'reverts; launches {report["clash_entry_launches"]}, B1 '
+          f'{report["b1_launches"]}')
     return report
 
 
@@ -3419,24 +3639,26 @@ def phase_small_bend_routes(card):
     RIGID) at CHEL_BEND_CONFS conformers, which launches K2 on a
     non-rigid route, and the monomolecular embed on MONO_CONFS
     conformers of C2F2H4, each in float64 on the card against the CPU.
-    Returns (K1 launches, K2 launches).'''
+    Returns (K1 launches, K2 launches); B1's go to B1_LAUNCHES.'''
     report = card_against_cpu('15 chelotropic non-rigid',
                               'chelotropic_nonrigid', CHEL_BEND_CONFS, 12,
                               'chelotropic_embed')
     count_fire('15', 'chelotropic non-rigid', report['fire'],
                launched=report['chelotropic_embed']['bend_relaxations'] > 0)
     entry = report['clash_entry_launches']
-    check(entry == {'clash_ok': report['chelotropic_embed']['chunks'],
-                    'compenetration_mask_kernel': 1, 'torsion_clash_ok': 0,
-                    'torsion_backoff': 0},
+    check(entry == {'clash_ok': 0, 'compenetration_mask_kernel': 1,
+                    'torsion_clash_ok': 0, 'torsion_backoff': 0},
           f'non-rigid chelotropic: launches {entry}')
+    check_b1_route('15 chelotropic non-rigid', report,
+                   report['chelotropic_embed'])
     mono = card_against_cpu('15 monomolecular', 'monomolecular', MONO_CONFS,
                             8, 'monomolecular_embed')
     count_fire('15', 'monomolecular', mono['fire'])
     check(mono['monomolecular_embed']['bends'] > 0 and
           mono['clash_entry_launches'] ==
           {'clash_ok': 0, 'compenetration_mask_kernel': 0,
-           'torsion_clash_ok': 0, 'torsion_backoff': 0},
+           'torsion_clash_ok': 0, 'torsion_backoff': 0} and
+          mono['b1_launches'] == 0,
           f'monomolecular: {mono["monomolecular_embed"]}, launches '
           f'{mono["clash_entry_launches"]}')
     return entry['clash_ok'], entry['compenetration_mask_kernel']
@@ -4489,7 +4711,8 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
     MeshRecorder `rec` told which. Returns run_cli's result and the
     kernels' launches of the run (run_cli sets the counts to 0 first):
     K1 `clash_ok`, K2 `compenetration_mask_kernel`, K1's search entries
-    `torsion_clash_ok` and `torsion_backoff`, K3, T1 `tfd_first`.'''
+    `torsion_clash_ok` and `torsion_backoff`, K3, T1 `tfd_first`, B1
+    `block_screen`.'''
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.parallel.sharding import default_mesh
     key = 'TSCODE_MESH' if sharded else 'TSCODE_DISABLE_MESH'
@@ -4502,7 +4725,8 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
         del os.environ[key]
         rec.sharded = False
     launches = dict(clash.launches_by_entry(), qcp_kill=qcp.KERNEL.launches,
-                    tfd_first=out[0]['tfd_launches'])
+                    tfd_first=out[0]['tfd_launches'],
+                    block_screen=out[0]['b1_launches'])
     return out, launches
 
 
@@ -4523,6 +4747,14 @@ def mesh_route(card, name, n_confs, mesh, rec, tmp):
             inp = suite_input(name, d, n_confs)
         (report, frames, _, secs), launches = mesh_cli(d, inp, mesh,
                                                        sharded, rec)
+        sweeps = [report[k] for k in ('cyclical_embed', 'multiembed_embed')
+                  if k in report]
+        if sweeps:
+            check_b1_route(f'[21 mesh] {name} sharded={sharded}', report,
+                           sweeps[0])
+            check('cyclical_embed' not in report or sweeps[0]['shards'] ==
+                  (mesh.size if sharded else 1), f'[21 mesh] {name}: the '
+                  f'sweep ran on {sweeps[0]["shards"]} shards')
         runs[sharded] = (route_counts(report), frames, secs, launches, d)
     (c0, f0, s0, l0, d0), (c1, f1, s1, l1, d1) = runs[False], runs[True]
     check(c1 == c0, f'[21 mesh] {name}: sharded counts {c1} != unsharded '
@@ -4736,7 +4968,8 @@ def phase_mesh(card):
     kernels, err = mesh_kernels(card, rec)
     fire = mesh_fire(card, mesh)
     launches = {'clash_ok': 0, 'compenetration_mask_kernel': 0,
-                'torsion_backoff': 0, 'qcp_kill': 0, 'tfd_first': 0}
+                'torsion_backoff': 0, 'qcp_kill': 0, 'tfd_first': 0,
+                'block_screen': 0}
     for r in routes.values():
         for k in launches:
             launches[k] += r['sharded_launches'][k]
@@ -4824,9 +5057,10 @@ def trace_kernels(tag, events, spans, api, report):
     span began. (A correlated event is not held to that: the kernel
     records' clock, converted from the card's, ran up to 1.05 ms ahead
     of the host's spans in some runs while its launch call lay inside
-    its span; `kernel_minus_launch_us` records that offset.) Each clash
-    and ff_fire launch span lies inside the span of the wrapper that
-    asked for it, as many wrapper spans as that wrapper's launches.
+    its span; `kernel_minus_launch_us` records that offset.) Each clash,
+    ff_fire and block_screen launch span lies inside the span of the
+    wrapper that asked for it, as many wrapper spans as that wrapper's
+    launches.
     Returns ({entry: record}, {id of a kernel event: its launch
     span}).'''
     import re
@@ -4867,14 +5101,15 @@ def trace_kernels(tag, events, spans, api, report):
                     'kernel': ks[0]['name'][:80],
                     'kernel_minus_launch_us': [min(lead), max(lead)]
                     if lead else None}
-    wrappers = dict(report['clash_entry_launches'], ff_fire=sum(
-        report['kernel_entries'].get('ff_fire', {}).values()))
+    wrappers = dict(report['clash_entry_launches'], **{
+        lib: sum(report['kernel_entries'].get(lib, {}).values())
+        for lib in ('ff_fire', 'block_screen')})
     for wrapper, n in wrappers.items():
         ws = [s for s in spans if s['name'] == wrapper]
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
               f'{len(ws)} {wrapper} spans')
     for s in spans:
-        if s['name'].startswith(('clash.', 'ff_fire.')):
+        if s['name'].startswith(('clash.', 'ff_fire.', 'block_screen.')):
             check(any(w['name'] in wrappers and
                       w['tid'] == s['tid'] and w['ts'] <= s['ts'] and
                       s['ts'] + s['dur'] <= w['ts'] + w['dur']
@@ -4986,7 +5221,7 @@ def traced_route(card, tag, tmp, inp):
     '''One input through the CLI in float64 untraced, then with --trace:
     the same stage counts and frames; the trace checked (trace_check).
     Returns (traced run's report, trace record, span counts, launches of
-    both runs: K1, K2, K3, torsion_backoff, ff_fire, T1).'''
+    both runs: K1, K2, K3, torsion_backoff, ff_fire, T1, B1).'''
     trace_dir = os.path.join(tmp, 'trace')
     runs = [run_cli(tmp, inp, 'float64', args=args)
             for args in ((), ('--trace', trace_dir))]
@@ -4996,7 +5231,7 @@ def traced_route(card, tag, tmp, inp):
           f'stages {stage_counts(r1)} frames {f1.shape} against the '
           f'untraced run\'s {stage_counts(r0)} {f0.shape}, or other frames')
     rec, names = trace_check(card, tag, trace_file(trace_dir), r1, s1, s0)
-    launches = [0, 0, 0, 0, 0, 0]
+    launches = [0, 0, 0, 0, 0, 0, 0]
     for r, _, _, _ in runs:
         e = r['clash_entry_launches']
         launches[0] += e['clash_ok'] + e['torsion_clash_ok']
@@ -5005,6 +5240,7 @@ def traced_route(card, tag, tmp, inp):
         launches[3] += e['torsion_backoff']
         launches[4] += check_fire(f'[22 trace] {tag}', r['fire'], False)
         launches[5] += r['tfd_launches']
+        launches[6] += r['b1_launches']
     return r1, rec, names, launches
 
 
@@ -5287,14 +5523,14 @@ def phase_trace(card):
     (traced_thread), the search's back-off (traced_backoff) and a bend's
     FIRE call and a captured dimer graph under the trace (traced_fire).
     Then the TFD prune's T1 launches under the trace (traced_tfd).
-    Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire and
-    T1 of the runs).'''
+    Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1
+    and B1 of the runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0, 0, 0, 0, 0, 0]
+    recs, launches = {}, [0, 0, 0, 0, 0, 0, 0]
 
     def add(n):
-        for i in range(6):
+        for i in range(7):
             launches[i] += n[i]
     with tempfile.TemporaryDirectory(prefix='smoke_trace_') as tmp:
         def route(tag, name, n_confs):
@@ -5314,16 +5550,20 @@ def phase_trace(card):
         rep, recs['chelotropic_nonrigid'], names, n = route(
             'chelotropic_nonrigid', 'chelotropic_nonrigid', CHEL_BEND_CONFS)
         add(n)
+        b1 = recs['chelotropic_nonrigid']['kernels'].get(
+            'block_screen.block_screen_f64', {})
         check(rep['clash_entry_launches']['compenetration_mask_kernel'] == 1
-              and 'angular_dedup' in names, f'[22 trace] chelotropic: '
-              f'launches {rep["clash_entry_launches"]}, spans '
-              f'{sorted(names)}')
+              and names.get('block_screen', 0) == rep['b1_launches'] > 0
+              and b1.get('events') == rep['b1_launches']
+              and 'angular_dedup' not in names, f'[22 trace] chelotropic: '
+              f'launches {rep["clash_entry_launches"]}, B1 '
+              f'{rep["b1_launches"]} ({b1}), spans {sorted(names)}')
         d = os.path.join(tmp, 'xl')
         os.makedirs(d)
         rep, _, _, secs = run_cli(d, suite_input('da_cyclical_xl', d,
                                                  CYC_CONFS), 'float64')
         add((rep['clash_entry_launches']['clash_ok'], 0, 0, 0, 0,
-             rep['tfd_launches']))
+             rep['tfd_launches'], rep['b1_launches']))
         print(f'[22 trace] da_cyclical_xl at {CYC_CONFS}, REFINE\'s input, '
               f'untraced in {secs:.3f} s [{card}]')
         d2 = os.path.join(tmp, 'refine_xl')
@@ -5350,8 +5590,8 @@ def phase_trace(card):
         launches[5] += recs['tfd']['launches']
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
           f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, ff_fire '
-          f'{launches[4]}, T1 {launches[5]}; every launch of a traced run '
-          f'found in its trace [{card}]')
+          f'{launches[4]}, T1 {launches[5]}, B1 {launches[6]}; every launch '
+          f'of a traced run found in its trace [{card}]')
     return recs, launches
 
 
@@ -5361,7 +5601,8 @@ def trace_process(card):
     phases 1 to 21 in this process lost device events (4,176 kernel
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
-    its (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1).'''
+    its (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
+    B1).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -5601,6 +5842,25 @@ def guard_overhead(card, out):
                   indent=1)
 
 
+def b1_kernel_line(routes, sharded):
+    '''B1's entry of the kernels line: phase 8's record (da_cyclical_xl,
+    float64, its one chunk) for the times and the bound, each route's
+    record beside it (the non-rigid trimolecular input's a group), its
+    launches on the main path by phase and on phase 21's shards.'''
+    main = routes['da_cyclical_xl']
+    recs = [r for k, r in routes.items() if k != 'trimolecular_nonrigid']
+    recs += list(routes.get('trimolecular_nonrigid', []))
+    return {'name': 'block_screen', 'route': 'cuda',
+            'source': 'tscode_tpu_torch/csrc/block_screen.cu',
+            'replaces': 'tscode_tpu/embeds/cyclical.py:255',
+            'launches': sum(B1_LAUNCHES.values()),
+            'max_abs_err': max(r['max_pose_diff_A'] for r in recs),
+            'ms': main['ms'], 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': None, 'launches_by_phase': dict(B1_LAUNCHES),
+            'mesh': {'launches': sharded}, 'routes': routes}
+
+
 def timed_phase(name, phase, *args):
     '''phase(*args), its seconds printed; PHASE holds its number while
     it runs.'''
@@ -5652,6 +5912,21 @@ def main():
             'torsion_drive': drive[3], 'csearch_string': chain[3]},
             'tfd_first_successor': chain[4]}))
         return
+    if sys.argv[1:2] == ['--sweep']:         # phases 8 and 10 to 12 alone
+        import tempfile
+        phase_build()
+        routes = {}
+        with tempfile.TemporaryDirectory(prefix='smoke_cyc_') as tmp:
+            routes['da_cyclical_xl'] = timed_phase(
+                '8 cyclical', phase_cyclical_route, card, tmp)[4]
+        routes['multiembed'] = timed_phase(
+            '10 multiembed', phase_multiembed_route, card)[5]
+        routes['chelotropic'] = timed_phase(
+            '11 chelotropic', phase_chelotropic_route, card)[5]
+        routes['trimolecular_rigid'] = timed_phase(
+            '12 trimolecular', phase_trimol_route, card)[3]
+        print(json.dumps({'block_screen': b1_kernel_line(routes, 0)}))
+        return
     if sys.argv[1:2] == ['--mesh']:          # phase 21 alone
         phase_build()
         mesh, _, _ = timed_phase('21 mesh', phase_mesh, card)
@@ -5692,16 +5967,19 @@ def main():
               f'76-conformer grids {grid}')
         errs['clash'] = max(errs['clash'], errs.pop('clash7'))
         with tempfile.TemporaryDirectory(prefix='smoke_cyc_') as tmp:
-            k1, e8, chunk8, xl_path = phase_cyclical_route(card, tmp)
+            PHASE[0] = '8'
+            k1, e8, chunk8, xl_path, b1_8 = phase_cyclical_route(card, tmp)
+            PHASE[0] = '9'
+
             k3, recs9, e9 = phase_refine_route(
                 card, xl_path, os.path.join(keep, 'large_n_f64.xyz'))
     print(f'[seconds] phases 1 to 9: {time.perf_counter() - t0:.1f} s')
-    k1_10, k2_10, e10, k2_rec, e10_k2 = timed_phase(
+    k1_10, k2_10, e10, k2_rec, e10_k2, b1_10 = timed_phase(
         '10 multiembed', phase_multiembed_route, card)
-    k1_11, k2_11, e11, k2_rec11, e11_k2 = timed_phase(
+    k1_11, k2_11, e11, k2_rec11, e11_k2, b1_11 = timed_phase(
         '11 chelotropic', phase_chelotropic_route, card)
-    k1_12, e12, chunk12 = timed_phase('12 trimolecular', phase_trimol_route,
-                                      card)
+    k1_12, e12, chunk12, b1_12 = timed_phase(
+        '12 trimolecular', phase_trimol_route, card)
     fire = timed_phase('13 ff and fire', phase_ff_fire, card)
     k1_14, e14, bend14 = timed_phase('14 bend trimolecular',
                                      phase_bend_trimol_route, card)
@@ -5716,10 +5994,16 @@ def main():
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
-    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22) = timed_phase(
+    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22, b1_22) = timed_phase(
         '22 trace', trace_process, card)
     FIRE_LAUNCHES['22'] = ff_22
     TFD_LAUNCHES['22'] = t1_22
+    B1_LAUNCHES['22'] = b1_22
+    check(all(B1_LAUNCHES.get(p, 0) > 0 for p in
+              ('8', '10', '11', '12', '14', '15', '21', '22')),
+          f'B1 launches by phase {B1_LAUNCHES}: a phase that runs a block '
+          f'sweep on the card did not launch it')
+    print(f'[block_screen] launches of B1 by phase {B1_LAUNCHES} [{card}]')
     check(all(TFD_LAUNCHES.get(p, 0) > 0 for p in ('16', '17', '21', '22')),
           f'T1 launches by phase {TFD_LAUNCHES}: a phase that runs the TFD '
           f'prune on the card did not launch it')
@@ -5804,6 +6088,11 @@ def main():
         'launches_by_phase': dict(TFD_LAUNCHES),
         'mesh': {'launches': sharded['tfd_first']},
         'csearch_string': t1})
+    kernels.append(b1_kernel_line(
+        {'da_cyclical_xl': b1_8, 'multiembed': b1_10, 'chelotropic': b1_11,
+         'trimolecular_rigid': b1_12,
+         'trimolecular_nonrigid': bend14['b1_groups']},
+        sharded['block_screen']))
     check('jax' not in sys.modules, 'jax was imported')
     check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules

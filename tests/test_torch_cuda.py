@@ -20,15 +20,16 @@ from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
 from tscode_tpu_torch.ops.kernels import clash, qcp
 from tscode_tpu_torch.ops.kernels import tfd as tfd_k
 from tscode_tpu_torch.ops.linalg import rmsd_and_max, rotate_dihedral
-from tscode_tpu_torch.ops.rmsd_prune import (pass_chunks,
+from tscode_tpu_torch.ops.rmsd_prune import (pair_gate_matrices,
+                                             pass_chunks,
                                              pass_chunks_fixed,
                                              prune_conformers_rmsd,
                                              prune_conformers_rmsd_device)
 from tscode_tpu_torch.pipeline import build_workload, run_pipeline
 from tscode_tpu_torch.suite_inputs import config_files
 from torch_parity import (TFD_ENSEMBLES, TFD_PASS_CASES,  # noqa: F401
-                          cuda_device, near_dup_blocks, near_dup_pool,
-                          tfd_pass_fps)
+                          cuda_device, lazy_keep, near_dup_blocks,
+                          near_dup_pool, tfd_pass_fps)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
@@ -397,6 +398,236 @@ def test_cyclical_block_screen_with_k1_matches_plain(cuda_device, tmp_path):
                                    atol=1e-9)
         assert torch.equal(keep, want_keep)
     assert int(want_keep.sum()) == 47
+
+
+def card_embedder(path, device, dtype=torch.float64):
+    '''The port's Embedder set up on `path`, its log quiet and closed.'''
+    cwd = os.getcwd()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            emb = Embedder(path, stamp='card', device=device, dtype=dtype)
+    finally:
+        os.chdir(cwd)
+    emb.logfile.close()
+    return emb
+
+
+def b1_twin(coords, confs, geometry, grid, pairs):
+    '''B1's plain twin on the rows' geometry (block_screen_plain's parts:
+    block_poses with K1's plain twin, angular_dedup's gate matrices and
+    greedy scan), a chunk of rows at a time as the twin's rule cuts it:
+    (poses, keep, ok, rmsd and maxdev of each row's pose pairs on the
+    CPU).'''
+    rows, A = confs[0].shape[0], grid.shape[0]
+    N = sum(x.shape[1] for x in coords)
+    out = []
+    step = cyclical._auto_chunk(rows, A, N, grid.element_size())
+    for s in range(0, rows, step):
+        sl = slice(s, s + step)
+        poses, ok = cyclical.block_poses(
+            coords, [c[sl] for c in confs], *(g[sl] for g in geometry), grid,
+            pairs, 1.5, clash=clash.clash_ok_plain)
+        rmsd, maxdev = pair_gate_matrices(poses, N)
+        keep = cyclical.greedy_keep_device(
+            ok, (rmsd < cyclical.DEDUP_RMSD) & (maxdev < cyclical.DEDUP_MAXDEV))
+        out.append((poses, keep, ok, rmsd.cpu(), maxdev.cpu()))
+        del rmsd, maxdev
+    return [torch.cat(parts) for parts in zip(*out)]
+
+
+def b1_against_twin(coords, confs, geometry, grid, pairs, tie=1e-9):
+    '''B1 on card tensors against its plain twin on the same tensors:
+    one launch, no K1 launch, poses within 1e-9 A (float64; 1e-4 A in
+    float32), keep bits equal off the tied rows: a pose within `tie` A^2
+    of the clash threshold, or a gate pair that the dedup reads (lazy_keep
+    on the twin's poses) within `tie` A of a gate. Returns the twin's
+    (poses, keep) and its clash mask ok.'''
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
+    b1.KERNEL.reset_counts()
+    clash.KERNEL.reset_counts()
+    poses, keep = b1.block_screen(
+        coords, confs, geometry, b1.half_angles(grid), pairs, 1.5,
+        (cyclical.DEDUP_RMSD, cyclical.DEDUP_MAXDEV))
+    assert b1.KERNEL.launches == 1 and clash.KERNEL.launches == 0
+    want_poses, want_keep, ok, rmsd, maxdev = b1_twin(coords, confs,
+                                                      geometry, grid, pairs)
+    rows, A, N = poses.shape[:3]
+    atol = 1e-9 if grid.dtype == torch.float64 else 1e-4
+    assert poses.shape == want_poses.shape and keep.shape == (rows, A)
+    assert float((poses - want_poses).abs().max()) <= atol
+    flat = want_poses.reshape(-1, N, 3)
+    pl = pairs.long()
+    d2 = torch.sum((flat[:, pl[:, 0]] - flat[:, pl[:, 1]]).double() ** 2,
+                   dim=-1)
+    tied = ((d2 - 2.25).abs() < tie).any(dim=1).reshape(rows, A).any(
+        dim=1).cpu()
+    similar = ((rmsd < 1.0) & (maxdev < 2.0)).numpy()
+    gap = torch.minimum((rmsd - 1.0).abs(), (maxdev - 2.0).abs())
+    lazy, _ = lazy_keep(ok.cpu().numpy(), lambda b, t, t0: bool(
+        tied.__setitem__(b, tied[b] | bool(gap[b, t, t0] < tie)) or
+        similar[b, t, t0]))
+    assert np.array_equal(lazy, want_keep.cpu().numpy())
+    assert int(tied.sum()) <= rows // 2
+    tied = tied.to(keep.device)
+    assert torch.equal(keep[~tied], want_keep[~tied])
+    return want_poses, want_keep, ok
+
+
+def test_block_screen_kernel_matches_twin_two_molecules(cuda_device,
+                                                        tmp_path):
+    '''da_cyclical at 4 conformers, float64: B1 on all 128 block rows
+    against its twin (poses within 1e-9 A, keep bits equal) and, through
+    the sweep's entry, the CPU run, 47 survivors.'''
+    emb = card_embedder(config_files('da_cyclical', str(tmp_path), 4),
+                        cuda_device)
+    m1, m2 = emb.objects
+    blk = cyclical.bimol_rigid_blocks(m1, m2, 5, emb.pairing_ok_fn())
+    coords, grid, pairs, rows = cyclical.sweep_inputs(
+        blk, (m1, m2), emb.systematic_angles, cuda_device, torch.float64)
+    confs, *geo = rows(0, len(blk['c1']))
+    geometry = cyclical.block_geometry(*geo)
+    _, want_keep, _ = b1_against_twin(coords, confs, geometry, grid, pairs)
+    poses, keep = cyclical.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    coords, grid, pairs, rows = cyclical.sweep_inputs(
+        blk, (m1, m2), emb.systematic_angles, torch.device('cpu'),
+        torch.float64)
+    confs, *geo = rows(0, len(blk['c1']))
+    cpu_poses, cpu_keep = cyclical.block_screen(coords, confs, geo, grid,
+                                                pairs, 1.5)
+    np.testing.assert_allclose(poses.cpu().numpy(), cpu_poses.numpy(),
+                               rtol=0, atol=1e-9)
+    assert torch.equal(keep.cpu(), cpu_keep) and int(keep.sum()) == 47
+    assert torch.equal(want_keep.cpu(), cpu_keep)
+
+
+def test_block_screen_kernel_matches_twin_three_molecules(cuda_device,
+                                                          tmp_path):
+    '''trimolecular RIGID at 3 conformers of HCOOH, float64: B1 on the 54
+    block rows (not a multiple of the 4 rows a block; 75 pairs, the warp
+    screen) against its twin, 54 survivors as on the CPU.'''
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
+    emb = card_embedder(config_files('trimolecular_rigid', str(tmp_path),
+                                     12), cuda_device)
+    blk = cyclical.trimol_rigid_blocks(emb.objects, emb.pairing_ok_fn())
+    blk['dirs'], _ = cyclical.adjust_chain(
+        *(blk[k] for k in cyclical._ADJUST), device=cuda_device)
+    coords, grid, pairs, rows = cyclical.sweep_inputs(
+        blk, emb.objects, emb.systematic_angles, cuda_device, torch.float64)
+    confs, *geo = rows(0, len(blk['ids']))
+    geometry = cyclical.block_geometry(*geo)
+    assert pairs.shape[0] == 75 and grid.shape == (27, 3)
+    assert b1.launch_plan(27, 15, 75, 8)['warp_clash']
+    _, want_keep, _ = b1_against_twin(coords, confs, geometry, grid, pairs)
+    assert int(want_keep.sum()) == 54
+
+
+def test_sweep_launches_b1_once_a_chunk_a_shard(cuda_device, tmp_path):
+    '''da_cyclical at 4 conformers, float64: screen_survivors on the card
+    launches B1 once a chunk (3 chunks of 50 rows) and no K1, and once a
+    chunk a shard on a cuda:0 x 4 mesh (4 slices of 32 rows, chunks of
+    13: 12 launches); survivors and keep equal the CPU sweep's.'''
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
+    emb = card_embedder(config_files('da_cyclical', str(tmp_path), 4),
+                        cuda_device)
+    blk = cyclical.bimol_rigid_blocks(*emb.objects, 5, emb.pairing_ok_fn())
+    cpu_surv, cpu_keep = cyclical.screen_survivors(
+        blk, emb.objects, emb.systematic_angles, 1.5, device='cpu',
+        dtype=torch.float64, block_chunk=50)
+    for mesh, launches in ((None, 3), (card_mesh(), 12)):
+        split = {}
+        b1.KERNEL.reset_counts()
+        clash.KERNEL.reset_counts()
+        surv, keep = cyclical.screen_survivors(
+            blk, emb.objects, emb.systematic_angles, 1.5, device=cuda_device,
+            dtype=torch.float64, block_chunk=50, split=split, mesh=mesh)
+        assert b1.KERNEL.launches == split['chunks'] == launches
+        assert clash.KERNEL.launches == 0
+        assert split['sweep_kernel'] == 'B1' and split['dedup_s'] == 0.0
+        np.testing.assert_array_equal(keep, cpu_keep)
+        np.testing.assert_allclose(surv.cpu().numpy(), cpu_surv.numpy(),
+                                   rtol=0, atol=1e-9)
+
+
+def synthetic_sweep(rng, n_atoms, A, rows, device, dtype, n_confs=3,
+                    product=False):
+    '''Seeded block rows of len(n_atoms) blob molecules (n_confs
+    conformers each): random alignments and axes, molecule m placed 4.5 m
+    A along x so that some poses clash, and A angle tuples of small steps
+    (12 a molecule, cycled), so neighbouring poses pass the dedup gates
+    and far ones do not; with `product`, the embedder's grid instead:
+    every tuple of steps + 1 angles from -45 to 45 degrees a molecule,
+    A = (steps + 1)^M. Returns block_screen's arguments but thresh.'''
+    M = len(n_atoms)
+    coords = [torch.as_tensor(rng.normal(size=(n_confs, n, 3)) * 1.3,
+                              dtype=dtype, device=device) for n in n_atoms]
+    confs = [torch.as_tensor(rng.integers(0, n_confs, rows), device=device)
+             for _ in n_atoms]
+    q, _ = np.linalg.qr(rng.normal(size=(rows, M, 3, 3)))
+    R_align = q * np.sign(np.linalg.det(q))[..., None, None]
+    axis = rng.normal(size=(rows, M, 3))
+    cor = rng.normal(size=(rows, M, 3)) * 0.3
+    pos0 = rng.normal(size=(rows, M, 3)) * 0.5
+    pos0[..., 0] += 4.5 * np.arange(M)
+    if product:
+        k = round(A ** (1 / M))
+        assert k ** M == A
+        grid = np.stack(np.meshgrid(*[np.linspace(-45.0, 45.0, k)] * M,
+                                    indexing='ij'), axis=-1).reshape(A, M)
+    else:
+        steps = np.linspace(0.0, 66.0, 12)
+        grid = np.stack([steps[(np.arange(A) // 12 ** m) % 12]
+                         for m in range(M)], axis=1)
+    geometry = tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                     for a in (R_align, axis, cor, pos0))
+    pairs = torch.as_tensor(clash.static_pairs(cross_fragment_pair_mask(
+        tuple(n_atoms))), device=device)
+    return (coords, confs, geometry, torch.as_tensor(grid, dtype=dtype,
+                                                     device=device), pairs)
+
+
+B1_CASES = {
+    # (atoms a molecule, A, rows), then B1's form in float32 and float64:
+    # poses in shared memory (else read back from the output), and the
+    # warp's clash screen (else a lane's)
+    # A = 216 of 60-atom poses: no block's shared memory holds 4 rows
+    'global_warp': ((30, 30), 216, 7, (False, False), True),
+    'global_thread': ((59, 1), 216, 5, (False, False), False),
+    'smem_thread': ((6, 5), 36, 9, (True, True), False),
+    'smem_warp': ((8, 8), 36, 9, (True, True), True),
+    # three molecules, 12 + 5 + 5 atoms, 145 pairs
+    'three': ((12, 5, 5), 144, 6, (True, False), True),
+    # past one tile of 1,024 angles, on the embedder's product grid:
+    # STEPS=10 on three molecules (11^3) and DEEP's 72 steps on two (73^2)
+    'steps10_three': ((6, 6, 6), 1331, 5, (False, False), True),
+    'deep_two': ((3, 3), 5329, 3, (False, False), False),
+}
+# DEEP's grid is held in float64 only: at 1.25-degree steps each row
+# reads thousands of gate pairs near the 1 A / 2 A gates, and in float32
+# most rows hold one within the tie of 1e-4 A (2 of the 3 rows here)
+B1_RUNS = [(dtype, case) for case in sorted(B1_CASES) for dtype in DTYPES
+           if (dtype, case) != (torch.float32, 'deep_two')]
+
+
+@pytest.mark.parametrize('dtype, case', B1_RUNS)
+def test_block_screen_kernel_any_size(cuda_device, dtype, case):
+    '''B1 against its twin on seeded rows (row counts not a multiple of
+    the 4 rows a block) in each of its forms, float32 and float64; the
+    dedup drops some angles that passed the screen and keeps some,
+    past 1,024 angles also in the later tiles.'''
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
+    n_atoms, A, rows, smem, warp = B1_CASES[case]
+    P = len(clash.static_pairs(cross_fragment_pair_mask(n_atoms)))
+    plan = b1.launch_plan(A, sum(n_atoms), P, poses_itemsize(dtype))
+    assert plan['smem_poses'] == smem[dtype == torch.float64]
+    assert plan['warp_clash'] == warp
+    args = synthetic_sweep(np.random.default_rng(216 + A), n_atoms, A, rows,
+                           cuda_device, dtype, product=A > 1024)
+    _, keep, ok = b1_against_twin(
+        *args, tie=1e-9 if dtype == torch.float64 else 1e-4)
+    assert 0 < int(keep.sum()) < int(ok.sum()) < rows * A
+    if A > 1024:
+        late = slice(1024, None)
+        assert 0 < int(keep[:, late].sum()) < int(ok[:, late].sum())
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

@@ -105,3 +105,23 @@ def tfd_pass_fps(n, q):
     '''The fingerprints of a hand-made pass of TFD_PASS_CASES.'''
     return tfd_clustered_fps(np.random.default_rng(n + q), n, q,
                              max(2, n // 6), 10.0 / q * 0.6)
+
+
+def lazy_keep(ok, gate):
+    '''The block sweep kernel B1's dedup in its order, on the host: ok
+    (rows, A) numpy bool, gate(b, t, t0) whether pose t of row b passes
+    both gates against pose t0. In each row the smallest live angle
+    (passed the screen, not yet dropped) is kept and every live angle
+    after it is gated against it, dropping out on a hit. Returns (keep
+    (rows, A) bool, the gate pairs evaluated).'''
+    ok = np.asarray(ok, dtype=bool)
+    keep = np.zeros_like(ok)
+    n = 0
+    for b in range(ok.shape[0]):
+        live = [int(t) for t in np.flatnonzero(ok[b])]
+        while live:
+            t0 = live.pop(0)
+            keep[b, t0] = True
+            n += len(live)
+            live = [t for t in live if not gate(b, t, t0)]
+    return keep, n

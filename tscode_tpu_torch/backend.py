@@ -16,6 +16,7 @@ mark in that trace; they are inert unless a trace runs.
 import contextlib
 import functools
 import os
+import time
 
 import torch
 
@@ -78,11 +79,20 @@ def traced(fn):
     return wrapper
 
 
+# seconds DeviceTrace waits after it starts the profiler on a card: a
+# kernel launched at once was lost, with every other device event of
+# its window, in about one trace in a hundred on an H100; after this
+# wait in none of a thousand (tools/trace_loss.py)
+TRACE_START_S = 0.05
+
+
 class DeviceTrace:
     '''The CLI's --trace DIR (counterpart of jax.profiler.trace): what
     runs inside is profiled on the host and, for a CUDA device, on the
-    card (torch.profiler, CUPTI), with the spans on; on exit the device
-    is synchronised, so its last kernels land in the window, and
+    card (torch.profiler, CUPTI), with the spans on; on a card it first
+    waits TRACE_START_S for the profiler to take the card's events; on
+    exit the device is synchronised, so its last kernels land in the
+    window, and
     torch.profiler.tensorboard_trace_handler writes
     DIR/<host>_<pid>.<ns>.pt.trace.json (Chrome trace JSON: TensorBoard,
     Perfetto, chrome://tracing), whose path is then `path`. A CUDA run
@@ -109,6 +119,8 @@ class DeviceTrace:
         self._prof = torch.profiler.profile(activities=activities,
                                             on_trace_ready=self._write)
         self._prof.__enter__()
+        if self.device.type == 'cuda':
+            time.sleep(TRACE_START_S)
         _TRACING = True
         return self
 

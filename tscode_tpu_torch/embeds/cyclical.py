@@ -11,13 +11,17 @@ The sweep is cut into blocks,
 
 built on the host in the reference's generation order. Each block is
 expanded over the A angle tuples of the grid on the device, a chunk of
-block rows at a time: the block's alignment (two-vector Kabsch), its A
-poses, the clash screen (kernel K1 on CUDA, its plain twin on the CPU),
-the block-local (A, A) rmsd and maxdev matrices and the greedy angular
-dedup (keep an angle that passed the screen and is unlike every angle
-kept before it in its block). The dedup is block-local, so chunking
-changes nothing. The survivors are compacted on the device; only the
-keep mask and the survivor rows reach the host.
+block rows at a time: the block's alignment (two-vector Kabsch, in
+PyTorch), its A poses, the clash screen and the greedy angular dedup
+(keep an angle that passed the screen and is unlike every angle kept
+before it in its block). On CUDA the poses, the screen and the dedup
+are one launch of kernel B1 a chunk (ops/kernels/block_screen), which
+gates only the pose pairs the greedy rule reads; on the CPU the plain
+twin runs: block_poses (the clash screen with K1's plain twin), then
+the block-local (A, A) rmsd and maxdev matrices and the greedy scan.
+The dedup is block-local, so chunking changes nothing. The survivors
+are compacted on the device; only the keep mask and the survivor rows
+reach the host.
 
 Three molecules sit on the sides of a triangle, and each block's facing
 directions are first corrected by a grid search over 343 angle triples
@@ -49,7 +53,8 @@ from tscode_tpu_torch.backend import (default_dtype, get_device, synchronize,
 from tscode_tpu_torch.embeds.common import DeviceSurvivors
 from tscode_tpu_torch.errors import ZeroCandidatesError
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask, static_pairs
-from tscode_tpu_torch.ops.kernels.clash import clash_ok
+from tscode_tpu_torch.ops.kernels import block_screen as b1
+from tscode_tpu_torch.ops.kernels.clash import clash_ok, clash_ok_plain
 from tscode_tpu_torch.ops.linalg import (align_vec_pair, polygonize,
                                          rot_mat_from_pointer)
 from tscode_tpu_torch.ops.rmsd_prune import pair_gate_matrices
@@ -58,7 +63,8 @@ from tscode_tpu_torch.parallel.sharding import gather, mesh_wants, \
 
 _DIRECTIONS = np.array([[0., 1., 0.], [0., -1., 0.]])
 
-# a chunk's (rows, A, A, N, 3) maxdev intermediate stays under this
+# a chunk's (rows, A, A, N, 3) maxdev intermediate (the plain twin) or
+# its (rows, A, N, 3) poses (B1 on the card) stay under this
 GATE_BYTES = 1 << 30
 # the angular dedup's gates: rmsd and maxdev of a pose pair, in A
 DEDUP_RMSD = 1.0
@@ -66,9 +72,18 @@ DEDUP_MAXDEV = 2.0
 
 
 def _auto_chunk(n_rows, n_angles, n_atoms, itemsize):
-    '''Block rows per chunk: as many as keep the (rows, A, A, N, 3)
-    maxdev intermediate within GATE_BYTES, at least one, at most all.'''
+    '''Block rows per chunk of the plain twin: as many as keep the
+    (rows, A, A, N, 3) maxdev intermediate within GATE_BYTES, at least
+    one, at most all.'''
     per_row = n_angles * n_angles * n_atoms * 3 * itemsize
+    return int(max(1, min(n_rows, GATE_BYTES // per_row)))
+
+
+def _card_chunk(n_rows, n_angles, n_atoms, itemsize):
+    '''Block rows per chunk of B1 on the card, which has no gate
+    intermediate: as many as keep the (rows, A, N, 3) poses it writes
+    within GATE_BYTES, at least one, at most all.'''
+    per_row = n_angles * n_atoms * 3 * itemsize
     return int(max(1, min(n_rows, GATE_BYTES // per_row)))
 
 
@@ -390,16 +405,39 @@ def compact_rows(tab1, tab2, ti):
             pair(3), pair(4))
 
 
+def block_screen_plain(coords, confs, geo, angle_grid, pairs,
+                       clash_thresh, lap=None):
+    '''B1's plain twin, on any device: block_poses with K1's plain twin,
+    then angular_dedup. lap, when given, is called between the screen
+    and the dedup. Arguments and result as block_screen's.'''
+    poses, ok = block_poses(coords, confs, *block_geometry(*geo), angle_grid,
+                            pairs, clash_thresh, clash=clash_ok_plain)
+    if lap is not None:
+        lap()
+    return poses, angular_dedup(poses, ok)
+
+
 def block_screen(coords, confs, geo, angle_grid, pairs, clash_thresh,
-                 clash=clash_ok):
+                 half_angles=None, lap=None):
     '''One chunk of the sweep: geometry, poses, clash screen and angular
     dedup of the block rows whose conformers `confs` and geometry `geo`
     (block_geometry's eight inputs) are given, as sweep_inputs' rows()
     or compact_rows give them. Returns (poses (rows, A, N, 3), keep
-    (rows, A)).'''
-    poses, ok = block_poses(coords, confs, *block_geometry(*geo), angle_grid,
-                            pairs, clash_thresh, clash=clash)
-    return poses, angular_dedup(poses, ok)
+    (rows, A)). On a CUDA tensor block_geometry and one launch of B1
+    (ops/kernels/block_screen; half_angles, b1.half_angles of the grid,
+    may be given once a sweep); on a CPU tensor the plain twin
+    block_screen_plain, calling lap between its screen and its dedup.'''
+    if angle_grid.is_cuda:
+        if half_angles is None:
+            half_angles = b1.half_angles(angle_grid)
+        return b1.block_screen(coords, confs, block_geometry(*geo),
+                               half_angles, pairs, clash_thresh,
+                               (DEDUP_RMSD, DEDUP_MAXDEV))
+    if angle_grid.device.type != 'cpu':
+        raise ValueError(f'block_screen: unsupported device '
+                         f'{angle_grid.device}')
+    return block_screen_plain(coords, confs, geo, angle_grid, pairs,
+                              clash_thresh, lap=lap)
 
 
 _GEOMETRY = ('starts', 'ends', 'dirs', 'pvs', 'mds', 'apms', 'mps',
@@ -450,18 +488,21 @@ def sweep_inputs(blk, mols, angles, device, dtype, uploaded=None):
     return [ensemble(mol.atomcoords) for mol in mols], t(angles), pairs, rows
 
 
-def screen_chunk(inputs, lo, hi, clash_thresh, clock):
+def screen_chunk(inputs, lo, hi, clash_thresh, clock, half_angles=None):
     """One chunk of a sweep, block rows [lo, hi) of sweep_inputs'
-    `inputs`: (survivor candidates (rows * A, N, 3), keep (rows * A,),
-    seconds of the screen, seconds of the dedup)."""
+    `inputs`, through block_screen: (survivor candidates (rows * A, N,
+    3), keep (rows * A,), seconds of the screen, seconds of the dedup).
+    On CUDA one launch of B1 (half_angles: of the grid, once a sweep),
+    whose seconds are all the screen's (the dedup reads 0.0); on the CPU
+    the plain twin, screen and dedup apart."""
     coords, grid, pairs, rows = inputs
     t0 = clock()
+    laps = []
     confs, *geo = rows(lo, hi)
-    poses, ok = block_poses(coords, confs, *block_geometry(*geo), grid,
-                            pairs, clash_thresh)
-    t1 = clock()
-    keep = angular_dedup(poses, ok)
+    poses, keep = block_screen(coords, confs, geo, grid, pairs, clash_thresh,
+                               half_angles, lap=lambda: laps.append(clock()))
     t2 = clock()
+    t1 = laps[0] if laps else t2
     return (poses.reshape(-1, poses.shape[2], 3), keep.reshape(-1),
             t1 - t0, t2 - t1)
 
@@ -471,8 +512,11 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
                      uploaded=None, mesh=None):
     '''The whole sweep over the block rows of `blk`, chunk by chunk:
     returns (survivor poses (S, N, 3) on the device in generation order,
-    keep (Bb, A) numpy bool). split, when given, gets the seconds of the
-    screen (geometry, poses, clash and compaction) and of the dedup.
+    keep (Bb, A) numpy bool). Chunks on CUDA follow _card_chunk, on the
+    CPU _auto_chunk, unless block_chunk is given. split, when given, gets
+    the seconds of the screen (geometry, poses, clash and compaction; on
+    CUDA the whole of B1) and of the dedup (0.0 on CUDA), the chunking
+    and the form that ran (sweep_kernel: 'B1' or 'plain').
     uploaded: sweep_inputs' cache of coordinate tensors. mesh: a
     parallel.sharding Mesh; with Bb * A candidates that clear
     mesh_wants, the block rows are cut into
@@ -492,7 +536,11 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
         slices = [(device, 0, Bb)]
     coords = inputs[slices[0][0]][0]
     N = sum(c.shape[1] for c in coords)
-    chunk = block_chunk or _auto_chunk(Bb, A, N, coords[0].element_size())
+    on_card = coords[0].is_cuda
+    chunk = block_chunk or (_card_chunk if on_card else _auto_chunk)(
+        Bb, A, N, coords[0].element_size())
+    half = {dev: b1.half_angles(inp[1]) for dev, inp in inputs.items()
+            if on_card}
     chunk = -(-chunk // len(slices))
     accs = [DeviceSurvivors() for _ in slices]
     t_screen = t_dedup = 0.0
@@ -502,8 +550,8 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
         out = []
         for dev, lo, hi in slices:
             a, b = lo + r0, min(hi, lo + r0 + chunk)
-            out.append(screen_chunk(inputs[dev], a, b, clash_thresh, clock)
-                       if a < b else None)
+            out.append(screen_chunk(inputs[dev], a, b, clash_thresh, clock,
+                                    half.get(dev)) if a < b else None)
         t0 = clock()
         for acc, o in zip(accs, out):
             if o is not None:
@@ -515,7 +563,8 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
     parts = [acc.finish() for acc in accs]
     if split is not None:
         split.update(screen_s=t_screen, dedup_s=t_dedup, chunk_rows=chunk,
-                     chunks=n_chunks, shards=len(slices))
+                     chunks=n_chunks, shards=len(slices),
+                     sweep_kernel='B1' if on_card else 'plain')
     surv = parts[0][0][0] if len(parts) == 1 else \
         gather([f[0] for f, _ in parts], mesh.devices[0])
     return surv, np.concatenate([m for _, m in parts]).reshape(Bb, A)
@@ -572,9 +621,10 @@ def finish_embed(surv, keep, ids, split, A, dev, dtype, trace, info):
             if 'bends_s' in split else ''
         print(f'[cyc trace] blocks {split["blocks_s"]:.3f}s, {bends}{adjust}'
               f'screen {split["screen_s"]:.3f}s, dedup '
-              f'{split["dedup_s"]:.3f}s, assemble {split["assemble_s"]:.3f}s '
-              f'({Bb} blocks in {split["chunks"]} chunks of '
-              f'{split["chunk_rows"]}, {len(poses)} survivors)',
+              f'{split["dedup_s"]:.3f}s ({split["sweep_kernel"]}), assemble '
+              f'{split["assemble_s"]:.3f}s ({Bb} blocks in '
+              f'{split["chunks"]} chunks of {split["chunk_rows"]}, '
+              f'{len(poses)} survivors)',
               file=sys.stderr, flush=True)
     if info is not None:
         info.update(candidates=int(Bb * A), blocks=int(Bb),
@@ -1336,6 +1386,7 @@ def cyclical_embed_nonrigid(embedder, max_norm_delta=5):
         for k in ('screen_s', 'dedup_s', 'chunks'):
             totals[k] += part[k]
         totals['chunk_rows'] = max(totals['chunk_rows'], part['chunk_rows'])
+        totals['sweep_kernel'] = part['sweep_kernel']
     split.update(totals)
     clock()
     return finish_embed(torch.cat(survs), np.concatenate(keeps),

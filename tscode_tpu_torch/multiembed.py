@@ -223,7 +223,8 @@ def multiembed_bifunctional(embedder):
     if trace:
         print(f'[multiembed trace] {len(arrangements)} arrangements: blocks '
               f'{blocks_s:.3f}s, screen {split.get("screen_s", 0):.3f}s, '
-              f'dedup {split.get("dedup_s", 0):.3f}s, assemble '
+              f'dedup {split.get("dedup_s", 0):.3f}s '
+              f'({split.get("sweep_kernel")}), assemble '
               f'{split.get("assemble_s", 0):.3f}s '
               f'({split.get("union_blocks", 0)} blocks in '
               f'{split.get("chunks", 0)} chunks, '
