@@ -20,11 +20,16 @@ at 16 conformers, the exact novelty replay without the collinear
 torsion quadruplet, and the 207,936-pose grid at 76 conformers. Phase 8
 runs the rigid cyclical route through the CLI on da_cyclical_xl at 62
 conformers (1,660,608 candidates: the block sweep, each chunk's poses,
-clash screen and angular dedup one launch of the block-sweep kernel B1,
-csrc/block_screen.cu, the prunes), float64 exact and float32 within
-brackets from its near ties, B1 held against its plain twin on every
-chunk of the sweep (keep bits off the tied blocks, poses within 1e-9 A)
-and timed beside its bytes bound; phase 9 runs REFINE through the CLI (the
+clash screen and angular dedup one screen launch of the block-sweep
+kernel B1, csrc/block_screen.cu, that writes keep bits and no pose, and
+one launch that writes only the kept poses; the prunes), float64 exact
+and float32 within brackets from its near ties, B1 held bit for bit
+against B1's first design (csrc/block_screen_row.cu, every pose written)
+and that kernel against the plain twin on every chunk of the sweep (keep
+bits off the tied blocks, poses within 1e-9 A), B1 timed beside its
+first design, its twin, its bound and the first design's full-write
+bound; phase 9 runs
+REFINE through the CLI (the
 RMSD prune with the pair-kill kernel, the symmetry-corrected prune) on
 phase 8's float64 output and on phase 7's, in float64 and in float32
 (the CLI's default on the card), the float32 runs held by the float64
@@ -58,10 +63,12 @@ against CPU) and csearch_string (6,561 candidates of a C10H21Cl chain
 searched, 1,000 kept, then the string embed against C2H4), the searched
 conformers held against the JAX package's, frame for frame; the
 search's TFD prune runs each pass of its K schedule as one launch of T1
-(csrc/tfd_first.cu) and one host read, 10 of each, checked, and T1 is
-held against its plain twin (the old tile loop on the same card tensor)
-on every pass of the prune's own input, identical, each pass timed and
-bounded, the prune's seconds split (fingerprints, T1, reads, networkx
+(csrc/tfd_first.cu, blocks of rows over shared-memory tiles of
+candidates) and one host read, 10 of each, checked, and T1 is held
+against its plain twin (the old tile loop on the same card tensor) and
+T1's first design (csrc/tfd_first_warp.cu) on every pass of the prune's own
+input, identical, each pass timed beside T1's first design and bounded,
+the prune's seconds split (fingerprints, T1, reads, networkx
 bookkeeping) beside the old tile loop's. Phases 18
 and 19 run the operators on the internal force field, float64 on the
 card, held to the JAX x64 records and to the port's CPU run: the
@@ -105,8 +112,9 @@ once (FireCalls), in every phase that runs one.
                                   # force-field operators
     python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
                                   # route
-    python3 chip_smoke.py --sweep    # phases 8 and 10 to 12 alone: the
-                                  # block sweeps, B1 against its twin
+    python3 chip_smoke.py --sweep    # phases 8, 10 to 12 and 14 alone:
+                                  # the block sweeps, B1 against its
+                                  # first design and its twin
     python3 chip_smoke.py --mesh     # phase 21 alone: the sharded paths
     python3 chip_smoke.py --trace    # phase 22 alone: the CLI's --trace
     python3 chip_smoke.py --qcp-plans OUT.json   # K3's launch-plan sweep
@@ -300,9 +308,15 @@ SEARCH_GOLDEN = os.path.join(GOLDEN, 'csearch_string_search.npz')
 # schedule that run (k = 1,000 down to 1), one T1 launch and one host
 # read each
 SEARCH_TFD_PASSES = 10
-# T1's bound: float64 operations a pair and a torsion (subtract, abs,
-# subtract, abs, min, add)
-TFD_PAIR_FLOPS = 6
+# T1's bound: float64 instructions a pair and a torsion (subtract,
+# subtract with an absolute-value operand, min, add; the abs of the
+# difference is an operand modifier too), none an FMA, so against the
+# card's float64 instruction rate: half the 34 TFLOP/s peak, which counts
+# an FMA as two operations. T1's first bound counted 6 operations at 34 T
+# (TFD_FIRST_FLOPS), 0.75 of this one
+TFD_TORSION_OPS = 4
+F64_INSTR_PER_S = 17e12
+TFD_FIRST_FLOPS = 6
 # csearch_string's back-off with one K1 launch a retreat step, the loop
 # torsion_backoff replaced (NVIDIA H100 80GB HBM3, 700 W)
 STEP_LOOP_BACKOFF_S = 0.2541
@@ -365,11 +379,18 @@ TRACE_KERNELS = {
     # ff_fire_large_kernel
     'ff_fire_f32': ('ff_fire_(?:group|large)_kernel', 'float'),
     'ff_fire_f64': ('ff_fire_(?:group|large)_kernel', 'double'),
-    # T1, the TFD prune's search (no template)
-    'tfd_first_successor': ('tfd_first_kernel', None),
-    # B1, the block sweep
-    'block_screen_f32': ('block_screen_kernel', 'float'),
-    'block_screen_f64': ('block_screen_kernel', 'double'),
+    # T1, the TFD prune's search (its first template argument: rows a
+    # warp); T1's first design, the yardstick (no template)
+    'tfd_first_successor': ('tfd_first_tile_kernel', None),
+    'tfd_first_warp_successor': ('tfd_first_kernel', None),
+    # B1, the block sweep: its screen and its write; B1's first design, the
+    # yardstick
+    'block_keep_f32': ('block_keep_kernel', 'float'),
+    'block_keep_f64': ('block_keep_kernel', 'double'),
+    'block_write_f32': ('block_write_kernel', 'float'),
+    'block_write_f64': ('block_write_kernel', 'double'),
+    'block_screen_row_f32': ('block_screen_kernel', 'float'),
+    'block_screen_row_f64': ('block_screen_kernel', 'double'),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -437,7 +458,8 @@ def phase_build():
     from tscode_tpu_torch.ops.kernels import (block_screen, clash, ff_fire,
                                               qcp, tfd)
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
-            ff_fire.BLOCK_KERNEL, tfd.KERNEL, block_screen.KERNEL)
+            ff_fire.BLOCK_KERNEL, tfd.KERNEL, tfd.WARP_KERNEL,
+            block_screen.KERNEL, block_screen.ROW_KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1571,8 +1593,10 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     calls and the force field's FIRE kernel's launches (FireCalls) as
     `fire`, and T1's launches as `tfd_launches` (also added to
     TFD_LAUNCHES under the running phase, for a run on the card), and
-    B1's as `b1_launches` (B1_LAUNCHES likewise). `args` go to the CLI
-    after the others (e.g. --trace DIR).'''
+    B1's screen launches (one a chunk) as `b1_launches` (B1_LAUNCHES
+    likewise) and its write launches as `b1_write_launches`; the
+    yardsticks (B1's and T1's first designs) must not run. `args` go to the
+    CLI after the others (e.g. --trace DIR).'''
     import contextlib
     import os
     from tscode_tpu_torch import embedder
@@ -1599,8 +1623,9 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     embedder.Embedder = Seeded
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
-    tfd.KERNEL.reset_counts()
-    block_screen.KERNEL.reset_counts()
+    for k in (tfd.KERNEL, tfd.WARP_KERNEL, block_screen.KERNEL,
+              block_screen.ROW_KERNEL):
+        k.reset_counts()
     t0 = time.perf_counter()
     try:
         with open(os.path.join(tmp, f'{stamp}.out'), 'w') as out, \
@@ -1623,10 +1648,17 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
                                 for k in (clash.KERNEL, qcp.KERNEL,
                                           ff_fire.KERNEL, tfd.KERNEL,
                                           block_screen.KERNEL)}
+    check(tfd.WARP_KERNEL.launches == block_screen.ROW_KERNEL.launches == 0,
+          f'CLI on {inp}: a yardstick kernel ran on the route (T1\'s '
+          f'first design '
+          f'{tfd.WARP_KERNEL.launches}, B1\'s '
+          f'{block_screen.ROW_KERNEL.launches})')
     report['tfd_launches'] = tfd.KERNEL.launches
-    report['b1_launches'] = block_screen.KERNEL.launches
+    b1_by = block_screen.KERNEL.wrapper_launches
+    report['b1_launches'] = b1_by.get('block_screen', 0)
+    report['b1_write_launches'] = b1_by.get('block_survivors', 0)
     for by_phase, n in ((TFD_LAUNCHES, tfd.KERNEL.launches),
-                        (B1_LAUNCHES, block_screen.KERNEL.launches)):
+                        (B1_LAUNCHES, report['b1_launches'])):
         if device != 'cpu' and n:
             by_phase[PHASE[0]] = by_phase.get(PHASE[0], 0) + n
     report['fire'] = fire.record()
@@ -2031,19 +2063,22 @@ def lazy_keep(ok, gate):
 
 
 def b1_bound(coords, rows, A, N, P, itemsize, M, clash_pairs, gate_pairs,
-             passed):
+             passed, survivors=None):
     '''(bound ms, 'bytes' or 'operations', bytes, operations) of one B1
     call on `rows` block rows: each input read once (the conformers, the
     ids, the 18 geometry values and the grid's sine and cosine a row and
-    molecule, the pair list) and each output written once (the poses,
-    a keep byte a pose); the operations its data need: each pose built
-    (~100 a molecule for its transform, 18 an atom), the clash pairs
-    walked to each pose's first hit (9 each), the squared norm of each
-    of the `passed` poses that passed the screen (6 N), the gate pairs
-    the dedup evaluates (K3's ~24 N + ~380 each, Newton's 30 steps).'''
+    molecule, the pair list) and each output written once: a keep byte a
+    pose and the `survivors` kept poses (B1's function), or
+    with survivors None every pose (B1's first design, the full write); the
+    operations its data need: each pose built (~100 a molecule for its
+    transform, 18 an atom), the clash pairs walked to each pose's first
+    hit (9 each), the squared norm of each of the `passed` poses that
+    passed the screen (6 N), the gate pairs the dedup evaluates (K3's ~24
+    N + ~380 each, Newton's 30 steps).'''
+    written = rows * A if survivors is None else survivors
     nbytes = sum(c.numel() for c in coords) * itemsize + rows * M * 4 + \
         rows * M * 18 * itemsize + A * M * 2 * itemsize + P * 8 + \
-        rows * A * N * 3 * itemsize + rows * A
+        written * N * 3 * itemsize + rows * A
     ops = rows * A * (100 * M + 18 * N) + 9 * clash_pairs + \
         6 * N * passed + (24 * N + 380) * gate_pairs
     name = 'float64' if itemsize == 8 else 'float32'
@@ -2056,21 +2091,25 @@ def b1_bound(coords, rows, A, N, P, itemsize, M, clash_pairs, gate_pairs,
 def sweep_check(card, tag, blk, mols, angles):
     '''The block sweep of a cyclical route on its own, chunk by chunk as
     the route cuts it on the card (cyclical._card_chunk), over the block
-    rows `blk` of the molecules `mols`, each chunk one launch of B1
-    (ops/kernels/block_screen). In float64 B1 is held against its plain
-    twin on the same card tensors, run in the twin's own chunks
+    rows `blk` of the molecules `mols`, each chunk B1's two launches
+    (ops/kernels/block_screen: the screen, then the write of the kept
+    poses). In both types B1 is held against B1's first design (launch_row,
+    every pose written) on the same card tensors: keep bits equal and the
+    survivors that kernel's poses compacted by its keep mask, bit for bit
+    (in float32 the block rows that differ are counted; in float64 none
+    may). In float64 B1's first design is held against the plain twin on the
+    same card tensors, run in the twin's own chunks
     (cyclical._auto_chunk) with its gate matrices: poses within
     B1_POSE_ATOL, keep bits equal off the tied blocks, which each pose's
     clash offset and each block's gate offsets (the smallest |rmsd - 1|
     and |maxdev - 2| over its pose pairs) mark; the clash pairs walked
     and the gate pairs B1 evaluates (lazy_keep on the twin's gates) are
-    counted for its bound; on the first chunk B1 (device time, one
-    launch on packed inputs) and the twin (one pass over the chunk,
-    enqueue time included) are timed, and K1 is held against the plain
-    clash twin on the twin's first poses (K1 in device time, plain with
-    its enqueue time). In float32 B1's keep mask, held against float64's
-    off the tied blocks (hold_float32). Returns a dict: keep64, keep32
-    (Bb, A); per block tie_poses (its poses within CLASH_TIE of the
+    counted for its bounds; on the first chunk B1, B1's first design and
+    the twin are timed (b1_chunk_timing), and K1 is held against the
+    plain clash twin on the twin's first poses (K1 in device time, plain
+    with its enqueue time). In float32 B1's keep mask, held against
+    float64's off the tied blocks (hold_float32). Returns a dict: keep64,
+    keep32 (Bb, A); per block tie_poses (its poses within CLASH_TIE of the
     clash threshold), tie_kept (those of them that float64 keeps),
     gate_tied (a pose pair within GATE_TIE of a dedup gate) and tied (a
     tie pose or a tied gate); near (the float64 poses within 1e-9 A^2 of
@@ -2085,7 +2124,7 @@ def sweep_check(card, tag, blk, mols, angles):
     keeps, tie_poses, tie_kept, gate_tied = {}, [], [], []
     near, err, b1err, rec, b1rec = 0, 0, 0.0, None, None
     walked = {'clash': 0, 'gate': 0, 'passed': 0}
-    differ = 0
+    differ, row_differ32, launches = 0, 0, {'screen': 0, 'write': 0}
     for dtype in (torch.float64, torch.float32):
         coords, grid, pairs, rows = cyc.sweep_inputs(
             blk, mols, angles, torch.device(DEV), dtype)
@@ -2094,19 +2133,43 @@ def sweep_check(card, tag, blk, mols, angles):
         Bb, A = len(blk['ids']), grid.shape[0]
         N = sum(c.shape[1] for c in coords)
         itemsize = coords[0].element_size()
-        chunk = cyc._card_chunk(Bb, A, N, itemsize)
+        chunk = cyc._card_chunk(Bb, A, len(coords), itemsize)
         parts = []
         for lo in range(0, Bb, chunk):
             hi = min(Bb, lo + chunk)
             confs, *geo = rows(lo, hi)
             geometry = cyc.block_geometry(*geo)
-            before = b1.KERNEL.launches
-            poses, keep = b1.block_screen(coords, confs, geometry, half,
-                                          pairs, CLASH, gates)
-            check(b1.KERNEL.launches == before + 1, f'{tag} {dtype}: B1 '
-                  f'launched {b1.KERNEL.launches - before} times for a chunk')
+            b1.KERNEL.reset_counts()
+            surv, keep = b1.block_screen(coords, confs, geometry, half,
+                                         pairs, CLASH, gates)
+            by = dict(b1.KERNEL.wrapper_launches)
+            check(by.get('block_screen') == 1 and
+                  by.get('block_survivors', 0) == int(surv.shape[0] > 0),
+                  f'{tag} {dtype}: B1 launched {by} for a chunk (one '
+                  f'screen, one write when anything survives)')
+            launches['screen'] += 1
+            launches['write'] += by.get('block_survivors', 0)
             parts.append(keep)
-            if dtype != torch.float64:
+            conf, packed = b1.pack_rows(confs, geometry)
+            poses = torch.empty((hi - lo, A, N, 3), dtype=dtype,
+                                device=keep.device)
+            row_keep = torch.empty_like(keep)
+            b1.launch_row(coords, conf, packed, half, pairs, CLASH, gates,
+                          poses, row_keep)
+            same = (row_keep == keep).all(dim=1)
+            same_surv = bool(same.all()) and torch.equal(surv,
+                                                         poses[row_keep])
+            if dtype == torch.float64:
+                check(same_surv, f'{tag} f64 rows {lo}..: B1 differs from its '
+                      f'first design: keep bits in {int((~same).sum())} block '
+                      f'rows, survivors equal {same_surv}')
+            else:
+                row_differ32 += int((~same).sum())
+                check(not bool(same.all()) or same_surv, f'{tag} f32 rows '
+                      f'{lo}..: B1\'s survivors differ from the first '
+                      f'design\'s '
+                      f'kernel\'s poses under the same keep bits')
+                del poses, row_keep
                 continue
             sub = cyc._auto_chunk(hi - lo, A, N, itemsize)
             for s in range(0, hi - lo, sub):
@@ -2149,9 +2212,9 @@ def sweep_check(card, tag, blk, mols, angles):
                 del pp, ok, rmsd, maxdev, similar, gate
             if lo == 0:
                 b1rec = b1_chunk_timing(coords, confs, geo, geometry, grid,
-                                        pairs, poses, keep, sub)
+                                        pairs, poses, keep, surv, sub)
                 first_walked, chunk64 = dict(walked), chunk
-            del poses
+            del poses, row_keep
         keeps[dtype] = torch.cat(parts).cpu().numpy()
         del parts
     tie_poses = torch.cat(tie_poses).cpu().numpy()
@@ -2159,25 +2222,43 @@ def sweep_check(card, tag, blk, mols, angles):
     gate_tied = torch.cat(gate_tied).cpu().numpy()
     tied = (tie_poses > 0) | gate_tied
     first = b1rec['rows']
-    bound, by, nbytes, ops = b1_bound(
-        coords, first, A, N, int(pairs.shape[0]), 8, len(coords),
-        first_walked['clash'], first_walked['gate'], first_walked['passed'])
+    args = (coords, first, A, N, int(pairs.shape[0]), 8, len(coords),
+            first_walked['clash'], first_walked['gate'],
+            first_walked['passed'])
+    bound, by, nbytes, ops = b1_bound(*args, survivors=b1rec['survivors'])
+    row_bound, row_by, row_bytes, _ = b1_bound(*args)
     b1rec.update(
         blocks=Bb, A=A, N=N, P=int(pairs.shape[0]), chunk_rows=chunk64,
         chunks=-(-Bb // chunk64), bound_ms=bound, bound_by=by, bytes=nbytes,
-        operations=ops, clash_pairs=first_walked['clash'],
+        operations=ops, row_bound_ms=row_bound, row_bound_by=row_by,
+        row_bytes=row_bytes, clash_pairs=first_walked['clash'],
         gate_pairs=first_walked['gate'], sweep_gate_pairs=walked['gate'],
         gate_matrix_pairs=Bb * A * A, b1_twin_differ=differ,
+        f32_rows_differ_from_first_design=row_differ32,
+        sweep_launches=launches,
         tied_blocks=int(tied.sum()), max_pose_diff_A=b1err,
-        plan=b1.launch_plan(A, N, int(pairs.shape[0]), 8))
+        plan=b1.launch_plan(A, N, int(pairs.shape[0]), 8, M=len(coords)),
+        row_plan=b1.row_launch_plan(A, N, int(pairs.shape[0]), 8))
+    forms = ', '.join(f'{k} {v:.4f}' for k, v in b1rec['forms'].items())
     print(f'[{tag}] B1, float64, first chunk of {first} block rows x {A} '
-          f'angles, N = {N}, P = {b1rec["P"]}: {b1rec["ms"]:.4f} ms device '
-          f'(wrapper {b1rec["wrapper_ms"]:.4f}), twin {b1rec["plain_ms"]:.2f} '
-          f'ms over its {b1rec["twin_chunks"]} chunks, bound {bound:.4f} ms '
-          f'({by}; {nbytes} bytes, {ops} operations), plan '
+          f'angles, N = {N}, P = {b1rec["P"]}, {b1rec["survivors"]} '
+          f'survivors: {b1rec["ms"]:.4f} ms device (screen '
+          f'{b1rec["screen_ms"]:.4f} in runs {b1rec["screen_ms_runs"]}, '
+          f'write {b1rec["write_ms"]:.4f}; wrapper with its host read '
+          f'{b1rec["wrapper_ms"]:.4f}); B1\'s first design '
+          f'{b1rec["row_ms"]:.4f} ms in runs {b1rec["row_ms_runs"]} (its '
+          f'compaction, nonzero and gather, {b1rec["row_compaction_ms"]:.4f} '
+          f'ms more); screen forms {forms}; twin {b1rec["plain_ms"]:.2f} '
+          f'ms over its {b1rec["twin_chunks"]} chunks; bound {bound:.4f} ms '
+          f'({by}; {nbytes} bytes, {ops} operations), the first design\'s '
+          f'full-write '
+          f'bound {row_bound:.4f} ms ({row_by}; {row_bytes} bytes); plan '
           f'{b1rec["plan"]}; the sweep in {b1rec["chunks"]} chunks of '
-          f'{chunk64}: keep bits equal to the twin\'s off {int(tied.sum())} '
-          f'tied blocks ({differ} blocks differ, all tied), poses within '
+          f'{chunk64} ({launches["screen"]} screens, {launches["write"]} '
+          f'writes over both types): keep bits and survivors equal to the '
+          f'first design\'s in float64 ({row_differ32} block rows differ in '
+          f'float32), equal to the twin\'s off {int(tied.sum())} tied '
+          f'blocks ({differ} blocks differ, all tied), poses within '
           f'{b1err:.2e} A; B1 evaluated {walked["gate"]} gate pairs against '
           f'{Bb * A * A} in the twin\'s matrices, {walked["clash"]} clash '
           f'pairs [{card}]')
@@ -2212,12 +2293,20 @@ def k1_chunk_record(card, tag, flat, plain_ok, off, pairs, N):
 
 
 def b1_chunk_timing(coords, confs, geo, geometry, grid, pairs, poses, keep,
-                    sub):
-    '''B1 on one chunk: the kernel alone on packed inputs in device time
-    (its output bits the same as the route's call's), the wrapper as the
-    route calls it (block_geometry's output and the sweep's half angles
-    given), and its twin (cyclical.block_screen_plain) in one pass over
-    the chunk in its own chunks of `sub` rows (CUDA events, enqueue time
+                    surv, sub):
+    '''B1 on one chunk, float64: its screen alone on packed inputs in
+    device time, interleaved with B1's first design (screen, first
+    design, screen, first design; `poses` and `keep` that kernel's
+    output, `surv` B1's survivors), its write alone, the screen in each
+    form of its store (launch_plan: 'smem', 'scratch') and with the
+    other clash screen
+    ('warp_clash': the warp's where the plan has a lane's), each output
+    held bit for bit, the wrapper as the route calls it (packing, both
+    launches and the host read of the survivor count; CUDA events,
+    enqueue time included), the first design's compaction (a nonzero and
+    a gather of its poses, the route's DeviceSurvivors.add before), and
+    the twin (cyclical.block_screen_plain) in one pass over the chunk in
+    its own chunks of `sub` rows (CUDA events, enqueue time
     included).'''
     import torch
     from tscode_tpu_torch.embeds import cyclical as cyc
@@ -2225,15 +2314,54 @@ def b1_chunk_timing(coords, confs, geo, geometry, grid, pairs, poses, keep,
     half = b1.half_angles(grid)
     gates = (cyc.DEDUP_RMSD, cyc.DEDUP_MAXDEV)
     conf, packed = b1.pack_rows(confs, geometry)
-    out, kept = torch.empty_like(poses), torch.empty_like(keep)
-    ms = device_ms(lambda: b1.launch(coords, conf, packed, half, pairs,
-                                     CLASH, gates, out, kept), reps=5)
-    check(torch.equal(out, poses) and torch.equal(kept, keep), 'B1 on '
-          'packed inputs gave other bits than the route\'s call')
-    del out, kept
-    wrapper_ms = device_ms(lambda: b1.block_screen(
+    rows, A = keep.shape
+    N = poses.shape[2]
+    P, itemsize = int(pairs.shape[0]), poses.element_size()
+    shape = (A, N, P, itemsize)
+    plan = b1.launch_plan(*shape, M=len(coords))
+    forms = {'scratch': {'form': 'scratch'},
+             'warp_clash': {'warp_clash': not plan['warp_clash']}}
+    if plan['form'] == 'smem':
+        forms.update(smem={'form': 'smem'})
+    forms = {name: b1.launch_plan(*shape, M=len(coords), **kw)
+             for name, kw in forms.items()}
+    kept, counts = torch.empty_like(keep), torch.empty(
+        rows, dtype=torch.int32, device=keep.device)
+    row_poses, row_keep = torch.empty_like(poses), torch.empty_like(keep)
+    counted = keep.sum(dim=1, dtype=torch.int32)
+    offsets = torch.cumsum(counted, 0) - counted
+    out = torch.empty_like(surv)
+
+    def screen(p=plan):
+        b1.launch(coords, conf, packed, half, pairs, CLASH, gates, kept,
+                  counts, p)
+
+    def row():
+        b1.launch_row(coords, conf, packed, half, pairs, CLASH, gates,
+                      row_poses, row_keep)
+
+    runs = {'screen': [], 'row': []}
+    for _ in range(2):
+        runs['screen'].append(device_ms(screen, reps=5))
+        runs['row'].append(device_ms(row, reps=5))
+    write_ms = device_ms(lambda: b1.launch_write(
+        coords, conf, packed, half, keep, offsets, out), reps=5)
+    check(torch.equal(kept, keep) and torch.equal(counts, counted) and
+          torch.equal(out, surv) and torch.equal(row_keep, keep) and
+          torch.equal(row_poses, poses), 'B1 or B1\'s first design on packed '
+          'inputs gave other bits than the route\'s call')
+    form_ms = {}
+    for name, p in forms.items():
+        kept.zero_()
+        form_ms[name] = device_ms(lambda: screen(p), reps=5)
+        check(torch.equal(kept, keep) and torch.equal(counts, counted),
+              f'B1\'s screen in the {name} form gave other bits')
+    del row_poses
+    wrapper_ms = cuda_ms(lambda: b1.block_screen(
         coords, confs, geometry, half, pairs, CLASH, gates), reps=5)
-    rows = poses.shape[0]
+    flat, mask = poses.reshape(-1, N, 3), keep.reshape(-1)
+    compaction_ms = cuda_ms(
+        lambda: flat[torch.nonzero(mask).squeeze(1)], reps=5)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -2244,9 +2372,14 @@ def b1_chunk_timing(coords, confs, geo, geometry, grid, pairs, poses, keep,
                                CLASH)
     stop.record()
     stop.synchronize()
-    return {'rows': rows, 'ms': ms, 'wrapper_ms': wrapper_ms,
-            'plain_ms': start.elapsed_time(stop), 'twin_chunks':
-            -(-rows // sub), 'library_ms': None}
+    screen_ms = sum(runs['screen']) / 2
+    return {'rows': rows, 'survivors': int(surv.shape[0]),
+            'ms': screen_ms + write_ms, 'screen_ms': screen_ms,
+            'screen_ms_runs': runs['screen'], 'write_ms': write_ms,
+            'row_ms': sum(runs['row']) / 2, 'row_ms_runs': runs['row'],
+            'row_compaction_ms': compaction_ms, 'forms': form_ms,
+            'wrapper_ms': wrapper_ms, 'plain_ms': start.elapsed_time(stop),
+            'twin_chunks': -(-rows // sub), 'library_ms': None}
 
 
 def hold_float32(tag, sweep):
@@ -2301,21 +2434,25 @@ def embed_split(tag, dtype, report, key, card):
           f'{ce["dedup_s"]:.4f} s ({ce["sweep_kernel"]}), assemble '
           f'{ce["assemble_s"]:.4f} s '
           f'({ce.get("union_blocks", ce.get("blocks"))} blocks in '
-          f'{ce["chunks"]} chunks of {ce["chunk_rows"]}, B1 launched '
-          f'{report["b1_launches"]} times); the sweep is {sweep:.4f} s, '
+          f'{ce["chunks"]} chunks of {ce["chunk_rows"]}, B1 screened '
+          f'{report["b1_launches"]} and wrote {report["b1_write_launches"]} '
+          f'times); the sweep is {sweep:.4f} s, '
           f'{sweep / gen:.1%} of generate_candidates [{card}]')
     check_b1_route(f'{tag} {dtype}', report, ce)
     return sweep
 
 
 def check_b1_route(tag, report, ce):
-    '''A block sweep on the card: B1 once a chunk (of each shard), the
-    split says so, no K1 launch on the sweep.'''
+    '''A block sweep on the card: B1's screen once a chunk (of each
+    shard) and its write once a chunk with survivors, the split says so,
+    no K1 launch on the sweep.'''
     check(ce['sweep_kernel'] == 'B1' and ce['dedup_s'] == 0.0 and
           report['b1_launches'] == ce['chunks'] > 0 and
+          0 < report['b1_write_launches'] <= ce['chunks'] and
           report['clash_entry_launches']['clash_ok'] == 0,
-          f'{tag}: sweep {ce["sweep_kernel"]}, B1 launched '
-          f'{report["b1_launches"]} times for {ce["chunks"]} chunks, K1 '
+          f'{tag}: sweep {ce["sweep_kernel"]}, B1 screened '
+          f'{report["b1_launches"]} and wrote {report["b1_write_launches"]} '
+          f'times for {ce["chunks"]} chunks, K1 '
           f'{report["clash_entry_launches"]["clash_ok"]} times, dedup '
           f'{ce["dedup_s"]} s')
 
@@ -2668,12 +2805,10 @@ def phase_multiembed_route(card):
                             'compenetration_mask_kernel': 1,
                             'torsion_clash_ok': 0,
                             'torsion_backoff': 0} and
-                  report['b1_launches'] == me['chunks'] ==
-                  (2 if dtype == 'float64' else 1),
+                  report['b1_launches'] == me['chunks'] == 1,
                   f'multiembed {dtype}: launches {entry}, B1 '
-                  f'{report["b1_launches"]}, expected B1 once per chunk '
-                  f'({me["chunks"]}: 2 in float64, 1 in float32), no K1, K2 '
-                  f'once, for the parent')
+                  f'{report["b1_launches"]}, expected B1 once for the one '
+                  f'chunk ({me["chunks"]}), no K1, K2 once, for the parent')
             parent = stage_counts(report)
             check(frames.shape == (min(parent[2], 10000), 11, 3)
                   and bool(np.isfinite(frames).all()),
@@ -4009,8 +4144,13 @@ def tfd_prune_check(phase, card, rec):
     one launch and one host read a pass (the reads counted under the
     sync debug mode, with the fingerprints handed over: one upload);
     every pass's first array against the plain twin on the same card
-    tensor (the old per-chunk tile loop), identical; each pass timed
-    (device_ms; the twin with cuda_ms) and bounded from its walked pairs;
+    tensor (the old per-chunk tile loop) and T1's first design
+    (first_successor_pass_warp), identical, and T1 on one window and
+    unstaged; each pass timed (device_ms, T1 and its first design in
+    turns, T1, first design, T1, first design, and each other plan; the
+    twin with cuda_ms) and bounded from its walked pairs
+    (TFD_TORSION_OPS an f64 instruction each, and the first count beside
+    it);
     the prune's seconds split (fingerprints, T1, reads, bookkeeping), and
     the whole prune with the old tile loop as the pass entry, the same
     run's yardstick (new, old, new). Returns (largest disagreement,
@@ -4052,34 +4192,70 @@ def tfd_prune_check(phase, card, rec):
         twin = kt.first_successor_pass_plain(tf, d, k, m, TFD_THRESH)
         twin = twin.cpu().numpy()
         again = kt.first_successor_pass(tf, d, k, m, TFD_THRESH).cpu().numpy()
-        err = max(err, int(np.abs(twin.astype(np.int64) - first).max()),
-                  int(np.abs(again.astype(np.int64) - first).max()))
-        check(np.array_equal(twin, first) and np.array_equal(again, first),
+        warp = kt.first_successor_pass_warp(tf, d, k, m,
+                                            TFD_THRESH).cpu().numpy()
+        by_plan = {'staged': kt.first_successor_pass(
+            tf, d, k, m, TFD_THRESH,
+            plan=kt.launch_plan(Q)).cpu().numpy()}
+        by_plan['one window'] = kt.first_successor_pass(
+            tf, d, k, m, TFD_THRESH,
+            plan=kt.launch_plan(Q, segment=0)).cpu().numpy()
+        by_plan['unstaged'] = kt.first_successor_pass(
+            tf, d, k, m, TFD_THRESH,
+            plan=kt.launch_plan(Q, tile=0)).cpu().numpy()
+        err = max([err] + [int(np.abs(a.astype(np.int64) - first).max())
+                           for a in (twin, again, warp, *by_plan.values())])
+        check(all(np.array_equal(a, first) for a in
+                  (twin, again, warp, *by_plan.values())),
               f'[{phase} T1] pass k = {k}: the kernel\'s first array differs '
-              f'from its plain twin\'s')
+              f'from its plain twin\'s or the first design\'s')
         walked = kt.walked_pairs(first, d, k, m)
-        flops = walked * Q * TFD_PAIR_FLOPS
         nbytes = n * Q * 4 + n * 4
-        b_ops = flops / PEAK_FLOPS['float64'] * 1e3
+        b_ops = walked * Q * TFD_TORSION_OPS / F64_INSTR_PER_S * 1e3
+        b_first = walked * Q * TFD_FIRST_FLOPS / PEAK_FLOPS['float64'] * 1e3
         b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        runs = {'ms': [], 'warp_ms': []}
+        for _ in range(2):
+            runs['ms'].append(device_ms(lambda: kt.first_successor_pass(
+                tf, d, k, m, TFD_THRESH)))
+            runs['warp_ms'].append(device_ms(
+                lambda: kt.first_successor_pass_warp(tf, d, k, m,
+                                                     TFD_THRESH)))
         rows.append({
             'k': k, 'd': d, 'num_active': m,
             'chunks': len(list(kt.pass_chunks(d, k, m))),
             'hits': int((first >= 0).sum()), 'walked_pairs': walked,
-            'ms': device_ms(lambda: kt.first_successor_pass(
-                tf, d, k, m, TFD_THRESH)),
+            'ms': sum(runs['ms']) / 2, 'ms_runs': runs['ms'],
+            'warp_ms': sum(runs['warp_ms']) / 2,
+            'warp_ms_runs': runs['warp_ms'],
+            'plan': kt.pass_plan(Q, d, k, m),
+            'windows': kt.windows(kt.pass_plan(Q, d, k, m), d, k, m)[1],
+            'staged_ms': device_ms(lambda: kt.first_successor_pass(
+                tf, d, k, m, TFD_THRESH, plan=kt.launch_plan(Q))),
+            'one_window_ms': device_ms(lambda: kt.first_successor_pass(
+                tf, d, k, m, TFD_THRESH,
+                plan=kt.launch_plan(Q, segment=0))),
+            'unstaged_ms': device_ms(lambda: kt.first_successor_pass(
+                tf, d, k, m, TFD_THRESH, plan=kt.launch_plan(Q, tile=0))),
             'plain_ms': cuda_ms(lambda: kt.first_successor_pass_plain(
                 tf, d, k, m, TFD_THRESH), reps=1),
             'bound_ms': max(b_ops, b_bytes),
             'bound_by': 'operations' if b_ops >= b_bytes else 'bytes',
+            'first_count_bound_ms': max(b_first, b_bytes),
             'launches': 1, 'ops_ms': b_ops, 'bytes_ms': b_bytes})
     for r in rows:
         print(f'[{phase} T1] pass k = {r["k"]}: {r["num_active"]} active, '
               f'{r["chunks"]} chunks, {r["hits"]} hits, {r["walked_pairs"]} '
-              f'pairs walked; kernel {r["ms"]:.4f} ms (device), plain twin '
-              f'(the tile loop) {r["plain_ms"]:.4f} ms, bound '
-              f'{r["bound_ms"]:.6f} ms ({r["bound_by"]}), {r["launches"]} '
-              f'launch [{card}]')
+              f'pairs walked; kernel {r["ms"]:.4f} ms (device; runs '
+              f'{r["ms_runs"]}, tile {r["plan"]["tile"]}, {r["windows"]} '
+              f'windows; staged {r["staged_ms"]:.4f}, one window '
+              f'{r["one_window_ms"]:.4f}, unstaged {r["unstaged_ms"]:.4f}), '
+              f'T1\'s first design '
+              f'{r["warp_ms"]:.4f} ms (runs {r["warp_ms_runs"]}); plain twin (the tile loop) {r["plain_ms"]:.4f} ms, '
+              f'bound {r["bound_ms"]:.6f} ms ({r["bound_by"]}; the first '
+              f'count {r["first_count_bound_ms"]:.6f}), {r["launches"]} '
+              f'launch '
+              f'[{card}]')
     _, old_passes, old = tfd_timed_prune(structures, quads,
                                          kt.first_successor_pass_plain)
     check(len(old_passes) == len(passes) and all(
@@ -4088,10 +4264,12 @@ def tfd_prune_check(phase, card, rec):
     _, _, split2 = tfd_timed_prune(structures, quads, kt.first_successor_pass)
     best = min((split, split2), key=lambda t: t['prune_s'])
     tot = {key: sum(r[key] for r in rows) for key in
-           ('ms', 'plain_ms', 'bound_ms', 'walked_pairs')}
+           ('ms', 'warp_ms', 'plain_ms', 'bound_ms', 'first_count_bound_ms',
+            'walked_pairs')}
     out = {'rows': n, 'torsions': Q, 'passes': rows, 'launches': launches,
-           'host_reads': reads, 'ms': tot['ms'],
+           'host_reads': reads, 'ms': tot['ms'], 'warp_ms': tot['warp_ms'],
            'plain_ms': tot['plain_ms'], 'bound_ms': tot['bound_ms'],
+           'first_count_bound_ms': tot['first_count_bound_ms'],
            'bound_by': 'operations' if sum(r['ops_ms'] for r in rows) >=
            sum(r['bytes_ms'] for r in rows) else 'bytes',
            'walked_pairs': tot['walked_pairs'], 'split': best,
@@ -4104,9 +4282,11 @@ def tfd_prune_check(phase, card, rec):
     print(f'[{phase} T1] the search\'s TFD prune, {n} x {Q} float32 '
           f'fingerprints -> {out["kept"]} kept: {launches} T1 launches and '
           f'{out["host_reads"]} host reads for {len(passes)} passes; every '
-          f'first array equal to the plain twin\'s; T1 {tot["ms"]:.4f} ms '
-          f'(device, all passes), plain twin {tot["plain_ms"]:.1f} ms, bound '
-          f'{tot["bound_ms"]:.6f} ms over {tot["walked_pairs"]} pairs; the '
+          f'first array equal to the plain twin\'s and the first design\'s; '
+          f'T1 {tot["ms"]:.4f} ms (device, all passes), T1\'s first design '
+          f'{tot["warp_ms"]:.4f} ms, plain twin {tot["plain_ms"]:.1f} ms, '
+          f'bound {tot["bound_ms"]:.6f} ms over {tot["walked_pairs"]} pairs '
+          f'(the first count {tot["first_count_bound_ms"]:.6f}); the '
           f'prune {split["prune_s"]:.4f} / {split2["prune_s"]:.4f} s '
           f'(fingerprints {best["fingerprints_s"]:.4f}, T1 calls '
           f'{best["pass_s"]:.4f}, reads {best["read_s"]:.4f}, bookkeeping '
@@ -5060,7 +5240,8 @@ def trace_kernels(tag, events, spans, api, report):
     its span; `kernel_minus_launch_us` records that offset.) Each clash,
     ff_fire and block_screen launch span lies inside the span of the
     wrapper that asked for it, as many wrapper spans as that wrapper's
-    launches.
+    launches (B1's screen under `block_screen`, its write under
+    `block_survivors`).
     Returns ({entry: record}, {id of a kernel event: its launch
     span}).'''
     import re
@@ -5101,9 +5282,10 @@ def trace_kernels(tag, events, spans, api, report):
                     'kernel': ks[0]['name'][:80],
                     'kernel_minus_launch_us': [min(lead), max(lead)]
                     if lead else None}
-    wrappers = dict(report['clash_entry_launches'], **{
-        lib: sum(report['kernel_entries'].get(lib, {}).values())
-        for lib in ('ff_fire', 'block_screen')})
+    wrappers = dict(report['clash_entry_launches'], ff_fire=sum(
+        report['kernel_entries'].get('ff_fire', {}).values()),
+        block_screen=report.get('b1_launches', 0),
+        block_survivors=report.get('b1_write_launches', 0))
     for wrapper, n in wrappers.items():
         ws = [s for s in spans if s['name'] == wrapper]
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
@@ -5550,14 +5732,18 @@ def phase_trace(card):
         rep, recs['chelotropic_nonrigid'], names, n = route(
             'chelotropic_nonrigid', 'chelotropic_nonrigid', CHEL_BEND_CONFS)
         add(n)
-        b1 = recs['chelotropic_nonrigid']['kernels'].get(
-            'block_screen.block_screen_f64', {})
+        kernels = recs['chelotropic_nonrigid']['kernels']
+        b1 = kernels.get('block_screen.block_keep_f64', {})
+        b1w = kernels.get('block_screen.block_write_f64', {})
         check(rep['clash_entry_launches']['compenetration_mask_kernel'] == 1
               and names.get('block_screen', 0) == rep['b1_launches'] > 0
               and b1.get('events') == rep['b1_launches']
+              and names.get('block_survivors', 0) ==
+              rep['b1_write_launches'] == b1w.get('events') > 0
               and 'angular_dedup' not in names, f'[22 trace] chelotropic: '
               f'launches {rep["clash_entry_launches"]}, B1 '
-              f'{rep["b1_launches"]} ({b1}), spans {sorted(names)}')
+              f'{rep["b1_launches"]} ({b1}) and its write '
+              f'{rep["b1_write_launches"]} ({b1w}), spans {sorted(names)}')
         d = os.path.join(tmp, 'xl')
         os.makedirs(d)
         rep, _, _, secs = run_cli(d, suite_input('da_cyclical_xl', d,
@@ -5844,9 +6030,11 @@ def guard_overhead(card, out):
 
 def b1_kernel_line(routes, sharded):
     '''B1's entry of the kernels line: phase 8's record (da_cyclical_xl,
-    float64, its one chunk) for the times and the bound, each route's
-    record beside it (the non-rigid trimolecular input's a group), its
-    launches on the main path by phase and on phase 21's shards.'''
+    float64, its one chunk) for the times (its screen and its write) and
+    the bound, B1's first design (every pose written) and its full-write
+    bound beside them, each route's record beside it (the non-rigid
+    trimolecular input's a group), its screen launches on the main path
+    by phase and on phase 21's shards.'''
     main = routes['da_cyclical_xl']
     recs = [r for k, r in routes.items() if k != 'trimolecular_nonrigid']
     recs += list(routes.get('trimolecular_nonrigid', []))
@@ -5857,7 +6045,14 @@ def b1_kernel_line(routes, sharded):
             'max_abs_err': max(r['max_pose_diff_A'] for r in recs),
             'ms': main['ms'], 'plain_ms': main['plain_ms'],
             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-            'library_ms': None, 'launches_by_phase': dict(B1_LAUNCHES),
+            'library_ms': None, 'screen_ms': main['screen_ms'],
+            'write_ms': main['write_ms'],
+            'first_design': {'source':
+                            'tscode_tpu_torch/csrc/block_screen_row.cu',
+                            'ms': main['row_ms'],
+                            'bound_ms': main['row_bound_ms'],
+                            'bound_by': main['row_bound_by']},
+            'launches_by_phase': dict(B1_LAUNCHES),
             'mesh': {'launches': sharded}, 'routes': routes}
 
 
@@ -5912,7 +6107,7 @@ def main():
             'torsion_drive': drive[3], 'csearch_string': chain[3]},
             'tfd_first_successor': chain[4]}))
         return
-    if sys.argv[1:2] == ['--sweep']:         # phases 8 and 10 to 12 alone
+    if sys.argv[1:2] == ['--sweep']:         # phases 8, 10 to 12, 14 alone
         import tempfile
         phase_build()
         routes = {}
@@ -5925,6 +6120,9 @@ def main():
             '11 chelotropic', phase_chelotropic_route, card)[5]
         routes['trimolecular_rigid'] = timed_phase(
             '12 trimolecular', phase_trimol_route, card)[3]
+        routes['trimolecular_nonrigid'] = timed_phase(
+            '14 bend trimolecular', phase_bend_trimol_route,
+            card)[2]['b1_groups']
         print(json.dumps({'block_screen': b1_kernel_line(routes, 0)}))
         return
     if sys.argv[1:2] == ['--mesh']:          # phase 21 alone
@@ -6085,6 +6283,9 @@ def main():
         'max_abs_err': t1['max_abs_err'], 'ms': t1['ms'],
         'plain_ms': t1['plain_ms'], 'bound_ms': t1['bound_ms'],
         'bound_by': t1['bound_by'], 'library_ms': None,
+        'first_design': {'source': 'tscode_tpu_torch/csrc/tfd_first_warp.cu',
+                        'ms': t1['warp_ms'],
+                        'bound_ms_first_count': t1['first_count_bound_ms']},
         'launches_by_phase': dict(TFD_LAUNCHES),
         'mesh': {'launches': sharded['tfd_first']},
         'csearch_string': t1})

@@ -2,12 +2,14 @@
 on the CPU, float64: its plain twin against the JAX package's fused
 block programs (_block_screen_mapped_compact for two molecules,
 _block_screen_multi for three) on da_cyclical at 4 conformers and the
-trimolecular input with RIGID at 4 (one conformer of HCOOH); B1's lazy
-dedup rule (the gate pairs it evaluates) against the full-matrix greedy
-keep, also in tiles of angles as B1 walks them; the card's chunk rule;
-the routing of a CUDA tensor; the sweep on
-a four-device CPU mesh. The kernel itself runs only on the card
-(tests/test_torch_cuda.py).'''
+trimolecular input with RIGID at 4 (one conformer of HCOOH); the sweep's
+compacted form (block_screen and screen_survivors: the twin, then its
+poses by the keep mask) against the JAX programs' mask compaction,
+unsharded and on a four-device CPU mesh; B1's lazy dedup rule (the gate
+pairs it evaluates) against the full-matrix greedy keep, also in tiles
+of angles as B1 walks them; the card's chunk rule and B1's launch
+plans; the routing of a CUDA tensor. The kernel itself runs only on the
+card (tests/test_torch_cuda.py).'''
 
 import os
 
@@ -54,7 +56,7 @@ def da4(tmp_path_factory):
     coords, grid, pairs, rows = tc.sweep_inputs(blk, (m1, m2), angles, CPU,
                                                 torch.float64)
     confs, *geo = rows(0, len(blk['ids']))
-    plain = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    plain = tc.block_screen_plain(coords, confs, geo, grid, pairs, 1.5)
     jax = jc._block_screen_mapped_compact(
         jnp.asarray(m1.atomcoords), jnp.asarray(m2.atomcoords),
         jnp.asarray(blk['tab1']), jnp.asarray(blk['tab2']),
@@ -81,7 +83,7 @@ def tri4(tmp_path_factory):
     coords, grid, pairs, rows = tc.sweep_inputs(blk, mols, angles, CPU,
                                                 torch.float64)
     confs, *geo = rows(0, len(blk['ids']))
-    plain = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    plain = tc.block_screen_plain(coords, confs, geo, grid, pairs, 1.5)
     jax = jc._block_screen_multi(
         *(jnp.asarray(m.atomcoords) for m in mols),
         *(jnp.asarray(blk['confs'][:, m]) for m in range(3)),
@@ -111,6 +113,41 @@ def test_plain_twin_matches_the_jax_block_program(case, request):
     assert 0 < int(keep.sum()) < int(ok.sum())
     if case == 'tri4':
         assert (poses.shape[1], N, pairs.shape[0]) == (27, 15, 75)
+
+
+@pytest.mark.parametrize('mesh', [None, 4])
+@pytest.mark.parametrize('case', ['da4', 'tri4'])
+def test_compacted_sweep_matches_the_jax_mask_compaction(case, mesh, request,
+                                                         monkeypatch):
+    '''The sweep's entries in the compacted form B1 gives on the card:
+    block_screen on all block rows and screen_survivors in chunks of 10
+    rows (unsharded, or on make_mesh(devices=['cpu'] * 4), the mesh
+    forced) return the JAX program's keep mask exactly and its poses
+    compacted by that mask, in order, within 1e-9 A (the twin's einsum
+    sums round apart by an ulp), the same survivors as the twin's full
+    poses compacted, bit for bit.'''
+    te, blk, (coords, confs, pairs), (poses, keep), (jp, jk) = \
+        request.getfixturevalue(case)
+    want_keep = np.asarray(jk)
+    want = np.asarray(jp)[want_keep]
+    _, grid, _, rows = tc.sweep_inputs(blk, te.objects, te.systematic_angles,
+                                       CPU, torch.float64)
+    surv, keep1 = tc.block_screen(coords, confs, rows(0, len(blk['ids']))[1:],
+                                  grid, pairs, 1.5)
+    np.testing.assert_array_equal(to_np(keep1), want_keep)
+    assert torch.equal(surv, poses[keep])
+    if mesh:
+        monkeypatch.setenv('TSCODE_MESH', '1')
+    split = {}
+    surv2, keep2 = tc.screen_survivors(
+        blk, te.objects, te.systematic_angles, 1.5, device='cpu',
+        dtype=torch.float64, block_chunk=10, split=split,
+        mesh=make_mesh(devices=['cpu'] * mesh) if mesh else None)
+    assert split['shards'] == (mesh or 1) and split['chunks'] > 1
+    np.testing.assert_array_equal(keep2, want_keep)
+    assert torch.equal(surv2, surv)
+    assert surv.shape == (int(want_keep.sum()),) + want.shape[1:]
+    np.testing.assert_allclose(to_np(surv), want, rtol=0, atol=1e-9)
 
 
 # ----------------------------------------------- (b) the lazy dedup rule
@@ -226,42 +263,90 @@ def test_lazy_rule_with_k3_gates_equals_the_twin_on_real_rows(case,
 
 
 def test_card_chunk_bounds_the_poses_a_chunk_writes():
-    '''rows A N 3 itemsize <= GATE_BYTES, as many rows as fit, never
-    fewer than one, never more than the sweep: da_cyclical_xl at 62
-    (46,128 rows of 36 x 11) is one chunk in float64, multiembed at 41
-    (161,376 rows) two in float64 and one in float32; the twin's rule
-    _auto_chunk is unchanged.'''
-    for n_rows, A, N, itemsize in ((46128, 36, 11, 8), (161376, 36, 11, 8),
-                                   (161376, 36, 11, 4), (24576, 27, 15, 8),
-                                   (10 ** 6, 216, 15, 8)):
-        rows = tc._card_chunk(n_rows, A, N, itemsize)
+    '''B1 writes no pose but the survivors, so the card's chunk counts
+    what a chunk holds a row (keep bytes, count, offset, conformer ids,
+    block_geometry's tensors) within GATE_BYTES beside the screen's
+    largest scratch: as many rows as fit, never fewer than one, never
+    more than the sweep. da_cyclical_xl at 62 (46,128 rows of 36 angles)
+    and multiembed at 41 (161,376 rows) are one chunk in float64 and
+    float32, trimolecular RIGID (24,576 rows of 27, three molecules) one;
+    the twin's rule _auto_chunk is unchanged.'''
+    budget = tc.GATE_BYTES - b1.SCRATCH_BYTES
+    for n_rows, A, M, itemsize in ((46128, 36, 2, 8), (161376, 36, 2, 8),
+                                   (161376, 36, 2, 4), (24576, 27, 3, 8),
+                                   (10 ** 7, 216, 3, 8),
+                                   (10 ** 8, 5329, 2, 8)):
+        rows = tc._card_chunk(n_rows, A, M, itemsize)
+        per_row = A + 4 + 8 + 12 * M + 72 * M * itemsize
         assert 1 <= rows <= n_rows
-        assert rows * A * N * 3 * itemsize <= tc.GATE_BYTES
-        assert rows == n_rows or \
-            (rows + 1) * A * N * 3 * itemsize > tc.GATE_BYTES
-    assert tc._card_chunk(46128, 36, 11, 8) == 46128
-    assert -(-161376 // tc._card_chunk(161376, 36, 11, 8)) == 2
-    assert tc._card_chunk(161376, 36, 11, 4) == 161376
-    assert tc._card_chunk(10, 216, 10 ** 7, 8) == 1
+        assert rows * per_row <= budget
+        assert rows == n_rows or (rows + 1) * per_row > budget
+    for n_rows, A, M in ((46128, 36, 2), (161376, 36, 2), (24576, 27, 3)):
+        assert tc._card_chunk(n_rows, A, M, 8) == n_rows
+    assert tc._card_chunk(10 ** 7, 216, 3, 8) < 10 ** 7
     assert tc._auto_chunk(46128, 36, 11, 8) == \
         tc.GATE_BYTES // (36 * 36 * 11 * 3 * 8)
     assert tc._auto_chunk(10, 216, 10 ** 5, 8) == 1
 
 
 def test_launch_plan_keeps_four_rows_of_poses_in_shared_memory_that_fit():
-    '''Shared memory holds a block's four rows of poses up to the card's
-    opt-in limit, A N <= 2,421 in float64 (A = 36 up to N = 67, A = 216
-    up to N = 11); past it the poses are read back from the output. The
-    warp's clash screen from 64 pairs.'''
-    assert b1.launch_plan(36, 11, 30, 8) == {
+    '''B1's screen holds a block's four rows of poses in shared memory up
+    to the card's opt-in limit, each pose (3 N values and its squared
+    norm) at an odd stride (3 N + 1, or 3 N + 2 where that is even: at N
+    = 12 a stride of 36 gave the lanes' 8-byte reads 4-way bank
+    conflicts), beside the staged pair list (up to 2,048
+    pairs) and each warp's staged row (3 N + 18 M values); past it each
+    warp of a bounded grid owns a slice (its staged row and its store) of
+    a global scratch of at most SCRATCH_BYTES and shared memory holds the
+    pair list alone, so any A and N run (N = 5,000 at A = 36, where a
+    block's four staged rows alone would pass the opt-in limit). A lane screens its own pose's
+    pairs unless a row has fewer than 8 angles and there are 64 pairs or
+    more (the warp's screen). B1's first design keeps its own rule
+    (row_launch_plan): A N <= 2,421 in float64, else the poses read back
+    from its output, the warp's screen from 64 pairs.'''
+    plan = b1.launch_plan(36, 11, 30, 8, M=2)
+    rows = 36 * 35 + 33 + 36
+    assert plan == {'form': 'smem', 'stride': 35,
+                    'smem': 240 + 4 * (rows + rows % 2) * 8,
+                    'slot_bytes': (rows + rows % 2) * 8,
+                    'scratch_warps': b1.SCRATCH_WARPS, 'warp_clash': False}
+    assert b1.launch_plan(36, 12, 36, 8)['stride'] == 37
+    assert b1.launch_plan(27, 15, 75, 8)['stride'] == 47
+    assert not b1.launch_plan(27, 15, 75, 8)['warp_clash']
+    assert b1.launch_plan(27, 15, 75, 8, warp_clash=True)['warp_clash']
+    assert b1.launch_plan(7, 15, 75, 8)['warp_clash']
+    assert not b1.launch_plan(7, 15, 63, 8)['warp_clash']
+    assert b1.launch_plan(36, 63, 64, 8)['form'] == 'smem'
+    assert b1.launch_plan(36, 67, 64, 8)['form'] == 'scratch'
+    big = b1.launch_plan(216, 60, 900, 8)
+    assert big['form'] == 'scratch' and big['stride'] == 181
+    assert big['smem'] == 7200
+    assert big['slot_bytes'] == (216 * 181 + 180 + 54) * 8
+    assert big['scratch_warps'] * big['slot_bytes'] <= b1.SCRATCH_BYTES
+    # past 2,048 pairs the list stays in device memory
+    assert b1.launch_plan(216, 100, 2500, 8)['smem'] == 0
+    for itemsize in (8, 4):
+        wide = b1.launch_plan(36, 5000, 40, itemsize, M=2)
+        assert wide['form'] == 'scratch' and wide['smem'] == 320
+        assert 4 * (3 * 5000 + 36) * itemsize > b1.SMEM_OPTIN_BYTES
+        assert wide['scratch_warps'] * wide['slot_bytes'] <= \
+            b1.SCRATCH_BYTES
+        with pytest.raises(ValueError):
+            b1.launch_plan(36, 5000, 40, itemsize, form='smem', M=2)
+    deep = b1.launch_plan(5329, 6, 9, 8)
+    assert deep['form'] == 'scratch' and deep['scratch_warps'] >= 1
+    assert b1.launch_plan(36, 11, 30, 8, form='scratch')['form'] == 'scratch'
+    with pytest.raises(ValueError):
+        b1.launch_plan(216, 60, 900, 8, form='smem')
+    assert b1.row_launch_plan(36, 11, 30, 8) == {
         'smem_poses': True, 'smem': 4 * 36 * 11 * 3 * 8, 'warp_clash': False}
-    assert b1.launch_plan(36, 67, 64, 8)['smem_poses']
-    assert not b1.launch_plan(36, 68, 64, 8)['smem_poses']
-    assert b1.launch_plan(216, 11, 30, 8)['smem_poses']
-    assert b1.launch_plan(216, 12, 30, 8) == {
+    assert b1.row_launch_plan(36, 67, 64, 8)['smem_poses']
+    assert not b1.row_launch_plan(36, 68, 64, 8)['smem_poses']
+    assert b1.row_launch_plan(216, 11, 30, 8)['smem_poses']
+    assert b1.row_launch_plan(216, 12, 30, 8) == {
         'smem_poses': False, 'smem': 0, 'warp_clash': False}
-    assert b1.launch_plan(216, 22, 30, 4)['smem_poses']
-    assert b1.launch_plan(27, 15, 75, 8)['warp_clash']
+    assert b1.row_launch_plan(216, 22, 30, 4)['smem_poses']
+    assert b1.row_launch_plan(27, 15, 75, 8)['warp_clash']
 
 
 # --------------------------------------------- (d) a CUDA tensor's route

@@ -435,20 +435,56 @@ def b1_twin(coords, confs, geometry, grid, pairs):
     return [torch.cat(parts) for parts in zip(*out)]
 
 
-def b1_against_twin(coords, confs, geometry, grid, pairs, tie=1e-9):
-    '''B1 on card tensors against its plain twin on the same tensors:
-    one launch, no K1 launch, poses within 1e-9 A (float64; 1e-4 A in
-    float32), keep bits equal off the tied rows: a pose within `tie` A^2
-    of the clash threshold, or a gate pair that the dedup reads (lazy_keep
-    on the twin's poses) within `tie` A of a gate. Returns the twin's
-    (poses, keep) and its clash mask ok.'''
+def b1_against_row_kernel(coords, confs, geometry, grid, pairs, forms=None):
+    '''B1 (its screen, then its write) against B1's first design
+    (launch_row) on the same card tensors: keep bits equal and the
+    survivors the old kernel's poses compacted by its keep mask, bit for
+    bit, in either dtype; one screen launch, one write launch when
+    anything survives, no K1 launch. With `forms`, B1's screen also runs
+    in each of them (launch_plan's keyword arguments: form='smem' or
+    'scratch', warp_clash=True for the warp's clash screen), each giving
+    the same bits. Returns the old
+    kernel's (poses, keep).'''
     from tscode_tpu_torch.ops.kernels import block_screen as b1
+    half = b1.half_angles(grid)
+    gates = (cyclical.DEDUP_RMSD, cyclical.DEDUP_MAXDEV)
     b1.KERNEL.reset_counts()
     clash.KERNEL.reset_counts()
-    poses, keep = b1.block_screen(
-        coords, confs, geometry, b1.half_angles(grid), pairs, 1.5,
-        (cyclical.DEDUP_RMSD, cyclical.DEDUP_MAXDEV))
-    assert b1.KERNEL.launches == 1 and clash.KERNEL.launches == 0
+    surv, keep = b1.block_screen(coords, confs, geometry, half, pairs, 1.5,
+                                 gates)
+    assert b1.KERNEL.wrapper_launches == {
+        'block_screen': 1, **({'block_survivors': 1} if keep.any() else {})}
+    assert clash.KERNEL.launches == 0
+    rows, A = keep.shape
+    N = sum(x.shape[1] for x in coords)
+    conf, packed = b1.pack_rows(confs, geometry)
+    poses = torch.empty((rows, A, N, 3), dtype=grid.dtype, device=grid.device)
+    old_keep = torch.empty_like(keep)
+    b1.launch_row(coords, conf, packed, half, pairs, 1.5, gates, poses,
+                  old_keep)
+    assert torch.equal(keep, old_keep)
+    assert surv.shape == (int(keep.sum()), N, 3)
+    assert torch.equal(surv, poses[old_keep])
+    for form in forms or ():
+        plan = b1.launch_plan(A, N, pairs.shape[0], grid.element_size(),
+                              M=len(coords), **form)
+        s = b1.screen(coords, confs, geometry, half, pairs, 1.5, gates,
+                      plan=plan)
+        assert torch.equal(s.keep, keep), form
+        assert torch.equal(s.counts, keep.sum(dim=1, dtype=torch.int32))
+        assert torch.equal(b1.survivors(s), surv), form
+    return poses, old_keep
+
+
+def b1_against_twin(coords, confs, geometry, grid, pairs, tie=1e-9):
+    '''B1 on card tensors against B1's first design (b1_against_row_kernel:
+    the same bits), and B1's first design against its plain twin on the same
+    tensors: poses within 1e-9 A (float64; 1e-4 A in float32), keep bits
+    equal off the tied rows: a pose within `tie` A^2 of the clash
+    threshold, or a gate pair that the dedup reads (lazy_keep on the
+    twin's poses) within `tie` A of a gate. Returns the twin's (poses,
+    keep) and its clash mask ok.'''
+    poses, keep = b1_against_row_kernel(coords, confs, geometry, grid, pairs)
     want_poses, want_keep, ok, rmsd, maxdev = b1_twin(coords, confs,
                                                       geometry, grid, pairs)
     rows, A, N = poses.shape[:3]
@@ -476,8 +512,9 @@ def b1_against_twin(coords, confs, geometry, grid, pairs, tie=1e-9):
 def test_block_screen_kernel_matches_twin_two_molecules(cuda_device,
                                                         tmp_path):
     '''da_cyclical at 4 conformers, float64: B1 on all 128 block rows
-    against its twin (poses within 1e-9 A, keep bits equal) and, through
-    the sweep's entry, the CPU run, 47 survivors.'''
+    against B1's first design (bit for bit) and its twin (poses within 1e-9
+    A, keep bits equal) and, through the sweep's entry, the CPU run, 47
+    survivors.'''
     emb = card_embedder(config_files('da_cyclical', str(tmp_path), 4),
                         cuda_device)
     m1, m2 = emb.objects
@@ -487,14 +524,14 @@ def test_block_screen_kernel_matches_twin_two_molecules(cuda_device,
     confs, *geo = rows(0, len(blk['c1']))
     geometry = cyclical.block_geometry(*geo)
     _, want_keep, _ = b1_against_twin(coords, confs, geometry, grid, pairs)
-    poses, keep = cyclical.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    surv, keep = cyclical.block_screen(coords, confs, geo, grid, pairs, 1.5)
     coords, grid, pairs, rows = cyclical.sweep_inputs(
         blk, (m1, m2), emb.systematic_angles, torch.device('cpu'),
         torch.float64)
     confs, *geo = rows(0, len(blk['c1']))
-    cpu_poses, cpu_keep = cyclical.block_screen(coords, confs, geo, grid,
-                                                pairs, 1.5)
-    np.testing.assert_allclose(poses.cpu().numpy(), cpu_poses.numpy(),
+    cpu_surv, cpu_keep = cyclical.block_screen(coords, confs, geo, grid,
+                                               pairs, 1.5)
+    np.testing.assert_allclose(surv.cpu().numpy(), cpu_surv.numpy(),
                                rtol=0, atol=1e-9)
     assert torch.equal(keep.cpu(), cpu_keep) and int(keep.sum()) == 47
     assert torch.equal(want_keep.cpu(), cpu_keep)
@@ -516,16 +553,18 @@ def test_block_screen_kernel_matches_twin_three_molecules(cuda_device,
     confs, *geo = rows(0, len(blk['ids']))
     geometry = cyclical.block_geometry(*geo)
     assert pairs.shape[0] == 75 and grid.shape == (27, 3)
-    assert b1.launch_plan(27, 15, 75, 8)['warp_clash']
+    assert b1.row_launch_plan(27, 15, 75, 8)['warp_clash']
+    assert not b1.launch_plan(27, 15, 75, 8, M=3)['warp_clash']
     _, want_keep, _ = b1_against_twin(coords, confs, geometry, grid, pairs)
     assert int(want_keep.sum()) == 54
 
 
 def test_sweep_launches_b1_once_a_chunk_a_shard(cuda_device, tmp_path):
     '''da_cyclical at 4 conformers, float64: screen_survivors on the card
-    launches B1 once a chunk (3 chunks of 50 rows) and no K1, and once a
-    chunk a shard on a cuda:0 x 4 mesh (4 slices of 32 rows, chunks of
-    13: 12 launches); survivors and keep equal the CPU sweep's.'''
+    launches B1's screen once a chunk (3 chunks of 50 rows) and its write
+    once a chunk with survivors, no K1, and once a chunk a shard on a
+    cuda:0 x 4 mesh (4 slices of 32 rows, chunks of 13: 12 screens);
+    survivors and keep equal the CPU sweep's.'''
     from tscode_tpu_torch.ops.kernels import block_screen as b1
     emb = card_embedder(config_files('da_cyclical', str(tmp_path), 4),
                         cuda_device)
@@ -540,7 +579,9 @@ def test_sweep_launches_b1_once_a_chunk_a_shard(cuda_device, tmp_path):
         surv, keep = cyclical.screen_survivors(
             blk, emb.objects, emb.systematic_angles, 1.5, device=cuda_device,
             dtype=torch.float64, block_chunk=50, split=split, mesh=mesh)
-        assert b1.KERNEL.launches == split['chunks'] == launches
+        assert b1.KERNEL.wrapper_launches['block_screen'] == \
+            split['chunks'] == launches
+        assert 0 < b1.KERNEL.wrapper_launches['block_survivors'] <= launches
         assert clash.KERNEL.launches == 0
         assert split['sweep_kernel'] == 'B1' and split['dedup_s'] == 0.0
         np.testing.assert_array_equal(keep, cpu_keep)
@@ -549,14 +590,16 @@ def test_sweep_launches_b1_once_a_chunk_a_shard(cuda_device, tmp_path):
 
 
 def synthetic_sweep(rng, n_atoms, A, rows, device, dtype, n_confs=3,
-                    product=False):
+                    product=False, n_pairs=None):
     '''Seeded block rows of len(n_atoms) blob molecules (n_confs
     conformers each): random alignments and axes, molecule m placed 4.5 m
     A along x so that some poses clash, and A angle tuples of small steps
     (12 a molecule, cycled), so neighbouring poses pass the dedup gates
     and far ones do not; with `product`, the embedder's grid instead:
     every tuple of steps + 1 angles from -45 to 45 degrees a molecule,
-    A = (steps + 1)^M. Returns block_screen's arguments but thresh.'''
+    A = (steps + 1)^M; with `n_pairs`, that many seeded pairs across
+    each two neighbouring molecules instead of every cross-fragment pair.
+    Returns block_screen's arguments but thresh.'''
     M = len(n_atoms)
     coords = [torch.as_tensor(rng.normal(size=(n_confs, n, 3)) * 1.3,
                               dtype=dtype, device=device) for n in n_atoms]
@@ -579,55 +622,123 @@ def synthetic_sweep(rng, n_atoms, A, rows, device, dtype, n_confs=3,
                          for m in range(M)], axis=1)
     geometry = tuple(torch.as_tensor(a, dtype=dtype, device=device)
                      for a in (R_align, axis, cor, pos0))
-    pairs = torch.as_tensor(clash.static_pairs(cross_fragment_pair_mask(
-        tuple(n_atoms))), device=device)
+    if n_pairs is None:
+        pl = clash.static_pairs(cross_fragment_pair_mask(tuple(n_atoms)))
+    else:
+        s = np.cumsum([0, *n_atoms])
+        pl = np.concatenate([np.stack(
+            [s[m] + rng.integers(0, n_atoms[m], n_pairs),
+             s[m + 1] + rng.integers(0, n_atoms[m + 1], n_pairs)], axis=1)
+            for m in range(M - 1)]).astype(np.int32)
+    pairs = torch.as_tensor(pl, device=device)
     return (coords, confs, geometry, torch.as_tensor(grid, dtype=dtype,
                                                      device=device), pairs)
 
 
 B1_CASES = {
-    # (atoms a molecule, A, rows), then B1's form in float32 and float64:
-    # poses in shared memory (else read back from the output), and the
-    # warp's clash screen (else a lane's)
+    # (atoms a molecule, A, rows), then whether the poses sit in shared
+    # memory in float32 and float64 (B1's smem form, else its scratch
+    # form; B1's first design: else read back from its output), and whether
+    # there are 64 pairs or more (the first design's warp clash screen; B1
+    # screens a lane's own pose at these A, its warp screen is forced in
+    # test_block_screen_equals_its_first_design_in_every_form)
     # A = 216 of 60-atom poses: no block's shared memory holds 4 rows
     'global_warp': ((30, 30), 216, 7, (False, False), True),
     'global_thread': ((59, 1), 216, 5, (False, False), False),
     'smem_thread': ((6, 5), 36, 9, (True, True), False),
+    # N = 12: 3 N even, the store padded to 37
+    'smem_thread_even': ((6, 6), 36, 9, (True, True), False),
     'smem_warp': ((8, 8), 36, 9, (True, True), True),
     # three molecules, 12 + 5 + 5 atoms, 145 pairs
     'three': ((12, 5, 5), 144, 6, (True, False), True),
+    # three molecules on the trimolecular route's grid, 27 angles
+    'three_27': ((5, 5, 5), 27, 7, (True, True), True),
     # past one tile of 1,024 angles, on the embedder's product grid:
     # STEPS=10 on three molecules (11^3) and DEEP's 72 steps on two (73^2)
     'steps10_three': ((6, 6, 6), 1331, 5, (False, False), True),
     'deep_two': ((3, 3), 5329, 3, (False, False), False),
 }
-# DEEP's grid is held in float64 only: at 1.25-degree steps each row
-# reads thousands of gate pairs near the 1 A / 2 A gates, and in float32
-# most rows hold one within the tie of 1e-4 A (2 of the 3 rows here)
+# DEEP's grid is held against the twin in float64 only: at 1.25-degree
+# steps each row reads thousands of gate pairs near the 1 A / 2 A gates,
+# and in float32 most rows hold one within the tie of 1e-4 A (2 of the 3
+# rows here); against B1's first design it is held bit for bit in both
 B1_RUNS = [(dtype, case) for case in sorted(B1_CASES) for dtype in DTYPES
            if (dtype, case) != (torch.float32, 'deep_two')]
 
 
-@pytest.mark.parametrize('dtype, case', B1_RUNS)
-def test_block_screen_kernel_any_size(cuda_device, dtype, case):
-    '''B1 against its twin on seeded rows (row counts not a multiple of
-    the 4 rows a block) in each of its forms, float32 and float64; the
-    dedup drops some angles that passed the screen and keeps some,
-    past 1,024 angles also in the later tiles.'''
+def b1_case(case, dtype, device):
+    '''The seeded rows of a B1_CASES case, with its plans checked.'''
     from tscode_tpu_torch.ops.kernels import block_screen as b1
     n_atoms, A, rows, smem, warp = B1_CASES[case]
     P = len(clash.static_pairs(cross_fragment_pair_mask(n_atoms)))
-    plan = b1.launch_plan(A, sum(n_atoms), P, poses_itemsize(dtype))
-    assert plan['smem_poses'] == smem[dtype == torch.float64]
-    assert plan['warp_clash'] == warp
-    args = synthetic_sweep(np.random.default_rng(216 + A), n_atoms, A, rows,
-                           cuda_device, dtype, product=A > 1024)
+    itemsize = poses_itemsize(dtype)
+    plan = b1.launch_plan(A, sum(n_atoms), P, itemsize, M=len(n_atoms))
+    assert plan['form'] == ('smem' if smem[dtype == torch.float64]
+                            else 'scratch')
+    assert not plan['warp_clash'] and plan['stride'] % 2 == 1
+    row = b1.row_launch_plan(A, sum(n_atoms), P, itemsize)
+    assert row['smem_poses'] == smem[dtype == torch.float64]
+    assert row['warp_clash'] == warp
+    return plan, synthetic_sweep(np.random.default_rng(216 + A), n_atoms, A,
+                                 rows, device, dtype, product=A > 1024)
+
+
+@pytest.mark.parametrize('dtype, case', B1_RUNS)
+def test_block_screen_kernel_any_size(cuda_device, dtype, case):
+    '''B1 against B1's first design and its twin on seeded rows (row counts
+    not a multiple of the 4 rows a block) in each of its forms, float32
+    and float64; the dedup drops some angles that passed the screen and
+    keeps some, past 1,024 angles also in the later tiles.'''
+    _, args = b1_case(case, dtype, cuda_device)
+    rows, A = B1_CASES[case][2], B1_CASES[case][1]
     _, keep, ok = b1_against_twin(
         *args, tie=1e-9 if dtype == torch.float64 else 1e-4)
     assert 0 < int(keep.sum()) < int(ok.sum()) < rows * A
     if A > 1024:
         late = slice(1024, None)
         assert 0 < int(keep[:, late].sum()) < int(ok[:, late].sum())
+
+
+@pytest.mark.parametrize('case', sorted(B1_CASES))
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_block_screen_equals_its_first_design_in_every_form(cuda_device,
+                                                            dtype, case):
+    '''B1's screen and write against B1's first design, bit for bit (keep
+    bits, and the survivors its poses compacted), float32 and float64,
+    two and three molecules, A = 27 to 5,329, N up to 60: in the plan's
+    form, in the scratch form, with the warp's clash screen, and where the
+    shapes allow it in the shared-memory form.'''
+    plan, args = b1_case(case, dtype, cuda_device)
+    forms = [{'form': 'scratch'}, {'warp_clash': True},
+             {'form': 'scratch', 'warp_clash': True}]
+    if plan['form'] == 'smem':
+        forms += [{'form': 'smem'}]
+    poses, keep = b1_against_row_kernel(*args, forms=forms)
+    assert 0 < int(keep.sum()) < keep.numel()
+
+
+@pytest.mark.parametrize('n_atoms', [(2500, 2500), (2000, 1500, 1500)])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_block_screen_runs_past_a_blocks_shared_memory(cuda_device, dtype,
+                                                       n_atoms):
+    '''N = 5,000 at A = 36, two and three molecules, float32 and float64:
+    a block's four staged rows alone (3 N + 18 M values each) pass the
+    shared-memory opt-in limit, so B1 runs in the scratch form with only
+    the pair list in shared memory, and gives B1's first design's keep
+    bits and poses bit for bit (40 seeded pairs across each two
+    neighbouring molecules, so that some poses pass the screen).'''
+    from tscode_tpu_torch.ops.kernels import block_screen as b1
+    N, A, rows = sum(n_atoms), 36, 5
+    args = synthetic_sweep(np.random.default_rng(5000), n_atoms, A, rows,
+                           cuda_device, dtype, n_pairs=40)
+    itemsize = poses_itemsize(dtype)
+    assert 4 * (3 * N + 18 * len(n_atoms)) * itemsize > \
+        b1.SMEM_OPTIN_BYTES
+    plan = b1.launch_plan(A, N, args[4].shape[0], itemsize, M=len(n_atoms))
+    assert plan['form'] == 'scratch' and plan['smem'] <= b1.SMEM_OPTIN_BYTES
+    poses, keep = b1_against_row_kernel(*args,
+                                        forms=[{'warp_clash': True}])
+    assert 0 < int(keep.sum()) < keep.numel()
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -1705,7 +1816,8 @@ def test_tfd_first_matches_twin_on_every_pass(cuda_device, monkeypatch,
                                               name):
     '''T1 in the TFD prune on the card: one launch a pass, each pass's
     first array equal to the CPU twin's bit for bit (and to the old tile
-    loop on the same card tensor), the mask equal to the CPU run's.'''
+    loop and T1's first design on the same card tensor), the mask equal to
+    the CPU run's.'''
     from tscode_tpu_torch.ops import tfd
     fps = TFD_ENSEMBLES[name]()
     passes = []
@@ -1731,6 +1843,8 @@ def test_tfd_first_matches_twin_on_every_pass(cuda_device, monkeypatch,
         np.testing.assert_array_equal(card_first, first)
         old = tfd_k.first_successor_pass_plain(tf, d, k, m, 10.0)
         np.testing.assert_array_equal(old.cpu().numpy(), first)
+        warp = tfd_k.first_successor_pass_warp(tf, d, k, m, 10.0)
+        np.testing.assert_array_equal(warp.cpu().numpy(), first)
     assert any((f < 0).any() and (f >= 0).any() for *_, f in on_cpu)
 
 
@@ -1753,9 +1867,49 @@ def test_tfd_first_matches_twin_on_hand_made_passes(cuda_device, case):
         part = tfd_k.first_successor_pass(tf, d, k, num_active, 10.0,
                                           rows=(r0, r1))
         np.testing.assert_array_equal(part.cpu().numpy(), want[r0:r1])
+        warp = tfd_k.first_successor_pass_warp(tf, d, k, num_active, 10.0,
+                                               rows=(r0, r1))
+        np.testing.assert_array_equal(warp.cpu().numpy(), want[r0:r1])
     assert tfd_k.KERNEL.launches == 4
     assert (want < 0).any()
     with pytest.raises(TypeError):
         tfd_k.first_successor_pass(tf.double(), d, k, num_active, 10.0)
     with pytest.raises(ValueError):
         tfd_k.first_successor_pass(tf, d, k, n + 1, 10.0)
+
+
+@pytest.mark.parametrize('q', [1, 8, 33, 200])
+def test_tfd_first_equals_its_first_design_on_every_plan(cuda_device, q):
+    '''T1 against T1's first design (first_successor_pass_warp) bit for bit
+    at Q = 1, 8, 33 and 200, on passes of seeded clustered fingerprints
+    (k = 1 to 7, num_active below n, 3,001 rows: not a multiple of a
+    block), whole and in the four row slices of a cuda:0 x 4 mesh, on the
+    plan's tile and windows and on each other plan (tiles of 32 and the
+    unstaged walk; one window or windows of two steps, which meet in an
+    atomicMin).'''
+    from tscode_tpu_torch.parallel import sharding as sh
+    n = 3001
+    tf = torch.as_tensor(tfd_pass_fps(n, q), device=cuda_device)
+    plans = [None] + [tfd_k.launch_plan(q, t, seg) for t in (32, 0)
+                      for seg in (0, 2 * (t or 1024))]
+    mesh = card_mesh()
+    hits = 0
+    for k in (1, 2, 7):
+        d = n // k
+        for num_active in (n, d * (k - 1) + (n - d * (k - 1)) // 2):
+            want = tfd_k.first_successor_pass_warp(tf, d, k, num_active,
+                                                   10.0).cpu().numpy()
+            hits += int((want >= 0).sum())
+            for plan in plans:
+                got = tfd_k.first_successor_pass(tf, d, k, num_active, 10.0,
+                                                 plan=plan)
+                np.testing.assert_array_equal(got.cpu().numpy(), want)
+            for _, r0, r1 in sh.shard_slices(n, mesh):
+                part = tfd_k.first_successor_pass(tf, d, k, num_active,
+                                                  10.0, rows=(r0, r1))
+                np.testing.assert_array_equal(part.cpu().numpy(),
+                                              want[r0:r1])
+            got = sh.sharded_first_similar_successor(
+                tf, 10.0, mesh, d=d, k=k, num_active=num_active)
+            np.testing.assert_array_equal(got, want)
+    assert hits > 0

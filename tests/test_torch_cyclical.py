@@ -191,11 +191,18 @@ def test_one_block_screen_chunk_matches_jax(da4):
         blk, (m1, m2), angles, torch.device('cpu'), torch.float64)
     confs, *geo = tc.compact_rows(t64(blk['tab1']), t64(blk['tab2']),
                                   torch.as_tensor(ti).long())
-    poses_t, keep_t = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    poses_t, keep_t = tc.block_screen_plain(coords, confs, geo, grid, pairs,
+                                            1.5)
     np.testing.assert_allclose(to_np(poses_t), np.asarray(poses_j), rtol=0,
                                atol=1e-9)
     np.testing.assert_array_equal(to_np(keep_t), np.asarray(keep_j))
     assert 0 < to_np(keep_t).sum() < keep_t.numel()
+    # the sweep's entry: the same keep, the kept poses compacted in order
+    surv_t, keep_c = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    np.testing.assert_array_equal(to_np(keep_c), np.asarray(keep_j))
+    np.testing.assert_allclose(
+        to_np(surv_t), np.asarray(poses_j)[np.asarray(keep_j)], rtol=0,
+        atol=1e-9)
 
 
 @pytest.mark.parametrize('seed', [0, 1])

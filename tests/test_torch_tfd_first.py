@@ -173,6 +173,180 @@ def test_sharded_passes_match_unsharded(monkeypatch):
     np.testing.assert_array_equal(got_mask, want)
 
 
+def tile_walk(fps, d, k, num_active, thresh, rows=None, plan=None):
+    '''T1's walk on the host, as csrc/tfd_first.cu walks it on the plan
+    (kt.pass_plan of the pass unless given): blocks of kt.BLOCK_WARPS
+    consecutive rows of [r0, r1), each in the windows kt.windows gives
+    (their count, of `segment` candidates each) from its first row + 1 on; a block stages
+    tiles of plan['tile'] candidates (1,024 a step where tile is 0) from
+    its window's start; each live row (a chunk of two rows or more, a
+    candidate after it in the window, no hit found by an earlier window)
+    scans the tile's candidates in (i, hi) 32 at a time in order, the
+    float64 wrapped sums in torsion order, and stops at its first hit or
+    at its chunk's or window's end; the block stops when none of its rows
+    is live; a row's result is its smallest hit over the windows. Returns
+    (first (r1 - r0,) int32, the tiles the blocks staged as (j0, j1), the
+    candidates evaluated).'''
+    n, Q = fps.shape
+    plan = plan or kt.pass_plan(Q, d, k, num_active)
+    span = plan['tile'] or 1024
+    seg, n_win = kt.windows(plan, d, k, num_active)
+    seg = seg or n + span
+    r0, r1 = (0, n) if rows is None else rows
+    f64 = fps.astype(np.float64)
+    first = np.full(r1 - r0, -1, dtype=np.int32)
+    tiles, evaluated = [], 0
+    for b0 in range(r0, r1, kt.BLOCK_WARPS):
+        for y in range(n_win):
+            w0 = b0 + 1 + y * seg
+            w1 = w0 + seg
+            live = {}
+            for i in range(b0, min(r1, b0 + kt.BLOCK_WARPS)):
+                step = min(i // d, k - 1)
+                lo = d * step
+                hi = num_active if step == k - 1 else d * (step + 1)
+                if hi - lo > 1 and max(w0, i + 1) < min(w1, hi) and \
+                        first[i - r0] < 0:
+                    live[i] = (lo, hi)
+            j0 = w0
+            while live and j0 < w1:
+                tiles.append((j0, j0 + span))
+                for i, (lo, hi) in list(live.items()):
+                    jlo, jhi = max(j0, i + 1), min(j0 + span, w1, hi)
+                    for base in range(jlo, jhi, 32):
+                        j = np.arange(base, min(base + 32, jhi))
+                        acc = np.zeros(len(j))
+                        for q in range(Q):
+                            dq = np.abs(f64[i, q] - f64[j, q])
+                            acc += np.minimum(dq, np.abs(dq - 360.0))
+                        evaluated += len(j)
+                        hit = np.flatnonzero(acc < thresh)
+                        if hit.size:
+                            first[i - r0] = base + hit[0] - lo
+                            del live[i]
+                            break
+                    if i in live and jhi >= min(w1, hi):
+                        del live[i]
+                j0 += span
+    return first, tiles, evaluated
+
+
+# (tile, window): the plan's, small tiles, short windows
+WALK_PLANS = [(None, None), (64, 128), (32, 64), (0, 0), (0, 2048)]
+
+
+@pytest.mark.parametrize('tile, segment', WALK_PLANS)
+@pytest.mark.parametrize('n,d,k,num_active,q', TFD_PASS_CASES)
+def test_tile_walk_equals_the_twin_on_the_quirks(n, d, k, num_active, q,
+                                                 tile, segment):
+    '''T1's tile walk (tile_walk, the kernel's block and tile order on
+    the host) equals the plain twin on the hand-made passes (chunks past
+    num_active, an empty or one-row last chunk, chunks of one row,
+    chunks across the JAX tiles), whole and in shard slices, on tiles of
+    the plan's size (Q = 40 stages 192 candidates), of 64 and 32, and
+    unstaged; some of its tiles cross a chunk's end, and a walk costs no
+    more candidates than the first design's steps of 32.'''
+    fps = tfd_pass_fps(n, q)
+    tf = torch.as_tensor(fps)
+    plan = kt.launch_plan(q, tile, segment)
+    if tile is None:
+        assert plan['tile'] == (192 if q == 40 else 256)
+    want = kt.first_successor_pass(tf, d, k, num_active, THRESH).numpy()
+    got, tiles, evaluated = tile_walk(fps, d, k, num_active, THRESH,
+                                      plan=plan)
+    np.testing.assert_array_equal(got, want)
+    walked = kt.walked_pairs(want, d, k, num_active)
+    _, n_win = kt.windows(plan, d, k, num_active)
+    assert walked <= evaluated <= walked + 31 * n * (1 + n // 32) + \
+        (n_win > 1) * n * n
+    ends = [hi for _, hi in kt.pass_chunks(d, k, num_active)]
+    crossing = [t for t in tiles if any(t[0] < e < t[1] for e in ends)]
+    if len(ends) > 1 and plan['tile'] and plan['tile'] < d:
+        assert crossing
+    if segment and segment < d - kt.BLOCK_WARPS:
+        assert n_win > 1
+    for r0, r1 in ((0, n // 3), (n // 3, n - 1), (n - 1, n), (5, 5)):
+        part, _, _ = tile_walk(fps, d, k, num_active, THRESH, rows=(r0, r1),
+                               plan=plan)
+        np.testing.assert_array_equal(part, want[r0:r1])
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_tile_walk_equals_the_twin_on_random_passes(seed):
+    '''On seeded clustered fingerprints and a random pass (k, num_active
+    below n, a row slice), the tile walk on random plans equals the
+    twin.'''
+    rng = np.random.default_rng(seed)
+    n, q = int(rng.integers(40, 700)), int(rng.integers(1, 12))
+    fps = tfd_pass_fps(n, q)
+    k = int(rng.integers(1, 6))
+    d = n // k
+    num_active = int(rng.integers(d * (k - 1), n + 1))
+    r0 = int(rng.integers(0, n // 2))
+    r1 = int(rng.integers(r0, n + 1))
+    want = kt.first_successor_pass(torch.as_tensor(fps), d, k, num_active,
+                                   THRESH, rows=(r0, r1)).numpy()
+    tile = int(rng.choice([32, 64, 128, 256]))
+    plan = kt.launch_plan(q, tile, tile * int(rng.choice([0, 1, 2, 4])))
+    got, _, _ = tile_walk(fps, d, k, num_active, THRESH, rows=(r0, r1),
+                          plan=plan)
+    np.testing.assert_array_equal(got, want)
+    assert (want >= 0).any() or r1 - r0 < 2
+
+
+def test_launch_plan_sizes_the_tile_by_q():
+    '''The tile: 256 candidates while they fit in 64 KB with the block's
+    rows (Q = 8: 16,960 bytes), fewer for larger Q, 32 past 64 KB while
+    32 fit the block's shared memory (Q = 200), none (candidates read
+    from device memory) past it, so any Q runs; windows of four steps,
+    as many as the longest chunk needs; a pass of chunks of 2,048 rows or
+    fewer unstaged.'''
+    assert kt.launch_plan(8) == {'tile': 256, 'smem': 16960,
+                                 'segment': 1024}
+    assert kt.launch_plan(33)['tile'] == 224
+    assert kt.launch_plan(200)['tile'] == 32
+    assert kt.launch_plan(1000)['tile'] == 0
+    assert kt.launch_plan(1000)['smem'] == 0
+    assert kt.launch_plan(1000)['segment'] == 4096
+    # csearch_string's k = 1 pass: 4,936 rows in one chunk, 5 windows
+    assert kt.windows(kt.launch_plan(8), 6561, 1, 4936) == (1024, 5)
+    assert kt.windows(kt.launch_plan(8), 656, 10, 6561) == (0, 1)
+    assert kt.windows(kt.launch_plan(8, 256, 0), 6561, 1, 4936) == (0, 1)
+    # a pass whose chunks are all short walks unstaged
+    assert kt.pass_plan(8, 6561, 1, 4936)['tile'] == 256
+    assert kt.pass_plan(8, 3280, 2, 6561)['tile'] == 256
+    assert kt.pass_plan(8, 1312, 5, 6561)['tile'] == 0
+    assert kt.pass_plan(8, 656, 10, 6561)['tile'] == 0
+    assert kt.pass_plan(8, 656, 10, 6561)['segment'] == 4096
+    for q in (1, 8, 33, 200, 700):
+        assert kt.launch_plan(q)['smem'] <= 227 * 1024
+    with pytest.raises(ValueError):
+        kt.launch_plan(8, 48)
+    with pytest.raises(ValueError):
+        kt.launch_plan(8, 256, 1000)
+    with pytest.raises(ValueError):
+        kt.launch_plan(1000, 32)
+
+
+@pytest.mark.parametrize('tile', [256, 32, 0])
+@pytest.mark.parametrize('rows', [10 ** 6, 3 * 10 ** 8, 2 ** 31 - 1])
+def test_windows_always_cover_the_walk(tile, rows):
+    '''The windows of a pass never number more than the grid's y limit
+    (MAX_WINDOWS): past it the segment widens by whole steps, so the
+    windows still cover the longest chunk's walk and no row's hit can
+    fall beyond the last one.'''
+    plan = kt.launch_plan(8, tile)
+    step = tile or 1024
+    for d, k, num_active in ((rows, 1, rows), (rows // 3, 3, rows)):
+        segment, count = kt.windows(plan, d, k, num_active)
+        reach = kt.longest_chunk(d, k, num_active) + kt.BLOCK_WARPS
+        assert 1 < count <= kt.MAX_WINDOWS
+        assert segment % step == 0 and segment >= plan['segment']
+        assert segment * count >= reach > segment * (count - 1)
+        if reach <= plan['segment'] * kt.MAX_WINDOWS:
+            assert segment == plan['segment']
+
+
 class OnCard(torch.Tensor):
     '''A CPU tensor that says it lies on the card: the routing test's
     stand-in for a CUDA tensor.'''

@@ -240,10 +240,16 @@ def test_trimol_blocks_and_screen_match_jax(tri3):
         blk, mols, angles, torch.device('cpu'), torch.float64)
     assert pairs.shape == (75, 2)
     confs, *geo = rows(0, 54)
-    poses_t, keep_t = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    poses_t, keep_t = tc.block_screen_plain(coords, confs, geo, grid, pairs,
+                                            1.5)
     np.testing.assert_allclose(to_np(poses_t), np.asarray(poses_j), rtol=0,
                                atol=1e-9)
     np.testing.assert_array_equal(to_np(keep_t), np.asarray(keep_j))
+    surv_t, keep_c = tc.block_screen(coords, confs, geo, grid, pairs, 1.5)
+    np.testing.assert_array_equal(to_np(keep_c), np.asarray(keep_j))
+    np.testing.assert_allclose(
+        to_np(surv_t), np.asarray(poses_j)[np.asarray(keep_j)], rtol=0,
+        atol=1e-9)
 
     kw = dict(clash_thresh=1.5, log=lambda *a: None)
     want_p, want_c = jc.cyclical_embed_trimol_rigid(

@@ -89,10 +89,11 @@ def inputs_from_numpy(mol1, mol2, device, dtype):
 class DeviceSurvivors:
     '''Counterpart of MaskedPullAccumulator(pull=False): per screened
     tile, the rows of each field that pass the mask are compacted on the
-    device (one nonzero and one gather per field), in generation order;
-    the full tiles are not kept. finish() returns the compacted fields,
-    still on the device, and the whole mask as a host array: the mask is
-    the only thing that reaches the host.'''
+    device (add: one nonzero and one gather per field; append: fields a
+    kernel compacted already), in generation order; the full tiles are
+    not kept. finish() returns the compacted fields, still on the
+    device, and the whole mask as a host array: the mask is the only
+    thing that reaches the host.'''
 
     def __init__(self):
         self._masks = []
@@ -100,7 +101,12 @@ class DeviceSurvivors:
 
     def add(self, fields, mask):
         idx = torch.nonzero(mask).squeeze(1)
-        self._parts.append(tuple(f[idx] for f in fields))
+        self.append(tuple(f[idx] for f in fields), mask)
+
+    def append(self, fields, mask):
+        '''fields already compacted by `mask`: each holds the rows that
+        pass it, in order.'''
+        self._parts.append(tuple(fields))
         self._masks.append(mask)
 
     def finish(self):

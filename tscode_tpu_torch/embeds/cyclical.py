@@ -15,13 +15,14 @@ block rows at a time: the block's alignment (two-vector Kabsch, in
 PyTorch), its A poses, the clash screen and the greedy angular dedup
 (keep an angle that passed the screen and is unlike every angle kept
 before it in its block). On CUDA the poses, the screen and the dedup
-are one launch of kernel B1 a chunk (ops/kernels/block_screen), which
-gates only the pose pairs the greedy rule reads; on the CPU the plain
-twin runs: block_poses (the clash screen with K1's plain twin), then
-the block-local (A, A) rmsd and maxdev matrices and the greedy scan.
-The dedup is block-local, so chunking changes nothing. The survivors
-are compacted on the device; only the keep mask and the survivor rows
-reach the host.
+are kernel B1 a chunk (ops/kernels/block_screen): one launch that gates
+only the pose pairs the greedy rule reads and writes the keep bits,
+then one that writes only the kept poses, compacted; on the CPU the
+plain twin runs: block_poses (the clash screen with K1's plain twin),
+then the block-local (A, A) rmsd and maxdev matrices and the greedy
+scan, and its poses are compacted by the keep mask. The dedup is
+block-local, so chunking changes nothing. The survivors stay on the
+device; only the keep mask and the survivor rows reach the host.
 
 Three molecules sit on the sides of a triangle, and each block's facing
 directions are first corrected by a grid search over 343 angle triples
@@ -64,7 +65,7 @@ from tscode_tpu_torch.parallel.sharding import gather, mesh_wants, \
 _DIRECTIONS = np.array([[0., 1., 0.], [0., -1., 0.]])
 
 # a chunk's (rows, A, A, N, 3) maxdev intermediate (the plain twin) or
-# its (rows, A, N, 3) poses (B1 on the card) stay under this
+# its inputs, keep mask and scratch (B1 on the card) stay under this
 GATE_BYTES = 1 << 30
 # the angular dedup's gates: rmsd and maxdev of a pose pair, in A
 DEDUP_RMSD = 1.0
@@ -79,12 +80,17 @@ def _auto_chunk(n_rows, n_angles, n_atoms, itemsize):
     return int(max(1, min(n_rows, GATE_BYTES // per_row)))
 
 
-def _card_chunk(n_rows, n_angles, n_atoms, itemsize):
-    '''Block rows per chunk of B1 on the card, which has no gate
-    intermediate: as many as keep the (rows, A, N, 3) poses it writes
-    within GATE_BYTES, at least one, at most all.'''
-    per_row = n_angles * n_atoms * 3 * itemsize
-    return int(max(1, min(n_rows, GATE_BYTES // per_row)))
+def _card_chunk(n_rows, n_angles, n_mols, itemsize):
+    '''Block rows per chunk of B1 on the card, which writes no pose but
+    the survivors: as many as keep what a chunk holds for its rows
+    within GATE_BYTES beside the screen's largest scratch
+    (b1.SCRATCH_BYTES): per row the keep bytes, its count and offset,
+    the conformer ids (int32 and int64) and block_geometry's inputs,
+    outputs and packed copy (3 x 24 values a molecule); at least one
+    row, at most all.'''
+    per_row = n_angles + 4 + 8 + 12 * n_mols + 72 * n_mols * itemsize
+    return int(max(1, min(n_rows, (GATE_BYTES - b1.SCRATCH_BYTES)
+                          // per_row)))
 
 
 def _cyclical_ids_bimol(pivots, orientation, offsets):
@@ -409,7 +415,8 @@ def block_screen_plain(coords, confs, geo, angle_grid, pairs,
                        clash_thresh, lap=None):
     '''B1's plain twin, on any device: block_poses with K1's plain twin,
     then angular_dedup. lap, when given, is called between the screen
-    and the dedup. Arguments and result as block_screen's.'''
+    and the dedup. Returns every pose (rows, A, N, 3) and keep (rows,
+    A); block_screen compacts them.'''
     poses, ok = block_poses(coords, confs, *block_geometry(*geo), angle_grid,
                             pairs, clash_thresh, clash=clash_ok_plain)
     if lap is not None:
@@ -417,27 +424,42 @@ def block_screen_plain(coords, confs, geo, angle_grid, pairs,
     return poses, angular_dedup(poses, ok)
 
 
+def block_screen_queued(coords, confs, geo, angle_grid, pairs, clash_thresh,
+                        half_angles=None, lap=None):
+    '''block_screen in two steps: returns (keep (rows, A), finish), where
+    finish() gives the survivors. On a CUDA tensor B1's screen is queued
+    and finish reads its total and launches the write, so the screens of
+    several shards can be queued before any read; on a CPU tensor the
+    twin has run and finish compacts its poses.'''
+    if angle_grid.is_cuda:
+        if half_angles is None:
+            half_angles = b1.half_angles(angle_grid)
+        s = b1.screen(coords, confs, block_geometry(*geo), half_angles,
+                      pairs, clash_thresh, (DEDUP_RMSD, DEDUP_MAXDEV))
+        return s.keep, lambda: b1.survivors(s)
+    if angle_grid.device.type != 'cpu':
+        raise ValueError(f'block_screen: unsupported device '
+                         f'{angle_grid.device}')
+    poses, keep = block_screen_plain(coords, confs, geo, angle_grid, pairs,
+                                     clash_thresh, lap=lap)
+    return keep, lambda: poses[keep]
+
+
 def block_screen(coords, confs, geo, angle_grid, pairs, clash_thresh,
                  half_angles=None, lap=None):
     '''One chunk of the sweep: geometry, poses, clash screen and angular
     dedup of the block rows whose conformers `confs` and geometry `geo`
     (block_geometry's eight inputs) are given, as sweep_inputs' rows()
-    or compact_rows give them. Returns (poses (rows, A, N, 3), keep
-    (rows, A)). On a CUDA tensor block_geometry and one launch of B1
-    (ops/kernels/block_screen; half_angles, b1.half_angles of the grid,
-    may be given once a sweep); on a CPU tensor the plain twin
-    block_screen_plain, calling lap between its screen and its dedup.'''
-    if angle_grid.is_cuda:
-        if half_angles is None:
-            half_angles = b1.half_angles(angle_grid)
-        return b1.block_screen(coords, confs, block_geometry(*geo),
-                               half_angles, pairs, clash_thresh,
-                               (DEDUP_RMSD, DEDUP_MAXDEV))
-    if angle_grid.device.type != 'cpu':
-        raise ValueError(f'block_screen: unsupported device '
-                         f'{angle_grid.device}')
-    return block_screen_plain(coords, confs, geo, angle_grid, pairs,
-                              clash_thresh, lap=lap)
+    or compact_rows give them. Returns (survivors (S, N, 3), the kept
+    poses row by row and angle by angle, keep (rows, A)). On a CUDA
+    tensor block_geometry and B1's two launches (ops/kernels/
+    block_screen; half_angles, b1.half_angles of the grid, may be given
+    once a sweep): no pose but a survivor is written; on a CPU tensor
+    the plain twin block_screen_plain, calling lap between its screen
+    and its dedup, then its poses compacted by keep.'''
+    keep, finish = block_screen_queued(coords, confs, geo, angle_grid, pairs,
+                                       clash_thresh, half_angles, lap)
+    return finish(), keep
 
 
 _GEOMETRY = ('starts', 'ends', 'dirs', 'pvs', 'mds', 'apms', 'mps',
@@ -489,22 +511,22 @@ def sweep_inputs(blk, mols, angles, device, dtype, uploaded=None):
 
 
 def screen_chunk(inputs, lo, hi, clash_thresh, clock, half_angles=None):
-    """One chunk of a sweep, block rows [lo, hi) of sweep_inputs'
-    `inputs`, through block_screen: (survivor candidates (rows * A, N,
-    3), keep (rows * A,), seconds of the screen, seconds of the dedup).
-    On CUDA one launch of B1 (half_angles: of the grid, once a sweep),
-    whose seconds are all the screen's (the dedup reads 0.0); on the CPU
-    the plain twin, screen and dedup apart."""
+    '''One chunk of a sweep, block rows [lo, hi) of sweep_inputs'
+    `inputs`, through block_screen_queued: (finish, keep (rows * A,),
+    seconds of the screen, seconds of the dedup), finish() the chunk's
+    survivors (S, N, 3). On CUDA B1's screen queued (half_angles: of the
+    grid, once a sweep), whose seconds are all the screen's (the dedup
+    reads 0.0); on the CPU the plain twin, screen and dedup apart.'''
     coords, grid, pairs, rows = inputs
     t0 = clock()
     laps = []
     confs, *geo = rows(lo, hi)
-    poses, keep = block_screen(coords, confs, geo, grid, pairs, clash_thresh,
-                               half_angles, lap=lambda: laps.append(clock()))
+    keep, finish = block_screen_queued(coords, confs, geo, grid, pairs,
+                                       clash_thresh, half_angles,
+                                       lap=lambda: laps.append(clock()))
     t2 = clock()
     t1 = laps[0] if laps else t2
-    return (poses.reshape(-1, poses.shape[2], 3), keep.reshape(-1),
-            t1 - t0, t2 - t1)
+    return finish, keep.reshape(-1), t1 - t0, t2 - t1
 
 
 def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
@@ -515,16 +537,16 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
     keep (Bb, A) numpy bool). Chunks on CUDA follow _card_chunk, on the
     CPU _auto_chunk, unless block_chunk is given. split, when given, gets
     the seconds of the screen (geometry, poses, clash and compaction; on
-    CUDA the whole of B1) and of the dedup (0.0 on CUDA), the chunking
-    and the form that ran (sweep_kernel: 'B1' or 'plain').
-    uploaded: sweep_inputs' cache of coordinate tensors. mesh: a
-    parallel.sharding Mesh; with Bb * A candidates that clear
-    mesh_wants, the block rows are cut into
-    contiguous slices, one per device, each swept in chunks of
-    chunk / mesh.size rows on its own inputs into its own survivor
-    accumulator (the dedup is block-local: no collective), and the
-    survivors are joined in block order on the mesh's first device (the
-    JAX package's _block_program_sharded).'''
+    CUDA the whole of B1, its host read of the survivor count and its
+    write) and of the dedup (0.0 on CUDA), the chunking and the form
+    that ran (sweep_kernel: 'B1' or 'plain'). uploaded: sweep_inputs'
+    cache of coordinate tensors. mesh: a parallel.sharding Mesh; with Bb
+    * A candidates that clear mesh_wants, the block rows are cut into
+    contiguous slices, one per device, each swept in chunks of chunk /
+    mesh.size rows on its own inputs into its own survivor accumulator
+    (the dedup is block-local: no collective), and the survivors are
+    joined in block order on the mesh's first device (the JAX package's
+    _block_program_sharded).'''
     Bb, A = len(blk['ids']), len(angles)
     if mesh is not None and mesh_wants(Bb * A):
         inputs = {dev: sweep_inputs(blk, mols, angles, dev, dtype)
@@ -535,10 +557,11 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
                                        uploaded)}
         slices = [(device, 0, Bb)]
     coords = inputs[slices[0][0]][0]
-    N = sum(c.shape[1] for c in coords)
     on_card = coords[0].is_cuda
-    chunk = block_chunk or (_card_chunk if on_card else _auto_chunk)(
-        Bb, A, N, coords[0].element_size())
+    chunk = block_chunk or (
+        _card_chunk(Bb, A, len(coords), coords[0].element_size()) if on_card
+        else _auto_chunk(Bb, A, sum(c.shape[1] for c in coords),
+                         coords[0].element_size()))
     half = {dev: b1.half_angles(inp[1]) for dev, inp in inputs.items()
             if on_card}
     chunk = -(-chunk // len(slices))
@@ -546,7 +569,7 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
     t_screen = t_dedup = 0.0
     n_chunks = 0
     for r0 in range(0, max(hi - lo for _, lo, hi in slices), chunk):
-        # every slice's chunk queued before their compaction reads a count
+        # every slice's screen queued before their writes read a count
         out = []
         for dev, lo, hi in slices:
             a, b = lo + r0, min(hi, lo + r0 + chunk)
@@ -555,7 +578,7 @@ def screen_survivors(blk, mols, angles, clash_thresh, *, device, dtype,
         t0 = clock()
         for acc, o in zip(accs, out):
             if o is not None:
-                acc.add((o[0],), o[1])
+                acc.append((o[0](),), o[1])
                 t_screen += o[2]
                 t_dedup += o[3]
                 n_chunks += 1
