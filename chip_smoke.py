@@ -76,7 +76,12 @@ atropisomer route (SADDLE + scan> of a ring torsion of a nine-carbon
 chlorocycloalkane: coarse sweeps, accurate re-scans, the dimer on each
 sub-peak, the RMSD prune of the maxima with K3, frequencies of each
 refined maximum; the dimer step, the band step and a Hessian timed),
-then neb>, saddle> and a distance scan on the same ring. Phase 20 runs
+then neb>, saddle> and a distance scan on the same ring; every dimer on
+the force field runs as one launch of D1 (csrc/dimer.cu, every step
+inside; DimerCalls), which phase 18 holds against its plain twin and
+the captured graph path on the scan's sub-peak guess (timed beside
+both, and bounded), on a 2,500-atom chain, for repeated bits and in
+float32. Phase 20 runs
 the optimisation route: sn2_string at 76 conformers without NOOPT (the
 calculators chosen by keyword), its 290 candidates through the
 force-field and the calculator's stages, every xtb call answered by the
@@ -97,9 +102,10 @@ chelotropic input, REFINE on da_cyclical_xl's output), each against its
 untraced run (the same counts and frames): every launch of K1, K2 and K3
 is found in the trace, under its kernel's name and inside its launch
 span, and each stage is a span; then a bend's FIRE call, one ff_fire
-launch found the same way, and a dimer graph captured and replayed under
-the same trace, its capture and replay loop spans of their own, and a
-TFD prune's T1 launches, each found the same way. Every
+launch found the same way, one saddle> dimer's D1 launch found the
+same way, and a dimer graph captured and replayed under the same trace,
+its capture and replay loop spans of their own, and a TFD prune's T1
+launches, each found the same way. Every
 FIRE call of the force field's energies on the card launches ff_fire
 once (FireCalls), in every phase that runs one.
 
@@ -391,10 +397,20 @@ TRACE_KERNELS = {
     'block_write_f64': ('block_write_kernel', 'double'),
     'block_screen_row_f32': ('block_screen_kernel', 'float'),
     'block_screen_row_f64': ('block_screen_kernel', 'double'),
+    # D1, the dimer (its forms: dimer_kernel<T, STAGED>)
+    'dimer_f32': ('dimer_kernel', 'float'),
+    'dimer_f64': ('dimer_kernel', 'double'),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
 TRACE_DIMER_STEPS = 20
+# D1, the dimer kernel: its checks on a chain past shared memory (phase
+# 18), and the operations of its vector algebra an atom for each of the
+# 19 force evaluations of a step whose forces feed it (displaced copies,
+# the Hessian action, projection, norm, shift, step), for its bound
+DIMER_LARGE_N = 2500
+DIMER_LARGE_STEPS = 10
+DIMER_ATOM_FLOPS = 40
 # the force field's FIRE kernel: operations of one evaluation of each
 # term (the function's work counts each term once a step, whatever the
 # kernel recomputes) and of the FIRE update of one atom, for its bound
@@ -455,11 +471,11 @@ def phase_env():
 def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
-    from tscode_tpu_torch.ops.kernels import (block_screen, clash, ff_fire,
-                                              qcp, tfd)
+    from tscode_tpu_torch.ops.kernels import (block_screen, clash, dimer,
+                                              ff_fire, qcp, tfd)
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
             ff_fire.BLOCK_KERNEL, tfd.KERNEL, tfd.WARP_KERNEL,
-            block_screen.KERNEL, block_screen.ROW_KERNEL)
+            block_screen.KERNEL, block_screen.ROW_KERNEL, dimer.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1574,6 +1590,68 @@ def check_fire(tag, rec, launched=True):
           f'{rec["calls"]["registered"]} FIRE calls of the force field\'s '
           f'energies, {rec["graph_runs"]["registered"]} graph runs of them '
           f'(expected one launch a call, no graph)')
+    return n
+
+
+class DimerCalls:
+    '''While open: the saddle.dimer_saddle calls on a CUDA tensor, by
+    whether the energy registers force-field terms (`fire_terms`), and
+    the CPU calls; the captured graph runs of the dimer step
+    (saddle.graph_loop) by the same split; D1's launches (its counts set
+    to 0 on entry). record() gives them.'''
+
+    def __enter__(self):
+        from tscode_tpu_torch import saddle
+        from tscode_tpu_torch.ops.kernels import dimer
+        self.calls = {'registered': 0, 'other': 0, 'cpu': 0}
+        self.graph = {'registered': 0, 'other': 0}
+        self.kind = None
+        self.real = (saddle.dimer_saddle, saddle.graph_loop)
+        real_dimer, real_graph = self.real
+
+        def dimer_spy(coords, energy_fn, *args, **kw):
+            self.kind = 'registered' if hasattr(energy_fn, 'fire_terms') \
+                else 'other'
+            self.calls['cpu' if not coords.is_cuda else self.kind] += 1
+            return real_dimer(coords, energy_fn, *args, **kw)
+
+        def graph_spy(*args):
+            self.graph[self.kind] += 1
+            return real_graph(*args)
+
+        saddle.dimer_saddle, saddle.graph_loop = dimer_spy, graph_spy
+        dimer.KERNEL.reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from tscode_tpu_torch import saddle
+        from tscode_tpu_torch.ops.kernels import dimer
+        self.launches = dimer.KERNEL.launches
+        saddle.dimer_saddle, saddle.graph_loop = self.real
+
+    def record(self):
+        return {'dimer_launches': self.launches, 'calls': dict(self.calls),
+                'graph_runs': dict(self.graph)}
+
+
+# D1's launches on the main path, by phase
+DIMER_LAUNCHES = {}
+
+
+def count_dimer(phase, tag, rec):
+    '''Every dimer_saddle call of a registered energy on the card
+    launched D1 once and replayed no graph, at least one did; the
+    launches added to DIMER_LAUNCHES[phase] and printed. Returns them.'''
+    n = rec['dimer_launches']
+    check(n == rec['calls']['registered'] > 0 and
+          rec['graph_runs']['registered'] == 0, f'{tag}: D1 launched {n} '
+          f'times for {rec["calls"]["registered"]} dimer calls of the force '
+          f'field on the card, {rec["graph_runs"]["registered"]} graph runs '
+          f'of them (expected one launch a call, no graph)')
+    DIMER_LAUNCHES[phase] = DIMER_LAUNCHES.get(phase, 0) + n
+    print(f'[{phase} dimer] {tag}: {n} launches of D1 for '
+          f'{rec["calls"]["registered"]} dimer calls on the card; graph '
+          f'runs {rec["graph_runs"]}')
     return n
 
 
@@ -4501,13 +4579,183 @@ def scan_ties(rec, tie=SCAN_TIE):
     return near
 
 
+def once_ms(fn):
+    '''(fn(), its milliseconds: CUDA events around one call, host enqueue
+    included): for calls too slow to repeat (the plain twins, D1 on a
+    chain past shared memory).'''
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def dimer_bound(x, params, steps):
+    '''(ms, 'operations' or 'bytes'): the least time of D1's function on
+    x (B, N, 3) under the force field `params`, the larger of its
+    operations over the card's peak for the type (each step 37 force
+    evaluations, each term once an evaluation (FF_TERM_FLOPS), and
+    DIMER_ATOM_FLOPS an atom for each of the 19 evaluations whose forces
+    feed the vector algebra; times the steps this run's structures took)
+    and its bytes over the memory rate (coordinates read and written
+    once, the initial mode read once, the flags and steps written, the
+    tables read once).'''
+    nb, na, npairs, nd = (int(params[k].shape[0]) for k in (0, 2, 4, 6))
+    per_eval = FF_TERM_FLOPS['pair'] * (nb + npairs) + \
+        FF_TERM_FLOPS['angle'] * na + FF_TERM_FLOPS['dihedral'] * nd
+    per_step = 37 * per_eval + 19 * DIMER_ATOM_FLOPS * x.shape[1]
+    ops_ms = per_step * int(steps.sum()) / \
+        PEAK_FLOPS[str(x.dtype).split('.')[-1]] * 1e3
+    nbytes = (2 * x.numel() + x[0].numel()) * x.element_size() + \
+        5 * x.shape[0] + sum(t.numel() * t.element_size() for t in params)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms \
+        else (bytes_ms, 'bytes')
+
+
+def dimer_large_record(card):
+    '''D1 on a DIMER_LARGE_N-atom chain (suite_inputs.chain_ff), float64,
+    DIMER_LARGE_STEPS steps: the device form (its state past a block's
+    shared memory) within FF_ATOL of its plain twin with the same flags
+    and steps, two launches the same bits; both timed on their one run.
+    Prints one line; returns the record.'''
+    import torch
+    from tscode_tpu_torch.ff import ff_energy, params_to_device
+    from tscode_tpu_torch.ff_records import FF_ATOL
+    from tscode_tpu_torch.ops.kernels import dimer
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    X, ffp = chain_ff(DIMER_LARGE_N, 1, seed=13)
+    params = params_to_device(ffp, DEV, torch.float64)
+    terms = ff_energy.fire_terms(params)
+    x = torch.as_tensor(X, device=DEV)
+    plan = dimer.plan_for(x, terms)
+    (c, done, steps), ms = once_ms(
+        lambda: dimer.dimer(x, terms, DIMER_LARGE_STEPS))
+    c2, _, _ = dimer.dimer(x, terms, DIMER_LARGE_STEPS)
+    (pc, pdone, psteps), plain_ms = once_ms(
+        lambda: dimer.dimer_plain(x, terms, DIMER_LARGE_STEPS))
+    err = float((c - pc).abs().max())
+    moved = float((c - x).abs().max())
+    check(plan.form == 'device' and torch.equal(c, c2) and err <= FF_ATOL
+          and torch.equal(done, pdone) and torch.equal(steps, psteps) and
+          moved > 1e-4, f'D1 at {DIMER_LARGE_N} atoms: form {plan.form}, '
+          f'{err:.2e} A from its plain twin, moved {moved:.2e} A, bits '
+          f'repeated {torch.equal(c, c2)}')
+    bound, by = dimer_bound(x, params, steps)
+    rec = {'atoms': int(x.shape[1]), 'repulsion_pairs': int(params[4].shape[0]),
+           'n_steps': DIMER_LARGE_STEPS, 'form': plan.form,
+           'threads': plan.threads, 'plain_diff_A': err, 'ms': ms,
+           'us_per_step': ms * 1e3 / int(steps.max()), 'plain_ms': plain_ms,
+           'bound_ms': bound, 'bound_by': by,
+           **dimer.kernel_info(plan, x.dtype, x.device)}
+    print(f'[18 dimer] {rec["atoms"]} atoms ({rec["repulsion_pairs"]} '
+          f'repulsion pairs), float64, {DIMER_LARGE_STEPS} steps: form '
+          f'{plan.form} {ms:.1f} ms ({rec["us_per_step"]:.0f} us a step, '
+          f'{rec["registers"]} registers a thread), plain twin '
+          f'{plain_ms:.1f} ms, bound {bound:.6f} ms ({by}); {err:.2e} A '
+          f'from the plain twin, the same flags and steps, two launches '
+          f'the same bits [{card}]')
+    return rec
+
+
+def dimer_kernel_record(card, guess, atomnos, graph_step_ms):
+    '''D1 on the SADDLE scan's sub-peak guess (the ring's force field
+    from the guess, float64, 300 steps, ops/kernels/dimer.dimer) against
+    its plain twin and against the graph path (saddle._dimer_step under
+    capture.graph_loop, a replay a step, so its flag gives its steps
+    taken): coordinates within FF_ATOL A of both, the same flag and the
+    same steps taken; two launches and every form the same bits. Timed:
+    the whole call (device_ms), us a step, the twin (its one run), the
+    graph path as graph_step_ms (the replayed step, timed in this run on
+    the same structure) x the steps; bounded (dimer_bound). Float32
+    beside float64, no gate. Then dimer_large_record. Prints; returns the
+    record.'''
+    import torch
+    from tscode_tpu_torch import capture, saddle
+    from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
+        params_to_device
+    from tscode_tpu_torch.ff_records import FF_ATOL
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.ops.kernels import dimer
+    graph = graphize(guess, atomnos)
+    params = params_to_device(build_ff_params(guess, atomnos, graph), DEV,
+                              torch.float64)
+    terms = ff_energy.fire_terms(params)
+    x = torch.as_tensor(guess, dtype=torch.float64, device=DEV)[None]
+    n = 300
+    plan = dimer.plan_for(x, terms)
+    c, done, steps = dimer.dimer(x, terms, n)
+    forms = {f: dimer.launch(x, terms, n, form=f) for f in dimer.FORMS}
+    same = all(torch.equal(a, b) for got in forms.values()
+               for a, b in zip(got, (c, done, steps)))
+    (pc, pdone, psteps), plain_ms = once_ms(
+        lambda: dimer.dimer_plain(x, terms, n))
+    body = saddle._dimer_step(ff_energy, 12, 1e-3, 0.02, 0.05)
+    state = (x[0], saddle.dimer_start(x[0]),
+             torch.zeros((), dtype=torch.bool, device=DEV))
+    gsteps = n
+    for k in range(n):
+        state = capture.graph_loop(body, state, (params,), 1)
+        if gsteps == n and bool(state[2]):
+            gsteps = k + 1
+    plain_err = float((c - pc).abs().max())
+    graph_err = float((c[0] - state[0]).abs().max())
+    check(same and plain_err <= FF_ATOL and graph_err <= FF_ATOL and
+          torch.equal(done, pdone) and torch.equal(steps, psteps) and
+          bool(done[0]) == bool(state[2]) and int(steps[0]) == gsteps,
+          f'D1 on the scan\'s guess: {plain_err:.2e} A from its plain twin, '
+          f'{graph_err:.2e} A from the graph path, done {done.tolist()} / '
+          f'{pdone.tolist()} / {bool(state[2])}, steps {steps.tolist()} / '
+          f'{psteps.tolist()} / {gsteps}, forms and repeats the same bits '
+          f'{same}')
+    ms = device_ms(lambda: dimer.dimer(x, terms, n), reps=3)
+    params32 = tuple(t.float() if t.is_floating_point() else t
+                     for t in params)
+    c32, done32, steps32 = dimer.dimer(x.float(), ff_energy.fire_terms(
+        params32), n)
+    bound, by = dimer_bound(x, params, steps)
+    rec = {'atoms': int(x.shape[1]), 'n_steps': n, 'form': plan.form,
+           'threads': plan.threads, 'smem': plan.smem,
+           'steps': int(steps[0]), 'done': bool(done[0]), 'ms': ms,
+           'us_per_step': ms * 1e3 / int(steps[0]), 'plain_ms': plain_ms,
+           'graph_step_ms': graph_step_ms,
+           'graph_ms': graph_step_ms * int(steps[0]),
+           'plain_diff_A': plain_err, 'graph_diff_A': graph_err,
+           'bound_ms': bound, 'bound_by': by,
+           'float32_diff_A': float((c32.double() - c).abs().max()),
+           'float32_done': bool(done32[0]),
+           'float32_steps': int(steps32[0]),
+           **dimer.kernel_info(plan, x.dtype, x.device)}
+    rec['bound_share'] = bound / ms
+    print(f'[18 dimer] the scan\'s guess ({rec["atoms"]} atoms), float64, '
+          f'{n} steps, {rec["steps"]} taken (done {rec["done"]}): D1 form '
+          f'{plan.form} ({plan.threads} threads, {plan.smem} shared bytes, '
+          f'{rec["registers"]} registers a thread) {ms:.4f} ms, '
+          f'{rec["us_per_step"]:.2f} us a step; plain twin {plain_ms:.1f} ms;'
+          f' graph path {graph_step_ms:.3f} ms a step x {rec["steps"]} = '
+          f'{rec["graph_ms"]:.1f} ms; bound {bound:.6f} ms ({by}, '
+          f'{100 * rec["bound_share"]:.3f}% of it); {plain_err:.2e} A from '
+          f'the twin, {graph_err:.2e} A from the graph path, the same flags '
+          f'and steps, every form and a second launch the same bits; '
+          f'float32 {rec["float32_diff_A"]:.2e} A from float64 (done '
+          f'{rec["float32_done"]}, {rec["float32_steps"]} steps; no gate) '
+          f'[{card}]')
+    rec['large_n'] = dimer_large_record(card)
+    return rec
+
+
 def ff_step_times(card, guess, chain, atomnos):
     '''The dimer step on `guess` and the climbing band step on `chain`
     (force field of the ring from guess, float64 on the card), each
     replayed from its CUDA graph and queued op by op (CUDA events around
     the steps after a warm-up; kernels a step from the profiler), and one
-    Hessian with its eigensolve (vibrations.frequencies). Returns the
-    record, ms.'''
+    Hessian with its eigensolve (vibrations.frequencies); then D1 on the
+    guess beside the replayed step (dimer_kernel_record, under 'd1').
+    Returns the record, ms.'''
     import torch
     from tscode_tpu_torch import capture, neb, saddle, vibrations
     from tscode_tpu_torch.ff import build_ff_params, ff_energy, params_to_device
@@ -4548,6 +4796,8 @@ def ff_step_times(card, guess, chain, atomnos):
         eager(band, b_state, b_args)
     rec['hessian_eigensolve_ms'] = cuda_ms(lambda: vibrations.frequencies(
         guess, atomnos, lambda y: ff_energy(y, params), device=DEV), reps=3)
+    rec['d1'] = dimer_kernel_record(card, guess, atomnos,
+                                    rec['dimer_step_graph_ms'])
     print(f'[18 dihedral_scan] step times, float64, {len(atomnos)} atoms: '
           f'dimer step replayed {rec["dimer_step_graph_ms"]:.3f} ms, op by '
           f'op {rec["dimer_step_eager_ms"]:.3f} ms '
@@ -4565,8 +4815,10 @@ def phase_dihedral_scan(card):
     card: `SADDLE` + scan> of the ring torsion C3-C4-C5-C6 of the
     DSCAN_RING-carbon chlorocycloalkane through the Embedder (both coarse
     sweeps, the accurate re-scans of their peaks, the dimer on every
-    sub-peak, the RMSD prune of the maxima with K3; then, apart from the
-    route, the frequencies of each refined maximum). Held to the JAX x64
+    sub-peak, one D1 launch each (DimerCalls), the RMSD prune of the
+    maxima with K3; then, apart from the route, the frequencies of each
+    refined maximum, the step times and D1's record (ff_step_times)).
+    Held to the JAX x64
     record (every sweep's points,
     peaks and sub-peaks, dimer flags, imaginary-mode counts and surviving
     maxima equal; frames within ff_records.FF_ATOL A, energies within
@@ -4593,7 +4845,7 @@ def phase_dihedral_scan(card):
         rmsd_prune.prune_conformers_rmsd = kept_pool
         qcp.KERNEL.reset_counts()
         try:
-            with FireCalls() as fire:
+            with FireCalls() as fire, DimerCalls() as dim:
                 got = record(port_package(DEV), 'dihedral_scan', DSCAN_RING,
                              os.path.join(tmp, 'card'))
             launches = qcp.KERNEL.launches
@@ -4604,6 +4856,7 @@ def phase_dihedral_scan(card):
     err = held_records('dihedral_scan float64 against JAX x64', got, want)
     cpu_err = held_records('dihedral_scan card against CPU', got, cpu)
     count_fire('18', 'dihedral_scan', fire.record())
+    count_dimer('18', 'dihedral_scan', dim.record())
     check(launches > 0 and len(pools) == 2 and len(pools[0]) > 1,
           f'dihedral_scan: K3 launched {launches} times on pools of '
           f'{[len(p) for p in pools]} maxima')
@@ -4646,7 +4899,8 @@ def phase_ff_operators(card):
     '''Phase 19: neb> (the scan's first point and the point 120
     degrees on, 7 images, climbing), saddle> (the scan's highest coarse
     point) and scan> of the C0-Cl distance on the same ring, one input,
-    float64 on the card, their inputs from the JAX x64 dihedral-scan
+    float64 on the card (saddle>'s dimer one D1 launch, DimerCalls),
+    their inputs from the JAX x64 dihedral-scan
     record: held to the JAX x64 record (the TS image, the dimer's flag,
     its imaginary modes, the distance scan's points and peak equal;
     frames within ff_records.FF_ATOL A, energies within as many kcal/mol)
@@ -4659,7 +4913,7 @@ def phase_ff_operators(card):
     with tempfile.TemporaryDirectory(prefix='smoke_ffops_') as tmp:
         for d in ('card', 'cpu'):
             os.mkdir(os.path.join(tmp, d))
-        with FireCalls() as fire:
+        with FireCalls() as fire, DimerCalls() as dim:
             got = record(port_package(DEV), 'ff_operators', DSCAN_RING,
                          os.path.join(tmp, 'card'), scan)
         cpu = record(port_package('cpu'), 'ff_operators', DSCAN_RING,
@@ -4667,6 +4921,7 @@ def phase_ff_operators(card):
     err = held_records('ff_operators float64 against JAX x64', got, want)
     cpu_err = held_records('ff_operators card against CPU', got, cpu)
     count_fire('19', 'ff_operators', fire.record())
+    count_dimer('19', 'ff_operators', dim.record())
     times = got['times']
     rec = {'neb_s': times['run_neb'][0],
            'saddle_s': times['saddle_refine_structure'][0],
@@ -5238,8 +5493,8 @@ def trace_kernels(tag, events, spans, api, report):
     records' clock, converted from the card's, ran up to 1.05 ms ahead
     of the host's spans in some runs while its launch call lay inside
     its span; `kernel_minus_launch_us` records that offset.) Each clash,
-    ff_fire and block_screen launch span lies inside the span of the
-    wrapper that asked for it, as many wrapper spans as that wrapper's
+    ff_fire, dimer and block_screen launch span lies inside the span of
+    the wrapper that asked for it, as many wrapper spans as that wrapper's
     launches (B1's screen under `block_screen`, its write under
     `block_survivors`).
     Returns ({entry: record}, {id of a kernel event: its launch
@@ -5284,6 +5539,7 @@ def trace_kernels(tag, events, spans, api, report):
                     if lead else None}
     wrappers = dict(report['clash_entry_launches'], ff_fire=sum(
         report['kernel_entries'].get('ff_fire', {}).values()),
+        dimer=sum(report['kernel_entries'].get('dimer', {}).values()),
         block_screen=report.get('b1_launches', 0),
         block_survivors=report.get('b1_write_launches', 0))
     for wrapper, n in wrappers.items():
@@ -5291,7 +5547,8 @@ def trace_kernels(tag, events, spans, api, report):
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
               f'{len(ws)} {wrapper} spans')
     for s in spans:
-        if s['name'].startswith(('clash.', 'ff_fire.', 'block_screen.')):
+        if s['name'].startswith(('clash.', 'ff_fire.', 'dimer.',
+                                 'block_screen.')):
             check(any(w['name'] in wrappers and
                       w['tid'] == s['tid'] and w['ts'] <= s['ts'] and
                       s['ts'] + s['dur'] <= w['ts'] + w['dur']
@@ -5436,8 +5693,10 @@ def traced_fire(card, tmp):
     bit; in the trace one event of the chosen form's kernel
     (ff_fire_group_kernel<double, ...> for the lone form) inside its
     launch span ff_fire.ff_fire_f64 inside the wrapper's span ff_fire
-    (trace_check). Then the captured graph on a body that still runs
-    through capture.graph_loop, the dimer step (saddle._dimer_step) from
+    (trace_check). Then saddle>'s dimer on the first conformer, one D1
+    launch (traced_d1). Then the captured graph on a body that runs
+    through capture.graph_loop for other energies, the dimer step
+    (saddle._dimer_step) from
     the first conformer for TRACE_DIMER_STEPS steps: run with the graph
     cache emptied untraced, then again emptied and traced (the graph
     captured under the profiler), then traced no more (replayed from that
@@ -5498,6 +5757,8 @@ def traced_fire(card, tmp):
           f'untraced ones bit for bit ({secs[1]:.4f} / {secs[0]:.4f} s) '
           f'[{card}]')
 
+    rec['d1'] = traced_d1(card, tmp, x[0], params)
+
     dimer_dir = os.path.join(tmp, 'dimer')
     body = saddle._dimer_step(ff_energy, 12, 1e-3, 0.02, 0.05)
     maker = '_dimer_step'
@@ -5550,6 +5811,65 @@ def traced_fire(card, tmp):
           f'without a new capture ({secs[2]:.4f} s); {TRACE_DIMER_STEPS} '
           f'cudaGraphLaunch inside GraphLoop.run:{maker}, '
           f'{rec_d["kernels_per_replay"]} kernels each [{card}]')
+    return rec
+
+
+def traced_d1(card, tmp, x, params):
+    '''saddle>'s dimer under the CLI's trace (backend.DeviceTrace):
+    saddle.dimer_saddle on x (N, 3) under ff_energy's tables `params`,
+    float64, untraced then traced: one D1 launch each, no graph
+    captured, the same coordinates, energy and flag bit for bit; in the
+    trace one dimer_kernel<double, ...> event inside its launch span
+    dimer.dimer_f64 inside the wrapper's span dimer inside dimer_saddle
+    (trace_check). Returns the record.'''
+    import contextlib
+    import torch
+    from tscode_tpu_torch import saddle
+    from tscode_tpu_torch.backend import DeviceTrace
+    from tscode_tpu_torch.ff import ff_energy
+    from tscode_tpu_torch.ops.kernels import dimer
+    d1_dir = os.path.join(tmp, 'd1')
+    runs, secs = [], []
+    for traced in (False, True):
+        dimer.KERNEL.reset_counts()
+        with CaptureCount() as cap, DeviceTrace(d1_dir, DEV) if traced \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            runs.append(saddle.dimer_saddle(x, ff_energy,
+                                            energy_args=(params,)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        check(cap.n == 0 and dimer.KERNEL.entry_launches ==
+              {'dimer_f32': 0, 'dimer_f64': 1}, f'[22 trace] D1: {cap.n} '
+              f'graphs captured, kernel launches '
+              f'{dimer.KERNEL.entry_launches} (traced: {traced})')
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          '[22 trace] D1: the traced run differs from the untraced one')
+    report = dict(NO_LAUNCHES, kernel_entries=dict(
+        NO_LAUNCHES['kernel_entries'],
+        dimer=dict(dimer.KERNEL.entry_launches)))
+    path = trace_file(d1_dir)
+    rec, names = trace_check(card, 'd1', path, report, secs[1], secs[0])
+    kernel = rec['kernels'].get('dimer.dimer_f64', {})
+    check(names.get('dimer_saddle') == 1 and names.get('dimer') == 1 and
+          not any(n.startswith('GraphLoop') for n in names) and
+          kernel.get('events') == 1, f'[22 trace] D1: spans {names}, '
+          f'kernels {rec["kernels"]}')
+    spans = {e['name']: e for e in trace_events(path)
+             if e.get('cat') == 'user_annotation' and e.get('ph') == 'X'}
+    check(all(spans[a]['ts'] <= spans[b]['ts'] and
+              spans[b]['ts'] + spans[b]['dur'] <=
+              spans[a]['ts'] + spans[a]['dur']
+              for a, b in (('dimer_saddle', 'dimer'),
+                           ('dimer', 'dimer.dimer_f64'))),
+          '[22 trace] D1: dimer.dimer_f64 not inside dimer inside '
+          'dimer_saddle')
+    rec.update(atoms=int(x.shape[0]), converged=bool(runs[0][2]))
+    print(f'[22 trace d1] {x.shape[0]} atoms, float64: one D1 launch, its '
+          f'{kernel["kernel"]} event inside dimer.dimer_f64 inside dimer '
+          f'inside dimer_saddle; no graph captured; the traced coordinates '
+          f'equal the untraced ones bit for bit ({secs[1]:.4f} / '
+          f'{secs[0]:.4f} s) [{card}]')
     return rec
 
 
@@ -5705,15 +6025,15 @@ def phase_trace(card):
     (traced_thread), the search's back-off (traced_backoff) and a bend's
     FIRE call and a captured dimer graph under the trace (traced_fire).
     Then the TFD prune's T1 launches under the trace (traced_tfd).
-    Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1
-    and B1 of the runs).'''
+    Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
+    B1 and D1 of the runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0, 0, 0, 0, 0, 0, 0]
+    recs, launches = {}, [0] * 8
 
     def add(n):
-        for i in range(7):
-            launches[i] += n[i]
+        for i, k in enumerate(n):
+            launches[i] += k
     with tempfile.TemporaryDirectory(prefix='smoke_trace_') as tmp:
         def route(tag, name, n_confs):
             d = os.path.join(tmp, tag)
@@ -5772,11 +6092,13 @@ def phase_trace(card):
         os.makedirs(d3)
         recs['fire'] = traced_fire(card, d3)
         launches[4] += 2
+        launches[7] += 2
         recs['tfd'] = traced_tfd(card, os.path.join(tmp, 'tfd'))
         launches[5] += recs['tfd']['launches']
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
           f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, ff_fire '
-          f'{launches[4]}, T1 {launches[5]}, B1 {launches[6]}; every launch '
+          f'{launches[4]}, T1 {launches[5]}, B1 {launches[6]}, D1 '
+          f'{launches[7]}; every launch '
           f'of a traced run found in its trace [{card}]')
     return recs, launches
 
@@ -5788,7 +6110,7 @@ def trace_process(card):
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
     its (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
-    B1).'''
+    B1, D1).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -6056,6 +6378,25 @@ def b1_kernel_line(routes, sharded):
             'mesh': {'launches': sharded}, 'routes': routes}
 
 
+def d1_kernel_line(d1):
+    '''D1's entry of the kernels line: phase 18's record on the SADDLE
+    scan's sub-peak guess (the whole call, its twin, the graph path's
+    replayed step x the steps taken, the bound), its launches on the main
+    path by phase, the 2,500-atom chain's record beside it.'''
+    return {'name': 'dimer', 'route': 'cuda',
+            'source': 'tscode_tpu_torch/csrc/dimer.cu',
+            'replaces': 'tscode_tpu/saddle.py:21',
+            'launches': sum(DIMER_LAUNCHES.values()),
+            'launches_by_phase': dict(DIMER_LAUNCHES),
+            'max_abs_err': max(d1['plain_diff_A'], d1['graph_diff_A'],
+                               d1['large_n']['plain_diff_A']),
+            'ms': d1['ms'], 'plain_ms': d1['plain_ms'],
+            'graph_ms': d1['graph_ms'], 'bound_ms': d1['bound_ms'],
+            'bound_by': d1['bound_by'], 'library_ms': None,
+            'us_per_step': d1['us_per_step'], 'steps': d1['steps'],
+            'form': d1['form'], 'large_n': d1['large_n'], 'record': d1}
+
+
 def timed_phase(name, phase, *args):
     '''phase(*args), its seconds printed; PHASE holds its number while
     it runs.'''
@@ -6090,6 +6431,7 @@ def main():
         _, _, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
                                  card)
         ops = timed_phase('19 ff_operators', phase_ff_operators, card)
+        print(f'[dimer] launches of D1 by phase {DIMER_LAUNCHES} [{card}]')
         print(json.dumps({'ff_routes': {'dihedral_scan': scan,
                                         'ff_operators': ops}}))
         return
@@ -6192,9 +6534,10 @@ def main():
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
-    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22, b1_22) = timed_phase(
-        '22 trace', trace_process, card)
+    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22, b1_22,
+            d1_22) = timed_phase('22 trace', trace_process, card)
     FIRE_LAUNCHES['22'] = ff_22
+    DIMER_LAUNCHES['22'] = d1_22
     TFD_LAUNCHES['22'] = t1_22
     B1_LAUNCHES['22'] = b1_22
     check(all(B1_LAUNCHES.get(p, 0) > 0 for p in
@@ -6212,6 +6555,10 @@ def main():
           f'field did not launch it')
     print(f'[ff_fire] launches of the force field\'s FIRE kernel by phase '
           f'{FIRE_LAUNCHES} [{card}]')
+    check(all(DIMER_LAUNCHES.get(p, 0) > 0 for p in ('18', '19', '22')),
+          f'D1 launches by phase {DIMER_LAUNCHES}: a phase that runs the '
+          f'dimer on the force field did not launch it')
+    print(f'[dimer] launches of D1 by phase {DIMER_LAUNCHES} [{card}]')
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
         k1_16 + k1_17 + sharded['clash_ok'] + k1_22
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
@@ -6289,6 +6636,7 @@ def main():
         'launches_by_phase': dict(TFD_LAUNCHES),
         'mesh': {'launches': sharded['tfd_first']},
         'csearch_string': t1})
+    kernels.append(d1_kernel_line(scan['d1']))
     kernels.append(b1_kernel_line(
         {'da_cyclical_xl': b1_8, 'multiembed': b1_10, 'chelotropic': b1_11,
          'trimolecular_rigid': b1_12,

@@ -1445,28 +1445,137 @@ def formic_conformers(n=5, seed=2):
 
 
 def test_dimer_on_card_matches_cpu(cuda_device):
-    '''The dimer's 300 steps replayed from one CUDA graph (18 Hessian
-    actions and a force a step) on a jittered HCOOH, against the CPU's op
-    by op run, float64: coordinates within 1e-6 A, energy within 1e-6
-    kcal/mol, the same flag; a second structure of the same shape reuses
-    the captured step.'''
-    from tscode_tpu_torch import capture, optimizers
+    '''The dimer's 300 steps in one launch of D1 (ops/kernels/dimer, every
+    step inside) on a jittered HCOOH, against the CPU's op by op run,
+    float64: coordinates within 1e-6 A, energy within 1e-6 kcal/mol, the
+    same flag; one launch a structure on the card, no graph captured.'''
+    from tscode_tpu_torch import capture
     from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.ops.kernels import dimer
     from tscode_tpu_torch.saddle import saddle_refine_structure
     confs, nos = formic_conformers()
     out = {}
+    graphs, launches = len(capture._graphs), dimer.KERNEL.launches
     for key, x in (('first', confs[1]), ('second', confs[3])):
         for device in ('cpu', cuda_device):
             out[key, str(device)] = saddle_refine_structure(
                 x, nos, graphize(confs[0], nos), device=device)
-        if key == 'first':
-            graphs = len(capture._graphs)
     assert len(capture._graphs) == graphs
+    assert dimer.KERNEL.launches == launches + 2
     for key in ('first', 'second'):
         (c, e, done), (cc, ce, cdone) = out[key, 'cpu'], \
             out[key, str(cuda_device)]
         assert np.abs(cc - c).max() <= 1e-6 and abs(ce - e) <= 1e-6
         assert cdone == done
+
+
+def dimer_card_case(device, name, B, dtype=torch.float64):
+    '''(x (B, N, 3) on `device`, ff.FireTerms of one topology) for D1:
+    'hcooh' jittered HCOOH (seed 2, which latches `done` at step 25) and,
+    for B = 3, the twin's frames after 10 and 20 of its steps (latching
+    at 11 and 4 more); 'ring' the SADDLE scan's sub-peak guess 0 on the
+    nine-carbon ring and, for B = 3, guess 1 and guess 0 jittered by 0.02
+    A, on guess 0's tables.'''
+    from tscode_tpu_torch import ff
+    from tscode_tpu_torch.ops.kernels import dimer
+    from torch_parity import dimer_case
+    x, params = dimer_case(name, 2 if name == 'hcooh' else 0)
+    terms = ff.FireTerms(ff.params_to_device(params, 'cpu', torch.float64))
+    frames = [torch.as_tensor(x)[None]]
+    if B == 3 and name == 'hcooh':
+        frames += [dimer.dimer_plain(frames[0], terms, n_steps=k)[0]
+                   for k in (10, 20)]
+    elif B == 3:
+        frames += [torch.as_tensor(dimer_case('ring', 1)[0])[None],
+                   frames[0] + torch.as_tensor(np.random.default_rng(
+                       3).normal(size=x.shape) * 0.02)]
+    terms = ff.FireTerms(ff.params_to_device(params, device, dtype))
+    return torch.cat(frames).to(device, dtype), terms
+
+
+@pytest.mark.parametrize('B', [1, 3])
+@pytest.mark.parametrize('name, n_steps', [('hcooh', 300), ('ring', 100)])
+def test_dimer_kernel_matches_plain(cuda_device, name, n_steps, B):
+    '''D1 against its plain twin (dimer_plain), float64: coordinates
+    within 1e-6 A, the same done flags and steps taken; one launch a
+    call; two launches the same bits, and every form (staged, atom,
+    device) the same bits as the plan's.'''
+    from tscode_tpu_torch.ops.kernels import dimer
+    x, terms = dimer_card_case(cuda_device, name, B)
+    before = dimer.KERNEL.launches
+    c, done, steps = dimer.dimer(x, terms, n_steps)
+    assert dimer.KERNEL.launches == before + 1
+    pc, pdone, psteps = dimer.dimer_plain(x, terms, n_steps)
+    assert float((c - pc).abs().max()) <= 1e-6
+    assert torch.equal(done, pdone) and torch.equal(steps, psteps)
+    assert float((c - x).abs().max()) > 1e-4
+    if name == 'hcooh':
+        assert bool(done.all()) and int(steps.max()) < n_steps
+    for form in dimer.FORMS:
+        got = dimer.launch(x, terms, n_steps, form=form)
+        assert all(torch.equal(a, b) for a, b in zip(got, (c, done, steps)))
+
+
+def test_dimer_kernel_matches_the_graph_path(cuda_device):
+    '''D1 against the captured dimer step replayed 300 times
+    (saddle._dimer_step under capture.graph_loop, torch.autograd forces)
+    on the ring's sub-peak guess, float64: coordinates within 1e-6 A, the
+    same flag.'''
+    from tscode_tpu_torch import capture, ff, saddle
+    from tscode_tpu_torch.ops.kernels import dimer
+    x, terms = dimer_card_case(cuda_device, 'ring', 1)
+    body = saddle._dimer_step(ff.ff_energy, 12, 1e-3, 0.02, 0.05)
+    state = (x[0], saddle.dimer_start(x[0]),
+             torch.zeros((), dtype=torch.bool, device=cuda_device))
+    gc, _, gdone = capture.graph_loop(body, state, (terms.params,), 300)
+    c, done, steps = dimer.dimer(x, terms, 300)
+    assert float((c[0] - gc).abs().max()) <= 1e-6
+    assert bool(done[0]) == bool(gdone)
+
+
+def test_dimer_kernel_any_size(cuda_device):
+    '''A 2,500-atom chain (~3.1M repulsion pairs), 10 steps, float64: the
+    device form (its state past a block's shared memory) within 1e-6 A of
+    the plain twin, the same flags and steps; two launches the same
+    bits.'''
+    from tscode_tpu_torch import ff
+    from tscode_tpu_torch.ops.kernels import dimer
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    X, ffp = chain_ff(2500, 1, seed=13)
+    terms = ff.FireTerms(ff.params_to_device(ffp, cuda_device,
+                                             torch.float64))
+    x = torch.as_tensor(X, device=cuda_device)
+    assert dimer.plan_for(x, terms).form == 'device'
+    c, done, steps = dimer.dimer(x, terms, 10)
+    c2, _, _ = dimer.dimer(x, terms, 10)
+    pc, pdone, psteps = dimer.dimer_plain(x, terms, 10)
+    assert torch.equal(c, c2)
+    assert float((c - pc).abs().max()) <= 1e-6
+    assert torch.equal(done, pdone) and torch.equal(steps, psteps)
+    assert float((c - x).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize('name', ['hcooh', 'ring'])
+def test_dimer_kernel_float32(cuda_device, name):
+    '''D1 in float32, 10 steps: finite, two launches the same bits, no
+    atom moved past the step clip (0.1 A a step). On HCOOH also within
+    1e-3 A of the float32 twin and of the float64 kernel; on the ring's
+    guess float32's rounding picks another soft mode within a few steps
+    (0.07 A from float64 after 10 steps in the twin), so there no
+    agreement is asked.'''
+    from tscode_tpu_torch.ops.kernels import dimer
+    x, terms = dimer_card_case(cuda_device, name, 3, torch.float32)
+    c, done, steps = dimer.dimer(x, terms, 10)
+    again = dimer.dimer(x, terms, 10)
+    assert c.dtype == torch.float32 and bool(torch.isfinite(c).all())
+    assert all(torch.equal(a, b) for a, b in zip(again, (c, done, steps)))
+    assert float(torch.linalg.norm(c - x, dim=-1).max()) <= 1.0 + 1e-4
+    if name == 'hcooh':
+        pc = dimer.dimer_plain(x, terms, 10)[0]
+        x64, terms64 = dimer_card_case(cuda_device, name, 3)
+        c64 = dimer.dimer(x64, terms64, 10)[0]
+        assert float((c - pc).abs().max()) <= 1e-3
+        assert float((c.double() - c64).abs().max()) <= 1e-3
 
 
 def test_neb_on_card_matches_cpu(cuda_device):
@@ -1588,9 +1697,10 @@ def test_adjust_spacings_on_card_matches_cpu(cuda_device, tmp_path):
 def test_saddle_refining_on_card_matches_cpu(cuda_device, tmp_path):
     '''The SADDLE stage on the internal force field (no calculator):
     the dimer of the first 2 candidates of sn2_string at 4 conformers,
-    float64 on the card (the captured dimer step, one structure at a
-    time) against the CPU: structures within 1e-6 A, energies within
-    1e-6 kcal/mol, the same flags.'''
+    float64 on the card (one launch of D1 a structure, on tables merged
+    over the two molecules) against the CPU: structures within 1e-6 A,
+    energies within 1e-6 kcal/mol, the same flags.'''
+    from tscode_tpu_torch.ops.kernels import dimer
     out = {}
     cwd = os.getcwd()
     for device in ('cpu', cuda_device):
@@ -1605,7 +1715,9 @@ def test_saddle_refining_on_card_matches_cpu(cuda_device, tmp_path):
                 run.apply_mask(run.MASKABLE,
                                np.arange(len(run.structures)) < 2)
                 run.options.calculator = None
+                before = dimer.KERNEL.launches
                 run.saddle_refining()
+                launches = dimer.KERNEL.launches - before
         finally:
             os.chdir(cwd)
         out[str(device)] = run
@@ -1613,6 +1725,7 @@ def test_saddle_refining_on_card_matches_cpu(cuda_device, tmp_path):
     assert np.abs(got.structures - want.structures).max() <= 1e-6
     assert np.abs(got.energies - want.energies).max() <= 1e-6
     np.testing.assert_array_equal(got.exit_status, want.exit_status)
+    assert launches == 2
 
 
 def test_optimisation_route_on_card_matches_cpu(cuda_device, tmp_path):

@@ -125,3 +125,40 @@ def lazy_keep(ok, gate):
             n += len(live)
             live = [t for t in live if not gate(b, t, t0)]
     return keep, n
+
+
+def dimer_case(name, seed=0):
+    '''(coords (N, 3), ff.FFParams) of a dimer input made with numpy:
+    'hcooh' HCOOH's fixture jittered by 0.15 A (seed) on the fixture's
+    topology, its tables from the jittered frame (as
+    saddle_refine_structure builds them); 'ring' the nine-carbon
+    chlorocycloalkane's sub-peak guess `seed` of the SADDLE scan's JAX
+    x64 record (tests/golden/dihedral_scan.npz, phase 18's input), on the
+    ring's topology; 'merged' HCOOH and C2H4 3 A apart, jittered, on
+    tables merged over the two molecules as the SADDLE stage merges
+    them (ff.merge_ff_params).'''
+    import os
+    from tscode_tpu_torch import ff
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    from tscode_tpu_torch.suite_inputs import chlorocycloalkane
+    rng = np.random.default_rng(seed)
+    if name == 'ring':
+        ring, nos = chlorocycloalkane(9)
+        x = np.load(os.path.join(os.path.dirname(__file__), 'golden',
+                                 'dihedral_scan.npz'))['saddle_guess'][seed]
+        return x, ff.build_ff_params(x, nos, graphize(ring, nos))
+    names = ('HCOOH.xyz',) if name == 'hcooh' else ('HCOOH.xyz', 'C2H4.xyz')
+    mols = [read_xyz(os.path.join(FIXTURE_DIR, n)) for n in names]
+    parts, frames, offsets = [], [], [0]
+    for k, m in enumerate(mols):
+        x0 = m.atomcoords[0]
+        x = x0 + rng.normal(size=x0.shape) * 0.15 + np.array([3.0 * k, 0, 0])
+        parts.append(ff.build_ff_params(x, m.atomnos, graphize(x0, m.atomnos)))
+        frames.append(x)
+        offsets.append(offsets[-1] + len(x0))
+    x = np.concatenate(frames)
+    if len(parts) == 1:
+        return x, parts[0]
+    return x, ff.merge_ff_params(parts, np.array(offsets[:-1]))

@@ -105,61 +105,6 @@ enum PlanField : int { P_FORM, P_THREADS, P_GROUPS, P_WARPS, P_CLUSTER,
                        P_SMEM, P_STAGED, P_SLOTS, P_LO0, P_LO1, P_LO2,
                        P_LO3, P_ENTRIES };
 
-template <typename T>
-struct Tables {
-  int nb, na, np, nd;             // bonds, angles, repulsion pairs, dihedrals
-  T bond_k;
-  // packed once a topology (ops/kernels/ff_fire.packed_terms): each
-  // term's atoms and incidence entries (rows of 4, -1 for a role it
-  // lacks) and its reference value
-  const int4* atoms;
-  const int4* entries;
-  const T* t0;
-  // ff.incidence: each atom's entries, codes 4 term + role
-  const int* inc_off;
-  const int* inc_code;
-  Springs<T> springs;
-};
-
-template <typename T>
-__device__ __forceinline__ int kind_of(const Tables<T>& t, int term) {
-  return term < t.nb ? BOND
-         : term < t.nb + t.na ? ANGLE
-         : term < t.nb + t.na + t.np ? REPULSION : DIHEDRAL;
-}
-
-template <typename T>
-__device__ __forceinline__ TermRec<T> term_rec(int kind, int4 q, T t0) {
-  TermRec<T> r;
-  r.kind = kind;
-  r.a[0] = q.x;
-  r.a[1] = q.y;
-  r.a[2] = q.z < 0 ? 0 : q.z;
-  r.a[3] = q.w < 0 ? 0 : q.w;
-  r.t0 = t0;
-  return r;
-}
-
-// a term from the packed tables
-template <typename T>
-struct PackedLoad {
-  const Tables<T>& t;
-  __device__ __forceinline__ TermRec<T> operator()(int term) const {
-    return term_rec(kind_of(t, term), __ldg(t.atoms + term),
-                    __ldg(t.t0 + term));
-  }
-};
-
-// write a term's forces o (w atoms) to its atoms' incidence entries
-template <typename T>
-__device__ __forceinline__ void stage(T* contrib, int4 e, int w,
-                                      T (*o)[3]) {
-  const int ent[4] = {e.x, e.y, e.z, e.w};
-  for (int r = 0; r < 4; ++r)
-    if (r < w)
-      for (int x = 0; x < 3; ++x) contrib[3 * ent[r] + x] = o[r][x];
-}
-
 // ------------------------------------------------------------ FIRE rules
 
 // a structure's FIRE controls and the step's rules (fire_step)

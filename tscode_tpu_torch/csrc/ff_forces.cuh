@@ -7,9 +7,9 @@
 // TermRec (its kind, its atoms as int32, its reference value) and the
 // atoms' positions through a coordinate accessor (c(a, x) is
 // coordinate x of atom a: SmemCoords, GlobalCoords below, or the
-// caller's own). So the forms of the FIRE kernel (ff_fire.cu)
-// and any later kernel that evaluates the force field on the card
-// include the same arithmetic. Each norm takes one reciprocal square
+// caller's own). So the forms of the FIRE kernel (ff_fire.cu), the
+// dimer kernel (dimer.cu) and any later kernel that evaluates the force
+// field on the card include the same arithmetic. Each norm takes one reciprocal square
 // root, multiplied into its components, where ff_energy's gradient
 // takes a square root and divides each component.
 //
@@ -319,6 +319,66 @@ __device__ __forceinline__ void atom_force_staged(const C& c, int a, int lo,
   for (int e = lo; e < hi; ++e)
     for (int x = 0; x < 3; ++x) f[x] += contrib[3 * e + x];
   add_springs(c, a, s, f);
+}
+
+// ------------------------------------------------------- packed tables
+
+// A topology's terms as ops/kernels/ff_fire.packed_terms packs them for
+// the kernels that evaluate the force field (ff_fire.cu, dimer.cu),
+// with ff.incidence's per-atom entries and the springs.
+template <typename T>
+struct Tables {
+  int nb, na, np, nd;             // bonds, angles, repulsion pairs, dihedrals
+  T bond_k;
+  // packed once a topology (ops/kernels/ff_fire.packed_terms): each
+  // term's atoms and incidence entries (rows of 4, -1 for a role it
+  // lacks) and its reference value
+  const int4* atoms;
+  const int4* entries;
+  const T* t0;
+  // ff.incidence: each atom's entries, codes 4 term + role
+  const int* inc_off;
+  const int* inc_code;
+  Springs<T> springs;
+};
+
+template <typename T>
+__device__ __forceinline__ int kind_of(const Tables<T>& t, int term) {
+  return term < t.nb ? BOND
+         : term < t.nb + t.na ? ANGLE
+         : term < t.nb + t.na + t.np ? REPULSION : DIHEDRAL;
+}
+
+template <typename T>
+__device__ __forceinline__ TermRec<T> term_rec(int kind, int4 q, T t0) {
+  TermRec<T> r;
+  r.kind = kind;
+  r.a[0] = q.x;
+  r.a[1] = q.y;
+  r.a[2] = q.z < 0 ? 0 : q.z;
+  r.a[3] = q.w < 0 ? 0 : q.w;
+  r.t0 = t0;
+  return r;
+}
+
+// a term from the packed tables
+template <typename T>
+struct PackedLoad {
+  const Tables<T>& t;
+  __device__ __forceinline__ TermRec<T> operator()(int term) const {
+    return term_rec(kind_of(t, term), __ldg(t.atoms + term),
+                    __ldg(t.t0 + term));
+  }
+};
+
+// write a term's forces o (w atoms) to its atoms' incidence entries
+template <typename T>
+__device__ __forceinline__ void stage(T* contrib, int4 e, int w,
+                                      T (*o)[3]) {
+  const int ent[4] = {e.x, e.y, e.z, e.w};
+  for (int r = 0; r < 4; ++r)
+    if (r < w)
+      for (int x = 0; x < 3; ++x) contrib[3 * ent[r] + x] = o[r][x];
 }
 
 }  // namespace ffk

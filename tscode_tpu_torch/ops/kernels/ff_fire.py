@@ -375,12 +375,18 @@ def term_forces(coords, terms):
         t.to(coords.device) for t in terms.tables())
     dtype = coords.dtype
     k_bond = 2 * terms.bond_k
-    rows = [
-        _pair_rows(coords, bonds, lambda d: k_bond * (d - r0.to(dtype))),
-        _angle_rows(coords, angles, a0.to(dtype)),
-        _pair_rows(coords, nb, lambda d: torch.where(
-            nb0.to(dtype) - d > 0, -(2 * K_REP) * (nb0.to(dtype) - d), 0.0)),
-        _dihedral_rows(coords, dih, d0.to(dtype))]
+    kinds = [
+        (bonds, lambda: _pair_rows(coords, bonds,
+                                   lambda d: k_bond * (d - r0.to(dtype)))),
+        (angles, lambda: _angle_rows(coords, angles, a0.to(dtype))),
+        (nb, lambda: _pair_rows(coords, nb, lambda d: torch.where(
+            nb0.to(dtype) - d > 0, -(2 * K_REP) * (nb0.to(dtype) - d),
+            0.0))),
+        (dih, lambda: _dihedral_rows(coords, dih, d0.to(dtype)))]
+    # a kind without terms adds no rows
+    rows = [make() for table, make in kinds if table.shape[0]]
+    if not rows:
+        return coords.new_zeros((coords.shape[0], 0, 3))
     return torch.cat(rows, dim=1).reshape(coords.shape[0], -1, 3)
 
 
@@ -421,11 +427,17 @@ def ff_forces_plain(coords, terms, freeze_mask=None):
     offsets, codes = offsets.long(), codes.long()
     G = term_forces(coords, terms)
     f = torch.zeros_like(coords)
-    counts = offsets[1:] - offsets[:-1]
-    for k in range(int(counts.max()) if codes.numel() else 0):
-        live = (k < counts)[:, None]
-        idx = codes[torch.clamp(offsets[:-1] + k, max=codes.numel() - 1)]
-        f = f + torch.where(live, G[:, idx], 0.0)
+    if codes.numel():
+        # row k of idx: each atom's k-th entry, or the zero row past its
+        # last (adding +0.0 leaves a sum as it is)
+        counts = offsets[1:] - offsets[:-1]
+        k = torch.arange(int(counts.max()), device=coords.device)
+        pos = torch.clamp(offsets[:-1, None] + k, max=codes.numel() - 1)
+        idx = torch.where(k < counts[:, None], codes[pos],
+                          G.shape[1]).t().contiguous()
+        G = torch.cat([G, G.new_zeros(B, 1, 3)], dim=1)
+        for row in idx:
+            f = f + G[:, row]
     for pairs, targets, k in _springs(terms, coords.device):
         k2 = 2 * _k(k, coords)
         if targets is None:

@@ -10,12 +10,19 @@ internal force field, analytic surfaces), or on a host callback of
 gradients.
 
 The finite-difference action with dr = 1e-3 cancels about three digits,
-so the dimer runs in float64 on the run's device. On a CUDA device one
-dimer step (18 Hessian actions, each the forces of two displaced copies
-in one autograd pass, and a force) is captured in a CUDA graph and
-replayed n_steps times with no host sync (`capture.graph_loop`); on
-the CPU the steps run op by op and stop once `done` has latched, from
-where JAX's loop leaves the coordinates as they are.
+so the dimer runs in float64 on the run's device. On a CUDA device an
+energy of the internal force field's family (one that carries
+`fire_terms(*energy_args) -> ff.FireTerms`: ff.ff_energy, which the
+SADDLE scan, saddle> and the SADDLE stage hand it) runs in one launch
+of the hand-written kernel D1 (ops/kernels/dimer, `csrc/dimer.cu`),
+every step inside, its forces analytic: the counterpart of the JAX
+package's one jitted program. Any other energy (an analytic surface) is
+chosen by what it is, not as a fallback: one dimer step (18 Hessian
+actions, each the forces of two displaced copies in one autograd pass,
+and a force) is captured in a CUDA graph and replayed n_steps times with
+no host sync (`capture.graph_loop`). On the CPU every energy runs the
+steps op by op through torch.autograd and stops once `done` has
+latched, from where JAX's loop leaves the coordinates as they are.
 '''
 
 import numpy as np
@@ -108,23 +115,33 @@ def dimer_saddle(coords, energy_fn, n_steps=300, n_rot=12, dr=1e-3,
     bool), on coords' device and in its dtype.
     energy_fn(x (B, N, 3), *energy_args) -> (B,), differentiable; pass
     per-call parameters (force-field tables) through energy_args, so one
-    captured step serves every structure.
+    captured step serves every structure. On a CUDA tensor an energy_fn
+    with a `fire_terms` attribute runs in one launch of
+    ops/kernels/dimer.dimer on energy_fn.fire_terms(*energy_args); the
+    returned energy is energy_fn's at the result.
 
     Convergence requires both |F| < fmax and negative curvature along
     the tracked mode: a minimum is never reported as a saddle; the dimer
     climbs out of it along the softest mode instead.
     '''
-    body = _dimer_step(energy_fn, n_rot, dr, step_size, fmax)
-    state = (coords.clone(), dimer_start(coords),
-             torch.zeros((), dtype=torch.bool, device=coords.device))
-    if coords.is_cuda:
-        state = graph_loop(body, state, energy_args, n_steps)
+    terms = getattr(energy_fn, 'fire_terms', None)
+    if coords.is_cuda and terms is not None:
+        from tscode_tpu_torch.ops.kernels.dimer import dimer
+        c, done, _ = dimer(coords[None], terms(*energy_args), n_steps,
+                           n_rot, dr, step_size, fmax)
+        c, done = c[0], done[0]
     else:
-        for _ in range(n_steps):
-            state = body(state, energy_args)
-            if bool(state[2]):
-                break
-    c, _, done = state
+        body = _dimer_step(energy_fn, n_rot, dr, step_size, fmax)
+        state = (coords.clone(), dimer_start(coords),
+                 torch.zeros((), dtype=torch.bool, device=coords.device))
+        if coords.is_cuda:
+            state = graph_loop(body, state, energy_args, n_steps)
+        else:
+            for _ in range(n_steps):
+                state = body(state, energy_args)
+                if bool(state[2]):
+                    break
+        c, _, done = state
     with torch.no_grad():
         e = energy_fn(c[None], *energy_args)[0]
     return c, e, done
@@ -190,9 +207,8 @@ def dimer_saddle_callback(coords, gradient_fn, n_steps=60, n_rot=8,
 
 def saddle_refine_structure(coords, atomnos, graph, fmax=0.05, *, device):
     '''Refine one structure to a first-order saddle on the internal
-    force field built from it, float64 on `device`. The force-field
-    tables flow through energy_args, so every structure of a topology
-    shares one captured dimer step. Returns (coords numpy, energy,
+    force field built from it, float64 on `device` (one launch of D1 on
+    a card). Returns (coords numpy, energy,
     converged).'''
     params = params_to_device(build_ff_params(coords, atomnos, graph),
                               device, torch.float64)
