@@ -80,8 +80,11 @@ then neb>, saddle> and a distance scan on the same ring; every dimer on
 the force field runs as one launch of D1 (csrc/dimer.cu, every step
 inside; DimerCalls), which phase 18 holds against its plain twin and
 the captured graph path on the scan's sub-peak guess (timed beside
-both, and bounded), on a 2,500-atom chain, for repeated bits and in
-float32. Phase 20 runs
+both, bounded, with a latency figure), for repeated bits and in
+float32, and runs in every form that fits (the rule's lone or large
+form, the staged form, the first design) on the guess, saddle>'s
+C2F2H4 and 150- and 2,500-atom chains, each against its twin and
+timed. Phase 20 runs
 the optimisation route: sn2_string at 76 conformers without NOOPT (the
 calculators chosen by keyword), its 290 candidates through the
 force-field and the calculator's stages, every xtb call answered by the
@@ -116,6 +119,9 @@ once (FireCalls), in every phase that runs one.
                                   # conformer search's routes
     python3 chip_smoke.py --scans    # phases 18 and 19 alone: the
                                   # force-field operators
+    python3 chip_smoke.py --dimer OUT.json   # D1's widths behind its
+                                  # plan rule (lone warps, large
+                                  # clusters) on phase 18's inputs
     python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
                                   # route
     python3 chip_smoke.py --sweep    # phases 8, 10 to 12 and 14 alone:
@@ -397,20 +403,29 @@ TRACE_KERNELS = {
     'block_write_f64': ('block_write_kernel', 'double'),
     'block_screen_row_f32': ('block_screen_kernel', 'float'),
     'block_screen_row_f64': ('block_screen_kernel', 'double'),
-    # D1, the dimer (its forms: dimer_kernel<T, STAGED>)
-    'dimer_f32': ('dimer_kernel', 'float'),
-    'dimer_f64': ('dimer_kernel', 'double'),
+    # D1, the dimer (its forms: dimer_lone_kernel<T>,
+    # dimer_large_kernel<T, SHARED>; the staged form's dimer_kernel<T>)
+    'dimer_f32': ('dimer_(?:lone_|large_)?kernel', 'float'),
+    'dimer_f64': ('dimer_(?:lone_|large_)?kernel', 'double'),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
 TRACE_DIMER_STEPS = 20
-# D1, the dimer kernel: its checks on a chain past shared memory (phase
-# 18), and the operations of its vector algebra an atom for each of the
-# 19 force evaluations of a step whose forces feed it (displaced copies,
-# the Hessian action, projection, norm, shift, step), for its bound
-DIMER_LARGE_N = 2500
-DIMER_LARGE_STEPS = 10
+# D1, the dimer kernel: phase 18 runs every form that fits on each of
+# these inputs (dimer_inputs; name -> steps): the SADDLE scan's sub-peak
+# guess, saddle>'s C2F2H4 (the monomolecular input's first conformer),
+# 150- and 2,500-atom suite_inputs.chain_ff chains; the operations of its
+# vector algebra an atom for each of the 19 force evaluations of a step
+# whose forces feed it (displaced copies, the Hessian action,
+# projection, norm, shift, step), for its bound; the dependent Hessian
+# actions of a step at the default n_rot (4 power steps, the shift's, 12
+# rotations and the curvature's), for its latency figure; the widths
+# that --dimer sweeps
+DIMER_CASES = {'scan_guess': 300, 'saddle_c2f2h4': 300, 'chain150': 100,
+               'chain2500': 10}
 DIMER_ATOM_FLOPS = 40
+DIMER_CHAIN = 18
+DIMER_CLUSTERS = (1, 2, 4, 8, 16)
 # the force field's FIRE kernel: operations of one evaluation of each
 # term (the function's work counts each term once a step, whatever the
 # kernel recomputes) and of the FIRE update of one atom, for its bound
@@ -4617,63 +4632,172 @@ def dimer_bound(x, params, steps):
         else (bytes_ms, 'bytes')
 
 
-def dimer_large_record(card):
-    '''D1 on a DIMER_LARGE_N-atom chain (suite_inputs.chain_ff), float64,
-    DIMER_LARGE_STEPS steps: the device form (its state past a block's
-    shared memory) within FF_ATOL of its plain twin with the same flags
-    and steps, two launches the same bits; both timed on their one run.
-    Prints one line; returns the record.'''
+def dimer_inputs(tmp):
+    '''D1's inputs of DIMER_CASES, float64 on the card: name -> (coords
+    (1, N, 3), the force field's tables (params_to_device), ff.FireTerms
+    of them).'''
     import torch
-    from tscode_tpu_torch.ff import ff_energy, params_to_device
+    from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
+        params_to_device
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.suite_inputs import chain_ff, chlorocycloalkane
+
+    def case(x, params):
+        p = params_to_device(params, DEV, torch.float64)
+        return (torch.as_tensor(x, dtype=torch.float64, device=DEV)[None], p,
+                ff_energy.fire_terms(p))
+    guess = golden_record(DSCAN_GOLDEN)['arrays']['saddle_guess'][0]
+    _, ring_nos = chlorocycloalkane(DSCAN_RING)
+    ens = read_xyz(os.path.join(os.path.dirname(
+        suite_input('monomolecular', tmp, MONO_CONFS)), 'm1.xyz'))
+    mono, mono_nos = np.asarray(ens.atomcoords)[0], np.asarray(ens.atomnos)
+    inputs = {
+        'scan_guess': case(guess, build_ff_params(
+            guess, ring_nos, graphize(guess, ring_nos))),
+        'saddle_c2f2h4': case(mono, build_ff_params(
+            mono, mono_nos, graphize(mono, mono_nos)))}
+    for n in (150, 2500):
+        X, ffp = chain_ff(n, 1, seed=13)
+        inputs[f'chain{n}'] = case(X[0], ffp)
+    return inputs
+
+
+def dimer_eval_ms(x, terms, steps=200):
+    '''The least device time of one force evaluation of x (1, N, 3) on
+    the card: F1 (ops/kernels/ff_fire, the rule's form) a step, with
+    fmax 0 so that no step stops it (one evaluation, its reductions and
+    the FIRE update a step).'''
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    reps = 1 if x.shape[1] > 1000 else 3
+    return device_ms(lambda: ff_fire.launch(x, terms, steps, fmax=0.0),
+                     reps=reps) / steps
+
+
+def dimer_forms(card, name, x, params, terms, n, want, plans=None):
+    '''D1 on x (1, N, 3) for n steps in every form that fits (or in each
+    Plan of `plans`): two launches the same bits, within FF_ATOL of the
+    plain twin's `want` (coords, done, steps) with the same flag and
+    steps; device ms (behind a sleep kernel), us a step, registers,
+    resident warps, whether its bits equal the first form's; the bound
+    (dimer_bound) and the latency figure (DIMER_CHAIN dependent Hessian
+    actions a step at dimer_eval_ms each). Prints a line a form; returns
+    {label: record}.'''
+    import torch
     from tscode_tpu_torch.ff_records import FF_ATOL
     from tscode_tpu_torch.ops.kernels import dimer
-    from tscode_tpu_torch.suite_inputs import chain_ff
-    X, ffp = chain_ff(DIMER_LARGE_N, 1, seed=13)
-    params = params_to_device(ffp, DEV, torch.float64)
-    terms = ff_energy.fire_terms(params)
-    x = torch.as_tensor(X, device=DEV)
+    if plans is None:
+        plans = {}
+        for form in dimer.FORMS:
+            try:
+                plans[form] = dimer.plan_for(x, terms, form)
+            except ValueError:
+                pass
+    pc, pdone, psteps = want
+    bound, by = dimer_bound(x, params, psteps)
+    eval_ms = dimer_eval_ms(x, terms)
+    latency = DIMER_CHAIN * eval_ms * int(psteps.max())
+    recs, first = {}, None
+    for label, plan in plans.items():
+        got = dimer.launch(x, terms, n, plan=plan)
+        again = dimer.launch(x, terms, n, plan=plan)
+        err = float((got[0] - pc).abs().max())
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(repeat and err <= FF_ATOL and torch.equal(got[1], pdone) and
+              torch.equal(got[2], psteps), f'D1 {name} {label} ({plan}): '
+              f'{err:.2e} A from its plain twin, done {got[1].tolist()} / '
+              f'{pdone.tolist()}, steps {got[2].tolist()} / '
+              f'{psteps.tolist()}, two launches the same bits {repeat}')
+        if first is None:
+            first = got[0]
+        ms = device_ms(lambda: dimer.launch(x, terms, n, plan=plan),
+                       reps=1 if x.shape[1] > 1000 else 3)
+        rec = {'form': plan.form, 'threads': plan.threads,
+               'smem': plan.smem, 'warps': plan.warps,
+               'cluster': plan.cluster, 'lanes': plan.lanes,
+               'shared': plan.shared, 'ms': ms,
+               'us_per_step': ms * 1e3 / int(psteps.max()),
+               'plain_diff_A': err, 'bits_as_first': torch.equal(got[0], first),
+               'bound_ms': bound, 'bound_by': by, 'latency_ms': latency,
+               **dimer.kernel_info(plan, x.dtype, x.device)}
+        recs[label] = rec
+        print(f'[18 dimer] {name} ({x.shape[1]} atoms, {int(psteps.max())} '
+              f'steps) {label}: {ms:.4f} ms, {rec["us_per_step"]:.2f} us a '
+              f'step ({plan.threads} threads, {plan.smem} shared bytes, '
+              f'{rec["registers"]} registers, {rec["local_bytes"]} local '
+              f'bytes, {rec["resident_warps"]} resident warps); {err:.2e} A '
+              f'from the twin, bits as {next(iter(plans))} '
+              f'{rec["bits_as_first"]}; bound {bound:.6f} ms ({by}), latency '
+              f'figure {latency:.4f} ms ({DIMER_CHAIN} actions a step x '
+              f'{eval_ms * 1e3:.2f} us, F1\'s evaluation) [{card}]')
+    return recs
+
+
+def dimer_case_record(card, name, x, params, terms, n):
+    '''One of DIMER_CASES past the scan's guess: the plain twin (its one
+    run timed) and dimer_forms. Returns the record.'''
+    from tscode_tpu_torch.ops.kernels import dimer
+    want, plain_ms = once_ms(lambda: dimer.dimer_plain(x, terms, n))
     plan = dimer.plan_for(x, terms)
-    (c, done, steps), ms = once_ms(
-        lambda: dimer.dimer(x, terms, DIMER_LARGE_STEPS))
-    c2, _, _ = dimer.dimer(x, terms, DIMER_LARGE_STEPS)
-    (pc, pdone, psteps), plain_ms = once_ms(
-        lambda: dimer.dimer_plain(x, terms, DIMER_LARGE_STEPS))
-    err = float((c - pc).abs().max())
-    moved = float((c - x).abs().max())
-    check(plan.form == 'device' and torch.equal(c, c2) and err <= FF_ATOL
-          and torch.equal(done, pdone) and torch.equal(steps, psteps) and
-          moved > 1e-4, f'D1 at {DIMER_LARGE_N} atoms: form {plan.form}, '
-          f'{err:.2e} A from its plain twin, moved {moved:.2e} A, bits '
-          f'repeated {torch.equal(c, c2)}')
-    bound, by = dimer_bound(x, params, steps)
-    rec = {'atoms': int(x.shape[1]), 'repulsion_pairs': int(params[4].shape[0]),
-           'n_steps': DIMER_LARGE_STEPS, 'form': plan.form,
-           'threads': plan.threads, 'plain_diff_A': err, 'ms': ms,
-           'us_per_step': ms * 1e3 / int(steps.max()), 'plain_ms': plain_ms,
-           'bound_ms': bound, 'bound_by': by,
-           **dimer.kernel_info(plan, x.dtype, x.device)}
-    print(f'[18 dimer] {rec["atoms"]} atoms ({rec["repulsion_pairs"]} '
-          f'repulsion pairs), float64, {DIMER_LARGE_STEPS} steps: form '
-          f'{plan.form} {ms:.1f} ms ({rec["us_per_step"]:.0f} us a step, '
-          f'{rec["registers"]} registers a thread), plain twin '
-          f'{plain_ms:.1f} ms, bound {bound:.6f} ms ({by}); {err:.2e} A '
-          f'from the plain twin, the same flags and steps, two launches '
-          f'the same bits [{card}]')
+    rec = {'atoms': int(x.shape[1]), 'n_steps': n, 'rule': plan.form,
+           'steps': int(want[2].max()), 'done': bool(want[1].all()),
+           'plain_ms': plain_ms,
+           'forms': dimer_forms(card, name, x, params, terms, n, want)}
+    rec['ms'] = rec['forms'][plan.form]['ms']
+    rec['plain_diff_A'] = max(r['plain_diff_A']
+                              for r in rec['forms'].values())
+    for k in ('bound_ms', 'bound_by', 'latency_ms'):
+        rec[k] = rec['forms'][plan.form][k]
+    print(f'[18 dimer] {name}: the rule picks {plan.form}; plain twin '
+          f'{plain_ms:.1f} ms [{card}]')
     return rec
+
+
+def dimer_sweep(card, out):
+    '''--dimer OUT.json: the widths behind the plan rule, on each of
+    DIMER_CASES (float64): the lone form at each width of LONE_WIDTHS
+    where it fits, the large form on each cluster of DIMER_CLUSTERS, the
+    rule's plan and the staged form where it fits, each checked and
+    timed by dimer_forms. Writes the records to `out`.'''
+    import tempfile
+    from tscode_tpu_torch.ops.kernels import dimer
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dimer_inputs(tmp)
+    recs = {'card': card}
+    for name, (x, params, terms) in inputs.items():
+        n = DIMER_CASES[name]
+        plans = {'rule': dimer.plan_for(x, terms)}
+        for form, key, widths in (('staged', None, (None,)),
+                                  ('lone', 'warps', dimer.LONE_WIDTHS),
+                                  ('large', 'cluster', DIMER_CLUSTERS)):
+            for w in widths:
+                try:
+                    plans[f'{form} {w}' if key else form] = dimer.plan_for(
+                        x, terms, form, **({key: w} if key else {}))
+                except ValueError:
+                    pass
+        want = dimer.dimer_plain(x, terms, n)
+        recs[name] = dimer_forms(card, name, x, params, terms, n, want,
+                                 plans)
+    with open(out, 'w') as f:
+        json.dump(recs, f, indent=1)
 
 
 def dimer_kernel_record(card, guess, atomnos, graph_step_ms):
     '''D1 on the SADDLE scan's sub-peak guess (the ring's force field
-    from the guess, float64, 300 steps, ops/kernels/dimer.dimer) against
-    its plain twin and against the graph path (saddle._dimer_step under
-    capture.graph_loop, a replay a step, so its flag gives its steps
-    taken): coordinates within FF_ATOL A of both, the same flag and the
-    same steps taken; two launches and every form the same bits. Timed:
-    the whole call (device_ms), us a step, the twin (its one run), the
-    graph path as graph_step_ms (the replayed step, timed in this run on
-    the same structure) x the steps; bounded (dimer_bound). Float32
-    beside float64, no gate. Then dimer_large_record. Prints; returns the
-    record.'''
+    from the guess, float64, 300 steps, ops/kernels/dimer.dimer: the
+    rule's form) against its plain twin and against the graph path
+    (saddle._dimer_step under capture.graph_loop, a replay a step, so its
+    flag gives its steps taken): coordinates within FF_ATOL A of both,
+    the same flag and the same steps taken; every form by dimer_forms
+    (the staged form, the first design, among them). Timed: the rule's
+    form (device_ms), us a step, the twin (its one run), the graph path
+    as graph_step_ms (the replayed step, timed in this run on the same
+    structure) x the steps; bounded (dimer_bound). Float32 beside
+    float64, no gate. Then
+    dimer_case_record on the other inputs of DIMER_CASES. Prints;
+    returns the record.'''
+    import tempfile
     import torch
     from tscode_tpu_torch import capture, saddle
     from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
@@ -4686,12 +4810,9 @@ def dimer_kernel_record(card, guess, atomnos, graph_step_ms):
                               torch.float64)
     terms = ff_energy.fire_terms(params)
     x = torch.as_tensor(guess, dtype=torch.float64, device=DEV)[None]
-    n = 300
+    n = DIMER_CASES['scan_guess']
     plan = dimer.plan_for(x, terms)
     c, done, steps = dimer.dimer(x, terms, n)
-    forms = {f: dimer.launch(x, terms, n, form=f) for f in dimer.FORMS}
-    same = all(torch.equal(a, b) for got in forms.values()
-               for a, b in zip(got, (c, done, steps)))
     (pc, pdone, psteps), plain_ms = once_ms(
         lambda: dimer.dimer_plain(x, terms, n))
     body = saddle._dimer_step(ff_energy, 12, 1e-3, 0.02, 0.05)
@@ -4704,15 +4825,16 @@ def dimer_kernel_record(card, guess, atomnos, graph_step_ms):
             gsteps = k + 1
     plain_err = float((c - pc).abs().max())
     graph_err = float((c[0] - state[0]).abs().max())
-    check(same and plain_err <= FF_ATOL and graph_err <= FF_ATOL and
+    check(plain_err <= FF_ATOL and graph_err <= FF_ATOL and
           torch.equal(done, pdone) and torch.equal(steps, psteps) and
           bool(done[0]) == bool(state[2]) and int(steps[0]) == gsteps,
           f'D1 on the scan\'s guess: {plain_err:.2e} A from its plain twin, '
           f'{graph_err:.2e} A from the graph path, done {done.tolist()} / '
           f'{pdone.tolist()} / {bool(state[2])}, steps {steps.tolist()} / '
-          f'{psteps.tolist()} / {gsteps}, forms and repeats the same bits '
-          f'{same}')
-    ms = device_ms(lambda: dimer.dimer(x, terms, n), reps=3)
+          f'{psteps.tolist()} / {gsteps}')
+    forms = dimer_forms(card, 'scan_guess', x, params, terms, n,
+                        (pc, pdone, psteps))
+    ms = forms[plan.form]['ms']
     params32 = tuple(t.float() if t.is_floating_point() else t
                      for t in params)
     c32, done32, steps32 = dimer.dimer(x.float(), ff_energy.fire_terms(
@@ -4724,27 +4846,36 @@ def dimer_kernel_record(card, guess, atomnos, graph_step_ms):
            'us_per_step': ms * 1e3 / int(steps[0]), 'plain_ms': plain_ms,
            'graph_step_ms': graph_step_ms,
            'graph_ms': graph_step_ms * int(steps[0]),
-           'plain_diff_A': plain_err, 'graph_diff_A': graph_err,
+           'plain_diff_A': max(plain_err, max(
+               r['plain_diff_A'] for r in forms.values())),
+           'graph_diff_A': graph_err,
            'bound_ms': bound, 'bound_by': by,
+           'latency_ms': forms[plan.form]['latency_ms'],
+           'staged_ms': forms['staged']['ms'],
            'float32_diff_A': float((c32.double() - c).abs().max()),
            'float32_done': bool(done32[0]),
-           'float32_steps': int(steps32[0]),
+           'float32_steps': int(steps32[0]), 'forms': forms,
            **dimer.kernel_info(plan, x.dtype, x.device)}
     rec['bound_share'] = bound / ms
     print(f'[18 dimer] the scan\'s guess ({rec["atoms"]} atoms), float64, '
           f'{n} steps, {rec["steps"]} taken (done {rec["done"]}): D1 form '
           f'{plan.form} ({plan.threads} threads, {plan.smem} shared bytes, '
           f'{rec["registers"]} registers a thread) {ms:.4f} ms, '
-          f'{rec["us_per_step"]:.2f} us a step; plain twin {plain_ms:.1f} ms;'
+          f'{rec["us_per_step"]:.2f} us a step (the staged form '
+          f'{rec["staged_ms"]:.4f} ms); plain twin {plain_ms:.1f} ms;'
           f' graph path {graph_step_ms:.3f} ms a step x {rec["steps"]} = '
           f'{rec["graph_ms"]:.1f} ms; bound {bound:.6f} ms ({by}, '
-          f'{100 * rec["bound_share"]:.3f}% of it); {plain_err:.2e} A from '
+          f'{100 * rec["bound_share"]:.3f}% of it), latency figure '
+          f'{rec["latency_ms"]:.4f} ms; {plain_err:.2e} A from '
           f'the twin, {graph_err:.2e} A from the graph path, the same flags '
-          f'and steps, every form and a second launch the same bits; '
-          f'float32 {rec["float32_diff_A"]:.2e} A from float64 (done '
-          f'{rec["float32_done"]}, {rec["float32_steps"]} steps; no gate) '
-          f'[{card}]')
-    rec['large_n'] = dimer_large_record(card)
+          f'and steps; float32 {rec["float32_diff_A"]:.2e} A from float64 '
+          f'(done {rec["float32_done"]}, {rec["float32_steps"]} steps; no '
+          f'gate) [{card}]')
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dimer_inputs(tmp)
+    rec['cases'] = {name: dimer_case_record(card, name, *inputs[name],
+                                            DIMER_CASES[name])
+                    for name in DIMER_CASES if name != 'scan_guess'}
     return rec
 
 
@@ -5819,9 +5950,9 @@ def traced_d1(card, tmp, x, params):
     saddle.dimer_saddle on x (N, 3) under ff_energy's tables `params`,
     float64, untraced then traced: one D1 launch each, no graph
     captured, the same coordinates, energy and flag bit for bit; in the
-    trace one dimer_kernel<double, ...> event inside its launch span
-    dimer.dimer_f64 inside the wrapper's span dimer inside dimer_saddle
-    (trace_check). Returns the record.'''
+    trace one dimer_lone_kernel<double> event (the lone form) inside its
+    launch span dimer.dimer_f64 inside the wrapper's span dimer inside
+    dimer_saddle (trace_check). Returns the record.'''
     import contextlib
     import torch
     from tscode_tpu_torch import saddle
@@ -6380,21 +6511,24 @@ def b1_kernel_line(routes, sharded):
 
 def d1_kernel_line(d1):
     '''D1's entry of the kernels line: phase 18's record on the SADDLE
-    scan's sub-peak guess (the whole call, its twin, the graph path's
-    replayed step x the steps taken, the bound), its launches on the main
-    path by phase, the 2,500-atom chain's record beside it.'''
+    scan's sub-peak guess (the rule's form, the staged form beside it,
+    its twin, the graph path's replayed step x the steps taken, the bound,
+    the latency figure), its launches on the main path by phase, the
+    other inputs' records beside it.'''
     return {'name': 'dimer', 'route': 'cuda',
             'source': 'tscode_tpu_torch/csrc/dimer.cu',
             'replaces': 'tscode_tpu/saddle.py:21',
             'launches': sum(DIMER_LAUNCHES.values()),
             'launches_by_phase': dict(DIMER_LAUNCHES),
-            'max_abs_err': max(d1['plain_diff_A'], d1['graph_diff_A'],
-                               d1['large_n']['plain_diff_A']),
+            'max_abs_err': max([d1['plain_diff_A'], d1['graph_diff_A']] +
+                               [r['plain_diff_A']
+                                for r in d1['cases'].values()]),
             'ms': d1['ms'], 'plain_ms': d1['plain_ms'],
             'graph_ms': d1['graph_ms'], 'bound_ms': d1['bound_ms'],
             'bound_by': d1['bound_by'], 'library_ms': None,
+            'latency_ms': d1['latency_ms'], 'staged_ms': d1['staged_ms'],
             'us_per_step': d1['us_per_step'], 'steps': d1['steps'],
-            'form': d1['form'], 'large_n': d1['large_n'], 'record': d1}
+            'form': d1['form'], 'cases': d1['cases'], 'record': d1}
 
 
 def timed_phase(name, phase, *args):
@@ -6476,6 +6610,10 @@ def main():
         phase_build()
         trace, launches = timed_phase('22 trace', phase_trace, card)
         print(json.dumps({'trace': trace, 'launches': launches}))
+        return
+    if sys.argv[1:2] == ['--dimer']:         # --dimer OUT.json
+        phase_build()
+        dimer_sweep(card, sys.argv[2])
         return
     if sys.argv[1:2] == ['--fire']:          # --fire OUT.json
         phase_build()

@@ -1498,10 +1498,13 @@ def dimer_card_case(device, name, B, dtype=torch.float64):
 def test_dimer_kernel_matches_plain(cuda_device, name, n_steps, B):
     '''D1 against its plain twin (dimer_plain), float64: coordinates
     within 1e-6 A, the same done flags and steps taken; one launch a
-    call; two launches the same bits, and every form (staged, atom,
-    device) the same bits as the plan's.'''
+    call (the lone form); two launches the same bits, and every form on
+    one block (lone at every width, large on a cluster of one, staged)
+    the same bits as the plan's: the same sums in the same order. (On a cluster of more blocks the large form adds the blocks'
+    sums in rank order: test_dimer_every_form_on_the_cases.)'''
     from tscode_tpu_torch.ops.kernels import dimer
     x, terms = dimer_card_case(cuda_device, name, B)
+    assert dimer.plan_for(x, terms).form == 'lone'
     before = dimer.KERNEL.launches
     c, done, steps = dimer.dimer(x, terms, n_steps)
     assert dimer.KERNEL.launches == before + 1
@@ -1511,8 +1514,13 @@ def test_dimer_kernel_matches_plain(cuda_device, name, n_steps, B):
     assert float((c - x).abs().max()) > 1e-4
     if name == 'hcooh':
         assert bool(done.all()) and int(steps.max()) < n_steps
-    for form in dimer.FORMS:
-        got = dimer.launch(x, terms, n_steps, form=form)
+    plans = [dimer.plan_for(x, terms, form) for form in dimer.FORMS
+             if form != 'large']
+    plans += [dimer.plan_for(x, terms, 'lone', warps=w)
+              for w in dimer.LONE_WIDTHS]
+    plans.append(dimer.plan_for(x, terms, 'large', cluster=1))
+    for plan in plans:
+        got = dimer.launch(x, terms, n_steps, plan=plan)
         assert all(torch.equal(a, b) for a, b in zip(got, (c, done, steps)))
 
 
@@ -1535,9 +1543,10 @@ def test_dimer_kernel_matches_the_graph_path(cuda_device):
 
 def test_dimer_kernel_any_size(cuda_device):
     '''A 2,500-atom chain (~3.1M repulsion pairs), 10 steps, float64: the
-    device form (its state past a block's shared memory) within 1e-6 A of
-    the plain twin, the same flags and steps; two launches the same
-    bits.'''
+    large form (a cluster of 16 blocks, the copies in each block's shared
+    memory) and the large form past shared memory (a cluster of 2: the
+    copies in device memory) each within 1e-6 A of the plain twin, the
+    same flags and steps; two launches the same bits.'''
     from tscode_tpu_torch import ff
     from tscode_tpu_torch.ops.kernels import dimer
     from tscode_tpu_torch.suite_inputs import chain_ff
@@ -1545,14 +1554,69 @@ def test_dimer_kernel_any_size(cuda_device):
     terms = ff.FireTerms(ff.params_to_device(ffp, cuda_device,
                                              torch.float64))
     x = torch.as_tensor(X, device=cuda_device)
-    assert dimer.plan_for(x, terms).form == 'device'
-    c, done, steps = dimer.dimer(x, terms, 10)
-    c2, _, _ = dimer.dimer(x, terms, 10)
+    plan = dimer.plan_for(x, terms)
+    assert (plan.form, plan.cluster, plan.shared) == ('large', 16, True)
     pc, pdone, psteps = dimer.dimer_plain(x, terms, 10)
-    assert torch.equal(c, c2)
-    assert float((c - pc).abs().max()) <= 1e-6
-    assert torch.equal(done, pdone) and torch.equal(steps, psteps)
-    assert float((c - x).abs().max()) > 1e-4
+    for plan in (plan, dimer.plan_for(x, terms, 'large', cluster=2)):
+        c, done, steps = dimer.launch(x, terms, 10, plan=plan)
+        c2, _, _ = dimer.launch(x, terms, 10, plan=plan)
+        assert torch.equal(c, c2)
+        assert float((c - pc).abs().max()) <= 1e-6
+        assert torch.equal(done, pdone) and torch.equal(steps, psteps)
+        assert float((c - x).abs().max()) > 1e-4
+
+
+def dimer_form_case(device, name):
+    '''(x (1, N, 3) float64, ff.FireTerms, steps) on `device`: saddle>'s
+    C2F2H4 (the monomolecular input's first conformer, 8 atoms, 300
+    steps), the SADDLE scan's sub-peak guess (27 atoms, 100 steps), a
+    150-atom suite_inputs.chain_ff chain (30 steps).'''
+    import tempfile
+    from tscode_tpu_torch import ff
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    if name == 'ring':
+        x, terms = dimer_card_case(device, 'ring', 1)
+        return x, terms, 100
+    if name == 'c2f2h4':
+        with tempfile.TemporaryDirectory() as tmp:
+            ens = read_xyz(os.path.join(os.path.dirname(
+                config_files('monomolecular', tmp, 2)), 'm1.xyz'))
+        X, nos = np.asarray(ens.atomcoords)[0], np.asarray(ens.atomnos)
+        params, n = ff.build_ff_params(X, nos, graphize(X, nos)), 300
+    else:
+        X, params = chain_ff(150, 1, seed=13)
+        X, n = X[0], 30
+    terms = ff.FireTerms(ff.params_to_device(params, device, torch.float64))
+    return torch.as_tensor(X, device=device)[None], terms, n
+
+
+@pytest.mark.parametrize('name', ['c2f2h4', 'ring', 'chain150'])
+def test_dimer_every_form_on_the_cases(cuda_device, name):
+    '''Every form of D1 that fits, the lone form at each width and the
+    large form on each cluster of 1, 2, 4, 8 and 16, on saddle>'s
+    C2F2H4, the scan's guess and a 150-atom chain, float64: within 1e-6 A
+    of the plain twin, the same flags and steps, two launches the same
+    bits.'''
+    from tscode_tpu_torch.ops.kernels import dimer
+    x, terms, n = dimer_form_case(cuda_device, name)
+    plans = [dimer.plan_for(x, terms, 'large', cluster=c)
+             for c in (1, 2, 4, 8, 16)]
+    for form in dimer.FORMS:
+        for w in dimer.LONE_WIDTHS if form == 'lone' else (None,):
+            try:
+                plans.append(dimer.plan_for(
+                    x, terms, form, **({'warps': w} if w else {})))
+            except ValueError:
+                assert form in ('lone', 'staged') and name == 'chain150'
+    pc, pdone, psteps = dimer.dimer_plain(x, terms, n)
+    for plan in plans:
+        c, done, steps = dimer.launch(x, terms, n, plan=plan)
+        again = dimer.launch(x, terms, n, plan=plan)
+        assert all(torch.equal(a, b) for a, b in zip(again, (c, done, steps)))
+        assert float((c - pc).abs().max()) <= 1e-6, plan
+        assert torch.equal(done, pdone) and torch.equal(steps, psteps)
 
 
 @pytest.mark.parametrize('name', ['hcooh', 'ring'])

@@ -187,29 +187,201 @@ def test_dimer_saddle_routes_the_force_field_to_the_kernel(monkeypatch,
     assert bool(done) == bool(cpu[2]) and done.dim() == 0
 
 
-@pytest.mark.parametrize('n_atoms, form', [(27, 'staged'), (400, 'atom'),
-                                           (2500, 'device')])
+# the forms that fit a dense repulsion table of n_atoms atoms in float64
+# (test_launch_plan_forms): the lone and the staged form's shared memory
+# past 400 atoms; the large form takes any N
+FITS = {27: {'lone', 'large', 'staged'}, 400: {'large'}, 2500: {'large'}}
+
+
+@pytest.mark.parametrize('n_atoms, form', [(27, 'lone'), (400, 'large'),
+                                           (2500, 'large')])
 def test_launch_plan_forms(n_atoms, form):
-    '''The rule: staged while the state and both copies' entry forces
-    fit a block's shared memory (the ring), the atom form while the state
-    does (a dense repulsion table of 400 atoms), device memory past that
-    (2,500 atoms); threads for 2 slots a term up to MAX_THREADS.'''
+    '''The rule: the lone form while its state, its three copies' entry
+    forces and its reductions fit a block's shared memory (the ring),
+    the large form past that (a dense repulsion table of 400 atoms, and
+    2,500 atoms); the staged form (the first design) only on request;
+    each form refused where its shared memory does not fit.'''
     n_terms = n_atoms * (n_atoms - 1) // 2
+    kinds = (0, 0, n_terms, 0)
     entries = 2 * n_terms
-    plan = kd.launch_plan(n_atoms, n_terms, entries, 8)
+    plan = kd.launch_plan(n_atoms, kinds, entries, 8)
     assert plan.form == form
     state = kd.STATE * 3 * n_atoms * 8
-    assert plan.smem == {'staged': state + 6 * entries * 8, 'atom': state,
-                         'device': 0}[form]
-    assert plan.threads == min(kd.MAX_THREADS,
-                               32 * -(-2 * (n_terms if form == 'staged'
-                                            else n_atoms) // 32))
-    for other in kd.FORMS[kd.FORMS.index(form) + 1:]:
-        assert kd.launch_plan(n_atoms, n_terms, entries, 8, other).form == \
-            other
-    for other in kd.FORMS[:kd.FORMS.index(form)]:
-        with pytest.raises(ValueError, match='shared bytes'):
-            kd.launch_plan(n_atoms, n_terms, entries, 8, other)
+    lone = (27 * n_atoms + 9 * entries + 8 * -(-n_atoms // 32)) * 8
+    if form == 'lone':
+        assert plan.smem == lone <= kd.SMEM_BYTES
+        assert plan.threads == 32 * plan.warps == 512
+    else:
+        assert lone > kd.SMEM_BYTES
+        assert plan.cluster == kd.MAX_CLUSTER == 16
+    assert kd.FORMS == ('lone', 'large', 'staged')
+    for other in kd.FORMS:
+        if other in FITS[n_atoms]:
+            got = kd.launch_plan(n_atoms, kinds, entries, 8, other)
+            assert got.form == other
+            if other == 'staged':
+                assert got.smem == state + 6 * entries * 8
+                assert got.threads == min(kd.MAX_THREADS,
+                                          32 * -(-2 * n_terms // 32))
+        else:
+            with pytest.raises(ValueError, match='shared bytes'):
+                kd.launch_plan(n_atoms, kinds, entries, 8, other)
+
+
+def chain_terms(n_atoms, seed=13):
+    '''(coords (1, N, 3) float64, ff.FireTerms) of suite_inputs.chain_ff's
+    n_atoms-atom chain, one jittered conformer.'''
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    X, params = chain_ff(n_atoms, 1, seed=seed)
+    return t64(X), port_terms(params)
+
+
+def slots_of(kinds):
+    '''A copy's term slots, each kind from a multiple of 32.'''
+    return sum(32 * -(-k // 32) for k in kinds)
+
+
+@pytest.mark.parametrize('n_atoms, form', [(8, 'lone'), (27, 'lone'),
+                                           (50, 'lone'), (60, 'large'),
+                                           (150, 'large')])
+def test_lone_form_widths_on_chains(n_atoms, form):
+    '''suite_inputs.chain_ff chains (their bonds, angles and dense
+    repulsion tables): the lone form up to 50 atoms in float64 (its
+    shared values 27 N + 9 N x the largest degree + 8 a chunk of 32
+    atoms), the large form from 55. The lone form's rule width: the narrowest of
+    LONE_WIDTHS with a thread for each slot of the two copies' term pass
+    (each kind from a multiple of 32) and each atom, else 16 warps; every
+    width of LONE_WIDTHS on request, with the same shared bytes; past 50
+    atoms the lone form refused at every width.'''
+    x, terms = chain_terms(n_atoms)
+    kinds = tuple(int(t.shape[0]) for t in terms.tables()[0::2])
+    plan = kd.plan_for(x, terms)
+    assert plan.form == form
+    offsets = ff.incidence(terms.params, n_atoms)[0]
+    degree = int((offsets[1:] - offsets[:-1]).max())
+    lone = (27 * n_atoms + 9 * degree * n_atoms + 8 * -(-n_atoms // 32)) * 8
+    assert (lone <= kd.SMEM_BYTES) == (form == 'lone')
+    need = max(-(-2 * slots_of(kinds) // 32), -(-n_atoms // 32))
+    rule = next((w for w in kd.LONE_WIDTHS if w >= need), 16)
+    for w in kd.LONE_WIDTHS:
+        if form == 'lone':
+            got = kd.plan_for(x, terms, 'lone', warps=w)
+            assert (got.threads, got.smem, got.slots[1]) == \
+                (32 * w, plan.smem, slots_of(kinds))
+            assert got.smem <= kd.SMEM_BYTES
+        else:
+            with pytest.raises(ValueError, match='shared bytes'):
+                kd.plan_for(x, terms, 'lone', warps=w)
+    if form == 'lone':
+        assert plan.warps == rule and plan.threads == 32 * rule
+        assert (plan.smem, plan.degree) == (lone, degree)
+        assert plan.slots[0] == tuple(
+            slots_of(kinds[:k]) for k in range(4))
+    with pytest.raises(ValueError, match='warps'):
+        kd.plan_for(x, terms, 'lone', warps=3)
+
+
+@pytest.mark.parametrize('itemsize', [8, 4])
+@pytest.mark.parametrize('n_atoms', [400, 2500, 5000])
+def test_large_form_blocks_and_shared_bytes(n_atoms, itemsize):
+    '''The large form: a cluster of 16 blocks by the rule (the sweep's
+    fastest), ceil(N / cluster) atoms a block, the most lanes an atom (a
+    power of two) that keep a block within 512 threads; the structure's
+    coordinates, both copies and a block's four vectors of its atoms in
+    shared memory where they fit (2,500 atoms in float64, 5,000 in
+    float32), else only the reductions' chunk values (5,000 atoms in
+    float64: the rest in device memory, 21 N values a structure). Every
+    cluster of 1 to 16 on request, none past 16.'''
+    kinds = (n_atoms - 1, 2 * n_atoms, n_atoms * (n_atoms - 1) // 2, 0)
+    entries = 2 * kinds[0] + 3 * kinds[1] + 2 * kinds[2]
+    for cluster in (None, 1, 2, 4, 8, 16):
+        plan = kd.launch_plan(n_atoms, kinds, entries, itemsize, 'large',
+                              cluster=cluster)
+        cl = cluster or 16
+        per = -(-n_atoms // cl)
+        lanes = max([1] + [g for g in (2, 4, 8, 16, 32) if per * g <= 512])
+        red = 8 * -(-per // 32)
+        full = (9 * n_atoms + 12 * per + red) * itemsize
+        assert (plan.cluster, plan.lanes) == (cl, lanes)
+        assert plan.threads == min(512, 32 * -(-per * lanes // 32))
+        assert plan.shared == (full <= kd.SMEM_BYTES)
+        assert plan.smem == (full if plan.shared else red * itemsize)
+        if cluster is None:
+            assert kd.launch_plan(n_atoms, kinds, entries, itemsize) == plan
+            assert plan.shared == (n_atoms < 5000 or itemsize == 4)
+    with pytest.raises(ValueError, match='blocks a structure'):
+        kd.launch_plan(n_atoms, kinds, entries, itemsize, 'large',
+                       cluster=17)
+    with pytest.raises(ValueError, match='shared bytes'):
+        kd.launch_plan(n_atoms, kinds, entries, itemsize, 'lone')
+
+
+def test_plan_args_follow_the_kernels_plan_fields():
+    '''Plan.args: the host array of csrc/dimer.cu PlanField (form,
+    threads, shared bytes, entries, cluster, lanes, shared, slots, the
+    first slot of each kind, the largest degree).'''
+    x, terms = chain_terms(27)
+    lone = kd.plan_for(x, terms)
+    large = kd.plan_for(x, terms, 'large', cluster=2)
+    assert list(lone.args(99)) == [1, lone.threads, lone.smem, 99, 1, 1, 0,
+                                   lone.slots[1], *lone.slots[0],
+                                   lone.degree]
+    assert list(large.args(7)) == [2, large.threads, large.smem, 7, 2,
+                                   large.lanes, 1, 0, 0, 0, 0, 0, 0]
+    assert [kd.Plan(f, 32, 0).args(0)[0] for f in kd.FORMS] == [1, 2, 0]
+
+
+@pytest.mark.parametrize('name', ['ring', 'merged', 'chain'])
+def test_transposed_entries_keep_incidence_order(name):
+    '''The lone form's staging table: each term role's entry, atom a's
+    k-th in ff.incidence order, at k N + a; every entry at its own
+    position, below N x the largest degree; so summing positions a, N +
+    a, 2 N + a, ... adds atom a's entries in incidence order. On the
+    ring's guess, HCOOH and C2H4 on merged tables, a 40-atom chain.'''
+    if name == 'chain':
+        x, terms = chain_terms(40)
+        x = x[0]
+    else:
+        x, params = dimer_case(name, 0)
+        terms = port_terms(params)
+    N = x.shape[0]
+    tpos, degree = kd.transposed_entries(terms.params, N)
+    offsets, codes, pos = ff.incidence(terms.params, N)
+    tables = terms.tables()[0::2]
+    atoms = torch.cat([torch.nn.functional.pad(t, (0, 4 - t.shape[1]),
+                                               value=-1) for t in tables])
+    assert tpos.shape == atoms.shape and tpos.dtype == torch.int32
+    assert torch.equal(tpos < 0, atoms < 0)
+    got = tpos[tpos >= 0].long()
+    assert len(set(got.tolist())) == codes.numel()
+    assert int(got.max()) < degree * N
+    # position k N + a holds atom a's k-th code of the incidence
+    slot_code = torch.full((degree * N,), -1, dtype=torch.int64)
+    term_role = torch.arange(4 * atoms.shape[0]).view(-1, 4)
+    slot_code[got] = term_role[tpos >= 0]
+    for a in range(N):
+        lo, hi = int(offsets[a]), int(offsets[a + 1])
+        assert slot_code[a:degree * N:N][:hi - lo].tolist() == \
+            codes[lo:hi].tolist()
+        assert bool((slot_code[a + (hi - lo) * N:degree * N:N] < 0).all())
+    assert degree == int((offsets[1:] - offsets[:-1]).max())
+
+
+@pytest.mark.parametrize('seed', [13, 14])
+def test_twin_equals_jax_on_a_60_atom_chain(seed):
+    '''A 60-atom suite_inputs.chain_ff chain, where the lone form meets
+    the large form, 4 steps: the twin against the JAX dimer_saddle,
+    frames within ATOL, energies within ATOL, the same flag.'''
+    x, terms = chain_terms(60, seed)
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    params = chain_ff(60, 1, seed=seed)[1]
+    c, done, steps = kd.dimer_plain(x, terms, n_steps=4)
+    jc, je, jdone = jax_dimer(x[0].numpy(), params, n_steps=4)
+    np.testing.assert_allclose(c[0].numpy(), jc, rtol=0, atol=ATOL)
+    assert float(ff.ff_energy(c, terms.params)[0]) == \
+        pytest.approx(je, abs=ATOL)
+    assert bool(done[0]) == jdone and int(steps[0]) == 4
+    assert float((c - x).abs().max()) > 1e-3
 
 
 def test_launch_checks_its_inputs():
@@ -222,4 +394,4 @@ def test_launch_checks_its_inputs():
     with pytest.raises(ValueError, match=r'\(B, N, 3\)'):
         kd.launch(t64(x), terms)
     with pytest.raises(ValueError, match='form'):
-        kd.launch_plan(5, 10, 20, 8, 'lone')
+        kd.launch_plan(5, (4, 6, 0, 0), 20, 8, 'cluster')

@@ -20,7 +20,17 @@ torsion grid (chip_smoke.tfd_grid) at k = 1 and 2: per block its cycles,
 its tile loads' and its walk's, with the pass's windows and with one
 window; the longest block against the mean.
 
-    python3 tools/kernel_phases.py OUT.json      # on the card, ~2 min
+D1 (csrc/dimer.cu), float64, every form that fits, on chip_smoke's
+DIMER_CASES (the SADDLE scan's sub-peak guess, 27 atoms, 300 steps;
+saddle>'s C2F2H4, 8 atoms, 300 steps; 150- and 2,500-atom
+suite_inputs.chain_ff chains, 100 and 10 steps): a structure's cycles a
+step by phase (the term pass, the atom sums or the large form's walk,
+the reductions, the vector algebra, the staged form's separate pass of
+the force at c, set-up), its force passes a step, and each form's
+device ms.
+
+    python3 tools/kernel_phases.py OUT.json      # on the card, ~4 min
+    python3 tools/kernel_phases.py OUT.json --d1 # D1 alone
 
 Needs a card and nvcc; run from the root of a checkout.
 '''
@@ -40,12 +50,17 @@ import chip_smoke as cs                                      # noqa: E402
 from tscode_tpu_torch.embeds import cyclical as cyc         # noqa: E402
 from tscode_tpu_torch.ops.kernels import _build             # noqa: E402
 from tscode_tpu_torch.ops.kernels import block_screen as b1  # noqa: E402
+from tscode_tpu_torch.ops.kernels import dimer as kd        # noqa: E402
 from tscode_tpu_torch.ops.kernels import tfd as kt          # noqa: E402
 
 OUT_DIR = os.path.join(_build.BUILD_DIR, 'phases')
 # B1's record a row (csrc/phases.cuh slots): cycles by phase, then counts
 B1_SLOTS = ('build', 'write', 'clash', 'norm', 'dedup', 'steps', 'lanes',
             'rows')
+# D1's record a structure (csrc/dimer.cu Lap): cycles by phase, then
+# counts
+D1_SLOTS = ('term', 'atom', 'reduce', 'algebra', 'force', 'setup', 'steps',
+            'passes')
 
 
 def build(name, lib_name, *defines):
@@ -227,15 +242,53 @@ def t1_phases(out):
         out['t1'][f'k{k}'] = rec
 
 
+def d1_phases(out):
+    lib_path = build('dimer', 'dimer_phases', 'TT_PHASES')
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = cs.dimer_inputs(tmp)
+    for name, (x, _, terms) in inputs.items():
+        n = cs.DIMER_CASES[name]
+        rec = {'atoms': int(x.shape[1]), 'n_steps': n}
+        for form in kd.FORMS:
+            try:
+                plan = kd.plan_for(x, terms, form)
+            except ValueError:
+                continue
+
+            def run():
+                return kd.launch(x, terms, n, form=form)
+            reps = 1 if x.shape[1] > 1000 else 3
+            ms = cs.device_ms(run, reps=reps)
+            steps = int(run()[2].max())
+            with Swapped(kd, 'KERNEL', lib_path) as lib:
+                p = profiled(lib, len(D1_SLOTS), run).astype(float)
+            per = {k: p[i] / steps for i, k in enumerate(D1_SLOTS[:6])}
+            r = {'plan': plan._asdict(), 'ms': ms,
+                 'us_per_step': 1e3 * ms / steps, 'steps': steps,
+                 'cycles_per_step': per,
+                 'passes_per_step': p[7] / steps,
+                 **kd.kernel_info(plan, x.dtype, x.device)}
+            rec[form] = r
+            print(f'[phases D1] {name} ({rec["atoms"]} atoms, {steps} '
+                  f'steps) {form}: {ms:.4f} ms, {r["us_per_step"]:.2f} us '
+                  f'a step, {r["registers"]} registers; cycles a step '
+                  + ', '.join(f'{k} {v:.0f}' for k, v in per.items())
+                  + f'; {r["passes_per_step"]:.1f} force passes a step',
+                  flush=True)
+        out['d1'][name] = rec
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('kernel_phases.py needs a card')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip()
-    out = {'card': smi, 'b1': {}, 't1': {}}
-    b1_phases(out)
-    t1_phases(out)
+    out = {'card': smi, 'b1': {}, 't1': {}, 'd1': {}}
+    if '--d1' not in sys.argv[2:]:
+        b1_phases(out)
+        t1_phases(out)
+    d1_phases(out)
     print(f'[phases] {smi}')
     with open(sys.argv[1], 'w') as f:
         json.dump(out, f, indent=1)

@@ -177,15 +177,6 @@ __device__ __forceinline__ T warp_max(T m) {
   return m;
 }
 
-// a barrier over the `count` threads of one structure: the warp's own,
-// or named barrier `id`
-__device__ __forceinline__ void group_sync(int id, int count) {
-  if (count == 32)
-    __syncwarp();
-  else
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
 // sums of s0..s2 and the max of m3 over the nw warps of one structure
 // (warp butterflies, then the warps in order through buf[4][nw]), the
 // same bits in every thread; sync is the structure's barrier
@@ -236,27 +227,6 @@ struct GroupSync {
 };
 
 // ------------------------------------------------------------ group form
-
-// the slots of the term pass: kind k's terms at slots lo[k] ..
-// lo[k] + count - 1 (packed: the terms in order; grouped by kind: each
-// kind from a multiple of 32)
-struct Slots {
-  int lo[4];
-  int n;
-};
-
-template <typename T>
-__device__ __forceinline__ int slot_term(const Tables<T>& t, const Slots& s,
-                                         int slot) {
-  const int count[4] = {t.nb, t.na, t.np, t.nd};
-  int base = 0;
-  for (int k = 0; k < 4; ++k) {
-    if (slot >= s.lo[k] && slot < s.lo[k] + count[k])
-      return base + slot - s.lo[k];
-    base += count[k];
-  }
-  return -1;
-}
 
 // the shared values of one structure in the group form
 __host__ __device__ __forceinline__ long long group_values(int N, int E,

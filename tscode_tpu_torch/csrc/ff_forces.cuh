@@ -371,6 +371,37 @@ struct PackedLoad {
   }
 };
 
+// a barrier over the `count` threads of one structure: the warp's own,
+// or named barrier `id`
+__device__ __forceinline__ void group_sync(int id, int count) {
+  if (count == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// the slots of a term pass: kind k's terms at slots lo[k] ..
+// lo[k] + count - 1 (packed: the terms in order; grouped by kind: each
+// kind from a multiple of 32)
+struct Slots {
+  int lo[4];
+  int n;
+};
+
+// the term at a slot, -1 for a slot that holds none
+template <typename T>
+__device__ __forceinline__ int slot_term(const Tables<T>& t, const Slots& s,
+                                         int slot) {
+  const int count[4] = {t.nb, t.na, t.np, t.nd};
+  int base = 0;
+  for (int k = 0; k < 4; ++k) {
+    if (slot >= s.lo[k] && slot < s.lo[k] + count[k])
+      return base + slot - s.lo[k];
+    base += count[k];
+  }
+  return -1;
+}
+
 // write a term's forces o (w atoms) to its atoms' incidence entries
 template <typename T>
 __device__ __forceinline__ void stage(T* contrib, int4 e, int w,

@@ -3,7 +3,8 @@
 // beside the real one), a kernel sums clock64() laps and counts into
 // slots of its own and adds them to the record that set_prof points
 // g_prof at. Without TT_PHASES every macro below is empty, its arguments
-// are not evaluated, and the kernel compiles as if they were not there.
+// are not evaluated, and TtLaps's members are empty inline functions, so
+// the kernel compiles as if they were not there.
 #pragma once
 
 #ifdef TT_PHASES
@@ -41,7 +42,43 @@ extern "C" int set_prof(void* p) {
     }                                                           \
   } while (0)
 
+// the same as an object that a kernel hands to its device functions:
+// N slots, lap(i), add(i, v), flush(rec, who)
+template <int N>
+struct TtLaps {
+  long long slot[N];
+  long long t;
+  // the clock, read in device code only (the host pass parses the body)
+  __device__ __forceinline__ static long long clock() {
+#ifdef __CUDA_ARCH__
+    return clock64();
 #else
+    return 0;
+#endif
+  }
+  __device__ __forceinline__ TtLaps() : t(clock()) {
+    for (int i = 0; i < N; ++i) slot[i] = 0;
+  }
+  __device__ __forceinline__ void lap(int i) {
+    const long long now = clock();
+    slot[i] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void add(int i, long long v) { slot[i] += v; }
+  __device__ __forceinline__ void flush(long long rec, bool who) const {
+    if (g_prof && who)
+      for (int i = 0; i < N; ++i) g_prof[rec * N + i] += slot[i];
+  }
+};
+
+#else
+
+template <int N>
+struct TtLaps {
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void add(int, long long) {}
+  __device__ __forceinline__ void flush(long long, bool) const {}
+};
 
 #define TT_START(n)
 #define TT_RESTART()
