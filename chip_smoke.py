@@ -84,7 +84,14 @@ both, bounded, with a latency figure), for repeated bits and in
 float32, and runs in every form that fits (the rule's lone or large
 form, the staged form, the first design) on the guess, saddle>'s
 C2F2H4 and 150- and 2,500-atom chains, each against its twin and
-timed. Phase 20 runs
+timed; every neb> on the force field runs its IDPP band as one launch of
+I1 (csrc/idpp_fire.cu) and each of its two band phases as one launch of
+N1 (csrc/neb_band.cu, every step inside; NebCalls), and phase 19b holds
+both kernels against their plain twins in every form on phase 19's band,
+HCOOH and 150- and 2,500-atom chains, timed beside the twins and the
+graph route before them, bounded, with neb>'s seconds by both routes
+and the chain size from which the graph route takes the shorter step.
+Phase 20 runs
 the optimisation route: sn2_string at 76 conformers without NOOPT (the
 calculators chosen by keyword), its 290 candidates through the
 force-field and the calculator's stages, every xtb call answered by the
@@ -106,7 +113,8 @@ untraced run (the same counts and frames): every launch of K1, K2 and K3
 is found in the trace, under its kernel's name and inside its launch
 span, and each stage is a span; then a bend's FIRE call, one ff_fire
 launch found the same way, one saddle> dimer's D1 launch found the
-same way, and a dimer graph captured and replayed under the same trace,
+same way, one neb>'s I1 launch and two N1 launches found the same way,
+and a dimer graph captured and replayed under the same trace,
 its capture and replay loop spans of their own, and a TFD prune's T1
 launches, each found the same way. Every
 FIRE call of the force field's energies on the card launches ff_fire
@@ -122,6 +130,10 @@ once (FireCalls), in every phase that runs one.
     python3 chip_smoke.py --dimer OUT.json   # D1's widths behind its
                                   # plan rule (lone warps, large
                                   # clusters) on phase 18's inputs
+    python3 chip_smoke.py --neb OUT.json   # phase 19b alone: N1 and I1
+                                  # in every form against their twins,
+                                  # timed, neb>'s seconds, and where
+                                  # the graph route's step is shorter
     python3 chip_smoke.py --opt      # phase 20 alone: the optimisation
                                   # route
     python3 chip_smoke.py --sweep    # phases 8, 10 to 12 and 14 alone:
@@ -407,6 +419,10 @@ TRACE_KERNELS = {
     # dimer_large_kernel<T, SHARED>; the staged form's dimer_kernel<T>)
     'dimer_f32': ('dimer_(?:lone_|large_)?kernel', 'float'),
     'dimer_f64': ('dimer_(?:lone_|large_)?kernel', 'double'),
+    # N1, the NEB band (both forms: neb_band_kernel<double, CLUSTER,
+    # SHARED>), and I1, the IDPP relaxation (no template)
+    'neb_band_f64': ('neb_band_kernel', 'double'),
+    'idpp_fire_f64': ('idpp_fire_kernel', None),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -426,6 +442,32 @@ DIMER_CASES = {'scan_guess': 300, 'saddle_c2f2h4': 300, 'chain150': 100,
 DIMER_ATOM_FLOPS = 40
 DIMER_CHAIN = 18
 DIMER_CLUSTERS = (1, 2, 4, 8, 16)
+# N1 and I1, the NEB band and IDPP kernels: the bands on which phase 19b
+# (--neb) holds each kernel to its twin in every form and times it
+# (neb_inputs; name -> steps of each band phase): phase 19's band (the
+# ring's first scan point and the point 120 degrees on, aligned as neb>
+# aligns them, their IDPP band: 400 plain then 400 climbing steps, as
+# run_neb runs them), HCOOH's O-H rotor (400 + 400), 150- and
+# 2,500-atom suite_inputs.chain_ff chains (10 + 10; I1 there 10 steps at
+# fmax 0, so that every image takes them all); the clusters of the large
+# form, and the grid form's blocks when few, run beside the rule's plan;
+# for the bounds, the operations of the
+# band algebra an atom a step, those an energy adds to a term's forward
+# values (its square, the constant, the add into the sum), and those of
+# one unordered IDPP pair (both atoms' contributions); the chains on
+# which N1 in the rule's plan, the large form and the grid form are timed
+# against the graph route a step (neb_crossover), NEB_CROSSOVER_STEPS
+# steps
+NEB_CASES = {'ring': 400, 'hcooh': 400, 'chain150': 10, 'chain2500': 10}
+NEB_IMAGES = 7
+NEB_CLUSTERS = (1, 2, 3, 5)
+NEB_GRID_FEW = 3
+NEB_ATOM_FLOPS = 100
+NEB_TERM_ENERGY_FLOPS = 3
+NEB_CROSSOVER = (100, 200, 300, 500, 1000, 2500)
+NEB_CROSSOVER_STEPS = 10
+IDPP_STEPS = 300
+IDPP_PAIR_FLOPS = 30
 # the force field's FIRE kernel: operations of one evaluation of each
 # term (the function's work counts each term once a step, whatever the
 # kernel recomputes) and of the FIRE update of one atom, for its bound
@@ -487,10 +529,11 @@ def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
     from tscode_tpu_torch.ops.kernels import (block_screen, clash, dimer,
-                                              ff_fire, qcp, tfd)
+                                              ff_fire, idpp, neb, qcp, tfd)
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
             ff_fire.BLOCK_KERNEL, tfd.KERNEL, tfd.WARP_KERNEL,
-            block_screen.KERNEL, block_screen.ROW_KERNEL, dimer.KERNEL)
+            block_screen.KERNEL, block_screen.ROW_KERNEL, dimer.KERNEL,
+            neb.KERNEL, idpp.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1668,6 +1711,89 @@ def count_dimer(phase, tag, rec):
           f'{rec["calls"]["registered"]} dimer calls on the card; graph '
           f'runs {rec["graph_runs"]}')
     return n
+
+
+class NebCalls:
+    '''While open: the neb.run_neb calls on the card, by whether the
+    energy registers force-field terms (`fire_terms`), and the CPU calls;
+    the captured graph runs of the band step (neb.graph_loop) by the
+    same split; the idpp_interpolate calls on the card and the CPU; N1's
+    and I1's launches (their counts set to 0 on entry). record() gives
+    them.'''
+
+    def __enter__(self):
+        import torch
+        from tscode_tpu_torch import neb
+        from tscode_tpu_torch.ops.kernels import idpp
+        from tscode_tpu_torch.ops.kernels import neb as kn
+        self.calls = {'registered': 0, 'other': 0, 'cpu': 0}
+        self.graph = {'registered': 0, 'other': 0}
+        self.idpp = {'card': 0, 'cpu': 0}
+        self.kind = None
+        self.real = (neb.run_neb, neb.graph_loop, neb.idpp_interpolate)
+        real_neb, real_graph, real_idpp = self.real
+
+        def on_card(device):
+            return torch.device(device).type == 'cuda'
+
+        def neb_spy(*args, device, **kw):
+            self.kind = 'registered' if hasattr(args[2], 'fire_terms') \
+                else 'other'
+            self.calls[self.kind if on_card(device) else 'cpu'] += 1
+            return real_neb(*args, device=device, **kw)
+
+        def graph_spy(*args):
+            self.graph[self.kind] += 1
+            return real_graph(*args)
+
+        def idpp_spy(*args, device, **kw):
+            self.idpp['card' if on_card(device) else 'cpu'] += 1
+            return real_idpp(*args, device=device, **kw)
+
+        neb.run_neb, neb.graph_loop, neb.idpp_interpolate = \
+            neb_spy, graph_spy, idpp_spy
+        kn.KERNEL.reset_counts()
+        idpp.KERNEL.reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        from tscode_tpu_torch import neb
+        from tscode_tpu_torch.ops.kernels import idpp
+        from tscode_tpu_torch.ops.kernels import neb as kn
+        self.launches = (kn.KERNEL.launches, idpp.KERNEL.launches)
+        neb.run_neb, neb.graph_loop, neb.idpp_interpolate = self.real
+
+    def record(self):
+        return {'n1_launches': self.launches[0],
+                'i1_launches': self.launches[1], 'calls': dict(self.calls),
+                'graph_runs': dict(self.graph), 'idpp': dict(self.idpp)}
+
+
+# N1's and I1's launches on the main path, by phase
+NEB_LAUNCHES = {}
+IDPP_LAUNCHES = {}
+
+
+def count_neb(phase, tag, rec):
+    '''Every run_neb call of a registered energy on the card launched N1
+    once a phase (twice: the plain band and the climbing one) and
+    replayed no graph, and every idpp_interpolate on the card launched
+    I1 once; at least one of each; the launches added to NEB_LAUNCHES
+    and IDPP_LAUNCHES[phase] and printed. Returns them.'''
+    n1, i1 = rec['n1_launches'], rec['i1_launches']
+    calls = rec['calls']['registered']
+    check(n1 == 2 * calls > 0 and rec['graph_runs']['registered'] == 0 and
+          i1 == rec['idpp']['card'] > 0, f'{tag}: N1 launched {n1} times '
+          f'for {calls} run_neb calls of the force field on the card, '
+          f'{rec["graph_runs"]["registered"]} graph runs of them (expected '
+          f'one launch a phase, no graph); I1 launched {i1} times for '
+          f'{rec["idpp"]["card"]} IDPP bands on the card')
+    NEB_LAUNCHES[phase] = NEB_LAUNCHES.get(phase, 0) + n1
+    IDPP_LAUNCHES[phase] = IDPP_LAUNCHES.get(phase, 0) + i1
+    print(f'[{phase} neb] {tag}: {n1} launches of N1 for {calls} run_neb '
+          f'calls on the card, {i1} of I1 for {rec["idpp"]["card"]} IDPP '
+          f'bands; graph runs {rec["graph_runs"]}')
+    return n1, i1
 
 
 def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
@@ -4609,6 +4735,24 @@ def once_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def ff_term_flops(params):
+    '''The operations of one evaluation of every term of the force field
+    `params` (FF_TERM_FLOPS).'''
+    nb, na, npairs = (int(params[k].shape[0]) for k in (0, 2, 4))
+    nd = int(params[6].shape[0]) if len(params) > 6 else 0
+    return FF_TERM_FLOPS['pair'] * (nb + npairs) + \
+        FF_TERM_FLOPS['angle'] * na + FF_TERM_FLOPS['dihedral'] * nd
+
+
+def bound_of(ops, nbytes, dtype='float64'):
+    '''(ms, 'operations' or 'bytes'): the larger of ops at the card's
+    peak for `dtype` and nbytes at its memory rate.'''
+    ops_ms = ops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms \
+        else (bytes_ms, 'bytes')
+
+
 def dimer_bound(x, params, steps):
     '''(ms, 'operations' or 'bytes'): the least time of D1's function on
     x (B, N, 3) under the force field `params`, the larger of its
@@ -4619,17 +4763,12 @@ def dimer_bound(x, params, steps):
     and its bytes over the memory rate (coordinates read and written
     once, the initial mode read once, the flags and steps written, the
     tables read once).'''
-    nb, na, npairs, nd = (int(params[k].shape[0]) for k in (0, 2, 4, 6))
-    per_eval = FF_TERM_FLOPS['pair'] * (nb + npairs) + \
-        FF_TERM_FLOPS['angle'] * na + FF_TERM_FLOPS['dihedral'] * nd
-    per_step = 37 * per_eval + 19 * DIMER_ATOM_FLOPS * x.shape[1]
-    ops_ms = per_step * int(steps.sum()) / \
-        PEAK_FLOPS[str(x.dtype).split('.')[-1]] * 1e3
+    per_step = 37 * ff_term_flops(params) + \
+        19 * DIMER_ATOM_FLOPS * x.shape[1]
     nbytes = (2 * x.numel() + x[0].numel()) * x.element_size() + \
         5 * x.shape[0] + sum(t.numel() * t.element_size() for t in params)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, 'operations') if ops_ms >= bytes_ms \
-        else (bytes_ms, 'bytes')
+    return bound_of(per_step * int(steps.sum()), nbytes,
+                    str(x.dtype).split('.')[-1])
 
 
 def dimer_inputs(tmp):
@@ -4879,6 +5018,15 @@ def dimer_kernel_record(card, guess, atomnos, graph_step_ms):
     return rec
 
 
+def replayed_ms(body, state, args, n):
+    '''ms a step of `body` replayed n steps from its CUDA graph
+    (capture.graph_loop), after a warm-up run that captures it.'''
+    from tscode_tpu_torch import capture
+    capture.graph_loop(body, state, args, n)
+    return cuda_ms(lambda: capture.graph_loop(body, state, args, n),
+                   reps=1) / n
+
+
 def ff_step_times(card, guess, chain, atomnos):
     '''The dimer step on `guess` and the climbing band step on `chain`
     (force field of the ring from guess, float64 on the card), each
@@ -4888,7 +5036,7 @@ def ff_step_times(card, guess, chain, atomnos):
     guess beside the replayed step (dimer_kernel_record, under 'd1').
     Returns the record, ms.'''
     import torch
-    from tscode_tpu_torch import capture, neb, saddle, vibrations
+    from tscode_tpu_torch import neb, saddle, vibrations
     from tscode_tpu_torch.ff import build_ff_params, ff_energy, params_to_device
     from tscode_tpu_torch.graphs import graphize
     params = params_to_device(build_ff_params(guess, atomnos,
@@ -4903,11 +5051,6 @@ def ff_step_times(card, guess, chain, atomnos):
     band = neb._band_body(ff_energy, 1.0, 0.05, True)
     d_args, b_args = (params,), (dt0, (params,))
 
-    def replayed(body, state, args, n):
-        capture.graph_loop(body, state, args, n)
-        return cuda_ms(lambda: capture.graph_loop(
-            body, state, args, n), reps=1) / n
-
     def eager(body, state, args, n=EAGER_TIMED_STEPS):
         def run():
             st = state
@@ -4917,10 +5060,10 @@ def ff_step_times(card, guess, chain, atomnos):
         _, _, launches = profiled(run)
         return ms, None if launches is None else launches / n
 
-    rec = {'dimer_step_graph_ms': replayed(dimer, d_state, d_args,
-                                           DIMER_TIMED_STEPS),
-           'band_step_graph_ms': replayed(band, b_state, b_args,
-                                          BAND_TIMED_STEPS)}
+    rec = {'dimer_step_graph_ms': replayed_ms(dimer, d_state, d_args,
+                                              DIMER_TIMED_STEPS),
+           'band_step_graph_ms': replayed_ms(band, b_state, b_args,
+                                             BAND_TIMED_STEPS)}
     rec['dimer_step_eager_ms'], rec['dimer_kernels_a_step'] = \
         eager(dimer, d_state, d_args)
     rec['band_step_eager_ms'], rec['band_kernels_a_step'] = \
@@ -4938,6 +5081,388 @@ def ff_step_times(card, guess, chain, atomnos):
           f'{rec["band_step_eager_ms"]:.3f} ms '
           f'({rec["band_kernels_a_step"]} kernels a step); Hessian + '
           f'eigensolve {rec["hessian_eigensolve_ms"]:.3f} ms [{card}]')
+    return rec
+
+
+def ff_energy_graph(c, params):
+    '''ff_energy without its `fire_terms`: the route before N1 (the band
+    step captured in a CUDA graph and replayed).'''
+    from tscode_tpu_torch.ff import ff_energy
+    return ff_energy(c, params)
+
+
+def neb_inputs():
+    '''The bands of NEB_CASES, float64 on the card: name -> (start (N,
+    3), end (N, 3), aligned as neb> aligns them, the force field's tables
+    (params_to_device of the start's topology), ff.FireTerms of them).'''
+    import torch
+    from tscode_tpu_torch.ff import build_ff_params, ff_energy, \
+        params_to_device
+    from tscode_tpu_torch.ff_records import operator_frames
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.io_xyz import read_xyz
+    from tscode_tpu_torch.molecule import align_structures
+    from tscode_tpu_torch.pipeline import FIXTURE_DIR
+    from tscode_tpu_torch.rot_rmsd import _rotate
+    from tscode_tpu_torch.suite_inputs import chain_ff, chlorocycloalkane
+
+    def case(a, b, params):
+        p = params_to_device(params, DEV, torch.float64)
+        a, b = align_structures(np.array([a, b]))
+        return a, b, p, ff_energy.fire_terms(p)
+    start, far, _ = operator_frames(golden_record(DSCAN_GOLDEN))
+    _, ring_nos = chlorocycloalkane(DSCAN_RING)
+    mol = read_xyz(os.path.join(FIXTURE_DIR, 'HCOOH.xyz'))
+    x, nos = mol.atomcoords[0], mol.atomnos
+    mask = np.zeros(5, dtype=bool)
+    mask[4] = True
+    rng = np.random.default_rng(2)
+    a, b = (_rotate(x, (1, 0, 3, 4), t, mask) +
+            rng.normal(size=x.shape) * 0.05 for t in (0, 180))
+    inputs = {'ring': case(start, far, build_ff_params(
+                  start, ring_nos, graphize(start, ring_nos))),
+              'hcooh': case(a, b, build_ff_params(x, nos, graphize(x, nos)))}
+    for n in (150, 2500):
+        X, ffp = chain_ff(n, 2, seed=13)
+        inputs[f'chain{n}'] = case(X[0], X[1], ffp)
+    return inputs
+
+
+def neb_bound(x, params, steps):
+    '''N1's least time on the band x (I, N, 3) for `steps` steps: each
+    step every term of each interior image once for its energy and its
+    forces together (FF_TERM_FLOPS holds the forward values the energy
+    uses) plus NEB_TERM_ENERGY_FLOPS a term for the energy itself, and
+    NEB_ATOM_FLOPS an interior atom (the endpoints' energies, once a
+    call, left out); the chain read and written once, the tables read
+    once.'''
+    M, N = x.shape[0] - 2, x.shape[1]
+    n_terms = sum(int(params[k].shape[0]) for k in (0, 2, 4, 6)
+                  if k < len(params))
+    ops = steps * M * (ff_term_flops(params) +
+                       NEB_TERM_ENERGY_FLOPS * n_terms + NEB_ATOM_FLOPS * N)
+    nbytes = 2 * x.numel() * 8 + 5 + sum(t.numel() * t.element_size()
+                                          for t in params)
+    return bound_of(ops, nbytes)
+
+
+def idpp_bound(x, steps):
+    '''I1's least time on the band x (I, N, 3): the interior images'
+    steps (`steps` (I,), the frozen endpoints' left out), each unordered
+    pair of an image's atoms once, IDPP_PAIR_FLOPS for both atoms'
+    contributions; the interior images' rows of the two (I, N, N) tables
+    read once, the chain read and written once.'''
+    M, N = x.shape[0] - 2, x.shape[1]
+    ops = int(steps[1:-1].sum()) * N * (N - 1) // 2 * IDPP_PAIR_FLOPS
+    nbytes = (2 * M * N * N + 2 * x.numel()) * 8 + 5 * x.shape[0]
+    return bound_of(ops, nbytes)
+
+
+def neb_plans(x, terms):
+    '''{label: Plan}: the rule's plan, the lone form where it fits, the
+    large form on each cluster of NEB_CLUSTERS up to I - 2 blocks, the
+    grid form on the card's resident blocks and on NEB_GRID_FEW (more
+    than one interior image a block); at 2,500 atoms the large form on
+    min(I - 2, 8) blocks only and the grid on all (a large launch there
+    takes ~0.3 s a cluster of 5, ~0.8 s of 2).'''
+    from tscode_tpu_torch.ops.kernels import neb
+    M = x.shape[0] - 2
+    big = x.shape[1] > 1000
+    plans = {'rule': neb.plan_for(x, terms)}
+    try:
+        plans['lone'] = neb.plan_for(x, terms, 'lone')
+    except ValueError:
+        pass
+    clusters = (min(M, neb.MAX_CLUSTER),) if big else NEB_CLUSTERS
+    for cl in clusters:
+        if cl <= min(M, neb.MAX_CLUSTER):
+            plans[f'large {cl}'] = neb.plan_for(x, terms, 'large', cl)
+    plans['grid'] = neb.plan_for(x, terms, 'grid')
+    if not big:
+        plans[f'grid {NEB_GRID_FEW}'] = neb.plan_for(x, terms, 'grid',
+                                                    NEB_GRID_FEW)
+    return plans
+
+
+def neb_forms(card, name, x, params, terms, n, climbing, want, eval_ms):
+    '''N1 on the band x for n steps (climbing or not) in each plan of
+    neb_plans: two launches the same bits, the rule's plan's bits (the
+    forms add in one order), within FF_ATOL of the plain twin's `want`
+    (chain, done, steps, ties) with the same flag and steps (held
+    strictly: the record counts the twin's near ties); device ms,
+    us a step, registers, resident warps; the bound (neb_bound) and the
+    latency figure (the steps x eval_ms, one F1 step on an interior
+    image: one evaluation of its terms, its reductions and a FIRE
+    update). Prints a line a plan; returns {label: record}.'''
+    import torch
+    from tscode_tpu_torch.ff_records import FF_ATOL
+    from tscode_tpu_torch.ops.kernels import neb
+    pc, pdone, psteps, ties = want
+    bound, by = neb_bound(x, params, int(psteps))
+    latency = eval_ms * int(psteps)
+    recs, first = {}, None
+    for label, plan in neb_plans(x, terms).items():
+        got = neb.launch(x, terms, n, climbing=climbing, plan=plan)
+        again = neb.launch(x, terms, n, climbing=climbing, plan=plan)
+        err = float((got[0] - pc).abs().max())
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        first = got[0] if first is None else first
+        same = torch.equal(got[0], first)
+        check(repeat and same and err <= FF_ATOL and
+              bool(got[1]) == bool(pdone) and int(got[2]) == int(psteps),
+              f'N1 {name} {label} ({plan}), climbing {climbing}: {err:.2e} '
+              f'A from its plain twin, done {bool(got[1])} / {bool(pdone)}, '
+              f'steps {int(got[2])} / {int(psteps)}, two launches the same '
+              f'bits {repeat}, the rule\'s bits {same}, the twin\'s near '
+              f'ties {ties}')
+        ms = device_ms(lambda: neb.launch(x, terms, n, climbing=climbing,
+                                          plan=plan),
+                       reps=1 if x.shape[1] > 1000 else 3)
+        rec = {'form': plan.form, 'cluster': plan.cluster,
+               'lanes': plan.lanes, 'shared': plan.shared,
+               'smem': plan.smem, 'ms': ms,
+               'us_per_step': ms * 1e3 / int(psteps), 'plain_diff_A': err,
+               'bound_ms': bound, 'bound_by': by, 'latency_ms': latency,
+               **neb.kernel_info(plan, x.device)}
+        recs[label] = rec
+        print(f'[19b neb] N1 {name} ({x.shape[0]} x {x.shape[1]} atoms, '
+              f'{"climbing" if climbing else "plain"}, {int(psteps)} steps, '
+              f'done {bool(pdone)}) {label} ({plan.form}, cluster '
+              f'{plan.cluster}, {plan.lanes} lanes an atom, shared '
+              f'{plan.shared}, {plan.smem} shared bytes, {rec["registers"]} '
+              f'registers, {rec["local_bytes"]} local bytes): {ms:.4f} ms, '
+              f'{rec["us_per_step"]:.2f} us a step; {err:.2e} A from the '
+              f'twin; bound {bound:.6f} ms ({by}), latency figure '
+              f'{latency:.4f} ms [{card}]')
+    return recs
+
+
+def neb_graph_step_ms(x, params, climbing, n):
+    '''The band step replayed from its CUDA graph (neb._band_body under
+    capture.graph_loop, the route before N1): ms a step over n steps
+    after a warm-up.'''
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.ff import ff_energy
+    state, dt0 = neb._band_state(x, 0.01)
+    return replayed_ms(neb._band_body(ff_energy, 1.0, 0.05, climbing),
+                       state, (dt0, (params,)), n)
+
+
+def neb_case_record(card, name, start, end, params, terms):
+    '''One band of NEB_CASES: its IDPP band by I1 against the twin
+    (idpp_record), then both band phases as run_neb runs them, the plain
+    one from the IDPP band and the climbing one from its end: N1 in every
+    plan (neb_forms) against the twin (its one run timed), the graph
+    path's replayed step x the twin's steps. Returns the record.'''
+    import torch
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    n = NEB_CASES[name]
+    chain = neb.interpolate_chain(start, end, NEB_IMAGES)
+    eval_ms = dimer_eval_ms(torch.as_tensor(chain[1:2], device=DEV), terms)
+    rec = {'atoms': int(chain.shape[1]), 'images': NEB_IMAGES,
+           'n_steps': n, 'f1_step_ms': eval_ms,
+           'idpp': idpp_record(card, name, chain, eval_ms)}
+    x = torch.as_tensor(rec['idpp'].pop('band'), device=DEV)
+    rule = kn.plan_for(x, terms)
+    for phase, climbing in (('plain', False), ('climbing', True)):
+        want, plain_ms = once_ms(lambda: kn.neb_relax_plain(
+            x, terms, n, climbing=climbing))
+        forms = neb_forms(card, name, x, params, terms, n, climbing, want,
+                          eval_ms)
+        steps = int(want[2])
+        step_ms = neb_graph_step_ms(x, params, climbing, min(n, 50))
+        r = forms['rule']
+        rec[phase] = {'steps': steps, 'done': bool(want[1]),
+                      'near_ties': want[3], 'plain_ms': plain_ms,
+                      'graph_step_ms': step_ms, 'graph_ms': step_ms * steps,
+                      'forms': forms,
+                      **{k: r[k] for k in ('form', 'ms', 'us_per_step',
+                                           'bound_ms', 'bound_by',
+                                           'latency_ms', 'plain_diff_A')}}
+        print(f'[19b neb] N1 {name} {phase}: the rule picks {rule.form} '
+              f'(cluster {rule.cluster}) {r["ms"]:.4f} ms; plain twin '
+              f'{plain_ms:.1f} ms; graph path {step_ms:.4f} ms a step x '
+              f'{steps} = {step_ms * steps:.2f} ms; twin\'s near ties '
+              f'{want[3]} [{card}]')
+        x = kn.launch(x, terms, n, climbing=climbing)[0]
+    return rec
+
+
+def idpp_record(card, name, chain, eval_ms):
+    '''I1 on the IDPP band of the linear chain (I, N, 3) numpy: against
+    its twin (within FF_ATOL, the same flags and steps, two launches the
+    same bits), timed beside the twin (its one run) and fire_run_graph
+    (the route before I1: the autograd step of neb._idpp_energy replayed
+    from a CUDA graph), bounded (idpp_bound), with a latency figure (the
+    most steps x eval_ms, one F1 step on an image, an evaluation over
+    its pairs with its reductions, standing in for an IDPP step).
+    IDPP_STEPS steps; the chains 10 at fmax 0. Returns the record, the
+    band under `band`.'''
+    import torch
+    from tscode_tpu_torch import neb, optimizers
+    from tscode_tpu_torch.ff_records import FF_ATOL
+    from tscode_tpu_torch.ops.kernels import idpp
+    n, fmax = (IDPP_STEPS, 0.05) if name in ('ring', 'hcooh') else (10, 0.0)
+    x = torch.as_tensor(chain, dtype=torch.float64, device=DEV)
+    tables = tuple(torch.as_tensor(t, device=DEV)
+                   for t in neb.idpp_tables(chain))
+    (pc, pdone, psteps), plain_ms = once_ms(
+        lambda: idpp.idpp_fire_plain(x, *tables, n, fmax=fmax))
+    got = idpp.launch(x, *tables, n, fmax=fmax)
+    again = idpp.launch(x, *tables, n, fmax=fmax)
+    err = float((got[0] - pc).abs().max())
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(repeat and err <= FF_ATOL and torch.equal(got[1], pdone) and
+          torch.equal(got[2], psteps), f'I1 {name}: {err:.2e} A from its '
+          f'plain twin, done {got[1].tolist()} / {pdone.tolist()}, steps '
+          f'{got[2].tolist()} / {psteps.tolist()}, two launches the same '
+          f'bits {repeat}')
+    ms = device_ms(lambda: idpp.launch(x, *tables, n, fmax=fmax),
+                   reps=1 if x.shape[1] > 1000 else 3)
+    freeze = torch.zeros(x.shape[:2], dtype=torch.bool, device=DEV)
+    freeze[0] = freeze[-1] = True
+
+    def graph():
+        return optimizers.fire_run_graph(x, neb._idpp_energy, n, 0.05, fmax,
+                                         freeze, tables)
+    gc = graph()[0]
+    graph_ms = cuda_ms(graph, reps=1)
+    bound, by = idpp_bound(x, psteps)
+    latency = eval_ms * int(psteps.max())
+    rec = {'steps': psteps.tolist(), 'done': pdone.tolist(), 'fmax': fmax,
+           'ms': ms, 'plain_ms': plain_ms, 'graph_ms': graph_ms,
+           'plain_diff_A': err,
+           'graph_diff_A': float((got[0] - gc).abs().max()),
+           'bound_ms': bound, 'bound_by': by, 'latency_ms': latency,
+           'band': got[0]}
+    print(f'[19b neb] I1 {name} ({x.shape[0]} x {x.shape[1]} atoms, {n} '
+          f'steps at fmax {fmax}, steps taken {rec["steps"]}): {ms:.4f} ms; '
+          f'plain twin {plain_ms:.1f} ms; fire_run_graph {graph_ms:.3f} ms; '
+          f'{err:.2e} A from the twin, {rec["graph_diff_A"]:.2e} A from the '
+          f'graph path; bound {bound:.6f} ms ({by}), latency figure '
+          f'{latency:.4f} ms [{card}]')
+    return rec
+
+
+def neb_route_seconds(card, start, end, params):
+    '''neb>'s band on phase 19's input (run_neb, 7 images, 400 + 400
+    steps, its IDPP band first), float64 on the card, by the route of I1
+    and N1 and by the route before them (IDPP by fire_minimize_batch on
+    neb._idpp_energy, the band on ff_energy_graph: both replayed from
+    CUDA graphs), in turns (after, before, before, after), each after a
+    warm-up run; the two bands within FF_ATOL, the same TS image. Returns
+    {'after_s': [...], 'before_s': [...]}.'''
+    import torch
+    from tscode_tpu_torch import neb, optimizers
+    from tscode_tpu_torch.ff import ff_energy
+    from tscode_tpu_torch.ff_records import FF_ATOL
+
+    def after():
+        return neb.run_neb(start, end, ff_energy, energy_args=(params,),
+                           device=DEV)
+
+    def before():
+        chain = neb.interpolate_chain(start, end, NEB_IMAGES)
+        x = torch.as_tensor(chain, device=DEV)
+        freeze = np.zeros(chain.shape[:2], dtype=bool)
+        freeze[0] = freeze[-1] = True
+        tables = tuple(torch.as_tensor(t, device=DEV)
+                       for t in neb.idpp_tables(chain))
+        band = optimizers.fire_minimize_batch(
+            x, neb._idpp_energy, n_steps=IDPP_STEPS, freeze_mask=freeze,
+            energy_args=tables)[0]
+        return neb.run_neb(start, end, ff_energy_graph,
+                           chain=band.cpu().numpy(), energy_args=(params,),
+                           device=DEV)
+    runs = {'after': after, 'before': before}
+    out = {k: fn() for k, fn in runs.items()}
+    err = float(np.abs(out['after'][0] - out['before'][0]).max())
+    check(err <= FF_ATOL and out['after'][2] == out['before'][2],
+          f'neb> by N1 and I1 against the route before them: {err:.2e} A, '
+          f'TS image {out["after"][2]} / {out["before"][2]}')
+    secs = {'after_s': [], 'before_s': []}
+    for key in ('after', 'before', 'before', 'after'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[key]()
+        torch.cuda.synchronize()
+        secs[key + '_s'].append(time.perf_counter() - t0)
+    secs['band_diff_A'] = err
+    print(f'[19b neb] neb>\'s band on phase 19\'s input, float64: by I1 and '
+          f'N1 {secs["after_s"]} s, by the route before them (graph '
+          f'replays) {secs["before_s"]} s; the bands {err:.2e} A apart, '
+          f'the same TS image [{card}]')
+    return secs
+
+
+def neb_crossover(card):
+    '''N1 against the route before it (the band step replayed from its
+    CUDA graph) by chain size: on the linear 7-image band between two
+    jittered conformers of each suite_inputs.chain_ff chain of
+    NEB_CROSSOVER atoms (seed 13), NEB_CROSSOVER_STEPS plain steps, N1 in
+    the rule's plan, the large form on min(I - 2, 8) blocks and the grid
+    form (device ms over the steps taken, each a step) against the graph
+    route's replayed step (neb_graph_step_ms). Returns {'points': [...],
+    'graph_wins_from': the fewest atoms at which the graph route's step
+    is shorter than the rule's (None if the rule's always is)}.'''
+    import torch
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.ff import ff_energy, params_to_device
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    n = NEB_CROSSOVER_STEPS
+    points, wins = [], None
+    for n_atoms in NEB_CROSSOVER:
+        X, ffp = chain_ff(n_atoms, 2, seed=13)
+        params = params_to_device(ffp, DEV, torch.float64)
+        terms = ff_energy.fire_terms(params)
+        x = torch.as_tensor(neb.interpolate_chain(X[0], X[1], NEB_IMAGES),
+                            device=DEV)
+        plans = {'rule': kn.plan_for(x, terms),
+                 'large': kn.plan_for(x, terms, 'large'),
+                 'grid': kn.plan_for(x, terms, 'grid')}
+        graph = neb_graph_step_ms(x, params, False, n)
+        point = {'atoms': n_atoms, 'graph_step_ms': graph}
+        for label, plan in plans.items():
+            steps = int(kn.launch(x, terms, n, plan=plan)[2])
+            ms = device_ms(lambda: kn.launch(x, terms, n, plan=plan),
+                           reps=3)
+            point[label] = {'form': plan.form, 'blocks': plan.cluster,
+                            'lanes': plan.lanes, 'steps': steps,
+                            'step_ms': ms / steps}
+        rule = point['rule']['step_ms']
+        point['ratio'] = rule / graph
+        points.append(point)
+        if wins is None and graph < rule:
+            wins = n_atoms
+        print(f'[19b neb] crossover: {n_atoms} atoms x {NEB_IMAGES} images, '
+              f'ms a step: the rule ({plans["rule"].form}) {rule:.4f}, large '
+              f'on {plans["large"].cluster} blocks '
+              f'{point["large"]["step_ms"]:.4f}, grid on '
+              f'{plans["grid"].cluster} blocks ({plans["grid"].lanes} lanes '
+              f'an atom) {point["grid"]["step_ms"]:.4f}, the graph route '
+              f'{graph:.4f}; rule / graph {rule / graph:.3f} [{card}]')
+    print(f'[19b neb] crossover: the graph route\'s step is shorter than '
+          f'the rule\'s from {wins} atoms on (of {list(NEB_CROSSOVER)}) '
+          f'[{card}]')
+    return {'points': points, 'graph_wins_from': wins}
+
+
+def phase_neb(card):
+    '''Phase 19b: N1 and I1 on the bands of NEB_CASES (neb_case_record:
+    every plan against the twin, timed, bounded), neb>'s seconds by the
+    kernels' route and the route before them (neb_route_seconds), and
+    N1's forms against the route before them by chain size
+    (neb_crossover). The launches here compare the kernels with their
+    twins and time them: none counts as a main-path launch. Returns the
+    record.'''
+    inputs = neb_inputs()
+    rec = {name: neb_case_record(card, name, *inputs[name])
+           for name in NEB_CASES}
+    start, end, params, _ = inputs['ring']
+    rec['neb_route'] = neb_route_seconds(card, start, end, params)
+    rec['crossover'] = neb_crossover(card)
     return rec
 
 
@@ -5030,8 +5555,9 @@ def phase_ff_operators(card):
     '''Phase 19: neb> (the scan's first point and the point 120
     degrees on, 7 images, climbing), saddle> (the scan's highest coarse
     point) and scan> of the C0-Cl distance on the same ring, one input,
-    float64 on the card (saddle>'s dimer one D1 launch, DimerCalls),
-    their inputs from the JAX x64 dihedral-scan
+    float64 on the card (saddle>'s dimer one D1 launch, DimerCalls;
+    neb>'s IDPP band one I1 launch and its two band phases one N1 launch
+    each, NebCalls), their inputs from the JAX x64 dihedral-scan
     record: held to the JAX x64 record (the TS image, the dimer's flag,
     its imaginary modes, the distance scan's points and peak equal;
     frames within ff_records.FF_ATOL A, energies within as many kcal/mol)
@@ -5044,7 +5570,7 @@ def phase_ff_operators(card):
     with tempfile.TemporaryDirectory(prefix='smoke_ffops_') as tmp:
         for d in ('card', 'cpu'):
             os.mkdir(os.path.join(tmp, d))
-        with FireCalls() as fire, DimerCalls() as dim:
+        with FireCalls() as fire, DimerCalls() as dim, NebCalls() as nb:
             got = record(port_package(DEV), 'ff_operators', DSCAN_RING,
                          os.path.join(tmp, 'card'), scan)
         cpu = record(port_package('cpu'), 'ff_operators', DSCAN_RING,
@@ -5053,6 +5579,7 @@ def phase_ff_operators(card):
     cpu_err = held_records('ff_operators card against CPU', got, cpu)
     count_fire('19', 'ff_operators', fire.record())
     count_dimer('19', 'ff_operators', dim.record())
+    count_neb('19', 'ff_operators', nb.record())
     times = got['times']
     rec = {'neb_s': times['run_neb'][0],
            'saddle_s': times['saddle_refine_structure'][0],
@@ -5672,14 +6199,18 @@ def trace_kernels(tag, events, spans, api, report):
         report['kernel_entries'].get('ff_fire', {}).values()),
         dimer=sum(report['kernel_entries'].get('dimer', {}).values()),
         block_screen=report.get('b1_launches', 0),
-        block_survivors=report.get('b1_write_launches', 0))
+        block_survivors=report.get('b1_write_launches', 0),
+        neb_band=sum(report['kernel_entries'].get('neb_band', {}).values()),
+        idpp_fire=sum(
+            report['kernel_entries'].get('idpp_fire', {}).values()))
     for wrapper, n in wrappers.items():
         ws = [s for s in spans if s['name'] == wrapper]
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
               f'{len(ws)} {wrapper} spans')
     for s in spans:
         if s['name'].startswith(('clash.', 'ff_fire.', 'dimer.',
-                                 'block_screen.')):
+                                 'block_screen.', 'neb_band.',
+                                 'idpp_fire.')):
             check(any(w['name'] in wrappers and
                       w['tid'] == s['tid'] and w['ts'] <= s['ts'] and
                       s['ts'] + s['dur'] <= w['ts'] + w['dur']
@@ -5825,7 +6356,8 @@ def traced_fire(card, tmp):
     (ff_fire_group_kernel<double, ...> for the lone form) inside its
     launch span ff_fire.ff_fire_f64 inside the wrapper's span ff_fire
     (trace_check). Then saddle>'s dimer on the first conformer, one D1
-    launch (traced_d1). Then the captured graph on a body that runs
+    launch (traced_d1), and neb> between the two conformers, one I1 and
+    two N1 launches (traced_neb). Then the captured graph on a body that runs
     through capture.graph_loop for other energies, the dimer step
     (saddle._dimer_step) from
     the first conformer for TRACE_DIMER_STEPS steps: run with the graph
@@ -5889,6 +6421,7 @@ def traced_fire(card, tmp):
           f'[{card}]')
 
     rec['d1'] = traced_d1(card, tmp, x[0], params)
+    rec['neb'] = traced_neb(card, tmp, x, params)
 
     dimer_dir = os.path.join(tmp, 'dimer')
     body = saddle._dimer_step(ff_energy, 12, 1e-3, 0.02, 0.05)
@@ -6001,6 +6534,79 @@ def traced_d1(card, tmp, x, params):
           f'inside dimer_saddle; no graph captured; the traced coordinates '
           f'equal the untraced ones bit for bit ({secs[1]:.4f} / '
           f'{secs[0]:.4f} s) [{card}]')
+    return rec
+
+
+def traced_neb(card, tmp, x, params):
+    '''neb> between two conformers x (2, N, 3) under the CLI's trace
+    (backend.DeviceTrace): neb.run_neb (7 images, 400 + 400 steps) on
+    ff_energy's tables `params`, float64, untraced then traced: one I1
+    launch and two N1 launches each, no graph captured, the same band,
+    energies and TS image bit for bit; in the trace the I1 event inside
+    its launch span idpp_fire.idpp_fire_f64 inside the wrapper's span
+    idpp_fire, and each N1 event (neb_band_kernel<double, ...>) inside
+    neb_band.neb_band_f64 inside neb_band, all inside run_neb
+    (trace_check). Returns the record.'''
+    import contextlib
+    import torch
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.backend import DeviceTrace
+    from tscode_tpu_torch.ff import ff_energy
+    from tscode_tpu_torch.ops.kernels import idpp
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    neb_dir = os.path.join(tmp, 'neb')
+    start, end = x[0].cpu().numpy(), x[1].cpu().numpy()
+    runs, secs = [], []
+    for traced in (False, True):
+        kn.KERNEL.reset_counts()
+        idpp.KERNEL.reset_counts()
+        with CaptureCount() as cap, DeviceTrace(neb_dir, DEV) if traced \
+                else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            runs.append(neb.run_neb(start, end, ff_energy,
+                                    energy_args=(params,), device=DEV))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        check(cap.n == 0 and kn.KERNEL.entry_launches == {'neb_band_f64': 2}
+              and idpp.KERNEL.entry_launches == {'idpp_fire_f64': 1},
+              f'[22 trace] neb: {cap.n} graphs captured, kernel launches '
+              f'{kn.KERNEL.entry_launches} {idpp.KERNEL.entry_launches} '
+              f'(traced: {traced})')
+    check(all(np.array_equal(a, b) for a, b in zip(runs[0][:2], runs[1][:2]))
+          and runs[0][2] == runs[1][2],
+          '[22 trace] neb: the traced run differs from the untraced one')
+    report = dict(NO_LAUNCHES, kernel_entries=dict(
+        NO_LAUNCHES['kernel_entries'],
+        neb_band=dict(kn.KERNEL.entry_launches),
+        idpp_fire=dict(idpp.KERNEL.entry_launches)))
+    path = trace_file(neb_dir)
+    rec, names = trace_check(card, 'neb', path, report, secs[1], secs[0])
+    n1 = rec['kernels'].get('neb_band.neb_band_f64', {})
+    i1 = rec['kernels'].get('idpp_fire.idpp_fire_f64', {})
+    check(names.get('run_neb') == 1 and names.get('neb_band') == 2 and
+          names.get('idpp_fire') == 1 and
+          not any(n.startswith('GraphLoop') for n in names) and
+          n1.get('events') == 2 and i1.get('events') == 1,
+          f'[22 trace] neb: spans {names}, kernels {rec["kernels"]}')
+    spans = [e for e in trace_events(path)
+             if e.get('cat') == 'user_annotation' and e.get('ph') == 'X']
+
+    def inside(outer, inner):
+        return all(any(o['name'] == outer and o['ts'] <= s['ts'] and
+                       s['ts'] + s['dur'] <= o['ts'] + o['dur']
+                       for o in spans) for s in spans if s['name'] == inner)
+    check(all(inside(a, b) for a, b in (
+        ('run_neb', 'neb_band'), ('neb_band', 'neb_band.neb_band_f64'),
+        ('run_neb', 'idpp_fire'), ('idpp_fire', 'idpp_fire.idpp_fire_f64'))),
+        '[22 trace] neb: a launch span outside its wrapper or run_neb')
+    rec.update(atoms=int(x.shape[1]), ts_image=int(runs[0][2]))
+    print(f'[22 trace neb] {x.shape[1]} atoms, 7 images, float64: one I1 '
+          f'launch, its {i1["kernel"]} event inside idpp_fire.idpp_fire_f64 '
+          f'inside idpp_fire, and two N1 launches, their {n1["kernel"]} '
+          f'events inside neb_band.neb_band_f64 inside neb_band, all inside '
+          f'run_neb; no graph captured; the traced band equals the '
+          f'untraced one bit for bit ({secs[1]:.4f} / {secs[0]:.4f} s) '
+          f'[{card}]')
     return rec
 
 
@@ -6157,10 +6763,10 @@ def phase_trace(card):
     FIRE call and a captured dimer graph under the trace (traced_fire).
     Then the TFD prune's T1 launches under the trace (traced_tfd).
     Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
-    B1 and D1 of the runs).'''
+    B1, D1, N1 and I1 of the runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0] * 8
+    recs, launches = {}, [0] * 10
 
     def add(n):
         for i, k in enumerate(n):
@@ -6224,12 +6830,14 @@ def phase_trace(card):
         recs['fire'] = traced_fire(card, d3)
         launches[4] += 2
         launches[7] += 2
+        launches[8] += 4
+        launches[9] += 2
         recs['tfd'] = traced_tfd(card, os.path.join(tmp, 'tfd'))
         launches[5] += recs['tfd']['launches']
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
           f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, ff_fire '
           f'{launches[4]}, T1 {launches[5]}, B1 {launches[6]}, D1 '
-          f'{launches[7]}; every launch '
+          f'{launches[7]}, N1 {launches[8]}, I1 {launches[9]}; every launch '
           f'of a traced run found in its trace [{card}]')
     return recs, launches
 
@@ -6241,7 +6849,7 @@ def trace_process(card):
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
     its (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
-    B1, D1).'''
+    B1, D1, N1, I1).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -6531,6 +7139,61 @@ def d1_kernel_line(d1):
             'form': d1['form'], 'cases': d1['cases'], 'record': d1}
 
 
+def n1_kernel_line(rec):
+    '''N1's entry of the kernels line: phase 19b's record of phase 19's
+    band (the ring, 7 images, the rule's form): the two launches of one
+    neb> (the plain phase and the climbing one) summed, beside the twin,
+    the graph path's replayed step x the steps taken, the bound and the
+    latency figure; its launches on the main path by phase; every band's
+    record beside it.'''
+    ring = rec['ring']
+    phases = [ring['plain'], ring['climbing']]
+
+    def total(key):
+        return sum(p[key] for p in phases)
+    bounds = [p['bound_ms'] for p in phases]
+    return {'name': 'neb_band', 'route': 'cuda',
+            'source': 'tscode_tpu_torch/csrc/neb_band.cu',
+            'replaces': 'tscode_tpu/neb.py:220',
+            'launches': sum(NEB_LAUNCHES.values()),
+            'launches_by_phase': dict(NEB_LAUNCHES),
+            'max_abs_err': max(r['plain_diff_A']
+                               for case in NEB_CASES
+                               for phase in ('plain', 'climbing')
+                               for r in rec[case][phase]['forms'].values()),
+            'ms': total('ms'), 'plain_ms': total('plain_ms'),
+            'graph_ms': total('graph_ms'), 'bound_ms': sum(bounds),
+            'bound_by': phases[bounds.index(max(bounds))]['bound_by'],
+            'library_ms': None, 'latency_ms': total('latency_ms'),
+            'form': ring['climbing']['form'],
+            'steps': [p['steps'] for p in phases],
+            'near_ties': max(p['near_ties'] for case in NEB_CASES
+                             for p in (rec[case]['plain'],
+                                       rec[case]['climbing'])),
+            'cases': {k: v for k, v in rec.items() if k in NEB_CASES},
+            'neb_route': rec['neb_route'], 'crossover': rec['crossover']}
+
+
+def i1_kernel_line(rec):
+    '''I1's entry of the kernels line: phase 19b's record of phase 19's
+    IDPP band (the ring, 7 images, 300 steps) beside the twin,
+    fire_run_graph, the bound and the latency figure; its launches on the
+    main path by phase; every band's record beside it.'''
+    ring = rec['ring']['idpp']
+    return {'name': 'idpp_fire', 'route': 'cuda',
+            'source': 'tscode_tpu_torch/csrc/idpp_fire.cu',
+            'replaces': 'tscode_tpu/optimizers.py:41',
+            'launches': sum(IDPP_LAUNCHES.values()),
+            'launches_by_phase': dict(IDPP_LAUNCHES),
+            'max_abs_err': max(rec[case]['idpp']['plain_diff_A']
+                               for case in NEB_CASES),
+            'ms': ring['ms'], 'plain_ms': ring['plain_ms'],
+            'graph_ms': ring['graph_ms'], 'bound_ms': ring['bound_ms'],
+            'bound_by': ring['bound_by'], 'library_ms': None,
+            'latency_ms': ring['latency_ms'], 'steps': ring['steps'],
+            'cases': {k: rec[k]['idpp'] for k in NEB_CASES}}
+
+
 def timed_phase(name, phase, *args):
     '''phase(*args), its seconds printed; PHASE holds its number while
     it runs.'''
@@ -6566,8 +7229,18 @@ def main():
                                  card)
         ops = timed_phase('19 ff_operators', phase_ff_operators, card)
         print(f'[dimer] launches of D1 by phase {DIMER_LAUNCHES} [{card}]')
+        print(f'[neb] launches of N1 by phase {NEB_LAUNCHES}, of I1 '
+              f'{IDPP_LAUNCHES} [{card}]')
         print(json.dumps({'ff_routes': {'dihedral_scan': scan,
                                         'ff_operators': ops}}))
+        return
+    if sys.argv[1:2] == ['--neb']:           # --neb OUT.json
+        phase_build()
+        rec = timed_phase('19b neb kernels', phase_neb, card)
+        with open(sys.argv[2], 'w') as f:
+            json.dump({'card': card, **rec}, f, indent=1)
+        print(json.dumps({'neb_band': n1_kernel_line(rec),
+                          'idpp_fire': i1_kernel_line(rec)}))
         return
     if sys.argv[1:2] == ['--opt']:           # phase 20 alone
         phase_build()
@@ -6670,12 +7343,15 @@ def main():
     k3_18, e18, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
                                    card)
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
+    neb_rec = timed_phase('19b neb kernels', phase_neb, card)
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
-    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22, b1_22,
-            d1_22) = timed_phase('22 trace', trace_process, card)
+    trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22, b1_22, d1_22, n1_22,
+            i1_22) = timed_phase('22 trace', trace_process, card)
     FIRE_LAUNCHES['22'] = ff_22
     DIMER_LAUNCHES['22'] = d1_22
+    NEB_LAUNCHES['22'] = n1_22
+    IDPP_LAUNCHES['22'] = i1_22
     TFD_LAUNCHES['22'] = t1_22
     B1_LAUNCHES['22'] = b1_22
     check(all(B1_LAUNCHES.get(p, 0) > 0 for p in
@@ -6697,6 +7373,12 @@ def main():
           f'D1 launches by phase {DIMER_LAUNCHES}: a phase that runs the '
           f'dimer on the force field did not launch it')
     print(f'[dimer] launches of D1 by phase {DIMER_LAUNCHES} [{card}]')
+    check(all(NEB_LAUNCHES.get(p, 0) > 0 and IDPP_LAUNCHES.get(p, 0) > 0
+              for p in ('19', '22')), f'N1 launches by phase {NEB_LAUNCHES}, '
+          f'I1 {IDPP_LAUNCHES}: a phase that runs neb> on the card did not '
+          f'launch them')
+    print(f'[neb] launches of N1 by phase {NEB_LAUNCHES}, of I1 '
+          f'{IDPP_LAUNCHES} [{card}]')
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
         k1_16 + k1_17 + sharded['clash_ok'] + k1_22
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
@@ -6775,6 +7457,8 @@ def main():
         'mesh': {'launches': sharded['tfd_first']},
         'csearch_string': t1})
     kernels.append(d1_kernel_line(scan['d1']))
+    kernels.append(n1_kernel_line(neb_rec))
+    kernels.append(i1_kernel_line(neb_rec))
     kernels.append(b1_kernel_line(
         {'da_cyclical_xl': b1_8, 'multiembed': b1_10, 'chelotropic': b1_11,
          'trimolecular_rigid': b1_12,
@@ -6791,7 +7475,7 @@ def main():
     print(json.dumps({'bending': {'fire': fire, 'trimolecular': bend14}}))
     print(json.dumps({'ff_routes': {
         'dihedral_scan': {k: v for k, v in scan.items() if k != 'k3_passes'},
-        'ff_operators': ops}}))
+        'ff_operators': ops, 'neb_route': neb_rec['neb_route']}}))
     print(json.dumps({'opt_route': opt}))
     print(json.dumps({'mesh': mesh}))
     print(json.dumps({'trace': trace}))

@@ -1644,15 +1644,17 @@ def test_dimer_kernel_float32(cuda_device, name):
 
 def test_neb_on_card_matches_cpu(cuda_device):
     '''run_neb between two HCOOH conformers (IDPP band of 7 images, 400
-    plain then 400 climbing steps, each phase one captured band step
-    replayed) against the CPU run, float64: band within 1e-6 A, energies
-    within 1e-6 kcal/mol, the same TS image. A second run of the same
-    shapes, after the memory the first one let go has been refilled
-    with NaN, replays the cached graphs and must agree as well.'''
+    plain then 400 climbing steps) against the CPU run, float64: band
+    within 1e-6 A, energies within 1e-6 kcal/mol, the same TS image. On
+    the card the IDPP band is one launch of I1 and each band phase one
+    launch of N1, no graph captured. A second run, after the memory the
+    first one let go has been refilled with NaN, must agree as well.'''
     import torch
-    from tscode_tpu_torch import capture, ff, optimizers
+    from tscode_tpu_torch import capture, ff
     from tscode_tpu_torch.graphs import graphize
     from tscode_tpu_torch.neb import run_neb
+    from tscode_tpu_torch.ops.kernels import idpp
+    from tscode_tpu_torch.ops.kernels import neb as kn
     confs, nos = formic_conformers()
     params = ff.build_ff_params(confs[0], nos, graphize(confs[0], nos))
 
@@ -1661,17 +1663,211 @@ def test_neb_on_card_matches_cpu(cuda_device):
                        energy_args=(ff.params_to_device(params, device,
                                                         torch.float64),))
     want = neb('cpu')
-    first = neb(cuda_device)
     graphs = len(capture._graphs)
+    n1, i1 = kn.KERNEL.launches, idpp.KERNEL.launches
+    first = neb(cuda_device)
     junk = [torch.full((n,), float('nan'), dtype=torch.float64,
                        device=cuda_device) for n in range(1, 2000)]
     second = neb(cuda_device)
     del junk
     assert len(capture._graphs) == graphs
+    assert kn.KERNEL.launches == n1 + 4 and idpp.KERNEL.launches == i1 + 2
     c, e, ts = want
     for cc, ce, cts in (first, second):
         assert np.abs(cc - c).max() <= 1e-6
         assert np.abs(ce - e).max() <= 1e-6 and cts == ts
+
+
+def ff_energy_no_terms(c, params):
+    '''ff.ff_energy without its `fire_terms`: an energy N1 does not
+    take, so that run_neb replays its band step from a CUDA graph.'''
+    from tscode_tpu_torch import ff
+    return ff.ff_energy(c, params)
+
+
+def test_neb_graph_route_on_card_matches_cpu(cuda_device):
+    '''run_neb between two HCOOH conformers on an energy without
+    `fire_terms` (each band phase one captured band step replayed,
+    graph_loop) against the CPU run, float64: band within 1e-6 A,
+    energies within 1e-6 kcal/mol, the same TS image; no N1 launch, the
+    IDPP band one launch of I1. A second run of the same shapes, after
+    the memory the first one let go has been refilled with NaN, replays
+    the cached graphs and must agree as well.'''
+    import torch
+    from tscode_tpu_torch import capture, ff
+    from tscode_tpu_torch.graphs import graphize
+    from tscode_tpu_torch.neb import run_neb
+    from tscode_tpu_torch.ops.kernels import idpp
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    confs, nos = formic_conformers()
+    params = ff.build_ff_params(confs[0], nos, graphize(confs[0], nos))
+
+    def neb(device):
+        return run_neb(confs[0], confs[-1], ff_energy_no_terms,
+                       device=device,
+                       energy_args=(ff.params_to_device(params, device,
+                                                        torch.float64),))
+    want = neb('cpu')
+    n1, i1 = kn.KERNEL.launches, idpp.KERNEL.launches
+    first = neb(cuda_device)
+    graphs = set(capture._graphs)
+    junk = [torch.full((n,), float('nan'), dtype=torch.float64,
+                       device=cuda_device) for n in range(1, 2000)]
+    second = neb(cuda_device)
+    del junk
+    assert set(capture._graphs) == graphs
+    assert kn.KERNEL.launches == n1 and idpp.KERNEL.launches == i1 + 2
+    c, e, ts = want
+    for cc, ce, cts in (first, second):
+        assert np.abs(cc - c).max() <= 1e-6
+        assert np.abs(ce - e).max() <= 1e-6 and cts == ts
+
+
+def neb_card_band(device, name):
+    '''(band (7, N, 3) float64, ff.FireTerms, steps) on `device`: the IDPP
+    band (the CPU's) between HCOOH's O-H rotor ends (400 steps), between
+    the SADDLE scan's sub-peak guesses 0 and 1 of the nine-carbon ring
+    (400 steps), between two conformers of a 150-atom chain_ff chain (30
+    steps), and between C2H4 and a copy with its hydrogens jittered by
+    0.2 A (seed 2) on its tables with the E/Z dihedral, a spring and a
+    half-spring (every term kind; 200 steps).'''
+    from tscode_tpu_torch import ff, neb
+    from tscode_tpu_torch.graphs import graphize
+    from torch_parity import dimer_case
+    springs = {}
+    if name == 'c2h4':
+        from tscode_tpu_torch.io_xyz import read_xyz
+        from tscode_tpu_torch.pipeline import FIXTURE_DIR
+        mol = read_xyz(os.path.join(FIXTURE_DIR, 'C2H4.xyz'))
+        a, nos = mol.atomcoords[0], mol.atomnos
+        b = a + (nos != 6)[:, None] * np.random.default_rng(2).normal(
+            size=a.shape) * 0.2
+        params, n = ff.build_ff_params(a, nos, graphize(a, nos),
+                                       protect_double_bonds=True), 200
+        assert len(params.dihedrals)
+        springs = dict(
+            spring_pairs=torch.tensor([[0, 3]], device=device),
+            spring_targets=torch.tensor([2.3], dtype=torch.float64,
+                                        device=device),
+            spring_k=5.0, half_pairs=torch.tensor([[2, 5]], device=device),
+            half_k=3.0)
+    elif name == 'hcooh':
+        confs, nos = formic_conformers()
+        a, b = confs[0], confs[-1]
+        params, n = ff.build_ff_params(a, nos, graphize(a, nos)), 400
+    elif name == 'ring':
+        a, params = dimer_case('ring', 0)
+        b, n = dimer_case('ring', 1)[0], 400
+    else:
+        from tscode_tpu_torch.suite_inputs import chain_ff
+        X, params = chain_ff(150, 2, seed=13)
+        a, b, n = X[0], X[1], 30
+    band = neb.idpp_interpolate(a, b, 7, device='cpu')
+    terms = ff.FireTerms(ff.params_to_device(params, device, torch.float64),
+                         **springs)
+    return torch.as_tensor(band, device=device), terms, n
+
+
+@pytest.mark.parametrize('climbing', [False, True])
+@pytest.mark.parametrize('name', ['hcooh', 'ring', 'chain150', 'c2h4'])
+def test_neb_kernel_matches_plain(cuda_device, name, climbing):
+    '''N1 against its plain twin (neb_relax_plain), float64: the band
+    within 1e-6 A, the same done flag and steps taken, in the rule's
+    plan, the lone form, the large form on each cluster of 1 to 5 blocks
+    and the grid form on the card's resident blocks, on 3 and on 1 (the
+    band algebra of several images a block); every plan the bits of the
+    lone form; one launch a call; two launches the same bits. The twin's
+    near ties are counted and none is allowed.'''
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    x, terms, n = neb_card_band(cuda_device, name)
+    pc, pdone, psteps, ties = kn.neb_relax_plain(x, terms, n,
+                                                 climbing=climbing)
+    assert ties == 0
+    before = kn.KERNEL.launches
+    got = kn.neb_band(x, terms, n, climbing=climbing)
+    assert kn.KERNEL.launches == before + 1
+    plans = [kn.plan_for(x, terms, 'lone')]
+    plans += [kn.plan_for(x, terms, 'large', cl) for cl in range(1, 6)]
+    plans += [kn.plan_for(x, terms, 'grid', cl) for cl in (None, 3, 1)]
+    first = None
+    for plan in plans:
+        c, done, steps = kn.launch(x, terms, n, climbing=climbing, plan=plan)
+        again = kn.launch(x, terms, n, climbing=climbing, plan=plan)
+        assert all(torch.equal(a, b) for a, b in zip(again, (c, done, steps)))
+        first = c if first is None else first
+        assert torch.equal(c, first), plan
+        assert float((c - pc).abs().max()) <= 1e-6, plan
+        assert bool(done) == bool(pdone) and int(steps) == int(psteps)
+    assert float((got[0] - pc).abs().max()) <= 1e-6
+    assert float((got[0] - x).abs().max()) > 1e-4
+
+
+def test_neb_kernel_any_size(cuda_device):
+    '''A band of 7 images of a 2,500-atom chain (~3.1M repulsion pairs
+    an image), 10 climbing steps, float64: the large form (the interior
+    images' arrays in device memory, past shared memory) on 5 and 2
+    blocks, and on a 1,000-atom chain (its arrays in shared memory, 5
+    blocks), and the grid form on the card's resident blocks on both,
+    each within 1e-6 A of the plain twin, the same flag and steps; two
+    launches the same bits; the forms the same bits.'''
+    from tscode_tpu_torch import ff, neb
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    for n_atoms, shared in ((2500, False), (1000, True)):
+        X, ffp = chain_ff(n_atoms, 2, seed=13)
+        terms = ff.FireTerms(ff.params_to_device(ffp, cuda_device,
+                                                 torch.float64))
+        x = torch.as_tensor(neb.interpolate_chain(X[0], X[1], 7),
+                            device=cuda_device)
+        assert kn.plan_for(x, terms).form == 'grid'
+        plan = kn.plan_for(x, terms, 'large')
+        assert (plan.form, plan.cluster, plan.shared) == ('large', 5, shared)
+        pc, pdone, psteps, _ = kn.neb_relax_plain(x, terms, 10,
+                                                  climbing=True)
+        plans = [plan, kn.plan_for(x, terms, 'grid')] + (
+            [kn.plan_for(x, terms, 'large', 2)] if n_atoms == 2500 else [])
+        first = None
+        for plan in plans:
+            c, done, steps = kn.launch(x, terms, 10, climbing=True, plan=plan)
+            c2 = kn.launch(x, terms, 10, climbing=True, plan=plan)[0]
+            assert torch.equal(c, c2)
+            first = c if first is None else first
+            assert torch.equal(c, first), plan
+            assert float((c - pc).abs().max()) <= 1e-6
+            assert bool(done) == bool(pdone) and int(steps) == int(psteps)
+            assert float((c - x).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize('name', ['hcooh', 'ring', 'chain150'])
+def test_idpp_kernel_matches_plain(cuda_device, name):
+    '''I1 against its plain twin (idpp_fire_plain), float64, on the
+    linear band of neb_card_band's ends: within 1e-6 A, the same per-image
+    stops and steps; one launch a call; two launches the same bits; and
+    idpp_interpolate on the card one launch of I1, within 1e-6 A of the
+    CPU's.'''
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.ops.kernels import idpp
+    band, _, _ = neb_card_band('cpu', name)
+    a, b = band[0].numpy(), band[-1].numpy()
+    chain = neb.interpolate_chain(a, b, 7)
+    x = torch.as_tensor(chain, device=cuda_device)
+    tables = [torch.as_tensor(t, device=cuda_device)
+              for t in neb.idpp_tables(chain)]
+    fmax = 0.0 if name == 'chain150' else 0.05
+    n = 10 if name == 'chain150' else 300
+    pc, pdone, psteps = idpp.idpp_fire_plain(x, *tables, n, fmax=fmax)
+    before = idpp.KERNEL.launches
+    c, done, steps = idpp.launch(x, *tables, n, fmax=fmax)
+    again = idpp.launch(x, *tables, n, fmax=fmax)
+    assert idpp.KERNEL.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(again, (c, done, steps)))
+    assert float((c - pc).abs().max()) <= 1e-6
+    assert torch.equal(done, pdone) and torch.equal(steps, psteps)
+    assert int(steps.max()) > 1
+    got = neb.idpp_interpolate(a, b, 7, device=cuda_device)
+    assert idpp.KERNEL.launches == before + 3
+    assert np.abs(got - neb.idpp_interpolate(a, b, 7, device='cpu')).max() \
+        <= 1e-6
 
 
 def test_hessian_on_card_matches_cpu(cuda_device):
@@ -1820,9 +2016,9 @@ def test_optimisation_route_on_card_matches_cpu(cuda_device, tmp_path):
 
 def test_kernels_launch_on_their_tensors_card(cuda_device):
     '''K1, K2 and K3 on tensors placed on cuda:1 while cuda:0 is the
-    current device, against their plain twins; FIRE's captured graph and
-    the force field's FIRE kernel too. It needs two cards: the one-card
-    machine that runs chip_smoke.py skips it, so it is not verified
+    current device, against their plain twins; FIRE's captured graph, the
+    force field's FIRE kernel, N1 and I1 too. It needs two cards: the
+    one-card machine that runs chip_smoke.py skips it, so it is not verified
     there.'''
     if torch.cuda.device_count() < 2:
         pytest.skip('needs two GPUs: the kernels must launch on the card '
@@ -1870,6 +2066,21 @@ def test_kernels_launch_on_their_tensors_card(cuda_device):
         assert got[0].device == dev1
         assert float((got[0] - want[0]).abs().max()) <= 1e-6
         assert torch.equal(got[1], want[1])
+        # the NEB band and IDPP kernels
+        from tscode_tpu_torch.neb import idpp_tables
+        from tscode_tpu_torch.ops.kernels import idpp
+        from tscode_tpu_torch.ops.kernels import neb as kn
+        band, terms, _ = neb_card_band(dev1, 'hcooh')
+        got = kn.neb_band(band, terms, 100, climbing=True)
+        want = kn.neb_relax_plain(band, terms, 100, climbing=True)
+        assert got[0].device == dev1
+        assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        tables = [torch.as_tensor(t, device=dev1)
+                  for t in idpp_tables(band.cpu().numpy())]
+        got = idpp.idpp_fire(band, *tables, 50)
+        want = idpp.idpp_fire_plain(band, *tables, 50)
+        assert got[0].device == dev1
+        assert float((got[0] - want[0]).abs().max()) <= 1e-6
         torch.cuda.synchronize(dev1)
 
 

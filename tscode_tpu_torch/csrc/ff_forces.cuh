@@ -1,7 +1,7 @@
-// The internal force field's analytic forces as device functions:
-// ff_energy's bonds, angles, repulsion pairs and E/Z dihedrals
-// (tscode_tpu_torch/ff.py), and the springs and half-springs of
-// ff.FireTerms.
+// The internal force field's analytic forces, and its term energies, as
+// device functions: ff_energy's bonds, angles, repulsion pairs and E/Z
+// dihedrals (tscode_tpu_torch/ff.py), and the springs and half-springs
+// of ff.FireTerms.
 //
 // They hold no layout of their own. A caller hands them a term as a
 // TermRec (its kind, its atoms as int32, its reference value) and the
@@ -9,7 +9,8 @@
 // coordinate x of atom a: SmemCoords, GlobalCoords below, or the
 // caller's own). So the forms of the FIRE kernel (ff_fire.cu), the
 // dimer kernel (dimer.cu) and any later kernel that evaluates the force
-// field on the card include the same arithmetic. Each norm takes one reciprocal square
+// field on the card include the same arithmetic (the NEB band kernel,
+// neb_band.cu, also its energies). Each norm takes one reciprocal square
 // root, multiplied into its components, where ff_energy's gradient
 // takes a square root and divides each component.
 //
@@ -319,6 +320,97 @@ __device__ __forceinline__ void atom_force_staged(const C& c, int a, int lo,
   for (int e = lo; e < hi; ++e)
     for (int x = 0; x < 3; ++x) f[x] += contrib[3 * e + x];
   add_springs(c, a, s, f);
+}
+
+// ------------------------------------------------------- term energies
+//
+// Each term's energy, with ff_energy's arithmetic and clips (the norms
+// by square roots, the quotients divided): bonds bond_k (d - r0)^2,
+// angles K_ANGLE (acos(clip(cos)) - t0)^2 with the norm product floored
+// at 1e-12, repulsion K_REP max(r0 - d, 0)^2, E/Z dihedrals K_DIH
+// wrap(phi - t0)^2, springs k (d - t)^2 and half-springs k_h max(d -
+// 2.5, 0)^2. A kernel that needs an image's energy sums these in its own
+// fixed order; the force kernels above do not call them.
+
+// a pair term's energy at distance |x_i - x_j|: k (d - p)^2 (HARMONIC),
+// k max(p - d, 0)^2 (BELOW), k max(d - p, 0)^2 (ABOVE)
+template <typename T>
+__device__ __forceinline__ T pair_energy(const T* xi, const T* xj, int form,
+                                         T p, T k) {
+  const T dx = xi[0] - xj[0];
+  const T dy = xi[1] - xj[1];
+  const T dz = xi[2] - xj[2];
+  const T d = ksqrt(dx * dx + dy * dy + dz * dz);
+  const T x = form == BELOW   ? tmax(p - d, T(0))
+              : form == ABOVE ? tmax(d - p, T(0))
+                              : d - p;
+  return k * (x * x);
+}
+
+template <typename T>
+__device__ __forceinline__ T angle_energy(const T* xi, const T* xj,
+                                          const T* xk, T t0) {
+  T v1[3], v2[3];
+  for (int x = 0; x < 3; ++x) {
+    v1[x] = xi[x] - xj[x];
+    v2[x] = xk[x] - xj[x];
+  }
+  const T den = tmax(ksqrt(dot3(v1, v1)) * ksqrt(dot3(v2, v2)), T(FLOOR));
+  const T cs = tmin(tmax(dot3(v1, v2) / den, -T(COS_CLIP)), T(COS_CLIP));
+  const T th = kacos(cs) - t0;
+  return T(K_ANGLE) * (th * th);
+}
+
+template <typename T>
+__device__ __forceinline__ T dihedral_energy(const T* p0, const T* p1,
+                                             const T* p2, const T* p3,
+                                             T t0) {
+  T b0[3], b1[3], b2[3];
+  for (int x = 0; x < 3; ++x) {
+    b0[x] = p0[x] - p1[x];
+    b1[x] = p2[x] - p1[x];
+    b2[x] = p3[x] - p2[x];
+  }
+  const T nb1 = tmax(ksqrt(dot3(b1, b1)), T(FLOOR));
+  T b1n[3], v[3], w[3], bv[3];
+  for (int x = 0; x < 3; ++x) b1n[x] = b1[x] / nb1;
+  const T s0 = dot3(b0, b1n), s2 = dot3(b2, b1n);
+  for (int x = 0; x < 3; ++x) {
+    v[x] = b0[x] - s0 * b1n[x];
+    w[x] = b2[x] - s2 * b1n[x];
+  }
+  cross(b1n, v, bv);
+  const T phi = katan2(dot3(bv, w), dot3(v, w));
+  T su, cu;
+  ksincos(phi - t0, &su, &cu);
+  const T u = katan2(su, cu);
+  return T(K_DIH) * (u * u);
+}
+
+// the energy of one force-field term (every role's position read, as
+// term_forces reads them)
+template <typename T, typename C>
+__device__ __forceinline__ T term_energy(const C& c, const TermRec<T>& r,
+                                         T bond_k) {
+  T p[4][3];
+  for (int i = 0; i < 4; ++i) position(c, r.a[i], p[i]);
+  if (r.kind == ANGLE) return angle_energy(p[0], p[1], p[2], r.t0);
+  if (r.kind == DIHEDRAL) return dihedral_energy(p[0], p[1], p[2], p[3], r.t0);
+  const bool bond = r.kind == BOND;
+  return pair_energy(p[0], p[1], bond ? HARMONIC : BELOW, r.t0,
+                     bond ? bond_k : T(K_REP));
+}
+
+// spring q's energy, or (half) half-spring q's
+template <typename T, typename C>
+__device__ __forceinline__ T spring_energy(const C& c, const Springs<T>& s,
+                                           long long q, bool half) {
+  const long long* pairs = half ? s.half : s.pairs;
+  T xi[3], xj[3];
+  position(c, (int)__ldg(pairs + 2 * q), xi);
+  position(c, (int)__ldg(pairs + 2 * q + 1), xj);
+  return half ? pair_energy(xi, xj, ABOVE, T(HALF_ONSET), *s.k_h)
+              : pair_energy(xi, xj, HARMONIC, __ldg(s.target + q), *s.k);
 }
 
 // ------------------------------------------------------- packed tables

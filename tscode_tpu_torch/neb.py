@@ -8,11 +8,17 @@ ops, and the band relaxes under FIRE. The potential is any
 differentiable energy function (the internal force field, or a toy
 surface), or a host callback that returns energies and gradients.
 
-On a CUDA device one band step (forces by torch.autograd, the band
+On a CUDA device the relaxation of a band on an energy of the force
+field's family (one that carries `fire_terms(*energy_args) ->
+ff.FireTerms`: ff.ff_energy among them) is one launch of the
+hand-written kernel N1 (ops/kernels/neb.neb_band), every step inside;
+on any other energy one band step (forces by torch.autograd, the band
 composition, the FIRE update) is captured in a CUDA graph and replayed
-(`capture.graph_loop`); on the CPU the steps run op by op and stop
-once the band has converged, from where JAX's loop leaves the chain as
-it is. The IDPP starting band relaxes under `fire_minimize_batch`.
+(`capture.graph_loop`). On the CPU the steps run op by op and stop once
+the band has converged, from where JAX's loop leaves the chain as it
+is. The IDPP starting band relaxes on a CUDA device in one launch of the
+kernel I1 (ops/kernels/idpp.idpp_fire), on the CPU under
+`fire_minimize_batch`.
 '''
 
 import numpy as np
@@ -39,35 +45,51 @@ def _idpp_energy(chain, targets, weights):
     return torch.sum(weights * (d - targets) ** 2, dim=(-2, -1))
 
 
-def idpp_interpolate(start, end, n_images, n_steps=300, *, device):
-    '''Image-dependent pair potential interpolation: the linear chain,
-    its interior images relaxed together under batched FIRE toward
-    linearly interpolated pair-distance targets (weights 1/d^4), the
-    endpoints frozen. float64 on `device`; returns numpy (I, N, 3).'''
-    chain = interpolate_chain(start, end, n_images)
-    if n_images <= 2:
-        return chain
-    n = chain.shape[1]
+def idpp_tables(chain):
+    '''The IDPP objective's targets and weights (I, N, N) of a linear
+    chain (I, N, 3) numpy: each image's pair distances interpolated
+    linearly between the endpoints', weights 1 / max(target, 0.01)^4, 0
+    on the diagonal.'''
+    n_images, n = chain.shape[0], chain.shape[1]
 
     def dmat(c):
         diff = c[:, None, :] - c[None, :, :]
         return np.sqrt(np.sum(diff * diff, axis=-1))
 
-    d0, d1 = dmat(chain[0]), dmat(chain[-1])
     t = np.linspace(0.0, 1.0, n_images)[:, None, None]
-    targets = (1 - t) * d0[None] + t * d1[None]
+    targets = (1 - t) * dmat(chain[0])[None] + t * dmat(chain[-1])[None]
     weights = 1.0 / np.maximum(targets, 1e-2) ** 4
     weights[:, np.arange(n), np.arange(n)] = 0.0
+    return targets, weights
 
-    freeze = np.zeros((n_images, n), dtype=bool)
+
+def band_tensor(a, device):
+    '''A band, or its tables, as a float64 tensor on `device`.'''
+    return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)
+
+
+def idpp_interpolate(start, end, n_images, n_steps=300, *, device):
+    '''Image-dependent pair potential interpolation: the linear chain,
+    its interior images relaxed together under batched FIRE toward
+    linearly interpolated pair-distance targets (weights 1/d^4), the
+    endpoints frozen. float64 on `device` (a CUDA device: one launch of
+    the kernel I1); returns numpy (I, N, 3).'''
+    chain = interpolate_chain(start, end, n_images)
+    if n_images <= 2:
+        return chain
+    targets, weights = idpp_tables(chain)
+    freeze = np.zeros(chain.shape[:2], dtype=bool)
     freeze[0] = freeze[-1] = True
 
-    def dev(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=device)
-
-    refined, _, _ = fire_minimize_batch(
-        dev(chain), _idpp_energy, n_steps=n_steps, freeze_mask=freeze,
-        energy_args=(dev(targets), dev(weights)))
+    c = band_tensor(chain, device)
+    tables = (band_tensor(targets, device), band_tensor(weights, device))
+    if c.is_cuda:
+        from tscode_tpu_torch.ops.kernels.idpp import idpp_fire
+        refined = idpp_fire(c, *tables, n_steps)[0]
+    else:
+        refined, _, _ = fire_minimize_batch(
+            c, _idpp_energy, n_steps=n_steps, freeze_mask=freeze,
+            energy_args=tables)
     return refined.cpu().numpy()
 
 
@@ -201,13 +223,20 @@ def _band_body(energy_fn, k_spring, fmax, climbing):
 def _neb_relax(chain, energy_fn, n_steps, k_spring, dt0, fmax, climbing,
                energy_args=()):
     '''The chain after n_steps FIRE steps of the band from rest
-    (endpoints fixed by band_forces). CUDA: the step replayed from a
-    CUDA graph. CPU: op by op, stopping once the band has converged
-    (JAX's remaining steps leave the chain as it is).'''
-    state, dt0_t = _band_state(chain, dt0)
-    body = _band_body(energy_fn, k_spring, fmax, climbing)
+    (endpoints fixed by band_forces). CUDA: an energy_fn with a
+    `fire_terms` attribute in one launch of the kernel N1 on
+    energy_fn.fire_terms(*energy_args); any other energy the step
+    replayed from a CUDA graph. CPU: op by op, stopping once the band
+    has converged (JAX's remaining steps leave the chain as it is).'''
     if n_steps <= 0:
         return chain
+    terms = getattr(energy_fn, 'fire_terms', None)
+    if chain.is_cuda and terms is not None:
+        from tscode_tpu_torch.ops.kernels.neb import neb_band
+        return neb_band(chain, terms(*energy_args), n_steps, k_spring, dt0,
+                        fmax, climbing)[0]
+    state, dt0_t = _band_state(chain, dt0)
+    body = _band_body(energy_fn, k_spring, fmax, climbing)
     if chain.is_cuda:
         return graph_loop(body, state, (dt0_t, energy_args), n_steps)[0]
     for _ in range(n_steps):
@@ -249,13 +278,8 @@ def run_neb_callback(start, end, grad_chain_fn, n_images=7, k_spring=1.0,
     '''
     if chain is None:
         chain = idpp_interpolate(start, end, n_images, device=device)
-    chain = torch.as_tensor(np.asarray(chain), dtype=torch.float64,
-                            device=device)
+    chain = band_tensor(chain, device)
     _check_images(chain)
-
-    def dev(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
-                               device=device)
 
     # two phases, each from a fresh FIRE state, as run_neb's
     state, dt0_t = _band_state(chain, dt0)
@@ -286,8 +310,9 @@ def run_neb_callback(start, end, grad_chain_fn, n_images=7, k_spring=1.0,
         energies, grads = grad_chain_fn(coords_evaluated)
         if checkpoint_fn is not None and step % checkpoint_every == 0:
             checkpoint_fn(coords_evaluated)
-        state = _band_step(state, dev(energies), dev(grads), k_spring,
-                           dt0_t, fmax, climbing)
+        state = _band_step(state, band_tensor(energies, device),
+                           band_tensor(grads, device), k_spring, dt0_t, fmax,
+                           climbing)
 
     converged = converged or bool(state[5])
     final = state[0].cpu().numpy()
@@ -311,14 +336,15 @@ def run_neb(start, end, energy_fn, n_images=7, k_spring=1.0, n_steps=800,
     energy_fn(chain (I, N, 3), *energy_args) -> (I,), float64 on
     `device`: climb_after steps of the plain band, then, when the band
     has an interior barrier, n_steps - climb_after with the climbing
-    image (each phase from a fresh FIRE state).
+    image (each phase from a fresh FIRE state; on a CUDA device and the
+    force field, each phase one launch of N1, the barrier tested on the
+    host between them).
     Returns (chain (I, N, 3), energies (I,), ts_index), numpy.
     '''
     if chain is None:
         # IDPP starting band
         chain = idpp_interpolate(start, end, n_images, device=device)
-    chain = torch.as_tensor(np.asarray(chain), dtype=torch.float64,
-                            device=device)
+    chain = band_tensor(chain, device)
     _check_images(chain)
 
     def energies_of(c):

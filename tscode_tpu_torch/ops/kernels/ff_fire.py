@@ -292,12 +292,17 @@ def packed_terms(params, n_atoms, dtype):
 # ------------------------------------------------------------ plain twin
 
 
+def _pair_d(coords, pairs):
+    '''(x_i - x_j (B, P, 3), |x_i - x_j| (B, P)) of the atom pairs.'''
+    diff = coords[:, pairs[:, 0]] - coords[:, pairs[:, 1]]
+    dx, dy, dz = diff.unbind(-1)
+    return diff, torch.sqrt(dx * dx + dy * dy + dz * dz)
+
+
 def _pair_rows(coords, pairs, g_of_d):
     '''(B, P, 4, 3) forces of pair terms with dE/dd = g_of_d(d) on their
     two atoms (roles 0 and 1; roles 2 and 3 zero).'''
-    diff = coords[:, pairs[:, 0]] - coords[:, pairs[:, 1]]
-    dx, dy, dz = diff.unbind(-1)
-    d = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    diff, d = _pair_d(coords, pairs)
     coef = torch.where(d > 0, g_of_d(d) / d, 0.0)[..., None]
     zero = torch.zeros_like(diff)
     return torch.stack([-coef * diff, coef * diff, zero, zero], dim=2)
@@ -455,6 +460,88 @@ def ff_forces_plain(coords, terms, freeze_mask=None):
     if freeze is not None:
         f = f.masked_fill(freeze[..., None], 0.0)
     return f
+
+
+def butterfly_sum(x):
+    '''(..., 32) -> (...): the sum of the last axis as a warp's xor
+    butterfly takes it (lane l adds lane l ^ o for o = 16, 8, 4, 2, 1;
+    every lane ends with the same bits, lane 0's returned).'''
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ o]
+    return x[..., 0]
+
+
+def chunk_sum(x):
+    '''(..., S) with S a multiple of 32 -> (...): the kernels' fixed
+    order of a sum of many values: chunks of 32 consecutive values each
+    by butterfly_sum, then the chunk sums one after the other (cumsum,
+    sequential on the CPU).'''
+    if x.shape[-1] == 0:
+        return x.new_zeros(x.shape[:-1])
+    chunks = butterfly_sum(x.reshape(*x.shape[:-1], -1, 32))
+    return torch.cumsum(chunks, dim=-1)[..., -1]
+
+
+def term_energies(coords, terms):
+    '''The energies of every term of ff.FireTerms `terms` on coords (B,
+    N, 3), each kind padded with zeros to a multiple of 32, in the
+    kernels' slot order: bonds bond_k (d - r0)^2, angles K_ANGLE
+    (acos(clip(cos)) - t0)^2, repulsion K_REP max(r0 - d, 0)^2,
+    dihedrals K_DIH wrap(phi - t0)^2 (ff_energy's arithmetic and clips),
+    springs k (d - t)^2, half-springs k_h max(d - 2.5, 0)^2: (B, S).'''
+    bonds, r0, angles, a0, nb, nb0, dih, d0 = (
+        t.to(coords.device) for t in terms.tables())
+    dtype = coords.dtype
+    parts = []
+    if bonds.shape[0]:
+        x = _pair_d(coords, bonds)[1] - r0.to(dtype)
+        parts.append(terms.bond_k * (x * x))
+    if angles.shape[0]:
+        xj = coords[:, angles[:, 1]]
+        v1 = coords[:, angles[:, 0]] - xj
+        v2 = coords[:, angles[:, 2]] - xj
+        den = torch.clamp(torch.sqrt(torch.sum(v1 * v1, dim=-1)) *
+                          torch.sqrt(torch.sum(v2 * v2, dim=-1)), min=_FLOOR)
+        cos = torch.clamp(torch.sum(v1 * v2, dim=-1) / den, -_COS_CLIP,
+                          _COS_CLIP)
+        th = torch.arccos(cos) - a0.to(dtype)
+        parts.append(K_ANGLE * (th * th))
+    if nb.shape[0]:
+        x = torch.clamp(nb0.to(dtype) - _pair_d(coords, nb)[1], min=0.0)
+        parts.append(K_REP * (x * x))
+    if dih.shape[0]:
+        p0, p1, p2, p3 = (coords[:, dih[:, k]] for k in range(4))
+        b0, b1, b2 = p0 - p1, p2 - p1, p3 - p2
+        b1 = b1 / torch.clamp(torch.sqrt(torch.sum(b1 * b1, dim=-1,
+                                                   keepdim=True)),
+                              min=_FLOOR)
+        v = b0 - torch.sum(b0 * b1, dim=-1, keepdim=True) * b1
+        w = b2 - torch.sum(b2 * b1, dim=-1, keepdim=True) * b1
+        phi = torch.atan2(torch.sum(_cross(b1, v) * w, dim=-1),
+                          torch.sum(v * w, dim=-1))
+        u = phi - d0.to(dtype)
+        u = torch.atan2(torch.sin(u), torch.cos(u))
+        parts.append(K_DIH * (u * u))
+    for pairs, targets, k in _springs(terms, coords.device):
+        d = _pair_d(coords, pairs)[1]
+        x = d - targets.to(coords.device, dtype) if targets is not None \
+            else torch.clamp(d - HALF_SPRING_ONSET, min=0.0)
+        parts.append(_k(k, coords) * (x * x))
+    parts = [torch.nn.functional.pad(p, (0, -p.shape[1] % 32))
+             for p in parts]
+    if not parts:
+        return coords.new_zeros((coords.shape[0], 0))
+    return torch.cat(parts, dim=1)
+
+
+def ff_energy_plain(coords, terms):
+    '''The energy (B,) of ff.FireTerms `terms` on coords (B, N, 3), its
+    term energies (term_energies) summed in the kernels' order
+    (chunk_sum): each 32 slots by a butterfly, the chunks in order. The
+    energy that ff.ff_energy and the registered energies give for these
+    terms, to rounding.'''
+    return chunk_sum(term_energies(coords, terms))
 
 
 def ff_fire_plain(coords, terms, n_steps, dt0=0.05, fmax=0.05,
