@@ -87,10 +87,12 @@ C2F2H4 and 150- and 2,500-atom chains, each against its twin and
 timed; every neb> on the force field runs its IDPP band as one launch of
 I1 (csrc/idpp_fire.cu) and each of its two band phases as one launch of
 N1 (csrc/neb_band.cu, every step inside; NebCalls), and phase 19b holds
-both kernels against their plain twins in every form on phase 19's band,
-HCOOH and 150- and 2,500-atom chains, timed beside the twins and the
-graph route before them, bounded, with neb>'s seconds by both routes
-and the chain size from which the graph route takes the shorter step.
+both kernels against their plain twins and their first designs
+(csrc/neb_band_v1.cu, csrc/idpp_fire_v1.cu: the same bits) in every form
+on phase 19's band, HCOOH and 150- and 2,500-atom chains, timed beside
+the first designs (in turns), the twins and the graph route before
+them, bounded, with neb>'s seconds by both routes and the chain size
+from which the graph route takes the shorter step.
 Phase 20 runs
 the optimisation route: sn2_string at 76 conformers without NOOPT (the
 calculators chosen by keyword), its 290 candidates through the
@@ -419,10 +421,11 @@ TRACE_KERNELS = {
     # dimer_large_kernel<T, SHARED>; the staged form's dimer_kernel<T>)
     'dimer_f32': ('dimer_(?:lone_|large_)?kernel', 'float'),
     'dimer_f64': ('dimer_(?:lone_|large_)?kernel', 'double'),
-    # N1, the NEB band (both forms: neb_band_kernel<double, CLUSTER,
-    # SHARED>), and I1, the IDPP relaxation (no template)
-    'neb_band_f64': ('neb_band_kernel', 'double'),
-    'idpp_fire_f64': ('idpp_fire_kernel', None),
+    # N1, the NEB band (its forms: neb_band_kernel<CLUSTER, GRID>), and
+    # I1, the IDPP relaxation (its forms: idpp_lone_kernel,
+    # idpp_cluster_kernel; no template)
+    'neb_band_f64': ('neb_band_kernel', '(?:true|false)'),
+    'idpp_fire_f64': ('idpp_(?:lone|cluster)_kernel', None),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -450,7 +453,9 @@ DIMER_CLUSTERS = (1, 2, 4, 8, 16)
 # run_neb runs them), HCOOH's O-H rotor (400 + 400), 150- and
 # 2,500-atom suite_inputs.chain_ff chains (10 + 10; I1 there 10 steps at
 # fmax 0, so that every image takes them all); the clusters of the large
-# form, and the grid form's blocks when few, run beside the rule's plan;
+# form, and the grid form's blocks when few, run beside the rule's plan,
+# and the first designs of both kernels (PR 22's, launch_v1) beside them
+# in turns; I1's cluster form on IDPP_CLUSTERS blocks;
 # for the bounds, the operations of the
 # band algebra an atom a step, those an energy adds to a term's forward
 # values (its square, the constant, the add into the sum), and those of
@@ -464,9 +469,10 @@ NEB_CLUSTERS = (1, 2, 3, 5)
 NEB_GRID_FEW = 3
 NEB_ATOM_FLOPS = 100
 NEB_TERM_ENERGY_FLOPS = 3
-NEB_CROSSOVER = (100, 200, 300, 500, 1000, 2500)
+NEB_CROSSOVER = (10, 20, 30, 60, 100, 200, 300, 500, 1000, 2500)
 NEB_CROSSOVER_STEPS = 10
 IDPP_STEPS = 300
+IDPP_CLUSTERS = (1, 2, 4, 8, 16)
 IDPP_PAIR_FLOPS = 30
 # the force field's FIRE kernel: operations of one evaluation of each
 # term (the function's work counts each term once a step, whatever the
@@ -533,7 +539,7 @@ def phase_build():
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
             ff_fire.BLOCK_KERNEL, tfd.KERNEL, tfd.WARP_KERNEL,
             block_screen.KERNEL, block_screen.ROW_KERNEL, dimer.KERNEL,
-            neb.KERNEL, idpp.KERNEL)
+            neb.KERNEL, neb.V1_KERNEL, idpp.KERNEL, idpp.V1_KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -1752,20 +1758,22 @@ class NebCalls:
 
         neb.run_neb, neb.graph_loop, neb.idpp_interpolate = \
             neb_spy, graph_spy, idpp_spy
-        kn.KERNEL.reset_counts()
-        idpp.KERNEL.reset_counts()
+        for k in (kn.KERNEL, idpp.KERNEL, kn.V1_KERNEL, idpp.V1_KERNEL):
+            k.reset_counts()
         return self
 
     def __exit__(self, *exc):
         from tscode_tpu_torch import neb
         from tscode_tpu_torch.ops.kernels import idpp
         from tscode_tpu_torch.ops.kernels import neb as kn
-        self.launches = (kn.KERNEL.launches, idpp.KERNEL.launches)
+        self.launches = (kn.KERNEL.launches, idpp.KERNEL.launches,
+                         kn.V1_KERNEL.launches + idpp.V1_KERNEL.launches)
         neb.run_neb, neb.graph_loop, neb.idpp_interpolate = self.real
 
     def record(self):
         return {'n1_launches': self.launches[0],
-                'i1_launches': self.launches[1], 'calls': dict(self.calls),
+                'i1_launches': self.launches[1],
+                'v1_launches': self.launches[2], 'calls': dict(self.calls),
                 'graph_runs': dict(self.graph), 'idpp': dict(self.idpp)}
 
 
@@ -1778,16 +1786,19 @@ def count_neb(phase, tag, rec):
     '''Every run_neb call of a registered energy on the card launched N1
     once a phase (twice: the plain band and the climbing one) and
     replayed no graph, and every idpp_interpolate on the card launched
-    I1 once; at least one of each; the launches added to NEB_LAUNCHES
-    and IDPP_LAUNCHES[phase] and printed. Returns them.'''
+    I1 once; at least one of each; their first designs (the yardsticks)
+    never; the launches added to NEB_LAUNCHES and IDPP_LAUNCHES[phase] and
+    printed. Returns them.'''
     n1, i1 = rec['n1_launches'], rec['i1_launches']
     calls = rec['calls']['registered']
     check(n1 == 2 * calls > 0 and rec['graph_runs']['registered'] == 0 and
-          i1 == rec['idpp']['card'] > 0, f'{tag}: N1 launched {n1} times '
+          i1 == rec['idpp']['card'] > 0 and rec['v1_launches'] == 0,
+          f'{tag}: N1 launched {n1} times '
           f'for {calls} run_neb calls of the force field on the card, '
           f'{rec["graph_runs"]["registered"]} graph runs of them (expected '
           f'one launch a phase, no graph); I1 launched {i1} times for '
-          f'{rec["idpp"]["card"]} IDPP bands on the card')
+          f'{rec["idpp"]["card"]} IDPP bands on the card; the first designs '
+          f'{rec["v1_launches"]} times')
     NEB_LAUNCHES[phase] = NEB_LAUNCHES.get(phase, 0) + n1
     IDPP_LAUNCHES[phase] = IDPP_LAUNCHES.get(phase, 0) + i1
     print(f'[{phase} neb] {tag}: {n1} launches of N1 for {calls} run_neb '
@@ -5184,42 +5195,63 @@ def neb_plans(x, terms):
     return plans
 
 
+def in_turns(new, old, reps):
+    '''(device ms of `new`, of `old`): each timed twice, new, old, old,
+    new (device_ms), the two readings of each averaged.'''
+    t = [device_ms(f, reps=reps) for f in (new, old, old, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
 def neb_forms(card, name, x, params, terms, n, climbing, want, eval_ms):
     '''N1 on the band x for n steps (climbing or not) in each plan of
-    neb_plans: two launches the same bits, the rule's plan's bits (the
-    forms add in one order), within FF_ATOL of the plain twin's `want`
-    (chain, done, steps, ties) with the same flag and steps (held
-    strictly: the record counts the twin's near ties); device ms,
-    us a step, registers, resident warps; the bound (neb_bound) and the
-    latency figure (the steps x eval_ms, one F1 step on an interior
-    image: one evaluation of its terms, its reductions and a FIRE
-    update). Prints a line a plan; returns {label: record}.'''
+    neb_plans: two launches the same bits, the bits of N1's first design
+    (PR 22's kernel, launch_v1, its rule's plan; the redesign keeps its
+    sums' orders), within FF_ATOL of the plain twin's `want` (chain,
+    done, steps, ties) with the same flag and steps (held strictly: the
+    record counts the twin's near ties); device ms (the rule's plan in
+    turns with the first design's), us a step, registers, resident warps;
+    the bound (neb_bound) and the latency figure (the steps x eval_ms,
+    one F1 step on an interior image: one evaluation of its terms, its
+    reductions and a FIRE update). Prints a line a plan; returns {label:
+    record}, the first design's under 'v1'.'''
     import torch
     from tscode_tpu_torch.ff_records import FF_ATOL
     from tscode_tpu_torch.ops.kernels import neb
     pc, pdone, psteps, ties = want
     bound, by = neb_bound(x, params, int(psteps))
     latency = eval_ms * int(psteps)
-    recs, first = {}, None
+    reps = 1 if x.shape[1] > 1000 else 3
+    old_plan = neb.plan_for_v1(x, terms)
+    old = neb.launch_v1(x, terms, n, climbing=climbing, plan=old_plan)
+    recs = {}
     for label, plan in neb_plans(x, terms).items():
         got = neb.launch(x, terms, n, climbing=climbing, plan=plan)
         again = neb.launch(x, terms, n, climbing=climbing, plan=plan)
         err = float((got[0] - pc).abs().max())
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        first = got[0] if first is None else first
-        same = torch.equal(got[0], first)
+        same = all(torch.equal(a, b) for a, b in zip(got, old))
         check(repeat and same and err <= FF_ATOL and
               bool(got[1]) == bool(pdone) and int(got[2]) == int(psteps),
               f'N1 {name} {label} ({plan}), climbing {climbing}: {err:.2e} '
               f'A from its plain twin, done {bool(got[1])} / {bool(pdone)}, '
               f'steps {int(got[2])} / {int(psteps)}, two launches the same '
-              f'bits {repeat}, the rule\'s bits {same}, the twin\'s near '
-              f'ties {ties}')
-        ms = device_ms(lambda: neb.launch(x, terms, n, climbing=climbing,
-                                          plan=plan),
-                       reps=1 if x.shape[1] > 1000 else 3)
+              f'bits {repeat}, the first design\'s bits {same}, the twin\'s '
+              f'near ties {ties}')
+
+        def run(plan=plan):
+            return neb.launch(x, terms, n, climbing=climbing, plan=plan)
+        if label == 'rule':
+            ms, v1_ms = in_turns(run, lambda: neb.launch_v1(
+                x, terms, n, climbing=climbing, plan=old_plan), reps)
+            recs['v1'] = {'form': old_plan.form,
+                          'cluster': old_plan.cluster, 'ms': v1_ms,
+                          'plain_diff_A': float((old[0] - pc).abs().max()),
+                          'us_per_step': v1_ms * 1e3 / int(psteps),
+                          **neb.kernel_info_v1(old_plan, x.device)}
+        else:
+            ms = device_ms(run, reps=reps)
         rec = {'form': plan.form, 'cluster': plan.cluster,
-               'lanes': plan.lanes, 'shared': plan.shared,
+               'shared': plan.shared, 'staged': plan.staged,
                'smem': plan.smem, 'ms': ms,
                'us_per_step': ms * 1e3 / int(psteps), 'plain_diff_A': err,
                'bound_ms': bound, 'bound_by': by, 'latency_ms': latency,
@@ -5228,12 +5260,19 @@ def neb_forms(card, name, x, params, terms, n, climbing, want, eval_ms):
         print(f'[19b neb] N1 {name} ({x.shape[0]} x {x.shape[1]} atoms, '
               f'{"climbing" if climbing else "plain"}, {int(psteps)} steps, '
               f'done {bool(pdone)}) {label} ({plan.form}, cluster '
-              f'{plan.cluster}, {plan.lanes} lanes an atom, shared '
-              f'{plan.shared}, {plan.smem} shared bytes, {rec["registers"]} '
-              f'registers, {rec["local_bytes"]} local bytes): {ms:.4f} ms, '
+              f'{plan.cluster}, shared {plan.shared}, staged {plan.staged}, '
+              f'{plan.smem} shared bytes, {rec["registers"]} registers, '
+              f'{rec["local_bytes"]} local bytes, {rec["resident_warps"]} '
+              f'resident warps an SM): {ms:.4f} ms, '
               f'{rec["us_per_step"]:.2f} us a step; {err:.2e} A from the '
               f'twin; bound {bound:.6f} ms ({by}), latency figure '
               f'{latency:.4f} ms [{card}]')
+    v = recs['v1']
+    print(f'[19b neb] N1 {name} {"climbing" if climbing else "plain"}: the '
+          f'first design (PR 22, {v["form"]} on {v["cluster"]} blocks, '
+          f'{v["registers"]} registers) {v["ms"]:.4f} ms, '
+          f'{v["us_per_step"]:.2f} us a step, in turns with the rule\'s '
+          f'{recs["rule"]["ms"]:.4f} ms; every plan its bits [{card}]')
     return recs
 
 
@@ -5276,7 +5315,7 @@ def neb_case_record(card, name, start, end, params, terms):
         rec[phase] = {'steps': steps, 'done': bool(want[1]),
                       'near_ties': want[3], 'plain_ms': plain_ms,
                       'graph_step_ms': step_ms, 'graph_ms': step_ms * steps,
-                      'forms': forms,
+                      'forms': forms, 'v1_ms': forms['v1']['ms'],
                       **{k: r[k] for k in ('form', 'ms', 'us_per_step',
                                            'bound_ms', 'bound_by',
                                            'latency_ms', 'plain_diff_A')}}
@@ -5289,16 +5328,33 @@ def neb_case_record(card, name, start, end, params, terms):
     return rec
 
 
+def idpp_plans(N):
+    '''{label: Plan} of I1 on images of N atoms: the rule's, the lone
+    form where it takes the image, the cluster form on each of
+    IDPP_CLUSTERS blocks that keeps its blocks within 512 threads.'''
+    from tscode_tpu_torch.ops.kernels import idpp
+    plans = {'rule': idpp.launch_plan(N)}
+    if N <= idpp.LONE_ATOMS:
+        plans['lone'] = idpp.launch_plan(N, 'lone')
+    for cl in IDPP_CLUSTERS:
+        if -(-N // cl) <= idpp.MAX_THREADS:
+            plans[f'cluster {cl}'] = idpp.launch_plan(N, 'cluster', cl)
+    return plans
+
+
 def idpp_record(card, name, chain, eval_ms):
-    '''I1 on the IDPP band of the linear chain (I, N, 3) numpy: against
-    its twin (within FF_ATOL, the same flags and steps, two launches the
-    same bits), timed beside the twin (its one run) and fire_run_graph
-    (the route before I1: the autograd step of neb._idpp_energy replayed
-    from a CUDA graph), bounded (idpp_bound), with a latency figure (the
-    most steps x eval_ms, one F1 step on an image, an evaluation over
-    its pairs with its reductions, standing in for an IDPP step).
-    IDPP_STEPS steps; the chains 10 at fmax 0. Returns the record, the
-    band under `band`.'''
+    '''I1 on the IDPP band of the linear chain (I, N, 3) numpy, in each
+    plan of idpp_plans: against its twin (within FF_ATOL, the same flags
+    and steps, two launches the same bits) and against I1's first design
+    (PR 22's kernel, launch_v1: the same bits), timed (the rule's plan in
+    turns with the first design) beside the twin (its one run) and
+    fire_run_graph (the route before I1: the autograd step of
+    neb._idpp_energy replayed from a CUDA graph), bounded (idpp_bound),
+    with a latency figure (the most steps x eval_ms, one F1 step on an
+    image, an evaluation over its pairs with its reductions, standing in
+    for an IDPP step), registers and resident warps; the tables' symmetry
+    check (check_symmetric, made anew each call) timed. IDPP_STEPS steps;
+    the chains 10 at fmax 0. Returns the record, the band under `band`.'''
     import torch
     from tscode_tpu_torch import neb, optimizers
     from tscode_tpu_torch.ff_records import FF_ATOL
@@ -5309,17 +5365,45 @@ def idpp_record(card, name, chain, eval_ms):
                    for t in neb.idpp_tables(chain))
     (pc, pdone, psteps), plain_ms = once_ms(
         lambda: idpp.idpp_fire_plain(x, *tables, n, fmax=fmax))
-    got = idpp.launch(x, *tables, n, fmax=fmax)
-    again = idpp.launch(x, *tables, n, fmax=fmax)
-    err = float((got[0] - pc).abs().max())
-    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-    check(repeat and err <= FF_ATOL and torch.equal(got[1], pdone) and
-          torch.equal(got[2], psteps), f'I1 {name}: {err:.2e} A from its '
-          f'plain twin, done {got[1].tolist()} / {pdone.tolist()}, steps '
-          f'{got[2].tolist()} / {psteps.tolist()}, two launches the same '
-          f'bits {repeat}')
-    ms = device_ms(lambda: idpp.launch(x, *tables, n, fmax=fmax),
-                   reps=1 if x.shape[1] > 1000 else 3)
+    old = idpp.launch_v1(x, *tables, n, fmax=fmax)
+    reps = 1 if x.shape[1] > 1000 else 3
+    forms, err = {}, 0.0
+    for label, plan in idpp_plans(x.shape[1]).items():
+        got = idpp.launch(x, *tables, n, fmax=fmax, plan=plan)
+        again = idpp.launch(x, *tables, n, fmax=fmax, plan=plan)
+        e = float((got[0] - pc).abs().max())
+        err = max(err, e)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        same = all(torch.equal(a, b) for a, b in zip(got, old))
+        check(repeat and same and e <= FF_ATOL and
+              torch.equal(got[1], pdone) and torch.equal(got[2], psteps),
+              f'I1 {name} {label} ({plan}): {e:.2e} A from its plain twin, '
+              f'done {got[1].tolist()} / {pdone.tolist()}, steps '
+              f'{got[2].tolist()} / {psteps.tolist()}, two launches the same '
+              f'bits {repeat}, the first design\'s bits {same}')
+
+        def run(plan=plan):
+            return idpp.launch(x, *tables, n, fmax=fmax, plan=plan)
+        if label == 'rule':
+            ms, v1_ms = in_turns(run, lambda: idpp.launch_v1(
+                x, *tables, n, fmax=fmax), reps)
+        else:
+            ms = device_ms(run, reps=reps)
+        forms[label] = {'form': plan.form, 'cluster': plan.cluster,
+                        'threads': plan.threads, 'smem': plan.smem,
+                        'ms': ms, 'plain_diff_A': e,
+                        **idpp.kernel_info(plan, x.device)}
+        f = forms[label]
+        print(f'[19b neb] I1 {name} {label} ({plan.form}, {plan.cluster} '
+              f'blocks of {plan.threads} threads an image, {plan.smem} '
+              f'shared bytes, {f["registers"]} registers, '
+              f'{f["resident_warps"]} resident warps an SM): {ms:.4f} ms; '
+              f'{e:.2e} A from the twin [{card}]')
+    def check_anew():
+        for t in tables:    # the check's own cache: compare again
+            t.__dict__.pop('_idpp_symmetric', None)
+        idpp.check_symmetric(*tables)
+    sym_ms = cuda_ms(check_anew, reps=3)
     freeze = torch.zeros(x.shape[:2], dtype=torch.bool, device=DEV)
     freeze[0] = freeze[-1] = True
 
@@ -5330,18 +5414,25 @@ def idpp_record(card, name, chain, eval_ms):
     graph_ms = cuda_ms(graph, reps=1)
     bound, by = idpp_bound(x, psteps)
     latency = eval_ms * int(psteps.max())
+    rule = forms['rule']
     rec = {'steps': psteps.tolist(), 'done': pdone.tolist(), 'fmax': fmax,
-           'ms': ms, 'plain_ms': plain_ms, 'graph_ms': graph_ms,
-           'plain_diff_A': err,
-           'graph_diff_A': float((got[0] - gc).abs().max()),
+           'ms': rule['ms'], 'v1_ms': v1_ms, 'form': rule['form'],
+           'cluster': rule['cluster'], 'plain_ms': plain_ms,
+           'graph_ms': graph_ms, 'plain_diff_A': err,
+           'graph_diff_A': float((old[0] - gc).abs().max()),
            'bound_ms': bound, 'bound_by': by, 'latency_ms': latency,
-           'band': got[0]}
+           'symmetry_check_ms': sym_ms, 'forms': forms, 'band': old[0]}
     print(f'[19b neb] I1 {name} ({x.shape[0]} x {x.shape[1]} atoms, {n} '
-          f'steps at fmax {fmax}, steps taken {rec["steps"]}): {ms:.4f} ms; '
-          f'plain twin {plain_ms:.1f} ms; fire_run_graph {graph_ms:.3f} ms; '
+          f'steps at fmax {fmax}, steps taken {rec["steps"]}): the rule '
+          f'({rule["form"]} on {rule["cluster"]} blocks) {rule["ms"]:.4f} '
+          f'ms, the first design (PR 22) {v1_ms:.4f} ms in turns; plain '
+          f'twin {plain_ms:.1f} ms; fire_run_graph {graph_ms:.3f} ms; '
           f'{err:.2e} A from the twin, {rec["graph_diff_A"]:.2e} A from the '
-          f'graph path; bound {bound:.6f} ms ({by}), latency figure '
-          f'{latency:.4f} ms [{card}]')
+          f'graph path; every form the first design\'s bits; bound '
+          f'{bound:.6f} ms ({by}), latency figure {latency:.4f} ms; the '
+          f'tables\' symmetry check {sym_ms:.4f} ms (CUDA events, each '
+          f'call ending in its host read) '
+          f'[{card}]')
     return rec
 
 
@@ -5401,9 +5492,12 @@ def neb_crossover(card):
     CUDA graph) by chain size: on the linear 7-image band between two
     jittered conformers of each suite_inputs.chain_ff chain of
     NEB_CROSSOVER atoms (seed 13), NEB_CROSSOVER_STEPS plain steps, N1 in
-    the rule's plan, the large form on min(I - 2, 8) blocks and the grid
-    form (device ms over the steps taken, each a step) against the graph
-    route's replayed step (neb_graph_step_ms). Returns {'points': [...],
+    the rule's plan, the lone form where it fits, the large form on
+    min(I - 2, 8) blocks and the grid form, and N1's first design in its
+    rule's plan (device ms over the steps taken, each a step) against the
+    graph route's replayed step (neb_graph_step_ms); the rule's
+    thresholds (neb.LONE_MAX_ATOMS, GRID_MIN_ATOMS) are read from these
+    points. Returns {'points': [...],
     'graph_wins_from': the fewest atoms at which the graph route's step
     is shorter than the rule's (None if the rule's always is)}.'''
     import torch
@@ -5422,6 +5516,10 @@ def neb_crossover(card):
         plans = {'rule': kn.plan_for(x, terms),
                  'large': kn.plan_for(x, terms, 'large'),
                  'grid': kn.plan_for(x, terms, 'grid')}
+        try:
+            plans['lone'] = kn.plan_for(x, terms, 'lone')
+        except ValueError:
+            pass
         graph = neb_graph_step_ms(x, params, False, n)
         point = {'atoms': n_atoms, 'graph_step_ms': graph}
         for label, plan in plans.items():
@@ -5429,20 +5527,29 @@ def neb_crossover(card):
             ms = device_ms(lambda: kn.launch(x, terms, n, plan=plan),
                            reps=3)
             point[label] = {'form': plan.form, 'blocks': plan.cluster,
-                            'lanes': plan.lanes, 'steps': steps,
-                            'step_ms': ms / steps}
+                            'shared': plan.shared, 'staged': plan.staged,
+                            'steps': steps, 'step_ms': ms / steps}
+        old = kn.plan_for_v1(x, terms)
+        steps = int(kn.launch_v1(x, terms, n, plan=old)[2])
+        ms = device_ms(lambda: kn.launch_v1(x, terms, n, plan=old), reps=3)
+        point['v1'] = {'form': old.form, 'blocks': old.cluster,
+                       'steps': steps, 'step_ms': ms / steps}
         rule = point['rule']['step_ms']
         point['ratio'] = rule / graph
         points.append(point)
         if wins is None and graph < rule:
             wins = n_atoms
+        lone = f', lone {point["lone"]["step_ms"]:.4f}' \
+            if 'lone' in point else ''
         print(f'[19b neb] crossover: {n_atoms} atoms x {NEB_IMAGES} images, '
-              f'ms a step: the rule ({plans["rule"].form}) {rule:.4f}, large '
-              f'on {plans["large"].cluster} blocks '
+              f'ms a step: the rule ({plans["rule"].form}) {rule:.4f}{lone}, '
+              f'large on {plans["large"].cluster} blocks (shared '
+              f'{plans["large"].shared}, staged {plans["large"].staged}) '
               f'{point["large"]["step_ms"]:.4f}, grid on '
-              f'{plans["grid"].cluster} blocks ({plans["grid"].lanes} lanes '
-              f'an atom) {point["grid"]["step_ms"]:.4f}, the graph route '
-              f'{graph:.4f}; rule / graph {rule / graph:.3f} [{card}]')
+              f'{plans["grid"].cluster} blocks {point["grid"]["step_ms"]:.4f}'
+              f', the first design ({old.form}) '
+              f'{point["v1"]["step_ms"]:.4f}, the graph route {graph:.4f}; '
+              f'rule / graph {rule / graph:.3f} [{card}]')
     print(f'[19b neb] crossover: the graph route\'s step is shorter than '
           f'the rule\'s from {wins} atoms on (of {list(NEB_CROSSOVER)}) '
           f'[{card}]')
@@ -7165,7 +7272,7 @@ def n1_kernel_line(rec):
             'graph_ms': total('graph_ms'), 'bound_ms': sum(bounds),
             'bound_by': phases[bounds.index(max(bounds))]['bound_by'],
             'library_ms': None, 'latency_ms': total('latency_ms'),
-            'form': ring['climbing']['form'],
+            'form': ring['climbing']['form'], 'v1_ms': total('v1_ms'),
             'steps': [p['steps'] for p in phases],
             'near_ties': max(p['near_ties'] for case in NEB_CASES
                              for p in (rec[case]['plain'],
@@ -7191,6 +7298,7 @@ def i1_kernel_line(rec):
             'graph_ms': ring['graph_ms'], 'bound_ms': ring['bound_ms'],
             'bound_by': ring['bound_by'], 'library_ms': None,
             'latency_ms': ring['latency_ms'], 'steps': ring['steps'],
+            'form': ring['form'], 'v1_ms': ring['v1_ms'],
             'cases': {k: rec[k]['idpp'] for k in NEB_CASES}}
 
 

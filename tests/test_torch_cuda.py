@@ -1870,6 +1870,156 @@ def test_idpp_kernel_matches_plain(cuda_device, name):
         <= 1e-6
 
 
+def neb_v1_case(device, name):
+    '''(band, terms, steps) of neb_card_band, or the 2,500-atom chain's
+    linear 7-image band (10 steps).'''
+    if name != 'chain2500':
+        return neb_card_band(device, name)
+    from tscode_tpu_torch import ff, neb
+    from tscode_tpu_torch.suite_inputs import chain_ff
+    X, ffp = chain_ff(2500, 2, seed=13)
+    terms = ff.FireTerms(ff.params_to_device(ffp, device, torch.float64))
+    x = torch.as_tensor(neb.interpolate_chain(X[0], X[1], 7), device=device)
+    return x, terms, 10
+
+
+@pytest.mark.parametrize('name', ['hcooh', 'ring', 'chain150', 'c2h4',
+                                  'chain2500'])
+def test_neb_redesign_matches_first_design(cuda_device, name):
+    '''N1 in every form of the redesign (the lone form where it fits, the
+    large form on 1, 2 and 5 blocks, the grid form on the card's resident
+    blocks and on 3) against N1's first design (PR 22's kernel,
+    launch_v1, in its rule's plan), float64, plain then climbing: the
+    same bits, the same done flag and steps; within 1e-6 A of the twin
+    (not at 2,500 atoms: the twin takes minutes there).'''
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    x, terms, n = neb_v1_case(cuda_device, name)
+    big = x.shape[1] > 1000
+    plans = [kn.plan_for(x, terms, 'grid'), kn.plan_for(x, terms, 'large')]
+    if not big:
+        plans += [kn.plan_for(x, terms, 'large', cl) for cl in (1, 2)]
+        plans += [kn.plan_for(x, terms, 'grid', 3)]
+        try:
+            plans.append(kn.plan_for(x, terms, 'lone'))
+        except ValueError:
+            pass
+    for climbing in (False, True):
+        want = kn.launch_v1(x, terms, n, climbing=climbing)
+        if not big:
+            pc = kn.neb_relax_plain(x, terms, n, climbing=climbing)[0]
+            assert float((want[0] - pc).abs().max()) <= 1e-6
+        before = kn.V1_KERNEL.launches
+        for plan in plans:
+            got = kn.launch(x, terms, n, climbing=climbing, plan=plan)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), plan
+        assert kn.V1_KERNEL.launches == before
+        x = want[0]
+
+
+def test_neb_layout_matches_the_kernels(cuda_device):
+    '''ops/kernels/neb.layout (shared bytes, device values, groups,
+    warps a group) equals csrc/neb_band.cu make_layout (its neb_layout
+    entry) for every form on the four bands of neb_v1_case, the large
+    form on 1 to 5 blocks in each of its memory placements.'''
+    import ctypes
+    from tscode_tpu_torch.ff import incidence
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    lib = kn.KERNEL.build()
+    fn = lib.neb_layout
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name in ('hcooh', 'ring', 'chain150', 'chain2500'):
+        x, terms, _ = neb_v1_case(cuda_device, name)
+        I, N = x.shape[0], x.shape[1]
+        kinds = kn.term_kinds(terms)
+        E = incidence(terms.params, N)[1].numel()
+        plans = [kn.plan_for(x, terms, 'grid'),
+                 kn.plan_for(x, terms, 'grid', 3)]
+        for cl in range(1, 6):
+            for shared, staged in ((True, True), (True, False),
+                                   (False, False)):
+                p = kn.plan_for(x, terms, 'large', cl)
+                plans.append(p._replace(shared=shared, staged=staged))
+        for staged in (True, False):
+            plans.append(kn.Plan('lone', 512, 0, 1, True, staged,
+                                 kn.energy_slots(kinds)))
+        for plan in plans:
+            out = (ctypes.c_longlong * 4)()
+            assert fn(plan.args(), I, N, *kinds[:4], E, out) == 0
+            want = kn.layout(plan.form, plan.threads, I, N, kinds, E,
+                             plan.cluster, plan.shared, plan.staged)
+            assert tuple(out) == want, (name, plan)
+
+
+def test_entry_forces_on_card_match_ff_forces_plain(cuda_device):
+    '''N1's entry layout on the card: entry_forces_plain (each term once,
+    its vectors term-major, each atom's entries added in incidence order)
+    gives ff_forces_plain's bits on the C2H4 band (every term kind) and
+    the 150-atom chain's.'''
+    from tscode_tpu_torch.ops.kernels import ff_fire
+    from tscode_tpu_torch.ops.kernels import neb as kn
+    for name in ('c2h4', 'chain150'):
+        x, terms, _ = neb_card_band(cuda_device, name)
+        bare = type(terms)(terms.params)
+        assert torch.equal(kn.entry_forces_plain(x, bare),
+                           ff_fire.ff_forces_plain(x, bare))
+
+
+@pytest.mark.parametrize('name', ['hcooh', 'ring', 'chain150',
+                                  'chain2500'])
+def test_idpp_redesign_matches_first_design(cuda_device, name):
+    '''I1 in each form of the redesign that takes the image (the lone
+    form up to 32 atoms, the cluster form on 1, 2, 4 and 16 blocks and
+    the rule's) against I1's first design (PR 22's kernel, launch_v1),
+    float64, on the linear band of the case's ends (300 steps; the chains
+    10 at fmax 0): the same bits, stops and steps.'''
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.ops.kernels import idpp
+    if name == 'chain2500':
+        from tscode_tpu_torch.suite_inputs import chain_ff
+        X, _ = chain_ff(2500, 2, seed=13)
+        a, b = X[0], X[1]
+    else:
+        band, _, _ = neb_card_band('cpu', name)
+        a, b = band[0].numpy(), band[-1].numpy()
+    chain = neb.interpolate_chain(a, b, 7)
+    x = torch.as_tensor(chain, device=cuda_device)
+    tables = [torch.as_tensor(t, device=cuda_device)
+              for t in neb.idpp_tables(chain)]
+    fmax, n = (0.0, 10) if name.startswith('chain') else (0.05, 300)
+    want = idpp.launch_v1(x, *tables, n, fmax=fmax)
+    N = x.shape[1]
+    plans = [idpp.launch_plan(N)] + [
+        idpp.launch_plan(N, 'cluster', cl) for cl in (1, 2, 4, 16)
+        if -(-N // cl) <= idpp.MAX_THREADS]
+    if N <= idpp.LONE_ATOMS:
+        plans.append(idpp.launch_plan(N, 'lone'))
+    before = idpp.V1_KERNEL.launches
+    for plan in plans:
+        got = idpp.launch(x, *tables, n, fmax=fmax, plan=plan)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), plan
+    assert idpp.V1_KERNEL.launches == before
+    assert int(want[2].max()) > 1
+
+
+def test_idpp_refuses_asymmetric_tables(cuda_device):
+    '''The wrapper refuses tables that are not symmetric to the bit
+    (ValueError) before any launch.'''
+    from tscode_tpu_torch import neb
+    from tscode_tpu_torch.ops.kernels import idpp
+    band, _, _ = neb_card_band('cpu', 'hcooh')
+    chain = neb.interpolate_chain(band[0].numpy(), band[-1].numpy(), 5)
+    x = torch.as_tensor(chain, device=cuda_device)
+    tg, w = (torch.as_tensor(t, device=cuda_device)
+             for t in neb.idpp_tables(chain))
+    w[2, 0, 1] += 1e-12
+    before = idpp.KERNEL.launches
+    with pytest.raises(ValueError, match='symmetric'):
+        idpp.launch(x, tg, w, 10)
+    assert idpp.KERNEL.launches == before
+
+
 def test_hessian_on_card_matches_cpu(cuda_device):
     '''Force-field frequencies (torch.func.hessian, Eckart projection,
     eigvalsh) of one jittered HCOOH and of a batch of five, on the card
@@ -2075,11 +2225,25 @@ def test_kernels_launch_on_their_tensors_card(cuda_device):
         want = kn.neb_relax_plain(band, terms, 100, climbing=True)
         assert got[0].device == dev1
         assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        want_band = want[0]
         tables = [torch.as_tensor(t, device=dev1)
                   for t in idpp_tables(band.cpu().numpy())]
         got = idpp.idpp_fire(band, *tables, 50)
         want = idpp.idpp_fire_plain(band, *tables, 50)
         assert got[0].device == dev1
+        assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        # every form of both, and their first designs, on cuda:1
+        for form in kn.FORMS:
+            got = kn.launch(band, terms, 100, climbing=True, form=form)
+            assert got[0].device == dev1
+            assert float((got[0] - want_band).abs().max()) <= 1e-6
+        got = kn.launch_v1(band, terms, 100, climbing=True)
+        assert float((got[0] - want_band).abs().max()) <= 1e-6
+        for plan in (idpp.launch_plan(5), idpp.launch_plan(5, 'cluster')):
+            got = idpp.launch(band, *tables, 50, plan=plan)
+            assert got[0].device == dev1
+            assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        got = idpp.launch_v1(band, *tables, 50)
         assert float((got[0] - want[0]).abs().max()) <= 1e-6
         torch.cuda.synchronize(dev1)
 

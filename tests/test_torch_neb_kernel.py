@@ -286,52 +286,94 @@ def test_idpp_forces_are_minus_the_gradient():
 # ------------------------------------------------------------ plans
 
 
+def dense_kinds(n_atoms):
+    '''Term counts with a dense repulsion table: (bonds, angles, pairs,
+    dihedrals, springs, half-springs).'''
+    return (n_atoms - 1, max(0, n_atoms - 2), n_atoms * (n_atoms - 1) // 2,
+            0, 0, 0)
+
+
+def layout_bytes(form, n_images, n_atoms, kinds, cluster=1, shared=True,
+                 staged=True):
+    '''(shared bytes, device values) of csrc/neb_band.cu make_layout,
+    written out: the arrays (coordinates, velocities, forces, tangents;
+    the large form's also the images either side of its own), the
+    energies and 5 partial sums an interior image, two buffers of 4
+    chunk values a group, and where staged the chunk sums (the lone
+    form's always), the entry arrays (3 values a vector) and the tables
+    (t0, then from a 16-byte boundary 16 bytes of atoms a term, I + 1
+    offsets and a source an entry); the rest in device memory.'''
+    I, N, M = n_images, n_atoms, n_images - 2
+    nb, na, npairs, nd = kinds[:4]
+    T, V = nb + na + npairs + nd, nb + 3 * na + npairs + 4 * nd
+    E = 2 * nb + 3 * na + 2 * npairs + 4 * nd
+    K = kn.energy_slots(kinds)[1] // 32
+    CH = -(-N // 32)
+    per = M if form == 'lone' else -(-M // cluster)
+    G = min(per, 16, 8)
+    arrays = form == 'lone' or (form == 'large' and shared)
+    tables = form != 'grid' and arrays and staged
+    imgs = M if form == 'lone' else per
+    vals = 8 * CH * G
+    vals += ((I if form == 'lone' else per + 2) + 3 * imgs) * 3 * N \
+        if arrays else 0
+    vals += I * K if form == 'lone' or tables else 0
+    vals += I + 5 * M
+    vals += imgs * 3 * V + T if tables else 0
+    smem = 8 * vals
+    if tables:
+        smem = 16 * -(-smem // 16) + 16 * T + 4 * (N + 1) + 4 * E
+    work = (0 if form == 'lone' else M * 3 * N) + \
+        (0 if arrays else 3 * M * 3 * N) + \
+        (0 if form == 'lone' or tables else I * K) + \
+        (0 if tables else 3 * M * V) + (I + 5 * M if form == 'grid' else 0)
+    return smem, work
+
+
 @pytest.mark.parametrize('n_images, n_atoms', [(3, 5), (7, 5), (7, 12),
                                                (7, 27), (5, 150), (7, 150),
                                                (7, 2500)])
 def test_launch_plan_forms(n_images, n_atoms):
     '''The rule on I x N from 3 x 5 to 7 x 2,500 with a dense repulsion
-    table: the lone form up to 64 interior atoms (I - 2) N while its
-    shared values (every image's coordinates, the interior images' three
-    arrays, the energies' chunk sums, I energies and 5 partial sums an
-    interior image) fit, at the most lanes an atom that keep its
-    interior atoms within 512 threads; the grid form from 550 interior
-    atoms; else the large form, a cluster of min(I - 2, 8) blocks, its
-    four arrays in shared memory while they fit. Each form on request;
-    the lone form refused where it does not fit.'''
+    table: the lone form (its arrays in shared memory, its entry arrays
+    and tables beside them while they fit) up to 120 interior atoms
+    (I - 2) N while it fits; the grid
+    form from 400 interior atoms; else the large form, a cluster of
+    min(I - 2, 8) blocks, its arrays, entry arrays and tables in shared
+    memory while they fit, else its arrays alone, else neither. Each
+    form on request; the lone form refused where it does not fit.'''
     M = n_images - 2
-    n_pairs = n_atoms * (n_atoms - 1) // 2
-    kinds = (n_atoms - 1, max(0, n_atoms - 2), n_pairs, 0, 0, 0)
+    kinds = dense_kinds(n_atoms)
     lo, n = kn.energy_slots(kinds)
     assert n == sum(32 * -(-k // 32) for k in kinds) and n % 32 == 0
-    n3 = 3 * n_atoms
-    lone = 8 * (n_images * n3 + 3 * M * n3 + n_images * n // 32 +
-                n_images + 5 * M)
+    staged = layout_bytes('lone', n_images, n_atoms, kinds)[0] <= \
+        kn.SMEM_BYTES
+    lone, lone_work = layout_bytes('lone', n_images, n_atoms, kinds,
+                                   staged=staged)
     plan = kn.launch_plan(n_images, n_atoms, kinds)
-    rule_lone = M * n_atoms <= kn.LONE_MAX_ATOMS == 64
-    rule_grid = M * n_atoms >= kn.GRID_MIN_ATOMS == 550
+    rule_lone = M * n_atoms <= kn.LONE_MAX_ATOMS == 120
+    rule_grid = M * n_atoms >= kn.GRID_MIN_ATOMS == 400
     assert plan.form == ('lone' if rule_lone and lone <= kn.SMEM_BYTES
                          else 'grid' if rule_grid else 'large')
     assert plan.threads == 512 and plan.slots == (lo, n)
     if lone <= kn.SMEM_BYTES:
         got = kn.launch_plan(n_images, n_atoms, kinds, 'lone')
-        assert got.smem == lone and got.cluster == 1 and got.shared
-        assert got.lanes == max(g for g in (1, 2, 4, 8, 16, 32)
-                                if M * n_atoms * g <= 512 or g == 1)
+        assert (got.smem, got.work, got.cluster) == (lone, lone_work, 1)
+        assert got.shared and got.staged == staged
         assert plan == got or not rule_lone
     else:
         with pytest.raises(ValueError, match='shared bytes'):
             kn.launch_plan(n_images, n_atoms, kinds, 'lone')
     for cl in range(1, min(M, 8) + 1):
         large = kn.launch_plan(n_images, n_atoms, kinds, 'large', cl)
-        per = -(-M // cl)
-        full = 8 * (4 * per * n3 + n_images + 5 * M)
         assert (large.form, large.cluster) == ('large', cl)
-        assert large.shared == (full <= kn.SMEM_BYTES)
-        assert large.smem == (full if large.shared else
-                              8 * (n_images + 5 * M))
-        assert kn.work_values(large, n_images, n_atoms) == \
-            4 * M * n3 + n_images * n // 32
+        fits = [(sh, st) for sh, st in ((True, True), (True, False),
+                                        (False, False))
+                if layout_bytes('large', n_images, n_atoms, kinds, cl, sh,
+                                st)[0] <= kn.SMEM_BYTES]
+        assert (large.shared, large.staged) == fits[0]
+        assert (large.smem, large.work) == layout_bytes(
+            'large', n_images, n_atoms, kinds, cl, *fits[0])
     if plan.form == 'large':
         assert plan == kn.launch_plan(n_images, n_atoms, kinds, 'large',
                                       min(M, 8))
@@ -346,58 +388,97 @@ def test_launch_plan_forms(n_images, n_atoms):
 
 def test_plan_args_follow_the_kernels_plan_fields():
     '''Plan.args: the host array of csrc/neb_band.cu PlanField (form,
-    threads, shared bytes, cluster, lanes, shared, slots, the first slot
-    of each of the six kinds); work_values none for the lone form.'''
+    threads, shared bytes, cluster, shared, staged, slots, the first slot
+    of each of the six kinds); no device memory for the lone form; I1's
+    plans: the warp form's and the cluster form's shared bytes.'''
     chain, params = band_case('ring6', 7)
     terms = port_terms(params, spring_pairs=torch.as_tensor([[0, 9]]),
                        spring_targets=t64([3.0]), spring_k=5.0)
     lone = kn.plan_for(t64(chain), terms, 'lone')
     large = kn.plan_for(t64(chain), terms, 'large', 2)
-    assert kn.plan_for(t64(chain), terms) == kn.plan_for(
-        t64(chain), terms, 'large', 5)
+    assert kn.plan_for(t64(chain), terms) == lone     # 90 interior atoms
     lo, n = lone.slots
     assert lone.form == 'lone' and len(lo) == kn.KINDS
     assert kn.term_kinds(terms)[4:] == (1, 0) and lo[5] == lo[4] + 32 == n
-    assert list(lone.args()) == [0, 512, lone.smem, 1, lone.lanes, 1, n,
-                                 *lo]
-    assert list(large.args()) == [1, 512, large.smem, 2, large.lanes, 1, n,
-                                  *lo]
-    assert kn.work_values(lone, 7, chain.shape[1]) == 0
-    assert ki.launch_plan(27) == (32, 8 * (81 + 8))
-    assert ki.launch_plan(2500) == (512, 8 * (7500 + 8 * 79))
+    assert list(lone.args()) == [0, 512, lone.smem, 1, 1, 1, n, *lo]
+    assert list(large.args()) == [1, 512, large.smem, 2, int(large.shared),
+                                  int(large.staged), n, *lo]
+    assert lone.work == 0 and large.work > 0
+    assert ki.launch_plan(27) == ki.Plan('lone', 128, 8 * (81 + 3 * 729) +
+                                         4 * 352)
+    assert ki.launch_plan(2500) == ki.Plan('cluster', 160,
+                                           8 * (7500 + 8 * 79), 16)
+    assert ki.launch_plan_v1(27) == (32, 8 * (81 + 8))
+    assert ki.launch_plan_v1(2500) == (512, 8 * (7500 + 8 * 79))
 
 
 @pytest.mark.parametrize('n_images, n_atoms, most', [
     (3, 5, 132), (7, 27, 132), (7, 150, 132), (7, 2500, 132), (7, 150, 3),
     (7, 2500, 1)])
 def test_grid_plan(n_images, n_atoms, most):
-    '''The grid form on request: 512 threads, no shared memory, the
-    arrays in device memory (the large form's, then I energies and 5
-    partial sums an interior image); the most lanes an atom (a power of
-    two up to 32) that keep the (I - 2) N interior atoms within `most`
-    blocks' threads, then the blocks those lanes need, at most `most`;
-    a cluster on request taken as the blocks, its lanes those that fit
-    them; refused past `most` blocks; the host array's form field 2.'''
+    '''The grid form on request: 512 threads, the groups' reduction
+    buffers alone in shared memory, every array in device memory (the
+    interior images' coordinates, velocities, forces, tangents, the
+    chunk sums, the entry arrays, then I energies and 5 partial sums an
+    interior image); a slot a thread of every interior image's, on at
+    least one block and at most `most`; a cluster on request taken as
+    the blocks; refused past `most` blocks; the host array's form field
+    2.'''
     M = n_images - 2
-    kinds = (n_atoms - 1, max(0, n_atoms - 2), n_atoms * (n_atoms - 1) // 2,
-             0, 0, 0)
+    kinds = dense_kinds(n_atoms)
     lo, n = kn.energy_slots(kinds)
     plan = kn.launch_plan(n_images, n_atoms, kinds, 'grid', grid_blocks=most)
-    items = M * n_atoms
-    lanes = max([g for g in (1, 2, 4, 8, 16, 32) if items * g <= most * 512]
-                or [1])
-    assert (plan.form, plan.threads, plan.smem, plan.shared) == \
-        ('grid', 512, 0, False)
-    assert plan.lanes == lanes and plan.slots == (lo, n)
-    assert plan.cluster == min(most, -(-items * lanes // 512))
-    assert kn.work_values(plan, n_images, n_atoms) == \
-        4 * M * 3 * n_atoms + n_images * n // 32 + n_images + 5 * M
-    assert list(plan.args())[:7] == [2, 512, 0, plan.cluster, lanes, 0, n]
+    assert (plan.form, plan.threads, plan.shared, plan.staged) == \
+        ('grid', 512, False, False)
+    assert plan.cluster == max(1, min(most, -(-M * n // 512)))
+    assert (plan.smem, plan.work) == layout_bytes(
+        'grid', n_images, n_atoms, kinds, plan.cluster, False, False)
+    assert plan.slots == (lo, n)
+    assert list(plan.args())[:7] == [2, 512, plan.smem, plan.cluster, 0, 0,
+                                     n]
     few = kn.launch_plan(n_images, n_atoms, kinds, 'grid', 1, most)
-    assert (few.cluster, few.lanes) == (1, max(
-        [g for g in (1, 2, 4, 8, 16, 32) if items * g <= 512] or [1]))
+    assert few.cluster == 1 and few.smem == layout_bytes(
+        'grid', n_images, n_atoms, kinds, 1, False, False)[0]
     with pytest.raises(ValueError, match='blocks a band'):
         kn.launch_plan(n_images, n_atoms, kinds, 'grid', most + 1, most)
+
+
+@pytest.mark.parametrize('n_images, n_atoms', [(3, 5), (7, 27), (7, 150),
+                                               (7, 2500)])
+def test_first_design_plan_forms(n_images, n_atoms):
+    '''PR 22's rule, kept for its kernel (launch_plan_v1): lone up to 64
+    interior atoms where its shared values fit (every image's
+    coordinates, the interior images' three arrays, the energies' chunk
+    sums, I energies and 5 partial sums an interior image), at the most
+    walk lanes an atom that keep the interior atoms within 512 threads;
+    grid from 550 interior atoms; else large on min(I - 2, 8) blocks, its
+    four arrays in shared memory while they fit.'''
+    M = n_images - 2
+    kinds = dense_kinds(n_atoms)
+    lo, n = kn.energy_slots(kinds)
+    n3 = 3 * n_atoms
+    lone = 8 * (n_images * n3 + 3 * M * n3 + n_images * n // 32 +
+                n_images + 5 * M)
+    plan = kn.launch_plan_v1(n_images, n_atoms, kinds)
+    assert plan.form == ('lone' if M * n_atoms <= 64 and
+                         lone <= kn.SMEM_BYTES else 'grid'
+                         if M * n_atoms >= 550 else 'large')
+    assert plan.threads == 512 and plan.slots == (lo, n)
+    if lone <= kn.SMEM_BYTES:
+        got = kn.launch_plan_v1(n_images, n_atoms, kinds, 'lone')
+        assert got.smem == lone and got.lanes == max(
+            g for g in (1, 2, 4, 8, 16, 32) if M * n_atoms * g <= 512 or
+            g == 1)
+    large = kn.launch_plan_v1(n_images, n_atoms, kinds, 'large')
+    full = 8 * (4 * -(-M // large.cluster) * n3 + n_images + 5 * M)
+    assert large.cluster == min(M, 8)
+    assert large.shared == (full <= kn.SMEM_BYTES)
+    assert kn.work_values_v1(large, n_images, n_atoms) == \
+        4 * M * n3 + n_images * n // 32
+    grid = kn.launch_plan_v1(n_images, n_atoms, kinds, 'grid')
+    assert (grid.form, grid.smem) == ('grid', 0)
+    assert list(large.args())[:7] == [1, 512, large.smem, large.cluster,
+                                      large.lanes, int(large.shared), n]
 
 
 # ------------------------------------------------------------ routing

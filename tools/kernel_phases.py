@@ -29,8 +29,25 @@ the reductions, the vector algebra, the staged form's separate pass of
 the force at c, set-up), its force passes a step, and each form's
 device ms.
 
-    python3 tools/kernel_phases.py OUT.json      # on the card, ~4 min
-    python3 tools/kernel_phases.py OUT.json --d1 # D1 alone
+N1 (csrc/neb_band.cu) and I1 (csrc/idpp_fire.cu), float64, and their
+first designs (csrc/neb_band_v1.cu, csrc/idpp_fire_v1.cu), on
+chip_smoke's NEB_CASES bands (phase 19's ring, HCOOH, 150- and
+2,500-atom chains): I1 on each band's linear chain (IDPP_STEPS steps;
+the chains 10 at fmax 0), an image's cycles a step by phase (the pair
+loop, the two reductions, the velocity update, the move) for the image
+that takes the most steps; N1's plain phase from the IDPP band (the
+case's steps) in each form (the rule's, lone where it fits, large on
+min(I - 2, 8) blocks, grid), a step's cycles by phase of block 0 (an
+owner of an image in every form) and the mean over the blocks: the
+term pass (the first design: the energy chunks and the walk), the atoms'
+sums and energies, the band algebra C, the controls D, the move E and
+the wait at each barrier; each form's device ms.
+
+    python3 tools/kernel_phases.py OUT.json           # on the card, ~4 min
+    python3 tools/kernel_phases.py OUT.json --d1      # D1 alone
+    python3 tools/kernel_phases.py OUT.json --n1 --i1 # N1 and I1 alone
+    python3 tools/kernel_phases.py OUT.json --n1 --i1 --v1  # their first
+                                                      # designs alone
 
 Needs a card and nvcc; run from the root of a checkout.
 '''
@@ -50,7 +67,10 @@ import chip_smoke as cs                                      # noqa: E402
 from tscode_tpu_torch.embeds import cyclical as cyc         # noqa: E402
 from tscode_tpu_torch.ops.kernels import _build             # noqa: E402
 from tscode_tpu_torch.ops.kernels import block_screen as b1  # noqa: E402
+from tscode_tpu_torch import neb                             # noqa: E402
 from tscode_tpu_torch.ops.kernels import dimer as kd        # noqa: E402
+from tscode_tpu_torch.ops.kernels import idpp as ki         # noqa: E402
+from tscode_tpu_torch.ops.kernels import neb as kn          # noqa: E402
 from tscode_tpu_torch.ops.kernels import tfd as kt          # noqa: E402
 
 OUT_DIR = os.path.join(_build.BUILD_DIR, 'phases')
@@ -61,6 +81,14 @@ B1_SLOTS = ('build', 'write', 'clash', 'norm', 'dedup', 'steps', 'lanes',
 # counts
 D1_SLOTS = ('term', 'atom', 'reduce', 'algebra', 'force', 'setup', 'steps',
             'passes')
+# N1's record a block (csrc/neb_band.cu Lap; the first design's
+# csrc/neb_band_v1.cu Lap): cycles by phase, then the steps
+N1_SLOTS = ('term', 'atom', 'C', 'D', 'E', 'sync_A', 'sync_B', 'sync_C',
+            'sync_D', 'sync_E', 'setup', 'steps')
+N1_V1_SLOTS = ('energy', 'walk', 'esum', 'C', 'D', 'E', 'sync_A', 'sync_B',
+               'sync_C', 'sync_D', 'sync_E', 'setup', 'steps')
+# I1's record an image (csrc/idpp_fire.cu and idpp_fire_v1.cu Lap)
+I1_SLOTS = ('pairs', 'red1', 'update', 'red2', 'move', 'setup', 'steps')
 
 
 def build(name, lib_name, *defines):
@@ -278,17 +306,136 @@ def d1_phases(out):
         out['d1'][name] = rec
 
 
+def neb_bands():
+    '''chip_smoke's NEB_CASES bands: name -> (the linear chain (I, N, 3)
+    and its IDPP tables on the card, I1's steps and fmax, the IDPP band,
+    ff.FireTerms).'''
+    bands = {}
+    for name, (start, end, _, terms) in cs.neb_inputs().items():
+        chain = neb.interpolate_chain(start, end, cs.NEB_IMAGES)
+        x = torch.as_tensor(chain, device=cs.DEV)
+        tables = [torch.as_tensor(t, device=cs.DEV)
+                  for t in neb.idpp_tables(chain)]
+        n, fmax = (cs.IDPP_STEPS, 0.05) if name in ('ring', 'hcooh') \
+            else (10, 0.0)
+        band = ki.launch_v1(x, *tables, n, fmax=fmax)[0]
+        bands[name] = (x, tables, n, fmax, band, terms)
+    return bands
+
+
+def i1_phases(out, bands, designs):
+    libs = {d: build(f'idpp_fire{"_v1" if d == "v1" else ""}',
+                     f'idpp_fire{"_v1" if d == "v1" else ""}_phases',
+                     'TT_PHASES') for d in designs}
+    for name, (x, tables, n, fmax, _, _) in bands.items():
+        I, N = x.shape[0], x.shape[1]
+        rec = {'atoms': N}
+        runs = {}
+        if 'v1' in designs:
+            runs['v1'] = ('V1_KERNEL', lambda: ki.launch_v1(
+                x, *tables, n, fmax=fmax))
+        if 'new' in designs:
+            plan = ki.launch_plan(N)
+            runs[plan.form] = ('KERNEL', lambda: ki.launch(
+                x, *tables, n, fmax=fmax))
+        for label, (attr, run) in runs.items():
+            reps = 1 if N > 1000 else 3
+            ms = cs.device_ms(run, reps=reps)
+            with Swapped(ki, attr, libs['v1' if label == 'v1' else 'new']) \
+                    as lib:
+                p = profiled(lib, I * len(I1_SLOTS), run).reshape(
+                    I, len(I1_SLOTS)).astype(float)
+            img = int(p[:, -1].argmax())
+            steps = p[img, -1]
+            per = {k: p[img, i] / steps for i, k in enumerate(I1_SLOTS[:-1])}
+            r = {'ms': ms, 'image': img, 'steps': int(steps),
+                 'cycles_per_step': per}
+            rec[label] = r
+            print(f'[phases I1] {name} ({I} x {N} atoms) {label}: '
+                  f'{ms:.4f} ms; image {img}, {int(steps)} steps; cycles '
+                  f'a step ' + ', '.join(f'{k} {v:.0f}'
+                                         for k, v in per.items()),
+                  flush=True)
+        out['i1'][name] = rec
+
+
+def n1_plans(x, terms, design):
+    '''{label: plan} of N1's forms timed by phase: the rule's, lone where
+    it fits, large on min(I - 2, 8) blocks, grid (its first design's or
+    the redesign's).'''
+    plan_for = kn.plan_for_v1 if design == 'v1' else kn.plan_for
+    plans = {'rule': plan_for(x, terms)}
+    for form in kn.FORMS:
+        try:
+            plans[form] = plan_for(x, terms, form)
+        except ValueError:
+            continue
+    return plans
+
+
+def n1_phases(out, bands, designs):
+    libs = {d: build(f'neb_band{"_v1" if d == "v1" else ""}',
+                     f'neb_band{"_v1" if d == "v1" else ""}_phases',
+                     'TT_PHASES') for d in designs}
+    for name, (_, _, _, _, band, terms) in bands.items():
+        n = cs.NEB_CASES[name]
+        rec = {'atoms': int(band.shape[1])}
+        for design in designs:
+            slots = N1_V1_SLOTS if design == 'v1' else N1_SLOTS
+            launch = kn.launch_v1 if design == 'v1' else kn.launch
+            attr = 'V1_KERNEL' if design == 'v1' else 'KERNEL'
+            for label, plan in n1_plans(band, terms, design).items():
+                def run():
+                    return launch(band, terms, n, plan=plan)
+                reps = 1 if band.shape[1] > 1000 else 3
+                ms = cs.device_ms(run, reps=reps)
+                steps = int(run()[2])
+                blocks = plan.cluster
+                with Swapped(kn, attr, libs[design]) as lib:
+                    p = profiled(lib, blocks * len(slots), run).reshape(
+                        blocks, len(slots)).astype(float)
+                first = {k: p[0, i] / steps
+                         for i, k in enumerate(slots[:-2])}
+                mean = {k: p[:, i].mean() / steps
+                        for i, k in enumerate(slots[:-2])}
+                r = {'plan': plan._asdict(), 'ms': ms, 'steps': steps,
+                     'us_per_step': 1e3 * ms / steps,
+                     'cycles_per_step_block0': first,
+                     'cycles_per_step_mean': mean}
+                rec[f'{design} {label}'] = r
+                print(f'[phases N1] {name} ({band.shape[0]} x '
+                      f'{band.shape[1]} atoms, {steps} steps) {design} '
+                      f'{label} ({plan.form}, {plan.cluster} blocks): '
+                      f'{ms:.4f} ms, {r["us_per_step"]:.2f} us a step; '
+                      f'block 0 cycles a step ' + ', '.join(
+                          f'{k} {v:.0f}' for k, v in first.items()) +
+                      '; mean ' + ', '.join(f'{k} {v:.0f}'
+                                            for k, v in mean.items()),
+                      flush=True)
+        out['n1'][name] = rec
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit('kernel_phases.py needs a card')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip()
-    out = {'card': smi, 'b1': {}, 't1': {}, 'd1': {}}
-    if '--d1' not in sys.argv[2:]:
+    out = {'card': smi, 'b1': {}, 't1': {}, 'd1': {}, 'n1': {}, 'i1': {}}
+    flags = sys.argv[2:]
+    nebs = [f for f in ('--n1', '--i1') if f in flags]
+    if '--d1' not in flags and not nebs:
         b1_phases(out)
         t1_phases(out)
-    d1_phases(out)
+    if '--d1' in flags or not nebs:
+        d1_phases(out)
+    if nebs:
+        designs = ['v1'] if '--v1' in flags else ['v1', 'new']
+        bands = neb_bands()
+        if '--i1' in flags:
+            i1_phases(out, bands, designs)
+        if '--n1' in flags:
+            n1_phases(out, bands, designs)
     print(f'[phases] {smi}')
     with open(sys.argv[1], 'w') as f:
         json.dump(out, f, indent=1)
