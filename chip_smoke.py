@@ -5,19 +5,27 @@ GPU: builds the hand-written kernels from csrc/, holds each against its
 plain PyTorch twin on the card, drives the headline slice (415,872-pose
 string-embed grid -> clash screen -> exact bucketed RMSD prune) in
 float64 and float32 as one captured program (phases 4 and 5: a CUDA
-graph of the grid, the clash kernel, a size-bounded compaction and every
-prune pass, gated on the card, replayed with one host read a run; its
-keep mask held to the host loop's, its time to the host-driven slice's,
-its device busy share and kernels a replay from the profiler; the pair
+graph of the string grid kernel G1, csrc/string_grid.cu, whose two
+launches build each pose's frame, screen its cross pairs and write only
+the survivors' heavy atoms into a size-bounded pool, and of every prune
+pass, gated on the card, replayed with one host read a run; its keep
+mask held to the host loop's, its time to the host-driven slice's, its
+device busy share and kernels a replay from the profiler; G1 held bit
+for bit to its kernel-order twin and to the broadcast block with the
+clash kernel K1 off near ties, timed against that route; the pair
 kill's device-count entry held to the host entry on every pass) and
 checks its counts, then runs the production
 string route through the port's CLI (input file -> Embedder -> string
-embed -> TFD novelty -> TFD and MOI prunes -> .xyz) on bench_suite's
+embed (G1) -> TFD novelty (the kernel V1, csrc/tfd_novelty.cu, one
+launch) -> TFD and MOI prunes -> .xyz) on bench_suite's
 sn2_string input at 76 conformers (831,744 candidates), in float64
-(exact counts) and float32, and the large-molecule route on
-large_n_string (148-atom poses, the clash kernel's warp regime): the CLI
-at 16 conformers, the exact novelty replay without the collinear
-torsion quadruplet, and the 207,936-pose grid at 76 conformers. Phase 8
+(exact counts) and float32, G1 and V1 held to their twins, to the route
+before them and, V1, to the host replay, and timed; and the
+large-molecule route on large_n_string (148-atom poses, G1's warp
+regime): the CLI at 16 conformers, the exact novelty replay (V1) without
+the collinear torsion quadruplet, and the 207,936-pose grid at 76
+conformers (G1 and, as the yardstick, K1 on the broadcast block's
+poses). Phase 8
 runs the rigid cyclical route through the CLI on da_cyclical_xl at 62
 conformers (1,660,608 candidates: the block sweep, each chunk's poses,
 clash screen and angular dedup one screen launch of the block-sweep
@@ -123,6 +131,10 @@ FIRE call of the force field's energies on the card launches ff_fire
 once (FireCalls), in every phase that runs one.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --string OUT.json   # phases 4 to 7 alone: G1
+                                  # and V1 on the headline and the
+                                  # string routes, against their twins
+                                  # and the route before them, timed
     python3 chip_smoke.py --fire OUT.json   # phase 13 alone: the force
                                   # field and FIRE measurements
     python3 chip_smoke.py --search   # phases 16 and 17 alone: the
@@ -426,6 +438,13 @@ TRACE_KERNELS = {
     # idpp_cluster_kernel; no template)
     'neb_band_f64': ('neb_band_kernel', '(?:true|false)'),
     'idpp_fire_f64': ('idpp_(?:lone|cluster)_kernel', None),
+    # G1, the string grid: its keep (thread or warp regime) and its write;
+    # V1, the novelty filter (no template)
+    'string_keep_f32': ('string_keep_(?:thread|warp)_kernel', 'float'),
+    'string_keep_f64': ('string_keep_(?:thread|warp)_kernel', 'double'),
+    'string_write_f32': ('string_write_kernel', 'float'),
+    'string_write_f64': ('string_write_kernel', 'double'),
+    'tfd_novelty_f64': ('tfd_novelty_kernel', None),
 }
 # phase 22: dimer steps replayed under the trace (the captured graph's
 # check; a step is ~2,600 kernels)
@@ -535,11 +554,13 @@ def phase_build():
     '''Build every kernel library at once, one nvcc per source.'''
     from concurrent.futures import ThreadPoolExecutor
     from tscode_tpu_torch.ops.kernels import (block_screen, clash, dimer,
-                                              ff_fire, idpp, neb, qcp, tfd)
+                                              ff_fire, idpp, neb, qcp,
+                                              string_grid, tfd, tfd_novelty)
     libs = (clash.KERNEL, qcp.KERNEL, qcp.THREAD_KERNEL, ff_fire.KERNEL,
             ff_fire.BLOCK_KERNEL, tfd.KERNEL, tfd.WARP_KERNEL,
             block_screen.KERNEL, block_screen.ROW_KERNEL, dimer.KERNEL,
-            neb.KERNEL, neb.V1_KERNEL, idpp.KERNEL, idpp.V1_KERNEL)
+            neb.KERNEL, neb.V1_KERNEL, idpp.KERNEL, idpp.V1_KERNEL,
+            string_grid.KERNEL, tfd_novelty.KERNEL)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.build(), libs))
     for k in libs:
@@ -567,16 +588,17 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, sleep=SLEEP_CYCLES):
     '''Mean device milliseconds per call after one warm-up call: the
-    calls are queued behind a sleep kernel, so CUDA events around them
-    time the card's work and not the host's enqueue.'''
+    calls are queued behind a sleep kernel of `sleep` cycles, so CUDA
+    events around them time the card's work and not the host's enqueue
+    (give calls with milliseconds of host work a longer sleep).'''
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep)
     start.record()
     for _ in range(reps):
         fn()
@@ -1242,21 +1264,26 @@ def phase_kernels(card):
 
 def main_launches(tag):
     '''Launches of the main path's kernels since the counts were reset:
-    K1 (every clash entry), K3's device-count entry (the captured
-    schedule's pass; counted where it was queued: the warm-up run, the
-    capture's warm-ups and the capture) and K3's host entry, which the
-    main path must not launch (the host loop's). Fails unless K1 and the
-    device-count entry launched and the host entry did not.'''
+    G1's keep and write (the grid, its clash screen and the compaction),
+    K3's device-count entry (the captured schedule's pass; counted where
+    it was queued: the warm-up run, the capture's warm-ups and the
+    capture), and K1 and K3's host entry, which the main path must not
+    launch (the grid's yardstick and the host loop's). Fails unless G1
+    and the device-count entry launched and the others did not.'''
     from tscode_tpu_torch.ops.kernels import clash, qcp
     by_entry = qcp.KERNEL.entry_launches
+    keep, write = g1_counts()
     launches = {
+        'string_keep': keep, 'string_write': write,
         'clash': clash.KERNEL.launches,
         'qcp_kill_dev': sum(by_entry[f'qcp_kill_dev_{t}']
                             for t in ('f32', 'f64')),
         'qcp_kill': sum(by_entry[f'qcp_kill_{t}'] for t in ('f32', 'f64'))}
-    check(launches['clash'] > 0 and launches['qcp_kill_dev'] > 0
-          and launches['qcp_kill'] == 0, f'{tag}: the main path launched '
-          f'{launches} (K1 and qcp_kill_dev wanted, qcp_kill none)')
+    check(keep > 0 and write > 0 and launches['qcp_kill_dev'] > 0
+          and launches['clash'] == 0 and launches['qcp_kill'] == 0,
+          f'{tag}: the main path launched {launches} (G1 and qcp_kill_dev '
+          f'wanted, K1 and qcp_kill none)')
+    count_string_kernels(PHASE[0], keep, 0)
     return launches
 
 
@@ -1313,6 +1340,7 @@ def captured_record(card, tag, mols, dtype, secs, info, n_ok, n_final):
     from tscode_tpu_torch.pipeline import (N_ANGLES, inputs_from_numpy,
                                            pipeline_call, pool_size,
                                            spin_angles)
+    from tscode_tpu_torch.ops.kernels import string_grid
     inp = inputs_from_numpy(*mols, DEV, dtype)
     host = [host_driven_run(inp) for _ in range(3)]
     host_s = min(h[0] for h in host)
@@ -1328,28 +1356,34 @@ def captured_record(card, tag, mols, dtype, secs, info, n_ok, n_final):
         return pipeline_call(inp, angles, s_pool, n_ok, CLASH,
                              THR)[2].tolist()
 
-    clash.reset_tile_paths()
     torch.cuda.synchronize()
+    string_grid.KERNEL.reset_counts()
     with synced() as syncs:
         stats = run()
-    tiles = clash.tile_paths()
+    check(string_grid.KERNEL.launches == 0, f'{tag}: a replay launched G1 '
+          f'from the host')
     check(stats == [n_final, n_ok, 1], f'{tag}: a replay gave {stats}')
+    check(len(syncs) <= 1, f'{tag}: a run of the captured program made '
+          f'{len(syncs)} host syncs (its one read of the stats wanted)')
     wall, busy, ops, names = profiled_kernels(run)
-    k1 = sum(c for n, (c, _) in names.items() if 'clash_ok_ring_kernel' in n)
+    g1 = sum(c for n, (c, _) in names.items()
+             if 'string_keep_thread_kernel' in n)
+    g1w = sum(c for n, (c, _) in names.items() if 'string_write_kernel' in n)
+    k1 = sum(c for n, (c, _) in names.items() if 'clash_ok' in n)
     k3 = sum(c for n, (c, _) in names.items() if 'qcp_kill_warp_kernel' in n)
     top = sorted(names.items(), key=lambda kv: -kv[1][1])[:TRACE_TOP]
-    check(sum(tiles.values()) > 0, f'{tag}: K1 loaded no tile in a replay')
     check(busy is not None, f'{tag}: the profiler saw no device time in '
           f'a replay')
-    check(k1 > 0 and k3 > 0, f'{tag}: a replay ran {k1} K1 and {k3} K3 '
-          f'kernels')
+    check(g1 == g1w == 1 and k1 == 0 and k3 > 0, f'{tag}: a replay ran '
+          f'{g1} G1 keep and {g1w} write kernels, {k1} K1 and {k3} K3 '
+          f'kernels (one G1 of each, no K1 wanted)')
     rec = {'dtype': str(dtype).split('.')[-1], 'replay_s': secs,
            'replay_runs_s': info['run_s'], 'host_driven_s': host_s,
            'host_driven_runs_s': [h[0] for h in host],
            'busy_share': busy / wall,
            'profiled_wall_s': wall, 'device_ops_per_replay': ops,
-           'k1_per_replay': k1, 'k3_per_replay': k3,
-           'k1_tiles_per_replay': tiles,
+           'g1_per_replay': [g1, g1w], 'k1_per_replay': k1,
+           'k3_per_replay': k3,
            'host_reads_per_run': len(syncs),
            'top_device_ops': [[n[:80], c, ms] for n, (c, ms) in top],
            'host_syncs_per_host_driven_run': len(host_syncs),
@@ -1360,8 +1394,9 @@ def captured_record(card, tag, mols, dtype, secs, info, n_ok, n_final):
           f'the host-driven best of 3 {host_s:.6f} s (runs '
           f'{", ".join(f"{h[0]:.6f}" for h in host)}); keep masks equal; a '
           f'replay under the profiler: busy {rec["busy_share"]} of '
-          f'{wall:.6f} s, {ops} device operations, {k1} K1 and {k3} K3 '
-          f'kernels, K1 tiles {tiles}; host reads a run {len(syncs)}, '
+          f'{wall:.6f} s, {ops} device operations, G1 keep and write '
+          f'{g1} and {g1w}, {k1} K1 and {k3} K3 kernels; host reads a run '
+          f'{len(syncs)}, '
           f'host syncs of a host-driven run {len(host_syncs)} [{card}]')
     for n, (c, ms) in top:
         print(f'[{tag}] a replay\'s device time: {ms:.4f} ms in {c} x '
@@ -1394,22 +1429,25 @@ def profiled_kernels(fn):
 def phase_main_f64(card, mols):
     '''Phase 4: the headline in float64 through run_pipeline, the
     captured program (the JAX x64 counts, exactly; its keep mask the
-    host loop's), then K3 and its device-count entry on each pass.
-    Returns (pass records, largest K3 disagreement off ties, the main
-    path's launches by kernel, the captured record).'''
+    host loop's; G1 for the grid, no K1), then G1 on the grid against its
+    twins and the route before it (g1_check, the heavy atoms), then K3
+    and its device-count entry on each pass. Returns (pass records,
+    largest K3 disagreement off ties, the main path's launches by
+    kernel, the captured record, G1's record).'''
     import torch
-    from tscode_tpu_torch.ops.kernels import clash, qcp
-    from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
-                                           inputs_from_numpy, run_pipeline)
+    from tscode_tpu_torch.ops.kernels import clash, qcp, string_grid
+    from tscode_tpu_torch.pipeline import (N_ANGLES, clash_survivors,
+                                           inputs_from_numpy, run_pipeline,
+                                           spin_angles)
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
+    string_grid.KERNEL.reset_counts()
     n_poses, secs, n_ok, n_final, info = run_pipeline(
         *mols, device=DEV, dtype=torch.float64, return_masks=True)
     launches = main_launches('main path f64')
     print(f'[4 main f64] {n_poses} poses -> {n_ok} clash-ok -> {n_final} '
           f'final, best of 3 replays of the captured program {secs:.6f} s, '
-          f'kernel launches (warm-up and capture) {launches}, clash by '
-          f'regime {clash.launches_by_regime()} [{card}]')
+          f'kernel launches (warm-up and capture) {launches} [{card}]')
     check(n_poses == N_POSES, f'{n_poses} poses, expected {N_POSES}')
     check((n_ok, n_final) == F64_COUNTS,
           f'f64 counts {(n_ok, n_final)} != {F64_COUNTS}')
@@ -1417,23 +1455,19 @@ def phase_main_f64(card, mols):
                           info, n_ok, n_final)
 
     inp = inputs_from_numpy(*mols, DEV, torch.float64)
-    poses, ok = embed_clash_all(inp)
+    angles = spin_angles(N_ANGLES, torch.float64, torch.device(DEV))
+    g1rec, hs, ok, poses = g1_check(card, '4 main f64', inp, angles,
+                                    heavy=True)
     check(bool(torch.isfinite(poses).all()), 'non-finite f64 poses')
     check(np.array_equal(ok.cpu().numpy(), info['clash_ok']),
-          'f64 clash mask differs between two runs')
-    P = poses.double()
-    pl = inp.pairs.long()
-    d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
-    near = torch.nonzero(((d2 - CLASH * CLASH).abs() < 1e-9).any(dim=1))
-    for i in near.squeeze(1).tolist():
-        print(f'[4 main f64] pose {i} within 1e-9 A^2 of the clash threshold')
-    print(f'[4 main f64] {near.numel()} poses within 1e-9 A^2 of thr^2')
-
-    _, hs = clash_survivors(inp)
+          'f64 clash mask differs between the captured program and G1')
+    del poses
+    _, hs2 = clash_survivors(inp)
+    check(torch.equal(hs2, hs), 'f64 clash_survivors differs from G1')
     recs, kept, err = qcp_headline_passes(card, hs, 'float64')
     check(kept == F64_COUNTS[1], f'f64 pass-by-pass schedule keeps {kept}, '
           f'expected {F64_COUNTS[1]}')
-    return recs, err, launches, rec
+    return recs, err, launches, rec, g1rec
 
 
 def phase_small_parity():
@@ -1461,15 +1495,18 @@ def phase_main_f32(card, mols):
     captured program (counts in their brackets; the keep mask the host
     loop's), timed against the host-driven slice; then K1, K3 and K3's
     device-count entry against their plain twins at the slice's shapes,
-    timed. Returns (the kernel records of the JSON line, the captured
-    record).'''
+    timed, and G1 on the grid against its twins and the route before it.
+    Returns (the kernel records of the JSON line, G1's record).'''
     import torch
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.ops.rmsd_prune import prune_conformers_rmsd_device
-    from tscode_tpu_torch.pipeline import (clash_survivors, embed_clash_all,
-                                           inputs_from_numpy, run_pipeline)
+    from tscode_tpu_torch.ops.kernels import string_grid
+    from tscode_tpu_torch.pipeline import (N_ANGLES, clash_survivors,
+                                           inputs_from_numpy, run_pipeline,
+                                           spin_angles)
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
+    string_grid.KERNEL.reset_counts()
     n_poses, secs, n_ok, n_final, info = run_pipeline(
         *mols, device=DEV, dtype=torch.float32, return_masks=True)
     launches = main_launches('main path f32')
@@ -1477,8 +1514,7 @@ def phase_main_f32(card, mols):
           f'final, best of 3 replays of the captured program {secs:.6f} s, '
           f'{n_poses / secs:.0f} poses/s (the warm-up run: embed+clash '
           f'{info["embed_clash_s"]:.4f} s, prune {info["prune_s"]:.4f} s), '
-          f'kernel launches (warm-up and capture) {launches}, clash by '
-          f'regime {clash.launches_by_regime()} [{card}]')
+          f'kernel launches (warm-up and capture) {launches} [{card}]')
     check(F32_OK[0] <= n_ok <= F32_OK[1],
           f'f32 clash-ok {n_ok} outside {F32_OK}')
     check(F32_FINAL[0] <= n_final <= F32_FINAL[1],
@@ -1486,10 +1522,15 @@ def phase_main_f32(card, mols):
     captured = captured_record(card, '5 main f32', mols, torch.float32,
                                secs, info, n_ok, n_final)
 
-    # kernel vs plain at the slice's shapes: the grid's poses for the
-    # clash, the clash survivors' heavy atoms for the prune
+    # G1 against its twins and the route before it; K1 (the yardstick)
+    # and K3 against their plain twins at the slice's shapes: the grid's
+    # poses for the clash, the clash survivors' heavy atoms for the prune
     inp = inputs_from_numpy(*mols, DEV, torch.float32)
-    poses, _ = embed_clash_all(inp)
+    angles = spin_angles(N_ANGLES, torch.float32, torch.device(DEV))
+    g1rec, _, ok, poses = g1_check(card, '5 main f32', inp, angles,
+                                   heavy=True)
+    check(np.array_equal(ok.cpu().numpy(), info['clash_ok']),
+          'f32 clash mask differs between the captured program and G1')
     pairs = inp.pairs
     got = clash.clash_ok(poses, pairs, CLASH)
     want = clash.clash_ok_plain(poses, pairs, CLASH)
@@ -1563,7 +1604,7 @@ def phase_main_f32(card, mols):
          'library_ms': None, 'pass': first['pass'], 'M': first['M'],
          'qcp_kill_ms': sum(first['ms']) / 2, 'blocks': first['dev_blocks'],
          'captured': {'float32': captured}},
-    ]
+    ], g1rec
 
 
 class FireCalls:
@@ -1824,16 +1865,21 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     `fire`, and T1's launches as `tfd_launches` (also added to
     TFD_LAUNCHES under the running phase, for a run on the card), and
     B1's screen launches (one a chunk) as `b1_launches` (B1_LAUNCHES
-    likewise) and its write launches as `b1_write_launches`; the
-    yardsticks (B1's and T1's first designs) must not run. `args` go to the
-    CLI after the others (e.g. --trace DIR).'''
+    likewise) and its write launches as `b1_write_launches`; G1's keep and
+    write launches as `g1_launches` and `g1_write_launches` and V1's as
+    `v1_launches` (G1_LAUNCHES and V1_LAUNCHES likewise), and the calls of
+    the string grid's yardstick, the broadcast block (bcast_poses), as
+    `bcast_calls`; the yardsticks (B1's and T1's first designs) must not
+    run. `args` go to the CLI after the others (e.g. --trace DIR).'''
     import contextlib
     import os
     from tscode_tpu_torch import embedder
+    from tscode_tpu_torch.embeds import string
     from tscode_tpu_torch.io_xyz import read_xyz
     from tscode_tpu_torch.__main__ import main as cli
     from tscode_tpu_torch.ops.kernels import (block_screen, clash, ff_fire,
-                                              qcp, tfd)
+                                              qcp, string_grid, tfd,
+                                              tfd_novelty)
     device = device or DEV
     stamp = f'smoke_{device}_{dtype}'
     cwd = os.getcwd()
@@ -1849,12 +1895,20 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
         def __init__(self, *args, **kw):
             super().__init__(*args, rng=np.random.RandomState(seed), **kw)
 
+    bcast, bcast_calls = string.bcast_poses, []
+
+    def bcast_counted(*a, **k):
+        bcast_calls.append(1)
+        return bcast(*a, **k)
+
     embedder.compenetration_mask_kernel = k2_recorded
     embedder.Embedder = Seeded
+    string.bcast_poses = bcast_counted
     clash.KERNEL.reset_counts()
     qcp.KERNEL.reset_counts()
     for k in (tfd.KERNEL, tfd.WARP_KERNEL, block_screen.KERNEL,
-              block_screen.ROW_KERNEL):
+              block_screen.ROW_KERNEL, string_grid.KERNEL,
+              tfd_novelty.KERNEL):
         k.reset_counts()
     t0 = time.perf_counter()
     try:
@@ -1866,6 +1920,7 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
         os.chdir(cwd)
         embedder.compenetration_mask_kernel = k2_entry
         embedder.Embedder = seeded
+        string.bcast_poses = bcast
     secs = time.perf_counter() - t0
     launches = clash.launches_by_regime()
     entries = clash.launches_by_entry()
@@ -1877,7 +1932,9 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     report['kernel_entries'] = {k.name: dict(k.entry_launches)
                                 for k in (clash.KERNEL, qcp.KERNEL,
                                           ff_fire.KERNEL, tfd.KERNEL,
-                                          block_screen.KERNEL)}
+                                          block_screen.KERNEL,
+                                          string_grid.KERNEL,
+                                          tfd_novelty.KERNEL)}
     check(tfd.WARP_KERNEL.launches == block_screen.ROW_KERNEL.launches == 0,
           f'CLI on {inp}: a yardstick kernel ran on the route (T1\'s '
           f'first design '
@@ -1887,8 +1944,13 @@ def run_cli(tmp, inp, dtype, device=None, seed=SEARCH_SEED, args=()):
     b1_by = block_screen.KERNEL.wrapper_launches
     report['b1_launches'] = b1_by.get('block_screen', 0)
     report['b1_write_launches'] = b1_by.get('block_survivors', 0)
+    report['g1_launches'], report['g1_write_launches'] = g1_counts()
+    report['v1_launches'] = tfd_novelty.KERNEL.launches
+    report['bcast_calls'] = len(bcast_calls)
     for by_phase, n in ((TFD_LAUNCHES, tfd.KERNEL.launches),
-                        (B1_LAUNCHES, report['b1_launches'])):
+                        (B1_LAUNCHES, report['b1_launches']),
+                        (G1_LAUNCHES, report['g1_launches']),
+                        (V1_LAUNCHES, report['v1_launches'])):
         if device != 'cpu' and n:
             by_phase[PHASE[0]] = by_phase.get(PHASE[0], 0) + n
     report['fire'] = fire.record()
@@ -1962,53 +2024,355 @@ def novelty_ties(fps, novel):
     return near, n_tie
 
 
-def string_ties(tmp, inp):
-    '''Threshold ties of the string route in float64 on the card: the
-    grid poses with a cross pair within 1e-9 A^2 (listed) and within
-    CLASH_TIE (counted) of the clash threshold, and the clash
-    survivors with a wrapped-L1 distance to an accepted (novel)
-    fingerprint within 1e-9 degrees (listed) and STRING_TFD_TIE
-    (counted) of the novelty threshold.'''
+# G1 (the string grid) and V1 (the novelty filter): launches per phase,
+# kept poses against the broadcast block's in each type, the novelty
+# cache of the route
+G1_LAUNCHES = {}
+V1_LAUNCHES = {}
+G1_POSE_TOL = {'float64': 1e-12, 'float32': 1e-4}   # A
+NOVELTY_CAP = 1024
+# device_ms for calls that build tables with a hundred-odd small
+# launches a call (G1 with its rotation tables, the route before it):
+# few enough calls that their launches fit the stream's queue of pending
+# launches (past ~1,000 the host waits, and the sleep ends before the
+# queue is full), behind a sleep that outlasts their ~5 ms of host work
+TABLES_REPS = 3
+TABLES_SLEEP = 40 * SLEEP_CYCLES
+
+
+def g1_counts():
+    '''(keep launches, write launches) of G1 since its counts were reset.'''
+    from tscode_tpu_torch.ops.kernels import string_grid
+    by = string_grid.KERNEL.wrapper_launches
+    return by.get('string_keep', 0), by.get('string_write', 0)
+
+
+def count_string_kernels(phase, g1, v1):
+    '''Adds a phase's G1 keep launches and V1 launches to the tallies.'''
+    for by_phase, n in ((G1_LAUNCHES, g1), (V1_LAUNCHES, v1)):
+        if n:
+            by_phase[phase] = by_phase.get(phase, 0) + n
+
+
+def g1_walked_pairs(poses, pairs, chunk=1 << 24):
+    '''The pairs G1's screen needs on these poses: each pose's pairs up
+    to its first clash (all P when it has none), in the kernel's order
+    (ops/kernels/string_grid.order_clash_ok's distances).'''
     import torch
-    from tscode_tpu_torch.embeds.string import bcast_tiles
-    from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
-                                          torsion_fingerprints)
+    from tscode_tpu_torch.ops.kernels.clash import thresh_squared
+    pl = pairs.long()
+    P = pl.shape[0]
+    thr2 = thresh_squared(CLASH, poses.dtype)
+    total = 0
+    for lo in range(0, poses.shape[0], max(1, chunk // max(1, 3 * P))):
+        x = poses[lo:lo + max(1, chunk // max(1, 3 * P))]
+        d = x[:, pl[:, 0]] - x[:, pl[:, 1]]
+        hit = ((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+               + d[..., 2] * d[..., 2]) < thr2
+        first = torch.where(hit, torch.arange(P, device=x.device), P) \
+            .amin(dim=1)
+        total += int(torch.clamp(first + 1, max=P).sum())
+    return total
+
+
+def g1_bound(inp, angles, n_rows, n_kept, H, walked):
+    '''(bound ms, 'bytes' or 'operations') of G1 on a grid: the inputs
+    read once (conformers, lobe centers, the rotation tables, the pair
+    list), the ok bytes and the kept rows written once; 45 operations a
+    frame R = spin align, 18 for t, 18 a moved atom of molecule 2, 9 a
+    walked pair (the differences, squares, sums, the test).'''
+    it = inp.coords1.element_size()
+    n1c, k1 = inp.centers1.shape[:2]
+    n2c, k2 = inp.centers2.shape[:2]
+    A = angles.shape[0]
+    nbytes = it * (inp.coords1.numel() + inp.coords2.numel() +
+                   inp.centers1.numel() + inp.centers2.numel() +
+                   9 * (n2c * n1c * k2 * k1 + n1c * k1 * A)) + \
+        4 * inp.pairs.shape[0] + n_rows + n_kept * H * 3 * it
+    ops = n_rows * (45 + 18 + 18 * inp.coords2.shape[1]) + 9 * walked
+    name = str(inp.coords1.dtype).split('.')[-1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[name] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def route_before(inp, angles, heavy, out):
+    '''The string grid as the port ran it before G1, with no host sync:
+    the broadcast block's poses, K1, and the survivors (all atoms, or
+    the heavy ones) scattered into out (S + 1 rows, the last one the
+    dump row) at their cumulative counts (clash_survivors_bounded's
+    compaction).'''
+    import torch
+    from tscode_tpu_torch.embeds.string import bcast_block
+    poses, ok = bcast_block(inp, angles, 0, inp.coords2.shape[0], CLASH)
+    S = out.shape[0] - 1
+    pos = torch.cumsum(ok, 0) - 1
+    slot = torch.where(ok & (pos < S), pos, S)
+    out.index_copy_(0, slot, poses[:, inp.heavy_idx] if heavy else poses)
+    return ok
+
+
+def g1_check(card, tag, inp, angles, heavy=False, timed=True):
+    '''G1 on a whole string grid on the card, against its twins: two
+    launches give the same bits; the kernel-order twin
+    string_grid_order_plain the same mask and kept rows, bit for bit;
+    the broadcast block with K1 (the route before) the same mask off the
+    poses with a cross pair within 1e-9 A^2 of thr^2 (counted, listed
+    up to LIST_MAX) and the same kept rows within G1_POSE_TOL. Timed,
+    G1 and the route before it each with its tables: G1's call (device
+    ms: grid_tables, the keep launch, the counts' scan and the write
+    into a buffer of the known size; and cuda_ms, host enqueue
+    included), the route before (route_before: the broadcast block's
+    tables and poses, K1, the compaction; device ms and cuda_ms); G1's
+    split on tables built beforehand (its two kernels with the scan, and
+    the keep launch alone); the twin (cuda_ms) and the bound. Returns
+    (record, kept rows, ok, the broadcast block's poses).'''
+    import torch
+    from tscode_tpu_torch.embeds.string import bcast_block
+    from tscode_tpu_torch.ops.kernels import string_grid as g1
+    n2c = inp.coords2.shape[0]
+    name = str(inp.coords1.dtype).split('.')[-1]
+    hidx = inp.heavy_idx if heavy else None
+    kept, ok = g1.string_grid(inp, angles, 0, n2c, CLASH, heavy)
+    kept2, ok2 = g1.string_grid(inp, angles, 0, n2c, CLASH, heavy)
+    check(torch.equal(kept, kept2) and torch.equal(ok, ok2),
+          f'{tag}: two G1 launches differ')
+    want, want_ok = g1.string_grid_order_plain(inp, angles, 0, n2c, CLASH,
+                                               heavy)
+    check(torch.equal(ok, want_ok) and kept.shape == want.shape and
+          torch.equal(kept, want), f'{tag}: G1 differs from its kernel-'
+          f'order twin ({int((ok != want_ok).sum())} ok bytes)')
+    poses, ok_k1 = bcast_block(inp, angles, 0, n2c, CLASH)
+    off = clash_offsets(poses, inp.pairs)
+    near = off < 1e-9
+    diff = ok != ok_k1
+    check(not bool((diff & ~near).any()), f'{tag}: G1 and the broadcast '
+          f'block with K1 disagree on {int((diff & ~near).sum())} poses away '
+          f'from a threshold tie')
+    both = ok & ok_k1
+    mine = kept[both[ok]]
+    theirs = poses[both]
+    if heavy:
+        theirs = theirs[:, inp.heavy_idx]
+    pose_err = float((mine - theirs).abs().max()) if mine.numel() else 0.0
+    check(pose_err <= G1_POSE_TOL[name], f'{tag}: G1\'s kept rows lie '
+          f'{pose_err:.2e} A from the broadcast block\'s')
+    rec = {'rows': int(ok.numel()), 'kept': int(ok.sum()),
+           'atoms': inp.n_atoms, 'P': int(inp.pairs.shape[0]),
+           'heavy': bool(heavy), 'dtype': name,
+           'plan': g1.plan_for(inp.coords1.shape[1], inp.coords2.shape[1],
+                               inp.pairs.shape[0],
+                               inp.n_poses_per_c2 // inp.centers1.shape[0]
+                               * angles.shape[0], inp.coords1.element_size()),
+           'k1_disagree_near_ties': int(diff.sum()),
+           'near_ties_1e9': int(near.sum()),
+           'ties_clash_tie': int((off < CLASH_TIE).sum()),
+           'max_pose_diff_A': pose_err, 'bits_equal_order_twin': True}
+    tie_rows = torch.nonzero(near).squeeze(1)[:LIST_MAX].tolist()
+    if timed:
+        out = torch.empty_like(kept)
+        dump = torch.empty((kept.shape[0] + 1,) + kept.shape[1:],
+                           dtype=kept.dtype, device=kept.device)
+        k = g1.keep(inp, angles, 0, n2c, CLASH)
+
+        def kernels():
+            g1.launch_keep(k)
+            g1.write(k, out, hidx)
+
+        def call():
+            g1.write(g1.keep(inp, angles, 0, n2c, CLASH), out, hidx)
+        rec['ms'] = device_ms(call, reps=TABLES_REPS, sleep=TABLES_SLEEP)
+        rec['host_ms'] = cuda_ms(call)
+        rec['kernels_ms'] = device_ms(kernels)
+        rec['keep_ms'] = device_ms(lambda: g1.launch_keep(k))
+        rec['route_before_ms'] = device_ms(
+            lambda: route_before(inp, angles, heavy, dump),
+            reps=TABLES_REPS, sleep=TABLES_SLEEP)
+        rec['route_before_host_ms'] = cuda_ms(
+            lambda: route_before(inp, angles, heavy, dump))
+        rec['plain_ms'] = cuda_ms(lambda: g1.string_grid_order_plain(
+            inp, angles, 0, n2c, CLASH, heavy), reps=2)
+        walked = g1_walked_pairs(poses, inp.pairs)
+        rec['walked_pairs'] = walked
+        rec['bound_ms'], rec['bound_by'] = g1_bound(
+            inp, angles, rec['rows'], rec['kept'], kept.shape[1], walked)
+        rec['info'] = g1.kernel_info(inp.coords1.dtype,
+                                     rec['plan']['regime'], DEV)
+    print(f'[{tag}] G1 on {rec["rows"]} rows x {rec["atoms"]} atoms, P = '
+          f'{rec["P"]} ({rec["plan"]["regime"]} regime, '
+          f'{rec["plan"]["threads"]} threads): {rec["kept"]} kept, bit for '
+          f'bit its kernel-order twin and the same bits twice; the broadcast '
+          f'block with K1 differs on {rec["k1_disagree_near_ties"]} poses, '
+          f'{rec["near_ties_1e9"]} within 1e-9 A^2 of thr^2 '
+          f'{tie_rows}, {rec["ties_clash_tie"]} within {CLASH_TIE} A^2; kept '
+          f'rows within {pose_err:.2e} A' + (
+              f'; G1 with its tables {rec["ms"]:.4f} ms (host clock '
+              f'{rec["host_ms"]:.4f}; on built tables {rec["kernels_ms"]:.4f}'
+              f', keep {rec["keep_ms"]:.4f}), route before with its tables '
+              f'{rec["route_before_ms"]:.4f} ms (host clock '
+              f'{rec["route_before_host_ms"]:.4f}), twin '
+              f'{rec["plain_ms"]:.4f} ms, bound {rec["bound_ms"]:.4f} ms '
+              f'({rec["bound_by"]}), {rec["walked_pairs"]} pairs walked, '
+              f'{rec["info"]}' if timed else '') + f' [{card}]')
+    return rec, kept, ok, poses
+
+
+def v1_bound(fps, walked):
+    '''(bound ms, by) of V1: the fingerprints read once and the mask
+    written once, against the terms that the rule's walked comparisons
+    sum (novelty_plain's Walked.terms: each comparison up to its first
+    hit, each sum up to the torsion where it reaches thresh) at 4
+    float64 operations a term (the difference, its magnitude, the wrap,
+    the sum).'''
+    B, Q = fps.shape
+    t_bytes = (B * Q * 4 + B) / HBM_BYTES_PER_S * 1e3
+    t_ops = walked.terms * 4 / PEAK_FLOPS['float64'] * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def v1_check(card, tag, fps, cache_cap=NOVELTY_CAP, timed=True):
+    '''V1 on a route's fingerprints (S, Q) float32 on the card: two
+    launches give the same bits; the mask equals the native host replay
+    is_new_structure_lru's and the plain twin novelty_plain's, exactly;
+    the near ties of novelty_ties printed. Timed: V1 (device ms), the
+    per-block host loop the card ran before it (novelty_loop, cuda_ms),
+    the twin, the host replay (host clock), the bound over the terms the
+    rule's walked comparisons sum and, where the route's cache of
+    NOVELTY_CAP overflows, V1's launch that finds the overflow (device
+    ms: the route's added cost before its host replay). Returns (record,
+    novel numpy).'''
+    import torch
+    from tscode_tpu_torch.ops.kernels import tfd_novelty as v1
+    from tscode_tpu_torch.ops.tfd import is_new_structure_lru, novelty_loop
+    fps = fps.to(torch.float32).contiguous()
+    n1, s1 = v1.tfd_novelty(fps, None, TFD_THRESH, 4096, cache_cap)
+    n2, s2 = v1.tfd_novelty(fps, None, TFD_THRESH, 4096, cache_cap)
+    check(torch.equal(n1, n2) and torch.equal(s1, s2),
+          f'{tag}: two V1 launches differ')
+    n_acc, ok = s1.tolist()
+    check(ok == 1, f'{tag}: V1 overflowed its cache of {cache_cap}')
+    host = fps.cpu().numpy()
+    t0 = time.perf_counter()
+    want = is_new_structure_lru(host, np.ones(len(host), dtype=bool),
+                                thresh=TFD_THRESH)
+    host_s = time.perf_counter() - t0
+    got = n1.cpu().numpy()
+    check(np.array_equal(got, want) and n_acc == int(want.sum()),
+          f'{tag}: V1 differs from the host replay on '
+          f'{int((got != want).sum())} rows')
+    plain, p_ok, p_n, walked = v1.novelty_plain(fps, None, TFD_THRESH, 4096,
+                                                cache_cap)
+    check(p_ok and torch.equal(plain, n1), f'{tag}: V1 differs from its '
+          f'plain twin')
+    near, n_tie = novelty_ties(fps, want)
+    info = v1.kernel_info(fps.shape[1], cache_cap, DEV)
+    plan = v1.launch_plan(fps.shape[1], cache_cap)
+    rec = {'rows': int(fps.shape[0]), 'Q': int(fps.shape[1]),
+           'accepted': n_acc, 'info': info,
+           'grid_blocks': min(info['resident_blocks'],
+                              -(-min(plan['tile'], fps.shape[0]) //
+                                (v1.THREADS // 32))),
+           'walked': walked.comparisons, 'walked_terms': walked.terms,
+           'near_ties_1e9': len(near), 'ties_tfd_tie': n_tie,
+           'host_replay_s': host_s, 'equal_host_replay': True}
+    if timed:
+        rec['ms'] = device_ms(lambda: v1.tfd_novelty(
+            fps, None, TFD_THRESH, 4096, cache_cap), reps=5)
+        rec['loop_ms'] = cuda_ms(lambda: novelty_loop(
+            fps, None, TFD_THRESH, 4096, cache_cap), reps=2)
+        rec['plain_ms'] = cuda_ms(lambda: v1.novelty_plain(
+            fps, None, TFD_THRESH, 4096, cache_cap), reps=1)
+        rec['bound_ms'], rec['bound_by'] = v1_bound(fps, walked)
+        if n_acc > NOVELTY_CAP:
+            over = v1.tfd_novelty(fps, None, TFD_THRESH, 4096, NOVELTY_CAP)
+            check(over[1].tolist() == [NOVELTY_CAP + 1, 0], f'{tag}: V1 at '
+                  f'the route\'s cache of {NOVELTY_CAP} reports '
+                  f'{over[1].tolist()}')
+            rec['overflow_ms'] = device_ms(lambda: v1.tfd_novelty(
+                fps, None, TFD_THRESH, 4096, NOVELTY_CAP), reps=5)
+    print(f'[{tag}] V1 on {rec["rows"]} rows x {rec["Q"]} torsions: '
+          f'{n_acc} novel, equal to the host replay and the twin, the same '
+          f'bits twice; {len(near)} rows within 1e-9 deg of {TFD_THRESH} '
+          f'{near[:LIST_MAX]}, {n_tie} within {STRING_TFD_TIE} deg; '
+          f'{walked.comparisons} comparisons walked summing '
+          f'{walked.terms} terms, {rec["grid_blocks"]} blocks, {info}' + (
+              f'; V1 {rec["ms"]:.4f} ms, the host loop before it '
+              f'{rec["loop_ms"]:.4f} ms, twin {rec["plain_ms"]:.4f} ms, host '
+              f'replay {host_s * 1e3:.4f} ms, bound {rec["bound_ms"]:.6f} ms '
+              f'({rec["bound_by"]})' + (
+                  f'; at the route\'s cache of {NOVELTY_CAP} V1 finds the '
+                  f'overflow in {rec["overflow_ms"]:.4f} ms'
+                  if 'overflow_ms' in rec else '') if timed else '') +
+          f' [{card}]')
+    return rec, want
+
+
+def string_kernels(card, tag, inp, quads_fn=None, cache_cap=NOVELTY_CAP):
+    '''G1 and V1 on a string route's float64 grid on the card: g1_check on
+    the whole grid, then the clash survivors' fingerprints (through
+    quads_fn(survivors), if given, which returns the quadruplets to keep)
+    through v1_check. Returns (G1 record, V1 record, the survivors).'''
+    import torch
+    from tscode_tpu_torch.ops.tfd import torsion_fingerprints
     grid, angles, quads = string_setup(inp, torch.float64)
-    near, n_tie, lo, fps = [], 0, 0, []
-    for poses, ok in bcast_tiles(grid, angles, CLASH):
-        off = clash_offsets(poses, grid.pairs)
-        near += (lo + torch.nonzero(off < 1e-9).squeeze(1)).tolist()
-        n_tie += int((off < CLASH_TIE).sum())
-        lo += poses.shape[0]
-        fps.append(torsion_fingerprints(poses[ok], quads))
-    fps = torch.cat(fps)
-    novel, ok = tfd_novelty_device(fps, thresh=TFD_THRESH)
-    check(ok, 'string ties: novelty cache overflow')
-    tfd_near, n_tfd_tie = novelty_ties(fps, novel)
-    return near, n_tie, tfd_near, n_tfd_tie, int(novel.sum())
+    g1rec, kept, _, poses = g1_check(card, f'{tag} float64', grid, angles)
+    del poses
+    if quads_fn is not None:
+        quads = quads_fn(kept, quads)
+    fps = torsion_fingerprints(kept, quads).contiguous()
+    v1rec, novel = v1_check(card, f'{tag} float64', fps, cache_cap)
+    v1rec['novel'] = int(novel.sum())
+    torch.cuda.empty_cache()
+    return g1rec, v1rec, kept
+
+
+def check_string_route(tag, report):
+    '''A string route's CLI run on the card went through G1 and V1: G1's
+    keep and write launched, V1 once (its lane the device's, or the host
+    replay's after V1 reported more novel rows than its cache holds),
+    neither K1's clash_ok entry nor the broadcast block ran. Returns (G1
+    keep launches, V1 launches).'''
+    se = report['string_embed']
+    st = se['novelty_stats']
+    # past the cache V1 says ok False and the host replay decides (the
+    # JAX package's contract)
+    lane = 'host' if st.get('accepted', 0) > NOVELTY_CAP else 'device'
+    check(report['g1_launches'] > 0 and report['g1_write_launches'] > 0
+          and report['v1_launches'] == 1 and se['tfd_lane'] == lane
+          and st.get('kernel') == 'V1' and st['host_syncs'] <= 2
+          and report['clash_entry_launches']['clash_ok'] == 0
+          and report['bcast_calls'] == 0, f'{tag}: G1 launches '
+          f'{report["g1_launches"]} (write {report["g1_write_launches"]}), V1 '
+          f'{report["v1_launches"]} ({se["tfd_lane"]} lane, '
+          f'{se["novelty_stats"]}), K1 clash_ok '
+          f'{report["clash_entry_launches"]["clash_ok"]}, broadcast block '
+          f'{report["bcast_calls"]} calls')
+    return report['g1_launches'], report['v1_launches']
 
 
 def phase_string_route(card):
     '''Phase 6: the production string route through the CLI, float64
-    (exact reference counts) then float32 (brackets).'''
+    (exact reference counts) then float32 (brackets), each through G1 and
+    V1 (check_string_route); then G1 on the float64 and float32 grids and
+    V1 on the float64 clash survivors' fingerprints against their twins
+    and the route before them, timed (string_kernels, g1_check). Returns
+    the records.'''
     import os
     import tempfile
+    import torch
     os.environ['TSCODE_EMBED_TRACE'] = '1'
-    launches = 0
+    recs = {'cli': {}}
     with tempfile.TemporaryDirectory(prefix='smoke_string_') as tmp:
         inp = suite_input('sn2_string', tmp, STRING_CONFS)
         counts = {}
         for dtype in ('float64', 'float32'):
-            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
-            n_launch = sum(regimes.values())
+            report, frames, _, secs = run_cli(tmp, inp, dtype)
+            g1, v1 = check_string_route(f'string route {dtype}', report)
             se = report['string_embed']
             counts[dtype] = (se['candidates'], se['clash_ok'], se['novel'],
                              report['final_structures'])
-            launches += n_launch
-            check(n_launch > 0, f'string route {dtype}: clash kernel not '
-                  f'launched')
-            check(se['tfd_lane'] == 'device', f'string route {dtype}: '
-                  f'novelty lane {se["tfd_lane"]}, expected device')
             n_final = counts[dtype][3]
             check(frames.shape == (n_final, 11, 3)
                   and bool(np.isfinite(frames).all()),
@@ -2018,36 +2382,33 @@ def phase_string_route(card):
                                f'({s["structures_in"]} -> '
                                f'{s["structures_out"]})'
                                for s in report['stages'])
+            recs['cli'][dtype] = {
+                'seconds': secs, 'g1_launches': g1, 'v1_launches': v1,
+                **{k: se[k] for k in ('sweep_s', 'compaction_s', 'novelty_s',
+                                      'pull_s', 'novelty_stats')}}
             print(f'[6 string {dtype}] {" -> ".join(map(str, counts[dtype]))}'
                   f' (candidates -> clash-ok -> novel -> final) in '
-                  f'{secs:.3f} s, clash launches {regimes}, novelty lane '
-                  f'{se["tfd_lane"]} {se["novelty_stats"]} [{card}]')
+                  f'{secs:.3f} s, G1 launches {g1} (and its write), V1 {v1}, '
+                  f'novelty lane {se["tfd_lane"]} {se["novelty_stats"]} '
+                  f'[{card}]')
             print(f'[6 string {dtype}] stages: {stages}; report total '
                   f'{report["total_seconds"]} s [{card}]')
             print(f'[6 string {dtype}] embed split: sweep '
                   f'{se["sweep_s"]:.4f} s, compaction {se["compaction_s"]:.4f}'
                   f' s, novelty {se["novelty_s"]:.4f} s, pull '
                   f'{se["pull_s"]:.4f} s [{card}]')
-        near, n_tie, tfd_near, n_tfd_tie, n_novel = string_ties(tmp, inp)
-
-    # the listed ties, first LIST_MAX of each (spin steps of 10 degrees
-    # put many fingerprint distances at exactly 10.0, which `<` rejects
-    # alike on every lane)
-    for i in near[:LIST_MAX]:
-        print(f'[6 string float64] pose {i} within 1e-9 A^2 of the clash '
-              f'threshold')
-    for i in tfd_near[:LIST_MAX]:
-        print(f'[6 string float64] survivor {i} within 1e-9 degrees of the '
-              f'novelty threshold')
-    print(f'[6 string float64] {len(near)} poses within 1e-9 A^2 of thr^2, '
-          f'{len(tfd_near)} survivors within 1e-9 deg of {TFD_THRESH}; '
-          f'{n_tie} poses within {CLASH_TIE} A^2, {n_tfd_tie} '
-          f'survivors within {STRING_TFD_TIE} deg')
+        recs['g1'], recs['v1'], _ = string_kernels(card, '6 string', inp)
+        grid, angles, _ = string_setup(inp, torch.float32)
+        recs['g1_f32'] = g1_check(card, '6 string float32', grid, angles)[0]
+        del grid
+        torch.cuda.empty_cache()
+    g1r, v1r = recs['g1'], recs['v1']
+    n_tie = g1r['ties_clash_tie']
     check(counts['float64'] == STRING_F64,
           f'string route f64 counts {counts["float64"]} != {STRING_F64}')
-    check(n_novel == STRING_F64[2], f'string ties: {n_novel} novel rows, '
-          f'expected {STRING_F64[2]}')
-
+    check(g1r['kept'] == STRING_F64[1] and v1r['novel'] == STRING_F64[2],
+          f'string grid: G1 kept {g1r["kept"]}, V1 {v1r["novel"]} novel, '
+          f'expected {STRING_F64[1:3]}')
     c32, c64 = counts['float32'], counts['float64']
     check(c32[0] == c64[0], f'f32 candidates {c32[0]} != {c64[0]}')
     check(abs(c32[1] - c64[1]) <= n_tie, f'f32 clash-ok {c32[1]} outside '
@@ -2059,42 +2420,52 @@ def phase_string_route(card):
     print(f'[6 string float32] inside the brackets: clash-ok {c64[1]} +- '
           f'{n_tie}, novel and final within {STRING_F32_SLACK:.0%} of '
           f'{c64[2]} and {c64[3]}')
-    return launches
+    return recs
 
 
 def bracket(ref, slack):
     return round(ref * (1 - slack)), round(ref * (1 + slack))
 
 
+def collinear_dropped(want, seen):
+    '''quads_fn for string_kernels: the quadruplets without those whose
+    end-angle sine on some survivor is at most COLLINEAR_SINE (their
+    dihedral is rounding noise); the dropped ones go into `seen`, which
+    must equal `want`.'''
+    from tscode_tpu_torch.ops.tfd import torsion_end_sines
+
+    def drop(survivors, quads):
+        col = (torsion_end_sines(survivors, quads) <= COLLINEAR_SINE) \
+            .any(dim=0).cpu().numpy()
+        seen.extend(np.asarray(quads)[col].tolist())
+        check(seen == want, f'collinear quadruplets {seen}, expected {want}')
+        return np.asarray(quads)[~col]
+    return drop
+
+
 def phase_large_route(card, keep):
     '''Phase 7, the CLI part: bench_suite's large_n_string (two C24H49Cl
-    chains, 148-atom poses, P = 5,476 cross pairs, so K1's warp regime)
-    at 16 conformers, float64 then float32, and the exact gate: the
-    novelty replay of the float64 clash survivors on the card without
-    the collinear quadruplet. The float64 run's output ensemble is
-    copied into the directory `keep` as large_n_f64.xyz (phase 9).
-    Returns the clash launches per regime.'''
+    chains, 148-atom poses, P = 5,476 cross pairs, so G1's warp regime)
+    at 16 conformers, float64 then float32, through G1 and V1
+    (check_string_route), and the exact gate: G1 on the float64 grid
+    against its twins, then V1 on its clash survivors' fingerprints
+    without the collinear quadruplet (string_kernels), the JAX x64
+    replay's count. The float64 run's output ensemble is copied into the
+    directory `keep` as large_n_f64.xyz (phase 9). Returns the records.'''
     import os
     import shutil
     import tempfile
-    import torch
-    from tscode_tpu_torch.embeds.string import bcast_tiles
-    from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
-                                          torsion_end_sines,
-                                          torsion_fingerprints)
-    launches = {'thread': 0, 'warp': 0}
-    counts = {}
+    counts, recs = {}, {'cli': {}}
     with tempfile.TemporaryDirectory(prefix='smoke_large_') as tmp:
         inp = suite_input('large_n_string', tmp, LARGE_CONFS)
         for dtype in ('float64', 'float32'):
-            report, frames, regimes, secs = run_cli(tmp, inp, dtype)
+            report, frames, _, secs = run_cli(tmp, inp, dtype)
             se = report['string_embed']
             counts[dtype] = c = (se['candidates'], se['clash_ok'],
                                  se['novel'], report['final_structures'])
-            for k in launches:
-                launches[k] += regimes[k]
-            check(regimes['warp'] > 0, f'large_n {dtype}: the warp kernel '
-                  f'was not launched ({regimes})')
+            g1, v1 = check_string_route(f'large_n {dtype}', report)
+            recs['cli'][dtype] = {'seconds': secs, 'g1_launches': g1,
+                                  'v1_launches': v1}
             if dtype == 'float64':
                 shutil.copy(os.path.join(
                     tmp, f'tscode_unoptimized_smoke_{DEV}_{dtype}.xyz'),
@@ -2107,53 +2478,24 @@ def phase_large_route(card, keep):
                                for s in report['stages'])
             print(f'[7 large_n {dtype}] {" -> ".join(map(str, c))} '
                   f'(candidates -> clash-ok -> novel -> final) in {secs:.3f}'
-                  f' s, clash launches {regimes}, novelty lane '
+                  f' s, G1 launches {g1}, V1 {v1}, novelty lane '
                   f'{se["tfd_lane"]} {se["novelty_stats"]}; {stages}; embed '
                   f'split: sweep {se["sweep_s"]:.4f} s, compaction '
                   f'{se["compaction_s"]:.4f} s, novelty {se["novelty_s"]:.4f}'
                   f' s [{card}]')
-
-        # the float64 grid on the card: clash ties, survivors, and the
-        # novelty replay without the collinear quadruplets
-        grid, angles, quads = string_setup(inp, torch.float64)
-        tiles = list(bcast_tiles(grid, angles, CLASH))
-        poses = torch.cat([p for p, _ in tiles])
-        ok = torch.cat([o for _, o in tiles])
-        del tiles
-    off = clash_offsets(poses, grid.pairs)
-    near = torch.nonzero(off < 1e-9).squeeze(1).tolist()
-    n_tie = int((off < CLASH_TIE).sum())
-    survivors = poses[ok]
-    fps = torsion_fingerprints(survivors, quads)
-    col = (torsion_end_sines(survivors, quads) <= COLLINEAR_SINE) \
-        .any(dim=0).cpu().numpy()
-    check(np.asarray(quads)[col].tolist() == LARGE_COLLINEAR,
-          f'large_n: collinear quadruplets {np.asarray(quads)[col].tolist()}'
-          f', expected {LARGE_COLLINEAR}')
-    fps = fps[:, torch.as_tensor(~col, device=fps.device)].contiguous()
-    novel, lane_ok = tfd_novelty_device(fps, thresh=TFD_THRESH,
-                                        cache_cap=fps.shape[0])
-    check(lane_ok, 'large_n replay: the device novelty lane refused')
-    tfd_near, n_tfd_tie = novelty_ties(fps, novel)
-    n_novel = int(novel.sum())
-
-    for i in near[:LIST_MAX]:
-        print(f'[7 large_n float64] pose {i} within 1e-9 A^2 of the clash '
-              f'threshold')
-    for i in tfd_near[:LIST_MAX]:
-        print(f'[7 large_n float64] survivor {i} within 1e-9 degrees of the '
-              f'novelty threshold (collinear quadruplet dropped)')
-    print(f'[7 large_n float64] {len(near)} poses within 1e-9 A^2 of thr^2, '
-          f'{n_tie} within {CLASH_TIE} A^2; replay without the collinear '
-          f'quadruplet {LARGE_COLLINEAR[0]} on the card: {n_novel} novel of '
-          f'{fps.shape[0]} ({len(tfd_near)} survivors within 1e-9 deg of '
-          f'{TFD_THRESH}, {n_tfd_tie} within {STRING_TFD_TIE} deg)')
+        seen = []
+        recs['g1'], recs['v1'], _ = string_kernels(
+            card, '7 large_n', inp, collinear_dropped(LARGE_COLLINEAR, seen),
+            cache_cap=4 * NOVELTY_CAP)
+    g1r, v1r = recs['g1'], recs['v1']
+    n_near, n_tie, n_novel = g1r['near_ties_1e9'], g1r['ties_clash_tie'], \
+        v1r['novel']
     c64, c32 = counts['float64'], counts['float32']
     check(c64[0] == c32[0] == LARGE_F64[0], f'large_n candidates '
           f'{c64[0]}, {c32[0]} != {LARGE_F64[0]}')
-    check(abs(c64[1] - LARGE_F64[1]) <= len(near), f'large_n f64 clash-ok '
-          f'{c64[1]} != {LARGE_F64[1]} beyond {len(near)} poses within '
-          f'1e-9 A^2 of thr^2')
+    check(c64[1] == g1r['kept'] and abs(c64[1] - LARGE_F64[1]) <= n_near,
+          f'large_n f64 clash-ok {c64[1]} (G1 on the grid {g1r["kept"]}) != '
+          f'{LARGE_F64[1]} beyond {n_near} poses within 1e-9 A^2 of thr^2')
     check(abs(c32[1] - c64[1]) <= n_tie, f'large_n f32 clash-ok {c32[1]} '
           f'outside {c64[1]} +- {n_tie}')
     for dtype, c in counts.items():
@@ -2167,22 +2509,24 @@ def phase_large_route(card, keep):
     print(f'[7 large_n] gates held: candidates {LARGE_F64[0]}, f64 clash-ok '
           f'{c64[1]} (JAX {LARGE_F64[1]}), f32 clash-ok {c32[1]}, novel and '
           f'final within {LARGE_SLACK:.0%} of {LARGE_F64[2]} and '
-          f'{LARGE_F64[3]}, replay {n_novel} == {LARGE_DROPPED_NOVEL}')
-    return launches
+          f'{LARGE_F64[3]}, V1 without the collinear quadruplet '
+          f'{LARGE_COLLINEAR[0]} {n_novel} == {LARGE_DROPPED_NOVEL}')
+    return recs
 
 
 def phase_large_grid(card):
     '''Phase 7, the grid part: large_n_string at 76 conformers (207,936
-    poses of 148 atoms) through the string embed's tiles, float64 (the
-    JAX x64 clash-ok count) and float32; K1 against its plain twin on
-    the grid, both timed. Returns (clash launches per regime, the
-    largest disagreement outside ties).'''
+    poses of 148 atoms), float64 (the JAX x64 clash-ok count) and
+    float32: G1 on the whole grid against its twins and the broadcast
+    block with K1, timed (g1_check); then K1, still the yardstick, against
+    its plain twin on the broadcast block's poses, both timed. Returns
+    (G1 records, K1 launches per regime, the largest K1 disagreement
+    outside ties).'''
     import tempfile
     import torch
-    from tscode_tpu_torch.embeds.string import bcast_tiles
     from tscode_tpu_torch.ops.kernels import clash
     launches = {'thread': 0, 'warp': 0}
-    err = 0
+    err, recs = 0, {}
     with tempfile.TemporaryDirectory(prefix='smoke_large76_') as tmp:
         inp = suite_input('large_n_string', tmp, LARGE_GRID_CONFS)
         setups = {dtype: string_setup(inp, dtype)
@@ -2190,15 +2534,11 @@ def phase_large_grid(card):
     for dtype, (grid, angles, _) in setups.items():
         name = str(dtype).split('.')[-1]
         clash.KERNEL.reset_counts()
-        tiles = list(bcast_tiles(grid, angles, CLASH))
+        recs[name], _, ok, poses = g1_check(card, f'7 large_n grid {name}',
+                                            grid, angles)
         regimes = clash.launches_by_regime()
         for k in launches:
             launches[k] += regimes[k]
-        check(regimes['warp'] > 0, f'large_n grid {name}: the warp kernel '
-              f'was not launched ({regimes})')
-        poses = torch.cat([p for p, _ in tiles])
-        ok = torch.cat([o for _, o in tiles])
-        del tiles
         pairs = grid.pairs
         off = clash_offsets(poses, pairs)
         tie, n_near = off < CLASH_TIE, int((off < 1e-9).sum())
@@ -2215,8 +2555,8 @@ def phase_large_grid(card):
                 for i in range(0, poses.shape[0], LARGE_PLAIN_CHUNK)])
 
         got = clash.clash_ok(poses, pairs, CLASH)
-        check(torch.equal(got, ok), f'large_n grid {name}: two launches '
-              f'differ')
+        check(torch.equal(got, clash.clash_ok(poses, pairs, CLASH)),
+              f'large_n grid {name}: two K1 launches differ')
         e, n_tie = compare_bits(got, plain(), tie, f'clash {name} large_n '
                                 f'grid')
         err = max(err, e)
@@ -2224,16 +2564,20 @@ def phase_large_grid(card):
         ms_plain = cuda_ms(plain, reps=2)
         bound = (poses.numel() * poses.element_size() + pairs.numel() * 4
                  + poses.shape[0]) / HBM_BYTES_PER_S * 1e3
+        recs[name]['k1'] = {'ms': ms, 'plain_ms': ms_plain,
+                            'bound_ms': bound}
         print(f'[7 large_n grid {name}] (c) {poses.shape[0]} poses x '
               f'{poses.shape[1]} atoms, P = {pairs.shape[0]}: K1 {ms:.4f} ms'
               f' (device), plain {ms_plain:.4f} ms (chunks of '
               f'{LARGE_PLAIN_CHUNK} poses), bound {bound:.4f} ms (bytes); '
-              f'clash-ok {n_ok}, equal to plain off {n_tie} tie '
+              f'clash-ok (G1) {n_ok}, K1 equal to plain off {n_tie} tie '
               f'poses, {n_near} within 1e-9 A^2; launches {regimes}, plan '
               f'{clash.warp_plan()} [{card}]')
         del poses, ok, got
         torch.cuda.empty_cache()
-    return launches, err
+    check(launches['warp'] > 0, f'large_n grid: K1\'s warp regime did not '
+          f'run ({launches})')
+    return recs, launches, err
 
 
 def embedder_setup(inp, dtype):
@@ -4531,54 +4875,25 @@ def tfd_prune_check(phase, card, rec):
     return err, out
 
 
-def search_string_replay(inp):
-    '''The float64 string grid of csearch_string on the card (the
-    searched chain set up again from the same seed): the poses within
-    1e-9 A^2 (listed) and CLASH_TIE (counted) of the clash threshold, the
-    collinear quadruplets and the novelty replay of the clash survivors
-    without them.'''
-    import torch
-    from tscode_tpu_torch.embeds.string import bcast_tiles
-    from tscode_tpu_torch.ops.tfd import (tfd_novelty_device,
-                                          torsion_end_sines,
-                                          torsion_fingerprints)
-    grid, angles, quads = string_setup(inp, torch.float64)
-    near, n_tie, lo, kept = [], 0, 0, []
-    for poses, ok in bcast_tiles(grid, angles, CLASH):
-        off = clash_offsets(poses, grid.pairs)
-        near += (lo + torch.nonzero(off < 1e-9).squeeze(1)).tolist()
-        n_tie += int((off < CLASH_TIE).sum())
-        lo += poses.shape[0]
-        kept.append(poses[ok])
-    survivors = torch.cat(kept)
-    col = (torsion_end_sines(survivors, quads) <= COLLINEAR_SINE) \
-        .any(dim=0).cpu().numpy()
-    fps = torsion_fingerprints(survivors, np.asarray(quads)[~col])
-    novel, lane_ok = tfd_novelty_device(fps.contiguous(), thresh=TFD_THRESH,
-                                        cache_cap=fps.shape[0])
-    check(lane_ok, 'csearch_string replay: the device novelty lane refused')
-    return (near, n_tie, survivors.shape[0],
-            np.asarray(quads)[col].tolist(), int(novel.sum()))
-
-
 def phase_search_string(card):
     '''Phase 17: csearch_string through the CLI at SEARCH_CONFS, float64
     then float32: the search of the C10H21Cl chain (6,561 candidates,
     eight torsions' back-off with K1's entry torsion_backoff, one launch
     a torsion, the TFD prune, the seeded draw of 1,000) equal to the JAX
-    x64 run's frame for frame, then the string embed against C2H4 (K1
-    `clash_ok`) held to the JAX x64 counts by phase 7's rule for its
-    collinear quadruplet; the back-off entry checked and timed on the
+    x64 run's frame for frame, then the string embed against C2H4 (G1
+    and V1, check_string_route) held to the JAX x64 counts by phase 7's
+    rule for its collinear quadruplet (G1 and V1 on the searched float64
+    grid, string_kernels); the back-off entry checked and timed on the
     search's own tensors; T1, the TFD prune's search, one launch and one
     host read a pass of the search's prune, held against its plain twin
     on every pass of the float64 run's prune input and timed
-    (tfd_prune_check). Returns (K1 `clash_ok` launches,
+    (tfd_prune_check). Returns (G1 and V1 records,
     torsion_backoff launches, largest disagreement, the back-off's
     record, T1's record).'''
     import tempfile
     os.environ['TSCODE_EMBED_TRACE'] = '1'
     counts, searches, entries, splits, calls = {}, {}, {}, {}, []
-    prunes, t1_runs = {}, {}
+    prunes, t1_runs, g1v1 = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix='smoke_search_') as tmp:
         inp = suite_input('csearch_string', tmp, SEARCH_CONFS)
         for dtype in ('float64', 'float32'):
@@ -4611,9 +4926,11 @@ def phase_search_string(card):
             counts[dtype] = c = (se['candidates'], se['clash_ok'],
                                  se['novel'], report['final_structures'])
             entries[dtype] = entry = report['clash_entry_launches']
+            g1v1[dtype] = check_string_route(f'csearch_string {dtype}',
+                                             report)
             check(len(cs) == 1 and cs[0]['candidates'] == SEARCH_CANDIDATES
                   and cs[0]['torsions'] == 8 and
-                  entry['torsion_backoff'] == 8 and entry['clash_ok'] > 0
+                  entry['torsion_backoff'] == 8
                   and entry['torsion_clash_ok'] == 0
                   and entry['compenetration_mask_kernel'] == 0,
                   f'csearch_string {dtype}: searches {cs}, launches {entry}')
@@ -4624,12 +4941,19 @@ def phase_search_string(card):
             splits[dtype] = search_split(f'17 csearch_string {dtype}', report,
                                          secs, card)
             print(f'[17 csearch_string {dtype}] {" -> ".join(map(str, c))} '
-                  f'(candidates -> clash-ok -> novel -> final), clash '
-                  f'launches {regimes}, novelty lane {se["tfd_lane"]}; embed '
+                  f'(candidates -> clash-ok -> novel -> final), G1 and V1 '
+                  f'launches {g1v1[dtype]}, novelty lane {se["tfd_lane"]}; '
+                  f'embed '
                   f'split: sweep {se["sweep_s"]:.4f} s, compaction '
                   f'{se["compaction_s"]:.4f} s, novelty {se["novelty_s"]:.4f}'
                   f' s, pull {se["pull_s"]:.4f} s [{card}]')
-        near, n_tie, n_ok, collinear, n_novel = search_string_replay(inp)
+        collinear = []
+        g1r, v1r, _ = string_kernels(
+            card, '17 csearch_string', inp,
+            collinear_dropped(SEARCH_COLLINEAR, collinear),
+            cache_cap=4 * NOVELTY_CAP)
+    n_near, n_tie, n_ok, n_novel = g1r['near_ties_1e9'], \
+        g1r['ties_clash_tie'], g1r['kept'], v1r['novel']
     err = searched_against('csearch_string float64', searches['float64'],
                            SEARCH_GOLDEN)
     same_searches('csearch_string float32 against float64',
@@ -4637,9 +4961,9 @@ def phase_search_string(card):
     c64, c32 = counts['float64'], counts['float32']
     check(c64[0] == c32[0] == SEARCH_F64[0], f'csearch_string candidates '
           f'{c64[0]}, {c32[0]} != {SEARCH_F64[0]}')
-    check(n_ok == c64[1] and abs(c64[1] - SEARCH_F64[1]) <= len(near),
-          f'csearch_string f64 clash-ok {c64[1]} (replay {n_ok}) != '
-          f'{SEARCH_F64[1]} beyond {len(near)} poses within 1e-9 A^2')
+    check(n_ok == c64[1] and abs(c64[1] - SEARCH_F64[1]) <= n_near,
+          f'csearch_string f64 clash-ok {c64[1]} (G1 on the grid {n_ok}) != '
+          f'{SEARCH_F64[1]} beyond {n_near} poses within 1e-9 A^2')
     check(abs(c32[1] - c64[1]) <= n_tie, f'csearch_string f32 clash-ok '
           f'{c32[1]} outside {c64[1]} +- {n_tie}')
     check(collinear == SEARCH_COLLINEAR, f'csearch_string: collinear '
@@ -4664,7 +4988,7 @@ def phase_search_string(card):
     print(f'[17 csearch_string] gates held: the searched 1,000 conformers '
           f'within {err:.2e} A of the JAX x64 run\'s, in order (float32 the '
           f'same); candidates {SEARCH_F64[0]}, clash-ok {c64[1]} (JAX '
-          f'{SEARCH_F64[1]}; {len(near)} poses within 1e-9 A^2, {n_tie} '
+          f'{SEARCH_F64[1]}; {n_near} poses within 1e-9 A^2, {n_tie} '
           f'within {CLASH_TIE} A^2), f32 clash-ok {c32[1]}; novel and final '
           f'within {LARGE_SLACK:.0%} of {SEARCH_F64[2]} and {SEARCH_F64[3]}; '
           f'replay without {SEARCH_COLLINEAR[0]} {n_novel} == '
@@ -4676,7 +5000,7 @@ def phase_search_string(card):
           f'reads in each run\'s search prune, {t1_runs} in the runs; TFD '
           f'prune {t1["tfd_s"]["float64"]:.4f} s (float64), '
           f'{t1["tfd_s"]["float32"]:.4f} s (float32) [{card}]')
-    return (sum(e['clash_ok'] for e in entries.values()),
+    return ({'g1': g1r, 'v1': v1r, 'cli': g1v1},
             sum(e['torsion_backoff'] for e in entries.values()),
             k1_err, rec, t1)
 
@@ -5864,24 +6188,23 @@ def route_counts(report):
 
 
 class MeshRecorder:
-    '''While installed: the first string tile a sharded sweep builds
-    (poses and pair list, K1's input), every tensor a sharded
-    compenetration stage gives K2, and every slice a sharded prune pass
-    gives K3 (pool, act, end, rows).'''
+    '''While installed: the first string tile a sharded sweep screens
+    (G1's inputs: the grid inputs, angles and c2 range), every tensor a
+    sharded compenetration stage gives K2, and every slice a sharded
+    prune pass gives K3 (pool, act, end, rows).'''
 
     def __init__(self):
         from tscode_tpu_torch.embeds import string
         from tscode_tpu_torch.parallel import prune, sharding
-        self.k1, self.k2, self.k3 = [], [], []
+        self.tile, self.k2, self.k3 = [], [], []
         self.undo = []
         self.sharded = False          # set while a sharded run goes
-        block = string.bcast_block
+        queued = string.grid_screen_queued
 
-        def k1_block(inp, angles, c2_lo, c2_hi, clash_thresh):
-            poses, ok = block(inp, angles, c2_lo, c2_hi, clash_thresh)
-            if self.sharded and not self.k1:
-                self.k1.append((poses, inp.pairs))
-            return poses, ok
+        def g1_tile(inp, angles, c2_lo, c2_hi, clash_thresh, heavy=False):
+            if self.sharded and not self.tile:
+                self.tile.append((inp, angles, c2_lo, c2_hi))
+            return queued(inp, angles, c2_lo, c2_hi, clash_thresh, heavy)
         k2_entry = sharding.compenetration_mask_kernel
 
         def k2(poses, pair_mask, thresh=1.5, max_clashes=0):
@@ -5894,7 +6217,7 @@ class MeshRecorder:
                 self.k3.append((hs, a, e, rows))
                 return pair_kill(hs, a, e, t, rows=rows)
             return pass_kill(pools, act, end, thr, mesh, recorded)
-        for mod, name, fn in ((string, 'bcast_block', k1_block),
+        for mod, name, fn in ((string, 'grid_screen_queued', g1_tile),
                               (sharding, 'compenetration_mask_kernel', k2),
                               (prune, 'sharded_pass_kill', k3)):
             self.undo.append((mod, name, getattr(mod, name)))
@@ -5912,7 +6235,7 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
     kernels' launches of the run (run_cli sets the counts to 0 first):
     K1 `clash_ok`, K2 `compenetration_mask_kernel`, K1's search entries
     `torsion_clash_ok` and `torsion_backoff`, K3, T1 `tfd_first`, B1
-    `block_screen`.'''
+    `block_screen`, G1 `string_grid` (its keep) and V1 `tfd_novelty`.'''
     from tscode_tpu_torch.ops.kernels import clash, qcp
     from tscode_tpu_torch.parallel.sharding import default_mesh
     key = 'TSCODE_MESH' if sharded else 'TSCODE_DISABLE_MESH'
@@ -5926,7 +6249,9 @@ def mesh_cli(tmp, inp, mesh, sharded, rec):
         rec.sharded = False
     launches = dict(clash.launches_by_entry(), qcp_kill=qcp.KERNEL.launches,
                     tfd_first=out[0]['tfd_launches'],
-                    block_screen=out[0]['b1_launches'])
+                    block_screen=out[0]['b1_launches'],
+                    string_grid=out[0]['g1_launches'],
+                    tfd_novelty=out[0]['v1_launches'])
     return out, launches
 
 
@@ -5979,17 +6304,38 @@ def mesh_route(card, name, n_confs, mesh, rec, tmp):
 
 
 def mesh_kernels(card, rec):
-    '''K1, K2 and K3 on the shard-shaped tensors the sharded runs gave
-    them, against their plain twins (off threshold ties), timed
-    (device_ms; the plain twins with cuda_ms) and bounded (K1 and K2 by
-    their bytes, K3 by qcp_bound over the slice's walks). Returns
-    (records, largest disagreement).'''
+    '''G1 on the first string tile a sharded run screened, against its
+    kernel-order twin (bit for bit); K1 (the grid's yardstick, on the
+    broadcast block's poses of that tile), K2 and K3 on the shard-shaped
+    tensors the sharded runs gave them, against their plain twins (off
+    threshold ties), timed (device_ms; the plain twins with cuda_ms) and
+    bounded (K1 and K2 by their bytes, K3 by qcp_bound over the slice's
+    walks). Returns (records, largest disagreement).'''
     import torch
+    from tscode_tpu_torch.embeds.string import bcast_poses
     from tscode_tpu_torch.ops.kernels import clash, qcp
-    check(rec.k1 and rec.k2 and rec.k3, f'[21 mesh] recorded K1 '
-          f'{len(rec.k1)}, K2 {len(rec.k2)}, K3 {len(rec.k3)} sharded inputs')
+    from tscode_tpu_torch.ops.kernels import string_grid as g1
+    check(rec.tile and rec.k2 and rec.k3, f'[21 mesh] recorded G1 '
+          f'{len(rec.tile)}, K2 {len(rec.k2)}, K3 {len(rec.k3)} sharded '
+          f'inputs')
     out, err = {}, 0
-    poses, pairs = rec.k1[0]
+    inp, angles, lo, hi = rec.tile[0]
+    kept, ok = g1.string_grid(inp, angles, lo, hi, CLASH)
+    want, want_ok = g1.string_grid_order_plain(inp, angles, lo, hi, CLASH)
+    check(torch.equal(ok, want_ok) and torch.equal(kept, want),
+          '[21 mesh] G1 differs from its kernel-order twin on a tile')
+    okb = torch.empty_like(kept)
+    k = g1.keep(inp, angles, lo, hi, CLASH)
+
+    def kernels():
+        g1.launch_keep(k)
+        g1.write(k, okb)
+    out['string_grid'] = {
+        'rows': int(ok.numel()), 'kept': int(ok.sum()), 'c2': [lo, hi],
+        'device': str(inp.coords1.device), 'ms': device_ms(kernels),
+        'plain_ms': cuda_ms(lambda: g1.string_grid_order_plain(
+            inp, angles, lo, hi, CLASH), reps=2)}
+    poses, pairs = bcast_poses(inp, angles, lo, hi), inp.pairs
     want = clash.clash_ok_plain(poses, pairs, CLASH)
     e, _ = compare_bits(clash.clash_ok(poses, pairs, CLASH), want,
                         clash_ties(poses, pairs, CLASH), '[21 mesh] K1')
@@ -6134,8 +6480,8 @@ def phase_mesh(card):
     '''Phase 21: the sharded paths on a mesh naming the card MESH_SHARDS
     times. Each route of MESH_ROUTES through the CLI in float64, first
     unsharded, then with the mesh installed and every mesh call site
-    forced (TSCODE_MESH=1): the string sweep's c2 slices (K1 per shard),
-    the rigid block sweeps' row slices (K1 per shard), the back-off
+    forced (TSCODE_MESH=1): the string sweep's c2 slices (G1 per shard),
+    the rigid block sweeps' row slices (B1 per shard), the back-off
     (one torsion_backoff a torsion a shard), the compenetration stage (K2 per
     shard), the TFD first-successor and moments sharded; then REFINE on
     the rigid route's output (every RMSD pass split over the shards, K3
@@ -6169,15 +6515,21 @@ def phase_mesh(card):
     fire = mesh_fire(card, mesh)
     launches = {'clash_ok': 0, 'compenetration_mask_kernel': 0,
                 'torsion_backoff': 0, 'qcp_kill': 0, 'tfd_first': 0,
-                'block_screen': 0}
+                'block_screen': 0, 'string_grid': 0, 'tfd_novelty': 0}
     for r in routes.values():
         for k in launches:
             launches[k] += r['sharded_launches'][k]
         check(r['sharded_launches']['torsion_clash_ok'] ==
               r['unsharded_launches']['torsion_clash_ok'] == 0,
               f'[21 mesh] torsion_clash_ok launched on a route: {r}')
-    check(all(launches.values()), f'[21 mesh] sharded launches {launches}: '
-          f'a kernel did not launch on a sharded path')
+    # K1's clash_ok entry screens no route's grid (G1 and B1 do)
+    check(all(n for k, n in launches.items() if k != 'clash_ok'),
+          f'[21 mesh] sharded launches {launches}: a kernel did not launch '
+          f'on a sharded path')
+    sn2 = routes['sn2_string']['sharded_launches']
+    check(sn2['string_grid'] > 0 and sn2['tfd_novelty'] == 1,
+          f'[21 mesh] sn2_string sharded: G1 {sn2["string_grid"]}, V1 '
+          f'{sn2["tfd_novelty"]} launches')
     cs = routes['csearch_string']
     check(cs['unsharded_launches']['torsion_backoff'] == 8 and
           cs['sharded_launches']['torsion_backoff'] == 8 * MESH_SHARDS,
@@ -6309,7 +6661,10 @@ def trace_kernels(tag, events, spans, api, report):
         block_survivors=report.get('b1_write_launches', 0),
         neb_band=sum(report['kernel_entries'].get('neb_band', {}).values()),
         idpp_fire=sum(
-            report['kernel_entries'].get('idpp_fire', {}).values()))
+            report['kernel_entries'].get('idpp_fire', {}).values()),
+        string_keep=report.get('g1_launches', 0),
+        string_write=report.get('g1_write_launches', 0),
+        tfd_novelty=report.get('v1_launches', 0))
     for wrapper, n in wrappers.items():
         ws = [s for s in spans if s['name'] == wrapper]
         check(len(ws) == n, f'[22 trace] {tag}: {n} {wrapper} launches, '
@@ -6317,7 +6672,8 @@ def trace_kernels(tag, events, spans, api, report):
     for s in spans:
         if s['name'].startswith(('clash.', 'ff_fire.', 'dimer.',
                                  'block_screen.', 'neb_band.',
-                                 'idpp_fire.')):
+                                 'idpp_fire.', 'string_grid.',
+                                 'tfd_novelty.')):
             check(any(w['name'] in wrappers and
                       w['tid'] == s['tid'] and w['ts'] <= s['ts'] and
                       s['ts'] + s['dur'] <= w['ts'] + w['dur']
@@ -6429,7 +6785,8 @@ def traced_route(card, tag, tmp, inp):
     '''One input through the CLI in float64 untraced, then with --trace:
     the same stage counts and frames; the trace checked (trace_check).
     Returns (traced run's report, trace record, span counts, launches of
-    both runs: K1, K2, K3, torsion_backoff, ff_fire, T1, B1).'''
+    both runs: K1, K2, K3, torsion_backoff, ff_fire, T1, B1, then D1, N1
+    and I1 (0 here), G1 and V1).'''
     trace_dir = os.path.join(tmp, 'trace')
     runs = [run_cli(tmp, inp, 'float64', args=args)
             for args in ((), ('--trace', trace_dir))]
@@ -6439,8 +6796,10 @@ def traced_route(card, tag, tmp, inp):
           f'stages {stage_counts(r1)} frames {f1.shape} against the '
           f'untraced run\'s {stage_counts(r0)} {f0.shape}, or other frames')
     rec, names = trace_check(card, tag, trace_file(trace_dir), r1, s1, s0)
-    launches = [0, 0, 0, 0, 0, 0, 0]
+    launches = [0] * 12
     for r, _, _, _ in runs:
+        launches[10] += r['g1_launches']
+        launches[11] += r['v1_launches']
         e = r['clash_entry_launches']
         launches[0] += e['clash_ok'] + e['torsion_clash_ok']
         launches[1] += e['compenetration_mask_kernel']
@@ -6869,11 +7228,14 @@ def phase_trace(card):
     (traced_thread), the search's back-off (traced_backoff) and a bend's
     FIRE call and a captured dimer graph under the trace (traced_fire).
     Then the TFD prune's T1 launches under the trace (traced_tfd).
-    Returns (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
-    B1, D1, N1 and I1 of the runs).'''
+    sn2_string's grid runs G1 and its novelty filter V1: their device
+    events are found in the trace like the others', and the broadcast
+    block's span is absent. Returns (records, launches K1, K2, K3,
+    torsion_backoff, ff_fire, T1, B1, D1, N1, I1, G1 and V1 of the
+    runs).'''
     import tempfile
     from tscode_tpu_torch.suite_inputs import refine_input
-    recs, launches = {}, [0] * 10
+    recs, launches = {}, [0] * 12
 
     def add(n):
         for i, k in enumerate(n):
@@ -6889,10 +7251,20 @@ def phase_trace(card):
         se = rep['string_embed']
         got = (se['candidates'], se['clash_ok'], se['novel'],
                rep['final_structures'])
+        kernels = recs['sn2_string']['kernels']
+        found = [kernels.get(f'{lib}.{e}', {}).get('events', 0) for lib, e in
+                 (('string_grid', 'string_keep_f64'),
+                  ('string_grid', 'string_write_f64'),
+                  ('tfd_novelty', 'tfd_novelty_f64'))]
         check(got == STRING_F64 and se['tfd_lane'] == 'device' and
-              'tfd_novelty_device' in names and 'bcast_block' in names,
+              'tfd_novelty_device' in names and
+              'grid_screen_queued' in names and
+              'bcast_block' not in names and found[0] == found[1] ==
+              rep['g1_launches'] > 0 and found[2] == rep['v1_launches'] == 1,
               f'[22 trace] sn2_string: {got} (JAX x64 {STRING_F64}), lane '
-              f'{se["tfd_lane"]}, spans {sorted(names)}')
+              f'{se["tfd_lane"]}, G1 keep / write and V1 events {found} for '
+              f'{rep["g1_launches"]} / {rep["v1_launches"]} launches, spans '
+              f'{sorted(names)}')
         rep, recs['chelotropic_nonrigid'], names, n = route(
             'chelotropic_nonrigid', 'chelotropic_nonrigid', CHEL_BEND_CONFS)
         add(n)
@@ -6944,8 +7316,9 @@ def phase_trace(card):
     print(f'[22 trace] launches in the traced and untraced runs: K1 '
           f'{launches[0]}, K2 {launches[1]}, K3 {launches[2]}, ff_fire '
           f'{launches[4]}, T1 {launches[5]}, B1 {launches[6]}, D1 '
-          f'{launches[7]}, N1 {launches[8]}, I1 {launches[9]}; every launch '
-          f'of a traced run found in its trace [{card}]')
+          f'{launches[7]}, N1 {launches[8]}, I1 {launches[9]}, G1 '
+          f'{launches[10]}, V1 {launches[11]}; every launch of a traced run '
+          f'found in its trace [{card}]')
     return recs, launches
 
 
@@ -6956,7 +7329,7 @@ def trace_process(card):
     events for 4,196 kernel launch calls on sn2_string), and one taken
     after a 2.6 GB trace lost more. Its lines are printed here; returns
     its (records, launches K1, K2, K3, torsion_backoff, ff_fire, T1,
-    B1, D1, N1, I1).'''
+    B1, D1, N1, I1, G1, V1).'''
     r = subprocess.run([sys.executable, os.path.abspath(__file__),
                         '--trace'], capture_output=True, text=True,
                        timeout=900)
@@ -7224,6 +7597,82 @@ def b1_kernel_line(routes, sharded):
             'mesh': {'launches': sharded}, 'routes': routes}
 
 
+def g1_kernel_line(routes, sharded=None):
+    '''G1's entry of the kernels line: the headline's float32 record
+    (phase 5: the heavy atoms of the main path) for the times and the
+    bound, beside the route before it (the broadcast block, K1 and the
+    compaction), each grid's record (phases 4 to 7, 17), its keep
+    launches on the main path by phase and on phase 21's shards.'''
+    main = routes['headline_f32']
+    return {'name': 'string_grid', 'route': 'cuda',
+            'source': 'tscode_tpu_torch/csrc/string_grid.cu',
+            'replaces': 'tscode_tpu/embeds/string.py:134',
+            'launches': sum(G1_LAUNCHES.values()),
+            # kept rows against the broadcast block's (the mesh tile is
+            # held to its kernel-order twin's bits only)
+            'max_abs_err': max(r.get('max_pose_diff_A', 0.0)
+                               for r in routes.values()),
+            'ms': main['ms'], 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': None, 'kernels_ms': main['kernels_ms'],
+            'keep_ms': main['keep_ms'],
+            'route_before_ms': main['route_before_ms'],
+            'launches_by_phase': dict(G1_LAUNCHES),
+            'mesh': {'launches': sharded}, 'routes': routes}
+
+
+def v1_kernel_line(routes, sharded=None):
+    '''V1's entry of the kernels line: sn2_string's record (phase 6, the
+    float64 clash survivors' fingerprints) for the times and the bound,
+    beside the per-block host loop it replaced, each route's record, its
+    launches on the main path by phase and on phase 21's shards.'''
+    main = routes['sn2_string']
+    return {'name': 'tfd_novelty', 'route': 'cuda',
+            'source': 'tscode_tpu_torch/csrc/tfd_novelty.cu',
+            'replaces': 'tscode_tpu/ops/tfd.py:230',
+            'launches': sum(V1_LAUNCHES.values()), 'max_abs_err': 0,
+            'ms': main['ms'], 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': None, 'loop_ms': main['loop_ms'],
+            'host_replay_ms': main['host_replay_s'] * 1e3,
+            'launches_by_phase': dict(V1_LAUNCHES),
+            'mesh': {'launches': sharded}, 'routes': routes}
+
+
+def phase_string_grids(card, out=None):
+    '''Phases 4 to 7 alone (`--string OUT.json`): the headline in float64
+    and float32, sn2_string and large_n_string, G1 and V1 held to their
+    gates and timed; the records into OUT.json, their kernel lines
+    printed.'''
+    import tempfile
+    from tscode_tpu_torch.pipeline import build_workload
+    mols = build_workload()
+    PHASE[0] = '4'
+    _, _, _, cap64, g64 = timed_phase('4 main f64', phase_main_f64, card,
+                                      mols)
+    phase_small_parity()
+    PHASE[0] = '5'
+    _, g32 = timed_phase('5 main f32', phase_main_f32, card, mols)
+    string = timed_phase('6 string', phase_string_route, card)
+    with tempfile.TemporaryDirectory(prefix='smoke_keep_') as keep:
+        large = timed_phase('7 large_n', phase_large_route, card, keep)
+        grid, _, _ = timed_phase('7 large_n grid', phase_large_grid, card)
+    g1 = {'headline_f64': g64, 'headline_f32': g32,
+          'sn2_string': string['g1'], 'sn2_string_f32': string['g1_f32'],
+          'large_n_string': large['g1'],
+          'large_n_grid_f64': grid['float64'],
+          'large_n_grid_f32': grid['float32']}
+    v1 = {'sn2_string': string['v1'], 'large_n_string': large['v1']}
+    if out is not None:
+        with open(out, 'w') as f:
+            json.dump({'card': card, 'g1': g1, 'v1': v1,
+                       'captured_f64': cap64,
+                       'cli': {'sn2_string': string['cli'],
+                               'large_n_string': large['cli']}}, f,
+                      indent=1)
+    return g1, v1
+
+
 def d1_kernel_line(d1):
     '''D1's entry of the kernels line: phase 18's record on the SADDLE
     scan's sub-peak guess (the rule's form, the staged form beside it,
@@ -7396,6 +7845,12 @@ def main():
         phase_build()
         dimer_sweep(card, sys.argv[2])
         return
+    if sys.argv[1:2] == ['--string']:        # --string OUT.json
+        phase_build()
+        g1, v1 = phase_string_grids(card, sys.argv[2])
+        print(json.dumps({'string_grid': g1_kernel_line(g1),
+                          'tfd_novelty': v1_kernel_line(v1)}))
+        return
     if sys.argv[1:2] == ['--fire']:          # --fire OUT.json
         phase_build()
         with open(sys.argv[2], 'w') as f:
@@ -7407,23 +7862,23 @@ def main():
     phase_build()
     errs, crossover = timed_phase('3 kernels', phase_kernels, card)
     mols = build_workload()
-    recs64, errs['qcp_f64'], main64, captured64 = timed_phase(
+    recs64, errs['qcp_f64'], main64, captured64, g1_64 = timed_phase(
         '4 main f64', phase_main_f64, card, mols)
     phase_small_parity()
-    kernels = timed_phase('5 main f32', phase_main_f32, card, mols)
+    kernels, g1_32 = timed_phase('5 main f32', phase_main_f32, card, mols)
     kernels[1]['passes'] += recs64
     kernels[1]['launches'] += main64['qcp_kill']
     kernels[2]['launches'] += main64['qcp_kill_dev']
     kernels[2]['captured']['float64'] = captured64
     errs['qcp_kill'] = max(errs['qcp_kill'], errs.pop('qcp_f64'))
-    PHASE[0] = '6-9'
-    kernels[0]['launches'] += phase_string_route(card)
+    PHASE[0] = '6'
+    string = phase_string_route(card)
     with tempfile.TemporaryDirectory(prefix='smoke_keep_') as keep:
-        route = phase_large_route(card, keep)
-        grid, errs['clash7'] = phase_large_grid(card)
-        kernels[0]['launches'] += sum(route.values()) + sum(grid.values())
-        print(f'[7 large_n] clash launches by regime: CLI runs {route}, '
-              f'76-conformer grids {grid}')
+        PHASE[0] = '7'
+        large = phase_large_route(card, keep)
+        grid, grid_k1, errs['clash7'] = phase_large_grid(card)
+        print(f'[7 large_n] K1 launches by regime on the 76-conformer grids '
+              f'(its yardstick record) {grid_k1}')
         errs['clash'] = max(errs['clash'], errs.pop('clash7'))
         with tempfile.TemporaryDirectory(prefix='smoke_cyc_') as tmp:
             PHASE[0] = '8'
@@ -7446,8 +7901,8 @@ def main():
                                phase_small_bend_routes, card)
     k1_16, nb_16, e16, drive = timed_phase('16 torsion_drive',
                                            phase_torsion_drive, card)
-    k1_17, nb_17, e17, backoff, t1 = timed_phase('17 csearch_string',
-                                                 phase_search_string, card)
+    string17, nb_17, e17, backoff, t1 = timed_phase('17 csearch_string',
+                                                    phase_search_string, card)
     k3_18, e18, scan = timed_phase('18 dihedral_scan', phase_dihedral_scan,
                                    card)
     ops = timed_phase('19 ff_operators', phase_ff_operators, card)
@@ -7455,7 +7910,9 @@ def main():
     k3_20, e20, opt = timed_phase('20 opt_route', phase_opt_route, card)
     mesh, sharded, e21 = timed_phase('21 mesh', phase_mesh, card)
     trace, (k1_22, k2_22, k3_22, nb_22, ff_22, t1_22, b1_22, d1_22, n1_22,
-            i1_22) = timed_phase('22 trace', trace_process, card)
+            i1_22, g1_22, v1_22) = timed_phase('22 trace', trace_process, card)
+    G1_LAUNCHES['22'] = g1_22
+    V1_LAUNCHES['22'] = v1_22
     FIRE_LAUNCHES['22'] = ff_22
     DIMER_LAUNCHES['22'] = d1_22
     NEB_LAUNCHES['22'] = n1_22
@@ -7467,6 +7924,15 @@ def main():
           f'B1 launches by phase {B1_LAUNCHES}: a phase that runs a block '
           f'sweep on the card did not launch it')
     print(f'[block_screen] launches of B1 by phase {B1_LAUNCHES} [{card}]')
+    G1_LAUNCHES['21'] = sharded['string_grid']
+    V1_LAUNCHES['21'] = sharded['tfd_novelty']
+    check(all(G1_LAUNCHES.get(p, 0) > 0 for p in
+              ('4', '5', '6', '7', '17', '21', '22')) and
+          all(V1_LAUNCHES.get(p, 0) > 0 for p in ('6', '7', '17', '21', '22')),
+          f'G1 launches by phase {G1_LAUNCHES}, V1 {V1_LAUNCHES}: a phase '
+          f'that runs a string grid on the card did not launch them')
+    print(f'[string_grid] launches of G1 by phase {G1_LAUNCHES}, of V1 '
+          f'{V1_LAUNCHES} [{card}]')
     check(all(TFD_LAUNCHES.get(p, 0) > 0 for p in ('16', '17', '21', '22')),
           f'T1 launches by phase {TFD_LAUNCHES}: a phase that runs the TFD '
           f'prune on the card did not launch it')
@@ -7487,8 +7953,13 @@ def main():
           f'launch them')
     print(f'[neb] launches of N1 by phase {NEB_LAUNCHES}, of I1 '
           f'{IDPP_LAUNCHES} [{card}]')
+    # K1's clash_ok entry screens no route's grid any more (G1 the string
+    # grids, B1 the block sweeps); its kernels run on the routes under
+    # K2's entry, counted in its own line
     kernels[0]['launches'] += k1 + k1_10 + k1_11 + k1_12 + k1_14 + k1_15 + \
-        k1_16 + k1_17 + sharded['clash_ok'] + k1_22
+        k1_16 + sharded['clash_ok'] + k1_22
+    kernels[0]['kernel_launches_under_k2'] = k2_10 + k2_11 + k2_15 + \
+        sharded['compenetration_mask_kernel'] + k2_22
     kernels[0]['chunks'] = {'cyclical': chunk8, 'trimolecular': chunk12}
     kernels[0]['crossover'] = crossover
     kernels[1]['launches'] += k3 + k3_18 + k3_20 + sharded['qcp_kill'] + \
@@ -7572,6 +8043,17 @@ def main():
          'trimolecular_rigid': b1_12,
          'trimolecular_nonrigid': bend14['b1_groups']},
         sharded['block_screen']))
+    kernels.append(g1_kernel_line(
+        {'headline_f64': g1_64, 'headline_f32': g1_32,
+         'sn2_string': string['g1'], 'sn2_string_f32': string['g1_f32'],
+         'large_n_string': large['g1'], 'large_n_grid_f64': grid['float64'],
+         'large_n_grid_f32': grid['float32'],
+         'csearch_string': string17['g1'],
+         'mesh_tile': mesh['kernels']['string_grid']},
+        sharded['string_grid']))
+    kernels.append(v1_kernel_line(
+        {'sn2_string': string['v1'], 'large_n_string': large['v1'],
+         'csearch_string': string17['v1']}, sharded['tfd_novelty']))
     check('jax' not in sys.modules, 'jax was imported')
     check('sklearn' not in sys.modules, 'scikit-learn was imported')
     jax_pkg = sorted(m for m in sys.modules

@@ -17,7 +17,7 @@ import torch
 from tscode_tpu_torch.embedder import Embedder, RunEmbedding
 from tscode_tpu_torch.embeds import cyclical
 from tscode_tpu_torch.ops.clash import cross_fragment_pair_mask
-from tscode_tpu_torch.ops.kernels import clash, qcp
+from tscode_tpu_torch.ops.kernels import clash, qcp, string_grid
 from tscode_tpu_torch.ops.kernels import tfd as tfd_k
 from tscode_tpu_torch.ops.linalg import rmsd_and_max, rotate_dihedral
 from tscode_tpu_torch.ops.rmsd_prune import (pair_gate_matrices,
@@ -351,11 +351,13 @@ def test_pipeline_replay_makes_no_host_sync(cuda_device):
 
 def test_small_slice_on_card_matches_cpu(cuda_device):
     mols = build_workload(n_confs=6)
-    before = (clash.KERNEL.launches, qcp.KERNEL.launches)
+    before = (string_grid.KERNEL.launches, qcp.KERNEL.launches,
+              clash.KERNEL.launches)
     gpu = run_pipeline(*mols, device=cuda_device, dtype=torch.float64,
                        return_masks=True)
-    assert clash.KERNEL.launches > before[0]
+    assert string_grid.KERNEL.launches > before[0]   # the grid: G1
     assert qcp.KERNEL.launches > before[1]
+    assert clash.KERNEL.launches == before[2]        # no K1 on the grid
     cpu = run_pipeline(*mols, device='cpu', return_masks=True)
     assert gpu[2:4] == cpu[2:4] == (1362, 6)
     np.testing.assert_array_equal(gpu[4]['clash_ok'], cpu[4]['clash_ok'])
@@ -2167,12 +2169,15 @@ def test_optimisation_route_on_card_matches_cpu(cuda_device, tmp_path):
 def test_kernels_launch_on_their_tensors_card(cuda_device):
     '''K1, K2 and K3 on tensors placed on cuda:1 while cuda:0 is the
     current device, against their plain twins; FIRE's captured graph, the
-    force field's FIRE kernel, N1 and I1 too. It needs two cards: the
-    one-card machine that runs chip_smoke.py skips it, so it is not verified
-    there.'''
+    force field's FIRE kernel, N1, I1, G1 and V1 too. It needs two cards:
+    the one-card machine that runs chip_smoke.py skips it, so it is not
+    verified there.'''
     if torch.cuda.device_count() < 2:
         pytest.skip('needs two GPUs: the kernels must launch on the card '
                     'of their tensors, not on the current device')
+    from tscode_tpu_torch.embeds.string import spin_angles
+    from tscode_tpu_torch.ops.kernels import string_grid as g1
+    from tscode_tpu_torch.ops.kernels import tfd_novelty as v1
     from tscode_tpu_torch.optimizers import fire_minimize_batch
     dev1 = torch.device('cuda', 1)
     rng = np.random.default_rng(21)
@@ -2245,6 +2250,21 @@ def test_kernels_launch_on_their_tensors_card(cuda_device):
             assert float((got[0] - want[0]).abs().max()) <= 1e-6
         got = idpp.launch_v1(band, *tables, 50)
         assert float((got[0] - want[0]).abs().max()) <= 1e-6
+        # G1, the string grid, in both regimes, and V1, the novelty filter
+        for N1, N2 in ((6, 5), (40, 40)):
+            inp = grid_inputs(rng, 3, 4, N1, N2, 2, 1, torch.float64, dev1)
+            angles = spin_angles(36, torch.float64, dev1)
+            got, ok = g1.string_grid(inp, angles, 0, 4, 1.5, heavy=True)
+            want, want_ok = g1.string_grid_order_plain(inp, angles, 0, 4,
+                                                       1.5, heavy=True)
+            assert got.device == dev1
+            assert torch.equal(ok, want_ok) and torch.equal(got, want)
+        fps = torch.as_tensor(novelty_fps(rng, 20000, 8, 200, 0.5),
+                              device=dev1)
+        novel, state = v1.tfd_novelty(fps)
+        plain, p_ok, n, _ = v1.novelty_plain(fps)
+        assert novel.device == dev1 and p_ok
+        assert torch.equal(novel, plain) and state.tolist() == [n, 1]
         torch.cuda.synchronize(dev1)
 
 
@@ -2328,9 +2348,12 @@ def test_sharded_routes_on_a_card_mesh_match_unsharded(cuda_device,
     kw = dict(log=lambda *a: None, device=cuda_device, dtype=torch.float64)
     want = string_embed(*sn2.objects, sn2.systematic_angles, **kw)[0]
     clash.KERNEL.reset_counts()
+    string_grid.KERNEL.reset_counts()
     got = string_embed(*sn2.objects, sn2.systematic_angles, mesh=mesh,
                        **kw)[0]
-    assert clash.launches_by_entry()['clash_ok'] == 4   # a tile a shard
+    # G1 a tile a shard, and no K1 on the grid
+    assert string_grid.KERNEL.wrapper_launches['string_keep'] == 4
+    assert clash.launches_by_entry()['clash_ok'] == 0
     assert got.shape == want.shape and np.abs(got - want).max() <= 1e-9
 
     (card,), poses, nos = spacing_embedders(tmp_path, (cuda_device,))
@@ -2465,3 +2488,166 @@ def test_tfd_first_equals_its_first_design_on_every_plan(cuda_device, q):
                 tf, 10.0, mesh, d=d, k=k, num_active=num_active)
             np.testing.assert_array_equal(got, want)
     assert hits > 0
+
+
+def grid_inputs(rng, n1c, n2c, N1, N2, k1, k2, dtype, device, spread=1.5):
+    '''GridInputs of two random fragments of N1 and N2 atoms (n1c and n2c
+    conformers, k1 and k2 lobes): lobe centers near each fragment's edge,
+    orbital vectors of random direction; pairs close enough that some
+    poses clash and some do not.'''
+    from tscode_tpu_torch.embeds.common import GridInputs
+    from tscode_tpu_torch.ops.clash import static_pairs
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    c1 = rng.normal(size=(n1c, N1, 3)) * spread
+    c2 = rng.normal(size=(n2c, N2, 3)) * spread
+    pm = cross_fragment_pair_mask((N1, N2))
+    heavy = np.arange(0, N1 + N2, 2)
+    return GridInputs(
+        coords1=t(c1), coords2=t(c2),
+        centers1=t(rng.normal(size=(n1c, k1, 3)) + [spread * 2.5, 0, 0]),
+        vecs1=t(rng.normal(size=(n1c, k1, 3))),
+        centers2=t(rng.normal(size=(n2c, k2, 3)) - [spread * 2.5, 0, 0]),
+        vecs2=t(rng.normal(size=(n2c, k2, 3))),
+        pair_mask=torch.as_tensor(pm, device=device),
+        pairs=torch.as_tensor(static_pairs(pm), device=device),
+        heavy_idx=torch.as_tensor(heavy, device=device))
+
+
+# (n1c, n2c, N1, N2, k1, k2, A): the thread regime (P = 30, the
+# headline's shape; P = 6 with 3 x 2 lobes and 37 angles), the warp
+# regime (P = 1,600; P = 5,476, large_n_string's)
+G1_CASES = [(5, 4, 6, 5, 2, 1, 36), (3, 7, 2, 3, 3, 2, 37),
+            (4, 3, 40, 40, 1, 2, 12), (2, 3, 74, 74, 1, 1, 36)]
+
+
+@pytest.mark.parametrize('case', G1_CASES)
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_string_grid_kernel_matches_its_twins(cuda_device, case, dtype):
+    '''G1 on the whole grid and on c2 tiles: the kernel-order twin's mask
+    and kept rows bit for bit (all atoms and the heavy ones), the same
+    bits twice; the broadcast block with K1's plain twin the same mask
+    off pairs within 1e-9 A^2 of thr^2, the kept rows within 1e-12 A
+    (float64) or 1e-4 A (float32).'''
+    from tscode_tpu_torch.embeds.string import bcast_poses, spin_angles
+    from tscode_tpu_torch.ops.kernels import string_grid as g1
+    n1c, n2c, N1, N2, k1, k2, A = case
+    rng = np.random.default_rng(sum(case))
+    inp = grid_inputs(rng, n1c, n2c, N1, N2, k1, k2, dtype, cuda_device)
+    angles = spin_angles(A, dtype, cuda_device)
+    for lo, hi in ((0, n2c), (0, 1), (1, n2c)):
+        for heavy in (False, True):
+            got, ok = g1.string_grid(inp, angles, lo, hi, 1.5, heavy)
+            again, ok2 = g1.string_grid(inp, angles, lo, hi, 1.5, heavy)
+            want, want_ok = g1.string_grid_order_plain(inp, angles, lo, hi,
+                                                       1.5, heavy)
+            assert torch.equal(ok, want_ok) and torch.equal(got, want)
+            assert torch.equal(got, again) and torch.equal(ok, ok2)
+        assert 0 < int(ok.sum()) < ok.numel()
+        poses = bcast_poses(inp, angles, lo, hi)
+        plain = clash.clash_ok_plain(poses, inp.pairs, 1.5)
+        P = poses.double()
+        pl = inp.pairs.long()
+        d2 = torch.sum((P[:, pl[:, 0]] - P[:, pl[:, 1]]) ** 2, dim=-1)
+        tie = ((d2 - 2.25).abs() < 1e-9).any(dim=1)
+        assert torch.equal(ok[~tie], plain[~tie])
+        both = ok & plain
+        got, _ = g1.string_grid(inp, angles, lo, hi, 1.5)
+        tol = 1e-12 if dtype == torch.float64 else 1e-4
+        assert float((got[both[ok]] - poses[both]).abs().max()) <= tol
+    plan = g1.plan_for(N1, N2, N1 * N2, k1 * k2 * A, angles.element_size())
+    assert plan['regime'] == ('warp' if N1 * N2 >= 64 else 'thread')
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_string_grid_writes_into_a_pool_at_a_device_offset(cuda_device,
+                                                           dtype):
+    '''string_grid_into: the heavy atoms from row n_ok[0] of the pool, the
+    rows past it dropped and counted, no host read (the sync debug mode
+    raises on one); equal to its twin bit for bit; the pipeline's
+    bounded compaction equal to the CPU run's (1e-12 A in float64).'''
+    from tscode_tpu_torch.embeds.string import spin_angles
+    from tscode_tpu_torch.ops.kernels import string_grid as g1
+    from tscode_tpu_torch.pipeline import (clash_survivors_bounded,
+                                           inputs_from_numpy)
+    rng = np.random.default_rng(5)
+    inp = grid_inputs(rng, 6, 5, 6, 5, 2, 1, dtype, cuda_device)
+    angles = spin_angles(36, dtype, cuda_device)
+    n_kept = int(g1.string_grid(inp, angles, 0, 5, 1.5)[1].sum())
+    for s_pool, base in ((2 * n_kept, 0), (n_kept // 2, 7), (n_kept, 3)):
+        H = inp.heavy_idx.numel()
+        pool = torch.zeros((s_pool, H, 3), dtype=dtype, device=cuda_device)
+        n0 = torch.tensor([base], device=cuda_device)
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            ok, n = g1.string_grid_into(inp, angles, 0, 5, 1.5, pool, n0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = torch.zeros_like(pool)
+        ok_w, n_w = g1.string_grid_into_plain(inp, angles, 0, 5, 1.5, want,
+                                              n0)
+        assert torch.equal(ok, ok_w) and int(n) == int(n_w) == base + n_kept
+        assert torch.equal(pool, want)
+    mols = build_workload(n_confs=6)
+    card = inputs_from_numpy(*mols, cuda_device, torch.float64)
+    cpu = inputs_from_numpy(*mols, 'cpu', torch.float64)
+    got = clash_survivors_bounded(card, 1024, 36)
+    want = clash_survivors_bounded(cpu, 1024, 36)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert float((got[1].cpu() - want[1]).abs().max()) <= 1e-12
+    assert torch.equal(got[2].cpu(), want[2]) and int(got[3]) == int(want[3])
+
+
+def novelty_fps(rng, B, Q, n_clusters, spread):
+    centers = rng.uniform(-180, 180, size=(n_clusters, Q))
+    fps = centers[rng.integers(0, n_clusters, B)] + \
+        rng.normal(size=(B, Q)) * spread
+    return ((fps + 180) % 360 - 180).astype(np.float32)
+
+
+# (B, Q, clusters, spread, block, cache_cap, accept probability): a
+# typical string route (few novel rows, heavy duplication), chains inside
+# blocks, small blocks, a cache past shared memory (Q = 30) with many
+# undecided rows in later tiles, overflow, a block past a tile's 4,096
+# rows with chains, one tile overflowing at once (large_n_string's shape)
+NOVELTY_CASES = [(50000, 10, 300, 0.5, 4096, 1024, 1.0),
+                 (20000, 7, 100, 3.0, 4096, 1024, 0.7),
+                 (5000, 6, 60, 3.0, 16, 1024, 1.0),
+                 (8000, 30, 1500, 0.5, 4096, 4000, 1.0),
+                 (9000, 12, 400, 0.2, 4096, 40, 1.0),
+                 (30000, 9, 2000, 2.0, 16384, 4096, 0.9),
+                 (1704, 46, 1704, 0.5, 4096, 1024, 1.0)]
+
+
+@pytest.mark.parametrize('case', NOVELTY_CASES)
+def test_novelty_kernel_matches_the_host_replay(cuda_device, case):
+    '''V1 against the native host replay (is_new_structure_lru) and its
+    plain twin, exactly, the same bits twice; past cache_cap ok is False
+    and tfd_novelty_device reports the host lane; one launch and at most
+    two host reads.'''
+    from tscode_tpu_torch.ops.kernels import tfd_novelty as v1
+    from tscode_tpu_torch.ops.tfd import (is_new_structure_lru,
+                                          tfd_novelty_device)
+    B, Q, ncl, spread, block, cap, accept_p = case
+    rng = np.random.default_rng(B + Q)
+    fps = novelty_fps(rng, B, Q, ncl, spread)
+    accept = rng.random(B) < accept_p
+    want = is_new_structure_lru(fps, accept, thresh=10)
+    t = torch.as_tensor(fps, device=cuda_device)
+    acc = torch.as_tensor(accept, device=cuda_device)
+    v1.KERNEL.reset_counts()
+    stats = {}
+    got, ok = tfd_novelty_device(t, accept, thresh=10, block=block,
+                                 cache_cap=cap, stats=stats)
+    assert v1.KERNEL.launches == 1 and stats['kernel'] == 'V1'
+    assert stats['host_syncs'] <= 2
+    assert ok == (want.sum() <= cap)
+    n1, s1 = v1.tfd_novelty(t, acc, 10.0, block, cap)
+    n2, s2 = v1.tfd_novelty(t, acc, 10.0, block, cap)
+    assert torch.equal(n1, n2) and torch.equal(s1, s2)
+    plain, p_ok, p_n, _ = v1.novelty_plain(t, acc, 10.0, block, cap)
+    assert s1.tolist() == [p_n, int(p_ok)]
+    if ok:
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(n1, plain)

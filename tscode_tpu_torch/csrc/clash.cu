@@ -138,11 +138,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "clash_scan.cuh"
+
 #define PAIR_TILE 2048            // v1 kernel: pairs per tile (16 KB)
 #define STATIC_SMEM (48 * 1024)   // no opt-in attribute needed below this
-#define WARP_UNROLL 4             // warp regime: 32-pair rows per step
-#define WARP_STEP (32 * WARP_UNROLL)
-#define MAX_ATOMS_PACKED 65535    // two 16-bit indices per pair word
 #define RING_MAX_STAGES 4         // thread regime: shared-memory stages
 #define RING_BAR_BYTES 32         // RING_MAX_STAGES mbarriers of 8 bytes
 #define MAX_DEVICES 64            // per-card opt-in bookkeeping
@@ -162,16 +161,6 @@ static int opt_in_smem(Fn fn, long long bytes, long long* done) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (!err) done[dev] = bytes;
   return err;
-}
-
-// the whole block packs pairs [p0, p0 + np) as (i << 16) | j
-__device__ __forceinline__ void pack_pairs(unsigned* dst,
-                                           const int* __restrict__ pairs,
-                                           int p0, int np) {
-  for (int k = threadIdx.x; k < np; k += blockDim.x) {
-    const long long at = 2 * ((long long)p0 + k);
-    dst[k] = ((unsigned)pairs[at] << 16) | (unsigned)pairs[at + 1];
-  }
 }
 
 template <int G>
@@ -486,34 +475,6 @@ __device__ __forceinline__ void copy_pose(unsigned char* dst,
                                           int n_gran, int lane) {
   for (int g = lane; g < n_gran; g += 32)
     cp_async<G>(dst + (size_t)g * G, src + (size_t)g * G);
-}
-
-// one warp counts the pairs of s_pairs[0, np) with d^2 < thr2 on the pose
-// x (shared memory), adding to `count`; it stops once the count passes
-// max_clashes. Every lane returns the same count.
-template <typename T>
-__device__ __forceinline__ int scan_pairs(const unsigned* s_pairs, int np,
-                                          const T* x, T thr2, int count,
-                                          int max_clashes, int lane) {
-  for (int k0 = 0; k0 < np; k0 += WARP_STEP) {
-#pragma unroll
-    for (int u = 0; u < WARP_UNROLL; ++u) {
-      const int k = k0 + u * 32 + lane;
-      bool hit = false;
-      if (k < np) {
-        const unsigned w = s_pairs[k];
-        const int i = 3 * (int)(w >> 16), j = 3 * (int)(w & 0xffffu);
-        const T dx = x[i] - x[j];
-        const T dy = x[i + 1] - x[j + 1];
-        const T dz = x[i + 2] - x[j + 2];
-        const T d2 = dx * dx + dy * dy + dz * dz;
-        hit = d2 < thr2;
-      }
-      count += __popc(__ballot_sync(0xffffffffu, hit));
-    }
-    if (count > max_clashes) break;   // warp-uniform
-  }
-  return count;
 }
 
 // tile >= P: the pair list is resident and each warp walks its poses

@@ -6,12 +6,14 @@ The (c2, c1, l2, l1, angle) grid (conformer of molecule 2, conformer of
 molecule 1, lobe of 2, lobe of 1, spin angle) is built by broadcasting,
 with no per-pose gathers, in tiles of whole c2 values; the C-order
 flattening is the reference's generation order, on which the novelty
-filter depends. Per tile: the poses, the clash screen (kernel K1 on
-CUDA, its plain twin on the CPU), survivor compaction on the device and
-the survivors' torsion fingerprints. With a mesh (parallel/sharding.py),
+filter depends. Per tile, grid_screen: on CUDA the kernel G1
+(ops/kernels/string_grid: the poses' frames, the clash screen and the
+survivors' write, no pose written but a survivor), on the CPU its plain
+twin (bcast_poses, K1's plain twin, the mask's compaction); then the
+survivors' torsion fingerprints. With a mesh (parallel/sharding.py),
 the tiles are cut into contiguous runs, one per device, each tile
-screened with K1 on its device and compacted into that device's own
-survivor accumulator, and the survivors are joined in ascending c2 on
+screened by G1 on its device and appended to that device's own survivor
+accumulator, and the survivors are joined in ascending c2 on
 the mesh's first device (the JAX package's _string_sweep_sharded). The
 clash survivors and their fingerprints stay on the device; the
 order-dependent TFD novelty filter runs on the device on CUDA and as the
@@ -35,6 +37,7 @@ from tscode_tpu_torch.backend import (default_dtype, get_device, synchronize,
                                       traced)
 from tscode_tpu_torch.embeds.common import (DeviceSurvivors,
                                             inputs_from_numpy)
+from tscode_tpu_torch.ops.kernels import string_grid as g1
 from tscode_tpu_torch.ops.kernels.clash import clash_ok
 from tscode_tpu_torch.ops.linalg import (rot_mat_from_pointer,
                                          rotation_matrix_from_vectors)
@@ -57,11 +60,9 @@ def spin_angles(angles, dtype, device):
                            dtype=dtype, device=device)
 
 
-@traced
-def bcast_block(inp, angles, c2_lo, c2_hi, clash_thresh):
-    '''Poses and clash accept mask of the grid rows of c2 values
-    [c2_lo, c2_hi): (poses (B, N1+N2, 3), ok (B,) bool), built by
-    broadcasting over the (c2, c1, l2, l1, angle) axes.'''
+def bcast_poses(inp, angles, c2_lo, c2_hi):
+    '''Poses (B, N1+N2, 3) of the grid rows of c2 values [c2_lo, c2_hi),
+    built by broadcasting over the (c2, c1, l2, l1, angle) axes.'''
     coords2 = inp.coords2[c2_lo:c2_hi]
     n1c, k1 = inp.centers1.shape[0], inp.centers1.shape[1]
     g = c2_hi - c2_lo
@@ -84,8 +85,65 @@ def bcast_block(inp, angles, c2_lo, c2_hi, clash_thresh):
     f1 = inp.coords1[None, :, None, None, None].expand(
         shape5 + inp.coords1.shape[1:])
     f2 = f2.expand(shape5 + f2.shape[-2:])
-    poses = torch.cat([f1, f2], dim=-2).reshape(-1, inp.n_atoms, 3)
+    return torch.cat([f1, f2], dim=-2).reshape(-1, inp.n_atoms, 3)
+
+
+@traced
+def bcast_block(inp, angles, c2_lo, c2_hi, clash_thresh):
+    '''Poses and clash accept mask of the grid rows of c2 values
+    [c2_lo, c2_hi): (poses (B, N1+N2, 3), ok (B,) bool), the poses by
+    bcast_poses, the screen by K1 (its plain twin on the CPU). The
+    string grid's yardstick and the CPU form of the headline's grid:
+    the routes screen through grid_screen.'''
+    poses = bcast_poses(inp, angles, c2_lo, c2_hi)
     return poses, clash_ok(poses, inp.pairs, clash_thresh)
+
+
+@traced
+def grid_screen_queued(inp, angles, c2_lo, c2_hi, clash_thresh, heavy=False):
+    '''grid_screen in two steps: returns (ok (B,) bool, finish), where
+    finish() gives the survivors. On a CUDA tensor G1's keep launch is
+    queued and finish reads its total and launches the write, so the
+    screens of several devices can be queued before any read; on a CPU
+    tensor the twin has run and finish returns its survivors.'''
+    if inp.coords1.is_cuda:
+        k = g1.keep(inp, angles, c2_lo, c2_hi, clash_thresh)
+        return k.ok, lambda: g1.survivors(
+            k, inp.heavy_idx if heavy else None)
+    if inp.coords1.device.type != 'cpu':
+        raise ValueError(f'grid_screen: unsupported device '
+                         f'{inp.coords1.device}')
+    kept, ok = g1.string_grid_plain(inp, angles, c2_lo, c2_hi, clash_thresh,
+                                    heavy)
+    return ok, lambda: kept
+
+
+@traced
+def grid_screen(inp, angles, c2_lo, c2_hi, clash_thresh, heavy=False):
+    '''The grid rows of c2 values [c2_lo, c2_hi) screened for clashes:
+    (kept (S, N1+N2, 3), or with heavy=True their heavy atoms (S, H, 3),
+    the clash survivors in grid order; ok (B,) bool). On a CUDA tensor
+    G1's two launches (ops/kernels/string_grid: no pose written but a
+    survivor, one host read of the total between them); on a CPU tensor
+    the plain twin string_grid_plain (bcast_poses, clash_ok_plain, the
+    mask's compaction).'''
+    ok, finish = grid_screen_queued(inp, angles, c2_lo, c2_hi, clash_thresh,
+                                    heavy)
+    return finish(), ok
+
+
+def grid_screen_into(inp, angles, c2_lo, c2_hi, clash_thresh, pool, n_ok):
+    '''grid_screen's survivors' heavy atoms written into pool (s_pool, H,
+    3) from row n_ok[0] (int64, on the pool's device), the rows past the
+    pool dropped: returns (ok (B,) bool, n_ok + the kept rows). On a CUDA
+    tensor G1's two launches with no host read (string_grid_into); on a
+    CPU tensor grid_screen's twin, written at n_ok read on the host.'''
+    if inp.coords1.is_cuda:
+        return g1.string_grid_into(inp, angles, c2_lo, c2_hi, clash_thresh,
+                                   pool, n_ok)
+    kept, ok = grid_screen(inp, angles, c2_lo, c2_hi, clash_thresh,
+                           heavy=True)
+    return ok, g1.into_pool(kept, pool, n_ok)
 
 
 def tile_c2(inp, angles):
@@ -108,22 +166,22 @@ def sweep(inputs, runs, clash_thresh):
     """The grid's tiles of whole c2 values in runs, one run of tile
     starts per device (runs [(device, starts)], inputs {device: (inp,
     angles)}, every run's tiles tile_c2 values wide): each tile screened
-    by K1 on its run's device and compacted into that run's own
-    DeviceSurvivors; a round's tiles (one a run) are all queued before
-    their compaction reads a count. A tile has the same shape whatever
-    the runs, so its arithmetic is the same. Returns (clash survivors
-    (S, N, 3) on the first run's device, in ascending c2; ok (B,)
-    numpy)."""
+    by grid_screen on its run's device (G1 on the card) and its
+    survivors appended to that run's own DeviceSurvivors; a round's
+    tiles (one a run) are all queued before their survivors read a
+    count. Every row's arithmetic is the same whatever the runs.
+    Returns (clash survivors (S, N, 3) on the first run's device, in
+    ascending c2; ok (B,) numpy)."""
     inp0, ang0 = inputs[runs[0][0]]
     n2c, g = inp0.coords2.shape[0], tile_c2(inp0, ang0)
     accs = [DeviceSurvivors() for _ in runs]
     for r in range(max(len(s) for _, s in runs)):
-        tiles = [bcast_block(*inputs[dev], s[r], min(n2c, s[r] + g),
-                             clash_thresh) if r < len(s) else None
+        tiles = [grid_screen_queued(*inputs[dev], s[r], min(n2c, s[r] + g),
+                                    clash_thresh) if r < len(s) else None
                  for dev, s in runs]
         for acc, tile in zip(accs, tiles):
             if tile is not None:
-                acc.add((tile[0],), tile[1])
+                acc.append((tile[1](),), tile[0])
     parts = [acc.finish() for acc in accs]
     kept = parts[0][0][0] if len(parts) == 1 else \
         gather([f[0] for f, _ in parts], runs[0][0])

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from tscode_tpu_torch.backend import get_device, traced
+from tscode_tpu_torch.ops.kernels import tfd_novelty as novelty_kernel
 from tscode_tpu_torch.ops.kernels.tfd import first_successor_pass, pass_chunks
 from tscode_tpu_torch.ops.linalg import dihedral
 
@@ -204,7 +205,9 @@ def prune_conformers_tfd(structures, quadruplets, thresh=10, tf_mat=None,
 #    first undecided row, so the rounds converge in chain-length rounds.
 #
 # The JAX scan is one program (lax.scan over blocks, lax.cond, a rounds
-# while_loop). Here the blocks are a host loop, and the host syncs once
+# while_loop). On the card its counterpart is one launch of the kernel
+# V1 (ops/kernels/tfd_novelty, csrc/tfd_novelty.cu). On the CPU the
+# blocks are a host loop, and the host syncs once
 # per block (the undecided rows) plus once per four rounds (the
 # undecided and accepted counts), so it knows the cache's fill: a block
 # is compared with the accepted fingerprints only, not with the whole
@@ -232,13 +235,38 @@ def tfd_novelty_device(fingerprints, accept_mask=None, thresh=10,
     (B, Q) on any device: only the novelty mask goes to the host.
     Returns (novel (B,) numpy bool, ok). ok=False (more than cache_cap
     accepted rows, or no rows or no torsions) means the caller must use
-    the host replay instead. `stats`, a dict when given, receives the
-    blocks run, the host syncs and the rounds.'''
+    the host replay instead. On a CUDA tensor one launch of the kernel
+    V1 (ops/kernels/tfd_novelty) runs the whole rule, and the host reads
+    its (accepted, ok) pair, then the mask; on the CPU the blocks are a
+    host loop. `stats`, a dict when given, receives the blocks, the host
+    syncs and, on the CPU, the rounds; on the card the kernel's name and
+    the accepted rows.'''
     block = novelty_block(block)
     B = int(fingerprints.shape[0])
     Q = int(fingerprints.shape[1]) if fingerprints.dim() == 2 else 0
     if B == 0 or Q == 0:
         return np.zeros(B, dtype=bool), False
+    if fingerprints.is_cuda:
+        novel, state = novelty_kernel.tfd_novelty(
+            fingerprints.to(torch.float32), accept_mask, thresh, block,
+            cache_cap)
+        n_acc, ok = state.tolist()
+        if stats is not None:
+            stats.update(blocks=-(-B // block), host_syncs=1 + bool(ok),
+                         kernel='V1', block=block, accepted=n_acc)
+        if not ok:
+            return np.zeros(B, dtype=bool), False
+        return novel.cpu().numpy(), True
+    return novelty_loop(fingerprints, accept_mask, thresh, block, cache_cap,
+                        stats)
+
+
+def novelty_loop(fingerprints, accept_mask=None, thresh=10,
+                 block=_NOVELTY_BLOCK, cache_cap=_NOVELTY_CACHE, stats=None):
+    '''tfd_novelty_device's CPU form on any device (the card ran it before
+    V1, and times it beside V1): the blocks a host loop of tensor ops.
+    Same arguments and result; `block` already a novelty_block.'''
+    B, Q = fingerprints.shape
     dev = fingerprints.device
     fps = fingerprints.to(torch.float32).double()
     accept = (torch.ones(B, dtype=torch.bool, device=dev)

@@ -6,8 +6,9 @@ prune. Counterpart of bench.run_device_pipeline and its device programs
 
 run_pipeline runs the slice as one program, as bench does: a warm-up run
 fixes the clash survivor count and the pool size; then pipeline_call
-runs the grid, K1, a size-bounded compaction (clash_survivors_bounded)
-and the whole prune schedule (ops/rmsd_prune.device_schedule) with no
+runs the grid with its clash screen and a size-bounded compaction
+(clash_survivors_bounded: G1 on CUDA) and the whole prune schedule
+(ops/rmsd_prune.device_schedule) with no
 host sync, captured once as a CUDA graph on a CUDA device and replayed
 (eagerly on the CPU), and the host reads one stats tensor per run.
 clash_survivors and prune_conformers_rmsd_device keep the host-driven
@@ -17,9 +18,13 @@ The grid is the cartesian product over (c2, c1, l2, l1, ai): conformer
 of molecule 2, conformer of molecule 1, lobe of 2, lobe of 1, spin
 angle. Its C-order flattening is the generation order, and the prune's
 chunk boundaries follow it, so the order is part of the semantics.
-The grid is the string embed's broadcast block (embeds/string.py). Grid
-math is plain PyTorch; the clash screen and the prune's pair math are
-the hand-written kernels on CUDA (plain twins on the CPU).
+The grid, its clash screen and the compaction go a c2 tile at a time
+through embeds/string.grid_screen (grid_screen_into for the bounded
+pool): on CUDA the hand-written kernel G1 (ops/kernels/string_grid: no
+pose is written but a survivor's heavy atoms), on the CPU its plain
+twin (the broadcast block's poses with K1's plain twin, compacted by
+the mask). The prune's pair math is the hand-written kernel K3 on CUDA (its plain twin
+on the CPU).
 '''
 
 import dataclasses
@@ -34,6 +39,7 @@ from tscode_tpu_torch.backend import (default_dtype, get_device, synchronize,
 from tscode_tpu_torch.capture import graph_loop
 from tscode_tpu_torch.embeds.common import GridInputs, inputs_from_numpy
 from tscode_tpu_torch.embeds.string import (bcast_block, bcast_tiles,
+                                            grid_screen, grid_screen_into,
                                             spin_angles)
 from tscode_tpu_torch.ops.rmsd_prune import device_schedule
 
@@ -82,8 +88,10 @@ def _angles(inp, n_angles):
 
 
 def embed_clash_all(inp, n_angles=N_ANGLES, clash_thresh=1.5):
-    '''Whole-grid embed + clash screen: (poses (B, N, 3), ok (B,)).
-    n_angles: a count, or the spin angles as a tensor on the device.'''
+    '''Whole-grid embed + clash screen: (poses (B, N, 3), ok (B,)), the
+    broadcast block with K1 (the CPU form of the grid and, on the card,
+    the yardstick G1 is timed against). n_angles: a count, or the spin
+    angles as a tensor on the device.'''
     return bcast_block(inp, _angles(inp, n_angles), 0, inp.coords2.shape[0],
                        clash_thresh)
 
@@ -99,56 +107,65 @@ def embed_clash_tiles(inp, n_angles=N_ANGLES, clash_thresh=1.5,
     return bcast_tiles(inp, angles, clash_thresh, g)
 
 
+def c2_tiles(inp, angles):
+    '''The grid's c2 ranges [lo, hi) in grid order: the whole grid as one
+    tile up to WHOLE_GRID_MAX poses, tiles of about _GRID_TILE poses (at
+    least one c2 value) past it.'''
+    n2c = inp.coords2.shape[0]
+    per_c2 = inp.n_poses_per_c2 * angles.shape[0]
+    if per_c2 * n2c <= WHOLE_GRID_MAX:
+        return [(0, n2c)]
+    g = max(1, _GRID_TILE // per_c2)
+    return [(lo, min(n2c, lo + g)) for lo in range(0, n2c, g)]
+
+
 def grid_tiles(inp, n_angles=N_ANGLES, clash_thresh=1.5):
-    '''The grid's (poses, ok) in grid order: the whole grid as one tile
-    up to WHOLE_GRID_MAX poses, c2 tiles past it. n_angles as
+    '''The grid's (poses, ok) over c2_tiles, the broadcast block with K1
+    a tile (the yardstick of the screened tiles). n_angles as
     embed_clash_all's.'''
-    B = inp.n_poses_per_c2 * _angles(inp, n_angles).shape[0] * \
-        inp.coords2.shape[0]
-    return ([embed_clash_all(inp, n_angles, clash_thresh)]
-            if B <= WHOLE_GRID_MAX
-            else embed_clash_tiles(inp, n_angles, clash_thresh))
+    angles = _angles(inp, n_angles)
+    return (bcast_block(inp, angles, lo, hi, clash_thresh)
+            for lo, hi in c2_tiles(inp, angles))
 
 
 @traced
 def clash_survivors(inp, n_angles=N_ANGLES, clash_thresh=1.5):
     '''Embed + clash + compaction: (ok (B,) bool, hs (S, H, 3)), the
-    heavy atoms of the clash survivors in grid order. Heavy atoms are
-    sliced in the same gather that picks the survivor rows. Grids past
-    WHOLE_GRID_MAX poses are built and compacted tile by tile.'''
-    oks, parts = [], []
-    for poses, ok in grid_tiles(inp, n_angles, clash_thresh):
-        idx = torch.nonzero(ok).squeeze(1)
-        parts.append(poses[idx[:, None], inp.heavy_idx[None, :]])
-        oks.append(ok)
-    return torch.cat(oks), torch.cat(parts).contiguous()
+    heavy atoms of the clash survivors in grid order, screened a c2 tile
+    at a time by embeds/string.grid_screen: G1 on a CUDA device (no pose
+    written but a survivor's heavy atoms, one host read of a tile's
+    total), its plain twin on the CPU.'''
+    angles = _angles(inp, n_angles)
+    tiles = [grid_screen(inp, angles, lo, hi, clash_thresh, heavy=True)
+             for lo, hi in c2_tiles(inp, angles)]
+    return torch.cat([ok for _, ok in tiles]), \
+        torch.cat([hs for hs, _ in tiles]).contiguous()
 
 
 @traced
 def clash_survivors_bounded(inp, s_pool, n_angles=N_ANGLES,
                             clash_thresh=1.5):
-    '''clash_survivors with no host sync, into a pool of s_pool rows
-    (counterpart of bench's jnp.nonzero(ok, size=s_pool, fill_value=B)
-    and the gather behind it): (ok (B,) bool, hs (s_pool, H, 3) with the
-    survivors' heavy atoms in grid order in its first rows and zeros
-    after them, alive (s_pool,) bool marking those rows, n_ok (1,)
-    int64, the survivor count, on the device). Survivors past s_pool are
-    dropped, and n_ok still counts them. Whole grid or c2 tiles as in
-    clash_survivors, each tile writing at the count of the tiles before
-    it, held on the device.'''
+    '''clash_survivors with no host sync on a CUDA device, into a pool of
+    s_pool rows (counterpart of bench's jnp.nonzero(ok, size=s_pool,
+    fill_value=B) and the gather behind it): (ok (B,) bool, hs (s_pool,
+    H, 3) with the survivors' heavy atoms in grid order in its first
+    rows and zeros after them, alive (s_pool,) bool marking those rows,
+    n_ok (1,) int64, the survivor count, on the device). Survivors past
+    s_pool are dropped, and n_ok still counts them. Each c2 tile through
+    embeds/string.grid_screen_into, from the count of the tiles before
+    it: on a CUDA device G1's two launches write the heavy atoms
+    straight into the pool at that count, held on the device.'''
     dev, H = inp.coords1.device, inp.heavy_idx.numel()
-    hs = torch.zeros((s_pool + 1, H, 3), dtype=inp.coords1.dtype,
-                     device=dev)              # row s_pool takes the rest
+    angles = _angles(inp, n_angles)
+    hs = torch.zeros((s_pool, H, 3), dtype=inp.coords1.dtype, device=dev)
     n_ok = torch.zeros(1, dtype=torch.long, device=dev)
     oks = []
-    for poses, ok in grid_tiles(inp, n_angles, clash_thresh):
-        pos = n_ok + torch.cumsum(ok, 0) - 1
-        slot = torch.where(ok & (pos < s_pool), pos, s_pool)
-        hs.index_copy_(0, slot, poses[:, inp.heavy_idx])
-        n_ok = n_ok + ok.sum()
+    for lo, hi in c2_tiles(inp, angles):
+        ok, n_ok = grid_screen_into(inp, angles, lo, hi, clash_thresh, hs,
+                                    n_ok)
         oks.append(ok)
-    alive = torch.arange(s_pool, device=dev) < n_ok
-    return torch.cat(oks), hs[:s_pool], alive, n_ok
+    return torch.cat(oks), hs, torch.arange(s_pool, device=dev) < n_ok, \
+        n_ok
 
 
 def pool_size(n_ok):
@@ -160,7 +177,8 @@ def pool_size(n_ok):
 def pipeline_program(inp, angles, s_pool, n_ok, clash_thresh=1.5,
                      rmsd_thr=0.5):
     '''The whole slice with no host sync (bench._pipeline_fused): the
-    grid, K1, the size-bounded compaction into s_pool rows and the whole
+    grid with its clash screen and the size-bounded compaction into
+    s_pool rows (G1 on CUDA) and the whole
     schedule over its first n_ok rows. n_ok, the survivor count of a
     warm-up run, fixes the schedule's chunk bounds. -> (ok (B,), keep
     (s_pool,), stats (3,) int64: n_final, this run's n_ok, finished).'''
